@@ -73,11 +73,12 @@ def test_coarse_ts_bit_equal_to_jax(n):
 
 
 def test_coarse_ts_refuses_unported_options():
+    """LINDISP is refused; stratified jitter (a generator) is ported."""
     near, far = torch.full((2,), 2.0), torch.full((2,), 6.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sampling.coarse_ts(near, far, 8, generator=torch.Generator())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         sampling.coarse_ts(near, far, 8, lindisp=True)
+    jittered = sampling.coarse_ts(near, far, 8, generator=torch.Generator().manual_seed(0))
+    assert jittered.shape == (2, 8) and not torch.equal(jittered, sampling.coarse_ts(near, far, 8))
 
 
 def _coarse_weights(seed, B, n_c):
@@ -211,13 +212,22 @@ def test_render_rays_matches_jax(ray_batch, white_bkgd):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"compat_sort": True}, {"merge_impl": "permute"}, {"prop_params": {}},
-    {"occ_grid": object()}, {"ndc_params": (16.0, 16.0, 20.0)},
-    {"lindisp": True}])
+    {"prop_params": {}}, {"occ_grid": object()},
+    {"ndc_params": (16.0, 16.0, 20.0)}, {"lindisp": True}])
 def test_render_rays_refuses_unported_options(ray_batch, kwargs):
     rows_px, cols_px, pose = ray_batch
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render.render_rays({}, _t(rows_px), _t(cols_px), _t(pose),
+                           rays.make_k_inv(16, 16, 20.0), 8, 16, **kwargs)
+
+
+@pytest.mark.parametrize("kwargs,error", [
+    ({"merge_impl": "sorted"}, "merge_impl"), ({"compat_sort": True, "extras": True}, "extras")])
+def test_render_rays_rejects_bad_combinations(ray_batch, kwargs, error):
+    rows_px, cols_px, pose = ray_batch
+    _, params = field_with_content(0)
+    with pytest.raises(ValueError, match=error):
+        render.render_rays(params, _t(rows_px), _t(cols_px), _t(pose),
                            rays.make_k_inv(16, 16, 20.0), 8, 16, **kwargs)
 
 

@@ -234,9 +234,12 @@ def test_cli_refuses_to_render_without_checkpoint(sync_scene_dir, tmp_path, mode
 
 @pytest.mark.parametrize("mode", ["train", "all"])
 def test_cli_training_modes_are_not_ported(sync_scene_dir, tmp_path, mode):
-    ini = _write_ini(tmp_path, sync_scene_dir)
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    """Training is ported; what it does not port yet, the host-fed path,
+    is refused by name before anything runs."""
+    ini = _write_ini(tmp_path, sync_scene_dir, HOST_FEED="True")
+    with pytest.raises(NotImplementedError, match="HOST_FEED"):
         cli_main(["--conf", ini, "--mode", mode, "--device", "cpu"])
+    assert not (tmp_path / "ckpt").exists()
 
 
 def test_runner_resumes_latest_and_renders(sync_scene_dir, tmp_path):
@@ -270,7 +273,8 @@ def test_cuda_without_a_card_raises(sync_scene_dir, tmp_path):
 
 @pytest.mark.parametrize("key,value", [
     ("PROPOSAL", "True"), ("OCC_GRID", "True"), ("FUSED_RENDER", "True"),
-    ("COMPAT_SORT", "True"), ("CONTRACT", "True"), ("LINDISP", "True"),
+    ("HOST_FEED", "True"), ("VAL_METRICS", "True"), ("PROFILE_STEPS", "5"),
+    ("CONTRACT", "True"), ("LINDISP", "True"),
     ("FINE_FIELD", "grid"), ("PRECISION", "bf16")])
 def test_unported_config_keys_raise(sync_scene_dir, tmp_path, key, value):
     cfg = load_config(_write_ini(tmp_path, sync_scene_dir, **{key: value}))

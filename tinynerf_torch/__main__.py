@@ -1,9 +1,11 @@
 """Command line: ``python -m tinynerf_torch --conf lego --mode display``.
 
-The flags are ``main.py``'s, plus ``--device``. Rendering modes (``display``,
-``path``) resume the latest checkpoint under ``CKPT_PATH`` whatever the INI's
-``CONTINUE`` says, and refuse to run without one. Training (``--mode
-train|all``) is not ported yet (ROADMAP queue 1, slice 2).
+The flags are ``main.py``'s, plus ``--device``. ``--mode train`` trains to
+``TOTAL_ITER`` (resuming the latest checkpoint when the INI says
+``CONTINUE``); ``--mode all``, the default, trains and then renders the test
+split, as ``main.py`` does. Rendering modes (``display``, ``path``) resume
+the latest checkpoint under ``CKPT_PATH`` whatever ``CONTINUE`` says, and
+refuse to run without one.
 """
 
 from __future__ import annotations
@@ -33,23 +35,21 @@ def main(argv=None) -> None:
                         choices=["cuda", "cpu"])
     args = parser.parse_args(argv)
 
-    if args.mode in ("all", "train"):
-        raise NotImplementedError(
-            f"--mode={args.mode}: training is not ported yet (ROADMAP queue 1, "
-            "slice 2: training step); use --mode display or path")
-
     from tinynerf_torch.config import load_config
     from tinynerf_torch.runner import NoCheckpointError, Runner
 
     cfg = load_config(args.conf)
     if args.iters is not None:
         cfg.total_iter = args.iters
-    cfg.continue_ = True  # render-only modes need trained weights
+    if args.mode in ("display", "path"):
+        cfg.continue_ = True  # render-only modes need trained weights
     runner = Runner(cfg, device=args.device)
     try:
-        if args.mode == "display":
+        if args.mode in ("all", "train"):
+            runner.train("train")
+        if args.mode in ("all", "display"):
             runner.display(depth=args.depth)
-        else:
+        if args.mode == "path":
             runner.render_path_video(n_views=args.path_views,
                                      res_scale=args.path_scale)
     except NoCheckpointError as e:

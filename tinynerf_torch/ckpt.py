@@ -1,12 +1,15 @@
 """Checkpoints: the JAX package's flat-npz layout, so one file loads in both.
 
 Keys are ``params::<layer>::w`` (``(in, out)``) and ``params::<layer>::b``
-plus ``iteration``; a training checkpoint also holds ``mu::``/``nu::`` Adam
-moments, ``adam_count``, ``prng_key`` and ``occ::`` grid state. Files are
-named ``<start_time>_<iter>.npz``; resume takes the highest iteration.
+plus ``iteration``; a training checkpoint also holds the Adam state,
+``mu::``/``nu::`` moments and ``adam_count``. Files are named
+``<start_time>_<iter>.npz``; resume takes the highest iteration.
 
-The render path needs only the parameters: the other entries are read past
-and ignored until the training step is ported (ROADMAP queue 1, slice 2).
+The sample streams cannot cross: a JAX Threefry ``prng_key`` cannot seed a
+torch generator. The port writes its generator's state under a key of its
+own, ``torch_generator``, which the JAX package ignores; resuming a JAX
+checkpoint, it ignores ``prng_key`` (and the ``occ::`` grid, which the
+reference-semantics path does not use) and says so.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from tinynerf_torch.core import mlp
 
 _SEP = "::"
+GENERATOR_KEY = "torch_generator"
 
 
 def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -71,27 +75,61 @@ def params_from_numpy(tree: Dict[str, Any],
 
 
 def save_checkpoint(path_dir: str, start_time: str, iteration: int,
-                    params: mlp.Params) -> str:
-    """Write ``<path_dir>/<start_time>_<iteration>.npz``; returns the path."""
+                    params: mlp.Params, opt_state=None,
+                    generator: Optional[torch.Generator] = None) -> str:
+    """Write ``<path_dir>/<start_time>_<iteration>.npz``; returns the path.
+    ``opt_state`` is an ``optim.AdamState``."""
     os.makedirs(path_dir, exist_ok=True)
     path = os.path.join(path_dir, f"{start_time}_{iteration}.npz")
     blobs = {"iteration": np.asarray(iteration, np.int64)}
     for k, v in _flatten(params).items():
         blobs[f"params{_SEP}{k}"] = v
+    if opt_state is not None:
+        blobs["adam_count"] = np.asarray(opt_state.count, np.int32)
+        for k, v in _flatten(opt_state.mu).items():
+            blobs[f"mu{_SEP}{k}"] = v
+        for k, v in _flatten(opt_state.nu).items():
+            blobs[f"nu{_SEP}{k}"] = v
+    if generator is not None:
+        blobs[GENERATOR_KEY] = generator.get_state().numpy()
     np.savez(path, **blobs)
     return path
 
 
+def _tree(archive, prefix: str) -> Dict[str, Any]:
+    return _unflatten({k[len(prefix):]: archive[k]
+                       for k in archive.files if k.startswith(prefix)})
+
+
 def load_checkpoint_full(path: str, device: torch.device = torch.device("cpu"),
                          ) -> Tuple[int, mlp.Params]:
-    """Returns ``(iteration, params)``. Adam moments, the PRNG key and the
-    occupancy grid are not read: the render path does not use them."""
-    prefix = f"params{_SEP}"
+    """Returns ``(iteration, params)``: what rendering needs."""
     with np.load(path) as archive:
         iteration = int(archive["iteration"])
-        tree = _unflatten({k[len(prefix):]: archive[k]
-                           for k in archive.files if k.startswith(prefix)})
+        tree = _tree(archive, f"params{_SEP}")
     return iteration, params_from_numpy(tree, device)
+
+
+def load_train_state(path: str, device: torch.device = torch.device("cpu")):
+    """Returns ``(iteration, params, adam_state or None, generator state (a
+    uint8 tensor) or None)``, from a checkpoint of either package."""
+    from tinynerf_torch.optim import AdamState
+    iteration, params = load_checkpoint_full(path, device)
+    opt_state = gen_state = None
+    with np.load(path) as archive:
+        if "adam_count" in archive.files:
+            opt_state = AdamState(
+                count=int(archive["adam_count"]),
+                mu=params_from_numpy(_tree(archive, f"mu{_SEP}"), device),
+                nu=params_from_numpy(_tree(archive, f"nu{_SEP}"), device))
+        if GENERATOR_KEY in archive.files:
+            gen_state = torch.from_numpy(archive[GENERATOR_KEY].copy())
+        ignored = [k for k in ("prng_key", f"occ{_SEP}raw") if k in archive.files]
+    if ignored:
+        print(f"Note: {os.path.basename(path)} holds {', '.join(ignored)} from "
+              "the JAX package; the port ignores them (a JAX PRNG key cannot "
+              "seed a torch generator: the sample stream restarts from SEED)")
+    return iteration, params, opt_state, gen_state
 
 
 _ITER_RE = re.compile(r"_(\d+)\.npz$")

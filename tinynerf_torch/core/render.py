@@ -1,23 +1,29 @@
-"""Volume rendering: coarse + hierarchical fine march and compositing.
+"""Volume rendering: coarse + hierarchical fine march, compositing and loss.
 
-Counterpart of ``tinynerf/core/render.py`` for the render path: the
-non-proposal, non-occupancy, non-NDC, non-LINDISP march with the two-list
-merge. Semantics kept:
+Counterpart of ``tinynerf/core/render.py`` for the reference-semantics
+march (no proposal, occupancy, NDC or LINDISP). Semantics kept:
 
 - Q5: **inclusive** cumsum in the transmittance exponent,
   ``w_i = exp(-sum_{j<=i} sigma_j delta_j) * (1 - exp(-sigma_i delta_i))``;
 - coarse deltas are the constant per-ray ``(far - near) / N_c``; the merged
   pass uses ``diff(t)`` with a constant ``1e-4`` tail;
 - the merged pass orders coarse and fine samples by t, coarse first on ties,
-  and carries rgb and sigma with the same permutation (the Q4 fix).
+  and carries rgb and sigma with the same permutation (the Q4 fix);
+  ``compat_sort=True`` reproduces the reference's Q4 defect instead, sorting
+  t, each color channel and sigma independently;
+- the coarse weights are not detached before the resampler (Q8), so the
+  fine pass's gradient reaches the coarse sigma through ``d_ts``;
+- ``ray_loss`` is the sum of squares over rays and channels of both passes.
 
-The JAX package composites the merged set without sorting, through
-(B, N_c, N_f) compare masks that suit a TPU; here a stable sort of the
-concatenated t's gives the same order and the same values.
+The JAX package composites the merged set without sorting, through compare
+masks (``merge_impl="twolist"``) or one-hot rank products (``"permute"``,
+its training default), which suit a TPU; both give the values and gradients
+of a stable sort of the concatenated t's, which is what the port does for
+either name.
 
 The field is pluggable: ``field_fn(params, points, dirs) -> (color, sigma)``
 on flat points, optionally with an ``eval_rays(params, origins, dirs, ts) ->
-((r, g, b), sigma)`` attribute that takes rays directly (the CUDA kernel does).
+((r, g, b), sigma)`` attribute that takes rays directly (the CUDA kernels do).
 """
 
 from __future__ import annotations
@@ -98,6 +104,31 @@ def merged_composite(t_co: torch.Tensor, t_fi: torch.Tensor,
     return out
 
 
+def compat_sorted_composite(t_co: torch.Tensor, t_fi: torch.Tensor,
+                            sigma_co: torch.Tensor, sigma_fi: torch.Tensor,
+                            color_co, color_fi,
+                            tail: float = TAIL_DELTA) -> torch.Tensor:
+    """The reference's merged pass with its Q4 defect (``nerf.py:308``): t,
+    each color channel and sigma are sorted independently, decoupling every
+    sample from its own values. No white-background term, as in the JAX
+    package's ``compat_sort`` branch."""
+    cat = lambda a, b: torch.cat([a, b], dim=1)
+    t_s = torch.sort(cat(t_co, t_fi), dim=1, stable=True).values
+    sigma_s = torch.sort(cat(sigma_co, sigma_fi), dim=1, stable=True).values
+    color_s = tuple(torch.sort(cat(c, f), dim=1, stable=True).values
+                    for c, f in zip(_as_channels(color_co), _as_channels(color_fi)))
+    delta = torch.cat([t_s[:, 1:] - t_s[:, :-1],
+                       torch.full_like(t_s[:, :1], tail)], dim=1)
+    return composite(get_density(delta, sigma_s), color_s)
+
+
+def ray_loss(c_coarse: torch.Tensor, c_fine: torch.Tensor,
+             c_true: torch.Tensor) -> torch.Tensor:
+    """Sum of squares over rays and RGB of both passes (``nerf.py:325-331``)."""
+    return (torch.sum(torch.square(c_coarse - c_true))
+            + torch.sum(torch.square(c_fine - c_true)))
+
+
 def _eval_field(field_fn: FieldFn, params: mlp.Params, origins: torch.Tensor,
                 dirs: torch.Tensor, ts: torch.Tensor,
                 ) -> Tuple[Planes, torch.Tensor]:
@@ -134,12 +165,15 @@ def render_rays(params: mlp.Params,
     """Coarse + fine march for a ray batch -> (C_coarse, C_fine), each (B, 3).
 
     With ``extras=True`` returns ``(C_coarse, C_fine, depth, acc)``, depth
-    and acc (B,) over the merged sample set.
+    and acc (B,) over the merged sample set. ``generator`` jitters the coarse
+    samples (stratified). ``merge_impl`` is accepted as ``"twolist"`` or
+    ``"permute"``: both are the same stable-sort merge here.
     """
-    if compat_sort:
-        raise _not_ported("COMPAT_SORT", "slice 2: training step")
-    if merge_impl != "twolist":
-        raise _not_ported(f"merge_impl={merge_impl!r}", "slice 2: training step")
+    if merge_impl not in ("twolist", "permute"):
+        raise ValueError(f"unknown merge_impl {merge_impl!r}")
+    if compat_sort and extras:
+        raise ValueError("extras needs the coupled merge; COMPAT_SORT "
+                         "sorts every channel on its own")
     if prop_params is not None:
         raise _not_ported("PROPOSAL", "slice 3: flagship")
     if occ_grid is not None:
@@ -168,6 +202,9 @@ def render_rays(params: mlp.Params,
     t_fi = sampling.resample(t_co, dense_co, (far - near) / (n_coarse - 1),
                              n_fine)
     color_fi, sigma_fi = _eval_field(field_fn, params, origins, dirs, t_fi)
+    if compat_sort:
+        return c_coarse, compat_sorted_composite(
+            t_co, t_fi, sigma_co, sigma_fi, color_co, color_fi)
     out = merged_composite(t_co, t_fi, sigma_co, sigma_fi, color_co, color_fi,
                            white_bkgd=white_bkgd, return_extras=extras)
     if extras:

@@ -6,11 +6,14 @@ those suit a TPU; here they are ``torch.cumsum``, ``torch.searchsorted`` and
 ``torch.gather``, which give the same values.
 
 Semantics kept:
-- coarse t's are a deterministic inclusive linspace(near, far, N_c) per ray;
+- coarse t's are an inclusive linspace(near, far, N_c) per ray, optionally
+  jittered within the linspace spacing (stratified);
   the fraction is ``arange(n) * (1 / (n - 1))`` in float32, which is what
   ``jnp.linspace`` computes (``torch.linspace`` rounds differently);
 - fine levels are N_f uniform points strictly between the per-ray CDF min and
-  max (``arange(1, N_f + 1) / (N_f + 1)``), not random;
+  max (``arange(1, N_f + 1) / (N_f + 1)``), not random, and not
+  differentiated (Q8): gradients reach the coarse weights only through the
+  gathered cdf and slope;
 - the bin below each level is ``searchsorted(cdf, level, side='left') - 1``,
   clamped to the valid range;
 - ``slope_inv = delta / (dense[:, 1:] + 1e-7)`` with a zero last column.
@@ -32,20 +35,26 @@ def linspace_frac(n: int, device: torch.device) -> torch.Tensor:
 
 def coarse_ts(near: torch.Tensor, far: torch.Tensor, n_coarse: int,
               generator: Optional[torch.Generator] = None,
-              lindisp: bool = False) -> torch.Tensor:
-    """(B,) near/far -> (B, N_c) sample distances, a deterministic inclusive
-    linspace per ray. Stratified jitter and LINDISP are not ported yet
-    (ROADMAP queue 1, slices 2 and 4)."""
-    if generator is not None:
-        raise NotImplementedError(
-            "stratified coarse samples are not ported yet (ROADMAP queue 1, "
-            "slice 2: training step)")
+              lindisp: bool = False,
+              jitter: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B,) near/far -> (B, N_c) sample distances: an inclusive linspace per
+    ray. With ``generator`` (or an injected (B, N_c) ``jitter`` in [0, 1))
+    each t moves up by ``jitter * (far - near) / (N_c - 1)``, clamped at
+    ``far`` (stratified sampling, the JAX package's opt-in). LINDISP is not
+    ported yet (ROADMAP queue 1, slice 4)."""
     if lindisp:
         raise NotImplementedError(
             "LINDISP is not ported yet (ROADMAP queue 1, slice 4: "
             "contraction/LINDISP/NDC)")
     frac = linspace_frac(n_coarse, near.device).to(near.dtype)
-    return near[:, None] + (far - near)[:, None] * frac[None, :]
+    ts = near[:, None] + (far - near)[:, None] * frac[None, :]
+    if generator is not None and jitter is None:
+        jitter = torch.rand(ts.shape, generator=generator, dtype=ts.dtype,
+                            device=ts.device)
+    if jitter is not None:
+        spacing = ((far - near) / (n_coarse - 1))[:, None]
+        ts = torch.minimum(ts + jitter * spacing, far[:, None])
+    return ts
 
 
 def fine_levels(cdf: torch.Tensor, n_fine: int) -> torch.Tensor:

@@ -18,43 +18,16 @@
 //   the flat B*N index, masking the ragged end instead of padding;
 // - the tile's encodings and its 64 x 256 activations live in shared
 //   memory for the whole network; each layer's weights stream through a
-//   16-row shared K-tile, read from L2;
+//   16-row shared K-tile, read from L2 (field_common.cuh);
 // - each thread holds an 8-row x (OUT/32)-column register tile and
-//   accumulates it with float32 FMA (no tensor cores, no TF32), then fuses
-//   bias and ReLU into the store; heads (sigma: abs, color: sigmoid) are
-//   warp reductions;
+//   accumulates it with float32 FMA, then fuses bias and ReLU into the
+//   store; heads (sigma: abs, color: sigmoid) are warp reductions;
 // - 103 KB of shared memory per block lets two blocks share an SM, so one
 //   block's weight loads overlap the other's FMAs.
-//
-// Numerics follow the plain PyTorch version: o + t*d and freq*x use
-// __fmul_rn/__fadd_rn so that nvcc cannot contract them into an FMA, and
-// the encoding uses the accurate sinf/cosf (never __sinf/__cosf or
-// --use_fast_math, whose argument reduction is wrong at |arg| ~ 6e3).
 
-#include <cuda_runtime.h>
+#include "field_common.cuh"
 
 namespace {
-
-constexpr int TILE_M = 64;   // sample rows per block
-constexpr int THREADS = 256; // 8 warps; warp w owns rows 8w .. 8w+7
-constexpr int ROWS = 8;      // rows per thread
-constexpr int KT = 16;       // weight rows per shared K-tile
-constexpr int WIDTH = 256;
-constexpr int L_PT = 10;
-constexpr int L_DIR = 4;
-constexpr int PT_ENC = 3 * 2 * L_PT;   // 60
-constexpr int DIR_ENC = 3 * 2 * L_DIR; // 24
-constexpr int N_LAYERS = 12;
-
-// Layer order (tinynerf.core.mlp.layer_dims): trunk_0..trunk_7, sigma,
-// point_info, dir_info, color. Weights are (fan_in, fan_out) row-major.
-enum { SIGMA = 8, POINT_INFO = 9, DIR_INFO = 10, COLOR = 11 };
-
-struct Params {
-  const float* w[N_LAYERS];
-  const float* b[N_LAYERS];
-  const float* freqs;  // L_PT point frequencies, then L_DIR direction ones
-};
 
 struct Smem {
   float act[TILE_M][WIDTH];
@@ -62,81 +35,6 @@ struct Smem {
   float enc_dir[TILE_M][DIR_ENC];
   float wt[KT * WIDTH];
 };
-
-// acc[i][j] += sum_k src[row_i][k] * W[k][col_j] over one input segment
-// (K rows of W). row_i = 8*warp + i, col_j = lane + 32*j, OUT = 32*NC.
-// src rows are 16-byte aligned and K is a multiple of 4.
-template <int NC>
-__device__ __forceinline__ void gemm_segment(float (&acc)[ROWS][NC],
-                                             const float* src, int src_stride,
-                                             int K, const float* __restrict__ w,
-                                             float* wt) {
-  constexpr int OUT = 32 * NC;
-  const int lane = threadIdx.x & 31;
-  const int row0 = (threadIdx.x >> 5) * ROWS;
-  for (int k0 = 0; k0 < K; k0 += KT) {
-    const int kt = min(KT, K - k0);
-    const float4* g = reinterpret_cast<const float4*>(w + (size_t)k0 * OUT);
-    float4* s = reinterpret_cast<float4*>(wt);
-    for (int i = threadIdx.x; i < kt * OUT / 4; i += THREADS) s[i] = __ldg(g + i);
-    __syncthreads();
-    for (int kk = 0; kk < kt; kk += 4) {
-      float a[ROWS][4];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        const float4 v = *reinterpret_cast<const float4*>(
-            src + (row0 + i) * src_stride + k0 + kk);
-        a[i][0] = v.x; a[i][1] = v.y; a[i][2] = v.z; a[i][3] = v.w;
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float b[NC];
-#pragma unroll
-        for (int j = 0; j < NC; ++j) b[j] = wt[(kk + q) * OUT + lane + 32 * j];
-#pragma unroll
-        for (int i = 0; i < ROWS; ++i) {
-#pragma unroll
-          for (int j = 0; j < NC; ++j) acc[i][j] = fmaf(a[i][q], b[j], acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();  // every thread is done with wt and src
-  }
-}
-
-template <int NC>
-__device__ __forceinline__ void zero(float (&acc)[ROWS][NC]) {
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
-  }
-}
-
-// act[row_i][col_j] = (relu)(acc + bias), then a barrier.
-template <int NC, bool RELU>
-__device__ __forceinline__ void store(float (&acc)[ROWS][NC],
-                                      const float* __restrict__ bias,
-                                      float (*act)[WIDTH]) {
-  const int lane = threadIdx.x & 31;
-  const int row0 = (threadIdx.x >> 5) * ROWS;
-#pragma unroll
-  for (int j = 0; j < NC; ++j) {
-    const float bj = __ldg(bias + lane + 32 * j);
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const float v = acc[i][j] + bj;
-      act[row0 + i][lane + 32 * j] = RELU ? fmaxf(v, 0.f) : v;
-    }
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 __global__ void __launch_bounds__(THREADS, 2)
 field_rays_fwd_kernel(const float* __restrict__ origins,
@@ -149,29 +47,8 @@ field_rays_fwd_kernel(const float* __restrict__ origins,
   Smem& s = *reinterpret_cast<Smem*>(smem_raw);
   const int base = blockIdx.x * TILE_M;
 
-  // ---- encoding: interleaved [sin f0 x, cos f0 x, ...] per channel ----
-  for (int idx = threadIdx.x; idx < TILE_M * 3 * (L_PT + L_DIR);
-       idx += THREADS) {
-    const int r = idx / (3 * (L_PT + L_DIR));
-    const int rem = idx % (3 * (L_PT + L_DIR));
-    const int m = base + r;
-    const bool is_pt = rem < 3 * L_PT;
-    const int L = is_pt ? L_PT : L_DIR;
-    const int e = is_pt ? rem : rem - 3 * L_PT;
-    const int c = e / L, l = e % L;
-    float x = 0.f;
-    if (m < total) {
-      const int ray = m / n_samples;
-      const float d = dirs[3 * ray + c];
-      x = is_pt ? __fadd_rn(origins[3 * ray + c], __fmul_rn(ts[m], d)) : d;
-    }
-    const float arg = __fmul_rn(x, p.freqs[is_pt ? l : L_PT + l]);
-    float* out = is_pt ? &s.enc_pt[r][c * 2 * L + 2 * l]
-                       : &s.enc_dir[r][c * 2 * L + 2 * l];
-    out[0] = sinf(arg);
-    out[1] = cosf(arg);
-  }
-  __syncthreads();
+  encode_tile(origins, dirs, ts, p.freqs, base, total, n_samples, s.enc_pt,
+              s.enc_dir);
 
   // ---- trunk: 8 x 256, input skip at layer 4 (hidden first) ----
   float acc[ROWS][8];
@@ -250,12 +127,7 @@ int field_rays_fwd_smem_bytes() { return (int)sizeof(Smem); }
 int field_rays_fwd(const float* origins, const float* dirs, const float* ts,
                    const void* const* params, float* sigma, float* r, float* g,
                    float* b, int n_rays, int n_samples, void* stream) {
-  Params p;
-  for (int i = 0; i < N_LAYERS; ++i) {
-    p.w[i] = static_cast<const float*>(params[i]);
-    p.b[i] = static_cast<const float*>(params[N_LAYERS + i]);
-  }
-  p.freqs = static_cast<const float*>(params[2 * N_LAYERS]);
+  const Params p = unpack_params(params);
   const long long total = (long long)n_rays * n_samples;
   if (total <= 0) return 0;
   if (total > 0x7fffffffLL - TILE_M) return (int)cudaErrorInvalidValue;

@@ -22,8 +22,8 @@ from tinynerf_torch.data.rays import RayTable
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for a config the port cannot render yet,
-    naming the ROADMAP item that will bring it."""
+    """Raise ``NotImplementedError`` for a config the port cannot train or
+    render yet, naming the ROADMAP item that will bring it."""
     refused = [
         (cfg.precision != "fp32", f"PRECISION={cfg.precision}",
          "queue 2, item 1: bf16 weights for the field kernel"),
@@ -32,7 +32,11 @@ def check_supported(cfg: Config) -> None:
         (cfg.proposal, "PROPOSAL", "queue 1, slice 3: flagship"),
         (cfg.occ_grid, "OCC_GRID", "queue 1, slice 3: flagship"),
         (cfg.fused_render, "FUSED_RENDER", "queue 2, item 9: fused renderer"),
-        (cfg.compat_sort, "COMPAT_SORT", "queue 1, slice 2: training step"),
+        (cfg.host_feed, "HOST_FEED",
+         "queue 1, item 5: HOST_FEED and the native ray store"),
+        (cfg.val_metrics, "VAL_METRICS", "queue 1, item 6: VAL_METRICS"),
+        (cfg.profile_steps > 0, f"PROFILE_STEPS={cfg.profile_steps}",
+         "queue 1, item 7: PROFILE_STEPS"),
         (cfg.contract, "CONTRACT", "queue 1, slice 4: contraction/LINDISP/NDC"),
         (cfg.lindisp, "LINDISP", "queue 1, slice 4: contraction/LINDISP/NDC"),
         (cfg.ndc and cfg.data_type == "llff", "NDC",
@@ -44,9 +48,9 @@ def check_supported(cfg: Config) -> None:
 
 
 def make_field_fn(cfg: Config) -> render.FieldFn:
-    """The field: with ``USE_PALLAS`` the ray-major kernel wrapper
-    (``kernels/mlp_kernel.field_rays``, the CUDA kernel on the card), else
-    the plain field."""
+    """The field, shared by training and rendering: with ``USE_PALLAS`` the
+    ray-major kernel wrapper (``kernels/mlp_kernel.field_rays``: on the card
+    the CUDA kernels, forward and backward), else the plain field."""
     check_supported(cfg)
     if not cfg.use_pallas:
         return render.field_plain
@@ -86,7 +90,8 @@ def make_frame_fn(cfg: Config, k_inv: torch.Tensor, height: int, width: int,
             out = render.render_rays(
                 params, rows[span], cols[span], pose, k_inv,
                 cfg.n_coarse, cfg.n_fine, field_fn=field_fn,
-                merge_impl="twolist", white_bkgd=cfg.white_bkgd, extras=extras)
+                compat_sort=cfg.compat_sort, merge_impl="twolist",
+                white_bkgd=cfg.white_bkgd, extras=extras)
             rgb[span] = out[1]
             if extras:
                 depth[span], acc[span] = out[2], out[3]

@@ -3,14 +3,17 @@
 
 Each source exposes a plain C interface, so it is compiled without PyTorch's
 headers (seconds, not minutes). The library goes under ``build/tinynerf_torch/``
-at the root of the checkout, named by a hash of the source and the flags, so
-an edited source is rebuilt and an unchanged one is reused. Nothing here runs
-at import time: a library is built at the first call that launches its kernel.
+at the root of the checkout, named by a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
+unchanged one is reused. Nothing here runs at import time: a library is built
+at the first call that launches its kernel, or by ``build_all``, which starts
+one ``nvcc`` per source at once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -51,38 +54,68 @@ def _ptxas_lines(text: str) -> List[str]:
             if "registers" in ln or "spill" in ln or "smem" in ln]
 
 
+def _lib_path(source: str) -> str:
+    """Where ``csrc/<source>`` builds to: named by a hash of the source, the
+    shared headers and the flags."""
+    h = hashlib.sha256()
+    for path in [os.path.join(CSRC_DIR, source)] + sorted(
+            glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
+
+
+def _build(sources: List[str]) -> None:
+    """Compile every source whose library is missing, one ``nvcc`` process
+    per source, all started together; record each one's seconds and ptxas
+    report in ``build_log``. Call with ``_lock`` held."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    running = {}
+    t0 = time.perf_counter()
+    for source in sources:
+        lib_path = _lib_path(source)
+        if not os.path.isfile(lib_path):
+            tmp = f"{lib_path}.{os.getpid()}.tmp"
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                   os.path.join(CSRC_DIR, source)]
+            running[source] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+    failed = []
+    for source, (tmp, proc) in running.items():
+        out, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {source} ({proc.returncode}):\n{out}")
+            continue
+        lib_path = _lib_path(source)
+        with open(lib_path + ".log", "w") as f:
+            f.write(out)
+        os.replace(tmp, lib_path)
+        build_log[source] = {"seconds": seconds, "ptxas": _ptxas_lines(out)}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for source in sources:
+        if source not in build_log:
+            with open(_lib_path(source) + ".log") as f:
+                build_log[source] = {"seconds": 0.0,
+                                     "ptxas": _ptxas_lines(f.read())}
+
+
+def build_all() -> None:
+    """Build the library of every ``csrc/*.cu`` in parallel, without loading
+    them."""
+    with _lock:
+        _build(sorted(os.path.basename(p)
+                      for p in glob.glob(os.path.join(CSRC_DIR, "*.cu"))))
+
+
 def load_library(source: str) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` for sm_90a (once per content) and load it."""
     with _lock:
-        if source in _libs:
-            return _libs[source]
-        src_path = os.path.join(CSRC_DIR, source)
-        with open(src_path, "rb") as f:
-            digest = hashlib.sha256(
-                f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        stem = os.path.splitext(source)[0]
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        lib_path = os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
-        log_path = lib_path + ".log"
-        seconds = 0.0
-        if not os.path.isfile(lib_path):
-            tmp = f"{lib_path}.{os.getpid()}.tmp"
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src_path]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {source} ({proc.returncode}):\n"
-                    f"{proc.stdout}\n{proc.stderr}")
-            with open(log_path, "w") as f:
-                f.write(proc.stdout + proc.stderr)
-            os.replace(tmp, lib_path)
-        ptxas = ""
-        if os.path.isfile(log_path):
-            with open(log_path) as f:
-                ptxas = f.read()
-        build_log[source] = {"seconds": seconds, "ptxas": _ptxas_lines(ptxas)}
-        lib = ctypes.CDLL(lib_path)
-        _libs[source] = lib
-        return lib
+        if source not in _libs:
+            _build([source])
+            _libs[source] = ctypes.CDLL(_lib_path(source))
+        return _libs[source]

@@ -1,45 +1,54 @@
-"""Ray-major field forward: the hand-written CUDA kernel and its plain version.
+"""Ray-major field: the hand-written CUDA kernels and their plain versions.
 
-Counterpart of ``tinynerf/kernels/mlp_kernel.py::field_pallas_rays`` forward
-(``_fused_ray_forward`` / ``_ray_fwd_kernel``). ``field_rays(params, origins,
-dirs, ts)`` evaluates the network at ``origin + t * dir`` for every (ray,
-sample) pair and returns ``((r, g, b), sigma)``, each a dense (B, N) float32
-plane.
+Counterpart of ``tinynerf/kernels/mlp_kernel.py::field_pallas_rays``: its
+forward (``_fused_ray_forward`` / ``_ray_fwd_kernel``, TPU kernel 1) and its
+recompute backward (``_fused_ray_backward`` / ``_ray_bwd_kernel``, TPU
+kernel 2). ``field_rays(params, origins, dirs, ts)`` evaluates the network
+at ``origin + t * dir`` for every (ray, sample) pair and returns ``((r, g,
+b), sigma)``, each a dense (B, N) float32 plane. It is differentiable: an
+``autograd.Function`` whose backward is ``field_rays_bwd``, which gives the
+gradients of every weight and bias, of ``origins``, ``dirs`` and ``ts``.
 
-- On CPU tensors it runs ``field_rays_plain``, the same function in plain
-  PyTorch (what the CPU tests reach).
-- On CUDA tensors it launches ``csrc/field_rays_fwd.cu`` or raises; it never
-  falls back to the plain version. ``field_rays.launches`` counts launches.
-- It is forward-only: inputs that require grad under grad mode are refused
-  (the backward kernel is ROADMAP queue 2, item 2).
+- On CPU tensors both directions run their plain PyTorch versions,
+  ``field_rays_plain`` and ``field_rays_bwd_plain`` (what the CPU tests
+  reach).
+- On CUDA tensors they launch ``csrc/field_rays_fwd.cu`` and
+  ``csrc/field_rays_bwd.cu`` or raise; they never fall back to the plain
+  versions. ``field_rays.launches`` and ``field_rays_bwd.launches`` count
+  the calls that launched each kernel.
 
-The TPU kernel's block-major encoding layout, permuted weight rows and
-8-row ray tiles are TPU lane tricks, not semantics: the CUDA kernel reads the
-parameters in their ``(in, out)`` layout and masks the ragged end of B*N.
+The TPU kernels' block-major encoding layout, permuted weight rows and
+8-row ray tiles are TPU lane tricks, not semantics: the CUDA kernels read
+the parameters in their ``(in, out)`` layout and mask the ragged end of B*N.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from tinynerf_torch.core import mlp, render
+from tinynerf_torch.core import encoding, mlp, render
 from tinynerf_torch.core.encoding import (DIR_ENC_DIM, L_DIR, L_POINT,
                                           POINT_ENC_DIM, freq_bank)
 
-SOURCE = "field_rays_fwd.cu"
+FWD_SOURCE = "field_rays_fwd.cu"
+BWD_SOURCE = "field_rays_bwd.cu"
 WIDTH = mlp.WIDTH
 
 Planes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+# the parameters in the kernels' order: every weight, then every bias
+_PARAM_KEYS = ([(name, "w") for name, _, _ in mlp.layer_dims()]
+               + [(name, "b") for name, _, _ in mlp.layer_dims()])
 
 
 def flops_per_row() -> int:
     """FLOPs of one sample row through the network (multiply-adds x 2):
-    1,182,976."""
+    1,182,976. The backward does three times as many (recompute, input
+    gradients, weight gradients)."""
     per_row = (POINT_ENC_DIM * WIDTH + 6 * WIDTH * WIDTH
                + (WIDTH + POINT_ENC_DIM) * WIDTH + WIDTH
                + WIDTH * WIDTH + (WIDTH + DIR_ENC_DIM) * (WIDTH // 2)
@@ -50,12 +59,59 @@ def flops_per_row() -> int:
 def field_rays_plain(params: mlp.Params, origins: torch.Tensor,
                      dirs: torch.Tensor, ts: torch.Tensor,
                      ) -> Tuple[Planes, torch.Tensor]:
-    """The same function as the kernel in plain PyTorch: origins/dirs (B, 3),
-    ts (B, N) -> ((r, g, b), sigma), each (B, N)."""
+    """The same function as the forward kernel in plain PyTorch:
+    origins/dirs (B, 3), ts (B, N) -> ((r, g, b), sigma), each (B, N)."""
     points = origins[:, None, :] + ts[..., None] * dirs[:, None, :]
     color, sigma = render.field_plain(params, points,
                                       dirs[:, None, :].expand(points.shape))
     return (color[..., 0], color[..., 1], color[..., 2]), sigma[..., 0]
+
+
+Grads = Tuple[mlp.Params, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def field_rays_bwd_plain(params: mlp.Params, origins: torch.Tensor,
+                         dirs: torch.Tensor, ts: torch.Tensor,
+                         g_sigma: torch.Tensor, g_r: torch.Tensor,
+                         g_g: torch.Tensor, g_b: torch.Tensor) -> Grads:
+    """The same function as the backward kernel in plain PyTorch: the VJP of
+    ``field_rays_plain`` with the (B, N) cotangents of (sigma, r, g, b) ->
+    ``(grads, d_origins (B, 3), d_dirs (B, 3), d_ts (B, N))``, ``grads``
+    shaped like ``params``."""
+    with torch.enable_grad():
+        leaves = {name: {k: t.detach().requires_grad_(True)
+                         for k, t in layer.items()}
+                  for name, layer in params.items()}
+        o, d, t = (x.detach().requires_grad_(True) for x in (origins, dirs, ts))
+        (r, g, b), sigma = field_rays_plain(leaves, o, d, t)
+        flat = [leaves[name][k] for name, k in _PARAM_KEYS]
+        out = torch.autograd.grad((sigma, r, g, b), flat + [o, d, t],
+                                  (g_sigma, g_r, g_g, g_b))
+    grads = {name: {} for name in params}
+    for (name, k), grad in zip(_PARAM_KEYS, out):
+        grads[name][k] = grad
+    return grads, out[-3], out[-2], out[-1]
+
+
+def preactivation_margin(params: mlp.Params, origins: torch.Tensor,
+                         dirs: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
+    """(B, N): each sample row's smallest |pre-activation| over every ReLU
+    and the sigma head's ``abs``. Two float32 implementations that sum in
+    different orders can disagree on a mask (or a sign) only where this is
+    within their rounding difference, so gradient comparisons weight such
+    rows out of their cotangents."""
+    points = origins[:, None, :] + ts[..., None] * dirs[:, None, :]
+    pe = encoding.encode_points(points)
+    de = encoding.encode_dirs(dirs[:, None, :].expand(points.shape))
+    lin = lambda name, x: x @ params[name]["w"] + params[name]["b"]
+    h, margin = pe, torch.full(ts.shape, float("inf"), device=ts.device)
+    for i in range(mlp.DEPTH):
+        pre = lin(f"trunk_{i}", torch.cat([h, pe], -1) if i in mlp.SKIP_LAYERS else h)
+        margin = torch.minimum(margin, pre.abs().amin(-1))
+        h = torch.relu(pre)
+    margin = torch.minimum(margin, lin("sigma", h).abs()[..., 0])
+    pre = lin("dir_info", torch.cat([de, lin("point_info", h)], -1))
+    return torch.minimum(margin, pre.abs().amin(-1))
 
 
 _freqs: Dict[torch.device, torch.Tensor] = {}
@@ -70,15 +126,22 @@ def _freq_table(device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
+def _library(source: str) -> ctypes.CDLL:
     from tinynerf_torch.kernels.build import load_library
-    lib = load_library(SOURCE)
-    vp = ctypes.c_void_p
-    lib.field_rays_fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
-                                   ctypes.c_int, ctypes.c_int, vp]
-    lib.field_rays_fwd.restype = ctypes.c_int
-    lib.field_rays_fwd_smem_bytes.argtypes = []
-    lib.field_rays_fwd_smem_bytes.restype = ctypes.c_int
+    lib = load_library(source)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    if source == FWD_SOURCE:
+        lib.field_rays_fwd.argtypes = [vp] * 8 + [i32, i32, vp]
+        lib.field_rays_fwd.restype = i32
+        lib.field_rays_fwd_smem_bytes.argtypes = []
+        lib.field_rays_fwd_smem_bytes.restype = i32
+    else:
+        lib.field_rays_bwd.argtypes = [vp] * 13 + [i32, i32, vp]
+        lib.field_rays_bwd.restype = i32
+        lib.field_rays_bwd_smem_bytes.argtypes = []
+        lib.field_rays_bwd_smem_bytes.restype = i32
+        lib.field_rays_bwd_workspace_floats.argtypes = [i32, i32]
+        lib.field_rays_bwd_workspace_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -95,6 +158,23 @@ def _check(name: str, t: torch.Tensor, shape, device: torch.device) -> None:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def _param_ptrs(params: mlp.Params, device: torch.device) -> ctypes.Array:
+    """The 25 device pointers the kernels take: the 12 weights, the 12
+    biases, then the frequency table."""
+    shapes = {name: {"w": (fan_in, fan_out), "b": (fan_out,)}
+              for name, fan_in, fan_out in mlp.layer_dims()}
+    ptrs = []
+    for name, k in _PARAM_KEYS:
+        _check(f"{name}.{k}", params[name][k], shapes[name][k], device)
+        ptrs.append(params[name][k].data_ptr())
+    ptrs.append(_freq_table(device).data_ptr())
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def _launch(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
             ts: torch.Tensor) -> Tuple[Planes, torch.Tensor]:
     device = origins.device
@@ -102,24 +182,14 @@ def _launch(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
     _check("origins", origins, (B, 3), device)
     _check("dirs", dirs, (B, 3), device)
     _check("ts", ts, (B, N), device)
-    ptrs = []
-    for name, fan_in, fan_out in mlp.layer_dims():
-        _check(f"{name}.w", params[name]["w"], (fan_in, fan_out), device)
-        ptrs.append(params[name]["w"].data_ptr())
-    for name, _, fan_out in mlp.layer_dims():
-        _check(f"{name}.b", params[name]["b"], (fan_out,), device)
-        ptrs.append(params[name]["b"].data_ptr())
-    ptrs.append(_freq_table(device).data_ptr())
-
-    lib = _library()
+    ptrs = _param_ptrs(params, device)
+    lib = _library(FWD_SOURCE)
     outs = [torch.empty((B, N), dtype=torch.float32, device=device)
             for _ in range(4)]
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.field_rays_fwd(
-            origins.data_ptr(), dirs.data_ptr(), ts.data_ptr(),
-            (ctypes.c_void_p * len(ptrs))(*ptrs),
-            *[o.data_ptr() for o in outs], B, N, stream)
+            origins.data_ptr(), dirs.data_ptr(), ts.data_ptr(), ptrs,
+            *[o.data_ptr() for o in outs], B, N, _stream(device))
     if err != 0:
         raise RuntimeError(f"field_rays_fwd kernel launch failed: CUDA error {err}")
     field_rays.launches += 1
@@ -127,28 +197,120 @@ def _launch(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
     return (r, g, b), sigma
 
 
+def _launch_bwd(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
+                ts: torch.Tensor, g_sigma: torch.Tensor, g_r: torch.Tensor,
+                g_g: torch.Tensor, g_b: torch.Tensor) -> Grads:
+    device = origins.device
+    B, N = ts.shape
+    _check("origins", origins, (B, 3), device)
+    _check("dirs", dirs, (B, 3), device)
+    for name, t in (("ts", ts), ("g_sigma", g_sigma), ("g_r", g_r),
+                    ("g_g", g_g), ("g_b", g_b)):
+        _check(name, t, (B, N), device)
+    ptrs = _param_ptrs(params, device)
+    lib = _library(BWD_SOURCE)
+    f32 = dict(dtype=torch.float32, device=device)
+    workspace = torch.empty(lib.field_rays_bwd_workspace_floats(B, N), **f32)
+    flat = torch.empty(sum(n for layer in params.values()
+                           for n in (layer["w"].numel(), layer["b"].numel())), **f32)
+    d_o, d_d = torch.empty((B, 3), **f32), torch.empty((B, 3), **f32)
+    d_ts = torch.empty((B, N), **f32)
+    with torch.cuda.device(device):
+        err = lib.field_rays_bwd(
+            origins.data_ptr(), dirs.data_ptr(), ts.data_ptr(),
+            g_sigma.data_ptr(), g_r.data_ptr(), g_g.data_ptr(), g_b.data_ptr(),
+            ptrs, d_o.data_ptr(), d_d.data_ptr(), d_ts.data_ptr(),
+            flat.data_ptr(), workspace.data_ptr(), B, N, _stream(device))
+    if err != 0:
+        raise RuntimeError(f"field_rays_bwd kernel launch failed: CUDA error {err}")
+    field_rays_bwd.launches += 1
+    # the kernel writes the gradients layer by layer, weight then bias
+    grads, offset = {}, 0
+    for name, fan_in, fan_out in mlp.layer_dims():
+        w = flat[offset:offset + fan_in * fan_out].view(fan_in, fan_out)
+        offset += fan_in * fan_out
+        grads[name] = {"w": w, "b": flat[offset:offset + fan_out]}
+        offset += fan_out
+    return grads, d_o, d_d, d_ts
+
+
+def _on_one_device(tensors: List[torch.Tensor], what: str) -> bool:
+    """True for CUDA tensors, False for CPU ones; raise on a mix."""
+    if tensors[0].is_cuda:
+        return True
+    if all(t.device.type == "cpu" for t in tensors):
+        return False
+    raise ValueError(f"{what} takes tensors all on the CPU or all on one CUDA "
+                     f"device; the first is on {tensors[0].device}")
+
+
+def field_rays_bwd(params: mlp.Params, origins: torch.Tensor,
+                   dirs: torch.Tensor, ts: torch.Tensor, g_sigma: torch.Tensor,
+                   g_r: torch.Tensor, g_g: torch.Tensor,
+                   g_b: torch.Tensor) -> Grads:
+    """The field's recompute backward: the (B, N) cotangents of (sigma, r, g,
+    b) -> ``(grads, d_origins, d_dirs, d_ts)``. CUDA tensors launch the
+    kernel; CPU tensors take ``field_rays_bwd_plain``."""
+    args = (params, origins, dirs, ts, g_sigma, g_r, g_g, g_b)
+    tensors = [origins, dirs, ts, g_sigma, g_r, g_g, g_b] + [
+        t for layer in params.values() for t in layer.values()]
+    if _on_one_device(tensors, "field_rays_bwd"):
+        return _launch_bwd(*args)
+    return field_rays_bwd_plain(*args)
+
+
+field_rays_bwd.launches = 0
+
+
+def _unflatten(flat) -> mlp.Params:
+    params: mlp.Params = {}
+    for (name, k), t in zip(_PARAM_KEYS, flat):
+        params.setdefault(name, {})[k] = t
+    return params
+
+
+def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous and 16-byte aligned, copying only where needed."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+class _FieldRays(torch.autograd.Function):
+    """``field_rays`` with ``field_rays_bwd`` as its backward."""
+
+    @staticmethod
+    def forward(ctx, origins, dirs, ts, *flat):
+        params = _unflatten(flat)
+        if _on_one_device([origins, dirs, ts, *flat], "field_rays"):
+            (r, g, b), sigma = _launch(params, origins, dirs, ts)
+        else:
+            (r, g, b), sigma = field_rays_plain(params, origins, dirs, ts)
+        ctx.save_for_backward(origins, dirs, ts, *flat)
+        return r, g, b, sigma
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_r, g_g, g_b, g_sigma):
+        origins, dirs, ts, *flat = ctx.saved_tensors
+        cots = [_kernel_ready(g) for g in (g_sigma, g_r, g_g, g_b)]
+        grads, d_o, d_d, d_ts = field_rays_bwd(_unflatten(flat), origins, dirs,
+                                               ts, *cots)
+        return (d_o, d_d, d_ts, *[grads[name][k] for name, k in _PARAM_KEYS])
+
+
 def field_rays(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
                ts: torch.Tensor, precision: str = "fp32",
                ) -> Tuple[Planes, torch.Tensor]:
-    """Ray-major fused field forward: origins/dirs (B, 3), ts (B, N) ->
-    ((r, g, b), sigma), each (B, N) float32. CUDA tensors launch the kernel;
-    CPU tensors take ``field_rays_plain``."""
+    """Ray-major fused field: origins/dirs (B, 3), ts (B, N) -> ((r, g, b),
+    sigma), each (B, N) float32, differentiable in every input. CUDA tensors
+    launch the kernels; CPU tensors take the plain versions."""
     if precision != "fp32":
         raise NotImplementedError(
             f"PRECISION={precision} is not ported yet (ROADMAP queue 2, "
             "item 1: bf16 weights for the field kernel)")
-    tensors = [origins, dirs, ts] + [t for layer in params.values()
-                                     for t in layer.values()]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "field_rays is forward-only: run it under torch.no_grad() (the "
-            "backward kernel is ROADMAP queue 2, item 2)")
-    if origins.is_cuda:
-        return _launch(params, origins, dirs, ts)
-    if all(t.device.type == "cpu" for t in tensors):
-        return field_rays_plain(params, origins, dirs, ts)
-    raise ValueError("field_rays takes tensors all on the CPU or all on one "
-                     f"CUDA device; origins are on {origins.device}")
+    r, g, b, sigma = _FieldRays.apply(
+        origins, dirs, ts, *[params[name][k] for name, k in _PARAM_KEYS])
+    return (r, g, b), sigma
 
 
 field_rays.launches = 0

@@ -1,10 +1,13 @@
-"""Render-only orchestration: the counterpart of ``tinynerf/runner.py`` for
-the render path.
+"""Training and rendering orchestration: the counterpart of
+``tinynerf/runner.py`` for the reference-semantics NeRF.
 
-``Runner(cfg)`` loads the scene, builds ``k_inv``, resumes the latest
-checkpoint under ``CKPT_PATH`` and renders: ``display()`` the test split,
-``render_path_video()`` a camera path. It refuses to render from fresh
-weights. Training (``train()``) is ROADMAP queue 1, slice 2.
+``Runner(cfg)`` loads the scene's splits onto the device, builds ``k_inv``,
+starts fresh or resumes the latest checkpoint under ``CKPT_PATH`` with its
+Adam state, and then trains (``train()``), renders the test split
+(``display()``) or renders a camera path (``render_path_video()``). The
+host loop only ticks: every per-iteration tensor stays on the device until
+a ``STEP`` boundary, where the loop prints, writes the preview canvas and a
+checkpoint. Rendering refuses fresh weights unless this Runner trained them.
 """
 
 from __future__ import annotations
@@ -16,13 +19,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tinynerf_torch import ckpt, eval as evallib
+from tinynerf_torch import ckpt, eval as evallib, train as trainlib
 from tinynerf_torch.config import Config
-from tinynerf_torch.core.mlp import init_network
 from tinynerf_torch.core.rays import make_k_inv
 from tinynerf_torch.data.poses import SceneData, load_scene
 from tinynerf_torch.data.rays import RayTable
 from tinynerf_torch.device import DeviceLike, resolve_device
+from tinynerf_torch.logging import MetricLogger, PreviewCanvas
+from tinynerf_torch.profiling import Throughput
 
 
 class NoCheckpointError(RuntimeError):
@@ -40,26 +44,46 @@ class Runner:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.start_time = time.strftime("%m-%d-%H-%M-%S", time.localtime())
-
-        # llff splits are identical; sync renders its test split
-        split = "train" if cfg.data_type == "llff" else "test"
         self._scene = scene
-        self.test_table = RayTable(self._ingest(split), self.device)
-        self.k_inv = make_k_inv(self.test_table.height, self.test_table.width,
-                                self.test_table.focal, self.device)
+
+        self.train_table = RayTable(self._ingest("train"), self.device,
+                                    cfg.pixel_dtype)
+        # llff splits are identical (Q10): the same images serve all three
+        if cfg.data_type == "llff":
+            self.val_table = self.test_table = self.train_table
+        else:
+            self.val_table = RayTable(self._ingest("val"), self.device,
+                                      cfg.pixel_dtype)
+            self.test_table = RayTable(self._ingest("test"), self.device,
+                                       cfg.pixel_dtype, device_pixels=False)
+        self.k_inv = make_k_inv(self.train_table.height, self.train_table.width,
+                                self.train_table.focal, self.device)
 
         self.last_iter = -1
-        self.params = None
+        self.trained = False  # set by train(): rendering may then proceed
+        params = opt_state = gen_state = None
         if cfg.continue_:
             latest = ckpt.find_latest(cfg.ckpt_path)
             if latest is not None:
-                self.last_iter, self.params = ckpt.load_checkpoint_full(
-                    latest, self.device)
+                (self.last_iter, params, opt_state,
+                 gen_state) = ckpt.load_train_state(latest, self.device)
                 print(f"Resumed from {latest} (iter {self.last_iter})")
-        if self.params is None:
+        if self.last_iter < 0:
             print("New run created.")
-            self.params = init_network(
-                torch.Generator().manual_seed(cfg.seed), self.device)
+        self.state = trainlib.init_state(cfg, self.device, params=params,
+                                         opt_state=opt_state,
+                                         iteration=self.last_iter + 1)
+        if gen_state is not None:  # continue the sample stream
+            if gen_state.numel() == self.state.generator.get_state().numel():
+                self.state.generator.set_state(gen_state)
+            else:
+                print("Note: the checkpoint's generator state is for another "
+                      "device; the sample stream restarts from SEED")
+        self.logger: Optional[MetricLogger] = None  # opened by train()
+
+    @property
+    def params(self):
+        return self.state.params
 
     def _ingest(self, mode: str) -> SceneData:
         cfg = self.cfg
@@ -73,12 +97,72 @@ class Runner:
                 scene.poses_bounds[:, 16] = cfg.far
         return scene
 
+    def train(self, mode: str = "train") -> None:
+        """Run the training loop up to ``TOTAL_ITER`` (resuming mid-count).
+
+        ``mode="val"`` runs ONE epoch over the val split: a shuffled
+        without-replacement pass visiting every val pixel once, in batches of
+        ``BATCH_RAY`` with the remainder dropped (the reference's
+        ``trainer("val")``, ``nerf.py:498-499``), with the full step."""
+        cfg = self.cfg
+        if self.logger is None:
+            self.logger = MetricLogger(os.path.join(cfg.log_dir, self.start_time))
+        table = {"train": self.train_table, "val": self.val_table}[mode]
+        canvas = PreviewCanvas(table.height, table.width)
+        start = self.state.iteration
+        epoch = None
+        if mode == "val":
+            n_batches = table.num_pix // cfg.batch_ray  # drop_last
+            end = start + n_batches
+            perm = torch.randperm(table.num_pix, generator=self.state.generator,
+                                  device=self.device)
+            epoch = perm[:n_batches * cfg.batch_ray].view(n_batches, cfg.batch_ray)
+            step_fn = trainlib.make_indexed_train_step(cfg, table, self.k_inv)
+        else:
+            end = cfg.total_iter
+            step_fn = trainlib.make_train_step(cfg, table, self.k_inv)
+        print(f"[STEP] {mode}: iterations {start} -> {end}")
+
+        meter = Throughput(rays_per_step=cfg.batch_ray)
+        it = start
+        while it < end:
+            if epoch is not None:
+                self.state, metrics = step_fn(self.state, epoch[it - start])
+            else:
+                self.state, metrics = step_fn(self.state)
+            self.logger.log(it, {f"loss/{mode}": metrics["loss"],
+                                 f"lr/{mode}": metrics["lr"]})
+            it += 1
+            meter.tick(1)
+            if it % cfg.step == 0:
+                loss = float(metrics["loss"])
+                c_t = metrics["c_true0"].tolist()
+                c_f = metrics["c_fine0"].tolist()
+                print(f"[ITER] {it - 1} [LOSS] {loss:.4f} "
+                      f"[T] ({c_t[0]:.4f} {c_t[1]:.4f} {c_t[2]:.4f}) "
+                      f"[F] ({c_f[0]:.4f} {c_f[1]:.4f} {c_f[2]:.4f}) "
+                      f"[RAYS/S] {meter.rays_per_sec:,.0f}")
+                self.logger.flush()
+                if mode == "train":
+                    canvas.update(metrics["rows"], metrics["cols"],
+                                  metrics["rgb"], metrics["pic"])
+                    canvas.save(os.path.join(
+                        cfg.results_path, f"{self.start_time}_{it - 1}.jpg"))
+                    ckpt.save_checkpoint(cfg.ckpt_path, self.start_time, it - 1,
+                                         self.state.params, self.state.opt,
+                                         generator=self.state.generator)
+                    self.last_iter = it - 1
+                meter.reset()
+        self.logger.flush()
+        self.trained = True
+
     def _require_trained(self, what: str) -> None:
-        if self.last_iter < 0:
+        if self.last_iter < 0 and not self.trained:
             raise NoCheckpointError(
                 f"{what} needs trained weights but no checkpoint was found "
                 f"under {self.cfg.ckpt_path!r}: refusing to render from fresh "
-                "weights. Point CKPT_PATH at an existing run.")
+                "weights. Train first (--mode train) or point CKPT_PATH at an "
+                "existing run.")
 
     def display(self, max_views: Optional[int] = None,
                 depth: bool = False) -> float:
@@ -101,10 +185,7 @@ class Runner:
         training cameras (spiral for llff, orbit for sync)."""
         from tinynerf_torch.data.paths import make_path
         self._require_trained("path")
-        train = (self.test_table if self.cfg.data_type == "llff"
-                 or self._scene is not None
-                 else RayTable(self._ingest("train")))
-        pose_rows = make_path(train.poses.cpu().numpy(),
+        pose_rows = make_path(self.train_table.poses.cpu().numpy(),
                               self.cfg.data_type, n_views=n_views,
                               res_scale=res_scale)
         hwf = pose_rows[0, :15].reshape(3, 5)[:, 4]
