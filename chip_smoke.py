@@ -9,13 +9,18 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
 2. builds every CUDA kernel from ``tinynerf_torch/csrc`` (one ``nvcc`` per
    source, all at once) and prints each build's time and ``ptxas``'
    register/shared-memory report;
-3. holds each kernel against its plain PyTorch version on the card, on
+3. holds each kernel form against its plain PyTorch version on the card, on
    dyadic inputs at the main paths' shapes (tolerances below): the field
    forward (kernel 1) at the render chunk's B=4096, and the field's
    recompute backward (kernel 2) at the training step's B=400 and at
-   B=4096, N=64 and 128, every gradient within 1e-4 of max|plain|;
-4. times each kernel and its plain version with CUDA events, beside the
-   kernel's bound (the least time the card could take for the same work);
+   B=4096, N=64 and 128, every gradient within 1e-4 of max|plain|; the flat
+   field forward (kernel 3) at fp32 and bf16 at one grid refresh's R=32,768
+   probes, at R=65,536 and at a ragged R; kernels 1 and 2 in their bf16 form
+   at B=4096, N=64 and 128 (bf16 bounds below);
+4. times each kernel form and its plain version with CUDA events, beside
+   the kernel's bound (the least time the card could take for the same
+   work: float32 FLOPs at the FMA rate, bf16 ones at the tensor cores'
+   rate; the f32 FMA bound is printed for the bf16 forms too);
 5. drives the training path: ``conf/lego.ini`` at full width from fresh
    seeded weights on an in-memory Blender-style scene of 4 views of
    800x800 (lego has 100 training views: cut to 4), ``Runner.train()`` for
@@ -33,8 +38,27 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
    ``eval.render_test_set``; checks the forward kernel's launch count, that
    the frames are finite and in [0, 1], and that a chunk rendered through
    the kernel agrees with the same chunk through the plain field;
-7. prints one ``{"kernels": [...]}`` line and, last, one
-   ``{"ok": true, "device": {...}}`` line.
+7. drives the ``conf/lego_occ.ini`` training path (bf16, 4096 rays, the
+   occupancy grid with a partial refresh every 256 steps, white
+   background) on the same kind of scene: ``Runner.train()`` for 300 steps
+   (two calls, 256 + 44, so that the grid after each refresh is read).
+   Checks exactly 2 flat-kernel launches (the refreshes at 0 and 256), 2
+   forward and 2 backward field launches per step, a finite falling loss;
+   prints the share of cells probed and occupied after each refresh,
+   s/step and rays/s, the refresh's own time, a ``torch.profiler``
+   breakdown of five steps; holds one step's gradient through the bf16
+   kernels against the bf16 plain field's (cosine >= 0.999); saves the
+   trained state with its grid;
+8. drives the ``lego_occ`` render path from that checkpoint: ``Runner``
+   resumes params and grid and renders two 800x800 views with the grid;
+   checks the launch counts, the frames, and a real chunk rendered through
+   the bf16 kernels against the bf16 plain field; times the grid's march
+   (``tighten_bounds``) on one chunk;
+9. drives ``conf/lego_occ.ini`` at ``PRECISION=fp32``, cut to 10 steps
+   (one refresh, at iteration 0): the fp32 form of kernel 3 on a training
+   path; checks the launch counts and a finite loss;
+10. prints one ``{"kernels": [...]}`` line (every kernel form) and, last,
+   one ``{"ok": true, "device": {...}}`` line.
 
 
 Any failure raises, and the script exits non-zero without the last line. It
@@ -45,6 +69,7 @@ imports nothing of JAX or of the ``tinynerf`` package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -57,6 +82,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # published peaks of one H100 SXM (NVIDIA data sheet; at the 700 W limit)
 PEAK_F32_FLOPS = 67e12      # float32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12    # bf16 on the tensor cores, dense
 PEAK_BYTES = 3.35e12        # HBM3
 COLOR_ATOL = 1e-5
 SIGMA_ATOL = 1e-4
@@ -65,9 +91,19 @@ CHUNK_ATOL = 1e-4           # rendered pixels, kernel field vs plain field
 BWD_RTOL = 1e-4             # kernel 2: every gradient, error / max|plain|
 MARGIN = 2e-6               # rows this close to a ReLU's kink get no cotangent
 GRAD_COS = 0.9999           # a training step's gradient, kernels vs plain field
+# bf16 forms: kernel and plain version round at the same points and sum in
+# other orders, which can move a rounded activation by one bf16 ulp (2^-8)
+BF16_FWD_RTOL = 1e-2        # each output, error / max|plain|
+BF16_BWD_RTOL = 3e-2        # each gradient, error / max|plain|
+BF16_COS = 0.999            # each gradient tensor; and a bf16 step's gradient
+BF16_CHUNK_ATOL = 1e-3      # rendered pixels, bf16 kernels vs bf16 plain field
 TRAIN_STEPS = 200
 TRAIN_VIEWS = 4
 STEP_SHAPES = ((400, 64), (400, 128))    # the field calls of a lego step
+OCC_STEPS = 300             # lego_occ: refreshes at iterations 0 and 256
+OCC_FP32_STEPS = 10         # lego_occ at fp32: one refresh, at iteration 0
+OCC_SHAPES = ((4096, 64), (4096, 128))   # the field calls of a lego_occ step
+FLAT_ROWS = (32768, 65536, 32768 + 37)   # one refresh's probes; a chunk; ragged
 
 
 def phase(title: str) -> None:
@@ -124,23 +160,71 @@ def bwd_errors(kernel, plain):
     return out
 
 
+def bwd_cosines(kernel, plain):
+    """The smallest cosine, over every output of field_rays_bwd, between the
+    kernel's tensor and the plain version's."""
+    import torch
+    (kg, *k_rest), (pg, *p_rest) = kernel, plain
+    pairs = [(kg[n][k], pg[n][k]) for n in pg for k in ("w", "b")] + list(zip(k_rest, p_rest))
+    return min(float(torch.nn.functional.cosine_similarity(
+        a.flatten().double(), b.flatten().double(), dim=0)) for a, b in pairs)
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| / max |b|."""
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
 def flat_grads(grads):
     import torch
     return torch.cat([grads[n][k].flatten() for n in grads for k in ("w", "b")])
 
 
+def least_ms(flops: float, n_bytes: float, precision: str):
+    """(bound ms, bound_by): the least time for ``flops`` at the peak rate of
+    their type and ``n_bytes`` at the memory rate."""
+    peak = PEAK_BF16_FLOPS if precision == "bf16" else PEAK_F32_FLOPS
+    ops_ms, bytes_ms = 1e3 * flops / peak, 1e3 * n_bytes / PEAK_BYTES
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def grid_probes(rng, rows: int):
+    """Points in the occupancy grid's cube [-1.5, 1.5]^3 with direction +z,
+    as the grid refresh probes the field."""
+    import numpy as np
+    pts = rng.uniform(-1.5, 1.5, (rows, 3)).astype(np.float32)
+    return pts, np.broadcast_to(np.float32([0, 0, 1]), (rows, 3)).copy()
+
+
+def grid_shares(grid):
+    """(share of cells probed at least once, share of cells occupied)."""
+    import torch
+    return (float(torch.isfinite(grid.raw).float().mean()),
+            float((grid.density > grid.threshold).float().mean()))
+
+
 def profile_steps(step, state, n: int = 5) -> None:
     """Trace ``n`` training steps with torch.profiler; print the device time
     by kernel (top 12) and the device's busy share of the steps' wall time."""
+    def run():
+        nonlocal state
+        state, _ = step(state)
+    profile_calls(run, n, "steps")
+
+
+def profile_calls(fn, n: int, what: str) -> None:
+    """Trace ``n`` calls of ``fn`` with torch.profiler (after three more to
+    warm up); print the device time by kernel (top 12) and the device's busy
+    share of the calls' wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
-        state, _ = step(state)
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            state, _ = step(state)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only: a CPU op (an autograd node, a ctypes launch)
@@ -150,16 +234,17 @@ def profile_steps(step, state, n: int = 5) -> None:
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
     if not rows:
-        print(f"profile: {n} steps in {wall_ms:.2f} ms of wall time; the profiler "
+        print(f"profile: {n} {what} in {wall_ms:.2f} ms of wall time; the profiler "
               "recorded no device time (device busy share not measured)")
         return
     device_ms = sum(r[2] for r in rows)
-    print(f"profile: {n} steps in {wall_ms:.2f} ms of wall time; device busy "
+    one = what.rstrip("s")
+    print(f"profile: {n} {what} in {wall_ms:.2f} ms of wall time; device busy "
           f"{device_ms:.2f} ms ({100 * device_ms / wall_ms:.1f}%, idle "
-          f"{100 * (1 - device_ms / wall_ms):.1f}%); per step {device_ms / n:.3f} ms "
+          f"{100 * (1 - device_ms / wall_ms):.1f}%); per {one} {device_ms / n:.3f} ms "
           f"on the device in {sum(r[1] for r in rows) / n:.0f} launches")
     for name, calls, ms in sorted(rows, key=lambda r: -r[2])[:12]:
-        print(f"  {ms / n:9.3f} ms/step  {calls // n:5d}/step  {name[:90]}")
+        print(f"  {ms / n:9.3f} ms/{one}  {calls // n:5d}/{one}  {name[:90]}")
 
 
 def blender_scene(n_views: int, hw: int, seed: int):
@@ -196,7 +281,7 @@ def main() -> int:
     import numpy as np
     from tinynerf_torch import ckpt, eval as evallib, optim, train
     from tinynerf_torch.config import load_config
-    from tinynerf_torch.core import mlp, rays as raylib, render, sampling
+    from tinynerf_torch.core import mlp, occupancy, rays as raylib, render, sampling
     from tinynerf_torch.kernels import build
     from tinynerf_torch.kernels import mlp_kernel as mk
     from tinynerf_torch.runner import Runner
@@ -223,8 +308,9 @@ def main() -> int:
     print(f"built {', '.join(sorted(build.build_log))} in parallel: "
           f"{time.perf_counter() - t0:.1f} s")
     smem = {mk.FWD_SOURCE: mk._library(mk.FWD_SOURCE).field_rays_fwd_smem_bytes(),
-            mk.BWD_SOURCE: mk._library(mk.BWD_SOURCE).field_rays_bwd_smem_bytes()}
-    for source in (mk.FWD_SOURCE, mk.BWD_SOURCE):
+            mk.BWD_SOURCE: mk._library(mk.BWD_SOURCE).field_rays_bwd_smem_bytes(),
+            mk.FLAT_SOURCE: mk._library(mk.FLAT_SOURCE).field_flat_fwd_smem_bytes()}
+    for source in (mk.FWD_SOURCE, mk.BWD_SOURCE, mk.FLAT_SOURCE):
         info = build.build_log[source]
         print(f"{source}: nvcc {info['seconds']:.1f} s; dynamic smem of the "
               f"main kernel {smem[source]} B/block")
@@ -279,6 +365,69 @@ def main() -> int:
         del kernel, errs
     torch.cuda.empty_cache()
 
+    # ---- 3c. kernel 3 vs plain version, fp32 and bf16 ----
+    phase("kernel 3 (flat field forward) vs plain, fp32 and bf16")
+    flat_inputs, flat_err = {}, {"fp32": 0.0, "bf16": 0.0}
+    with torch.no_grad():
+        for R in FLAT_ROWS:
+            pts, dirs = flat_inputs[R] = tuple(
+                torch.from_numpy(a).to(dev) for a in grid_probes(rng, R))
+            for precision in ("fp32", "bf16"):
+                color, sigma = mk.field_flat(params, pts, dirs, precision)
+                torch.cuda.synchronize()
+                p_color, p_sigma = mk.field_flat_plain(params, pts, dirs, precision)
+                ce = float((color - p_color).abs().max())
+                se = float((sigma - p_sigma).abs().max())
+                if precision == "fp32":
+                    ok = ce <= COLOR_ATOL and bool(torch.all(
+                        (sigma - p_sigma).abs() <= SIGMA_ATOL + SIGMA_RTOL * p_sigma.abs()))
+                    limits = f"color atol {COLOR_ATOL}, sigma atol {SIGMA_ATOL} rtol {SIGMA_RTOL}"
+                else:
+                    rel = max(rel_err(color, p_color), rel_err(sigma, p_sigma))
+                    ok = rel <= BF16_FWD_RTOL
+                    limits = f"error / max|plain| {rel:.3e}, limit {BF16_FWD_RTOL}"
+                print(f"R={R} {precision}: max |color err| {ce:.3e}, max |sigma err| "
+                      f"{se:.3e} ({limits})")
+                if not ok:
+                    raise AssertionError(f"kernel 3 disagrees with field_flat_plain at "
+                                         f"R={R} {precision}")
+                flat_err[precision] = max(flat_err[precision], ce, se)
+
+    # ---- 3d. kernels 1 and 2 in their bf16 form vs their bf16 plain versions ----
+    phase("kernels 1 and 2, bf16 form, vs their bf16 plain versions")
+    bf16_inputs, bf16_fwd_err, bf16_bwd_abs, bf16_bwd_rel = {}, 0.0, 0.0, 0.0
+    for B, N in OCC_SHAPES:
+        o, d, ts = rays(B, N)
+        cots = [torch.from_numpy(rng.normal(size=(B, N)).astype(np.float32)).to(dev)
+                for _ in range(4)]
+        bf16_inputs[B, N] = (o, d, ts, *cots)
+        with torch.no_grad():
+            (r, g, b), sigma = mk.field_rays(params, o, d, ts, "bf16")
+            torch.cuda.synchronize()
+            (pr, pg, pb), p_sigma = mk.field_rays_plain(params, o, d, ts, "bf16")
+        fwd_rel = max(rel_err(x, y) for x, y in ((r, pr), (g, pg), (b, pb), (sigma, p_sigma)))
+        kernel = mk.field_rays_bwd(params, *bf16_inputs[B, N], precision="bf16")
+        torch.cuda.synchronize()
+        plain = mk.field_rays_bwd_plain(params, *bf16_inputs[B, N], precision="bf16")
+        errs = bwd_errors(kernel, plain)
+        worst = max(errs, key=lambda k: errs[k][1])
+        cos = bwd_cosines(kernel, plain)
+        print(f"B={B} N={N}: kernel 1 bf16 error / max|plain| {fwd_rel:.3e} (limit "
+              f"{BF16_FWD_RTOL}); kernel 2 bf16 worst {worst} {errs[worst][1]:.3e} (limit "
+              f"{BF16_BWD_RTOL}), d_ts {errs['d_ts'][1]:.3e}, smallest cosine {cos:.7f} "
+              f"(limit {BF16_COS})")
+        if fwd_rel > BF16_FWD_RTOL:
+            raise AssertionError(f"kernel 1 bf16 disagrees with its plain version at B={B} N={N}")
+        if errs[worst][1] > BF16_BWD_RTOL or cos < BF16_COS:
+            raise AssertionError(f"kernel 2 bf16 disagrees with its plain version at "
+                                 f"B={B} N={N}: {errs}")
+        bf16_fwd_err = max(bf16_fwd_err, max(float((x - y).abs().max()) for x, y in
+                                             ((r, pr), (g, pg), (b, pb), (sigma, p_sigma))))
+        bf16_bwd_abs = max(bf16_bwd_abs, max(e[0] for e in errs.values()))
+        bf16_bwd_rel = max(bf16_bwd_rel, errs[worst][1])
+        del kernel, plain, errs
+    torch.cuda.empty_cache()
+
     # ---- 4. timing ----
     phase("timing (per launch, CUDA events)")
     fwd_time, bwd_time = {}, {}
@@ -306,6 +455,43 @@ def main() -> int:
               f"bound_ms {bound:.3f} (f32 FLOP bound, {flops / 1e9:.1f} GFLOP); "
               f"{flops / k_ms / 1e9:.2f} TFLOP/s = {100 * bound / k_ms:.1f}% of peak")
     del bwd_inputs
+    torch.cuda.empty_cache()
+
+    # the new forms: (ms, plain ms, bound ms, bound_by, f32 FMA bound ms)
+    flat_time, bf16_fwd_time, bf16_bwd_time = {}, {}, {}
+
+    def report(what, k_ms, p_ms, flops, n_bytes, precision):
+        b_ms, b_by = least_ms(flops, n_bytes, precision)
+        f32_ms = least_ms(flops, n_bytes, "fp32")[0]
+        print(f"{what}: kernel_ms {k_ms:.3f} plain_ms {p_ms:.3f} bound_ms {b_ms:.4f} "
+              f"({precision} {b_by} bound, {flops / 1e9:.1f} GFLOP; {100 * b_ms / k_ms:.2f}%); "
+              f"f32 FMA bound {f32_ms:.3f} ms ({100 * f32_ms / k_ms:.1f}%); "
+              f"{flops / k_ms / 1e9:.2f} TFLOP/s")
+        return k_ms, p_ms, b_ms, b_by, f32_ms
+
+    with torch.no_grad():
+        for R in FLAT_ROWS[:2]:
+            pts, dirs = flat_inputs[R]
+            for precision in ("fp32", "bf16"):
+                k_ms = cuda_ms(lambda: mk.field_flat(params, pts, dirs, precision), iters=20)
+                p_ms = cuda_ms(lambda: mk.field_flat_plain(params, pts, dirs, precision), iters=5)
+                # in: points, dirs, params; out: (R, 4)
+                flat_time[R, precision] = report(
+                    f"kernel 3 {precision} R={R}", k_ms, p_ms, mk.flops_per_row() * R,
+                    4 * (6 * R + n_params + 4 * R), precision)
+        for (B, N), (o, d, ts, *_) in bf16_inputs.items():
+            k_ms = cuda_ms(lambda: mk.field_rays(params, o, d, ts, "bf16"), iters=20)
+            p_ms = cuda_ms(lambda: mk.field_rays_plain(params, o, d, ts, "bf16"), iters=5)
+            bf16_fwd_time[B, N] = report(
+                f"kernel 1 bf16 B={B} N={N}", k_ms, p_ms, mk.flops_per_row() * B * N,
+                4 * (2 * 3 * B + 5 * B * N + n_params), "bf16")
+    for (B, N), args in bf16_inputs.items():
+        k_ms = cuda_ms(lambda: mk.field_rays_bwd(params, *args, precision="bf16"), iters=10)
+        p_ms = cuda_ms(lambda: mk.field_rays_bwd_plain(params, *args, precision="bf16"), iters=3)
+        bf16_bwd_time[B, N] = report(
+            f"kernel 2 bf16 B={B} N={N}", k_ms, p_ms, 3 * mk.flops_per_row() * B * N,
+            4 * (2 * 3 * B + 5 * B * N + n_params + 2 * 3 * B + B * N + n_params), "bf16")
+    del bf16_inputs, flat_inputs
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -454,49 +640,255 @@ def main() -> int:
                   f"max |pixel err| {pix_err:.3e} (atol {CHUNK_ATOL})")
             if not pix_err <= CHUNK_ATOL:
                 raise AssertionError("kernel render disagrees with the plain render")
+        del runner
 
-    # ---- 7. results ----
+        # ---- 7. the lego_occ training path ----
+        phase("lego_occ training path (bf16, occupancy grid)")
+        ocfg = load_config(os.path.join(ROOT, "conf", "lego_occ.ini"))
+        ocfg.ckpt_path = os.path.join(tmp, "occ_ckpt")
+        ocfg.results_path = os.path.join(tmp, "occ_results")
+        ocfg.log_dir = os.path.join(tmp, "occ_runs")
+        ocfg.continue_ = False
+        ocfg.step = 10 * OCC_STEPS  # no preview JPG: imageio is not needed
+        scene = blender_scene(n_views=TRAIN_VIEWS, hw=800, seed=ocfg.seed)
+        runner = Runner(ocfg, device="cuda", scene=scene)
+        subset = int(ocfg.occ_res ** 3 * ocfg.occ_subset)
+        print(f"{ocfg.precision}, BATCH_RAY {ocfg.batch_ray}, {ocfg.n_coarse}+{ocfg.n_fine} "
+              f"samples, OCC_RES {ocfg.occ_res} (refresh every {ocfg.occ_update_every} steps, "
+              f"{subset} cells), OCC_MARCH_STEPS {ocfg.occ_march_steps} (derived), WHITE_BKGD "
+              f"{ocfg.white_bkgd}")
+        mk.field_rays.launches = mk.field_rays_bwd.launches = mk.field_flat.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shares = []
+        for end in (ocfg.occ_update_every, OCC_STEPS):  # read the grid after each refresh
+            ocfg.total_iter = end
+            runner.train()
+            shares.append(grid_shares(runner.state.occ))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        occ_launches = (mk.field_rays.launches, mk.field_rays_bwd.launches,
+                        mk.field_flat.launches)
+        print(f"Runner.train(): {OCC_STEPS} steps of {ocfg.batch_ray} rays in {seconds:.2f} s "
+              f"({seconds / OCC_STEPS * 1e3:.2f} ms/step, first steps included); launches: "
+              f"forward {occ_launches[0]}, backward {occ_launches[1]} (expected "
+              f"{2 * OCC_STEPS} each), flat {occ_launches[2]} (expected 2)")
+        if occ_launches != (2 * OCC_STEPS, 2 * OCC_STEPS, 2):
+            raise AssertionError("the lego_occ path did not run the kernels as expected")
+        for it, (probed, occupied) in zip((0, ocfg.occ_update_every), shares):
+            print(f"grid after the refresh at iteration {it}: {100 * probed:.2f}% of cells "
+                  f"probed, {100 * occupied:.2f}% occupied")
+        with open(runner.logger.path) as f:
+            losses = [json.loads(line)["loss/train"] for line in f]
+        if len(losses) != OCC_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{len(losses)} logged losses, not all finite")
+        first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+        print(f"loss: mean of the first 10 steps {first:.4f}, of the last 10 {last:.4f} "
+              f"(step 0 {losses[0]:.4f}, step {OCC_STEPS - 1} {losses[-1]:.4f})")
+        if not last < first:
+            raise AssertionError("the lego_occ loss did not fall")
+
+        # s/step and rays/s (no refresh in these iterations), and the refresh alone
+        step = train.make_train_step(ocfg, runner.train_table, runner.k_inv)
+        state = runner.state
+        for _ in range(2):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(6):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        occ_ms = (time.perf_counter() - t0) / 6 * 1e3
+        occ_kern = sum(bf16_fwd_time[s][0] + bf16_bwd_time[s][0] for s in OCC_SHAPES)
+        print(f"BATCH_RAY {ocfg.batch_ray}: {occ_ms / 1e3:.5f} s/step, "
+              f"{ocfg.batch_ray / occ_ms * 1e3:,.0f} rays/s; kernels {occ_kern:.3f} ms of it "
+              f"({100 * occ_kern / occ_ms:.1f}%: 2 forward + 2 backward bf16 launches at "
+              "their timed per-launch ms)")
+        field_fn = evallib.make_field_fn(ocfg)
+        refresh = lambda: train.refresh_occ(ocfg, dataclasses.replace(state, iteration=0),
+                                            field_fn)
+        refresh()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            refresh()
+        torch.cuda.synchronize()
+        refresh_ms = (time.perf_counter() - t0) / 5 * 1e3
+        print(f"one grid refresh ({subset} probes through kernel 3, the EMA, the dilation): "
+              f"{refresh_ms:.3f} ms, {refresh_ms / ocfg.occ_update_every:.4f} ms per step "
+              f"averaged over {ocfg.occ_update_every} steps")
+        profile_steps(step, state)
+
+        # one step on a field with content: the bf16 kernels vs the bf16 plain field
+        content = optim.tree_map(lambda t: t.clone(), runner.params)
+        content["sigma"]["b"] += 1.0
+        batch = runner.train_table.sample(torch.Generator(device=dev).manual_seed(2),
+                                          ocfg.batch_ray)
+        plain_bf16 = functools.partial(mk.field_flat_plain, precision="bf16")
+        _, _, g_k = train.loss_and_grads(train.make_loss_fn(ocfg, runner.k_inv), content,
+                                         batch, None, runner.state.occ)
+        _, _, g_p = train.loss_and_grads(train.make_loss_fn(ocfg, runner.k_inv, plain_bf16),
+                                         content, batch, None, runner.state.occ)
+        a, b = flat_grads(g_k).double(), flat_grads(g_p).double()
+        cos = float(a @ b / (a.norm() * b.norm()))
+        print(f"one bf16 step, kernels vs bf16 plain field (sigma bias +1): gradient cosine "
+              f"{cos:.7f} (limit {BF16_COS}), norm ratio {float(a.norm() / b.norm()):.6f}")
+        if not cos >= BF16_COS:
+            raise AssertionError("the bf16 kernels' training gradient disagrees with the "
+                                 "bf16 plain field's")
+        occ_iter = runner.state.iteration - 1
+        ckpt.save_checkpoint(ocfg.ckpt_path, "smoke", occ_iter, runner.params,
+                             runner.state.opt, generator=runner.state.generator,
+                             occ=runner.state.occ)
+        trained_occ = runner.state.occ
+        del runner, state, step
+
+        # ---- 8. the lego_occ render path, from that checkpoint ----
+        phase("lego_occ render path (bf16, occupancy grid)")
+        ocfg.continue_ = True
+        scene = blender_scene(n_views=2, hw=800, seed=ocfg.seed)
+        runner = Runner(ocfg, device="cuda", scene=scene)
+        if runner.last_iter != occ_iter or not torch.equal(runner.state.occ.raw,
+                                                          trained_occ.raw):
+            raise AssertionError("Runner did not resume the lego_occ checkpoint and its grid")
+        expected = 2 * n_chunks * scene.images.shape[0]
+        mk.field_rays.launches = mk.field_rays_bwd.launches = mk.field_flat.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = evallib.render_test_set(
+            ocfg, runner.params, runner.test_table, runner.k_inv, runner.start_time,
+            runner.last_iter, save=False, occ_grid=runner.state.occ)
+        torch.cuda.synchronize()
+        occ_frame_s = (time.perf_counter() - t0) / frames.shape[0]
+        occ_render_launches = mk.field_rays.launches
+        print(f"rendered {frames.shape[0]} views of {scene.height}x{scene.width} with the grid "
+              f"from the iteration-{occ_iter} checkpoint: {occ_frame_s:.3f} s/frame; field_rays "
+              f"launches {occ_render_launches} (expected {expected}), flat "
+              f"{mk.field_flat.launches}, backward {mk.field_rays_bwd.launches}")
+        if (occ_render_launches, mk.field_flat.launches,
+                mk.field_rays_bwd.launches) != (expected, 0, 0):
+            raise AssertionError("the lego_occ render path did not run the bf16 forward "
+                                 "kernel (and only it) on every field call")
+        if not (frames.shape == (2, scene.height, scene.width, 3) and np.all(np.isfinite(frames))
+                and frames.min() >= 0 and frames.max() <= 1):
+            raise AssertionError("the lego_occ frame is not finite values in [0, 1]")
+        print(f"frame mean {frames.mean():.4f}, std {frames.std():.4f}")
+        with torch.no_grad():
+            span = slice((n_chunks // 2) * ocfg.render_chunk,
+                         (n_chunks // 2 + 1) * ocfg.render_chunk)
+            idx = torch.arange(num_pix, device=dev)[span]
+            rows, cols = (idx // scene.width).float(), (idx % scene.width).float()
+            pose = runner.test_table.poses[0].expand(rows.shape[0], 17)
+            args = (rows, cols, pose, runner.k_inv, ocfg.n_coarse, ocfg.n_fine)
+            occ_kw = dict(white_bkgd=True, occ_grid=runner.state.occ,
+                          occ_march=ocfg.occ_march_steps)
+            _, c_kernel = render.render_rays(runner.params, *args,
+                                             field_fn=evallib.make_field_fn(ocfg), **occ_kw)
+            _, c_plain = render.render_rays(runner.params, *args, field_fn=plain_bf16, **occ_kw)
+            occ_pix_err = float((c_kernel - c_plain).abs().max())
+            print(f"real chunk with the grid, bf16 kernels vs bf16 plain field: max |pixel "
+                  f"err| {occ_pix_err:.3e}, mean {float((c_kernel - c_plain).abs().mean()):.3e} "
+                  f"(atol {BF16_CHUNK_ATOL})")
+            if not occ_pix_err <= BF16_CHUNK_ATOL:
+                raise AssertionError("the bf16 kernel render disagrees with the bf16 plain render")
+            o, d, near, far = raylib.pixels_to_rays(rows, cols, pose, runner.k_inv)
+            march_ms = cuda_ms(lambda: occupancy.tighten_bounds(
+                runner.state.occ, o, d, near, far, n_steps=ocfg.occ_march_steps), iters=20)
+            n_near, n_far = occupancy.tighten_bounds(runner.state.occ, o, d, near, far,
+                                                     n_steps=ocfg.occ_march_steps)
+            print(f"the grid's march on one chunk ({ocfg.render_chunk} rays x "
+                  f"{ocfg.occ_march_steps} probes): {march_ms:.3f} ms; mean ray span "
+                  f"{float((n_far - n_near).mean()):.3f} of {float((far - near).mean()):.3f}")
+            kernel_field = evallib.make_field_fn(ocfg)
+            profile_calls(lambda: render.render_rays(runner.params, *args, field_fn=kernel_field,
+                                                     merge_impl="twolist", **occ_kw),
+                          5, "chunks")
+        del runner
+
+        # ---- 9. lego_occ at fp32, cut to 10 steps ----
+        phase("lego_occ at PRECISION=fp32, 10 steps (the fp32 form of kernel 3)")
+        fcfg = load_config(os.path.join(ROOT, "conf", "lego_occ.ini"))
+        fcfg.precision = "fp32"
+        fcfg.ckpt_path = os.path.join(tmp, "fp32_ckpt")
+        fcfg.results_path = os.path.join(tmp, "fp32_results")
+        fcfg.log_dir = os.path.join(tmp, "fp32_runs")
+        fcfg.continue_ = False
+        fcfg.total_iter = OCC_FP32_STEPS
+        fcfg.step = 10 * OCC_FP32_STEPS
+        runner = Runner(fcfg, device="cuda",
+                        scene=blender_scene(n_views=TRAIN_VIEWS, hw=800, seed=fcfg.seed))
+        mk.field_rays.launches = mk.field_rays_bwd.launches = mk.field_flat.launches = 0
+        runner.train()
+        torch.cuda.synchronize()
+        fp32_launches = (mk.field_rays.launches, mk.field_rays_bwd.launches,
+                         mk.field_flat.launches)
+        with open(runner.logger.path) as f:
+            losses = [json.loads(line)["loss/train"] for line in f]
+        print(f"{OCC_FP32_STEPS} steps: launches forward {fp32_launches[0]}, backward "
+              f"{fp32_launches[1]} (expected {2 * OCC_FP32_STEPS} each), flat "
+              f"{fp32_launches[2]} (expected 1); losses {losses[0]:.2f} .. {losses[-1]:.2f}")
+        if fp32_launches != (2 * OCC_FP32_STEPS, 2 * OCC_FP32_STEPS, 1):
+            raise AssertionError("lego_occ at fp32 did not run the fp32 kernels as expected")
+        if len(losses) != OCC_FP32_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError("lego_occ at fp32: not every loss is finite")
+        del runner
+
+    # ---- 10. results ----
     mean = lambda table, shapes, i: sum(table[s][i] for s in shapes) / len(shapes)
-    shape_key = lambda B, N: f"B={B},N={N}"
+    shape_key = lambda s: f"B={s[0]},N={s[1]}" if len(s) == 2 else f"R={s[0]}"
     render_shapes = [(4096, 64), (4096, 128)]
-    kernels = [{
-        "name": "field_rays_fwd",
-        "route": "cuda",
-        "source": "tinynerf_torch/csrc/field_rays_fwd.cu",
-        "replaces": "tinynerf/kernels/mlp_kernel.py:720",
-        "launches": train_launches[0] + render_launches,
-        "launches_by_path": {"train": train_launches[0], "render": render_launches},
-        "max_abs_err": fwd_err,
-        # per launch, averaged over the render path's two shapes (B=4096,
-        # N=64 and 128), which it launches equally often
-        "ms": mean(fwd_time, render_shapes, 0),
-        "plain_ms": mean(fwd_time, render_shapes, 1),
-        "bound_ms": mean(fwd_time, render_shapes, 2),
-        "bound_by": "operations",
-        "library_ms": None,
-        "shapes": {shape_key(*s): dict(zip(("ms", "plain_ms", "bound_ms"), t))
-                   for s, t in fwd_time.items()},
-    }, {
-        "name": "field_rays_bwd",
-        "route": "cuda",
-        "source": "tinynerf_torch/csrc/field_rays_bwd.cu",
-        "replaces": "tinynerf/kernels/mlp_kernel.py:751",
-        "launches": train_launches[1],
-        "launches_by_path": {"train": train_launches[1]},
-        "max_abs_err": bwd_abs,
-        "max_rel_err": bwd_rel,
-        # per launch, averaged over a training step's two shapes (B=400,
-        # N=64 and 128), which it launches once each per step
-        "ms": mean(bwd_time, STEP_SHAPES, 0),
-        "plain_ms": mean(bwd_time, STEP_SHAPES, 1),
-        "bound_ms": mean(bwd_time, STEP_SHAPES, 2),
-        "bound_by": "operations",
-        "library_ms": None,
-        "shapes": {shape_key(*s): dict(zip(("ms", "plain_ms", "bound_ms"), t))
-                   for s, t in bwd_time.items()},
-    }]
+    times = lambda table: {shape_key(s): dict(zip(("ms", "plain_ms", "bound_ms"), t[:3]))
+                           for s, t in table.items()}
+
+    def form(name, source, replaces, launches, by_path, err, table, shapes, extra=None):
+        """One kernel form's entry: ms, plain_ms and bound_ms per launch,
+        averaged over the main path's shapes, which it launches equally often."""
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": launches, "launches_by_path": by_path, "max_abs_err": err,
+                 "ms": mean(table, shapes, 0), "plain_ms": mean(table, shapes, 1),
+                 "bound_ms": mean(table, shapes, 2),
+                 "bound_by": table[shapes[0]][3] if len(table[shapes[0]]) > 3 else "operations",
+                 "library_ms": None}
+        if len(table[shapes[0]]) > 4:
+            entry["bound_f32_fma_ms"] = mean(table, shapes, 4)
+        entry.update(extra or {})
+        entry["shapes"] = times(table)
+        return entry
+
+    fwd_src, bwd_src = "tinynerf_torch/csrc/field_rays_fwd.cu", "tinynerf_torch/csrc/field_rays_bwd.cu"
+    flat_src = "tinynerf_torch/csrc/field_flat_fwd.cu"
+    flat = lambda precision: {(R,): flat_time[R, precision] for R in FLAT_ROWS[:2]}
+    # no single PyTorch call computes any of these fused functions: library_ms is null
+    kernels = [
+        form("field_rays_fwd", fwd_src, "tinynerf/kernels/mlp_kernel.py:720",
+             train_launches[0] + render_launches + fp32_launches[0],
+             {"lego train": train_launches[0], "lego render": render_launches,
+              "lego_occ fp32 train": fp32_launches[0]},
+             fwd_err, fwd_time, render_shapes),
+        form("field_rays_fwd_bf16", fwd_src, "tinynerf/kernels/mlp_kernel.py:720",
+             occ_launches[0] + occ_render_launches,
+             {"lego_occ train": occ_launches[0], "lego_occ render": occ_render_launches},
+             bf16_fwd_err, bf16_fwd_time, list(OCC_SHAPES)),
+        form("field_rays_bwd", bwd_src, "tinynerf/kernels/mlp_kernel.py:751",
+             train_launches[1] + fp32_launches[1],
+             {"lego train": train_launches[1], "lego_occ fp32 train": fp32_launches[1]},
+             bwd_abs, bwd_time, STEP_SHAPES, {"max_rel_err": bwd_rel}),
+        form("field_rays_bwd_bf16", bwd_src, "tinynerf/kernels/mlp_kernel.py:751",
+             occ_launches[1], {"lego_occ train": occ_launches[1]}, bf16_bwd_abs,
+             bf16_bwd_time, list(OCC_SHAPES), {"max_rel_err": bf16_bwd_rel}),
+        form("field_flat_fwd", flat_src, "tinynerf/kernels/mlp_kernel.py:269",
+             fp32_launches[2], {"lego_occ fp32 train": fp32_launches[2]},
+             flat_err["fp32"], flat("fp32"), [(FLAT_ROWS[0],)]),
+        form("field_flat_fwd_bf16", flat_src, "tinynerf/kernels/mlp_kernel.py:269",
+             occ_launches[2], {"lego_occ train": occ_launches[2]}, flat_err["bf16"],
+             flat("bf16"), [(FLAT_ROWS[0],)]),
+    ]
     print(json.dumps({"train_step": {str(b): {"ms": t[0], "kernel_ms": t[1]}
-                                     for b, t in step_time.items()}}))
+                                     for b, t in step_time.items()},
+                      "lego_occ": {"step_ms": occ_ms, "kernel_ms": occ_kern,
+                                   "refresh_ms": refresh_ms, "frame_s": occ_frame_s,
+                                   "march_ms_per_chunk": march_ms,
+                                   "grid_shares": shares}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -157,15 +157,18 @@ def test_field_rays_on_cpu_is_the_plain_version(data):
 
 
 def test_field_rays_refuses_grad_and_bf16(data):
-    """bf16 weights are not ported and are refused; gradients are (the
-    backward kernel is ported): under grad mode ``field_rays`` records its
-    backward, under ``no_grad`` it records nothing."""
+    """Both precisions are ported (fp32, and bf16, the TPU kernels' bf16
+    form), and an unknown one is refused. Under grad mode ``field_rays``
+    records its backward at either precision, under ``no_grad`` it records
+    nothing."""
     _, params, origins, dirs, ts = data
     o, d, t = _torch(origins, dirs, ts)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mk.field_rays(params, o, d, t, precision="bf16")
-    _, sigma = mk.field_rays(params, o, d, t.clone().requires_grad_(True))
-    assert sigma.requires_grad and sigma.grad_fn is not None
+    with pytest.raises(ValueError, match="precision"):
+        mk.field_rays(params, o, d, t, precision="fp16")
+    for precision in ("fp32", "bf16"):
+        _, sigma = mk.field_rays(params, o, d, t.clone().requires_grad_(True),
+                                 precision=precision)
+        assert sigma.requires_grad and sigma.grad_fn is not None
     with torch.no_grad():
         _, sigma = mk.field_rays(params, o, d, t.clone().requires_grad_(True))
     assert not sigma.requires_grad

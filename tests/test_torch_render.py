@@ -10,7 +10,7 @@ import torch
 from tinynerf.core import mlp as jmlp, rays as jrays, render as jrender
 from tinynerf.core import sampling as jsampling
 from tinynerf_torch.ckpt import params_from_numpy
-from tinynerf_torch.core import rays, render, sampling
+from tinynerf_torch.core import occupancy, rays, render, sampling
 
 
 def _t(a):
@@ -212,9 +212,11 @@ def test_render_rays_matches_jax(ray_batch, white_bkgd):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"prop_params": {}}, {"occ_grid": object()},
+    {"prop_params": {}}, {"occ_grid": occupancy.init_grid(4), "occ_contract": True},
     {"ndc_params": (16.0, 16.0, 20.0)}, {"lindisp": True}])
 def test_render_rays_refuses_unported_options(ray_batch, kwargs):
+    """Options of slices still to port raise by name; the occupancy grid is
+    ported, its contracted form (CONTRACT) is not."""
     rows_px, cols_px, pose = ray_batch
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render.render_rays({}, _t(rows_px), _t(cols_px), _t(pose),

@@ -364,7 +364,7 @@ def test_sampled_step_trains_and_is_seeded(step_setup, stratified):
 @pytest.mark.parametrize("what", ["FINE_FIELD", "PROPOSAL"])
 def test_init_state_refuses_slice_3_fields(what):
     cfg = Config(fine_field="grid") if what == "FINE_FIELD" else Config(proposal=True)
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="slice 4: the grid field"):
         train.init_state(cfg, torch.device("cpu"))
 
 

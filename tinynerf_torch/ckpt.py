@@ -2,14 +2,16 @@
 
 Keys are ``params::<layer>::w`` (``(in, out)``) and ``params::<layer>::b``
 plus ``iteration``; a training checkpoint also holds the Adam state,
-``mu::``/``nu::`` moments and ``adam_count``. Files are named
+``mu::``/``nu::`` moments and ``adam_count``, and with ``OCC_GRID`` the
+occupancy grid, ``occ::raw``, ``occ::density``, ``occ::half_extent`` and
+``occ::threshold`` (training state: the weights co-adapt to the grid's
+tightened samples, so resuming and rendering reuse it). Files are named
 ``<start_time>_<iter>.npz``; resume takes the highest iteration.
 
 The sample streams cannot cross: a JAX Threefry ``prng_key`` cannot seed a
 torch generator. The port writes its generator's state under a key of its
 own, ``torch_generator``, which the JAX package ignores; resuming a JAX
-checkpoint, it ignores ``prng_key`` (and the ``occ::`` grid, which the
-reference-semantics path does not use) and says so.
+checkpoint, it ignores ``prng_key`` and says so.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from tinynerf_torch.core import mlp
+from tinynerf_torch.core import mlp, occupancy
 
 _SEP = "::"
 GENERATOR_KEY = "torch_generator"
@@ -76,7 +78,8 @@ def params_from_numpy(tree: Dict[str, Any],
 
 def save_checkpoint(path_dir: str, start_time: str, iteration: int,
                     params: mlp.Params, opt_state=None,
-                    generator: Optional[torch.Generator] = None) -> str:
+                    generator: Optional[torch.Generator] = None,
+                    occ: Optional[occupancy.OccGrid] = None) -> str:
     """Write ``<path_dir>/<start_time>_<iteration>.npz``; returns the path.
     ``opt_state`` is an ``optim.AdamState``."""
     os.makedirs(path_dir, exist_ok=True)
@@ -92,6 +95,9 @@ def save_checkpoint(path_dir: str, start_time: str, iteration: int,
             blobs[f"nu{_SEP}{k}"] = v
     if generator is not None:
         blobs[GENERATOR_KEY] = generator.get_state().numpy()
+    if occ is not None:
+        for k, v in occ._asdict().items():
+            blobs[f"occ{_SEP}{k}"] = v.detach().cpu().numpy()
     np.savez(path, **blobs)
     return path
 
@@ -124,12 +130,24 @@ def load_train_state(path: str, device: torch.device = torch.device("cpu")):
                 nu=params_from_numpy(_tree(archive, f"nu{_SEP}"), device))
         if GENERATOR_KEY in archive.files:
             gen_state = torch.from_numpy(archive[GENERATOR_KEY].copy())
-        ignored = [k for k in ("prng_key", f"occ{_SEP}raw") if k in archive.files]
-    if ignored:
-        print(f"Note: {os.path.basename(path)} holds {', '.join(ignored)} from "
-              "the JAX package; the port ignores them (a JAX PRNG key cannot "
-              "seed a torch generator: the sample stream restarts from SEED)")
+        has_key = "prng_key" in archive.files
+    if has_key:
+        print(f"Note: {os.path.basename(path)} holds prng_key from the JAX "
+              "package; the port ignores it (a JAX PRNG key cannot seed a "
+              "torch generator: the sample stream restarts from SEED)")
     return iteration, params, opt_state, gen_state
+
+
+def load_occ_grid(path: str, device: torch.device = torch.device("cpu"),
+                  ) -> Optional[occupancy.OccGrid]:
+    """The checkpoint's occupancy grid (written by either package), or None."""
+    with np.load(path) as archive:
+        if f"occ{_SEP}raw" not in archive.files:
+            return None
+        return occupancy.OccGrid(**{
+            k: torch.tensor(np.asarray(archive[f"occ{_SEP}{k}"], np.float32),
+                            device=device)
+            for k in occupancy.OccGrid._fields})
 
 
 _ITER_RE = re.compile(r"_(\d+)\.npz$")

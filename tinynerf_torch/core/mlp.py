@@ -12,7 +12,10 @@ JAX package's ``(in, out)`` layout, so checkpoints and the tests hand arrays
 across unchanged. 593,924 parameters in all.
 
 Matrix products run in true float32: ``apply_network`` refuses to run on the
-card while TF32 is allowed (``check_no_tf32``).
+card while TF32 is allowed (``check_no_tf32``). ``precision="bf16"`` gives the
+function the field kernels compute in their bf16 form (the JAX package's
+``PRECISION=bf16`` with ``USE_PALLAS``): float32 products of values rounded to
+bfloat16 where the TPU kernel casts them.
 """
 
 from __future__ import annotations
@@ -78,27 +81,52 @@ def check_no_tf32() -> None:
             "torch.backends.cudnn.allow_tf32); the field needs true float32")
 
 
-def _linear(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"] + p["b"]
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to the nearest bfloat16 (ties to even), kept float32;
+    its gradient is rounded the same way (an activation's cast)."""
+    return x.to(torch.bfloat16).float()
+
+
+def round_bf16_value(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to the nearest bfloat16, kept float32; its gradient
+    passes unrounded (a weight's or an encoding's cast: their gradients stay
+    float32 in the TPU kernels)."""
+    return x + (round_bf16(x) - x).detach()
+
+
+def _rounding(precision: str):
+    """(value rounding, activation rounding) for ``precision``: the
+    identity at fp32, ``round_bf16_value`` and ``round_bf16`` at bf16."""
+    if precision == "fp32":
+        return (lambda x: x), (lambda x: x)
+    if precision == "bf16":
+        return round_bf16_value, round_bf16
+    raise ValueError(f"precision must be 'fp32' or 'bf16', got {precision!r}")
 
 
 def apply_network(params: Params, point_enc: torch.Tensor,
-                  dir_enc: torch.Tensor,
+                  dir_enc: torch.Tensor, precision: str = "fp32",
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``point_enc (..., 60)``, ``dir_enc (..., 24)`` ->
-    ``(color (..., 3), sigma (..., 1))``."""
+    ``(color (..., 3), sigma (..., 1))``. With ``precision="bf16"`` the
+    weights and the encodings are rounded to bfloat16, and so is every
+    ReLU output and ``point_info`` (``mlp_kernel.py::_forward_tile``);
+    biases, sums, ``|sigma|`` and the sigmoid stay float32."""
     if point_enc.is_cuda:
         check_no_tf32()
+    value, act = _rounding(precision)
+    linear = lambda name, x: x @ value(params[name]["w"]) + params[name]["b"]
+    point_enc, dir_enc = value(point_enc), value(dir_enc)
     h = point_enc
     for i in range(DEPTH):
         if i in SKIP_LAYERS:
             h = torch.cat([h, point_enc], dim=-1)          # hidden first
-        h = torch.relu(_linear(params[f"trunk_{i}"], h))
-    sigma = torch.abs(_linear(params["sigma"], h))
-    point_info = _linear(params["point_info"], h)          # no activation
+        h = act(torch.relu(linear(f"trunk_{i}", h)))
+    sigma = torch.abs(linear("sigma", h))
+    point_info = act(linear("point_info", h))              # no activation
     color_in = torch.cat([dir_enc, point_info], dim=-1)    # dir first
-    h_dir = torch.relu(_linear(params["dir_info"], color_in))
-    color = torch.sigmoid(_linear(params["color"], h_dir))
+    h_dir = act(torch.relu(linear("dir_info", color_in)))
+    color = torch.sigmoid(linear("color", h_dir))
     return color, sigma
 
 

@@ -1,7 +1,7 @@
 """Volume rendering: coarse + hierarchical fine march, compositing and loss.
 
 Counterpart of ``tinynerf/core/render.py`` for the reference-semantics
-march (no proposal, occupancy, NDC or LINDISP). Semantics kept:
+march and the occupancy grid (no proposal, NDC or LINDISP). Semantics kept:
 
 - Q5: **inclusive** cumsum in the transmittance exponent,
   ``w_i = exp(-sum_{j<=i} sigma_j delta_j) * (1 - exp(-sigma_i delta_i))``;
@@ -13,7 +13,9 @@ march (no proposal, occupancy, NDC or LINDISP). Semantics kept:
   t, each color channel and sigma independently;
 - the coarse weights are not detached before the resampler (Q8), so the
   fine pass's gradient reaches the coarse sigma through ``d_ts``;
-- ``ray_loss`` is the sum of squares over rays and channels of both passes.
+- ``ray_loss`` is the sum of squares over rays and channels of both passes;
+- with an occupancy grid (``OCC_GRID``), each ray's [near, far] is first
+  tightened to the occupied cells it crosses (``occupancy.tighten_bounds``).
 
 The JAX package composites the merged set without sorting, through compare
 masks (``merge_impl="twolist"``) or one-hot rank products (``"permute"``,
@@ -32,7 +34,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from tinynerf_torch.core import encoding, mlp, rays as raylib, sampling
+from tinynerf_torch.core import encoding, mlp, occupancy, rays as raylib, sampling
 
 TAIL_DELTA = 1e-4
 
@@ -47,6 +49,23 @@ def field_plain(params: mlp.Params, points: torch.Tensor, dirs: torch.Tensor,
     (color (..., 3), sigma (..., 1)). Counterpart of ``field_jnp``."""
     return mlp.apply_network(params, encoding.encode_points(points),
                              encoding.encode_dirs(dirs))
+
+
+def field_plain_bf16(params: mlp.Params, points: torch.Tensor,
+                     dirs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The field at ``PRECISION=bf16`` without the kernels (``USE_PALLAS``
+    off), the counterpart of the JAX package's ``bf16_field``
+    (``tinynerf/train.py:184-191``): the encoding at float32, then the whole
+    network in bfloat16 tensors (weights, biases, every product's output),
+    the outputs cast back to float32. A different function from the
+    kernels' bf16 form (``mlp.apply_network(..., precision="bf16")``), which
+    sums in float32."""
+    cast = {name: {k: t.to(torch.bfloat16) for k, t in layer.items()}
+            for name, layer in params.items()}
+    color, sigma = mlp.apply_network(
+        cast, encoding.encode_points(points).to(torch.bfloat16),
+        encoding.encode_dirs(dirs).to(torch.bfloat16))
+    return color.float(), sigma.float()
 
 
 def get_density(delta: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
@@ -158,7 +177,10 @@ def render_rays(params: mlp.Params,
                 ndc_params: Optional[Tuple[float, float, float]] = None,
                 merge_impl: str = "twolist",
                 white_bkgd: bool = False,
-                occ_grid=None,
+                occ_grid: Optional[occupancy.OccGrid] = None,
+                occ_march: Optional[int] = None,
+                occ_contract: bool = False,
+                occ_march_res: Optional[int] = None,
                 extras: bool = False,
                 prop_params=None,
                 lindisp: bool = False):
@@ -167,7 +189,9 @@ def render_rays(params: mlp.Params,
     With ``extras=True`` returns ``(C_coarse, C_fine, depth, acc)``, depth
     and acc (B,) over the merged sample set. ``generator`` jitters the coarse
     samples (stratified). ``merge_impl`` is accepted as ``"twolist"`` or
-    ``"permute"``: both are the same stable-sort merge here.
+    ``"permute"``: both are the same stable-sort merge here. ``occ_grid``
+    tightens each ray's bounds first, with ``occ_march`` probes per ray
+    (``occupancy.tighten_bounds``).
     """
     if merge_impl not in ("twolist", "permute"):
         raise ValueError(f"unknown merge_impl {merge_impl!r}")
@@ -175,13 +199,15 @@ def render_rays(params: mlp.Params,
         raise ValueError("extras needs the coupled merge; COMPAT_SORT "
                          "sorts every channel on its own")
     if prop_params is not None:
-        raise _not_ported("PROPOSAL", "slice 3: flagship")
-    if occ_grid is not None:
-        raise _not_ported("OCC_GRID", "slice 3: flagship")
+        raise _not_ported("PROPOSAL", "slice 4: the grid field and the proposal grid")
     if ndc_params is not None:
-        raise _not_ported("NDC", "slice 4: contraction/LINDISP/NDC")
+        raise _not_ported("NDC", "slice 8: contraction/LINDISP/NDC")
 
     origins, dirs, near, far = raylib.pixels_to_rays(rows, cols, pose17, k_inv)
+    if occ_grid is not None:
+        near, far = occupancy.tighten_bounds(
+            occ_grid, origins, dirs, near, far, n_steps=occ_march,
+            contract=occ_contract, lindisp=lindisp, march_res=occ_march_res)
 
     # ---- coarse pass ----
     t_co = sampling.coarse_ts(near, far, n_coarse, generator=generator,

@@ -8,9 +8,13 @@
 // forward and returns the gradients of all 24 weights and biases, of the
 // origins and dirs (B, 3) and of ts (B, N), all float32. The chain rule to
 // the ray (d_ts = d_pts . d, d_o = sum_n d_pts, d_d = sum_n d_pts t + d_dir)
-// runs inside the kernel: no (B*N, 3) array reaches device memory.
+// runs inside the kernel: no (B*N, 3) array reaches device memory. It runs
+// in float32 or in the TPU kernel's bf16 form (field_common.cuh, the
+// precision note): as there, the head gradients (sigma, color) stay float32
+// and every other pre-activation gradient is rounded to bf16; the weight
+// gradients and d_o, d_d, d_ts are float32.
 //
-// What bounds it: float32 FLOPs. A row costs 3x the forward's 1,182,976
+// What bounds it: FLOPs. A row costs 3x the forward's 1,182,976
 // FLOP (recompute, input gradients, weight gradients).
 //
 // Design (a simple first kernel; wgmma, TMA and 3xTF32 are later work). The
@@ -129,11 +133,11 @@ struct Smem {
 };
 
 // act[row_i][col_j] = acc (times the ReLU mask h > 0 read from `mask`, the
-// tile's saved activation, when given); rows below `valid` are also saved to
+// tile's saved activation, when given), rounded with BF16; rows below `valid` are also saved to
 // save[row * G_STRIDE + col]. Ends with a barrier. The mask was written
 // earlier in this launch, so it is read through L2 (__ldcg), never through
 // the non-coherent read-only path.
-template <int NC>
+template <int NC, bool BF16>
 __device__ __forceinline__ void store_grad(float (&acc)[ROWS][NC],
                                            float (*act)[WIDTH],
                                            float* __restrict__ save,
@@ -146,7 +150,7 @@ __device__ __forceinline__ void store_grad(float (&acc)[ROWS][NC],
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
       const int c = lane + 32 * j;
-      float v = acc[i][j];
+      float v = rnd<BF16>(acc[i][j]);
       if (mask != nullptr)
         v = (r < valid && __ldcg(mask + (size_t)r * A_STRIDE + c) > 0.f) ? v : 0.f;
       act[r][c] = v;
@@ -156,6 +160,7 @@ __device__ __forceinline__ void store_grad(float (&acc)[ROWS][NC],
   __syncthreads();
 }
 
+template <bool BF16>
 __global__ void __launch_bounds__(THREADS, 2)
 field_rays_bwd_kernel(const float* __restrict__ origins,
                       const float* __restrict__ dirs,
@@ -189,27 +194,27 @@ field_rays_bwd_kernel(const float* __restrict__ origins,
     float* g_tile = ws_g + (size_t)(base - ws_base) * G_STRIDE;
 
     // ================= recompute the forward, saving inputs =================
-    encode_tile(origins, dirs, ts, p.freqs, base, row_end, n_samples,
-                s.enc_pt, s.enc_dir);
+    encode_tile(RayCoord{origins, dirs, ts, n_samples}, p.freqs, base,
+                row_end, s.enc_pt, s.enc_dir);
     for (int idx = threadIdx.x; idx < valid * PT_ENC; idx += THREADS)
       a_tile[(size_t)(idx / PT_ENC) * A_STRIDE + A_ENC_PT + idx % PT_ENC] =
-          s.enc_pt[idx / PT_ENC][idx % PT_ENC];
+          rnd<BF16>(s.enc_pt[idx / PT_ENC][idx % PT_ENC]);
     for (int idx = threadIdx.x; idx < valid * DIR_ENC; idx += THREADS)
       a_tile[(size_t)(idx / DIR_ENC) * A_STRIDE + A_ENC_DIR + idx % DIR_ENC] =
-          s.enc_dir[idx / DIR_ENC][idx % DIR_ENC];
+          rnd<BF16>(s.enc_dir[idx / DIR_ENC][idx % DIR_ENC]);
 
     float acc[ROWS][8];
     zero(acc);
-    gemm_segment<8>(acc, &s.enc_pt[0][0], PT_ENC, PT_ENC, p.w[0], s.wt);
-    store<8, true>(acc, p.b[0], s.act, a_tile + a_hidden(0), A_STRIDE, valid);
+    gemm_segment<8, BF16, true>(acc, &s.enc_pt[0][0], PT_ENC, PT_ENC, p.w[0], s.wt);
+    store<8, true, BF16>(acc, p.b[0], s.act, a_tile + a_hidden(0), A_STRIDE, valid);
     for (int layer = 1; layer < 8; ++layer) {
       zero(acc);
-      gemm_segment<8>(acc, &s.act[0][0], WIDTH, WIDTH, p.w[layer], s.wt);
+      gemm_segment<8, BF16>(acc, &s.act[0][0], WIDTH, WIDTH, p.w[layer], s.wt);
       if (layer == 4)
-        gemm_segment<8>(acc, &s.enc_pt[0][0], PT_ENC, PT_ENC,
-                        p.w[4] + WIDTH * WIDTH, s.wt);
-      store<8, true>(acc, p.b[layer], s.act, a_tile + a_hidden(layer),
-                     A_STRIDE, valid);
+        gemm_segment<8, BF16, true>(acc, &s.enc_pt[0][0], PT_ENC, PT_ENC,
+                                    p.w[4] + WIDTH * WIDTH, s.wt);
+      store<8, true, BF16>(acc, p.b[layer], s.act, a_tile + a_hidden(layer),
+                           A_STRIDE, valid);
     }
 
     // sigma = |pre|: its gradient is g_sigma * sign(pre), sign(0) = 0
@@ -217,7 +222,8 @@ field_rays_bwd_kernel(const float* __restrict__ origins,
       float v = 0.f;
 #pragma unroll
       for (int q = 0; q < WIDTH / 32; ++q)
-        v = fmaf(s.act[row0 + i][lane + 32 * q], __ldg(p.w[SIGMA] + lane + 32 * q), v);
+        v = fmaf(s.act[row0 + i][lane + 32 * q],
+                 rnd<BF16>(__ldg(p.w[SIGMA] + lane + 32 * q)), v);
       v = warp_sum(v);
       if (lane == 0) {
         const int r = row0 + i;
@@ -230,15 +236,16 @@ field_rays_bwd_kernel(const float* __restrict__ origins,
     }
 
     zero(acc);
-    gemm_segment<8>(acc, &s.act[0][0], WIDTH, WIDTH, p.w[POINT_INFO], s.wt);
-    store<8, false>(acc, p.b[POINT_INFO], s.act, a_tile + A_PI, A_STRIDE, valid);
+    gemm_segment<8, BF16>(acc, &s.act[0][0], WIDTH, WIDTH, p.w[POINT_INFO], s.wt);
+    store<8, false, BF16>(acc, p.b[POINT_INFO], s.act, a_tile + A_PI, A_STRIDE, valid);
 
     float acc4[ROWS][4];
     zero(acc4);
-    gemm_segment<4>(acc4, &s.enc_dir[0][0], DIR_ENC, DIR_ENC, p.w[DIR_INFO], s.wt);
-    gemm_segment<4>(acc4, &s.act[0][0], WIDTH, WIDTH,
-                    p.w[DIR_INFO] + DIR_ENC * (WIDTH / 2), s.wt);
-    store<4, true>(acc4, p.b[DIR_INFO], s.act, a_tile + A_HD, A_STRIDE, valid);
+    gemm_segment<4, BF16, true>(acc4, &s.enc_dir[0][0], DIR_ENC, DIR_ENC,
+                                p.w[DIR_INFO], s.wt);
+    gemm_segment<4, BF16>(acc4, &s.act[0][0], WIDTH, WIDTH,
+                          p.w[DIR_INFO] + DIR_ENC * (WIDTH / 2), s.wt);
+    store<4, true, BF16>(acc4, p.b[DIR_INFO], s.act, a_tile + A_HD, A_STRIDE, valid);
 
     // color = sigmoid(x): its gradient is g_c * c * (1 - c)
     for (int i = 0; i < ROWS; ++i) {
@@ -248,7 +255,8 @@ field_rays_bwd_kernel(const float* __restrict__ origins,
         const int k = lane + 32 * q;
         const float h = s.act[row0 + i][k];
 #pragma unroll
-        for (int c = 0; c < 3; ++c) v[c] = fmaf(h, __ldg(p.w[COLOR] + 3 * k + c), v[c]);
+        for (int c = 0; c < 3; ++c)
+          v[c] = fmaf(h, rnd<BF16>(__ldg(p.w[COLOR] + 3 * k + c)), v[c]);
       }
       const int r = row0 + i;
 #pragma unroll
@@ -266,19 +274,20 @@ field_rays_bwd_kernel(const float* __restrict__ origins,
     __syncthreads();
 
     // ================= backward =================
-    // the view branch: g_hd = relu'(hd) * sum_c gc_c W_color[k][c]
+    // the view branch: g_hd = relu'(hd) * sum_c gc_c W_color[k][c], rounded
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int k = lane + 32 * j;
-      const float w0 = __ldg(p.w[COLOR] + 3 * k), w1 = __ldg(p.w[COLOR] + 3 * k + 1),
-                  w2 = __ldg(p.w[COLOR] + 3 * k + 2);
+      const float w0 = rnd<BF16>(__ldg(p.w[COLOR] + 3 * k)),
+                  w1 = rnd<BF16>(__ldg(p.w[COLOR] + 3 * k + 1)),
+                  w2 = rnd<BF16>(__ldg(p.w[COLOR] + 3 * k + 2));
 #pragma unroll
       for (int i = 0; i < ROWS; ++i) {
         const int r = row0 + i;
         float g = s.gcol[r][0] * w0;
         g += s.gcol[r][1] * w1;
         g += s.gcol[r][2] * w2;
-        g = s.act[r][k] > 0.f ? g : 0.f;
+        g = s.act[r][k] > 0.f ? rnd<BF16>(g) : 0.f;
         s.act[r][k] = g;
         if (r < valid) g_tile[(size_t)r * G_STRIDE + G_HD + k] = g;
       }
@@ -289,31 +298,31 @@ field_rays_bwd_kernel(const float* __restrict__ origins,
     {
       float acc1[ROWS][1];
       zero(acc1);
-      gemm_segment<1>(acc1, &s.act[0][0], WIDTH, WIDTH / 2, wt + T_DE, s.wt);
+      gemm_segment<1, BF16>(acc1, &s.act[0][0], WIDTH, WIDTH / 2, wt + T_DE, s.wt);
       if (lane < DIR_ENC)
         for (int i = 0; i < ROWS; ++i) s.genc_dir[row0 + i][lane] = acc1[i][0];
     }
     zero(acc);
-    gemm_segment<8>(acc, &s.act[0][0], WIDTH, WIDTH / 2, wt + T_DP, s.wt);
-    store_grad<8>(acc, s.act, g_tile + G_PI, nullptr, valid);
+    gemm_segment<8, BF16>(acc, &s.act[0][0], WIDTH, WIDTH / 2, wt + T_DP, s.wt);
+    store_grad<8, BF16>(acc, s.act, g_tile + G_PI, nullptr, valid);
 
     // into h7: gs * w_sigma + g_pi W_pi^T, then relu'(h7)
     zero(acc);
-    gemm_segment<8>(acc, &s.act[0][0], WIDTH, WIDTH, wt + T_PI, s.wt);
+    gemm_segment<8, BF16>(acc, &s.act[0][0], WIDTH, WIDTH, wt + T_PI, s.wt);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float ws = __ldg(p.w[SIGMA] + lane + 32 * j);
+      const float ws = rnd<BF16>(__ldg(p.w[SIGMA] + lane + 32 * j));
 #pragma unroll
       for (int i = 0; i < ROWS; ++i) acc[i][j] += s.gsig[row0 + i] * ws;
     }
-    store_grad<8>(acc, s.act, g_tile + 7 * WIDTH, a_tile + a_hidden(7), valid);
+    store_grad<8, BF16>(acc, s.act, g_tile + 7 * WIDTH, a_tile + a_hidden(7), valid);
 
     // down the trunk, layers 7..1; the skip layer 4 also feeds g_enc_pt
     for (int layer = 7; layer >= 1; --layer) {
       if (layer == 4) {
         float acc2[ROWS][2];
         zero(acc2);
-        gemm_segment<2>(acc2, &s.act[0][0], WIDTH, WIDTH, wt + T_4E, s.wt);
+        gemm_segment<2, BF16>(acc2, &s.act[0][0], WIDTH, WIDTH, wt + T_4E, s.wt);
 #pragma unroll
         for (int i = 0; i < ROWS; ++i)
 #pragma unroll
@@ -324,17 +333,17 @@ field_rays_bwd_kernel(const float* __restrict__ origins,
           }
       }
       zero(acc);
-      gemm_segment<8>(acc, &s.act[0][0], WIDTH, WIDTH,
-                      wt + T_TRUNK + (layer - 1) * WIDTH * WIDTH, s.wt);
-      store_grad<8>(acc, s.act, g_tile + (layer - 1) * WIDTH,
-                    a_tile + a_hidden(layer - 1), valid);
+      gemm_segment<8, BF16>(acc, &s.act[0][0], WIDTH, WIDTH,
+                            wt + T_TRUNK + (layer - 1) * WIDTH * WIDTH, s.wt);
+      store_grad<8, BF16>(acc, s.act, g_tile + (layer - 1) * WIDTH,
+                          a_tile + a_hidden(layer - 1), valid);
     }
 
     // layer 0: g_enc_pt = (layer 4's share) + g_pre0 W0^T, into act[:, :60]
     {
       float acc2[ROWS][2];
       zero(acc2);
-      gemm_segment<2>(acc2, &s.act[0][0], WIDTH, WIDTH, wt + T_0, s.wt);
+      gemm_segment<2, BF16>(acc2, &s.act[0][0], WIDTH, WIDTH, wt + T_0, s.wt);
 #pragma unroll
       for (int i = 0; i < ROWS; ++i)
 #pragma unroll
@@ -349,7 +358,7 @@ field_rays_bwd_kernel(const float* __restrict__ origins,
     }
     __syncthreads();
 
-    // through the encoding: d x_c = sum_l f_l (g_sin cos - g_cos sin)
+    // through the encoding (float32 sin/cos): d x_c = sum_l f_l (g_sin cos - g_cos sin)
     for (int idx = threadIdx.x; idx < TILE_M * 3; idx += THREADS) {
       const int r = idx / 3, c = idx % 3;
       float dp = 0.f, dd = 0.f;
@@ -506,21 +515,21 @@ long long field_rays_bwd_workspace_floats(int n_rays, int n_samples) {
 // biases, layer by layer (layer order above), each layer's weight (fan_in,
 // fan_out) then its bias; workspace: field_rays_bwd_workspace_floats(...)
 // floats. All float32, contiguous, 16-byte aligned, on the current device.
-// params: as for field_rays_fwd. Launches on `stream` and returns the first
-// launch error, or 0.
+// params: as for field_rays_fwd. bf16: nonzero for the bf16 form. Launches
+// on `stream` and returns the first launch error, or 0.
 int field_rays_bwd(const float* origins, const float* dirs, const float* ts,
                    const float* g_sigma, const float* g_r, const float* g_g,
                    const float* g_b, const void* const* params, float* d_o,
                    float* d_d, float* d_ts, float* grads, float* workspace,
-                   int n_rays, int n_samples, void* stream) {
+                   int n_rays, int n_samples, int bf16, void* stream) {
   const Params p = unpack_params(params);
   if (n_rays <= 0 || n_samples <= 0) return 0;
   if ((long long)n_rays * n_samples > 0x7fffffffLL - TILE_M)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto kernel = bf16 ? &field_rays_bwd_kernel<true> : &field_rays_bwd_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      field_rays_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)sizeof(Smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Smem));
   if (err != cudaSuccess) return (int)err;
 
   // ---- 1. transposed weights ----
@@ -573,8 +582,7 @@ int field_rays_bwd(const float* origins, const float* dirs, const float* ts,
   for (int ray0 = 0; ray0 < n_rays; ray0 += c_rays) {
     const int ray1 = std::min(n_rays, ray0 + c_rays);
     const int rows = (ray1 - ray0) * n_samples;
-    field_rays_bwd_kernel<<<ceil_div(ray1 - ray0, rays_per_block), THREADS,
-                            sizeof(Smem), st>>>(
+    kernel<<<ceil_div(ray1 - ray0, rays_per_block), THREADS, sizeof(Smem), st>>>(
         origins, dirs, ts, g_sigma, g_r, g_g, g_b, p, wt, ws_a, ws_g, d_o, d_d,
         d_ts, n_samples, ray0, ray1, rays_per_block);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;

@@ -24,23 +24,27 @@ from tinynerf_torch.data.rays import RayTable
 def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for a config the port cannot train or
     render yet, naming the ROADMAP item that will bring it."""
+    if cfg.precision not in ("fp32", "bf16"):
+        raise ValueError(f"PRECISION must be fp32 or bf16, got {cfg.precision!r}")
     refused = [
-        (cfg.precision != "fp32", f"PRECISION={cfg.precision}",
-         "queue 2, item 1: bf16 weights for the field kernel"),
         (cfg.fine_field != "mlp", f"FINE_FIELD={cfg.fine_field}",
-         "queue 1, slice 3: flagship"),
-        (cfg.proposal, "PROPOSAL", "queue 1, slice 3: flagship"),
-        (cfg.occ_grid, "OCC_GRID", "queue 1, slice 3: flagship"),
+         "queue 1, slice 4: the grid field"),
+        (cfg.proposal, "PROPOSAL",
+         "queue 1, slice 4: the grid field and the proposal grid"),
+        (cfg.occ_grid and cfg.contract, "OCC_GRID with CONTRACT",
+         "queue 1, slice 8: contraction/LINDISP/NDC"),
+        (cfg.occ_grid and cfg.lindisp, "OCC_GRID with LINDISP",
+         "queue 1, slice 8: contraction/LINDISP/NDC"),
         (cfg.fused_render, "FUSED_RENDER", "queue 2, item 9: fused renderer"),
         (cfg.host_feed, "HOST_FEED",
          "queue 1, item 5: HOST_FEED and the native ray store"),
         (cfg.val_metrics, "VAL_METRICS", "queue 1, item 6: VAL_METRICS"),
         (cfg.profile_steps > 0, f"PROFILE_STEPS={cfg.profile_steps}",
          "queue 1, item 7: PROFILE_STEPS"),
-        (cfg.contract, "CONTRACT", "queue 1, slice 4: contraction/LINDISP/NDC"),
-        (cfg.lindisp, "LINDISP", "queue 1, slice 4: contraction/LINDISP/NDC"),
+        (cfg.contract, "CONTRACT", "queue 1, slice 8: contraction/LINDISP/NDC"),
+        (cfg.lindisp, "LINDISP", "queue 1, slice 8: contraction/LINDISP/NDC"),
         (cfg.ndc and cfg.data_type == "llff", "NDC",
-         "queue 1, slice 4: contraction/LINDISP/NDC"),
+         "queue 1, slice 8: contraction/LINDISP/NDC"),
     ]
     for bad, what, where in refused:
         if bad:
@@ -48,23 +52,27 @@ def check_supported(cfg: Config) -> None:
 
 
 def make_field_fn(cfg: Config) -> render.FieldFn:
-    """The field, shared by training and rendering: with ``USE_PALLAS`` the
-    ray-major kernel wrapper (``kernels/mlp_kernel.field_rays``: on the card
-    the CUDA kernels, forward and backward), else the plain field."""
+    """The field at ``PRECISION``, shared by training, rendering and the
+    occupancy refresh. With ``USE_PALLAS`` (``kernels/mlp_kernel``; on the
+    card, the CUDA kernels): the point field is ``field_flat`` (the
+    occupancy refresh's probes) and its ``eval_rays`` is ``field_rays``
+    (both passes of the renderer, forward and backward). Without it, the
+    plain field (``render.field_plain``, or ``render.field_plain_bf16``)."""
     check_supported(cfg)
     if not cfg.use_pallas:
-        return render.field_plain
-    from tinynerf_torch.kernels.mlp_kernel import field_rays
-    fn = functools.partial(render.field_plain)
-    fn.eval_rays = field_rays
+        return render.field_plain_bf16 if cfg.precision == "bf16" else render.field_plain
+    from tinynerf_torch.kernels.mlp_kernel import field_flat, field_rays
+    fn = functools.partial(field_flat, precision=cfg.precision)
+    fn.eval_rays = functools.partial(field_rays, precision=cfg.precision)
     return fn
 
 
 def make_frame_fn(cfg: Config, k_inv: torch.Tensor, height: int, width: int,
                   field_fn: Optional[render.FieldFn] = None,
-                  extras: bool = False):
+                  extras: bool = False, occ_grid=None):
     """Whole-frame renderer on ``k_inv``'s device: ``frame(params, pose17_row)``
-    -> (H, W, 3) numpy, or with ``extras`` (rgb, depth, acc)."""
+    -> (H, W, 3) numpy, or with ``extras`` (rgb, depth, acc). ``occ_grid``
+    (the trained state's, with ``OCC_GRID``) tightens every ray's bounds."""
     check_supported(cfg)
     if field_fn is None:
         field_fn = make_field_fn(cfg)
@@ -91,7 +99,9 @@ def make_frame_fn(cfg: Config, k_inv: torch.Tensor, height: int, width: int,
                 params, rows[span], cols[span], pose, k_inv,
                 cfg.n_coarse, cfg.n_fine, field_fn=field_fn,
                 compat_sort=cfg.compat_sort, merge_impl="twolist",
-                white_bkgd=cfg.white_bkgd, extras=extras)
+                white_bkgd=cfg.white_bkgd, occ_grid=occ_grid,
+                occ_march=cfg.occ_march_steps, occ_contract=cfg.contract,
+                occ_march_res=cfg.occ_march_res, extras=extras)
             rgb[span] = out[1]
             if extras:
                 depth[span], acc[span] = out[2], out[3]
@@ -149,13 +159,13 @@ def render_test_set(cfg: Config, params: Any, table: RayTable,
                     k_inv: torch.Tensor, start_time: str, last_iter: int,
                     field_fn=None, save: bool = True,
                     max_views: Optional[int] = None,
-                    depth: bool = False) -> np.ndarray:
+                    depth: bool = False, occ_grid=None) -> np.ndarray:
     """Render every view of ``table`` in order; with ``save`` write per-view
     JPGs under ``results_path/<start_time>/`` and a video. ``depth=True``
     also writes ``<pic>_depth.jpg`` and ``<pic>_acc.jpg``. Returns the
     (N, H, W, 3) stack, clipped to [0, 1]."""
     frame_fn = make_frame_fn(cfg, k_inv, table.height, table.width,
-                             field_fn=field_fn, extras=depth)
+                             field_fn=field_fn, extras=depth, occ_grid=occ_grid)
     n_views = table.num_pics if max_views is None else min(max_views, table.num_pics)
     frames = np.empty((n_views, table.height, table.width, 3), np.float32)
     if depth:
@@ -193,12 +203,13 @@ def render_test_set(cfg: Config, params: Any, table: RayTable,
 
 def render_path(cfg: Config, params: Any, pose_rows: np.ndarray,
                 k_inv: torch.Tensor, out_base: str, field_fn=None,
-                fps: int = 30, save: bool = True) -> np.ndarray:
+                fps: int = 30, save: bool = True, occ_grid=None) -> np.ndarray:
     """Render a camera path (``data/paths.py``) to a video. The frame size
     comes from the pose rows' h/w column; ``k_inv`` must match it."""
     height = int(pose_rows[0, :15].reshape(3, 5)[0, 4])
     width = int(pose_rows[0, :15].reshape(3, 5)[1, 4])
-    frame_fn = make_frame_fn(cfg, k_inv, height, width, field_fn=field_fn)
+    frame_fn = make_frame_fn(cfg, k_inv, height, width, field_fn=field_fn,
+                             occ_grid=occ_grid)
     frames = np.empty((pose_rows.shape[0], height, width, 3), np.float32)
     for i in range(pose_rows.shape[0]):
         frames[i] = frame_fn(params, pose_rows[i])

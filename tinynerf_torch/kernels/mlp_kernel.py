@@ -1,25 +1,39 @@
-"""Ray-major field: the hand-written CUDA kernels and their plain versions.
+"""The field's hand-written CUDA kernels and their plain versions.
 
-Counterpart of ``tinynerf/kernels/mlp_kernel.py::field_pallas_rays``: its
-forward (``_fused_ray_forward`` / ``_ray_fwd_kernel``, TPU kernel 1) and its
-recompute backward (``_fused_ray_backward`` / ``_ray_bwd_kernel``, TPU
-kernel 2). ``field_rays(params, origins, dirs, ts)`` evaluates the network
-at ``origin + t * dir`` for every (ray, sample) pair and returns ``((r, g,
-b), sigma)``, each a dense (B, N) float32 plane. It is differentiable: an
-``autograd.Function`` whose backward is ``field_rays_bwd``, which gives the
-gradients of every weight and bias, of ``origins``, ``dirs`` and ``ts``.
+Counterpart of ``tinynerf/kernels/mlp_kernel.py``:
 
-- On CPU tensors both directions run their plain PyTorch versions,
-  ``field_rays_plain`` and ``field_rays_bwd_plain`` (what the CPU tests
-  reach).
-- On CUDA tensors they launch ``csrc/field_rays_fwd.cu`` and
-  ``csrc/field_rays_bwd.cu`` or raise; they never fall back to the plain
-  versions. ``field_rays.launches`` and ``field_rays_bwd.launches`` count
-  the calls that launched each kernel.
+- ``field_rays(params, origins, dirs, ts)``, the counterpart of
+  ``field_pallas_rays``: its forward (``_fused_ray_forward`` /
+  ``_ray_fwd_kernel``, TPU kernel 1) and its recompute backward
+  (``_fused_ray_backward`` / ``_ray_bwd_kernel``, TPU kernel 2). It
+  evaluates the network at ``origin + t * dir`` for every (ray, sample)
+  pair and returns ``((r, g, b), sigma)``, each a dense (B, N) float32
+  plane. It is differentiable: an ``autograd.Function`` whose backward is
+  ``field_rays_bwd``, which gives the gradients of every weight and bias,
+  of ``origins``, ``dirs`` and ``ts``.
+- ``field_flat(params, points, dirs)``, the counterpart of
+  ``field_pallas``: its forward (``_fused_forward`` / ``_fwd_kernel``, TPU
+  kernel 3) over points and directions (..., 3) -> ``(color (..., 3),
+  sigma (..., 1))``. The occupancy grid's refresh calls it.
+
+Each takes ``precision``: ``"fp32"``, or ``"bf16"``, the TPU kernels'
+``compute_dtype=bfloat16`` form (``mlp.apply_network``'s rounding: weights,
+encodings and activations rounded to bfloat16, sums in float32).
+
+- On CPU tensors each runs its plain PyTorch version (``field_rays_plain``,
+  ``field_rays_bwd_plain``, ``field_flat_plain``), which is what the CPU
+  tests reach.
+- On CUDA tensors each launches its kernel (``csrc/field_rays_fwd.cu``,
+  ``csrc/field_rays_bwd.cu``, ``csrc/field_flat_fwd.cu``) or raises; none
+  falls back to a plain version. ``field_rays.launches``,
+  ``field_rays_bwd.launches`` and ``field_flat.launches`` count the calls
+  that launched each kernel. ``field_flat`` is forward only on the card:
+  its backward, TPU kernel 4, is not ported (ROADMAP queue 2).
 
 The TPU kernels' block-major encoding layout, permuted weight rows and
-8-row ray tiles are TPU lane tricks, not semantics: the CUDA kernels read
-the parameters in their ``(in, out)`` layout and mask the ragged end of B*N.
+8-row tiles are TPU lane tricks, not semantics: the CUDA kernels read the
+parameters in their ``(in, out)`` layout and mask the ragged end of the
+rows.
 """
 
 from __future__ import annotations
@@ -31,13 +45,15 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from tinynerf_torch.core import encoding, mlp, render
+from tinynerf_torch.core import encoding, mlp
 from tinynerf_torch.core.encoding import (DIR_ENC_DIM, L_DIR, L_POINT,
                                           POINT_ENC_DIM, freq_bank)
 
 FWD_SOURCE = "field_rays_fwd.cu"
 BWD_SOURCE = "field_rays_bwd.cu"
+FLAT_SOURCE = "field_flat_fwd.cu"
 WIDTH = mlp.WIDTH
+PRECISIONS = ("fp32", "bf16")
 
 Planes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 # the parameters in the kernels' order: every weight, then every bias
@@ -56,14 +72,31 @@ def flops_per_row() -> int:
     return 2 * per_row
 
 
+def _check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+
+
+def field_flat_plain(params: mlp.Params, points: torch.Tensor,
+                     dirs: torch.Tensor, precision: str = "fp32",
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The same function as the flat forward kernel in plain PyTorch: the
+    float32 encoding, then ``mlp.apply_network`` at ``precision``. points,
+    dirs (..., 3) -> (color (..., 3), sigma (..., 1)). Differentiable (its
+    gradient rounds as the ray backward's does)."""
+    return mlp.apply_network(params, encoding.encode_points(points),
+                             encoding.encode_dirs(dirs), precision)
+
+
 def field_rays_plain(params: mlp.Params, origins: torch.Tensor,
                      dirs: torch.Tensor, ts: torch.Tensor,
-                     ) -> Tuple[Planes, torch.Tensor]:
+                     precision: str = "fp32") -> Tuple[Planes, torch.Tensor]:
     """The same function as the forward kernel in plain PyTorch:
     origins/dirs (B, 3), ts (B, N) -> ((r, g, b), sigma), each (B, N)."""
     points = origins[:, None, :] + ts[..., None] * dirs[:, None, :]
-    color, sigma = render.field_plain(params, points,
-                                      dirs[:, None, :].expand(points.shape))
+    color, sigma = field_flat_plain(params, points,
+                                    dirs[:, None, :].expand(points.shape),
+                                    precision)
     return (color[..., 0], color[..., 1], color[..., 2]), sigma[..., 0]
 
 
@@ -73,17 +106,22 @@ Grads = Tuple[mlp.Params, torch.Tensor, torch.Tensor, torch.Tensor]
 def field_rays_bwd_plain(params: mlp.Params, origins: torch.Tensor,
                          dirs: torch.Tensor, ts: torch.Tensor,
                          g_sigma: torch.Tensor, g_r: torch.Tensor,
-                         g_g: torch.Tensor, g_b: torch.Tensor) -> Grads:
+                         g_g: torch.Tensor, g_b: torch.Tensor,
+                         precision: str = "fp32") -> Grads:
     """The same function as the backward kernel in plain PyTorch: the VJP of
     ``field_rays_plain`` with the (B, N) cotangents of (sigma, r, g, b) ->
     ``(grads, d_origins (B, 3), d_dirs (B, 3), d_ts (B, N))``, ``grads``
-    shaped like ``params``."""
+    shaped like ``params``. At bf16 autograd rounds where
+    ``_ray_bwd_kernel`` casts: each pre-activation gradient of the trunk,
+    ``point_info`` and the view branch; the heads' gradients, the
+    encoding's and every weight gradient stay float32
+    (``mlp.round_bf16`` / ``mlp.round_bf16_value``)."""
     with torch.enable_grad():
         leaves = {name: {k: t.detach().requires_grad_(True)
                          for k, t in layer.items()}
                   for name, layer in params.items()}
         o, d, t = (x.detach().requires_grad_(True) for x in (origins, dirs, ts))
-        (r, g, b), sigma = field_rays_plain(leaves, o, d, t)
+        (r, g, b), sigma = field_rays_plain(leaves, o, d, t, precision)
         flat = [leaves[name][k] for name, k in _PARAM_KEYS]
         out = torch.autograd.grad((sigma, r, g, b), flat + [o, d, t],
                                   (g_sigma, g_r, g_g, g_b))
@@ -131,12 +169,17 @@ def _library(source: str) -> ctypes.CDLL:
     lib = load_library(source)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     if source == FWD_SOURCE:
-        lib.field_rays_fwd.argtypes = [vp] * 8 + [i32, i32, vp]
+        lib.field_rays_fwd.argtypes = [vp] * 8 + [i32, i32, i32, vp]
         lib.field_rays_fwd.restype = i32
         lib.field_rays_fwd_smem_bytes.argtypes = []
         lib.field_rays_fwd_smem_bytes.restype = i32
+    elif source == FLAT_SOURCE:
+        lib.field_flat_fwd.argtypes = [vp] * 4 + [i32, i32, vp]
+        lib.field_flat_fwd.restype = i32
+        lib.field_flat_fwd_smem_bytes.argtypes = []
+        lib.field_flat_fwd_smem_bytes.restype = i32
     else:
-        lib.field_rays_bwd.argtypes = [vp] * 13 + [i32, i32, vp]
+        lib.field_rays_bwd.argtypes = [vp] * 13 + [i32, i32, i32, vp]
         lib.field_rays_bwd.restype = i32
         lib.field_rays_bwd_smem_bytes.argtypes = []
         lib.field_rays_bwd_smem_bytes.restype = i32
@@ -176,7 +219,7 @@ def _stream(device: torch.device) -> int:
 
 
 def _launch(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
-            ts: torch.Tensor) -> Tuple[Planes, torch.Tensor]:
+            ts: torch.Tensor, precision: str) -> Tuple[Planes, torch.Tensor]:
     device = origins.device
     B, N = ts.shape
     _check("origins", origins, (B, 3), device)
@@ -189,7 +232,8 @@ def _launch(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
     with torch.cuda.device(device):
         err = lib.field_rays_fwd(
             origins.data_ptr(), dirs.data_ptr(), ts.data_ptr(), ptrs,
-            *[o.data_ptr() for o in outs], B, N, _stream(device))
+            *[o.data_ptr() for o in outs], B, N, int(precision == "bf16"),
+            _stream(device))
     if err != 0:
         raise RuntimeError(f"field_rays_fwd kernel launch failed: CUDA error {err}")
     field_rays.launches += 1
@@ -199,7 +243,7 @@ def _launch(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
 
 def _launch_bwd(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
                 ts: torch.Tensor, g_sigma: torch.Tensor, g_r: torch.Tensor,
-                g_g: torch.Tensor, g_b: torch.Tensor) -> Grads:
+                g_g: torch.Tensor, g_b: torch.Tensor, precision: str) -> Grads:
     device = origins.device
     B, N = ts.shape
     _check("origins", origins, (B, 3), device)
@@ -220,7 +264,8 @@ def _launch_bwd(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
             origins.data_ptr(), dirs.data_ptr(), ts.data_ptr(),
             g_sigma.data_ptr(), g_r.data_ptr(), g_g.data_ptr(), g_b.data_ptr(),
             ptrs, d_o.data_ptr(), d_d.data_ptr(), d_ts.data_ptr(),
-            flat.data_ptr(), workspace.data_ptr(), B, N, _stream(device))
+            flat.data_ptr(), workspace.data_ptr(), B, N,
+            int(precision == "bf16"), _stream(device))
     if err != 0:
         raise RuntimeError(f"field_rays_bwd kernel launch failed: CUDA error {err}")
     field_rays_bwd.launches += 1
@@ -247,11 +292,12 @@ def _on_one_device(tensors: List[torch.Tensor], what: str) -> bool:
 def field_rays_bwd(params: mlp.Params, origins: torch.Tensor,
                    dirs: torch.Tensor, ts: torch.Tensor, g_sigma: torch.Tensor,
                    g_r: torch.Tensor, g_g: torch.Tensor,
-                   g_b: torch.Tensor) -> Grads:
+                   g_b: torch.Tensor, precision: str = "fp32") -> Grads:
     """The field's recompute backward: the (B, N) cotangents of (sigma, r, g,
-    b) -> ``(grads, d_origins, d_dirs, d_ts)``. CUDA tensors launch the
-    kernel; CPU tensors take ``field_rays_bwd_plain``."""
-    args = (params, origins, dirs, ts, g_sigma, g_r, g_g, g_b)
+    b) -> ``(grads, d_origins, d_dirs, d_ts)``, all float32. CUDA tensors
+    launch the kernel; CPU tensors take ``field_rays_bwd_plain``."""
+    _check_precision(precision)
+    args = (params, origins, dirs, ts, g_sigma, g_r, g_g, g_b, precision)
     tensors = [origins, dirs, ts, g_sigma, g_r, g_g, g_b] + [
         t for layer in params.values() for t in layer.values()]
     if _on_one_device(tensors, "field_rays_bwd"):
@@ -279,13 +325,14 @@ class _FieldRays(torch.autograd.Function):
     """``field_rays`` with ``field_rays_bwd`` as its backward."""
 
     @staticmethod
-    def forward(ctx, origins, dirs, ts, *flat):
+    def forward(ctx, origins, dirs, ts, precision, *flat):
         params = _unflatten(flat)
         if _on_one_device([origins, dirs, ts, *flat], "field_rays"):
-            (r, g, b), sigma = _launch(params, origins, dirs, ts)
+            (r, g, b), sigma = _launch(params, origins, dirs, ts, precision)
         else:
-            (r, g, b), sigma = field_rays_plain(params, origins, dirs, ts)
+            (r, g, b), sigma = field_rays_plain(params, origins, dirs, ts, precision)
         ctx.save_for_backward(origins, dirs, ts, *flat)
+        ctx.precision = precision
         return r, g, b, sigma
 
     @staticmethod
@@ -294,8 +341,8 @@ class _FieldRays(torch.autograd.Function):
         origins, dirs, ts, *flat = ctx.saved_tensors
         cots = [_kernel_ready(g) for g in (g_sigma, g_r, g_g, g_b)]
         grads, d_o, d_d, d_ts = field_rays_bwd(_unflatten(flat), origins, dirs,
-                                               ts, *cots)
-        return (d_o, d_d, d_ts, *[grads[name][k] for name, k in _PARAM_KEYS])
+                                               ts, *cots, precision=ctx.precision)
+        return (d_o, d_d, d_ts, None, *[grads[name][k] for name, k in _PARAM_KEYS])
 
 
 def field_rays(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
@@ -304,13 +351,54 @@ def field_rays(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
     """Ray-major fused field: origins/dirs (B, 3), ts (B, N) -> ((r, g, b),
     sigma), each (B, N) float32, differentiable in every input. CUDA tensors
     launch the kernels; CPU tensors take the plain versions."""
-    if precision != "fp32":
-        raise NotImplementedError(
-            f"PRECISION={precision} is not ported yet (ROADMAP queue 2, "
-            "item 1: bf16 weights for the field kernel)")
+    _check_precision(precision)
     r, g, b, sigma = _FieldRays.apply(
-        origins, dirs, ts, *[params[name][k] for name, k in _PARAM_KEYS])
+        origins, dirs, ts, precision, *[params[name][k] for name, k in _PARAM_KEYS])
     return (r, g, b), sigma
 
 
 field_rays.launches = 0
+
+
+def _launch_flat(params: mlp.Params, points: torch.Tensor, dirs: torch.Tensor,
+                 precision: str) -> torch.Tensor:
+    device = points.device
+    R = points.shape[0]
+    _check("points", points, (R, 3), device)
+    _check("dirs", dirs, (R, 3), device)
+    ptrs = _param_ptrs(params, device)
+    lib = _library(FLAT_SOURCE)
+    out = torch.empty((R, 4), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.field_flat_fwd(points.data_ptr(), dirs.data_ptr(), ptrs,
+                                 out.data_ptr(), R, int(precision == "bf16"),
+                                 _stream(device))
+    if err != 0:
+        raise RuntimeError(f"field_flat_fwd kernel launch failed: CUDA error {err}")
+    field_flat.launches += 1
+    return out
+
+
+def field_flat(params: mlp.Params, points: torch.Tensor, dirs: torch.Tensor,
+               precision: str = "fp32") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The field at flat points: points, dirs (..., 3) -> (color (..., 3),
+    sigma (..., 1)), float32. CUDA tensors launch the forward kernel, and
+    raise where autograd would record a graph (its backward is not ported);
+    CPU tensors take ``field_flat_plain``, which is differentiable."""
+    _check_precision(precision)
+    lead = points.shape[:-1]
+    pts, drs = points.reshape(-1, 3), dirs.reshape(-1, 3)
+    tensors = [pts, drs] + [t for layer in params.values() for t in layer.values()]
+    if not _on_one_device(tensors, "field_flat"):
+        color, sigma = field_flat_plain(params, pts, drs, precision)
+    elif torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "field_flat on the card is forward only: its backward, TPU kernel 4 "
+            "(mlp_kernel.py::_fused_backward), is not ported yet (ROADMAP queue 2)")
+    else:
+        out = _launch_flat(params, _kernel_ready(pts), _kernel_ready(drs), precision)
+        color, sigma = out[:, :3], out[:, 3:]
+    return color.reshape(*lead, 3), sigma.reshape(*lead, 1)
+
+
+field_flat.launches = 0

@@ -3,7 +3,7 @@
 
 ``Runner(cfg)`` loads the scene's splits onto the device, builds ``k_inv``,
 starts fresh or resumes the latest checkpoint under ``CKPT_PATH`` with its
-Adam state, and then trains (``train()``), renders the test split
+Adam state (and its occupancy grid, with ``OCC_GRID``), and then trains (``train()``), renders the test split
 (``display()``) or renders a camera path (``render_path_video()``). The
 host loop only ticks: every per-iteration tensor stays on the device until
 a ``STEP`` boundary, where the loop prints, writes the preview canvas and a
@@ -21,6 +21,7 @@ import torch
 
 from tinynerf_torch import ckpt, eval as evallib, train as trainlib
 from tinynerf_torch.config import Config
+from tinynerf_torch.core.occupancy import derive_march_steps
 from tinynerf_torch.core.rays import make_k_inv
 from tinynerf_torch.data.poses import SceneData, load_scene
 from tinynerf_torch.data.rays import RayTable
@@ -41,6 +42,12 @@ class Runner:
     def __init__(self, cfg: Config, device: DeviceLike = "cuda",
                  scene: Optional[SceneData] = None):
         evallib.check_supported(cfg)
+        if cfg.occ_grid and cfg.data_type == "sync" and not cfg.white_bkgd:
+            raise ValueError(
+                "OCC_GRID on a white-composited (sync) scene requires "
+                "WHITE_BKGD = True: rays that miss occupied space composite "
+                "to the background and would train toward black against "
+                "white ground truth.")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.start_time = time.strftime("%m-%d-%H-%M-%S", time.localtime())
@@ -61,24 +68,32 @@ class Runner:
 
         self.last_iter = -1
         self.trained = False  # set by train(): rendering may then proceed
-        params = opt_state = gen_state = None
+        params = opt_state = gen_state = occ = None
         if cfg.continue_:
             latest = ckpt.find_latest(cfg.ckpt_path)
             if latest is not None:
                 (self.last_iter, params, opt_state,
                  gen_state) = ckpt.load_train_state(latest, self.device)
+                if cfg.occ_grid:  # the weights co-adapted to the saved grid
+                    occ = ckpt.load_occ_grid(latest, self.device)
                 print(f"Resumed from {latest} (iter {self.last_iter})")
         if self.last_iter < 0:
             print("New run created.")
         self.state = trainlib.init_state(cfg, self.device, params=params,
                                          opt_state=opt_state,
-                                         iteration=self.last_iter + 1)
+                                         iteration=self.last_iter + 1, occ=occ)
         if gen_state is not None:  # continue the sample stream
             if gen_state.numel() == self.state.generator.get_state().numel():
                 self.state.generator.set_state(gen_state)
             else:
                 print("Note: the checkpoint's generator state is for another "
                       "device; the sample stream restarts from SEED")
+        if cfg.occ_grid and cfg.occ_march_steps is None:
+            # the probe count must out-resolve the grid's 3-cell dilation
+            # margin over this scene's longest ray span
+            pb = self.train_table.poses.cpu().numpy()
+            cfg.occ_march_steps = derive_march_steps(
+                cfg.occ_res, cfg.occ_extent, float(np.max(pb[:, 16] - pb[:, 15])))
         self.logger: Optional[MetricLogger] = None  # opened by train()
 
     @property
@@ -150,7 +165,8 @@ class Runner:
                         cfg.results_path, f"{self.start_time}_{it - 1}.jpg"))
                     ckpt.save_checkpoint(cfg.ckpt_path, self.start_time, it - 1,
                                          self.state.params, self.state.opt,
-                                         generator=self.state.generator)
+                                         generator=self.state.generator,
+                                         occ=self.state.occ)
                     self.last_iter = it - 1
                 meter.reset()
         self.logger.flush()
@@ -172,7 +188,7 @@ class Runner:
         frames = evallib.render_test_set(
             self.cfg, self.params, self.test_table, self.k_inv,
             self.start_time, self.last_iter, save=True, max_views=max_views,
-            depth=depth)
+            depth=depth, occ_grid=self.state.occ)
         score = evallib.test_psnr(frames, self.test_table)
         ssim_score = evallib.test_ssim(frames, self.test_table)
         print(f"Test PSNR: {score:.2f} dB over {frames.shape[0]} views "
@@ -196,4 +212,4 @@ class Runner:
         print(f"Rendering {n_views}-view path at "
               f"{int(hwf[0])}x{int(hwf[1])} -> {out_base}")
         return evallib.render_path(self.cfg, self.params, pose_rows, k_inv,
-                                   out_base)
+                                   out_base, occ_grid=self.state.occ)
