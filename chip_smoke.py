@@ -57,8 +57,36 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
 9. drives ``conf/lego_occ.ini`` at ``PRECISION=fp32``, cut to 10 steps
    (one refresh, at iteration 0): the fp32 form of kernel 3 on a training
    path; checks the launch counts and a finite loss;
-10. prints one ``{"kernels": [...]}`` line (every kernel form) and, last,
+10. drives ``conf/lego_grid.ini`` with ``GRID_PALLAS`` (the CP grid field at
+   R = 256, 64 + 64 components, decoder width 128; the proposal grid at R =
+   64, 16 + 16, width 16; bf16, 4096 rays, 64 + 128 samples, the occupancy
+   grid, WHITE_BKGD, GRID_LR_MULT 20, GRID_TV 0.1) from fresh seeded
+   weights on the same kind of scene: ``Runner.train()`` for 300 steps (256
+   + 44). Checks exactly 600 forward and 600 backward grid-kernel launches
+   (one of each per grid per step), no MLP kernel launch (the refreshes at
+   0 and 256 run the plain point field, as in the JAX package), a finite
+   falling loss; prints s/step, rays/s and a profile of five steps; holds
+   one step's gradient through kernels 5 and 6 against the plain versions
+   (``grid_rays_reference``) on a grid with content, cosine >= 0.999 for
+   each of the net's and the proposal's lines and decoder; saves the state;
+11. renders two 800x800 views from that checkpoint with the grid: exactly
+   2 x 157 x 2 forward launches, finite frames in [0, 1], a chunk through
+   the kernels against the plain versions (1e-3 per pixel), s/frame and a
+   profile of rendered chunks;
+12. drives ``lego_grid`` at ``PRECISION=fp32`` for 10 steps (the fp32 forms
+   of kernels 5 and 6 on a path) and ``conf/lego_fast.ini`` with
+   ``GRID_PALLAS`` for 10 steps (the MLP fine field through kernels 1-2,
+   the proposal grid through kernels 5-6, the refresh at 0 through kernel
+   3), checking the launch counts and finite losses;
+13. prints one ``{"kernels": [...]}`` line (every kernel form) and, last,
    one ``{"ok": true, "device": {...}}`` line.
+
+Kernels 5 and 6 (``csrc/grid_rays_fwd.cu``, ``csrc/grid_rays_bwd.cu``) are
+held against their plain versions in phase 3 (fp32 and bf16, at B = 4096
+with the fine grid at N = 128 and the proposal grid at N = 64, at ragged
+shapes and on grid nodes and the clip boundary; the backward bit-identical
+across two launches) and timed in phase 4 beside both bounds (the gather
+form's FLOPs and the bytes) and the TPU kernel's own hat-form FLOP count.
 
 
 Any failure raises, and the script exits non-zero without the last line. It
@@ -104,6 +132,14 @@ OCC_STEPS = 300             # lego_occ: refreshes at iterations 0 and 256
 OCC_FP32_STEPS = 10         # lego_occ at fp32: one refresh, at iteration 0
 OCC_SHAPES = ((4096, 64), (4096, 128))   # the field calls of a lego_occ step
 FLAT_ROWS = (32768, 65536, 32768 + 37)   # one refresh's probes; a chunk; ragged
+GRID = {"fine": (256, 64, 64, 128),      # lego_grid's fine grid: R, Fd, Fa, width
+        "prop": (64, 16, 16, 16)}        # its proposal grid (the config defaults)
+GRID_SHAPES = (("fine", 4096, 128), ("prop", 4096, 64))   # a lego_grid step's calls
+GRID_CHECKS = GRID_SHAPES + (("fine", 1001, 128), ("prop", 37, 5), ("fine", "nodes", 8))
+GRID_MARGIN = 1e-5          # rows this close to a ReLU kink or sigma = 0: no cotangent
+GRID_STEPS = 300            # lego_grid: refreshes at iterations 0 and 256
+GRID_FP32_STEPS = 10        # lego_grid at fp32
+FAST_STEPS = 10             # lego_fast with GRID_PALLAS
 
 
 def phase(title: str) -> None:
@@ -247,6 +283,117 @@ def profile_calls(fn, n: int, what: str) -> None:
         print(f"  {ms / n:9.3f} ms/{one}  {calls // n:5d}/{one}  {name[:90]}")
 
 
+def grid_with_content(geometry: str, device, seed: int):
+    """A grid field at ``GRID[geometry]`` from a seed, its density columns
+    scaled by 3 (sigma by 27: a field with content)."""
+    import torch
+    from tinynerf_torch.core import gridfield
+    res, nd, na, width = GRID[geometry]
+    params = gridfield.init_grid_field(torch.Generator().manual_seed(seed), res=res,
+                                       n_density=nd, n_app=na, decoder_width=width,
+                                       device=device)
+    return scale_density(params, nd)
+
+
+def scale_density(params, n_density: int):
+    """A copy of a grid field with its density columns scaled by 3."""
+    import torch
+    out = {"lines": {ax: t.clone() for ax, t in params["lines"].items()},
+           "decoder": params["decoder"], "extent": params["extent"]}
+    with torch.no_grad():
+        for t in out["lines"].values():
+            t[:, :n_density] *= 3.0
+    return out
+
+
+def grid_rays_at(rng, B, N):
+    """Dyadic rays through the grid's cube [-1.5, 1.5]^3 and out of it
+    (clipped points); ``B = "nodes"``: axis-aligned rays whose samples sit on
+    the fine grid's nodes 85 and 170 (+-0.5), on the clip boundary and
+    outside it."""
+    import numpy as np
+    if B == "nodes":
+        o = np.float32([[-2.0, 0.5, 0.5], [0.5, -2.0, -0.5], [-0.5, 0.5, -2.0],
+                        [-2.0, 1.5, -1.5]])
+        d = np.float32([[1, 0, 0], [0, 1, 0], [0, 0, 1], [1, 0, 0]])
+        t = np.float32([0.25, 0.5, 1.0, 1.5, 2.0, 2.5, 3.5, 3.75])[:N]
+        return o, d, np.tile(t, (len(o), 1))
+    q = lambda x: np.round(x * 16.0) / 16.0
+    origins = q(rng.uniform(-1, 1, (B, 3))).astype(np.float32)
+    d = rng.normal(size=(B, 3))
+    dirs = q(d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    ts = np.sort(q(rng.uniform(0.0, 2.5, (B, N))), axis=1)
+    return origins, dirs, ts.astype(np.float32)
+
+
+def grid_bwd_errors(kernel, plain):
+    """{output: (max |err|, max |err| / max |plain|, cosine)} over every
+    output of grid_rays_bwd."""
+    import torch
+    (kg, *k_rest), (pg, *p_rest) = kernel, plain
+    pairs = [(f"lines.{ax}", kg["lines"][ax], pg["lines"][ax]) for ax in "xyz"]
+    pairs += [(f"{n}.{k}", kg["decoder"][n][k], pg["decoder"][n][k])
+              for n in ("hidden", "color") for k in ("w", "b")]
+    pairs += list(zip(("d_origins", "d_dirs", "d_ts", "d_de"), k_rest, p_rest))
+    out = {}
+    for name, a, b in pairs:
+        err = float((a - b).abs().max())
+        cos = float(torch.nn.functional.cosine_similarity(
+            a.flatten().double(), b.flatten().double(), dim=0))
+        out[name] = (err, err / max(float(b.abs().max()), 1e-30), cos)
+    return out
+
+
+def grid_part_cosines(grads_a, grads_b):
+    """{part: cosine} for the lines and decoder of the net and the proposal."""
+    import torch
+    from tinynerf_torch import optim
+    flat = lambda tree: torch.cat([t.flatten().double() for t in optim.leaves(tree)])
+    out = {}
+    for part in ("net", "prop"):
+        for key in ("lines", "decoder"):
+            a, b = flat(grads_a[part][key]), flat(grads_b[part][key])
+            out[f"{part}.{key}"] = float(a @ b / (a.norm() * b.norm()))
+    return out
+
+
+def reference_grid_fields(cfg):
+    """The net's and the proposal's grid fields with the plain versions
+    (``grid_rays_reference``) as ``eval_rays``: what a step or a chunk
+    through kernels 5 and 6 is held against."""
+    from tinynerf_torch.core import gridfield
+    from tinynerf_torch.kernels import grid_kernel as gk
+    fields = []
+    for nd in (cfg.grid_comp_density, cfg.prop_grid_comp_density):
+        fn = functools.partial(gridfield.apply_grid_field, n_density=nd,
+                               precision=cfg.precision)
+        fn.eval_rays = functools.partial(gk.grid_rays_reference, n_density=nd,
+                                         precision=cfg.precision)
+        fields.append(fn)
+    return fields
+
+
+def run_config(conf: str, tmp: str, tag: str, steps: int, **overrides):
+    """A Config from ``conf/<conf>.ini`` writing under ``tmp``, trained to
+    ``steps`` below STEP (no preview JPG), with ``overrides``."""
+    from tinynerf_torch.config import load_config
+    cfg = load_config(os.path.join(ROOT, "conf", f"{conf}.ini"))
+    cfg.ckpt_path = os.path.join(tmp, f"{tag}_ckpt")
+    cfg.results_path = os.path.join(tmp, f"{tag}_results")
+    cfg.log_dir = os.path.join(tmp, f"{tag}_runs")
+    cfg.continue_ = False
+    cfg.total_iter = steps
+    cfg.step = 10 * steps
+    for k, v in overrides.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def logged_losses(runner):
+    with open(runner.logger.path) as f:
+        return [json.loads(line)["loss/train"] for line in f]
+
+
 def blender_scene(n_views: int, hw: int, seed: int):
     """An in-memory Blender-style scene: cameras on a radius-4 circle looking
     at the origin, lego's field of view, near/far 2/6, smooth random images."""
@@ -281,8 +428,9 @@ def main() -> int:
     import numpy as np
     from tinynerf_torch import ckpt, eval as evallib, optim, train
     from tinynerf_torch.config import load_config
-    from tinynerf_torch.core import mlp, occupancy, rays as raylib, render, sampling
+    from tinynerf_torch.core import gridfield, mlp, occupancy, rays as raylib, render, sampling
     from tinynerf_torch.kernels import build
+    from tinynerf_torch.kernels import grid_kernel as gk
     from tinynerf_torch.kernels import mlp_kernel as mk
     from tinynerf_torch.runner import Runner
 
@@ -310,10 +458,14 @@ def main() -> int:
     smem = {mk.FWD_SOURCE: mk._library(mk.FWD_SOURCE).field_rays_fwd_smem_bytes(),
             mk.BWD_SOURCE: mk._library(mk.BWD_SOURCE).field_rays_bwd_smem_bytes(),
             mk.FLAT_SOURCE: mk._library(mk.FLAT_SOURCE).field_flat_fwd_smem_bytes()}
-    for source in (mk.FWD_SOURCE, mk.BWD_SOURCE, mk.FLAT_SOURCE):
+    for geometry, dims in GRID.items():
+        smem[f"{gk.FWD_SOURCE} {geometry}"] = gk._library(gk.FWD_SOURCE).grid_rays_fwd_smem_bytes(*dims)
+        smem[f"{gk.BWD_SOURCE} {geometry}"] = gk._library(gk.BWD_SOURCE).grid_rays_bwd_smem_bytes(*dims)
+    for source in (mk.FWD_SOURCE, mk.BWD_SOURCE, mk.FLAT_SOURCE, gk.FWD_SOURCE, gk.BWD_SOURCE):
         info = build.build_log[source]
-        print(f"{source}: nvcc {info['seconds']:.1f} s; dynamic smem of the "
-              f"main kernel {smem[source]} B/block")
+        sizes = ", ".join(f"{k.split()[-1] if ' ' in k else 'main kernel'} {v} B"
+                          for k, v in smem.items() if k.split()[0] == source)
+        print(f"{source}: nvcc {info['seconds']:.1f} s; dynamic smem per block: {sizes}")
         for line in info["ptxas"]:
             print(f"  ptxas: {line}")
 
@@ -428,6 +580,66 @@ def main() -> int:
         del kernel, plain, errs
     torch.cuda.empty_cache()
 
+    # ---- 3e. kernels 5 and 6 (the grid field), fp32 and bf16, vs plain ----
+    phase("kernels 5 and 6 (grid field forward and recompute backward) vs plain, "
+          "fp32 and bf16")
+    grid_params = {g: grid_with_content(g, dev, seed=i) for i, g in enumerate(GRID)}
+    grid_inputs = {}
+    grid_err = {f: 0.0 for f in ("fwd fp32", "fwd bf16", "bwd fp32", "bwd bf16")}
+    grid_rel = {"bwd fp32": 0.0, "bwd bf16": 0.0}
+    for geometry, B, N in GRID_CHECKS:
+        params_g, nd = grid_params[geometry], GRID[geometry][1]
+        o, d, ts = (torch.from_numpy(a).to(dev) for a in grid_rays_at(rng, B, N))
+        de = gk.encoding.encode_dirs(d)
+        for precision in ("fp32", "bf16"):
+            with torch.no_grad():
+                k_out = gk.grid_rays(params_g, o, d, ts, nd, precision)
+                torch.cuda.synchronize()
+                p_out = gk.grid_rays_plain(params_g, o, d, ts, de, nd, precision)
+            ce, se, sigma_ok, _, _ = field_errors(k_out, p_out)
+            if precision == "fp32":
+                fwd_ok = ce <= COLOR_ATOL and sigma_ok
+                fwd_note = f"color atol {COLOR_ATOL}, sigma atol {SIGMA_ATOL} rtol {SIGMA_RTOL}"
+            else:
+                rel = max(rel_err(a, b) for a, b in zip((*k_out[0], k_out[1]),
+                                                         (*p_out[0], p_out[1])))
+                fwd_ok = rel <= BF16_FWD_RTOL
+                fwd_note = f"error / max|plain| {rel:.3e}, limit {BF16_FWD_RTOL}"
+            keep = (gk.preactivation_margin(params_g, o, d, ts, nd, precision)
+                    > GRID_MARGIN).float()
+            cots = [torch.from_numpy(rng.normal(size=tuple(ts.shape)).astype(np.float32)).to(dev)
+                    * keep for _ in range(4)]
+            kernel = gk.grid_rays_bwd(params_g, o, d, ts, de, *cots, n_density=nd,
+                                      precision=precision)
+            again = gk.grid_rays_bwd(params_g, o, d, ts, de, *cots, n_density=nd,
+                                     precision=precision)
+            torch.cuda.synchronize()
+            plain = gk.grid_rays_bwd_plain(params_g, o, d, ts, de, *cots, n_density=nd,
+                                           precision=precision)
+            errs = grid_bwd_errors(kernel, plain)
+            worst = max(errs, key=lambda k: errs[k][1])
+            cos = min(e[2] for e in errs.values())
+            same = all(e[0] == 0 for e in grid_bwd_errors(kernel, again).values())
+            limit = BWD_RTOL if precision == "fp32" else BF16_BWD_RTOL
+            bwd_ok = errs[worst][1] <= limit and (precision == "fp32" or cos >= BF16_COS)
+            print(f"{geometry} B={B} N={N} {precision}: forward max |color err| {ce:.3e}, "
+                  f"max |sigma err| {se:.3e} ({fwd_note}); backward ({100 * (1 - float(keep.mean())):.3f}% "
+                  f"of rows within {GRID_MARGIN} of a kink, zero cotangent) worst {worst} "
+                  f"{errs[worst][1]:.3e} of max|plain| (limit {limit}), d_ts "
+                  f"{errs['d_ts'][1]:.3e}, lines.x {errs['lines.x'][1]:.3e}, smallest cosine "
+                  f"{cos:.7f}; two launches bit-identical: {same}")
+            if not (fwd_ok and bwd_ok and same):
+                raise AssertionError(f"kernels 5/6 disagree with their plain versions at "
+                                     f"{geometry} B={B} N={N} {precision}: {errs}")
+            grid_err[f"fwd {precision}"] = max(grid_err[f"fwd {precision}"], ce, se)
+            grid_err[f"bwd {precision}"] = max(grid_err[f"bwd {precision}"],
+                                               max(e[0] for e in errs.values()))
+            grid_rel[f"bwd {precision}"] = max(grid_rel[f"bwd {precision}"], errs[worst][1])
+            del kernel, again, plain
+        if (geometry, B, N) in GRID_SHAPES:
+            grid_inputs[B, N] = (geometry, o, d, ts, de, cots)
+    torch.cuda.empty_cache()
+
     # ---- 4. timing ----
     phase("timing (per launch, CUDA events)")
     fwd_time, bwd_time = {}, {}
@@ -492,6 +704,45 @@ def main() -> int:
             f"kernel 2 bf16 B={B} N={N}", k_ms, p_ms, 3 * mk.flops_per_row() * B * N,
             4 * (2 * 3 * B + 5 * B * N + n_params + 2 * 3 * B + B * N + n_params), "bf16")
     del bf16_inputs, flat_inputs
+    torch.cuda.empty_cache()
+
+    # kernels 5 and 6: (ms, plain ms, bound ms, bound_by, f32 FMA bound ms)
+    # per (precision, (B, N)); the bound counts the gather form's FLOPs
+    grid_fwd_time = {"fp32": {}, "bf16": {}}
+    grid_bwd_time = {"fp32": {}, "bf16": {}}
+    for (B, N), (geometry, o, d, ts, de, cots) in grid_inputs.items():
+        params_g, dims = grid_params[geometry], GRID[geometry]
+        nd = dims[1]
+        n_grid = gridfield.num_params(params_g)
+        flops = gk.flops_per_row(*dims) * B * N
+        hat = gk.hat_flops_per_row(*dims) * B * N
+        # in: origins, dirs, ts, the encoding, params; out: four planes
+        fwd_bytes = 4 * (6 * B + B * N + 24 * B + n_grid + 4 * B * N)
+        # in: the same and four cotangent planes; out: d_o, d_d, d_ts, d_de, grads
+        bwd_bytes = 4 * (6 * B + B * N + 24 * B + n_grid + 4 * B * N
+                         + 6 * B + B * N + 24 * B + n_grid)
+        for precision in ("fp32", "bf16"):
+            with torch.no_grad():
+                k_ms = cuda_ms(lambda: gk.grid_rays(params_g, o, d, ts, nd, precision), iters=20)
+                p_ms = cuda_ms(lambda: gk.grid_rays_plain(params_g, o, d, ts, de, nd, precision),
+                               iters=5)
+            grid_fwd_time[precision][B, N] = report(
+                f"kernel 5 {precision} {geometry} B={B} N={N}", k_ms, p_ms, flops, fwd_bytes,
+                precision)
+            k_ms = cuda_ms(lambda: gk.grid_rays_bwd(params_g, o, d, ts, de, *cots,
+                                                     n_density=nd, precision=precision), iters=10)
+            p_ms = cuda_ms(lambda: gk.grid_rays_bwd_plain(params_g, o, d, ts, de, *cots,
+                                                          n_density=nd, precision=precision),
+                           iters=3)
+            grid_bwd_time[precision][B, N] = report(
+                f"kernel 6 {precision} {geometry} B={B} N={N}", k_ms, p_ms, 3 * flops,
+                bwd_bytes, precision)
+        print(f"  {geometry}: the TPU kernel's own hat-form count {hat / 1e9:.2f} GFLOP "
+              f"forward ({gk.hat_flops_per_row(*dims):,} a row) against the gather form's "
+              f"{flops / 1e9:.3f} ({gk.flops_per_row(*dims):,} a row); bytes {fwd_bytes / 1e6:.2f} MB "
+              f"forward, {bwd_bytes / 1e6:.2f} MB backward, bytes bound "
+              f"{1e3 * fwd_bytes / PEAK_BYTES:.4f} / {1e3 * bwd_bytes / PEAK_BYTES:.4f} ms")
+    del grid_inputs
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -833,7 +1084,202 @@ def main() -> int:
             raise AssertionError("lego_occ at fp32: not every loss is finite")
         del runner
 
-    # ---- 10. results ----
+        def reset_counts():
+            mk.field_rays.launches = mk.field_rays_bwd.launches = mk.field_flat.launches = 0
+            gk.grid_rays.launches = gk.grid_rays_bwd.launches = 0
+
+        mlp_counts = lambda: (mk.field_rays.launches, mk.field_rays_bwd.launches,
+                              mk.field_flat.launches)
+
+        # ---- 10. the lego_grid training path, GRID_PALLAS ----
+        phase("lego_grid training path (GRID_PALLAS: grid field and proposal grid, bf16, "
+              "occupancy grid)")
+        gcfg = run_config("lego_grid", tmp, "grid", GRID_STEPS, grid_pallas=True)
+        runner = Runner(gcfg, device="cuda",
+                        scene=blender_scene(n_views=TRAIN_VIEWS, hw=800, seed=gcfg.seed))
+        n_net, n_prop = (gridfield.num_params(runner.params[k]) for k in ("net", "prop"))
+        print(f"{gcfg.precision}, BATCH_RAY {gcfg.batch_ray}, {gcfg.n_coarse}+{gcfg.n_fine} "
+              f"samples; fine grid R={gcfg.grid_res}, {gcfg.grid_comp_density}+"
+              f"{gcfg.grid_comp_app} components, decoder width {gcfg.grid_decoder_width} "
+              f"({n_net:,} params); proposal grid R={gcfg.prop_grid_res}, "
+              f"{gcfg.prop_grid_comp_density}+{gcfg.prop_grid_comp_app}, width "
+              f"{gcfg.prop_grid_decoder_width} ({n_prop:,} params); GRID_LR_MULT "
+              f"{gcfg.grid_lr_mult}, GRID_TV {gcfg.grid_tv}; OCC_RES {gcfg.occ_res}, "
+              f"OCC_MARCH_STEPS {gcfg.occ_march_steps} (derived)")
+        if (n_net, n_prop) != (110_084, 6_852):
+            raise AssertionError("lego_grid's grids are not at full width")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid_shares_after = []
+        for end in (gcfg.occ_update_every, GRID_STEPS):  # read the grid after each refresh
+            gcfg.total_iter = end
+            runner.train()
+            grid_shares_after.append(grid_shares(runner.state.occ))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        grid_launches = (gk.grid_rays.launches, gk.grid_rays_bwd.launches)
+        print(f"Runner.train(): {GRID_STEPS} steps of {gcfg.batch_ray} rays in {seconds:.2f} s "
+              f"({seconds / GRID_STEPS * 1e3:.2f} ms/step, first steps included); launches: "
+              f"grid forward {grid_launches[0]}, backward {grid_launches[1]} (expected "
+              f"{2 * GRID_STEPS} each); MLP kernels (forward, backward, flat) {mlp_counts()} "
+              "(expected none: the refreshes run the plain point field)")
+        if grid_launches != (2 * GRID_STEPS, 2 * GRID_STEPS) or any(mlp_counts()):
+            raise AssertionError("the lego_grid path did not run kernels 5 and 6 as expected")
+        for it, (probed, occupied) in zip((0, gcfg.occ_update_every), grid_shares_after):
+            print(f"grid after the refresh at iteration {it}: {100 * probed:.2f}% of cells "
+                  f"probed, {100 * occupied:.2f}% occupied")
+        losses = logged_losses(runner)
+        if len(losses) != GRID_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{len(losses)} logged losses, not all finite")
+        first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+        print(f"loss: mean of the first 10 steps {first:.4f}, of the last 10 {last:.4f} "
+              f"(step 0 {losses[0]:.4f}, step {GRID_STEPS - 1} {losses[-1]:.4f})")
+        if not last < first:
+            raise AssertionError("the lego_grid loss did not fall")
+
+        step = train.make_train_step(gcfg, runner.train_table, runner.k_inv)
+        state = runner.state
+        for _ in range(2):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(6):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        grid_ms = (time.perf_counter() - t0) / 6 * 1e3
+        grid_kern = sum(grid_fwd_time["bf16"][s][0] + grid_bwd_time["bf16"][s][0]
+                        for s in ((4096, 64), (4096, 128)))
+        print(f"BATCH_RAY {gcfg.batch_ray}: {grid_ms / 1e3:.5f} s/step, "
+              f"{gcfg.batch_ray / grid_ms * 1e3:,.0f} rays/s; kernels 5 and 6 {grid_kern:.3f} ms "
+              f"of it ({100 * grid_kern / grid_ms:.1f}%: 2 forward + 2 backward bf16 launches at "
+              "their timed per-launch ms)")
+        profile_steps(step, state)
+
+        # one step on grids with content: kernels 5 and 6 vs their plain versions
+        content = {"net": scale_density(runner.params["net"], gcfg.grid_comp_density),
+                   "prop": scale_density(runner.params["prop"], gcfg.prop_grid_comp_density)}
+        batch = runner.train_table.sample(torch.Generator(device=dev).manual_seed(3),
+                                          gcfg.batch_ray)
+        ref_net, ref_prop = reference_grid_fields(gcfg)
+        _, _, g_k = train.loss_and_grads(train.make_loss_fn(gcfg, runner.k_inv), content,
+                                         batch, None, runner.state.occ)
+        _, _, g_p = train.loss_and_grads(train.make_loss_fn(gcfg, runner.k_inv, ref_net,
+                                                            ref_prop),
+                                         content, batch, None, runner.state.occ)
+        grid_cos = grid_part_cosines(g_k, g_p)
+        print("one bf16 step, kernels 5 and 6 vs their plain versions (density x3): gradient "
+              "cosines " + ", ".join(f"{k} {v:.7f}" for k, v in grid_cos.items())
+              + f" (limit {BF16_COS})")
+        if min(grid_cos.values()) < BF16_COS:
+            raise AssertionError("the grid kernels' training gradient disagrees with the "
+                                 "plain versions'")
+        grid_iter = runner.state.iteration - 1
+        ckpt.save_checkpoint(gcfg.ckpt_path, "smoke", grid_iter, runner.params,
+                             runner.state.opt, generator=runner.state.generator,
+                             occ=runner.state.occ)
+        trained_grid_occ = runner.state.occ
+        del runner, state, step, g_k, g_p, content
+
+        # ---- 11. the lego_grid render path, from that checkpoint ----
+        phase("lego_grid render path (GRID_PALLAS, occupancy grid)")
+        gcfg.continue_ = True
+        scene = blender_scene(n_views=2, hw=800, seed=gcfg.seed)
+        runner = Runner(gcfg, device="cuda", scene=scene)
+        if runner.last_iter != grid_iter or not torch.equal(runner.state.occ.raw,
+                                                           trained_grid_occ.raw):
+            raise AssertionError("Runner did not resume the lego_grid checkpoint and its grid")
+        expected = 2 * n_chunks * scene.images.shape[0]
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = evallib.render_test_set(
+            gcfg, runner.params, runner.test_table, runner.k_inv, runner.start_time,
+            runner.last_iter, save=False, occ_grid=runner.state.occ)
+        torch.cuda.synchronize()
+        grid_frame_s = (time.perf_counter() - t0) / frames.shape[0]
+        grid_render_launches = gk.grid_rays.launches
+        print(f"rendered {frames.shape[0]} views of {scene.height}x{scene.width} with the grid "
+              f"from the iteration-{grid_iter} checkpoint: {grid_frame_s:.3f} s/frame; grid "
+              f"forward launches {grid_render_launches} (expected {expected} = 2 x {n_chunks} "
+              f"chunks x {frames.shape[0]} views), backward {gk.grid_rays_bwd.launches}, MLP "
+              f"{mlp_counts()}")
+        if (grid_render_launches, gk.grid_rays_bwd.launches, *mlp_counts()) != (expected, 0, 0, 0, 0):
+            raise AssertionError("the lego_grid render path did not run kernel 5 (and only it) "
+                                 "on every field call")
+        if not (frames.shape == (2, scene.height, scene.width, 3) and np.all(np.isfinite(frames))
+                and frames.min() >= 0 and frames.max() <= 1):
+            raise AssertionError("the lego_grid frame is not finite values in [0, 1]")
+        print(f"frame mean {frames.mean():.4f}, std {frames.std():.4f}")
+        with torch.no_grad():
+            span = slice((n_chunks // 2) * gcfg.render_chunk,
+                         (n_chunks // 2 + 1) * gcfg.render_chunk)
+            idx = torch.arange(num_pix, device=dev)[span]
+            rows, cols = (idx // scene.width).float(), (idx % scene.width).float()
+            pose = runner.test_table.poses[0].expand(rows.shape[0], 17)
+            args = (rows, cols, pose, runner.k_inv, gcfg.n_coarse, gcfg.n_fine)
+            kw = dict(white_bkgd=True, occ_grid=runner.state.occ,
+                      occ_march=gcfg.occ_march_steps, prop_params=runner.params["prop"])
+            kern_net, kern_prop = evallib.make_field_fn(gcfg), evallib.make_prop_field_fn(gcfg)
+            _, c_kernel = render.render_rays(runner.params["net"], *args, field_fn=kern_net,
+                                             prop_field_fn=kern_prop, **kw)
+            _, c_plain = render.render_rays(runner.params["net"], *args, field_fn=ref_net,
+                                            prop_field_fn=ref_prop, **kw)
+            grid_pix_err = float((c_kernel - c_plain).abs().max())
+            print(f"real chunk with the grid, kernels 5 and 6 vs their plain versions (bf16): "
+                  f"max |pixel err| {grid_pix_err:.3e}, mean "
+                  f"{float((c_kernel - c_plain).abs().mean()):.3e} (atol {BF16_CHUNK_ATOL})")
+            if not grid_pix_err <= BF16_CHUNK_ATOL:
+                raise AssertionError("the grid kernels' render disagrees with the plain render")
+            profile_calls(lambda: render.render_rays(runner.params["net"], *args,
+                                                     field_fn=kern_net, prop_field_fn=kern_prop,
+                                                     merge_impl="twolist", **kw),
+                          5, "chunks")
+        del runner
+
+        # ---- 12. lego_grid at fp32, and lego_fast with GRID_PALLAS ----
+        phase("lego_grid at PRECISION=fp32, 10 steps (the fp32 forms of kernels 5 and 6)")
+        fgcfg = run_config("lego_grid", tmp, "grid_fp32", GRID_FP32_STEPS, grid_pallas=True,
+                           precision="fp32")
+        runner = Runner(fgcfg, device="cuda",
+                        scene=blender_scene(n_views=TRAIN_VIEWS, hw=800, seed=fgcfg.seed))
+        reset_counts()
+        runner.train()
+        torch.cuda.synchronize()
+        grid_fp32_launches = (gk.grid_rays.launches, gk.grid_rays_bwd.launches)
+        losses = logged_losses(runner)
+        print(f"{GRID_FP32_STEPS} steps: grid launches forward {grid_fp32_launches[0]}, backward "
+              f"{grid_fp32_launches[1]} (expected {2 * GRID_FP32_STEPS} each), MLP "
+              f"{mlp_counts()}; losses {losses[0]:.2f} .. {losses[-1]:.2f}")
+        if grid_fp32_launches != (2 * GRID_FP32_STEPS,) * 2 or any(mlp_counts()):
+            raise AssertionError("lego_grid at fp32 did not run the fp32 grid kernels as expected")
+        if len(losses) != GRID_FP32_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError("lego_grid at fp32: not every loss is finite")
+        del runner
+
+        phase("lego_fast with GRID_PALLAS, 10 steps (MLP fine field, proposal grid)")
+        fast = run_config("lego_fast", tmp, "fast", FAST_STEPS, grid_pallas=True)
+        runner = Runner(fast, device="cuda",
+                        scene=blender_scene(n_views=TRAIN_VIEWS, hw=800, seed=fast.seed))
+        reset_counts()
+        t0 = time.perf_counter()
+        runner.train()
+        torch.cuda.synchronize()
+        fast_s = time.perf_counter() - t0
+        fast_launches = (*mlp_counts(), gk.grid_rays.launches, gk.grid_rays_bwd.launches)
+        losses = logged_losses(runner)
+        print(f"{fast.precision}, {fast.n_coarse}+{fast.n_fine} samples, {FAST_STEPS} steps in "
+              f"{fast_s:.2f} s: launches MLP forward {fast_launches[0]}, backward "
+              f"{fast_launches[1]}, flat {fast_launches[2]}; grid forward {fast_launches[3]}, "
+              f"backward {fast_launches[4]} (expected {FAST_STEPS} each, 1 flat for the refresh "
+              f"at 0); losses {losses[0]:.2f} .. {losses[-1]:.2f}")
+        if fast_launches != (FAST_STEPS, FAST_STEPS, 1, FAST_STEPS, FAST_STEPS):
+            raise AssertionError("lego_fast did not run kernels 1-3, 5 and 6 as expected")
+        if len(losses) != FAST_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError("lego_fast: not every loss is finite")
+        del runner
+
+    # ---- 13. results ----
     mean = lambda table, shapes, i: sum(table[s][i] for s in shapes) / len(shapes)
     shape_key = lambda s: f"B={s[0]},N={s[1]}" if len(s) == 2 else f"R={s[0]}"
     render_shapes = [(4096, 64), (4096, 128)]
@@ -866,29 +1312,60 @@ def main() -> int:
               "lego_occ fp32 train": fp32_launches[0]},
              fwd_err, fwd_time, render_shapes),
         form("field_rays_fwd_bf16", fwd_src, "tinynerf/kernels/mlp_kernel.py:720",
-             occ_launches[0] + occ_render_launches,
-             {"lego_occ train": occ_launches[0], "lego_occ render": occ_render_launches},
+             occ_launches[0] + occ_render_launches + fast_launches[0],
+             {"lego_occ train": occ_launches[0], "lego_occ render": occ_render_launches,
+              "lego_fast train": fast_launches[0]},
              bf16_fwd_err, bf16_fwd_time, list(OCC_SHAPES)),
         form("field_rays_bwd", bwd_src, "tinynerf/kernels/mlp_kernel.py:751",
              train_launches[1] + fp32_launches[1],
              {"lego train": train_launches[1], "lego_occ fp32 train": fp32_launches[1]},
              bwd_abs, bwd_time, STEP_SHAPES, {"max_rel_err": bwd_rel}),
         form("field_rays_bwd_bf16", bwd_src, "tinynerf/kernels/mlp_kernel.py:751",
-             occ_launches[1], {"lego_occ train": occ_launches[1]}, bf16_bwd_abs,
-             bf16_bwd_time, list(OCC_SHAPES), {"max_rel_err": bf16_bwd_rel}),
+             occ_launches[1] + fast_launches[1],
+             {"lego_occ train": occ_launches[1], "lego_fast train": fast_launches[1]},
+             bf16_bwd_abs, bf16_bwd_time, list(OCC_SHAPES), {"max_rel_err": bf16_bwd_rel}),
         form("field_flat_fwd", flat_src, "tinynerf/kernels/mlp_kernel.py:269",
              fp32_launches[2], {"lego_occ fp32 train": fp32_launches[2]},
              flat_err["fp32"], flat("fp32"), [(FLAT_ROWS[0],)]),
         form("field_flat_fwd_bf16", flat_src, "tinynerf/kernels/mlp_kernel.py:269",
-             occ_launches[2], {"lego_occ train": occ_launches[2]}, flat_err["bf16"],
-             flat("bf16"), [(FLAT_ROWS[0],)]),
+             occ_launches[2] + fast_launches[2],
+             {"lego_occ train": occ_launches[2], "lego_fast train": fast_launches[2]},
+             flat_err["bf16"], flat("bf16"), [(FLAT_ROWS[0],)]),
+    ]
+    gfwd_src, gbwd_src = ("tinynerf_torch/csrc/grid_rays_fwd.cu",
+                          "tinynerf_torch/csrc/grid_rays_bwd.cu")
+    grid_shapes = [(B, N) for _, B, N in GRID_SHAPES]
+    rows = {"flops_per_row": {g: gk.flops_per_row(*dims) for g, dims in GRID.items()},
+            "hat_flops_per_row": {g: gk.hat_flops_per_row(*dims) for g, dims in GRID.items()}}
+    kernels += [
+        form("grid_rays_fwd", gfwd_src, "tinynerf/kernels/grid_kernel.py:309",
+             grid_fp32_launches[0], {"lego_grid fp32 train": grid_fp32_launches[0]},
+             grid_err["fwd fp32"], grid_fwd_time["fp32"], grid_shapes, rows),
+        form("grid_rays_fwd_bf16", gfwd_src, "tinynerf/kernels/grid_kernel.py:309",
+             grid_launches[0] + grid_render_launches + fast_launches[3],
+             {"lego_grid train": grid_launches[0], "lego_grid render": grid_render_launches,
+              "lego_fast train": fast_launches[3]},
+             grid_err["fwd bf16"], grid_fwd_time["bf16"], grid_shapes, rows),
+        form("grid_rays_bwd", gbwd_src, "tinynerf/kernels/grid_kernel.py:344",
+             grid_fp32_launches[1], {"lego_grid fp32 train": grid_fp32_launches[1]},
+             grid_err["bwd fp32"], grid_bwd_time["fp32"], grid_shapes,
+             {"max_rel_err": grid_rel["bwd fp32"]}),
+        form("grid_rays_bwd_bf16", gbwd_src, "tinynerf/kernels/grid_kernel.py:344",
+             grid_launches[1] + fast_launches[4],
+             {"lego_grid train": grid_launches[1], "lego_fast train": fast_launches[4]},
+             grid_err["bwd bf16"], grid_bwd_time["bf16"], grid_shapes,
+             {"max_rel_err": grid_rel["bwd bf16"]}),
     ]
     print(json.dumps({"train_step": {str(b): {"ms": t[0], "kernel_ms": t[1]}
                                      for b, t in step_time.items()},
                       "lego_occ": {"step_ms": occ_ms, "kernel_ms": occ_kern,
                                    "refresh_ms": refresh_ms, "frame_s": occ_frame_s,
                                    "march_ms_per_chunk": march_ms,
-                                   "grid_shares": shares}}))
+                                   "grid_shares": shares},
+                      "lego_grid": {"step_ms": grid_ms, "kernel_ms": grid_kern,
+                                    "frame_s": grid_frame_s, "grid_shares": grid_shares_after,
+                                    "grad_cosines": grid_cos, "chunk_pix_err": grid_pix_err},
+                      "lego_fast": {"seconds_10_steps": fast_s}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -206,3 +206,109 @@ def test_bf16_bwd_kernel_matches_plain_on_card(n_rays, n_samples):
     assert errors[worst] <= BF16_BWD_RTOL, errors
     assert cos >= BF16_COS
     assert all(e == 0 for e in _errors(kernel, again).values())
+
+
+# ---------------------------------------------------------------- the grid field
+
+from tinynerf_torch.core import gridfield  # noqa: E402
+from tinynerf_torch.kernels import grid_kernel as gk  # noqa: E402
+
+GRID = {"fine": (256, 64, 64, 128),   # conf/lego_grid.ini's fine grid
+        "prop": (64, 16, 16, 16)}     # its proposal grid
+GRID_MARGIN = 1e-5   # rows this close to a ReLU's kink or to sigma = 0: no cotangent
+
+
+def _grid_params(geometry, dev, seed):
+    """Seeded weights, the density columns scaled by 3 (a grid with content)."""
+    res, nd, na, width = GRID[geometry]
+    params = gridfield.init_grid_field(torch.Generator().manual_seed(seed), res=res,
+                                       n_density=nd, n_app=na, decoder_width=width,
+                                       device=dev)
+    for ax in gridfield.AXES:
+        params["lines"][ax][:, :nd] *= 3.0
+    return params, nd
+
+
+def _grid_rays(seed, B, N):
+    """Dyadic rays through [-1.5, 1.5]^3 and out of it (clipped points)."""
+    rng = np.random.default_rng(seed)
+    q = lambda x: np.round(x * 16.0) / 16.0
+    origins = q(rng.uniform(-1, 1, (B, 3))).astype(np.float32)
+    d = rng.normal(size=(B, 3))
+    dirs = q(d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    ts = np.sort(q(rng.uniform(0.0, 2.5, (B, N))).astype(np.float32), axis=1)
+    return origins, dirs, ts
+
+
+def _node_rays(N):
+    """Axis-aligned rays on the fine grid's nodes 85 and 170 (+-0.5), on the
+    clip boundary (+-1.5) and outside it."""
+    o = np.float32([[-2.0, 0.5, 0.5], [0.5, -2.0, -0.5], [-0.5, 0.5, -2.0],
+                    [-2.0, 1.5, -1.5]])
+    d = np.float32([[1, 0, 0], [0, 1, 0], [0, 0, 1], [1, 0, 0]])
+    t = np.float32([0.25, 0.5, 1.0, 1.5, 2.0, 2.5, 3.5, 3.75])[:N]
+    return o, d, np.tile(t, (len(o), 1))
+
+
+def _grid_errors(kernel, plain):
+    """error / max|plain| and the cosine, for every output of grid_rays_bwd."""
+    (kg, *k_rest), (pg, *p_rest) = kernel, plain
+    pairs = [(f"lines.{ax}", kg["lines"][ax], pg["lines"][ax]) for ax in gridfield.AXES]
+    pairs += [(f"{n}.{k}", kg["decoder"][n][k], pg["decoder"][n][k])
+              for n in ("hidden", "color") for k in ("w", "b")]
+    pairs += list(zip(("d_origins", "d_dirs", "d_ts", "d_de"), k_rest, p_rest))
+    return {name: (_rel(a, b), float(torch.nn.functional.cosine_similarity(
+        a.flatten().double(), b.flatten().double(), dim=0))) for name, a, b in pairs}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("geometry,n_rays,n_samples", [
+    ("fine", 4096, 128), ("prop", 4096, 64), ("fine", 13, 7), ("prop", 37, 5),
+    ("fine", "nodes", 8)])
+def test_grid_kernels_match_plain_on_card(geometry, n_rays, n_samples, precision):
+    """Kernels 5 and 6 at conf/lego_grid.ini's fine (N = 128) and proposal
+    (N = 64) grids at B = 4096, at ragged shapes and at grid-node hits and
+    the clip boundary. fp32: color 1e-5, sigma 1e-4 abs + 1e-4 rel, every
+    gradient within 1e-4 of max|plain|; bf16: each output within
+    BF16_FWD_RTOL, each gradient within BF16_BWD_RTOL of max|plain| and at
+    cosine >= BF16_COS. Rows within 1e-5 of a ReLU kink or of sigma = 0 get
+    zero cotangents. Two backward calls agree bit for bit."""
+    dev = _card()
+    params, nd = _grid_params(geometry, dev, seed=n_samples)
+    rays = _node_rays(n_samples) if n_rays == "nodes" else _grid_rays(7, n_rays, n_samples)
+    o, d, t = (torch.from_numpy(a).to(dev) for a in rays)
+    de = gk.encoding.encode_dirs(d)
+    before = (gk.grid_rays.launches, gk.grid_rays_bwd.launches)
+    with torch.no_grad():
+        (r, g, b), sigma = gk.grid_rays(params, o, d, t, nd, precision)
+        (pr, pg, pb), p_sigma = gk.grid_rays_plain(params, o, d, t, de, nd, precision)
+    torch.cuda.synchronize()
+    if precision == "fp32":
+        for a, p in ((r, pr), (g, pg), (b, pb)):
+            torch.testing.assert_close(a, p, atol=1e-5, rtol=0)
+        torch.testing.assert_close(sigma, p_sigma, atol=1e-4, rtol=1e-4)
+    else:
+        errs = [_rel(x, y) for x, y in ((r, pr), (g, pg), (b, pb), (sigma, p_sigma))]
+        assert max(errs) <= BF16_FWD_RTOL, errs
+    keep = (gk.preactivation_margin(params, o, d, t, nd, precision) > GRID_MARGIN).float()
+    rng = np.random.default_rng(3)
+    cots = [torch.from_numpy(rng.normal(size=t.shape).astype(np.float32)).to(dev) * keep
+            for _ in range(4)]
+    kernel = gk.grid_rays_bwd(params, o, d, t, de, *cots, n_density=nd, precision=precision)
+    again = gk.grid_rays_bwd(params, o, d, t, de, *cots, n_density=nd, precision=precision)
+    plain = gk.grid_rays_bwd_plain(params, o, d, t, de, *cots, n_density=nd,
+                                   precision=precision)
+    torch.cuda.synchronize()
+    assert (gk.grid_rays.launches, gk.grid_rays_bwd.launches) == (before[0] + 1, before[1] + 2)
+    errors = _grid_errors(kernel, plain)
+    worst = max(errors, key=lambda k: errors[k][0])
+    print(f"grid {geometry} {precision} B={n_rays} N={n_samples}: worst {worst} "
+          f"{errors[worst][0]:.3e}, min cosine {min(e[1] for e in errors.values()):.7f}")
+    if precision == "fp32":
+        assert errors[worst][0] <= 1e-4, errors
+    else:
+        assert errors[worst][0] <= BF16_BWD_RTOL, errors
+        assert min(e[1] for e in errors.values()) >= BF16_COS, errors
+    assert all(e[0] == 0 for e in _grid_errors(kernel, again).values())
+    assert float(kernel[0]["extent"]) == 0.0

@@ -275,7 +275,10 @@ _GRID = dict(OCC_GRID="True", WHITE_BKGD="True")
 
 
 @pytest.mark.parametrize("extra,what", [
-    pytest.param({"PROPOSAL": "True"}, "PROPOSAL", id="PROPOSAL-True"),
+    # the proposal grid and the grid field are ported; the proposal MLP and
+    # GRID_HYBRID's sigma net are not
+    pytest.param({"PROPOSAL": "True", "PROP_FIELD": "mlp"}, "PROP_FIELD=mlp",
+                 id="PROPOSAL-True"),
     # the occupancy grid and bf16 are ported; their forms on the contracted
     # or disparity-spaced march are not
     pytest.param(dict(_GRID, CONTRACT="True"), "OCC_GRID with CONTRACT",
@@ -286,7 +289,8 @@ _GRID = dict(OCC_GRID="True", WHITE_BKGD="True")
     pytest.param({"PROFILE_STEPS": "5"}, "PROFILE_STEPS=5", id="PROFILE_STEPS-5"),
     pytest.param({"CONTRACT": "True"}, "CONTRACT", id="CONTRACT-True"),
     pytest.param({"LINDISP": "True"}, "LINDISP", id="LINDISP-True"),
-    pytest.param({"FINE_FIELD": "grid"}, "FINE_FIELD=grid", id="FINE_FIELD-grid"),
+    pytest.param({"FINE_FIELD": "grid", "GRID_HYBRID": "True"}, "GRID_HYBRID",
+                 id="FINE_FIELD-grid"),
     pytest.param(dict(_GRID, PRECISION="bf16", LINDISP="True"),
                  "OCC_GRID with LINDISP", id="PRECISION-bf16")])
 def test_unported_config_keys_raise(sync_scene_dir, tmp_path, extra, what):

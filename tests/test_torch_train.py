@@ -363,8 +363,14 @@ def test_sampled_step_trains_and_is_seeded(step_setup, stratified):
 
 @pytest.mark.parametrize("what", ["FINE_FIELD", "PROPOSAL"])
 def test_init_state_refuses_slice_3_fields(what):
-    cfg = Config(fine_field="grid") if what == "FINE_FIELD" else Config(proposal=True)
-    with pytest.raises(NotImplementedError, match="slice 4: the grid field"):
+    """The grid field and the proposal grid train (slice 4); the forms of
+    them still to port are refused by name before any weight is made."""
+    if what == "FINE_FIELD":
+        cfg, match = Config(fine_field="grid", grid_levels=2), "GRID_LEVELS=2 .*slice 5"
+    else:
+        cfg = Config(proposal=True, fine_field="grid", grid_upsample="1000:384")
+        match = "GRID_UPSAMPLE=1000:384 .*item 13"
+    with pytest.raises(NotImplementedError, match=match):
         train.init_state(cfg, torch.device("cpu"))
 
 

@@ -2,13 +2,13 @@
 
 A second package beside the JAX one (``tinynerf``), which it mirrors module
 by module and against which ``tests/test_torch_*.py`` hold it. It imports
-neither JAX nor ``tinynerf``. The reference-semantics NeRF is ported: it
-trains (``python -m tinynerf_torch --mode train``) and renders from a
-checkpoint (``--mode display|path``); ``--mode all`` does both. The field
-runs through hand-written CUDA kernels on the card, its forward and its
-recompute backward (``kernels/mlp_kernel.py``, ``csrc/field_rays_fwd.cu``,
-``csrc/field_rays_bwd.cu``), and through their plain PyTorch versions on the
-CPU.
+neither JAX nor ``tinynerf``. The reference-semantics NeRF, the occupancy
+grid, bf16, the CP grid field and the proposal grid are ported: it trains
+(``python -m tinynerf_torch --mode train``) and renders from a checkpoint
+(``--mode display|path``); ``--mode all`` does both. The fields run through
+hand-written CUDA kernels on the card (``kernels/mlp_kernel.py``,
+``kernels/grid_kernel.py``, ``csrc/*.cu``), and through their plain PyTorch
+versions on the CPU.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,9 @@
 """Checkpoints: the JAX package's flat-npz layout, so one file loads in both.
 
 Keys are ``params::<layer>::w`` (``(in, out)``) and ``params::<layer>::b``
-plus ``iteration``; a training checkpoint also holds the Adam state,
+for the MLP; ``params::lines::{x,y,z}``, ``params::decoder::{hidden,color}::
+{w,b}`` and a 0-d ``params::extent`` for the grid field; under ``PROPOSAL``
+the same under ``params::net::`` and ``params::prop::``; plus ``iteration``; a training checkpoint also holds the Adam state,
 ``mu::``/``nu::`` moments and ``adam_count``, and with ``OCC_GRID`` the
 occupancy grid, ``occ::raw``, ``occ::density``, ``occ::half_extent`` and
 ``occ::threshold`` (training state: the weights co-adapt to the grid's
@@ -24,7 +26,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from tinynerf_torch.core import mlp, occupancy
+from tinynerf_torch.core import gridfield, mlp, occupancy
+from tinynerf_torch.core.encoding import DIR_ENC_DIM
 
 _SEP = "::"
 GENERATOR_KEY = "torch_generator"
@@ -53,17 +56,47 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
     return tree
 
 
+def _f32(x, device: torch.device) -> torch.Tensor:
+    return torch.tensor(np.asarray(x, dtype=np.float32), device=device)
+
+
+def _grid_from_numpy(tree: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
+    """A grid field's tree: the x, y, z line tables (one shape), the decoder
+    (``hidden`` (24 + Fa, W), ``color`` (W, 3)) and a 0-d ``extent``."""
+    gridfield.check_params(tree)
+    out = {"lines": {ax: _f32(tree["lines"][ax], device) for ax in gridfield.AXES},
+           "decoder": {name: {k: _f32(tree["decoder"][name][k], device) for k in ("w", "b")}
+                       for name in ("hidden", "color")},
+           "extent": _f32(tree["extent"], device)}
+    res, n_comp = out["lines"]["x"].shape
+    dec = out["decoder"]
+    width = dec["hidden"]["w"].shape[1]
+    if (any(out["lines"][ax].shape != (res, n_comp) for ax in gridfield.AXES)
+            or dec["hidden"]["w"].shape[0] - DIR_ENC_DIM not in range(0, n_comp)
+            or dec["hidden"]["b"].shape != (width,) or dec["color"]["w"].shape != (width, 3)
+            or dec["color"]["b"].shape != (3,) or out["extent"].shape != ()):
+        raise ValueError("grid field shapes do not agree: "
+                         f"{ {k: tuple(v.shape) for k, v in _flatten(out).items()} }")
+    return out
+
+
 def params_from_numpy(tree: Dict[str, Any],
                       device: torch.device = torch.device("cpu"),
-                      ) -> mlp.Params:
+                      ) -> Any:
     """The JAX package's parameters, as a nested dict of numpy arrays (or
     anything ``np.asarray`` takes), -> the port's parameters: the same
     nesting, float32 tensors on ``device``. Layouts agree, so nothing is
-    transposed or permuted."""
+    transposed or permuted. Takes the MLP's tree, a grid field's, or the
+    ``{"net", "prop"}`` pair of either (``PROPOSAL``); refuses the grid forms
+    not ported yet (``sigma_net``, pyramid level tables) by name."""
+    if set(tree) == {"net", "prop"}:
+        return {k: params_from_numpy(tree[k], device) for k in ("net", "prop")}
+    if "lines" in tree:
+        return _grid_from_numpy(tree, device)
     if "trunk_0" not in tree:
         raise ValueError(
-            "only the reference MLP's parameters are ported "
-            f"(expected trunk_0 ... color, got {sorted(tree)})")
+            "expected the reference MLP's parameters (trunk_0 ... color), a grid "
+            f"field's (lines, decoder, extent) or a net/prop pair, got {sorted(tree)}")
     params: mlp.Params = {}
     for name, fan_in, fan_out in mlp.layer_dims():
         w = np.asarray(tree[name]["w"], dtype=np.float32)
@@ -77,7 +110,7 @@ def params_from_numpy(tree: Dict[str, Any],
 
 
 def save_checkpoint(path_dir: str, start_time: str, iteration: int,
-                    params: mlp.Params, opt_state=None,
+                    params: Any, opt_state=None,
                     generator: Optional[torch.Generator] = None,
                     occ: Optional[occupancy.OccGrid] = None) -> str:
     """Write ``<path_dir>/<start_time>_<iteration>.npz``; returns the path.
@@ -108,7 +141,7 @@ def _tree(archive, prefix: str) -> Dict[str, Any]:
 
 
 def load_checkpoint_full(path: str, device: torch.device = torch.device("cpu"),
-                         ) -> Tuple[int, mlp.Params]:
+                         ) -> Tuple[int, Any]:
     """Returns ``(iteration, params)``: what rendering needs."""
     with np.load(path) as archive:
         iteration = int(archive["iteration"])

@@ -1,7 +1,8 @@
 """Volume rendering: coarse + hierarchical fine march, compositing and loss.
 
 Counterpart of ``tinynerf/core/render.py`` for the reference-semantics
-march and the occupancy grid (no proposal, NDC or LINDISP). Semantics kept:
+march, the occupancy grid and the proposal field (no NDC or LINDISP).
+Semantics kept:
 
 - Q5: **inclusive** cumsum in the transmittance exponent,
   ``w_i = exp(-sum_{j<=i} sigma_j delta_j) * (1 - exp(-sigma_i delta_i))``;
@@ -15,7 +16,12 @@ march and the occupancy grid (no proposal, NDC or LINDISP). Semantics kept:
   fine pass's gradient reaches the coarse sigma through ``d_ts``;
 - ``ray_loss`` is the sum of squares over rays and channels of both passes;
 - with an occupancy grid (``OCC_GRID``), each ray's [near, far] is first
-  tightened to the occupied cells it crosses (``occupancy.tighten_bounds``).
+  tightened to the occupied cells it crosses (``occupancy.tighten_bounds``);
+- with a proposal field (``PROPOSAL``: ``prop_params`` and
+  ``prop_field_fn``) the coarse pass runs on it, the resampler's CDF is fed
+  the detached coarse weights, and the fine pass is composited on its own
+  over the ``n_fine`` samples (the last with the constant tail delta): the
+  proposal places samples and never enters C_fine.
 
 The JAX package composites the merged set without sorting, through compare
 masks (``merge_impl="twolist"``) or one-hot rank products (``"permute"``,
@@ -163,6 +169,22 @@ def _eval_field(field_fn: FieldFn, params: mlp.Params, origins: torch.Tensor,
     return _as_channels(color), sigma.squeeze(-1)
 
 
+def _standalone_composite(t_fi: torch.Tensor, sigma_fi: torch.Tensor, color_fi,
+                          white_bkgd: bool, extras: bool):
+    """The proposal mode's fine pass alone: (C_fine,) or, with ``extras``,
+    (C_fine, depth, acc) over the fine samples."""
+    delta = torch.cat([t_fi[:, 1:] - t_fi[:, :-1],
+                       torch.full_like(t_fi[:, :1], TAIL_DELTA)], dim=1)
+    weights = get_density(delta, sigma_fi)
+    c_fine = composite(weights, color_fi)
+    acc = torch.sum(weights, dim=1)
+    if white_bkgd:
+        c_fine = c_fine + (1.0 - acc)[:, None]
+    if extras:
+        return c_fine, torch.sum(weights * t_fi, dim=1) / torch.clamp(acc, min=1e-10), acc
+    return (c_fine,)
+
+
 def _not_ported(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, {where})")
 
@@ -183,15 +205,18 @@ def render_rays(params: mlp.Params,
                 occ_march_res: Optional[int] = None,
                 extras: bool = False,
                 prop_params=None,
+                prop_field_fn: Optional[FieldFn] = None,
                 lindisp: bool = False):
     """Coarse + fine march for a ray batch -> (C_coarse, C_fine), each (B, 3).
 
     With ``extras=True`` returns ``(C_coarse, C_fine, depth, acc)``, depth
-    and acc (B,) over the merged sample set. ``generator`` jitters the coarse
-    samples (stratified). ``merge_impl`` is accepted as ``"twolist"`` or
-    ``"permute"``: both are the same stable-sort merge here. ``occ_grid``
-    tightens each ray's bounds first, with ``occ_march`` probes per ray
-    (``occupancy.tighten_bounds``).
+    and acc (B,) over the merged sample set (with a proposal field: over the
+    fine samples). ``generator`` jitters the coarse samples (stratified).
+    ``merge_impl`` is accepted as ``"twolist"`` or ``"permute"``: both are
+    the same stable-sort merge here. ``occ_grid`` tightens each ray's bounds
+    first, with ``occ_march`` probes per ray (``occupancy.tighten_bounds``).
+    ``prop_params`` with ``prop_field_fn`` runs the coarse pass on the
+    proposal field (``PROPOSAL``; module docstring).
     """
     if merge_impl not in ("twolist", "permute"):
         raise ValueError(f"unknown merge_impl {merge_impl!r}")
@@ -199,7 +224,20 @@ def render_rays(params: mlp.Params,
         raise ValueError("extras needs the coupled merge; COMPAT_SORT "
                          "sorts every channel on its own")
     if prop_params is not None:
-        raise _not_ported("PROPOSAL", "slice 4: the grid field and the proposal grid")
+        if n_fine == 0:
+            raise ValueError(
+                "PROPOSAL with N_FINE=0 would train/render ONLY the narrow "
+                "proposal net (the main network never evaluates) — use "
+                "PROPOSAL=False for coarse-only runs.")
+        if compat_sort:
+            raise ValueError(
+                "PROPOSAL is incompatible with COMPAT_SORT: the proposal mode "
+                "composites the fine pass standalone, so the reference's Q4 "
+                "per-channel sort defect cannot be reproduced under it. Use "
+                "PROPOSAL=False for parity experiments.")
+        if prop_field_fn is None:
+            raise _not_ported("PROP_FIELD=mlp (the proposal MLP, the JAX package's "
+                              "default proposal field)", "slice 6: the proposal MLP")
     if ndc_params is not None:
         raise _not_ported("NDC", "slice 8: contraction/LINDISP/NDC")
 
@@ -212,7 +250,10 @@ def render_rays(params: mlp.Params,
     # ---- coarse pass ----
     t_co = sampling.coarse_ts(near, far, n_coarse, generator=generator,
                               lindisp=lindisp)
-    color_co, sigma_co = _eval_field(field_fn, params, origins, dirs, t_co)
+    if prop_params is not None:
+        color_co, sigma_co = _eval_field(prop_field_fn, prop_params, origins, dirs, t_co)
+    else:
+        color_co, sigma_co = _eval_field(field_fn, params, origins, dirs, t_co)
     delta_co = ((far - near) / n_coarse)[:, None].expand(t_co.shape)
     dense_co = get_density(delta_co, sigma_co)
     c_coarse = composite(dense_co, color_co)
@@ -225,9 +266,15 @@ def render_rays(params: mlp.Params,
     # ---- hierarchical fine pass: the CDF slope uses the linspace spacing
     # (far - near) / (N_c - 1), unlike the density delta above (a reference
     # inconsistency kept for parity) ----
-    t_fi = sampling.resample(t_co, dense_co, (far - near) / (n_coarse - 1),
+    # ---- a proposal field trains only on its own coarse loss: the CDF is
+    # fed the detached weights ----
+    dense_for_cdf = dense_co.detach() if prop_params is not None else dense_co
+    t_fi = sampling.resample(t_co, dense_for_cdf, (far - near) / (n_coarse - 1),
                              n_fine)
     color_fi, sigma_fi = _eval_field(field_fn, params, origins, dirs, t_fi)
+    if prop_params is not None:
+        return (c_coarse, *_standalone_composite(t_fi, sigma_fi, color_fi,
+                                                 white_bkgd, extras))
     if compat_sort:
         return c_coarse, compat_sorted_composite(
             t_co, t_fi, sigma_co, sigma_fi, color_co, color_fi)

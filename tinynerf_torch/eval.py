@@ -17,20 +17,54 @@ import numpy as np
 import torch
 
 from tinynerf_torch.config import Config
-from tinynerf_torch.core import render
+from tinynerf_torch.core import gridfield, render
 from tinynerf_torch.data.rays import RayTable
+
+
+def _grid_pallas_conflicts(cfg: Config) -> None:
+    """The JAX package's refusals of ``GRID_PALLAS`` with a grid form its
+    kernels do not compute (``tinynerf/train.py:147-155, 231-235``)."""
+    if not cfg.grid_pallas:
+        return
+    if cfg.fine_field == "grid" and cfg.grid_hybrid:
+        raise ValueError("GRID_PALLAS computes the plain CP form and would silently "
+                         "drop the GRID_HYBRID sigma net — unset one")
+    if cfg.fine_field == "grid" and cfg.grid_levels > 1:
+        raise ValueError("GRID_PALLAS reads only the level-0 line tables and would "
+                         "silently drop the GRID_LEVELS pyramid — unset one")
+    if cfg.proposal and cfg.prop_field == "grid" and cfg.prop_grid_hybrid:
+        raise ValueError("GRID_PALLAS computes the plain CP form and would silently "
+                         "drop the PROP_GRID_HYBRID sigma net — unset one")
 
 
 def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for a config the port cannot train or
-    render yet, naming the ROADMAP item that will bring it."""
+    render yet, naming the ROADMAP item that will bring it (and the JAX
+    package's ``ValueError`` for ``GRID_PALLAS`` with a form its kernels do
+    not compute)."""
     if cfg.precision not in ("fp32", "bf16"):
         raise ValueError(f"PRECISION must be fp32 or bf16, got {cfg.precision!r}")
+    if cfg.fine_field not in ("mlp", "grid"):
+        raise ValueError(f"FINE_FIELD must be mlp or grid, got {cfg.fine_field!r}")
+    _grid_pallas_conflicts(cfg)
+    grid = cfg.fine_field == "grid"
+    prop_grid = cfg.proposal and cfg.prop_field == "grid"
     refused = [
-        (cfg.fine_field != "mlp", f"FINE_FIELD={cfg.fine_field}",
-         "queue 1, slice 4: the grid field"),
-        (cfg.proposal, "PROPOSAL",
-         "queue 1, slice 4: the grid field and the proposal grid"),
+        (grid and cfg.grid_hybrid, "GRID_HYBRID", "queue 1, slice 5: the flagship"),
+        (prop_grid and cfg.prop_grid_hybrid, "PROP_GRID_HYBRID",
+         "queue 1, slice 5: the flagship"),
+        (grid and cfg.grid_levels > 1, f"GRID_LEVELS={cfg.grid_levels}",
+         "queue 1, slice 5: the flagship"),
+        (grid and cfg.grid_level_fold, "GRID_LEVEL_FOLD", "queue 1, slice 5: the flagship"),
+        (grid and bool(cfg.grid_upsample), f"GRID_UPSAMPLE={cfg.grid_upsample}",
+         "queue 1, item 13: GRID_UPSAMPLE"),
+        ((grid or prop_grid) and cfg.grid_lookup != "onehot",
+         f"GRID_LOOKUP={cfg.grid_lookup}", "queue 1, item 14: GRID_LOOKUP = gather"),
+        (cfg.proposal and cfg.prop_field != "grid", f"PROP_FIELD={cfg.prop_field}",
+         "queue 1, slice 6: the proposal MLP"),
+        (cfg.dist_loss > 0, "DIST_LOSS", "queue 1, slice 8: contraction/LINDISP/NDC"),
+        (cfg.prop_interlevel > 0, "PROP_INTERLEVEL",
+         "queue 1, slice 8: contraction/LINDISP/NDC"),
         (cfg.occ_grid and cfg.contract, "OCC_GRID with CONTRACT",
          "queue 1, slice 8: contraction/LINDISP/NDC"),
         (cfg.occ_grid and cfg.lindisp, "OCC_GRID with LINDISP",
@@ -51,14 +85,42 @@ def check_supported(cfg: Config) -> None:
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP {where})")
 
 
+def net_params(cfg: Config, params: Any) -> Any:
+    """The main field's params: with ``PROPOSAL`` the state's params are a
+    ``{"net", "prop"}`` pair (one Adam over both), else the tree itself."""
+    return params["net"] if cfg.proposal else params
+
+
+def prop_params(cfg: Config, params: Any) -> Optional[Any]:
+    return params["prop"] if cfg.proposal else None
+
+
+def _grid_field_fn(cfg: Config, n_density: int) -> render.FieldFn:
+    """The grid field at ``PRECISION``: the plain point field
+    (``gridfield.apply_grid_field``, the occupancy refresh's probes and, as
+    in the JAX package, the renderer's field without ``GRID_PALLAS``); with
+    ``GRID_PALLAS`` its ``eval_rays`` is ``grid_rays`` (on the card, TPU
+    kernels 5 and 6)."""
+    fn = gridfield.make_field_grid(n_density, cfg.grid_lookup, cfg.precision,
+                                   cfg.grid_level_fold)
+    if cfg.grid_pallas:
+        from tinynerf_torch.kernels.grid_kernel import grid_rays
+        fn.eval_rays = functools.partial(grid_rays, n_density=n_density,
+                                         precision=cfg.precision)
+    return fn
+
+
 def make_field_fn(cfg: Config) -> render.FieldFn:
-    """The field at ``PRECISION``, shared by training, rendering and the
-    occupancy refresh. With ``USE_PALLAS`` (``kernels/mlp_kernel``; on the
-    card, the CUDA kernels): the point field is ``field_flat`` (the
-    occupancy refresh's probes) and its ``eval_rays`` is ``field_rays``
-    (both passes of the renderer, forward and backward). Without it, the
-    plain field (``render.field_plain``, or ``render.field_plain_bf16``)."""
+    """The main field at ``PRECISION``, shared by training, rendering and the
+    occupancy refresh. ``FINE_FIELD = grid``: ``_grid_field_fn``. The MLP
+    with ``USE_PALLAS`` (``kernels/mlp_kernel``; on the card, the CUDA
+    kernels): the point field is ``field_flat`` (the occupancy refresh's
+    probes) and its ``eval_rays`` is ``field_rays`` (both passes of the
+    renderer, forward and backward). Without it, the plain field
+    (``render.field_plain``, or ``render.field_plain_bf16``)."""
     check_supported(cfg)
+    if cfg.fine_field == "grid":
+        return _grid_field_fn(cfg, cfg.grid_comp_density)
     if not cfg.use_pallas:
         return render.field_plain_bf16 if cfg.precision == "bf16" else render.field_plain
     from tinynerf_torch.kernels.mlp_kernel import field_flat, field_rays
@@ -67,15 +129,26 @@ def make_field_fn(cfg: Config) -> render.FieldFn:
     return fn
 
 
+def make_prop_field_fn(cfg: Config) -> Optional[render.FieldFn]:
+    """The proposal field of the coarse pass (None unless ``PROPOSAL``): the
+    proposal grid (``PROP_FIELD = grid``), as ``_grid_field_fn``."""
+    check_supported(cfg)
+    if not cfg.proposal:
+        return None
+    return _grid_field_fn(cfg, cfg.prop_grid_comp_density)
+
+
 def make_frame_fn(cfg: Config, k_inv: torch.Tensor, height: int, width: int,
                   field_fn: Optional[render.FieldFn] = None,
                   extras: bool = False, occ_grid=None):
     """Whole-frame renderer on ``k_inv``'s device: ``frame(params, pose17_row)``
     -> (H, W, 3) numpy, or with ``extras`` (rgb, depth, acc). ``occ_grid``
-    (the trained state's, with ``OCC_GRID``) tightens every ray's bounds."""
-    check_supported(cfg)
+    (the trained state's, with ``OCC_GRID``) tightens every ray's bounds.
+    With ``PROPOSAL``, ``params`` is the ``{"net", "prop"}`` pair and the
+    coarse pass runs the proposal field (``make_prop_field_fn``)."""
     if field_fn is None:
         field_fn = make_field_fn(cfg)
+    prop_fn = make_prop_field_fn(cfg)
     device = k_inv.device
     num_pix = height * width
     chunk = min(cfg.render_chunk, num_pix)
@@ -96,12 +169,13 @@ def make_frame_fn(cfg: Config, k_inv: torch.Tensor, height: int, width: int,
         for i in range(n_chunks):
             span = slice(i * chunk, (i + 1) * chunk)
             out = render.render_rays(
-                params, rows[span], cols[span], pose, k_inv,
+                net_params(cfg, params), rows[span], cols[span], pose, k_inv,
                 cfg.n_coarse, cfg.n_fine, field_fn=field_fn,
                 compat_sort=cfg.compat_sort, merge_impl="twolist",
                 white_bkgd=cfg.white_bkgd, occ_grid=occ_grid,
                 occ_march=cfg.occ_march_steps, occ_contract=cfg.contract,
-                occ_march_res=cfg.occ_march_res, extras=extras)
+                occ_march_res=cfg.occ_march_res, extras=extras,
+                prop_params=prop_params(cfg, params), prop_field_fn=prop_fn)
             rgb[span] = out[1]
             if extras:
                 depth[span], acc[span] = out[2], out[3]

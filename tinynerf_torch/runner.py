@@ -1,9 +1,11 @@
 """Training and rendering orchestration: the counterpart of
-``tinynerf/runner.py`` for the reference-semantics NeRF.
+``tinynerf/runner.py`` for the configurations the port has
+(``eval.check_supported``).
 
 ``Runner(cfg)`` loads the scene's splits onto the device, builds ``k_inv``,
 starts fresh or resumes the latest checkpoint under ``CKPT_PATH`` with its
-Adam state (and its occupancy grid, with ``OCC_GRID``), and then trains (``train()``), renders the test split
+Adam state (and its occupancy grid, with ``OCC_GRID``; with ``PROPOSAL`` the
+``{"net", "prop"}`` pair), and then trains (``train()``), renders the test split
 (``display()``) or renders a camera path (``render_path_video()``). The
 host loop only ticks: every per-iteration tensor stays on the device until
 a ``STEP`` boundary, where the loop prints, writes the preview canvas and a

@@ -1,14 +1,19 @@
 """The training step: sample -> render -> loss -> grad -> Adam.
 
-Counterpart of ``tinynerf/train.py`` for the 8x256 MLP field, at fp32 or
-bf16, with or without the occupancy grid (no grid field or proposal). A step
-draws a batch (or takes the caller's indices); with ``OCC_GRID``, every
-``OCC_UPDATE_EVERY`` iterations it first refreshes the grid from the current
-params (on the card, through the flat field kernel); it renders both passes
-through the field (``eval.make_field_fn``: on the card both field calls run
-the forward kernel and, in the backward, the recompute-backward kernel),
-takes the gradient of ``render.ray_loss`` with autograd and applies
-``optim.adam_update`` at the schedule's rate for the current iteration.
+Counterpart of ``tinynerf/train.py`` for the 8x256 MLP field and the CP
+grid field (``FINE_FIELD = grid``), with or without the proposal grid
+(``PROPOSAL``, ``PROP_FIELD = grid``), at fp32 or bf16, with or without the
+occupancy grid. A step draws a batch (or takes the caller's indices); with
+``OCC_GRID``, every ``OCC_UPDATE_EVERY`` iterations it first refreshes the
+grid from the main field's current params through its point field (the MLP:
+on the card, the flat field kernel; the grid field: its plain point field,
+as in the JAX package); it renders both passes (``eval.make_field_fn`` /
+``make_prop_field_fn``: on the card the MLP's calls run kernels 1 and 2, the
+grid fields' calls under ``GRID_PALLAS`` kernels 5 and 6), takes the
+gradient of ``render.ray_loss`` (plus ``GRID_TV`` times the fine grid's
+``tv_loss``) with autograd and applies ``optim.adam_update`` at the
+schedule's rate for the current iteration, the grids' line tables at
+``GRID_LR_MULT`` times it (``make_lr_scale``).
 
 The JAX package fuses several steps into one XLA program (``lax.scan`` in
 ``make_multi_step`` / ``make_chunked_*``) only to amortise XLA's dispatch;
@@ -19,44 +24,70 @@ CUDA graphs).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
 from tinynerf_torch import optim
 from tinynerf_torch.config import Config
-from tinynerf_torch.core import mlp, occupancy, render
+from tinynerf_torch.core import gridfield, mlp, occupancy, render
 from tinynerf_torch.data.rays import RayBatch, RayTable
-from tinynerf_torch.eval import make_field_fn  # one field for training and rendering
+# one field for training and rendering
+from tinynerf_torch.eval import (check_supported, make_field_fn, make_prop_field_fn,
+                                 net_params, prop_params)
 
 Metrics = dict
+# the proposal grid's fresh weights come from a generator seeded SEED + 2 (SEED
+# seeds the main field's, SEED + 1 the sampling generator)
+PROP_SEED_OFFSET = 2
 
 
 @dataclasses.dataclass
 class TrainState:
-    params: mlp.Params
+    params: Any                   # the main field's, or the {"net", "prop"} pair
     opt: optim.AdamState
     iteration: int                # drives the LR schedule and resume
     generator: torch.Generator    # batch draws, stratified jitter, grid probes
     occ: Optional[occupancy.OccGrid] = None  # with OCC_GRID
 
 
+def _fresh_params(cfg: Config, device: torch.device) -> Any:
+    """``mlp.init_network`` or ``gridfield.init_grid_field`` from a CPU
+    generator seeded with ``SEED``; with ``PROPOSAL`` the ``{"net", "prop"}``
+    pair, the proposal grid from a generator seeded ``SEED + 2``."""
+    gen = torch.Generator().manual_seed(cfg.seed)
+    if cfg.fine_field == "grid":
+        net = gridfield.init_grid_field(
+            gen, res=cfg.grid_res, n_density=cfg.grid_comp_density,
+            n_app=cfg.grid_comp_app, decoder_width=cfg.grid_decoder_width,
+            extent=cfg.grid_extent, hybrid=cfg.grid_hybrid, levels=cfg.grid_levels,
+            device=device)
+    else:
+        net = mlp.init_network(gen, device)
+    if not cfg.proposal:
+        return net
+    prop = gridfield.init_grid_field(
+        torch.Generator().manual_seed(cfg.seed + PROP_SEED_OFFSET),
+        res=cfg.prop_grid_res, n_density=cfg.prop_grid_comp_density,
+        n_app=cfg.prop_grid_comp_app, decoder_width=cfg.prop_grid_decoder_width,
+        extent=cfg.grid_extent, hybrid=cfg.prop_grid_hybrid, device=device)
+    return {"net": net, "prop": prop}
+
+
 def init_state(cfg: Config, device: torch.device,
-               params: Optional[mlp.Params] = None,
+               params: Optional[Any] = None,
                opt_state: Optional[optim.AdamState] = None,
                iteration: int = 0,
                generator: Optional[torch.Generator] = None,
                occ: Optional[occupancy.OccGrid] = None) -> TrainState:
-    """Fresh or resumed state. Fresh weights are ``mlp.init_network`` from a
-    CPU generator seeded with ``SEED``; the sampling generator lives on
-    ``device`` and is seeded with ``SEED + 1``. With ``OCC_GRID`` and no
-    resumed ``occ``, the grid starts all occupied (``occupancy.init_grid``)."""
-    if cfg.fine_field != "mlp" or cfg.proposal:
-        raise NotImplementedError(
-            "only the reference MLP trains in the port; FINE_FIELD=grid and "
-            "PROPOSAL are ROADMAP queue 1, slice 4: the grid field and the proposal grid")
+    """Fresh or resumed state. Fresh weights: ``_fresh_params``. The sampling
+    generator lives on ``device`` and is seeded with ``SEED + 1``. With
+    ``OCC_GRID`` and no resumed ``occ``, the grid starts all occupied
+    (``occupancy.init_grid``). A config the port cannot train yet is refused
+    by name (``eval.check_supported``)."""
+    check_supported(cfg)
     if params is None:
-        params = mlp.init_network(torch.Generator().manual_seed(cfg.seed), device)
+        params = _fresh_params(cfg, device)
     if opt_state is None:
         opt_state = optim.adam_init(params)
     if generator is None:
@@ -67,45 +98,74 @@ def init_state(cfg: Config, device: torch.device,
                       generator=generator, occ=occ if cfg.occ_grid else None)
 
 
+def make_lr_scale(cfg: Config, params: Any) -> Optional[Any]:
+    """Per-leaf learning-rate multipliers for ``optim.adam_update``, or None:
+    ``GRID_LR_MULT`` on every leaf under ``lines`` (the main grid's and the
+    proposal grid's), 1 elsewhere; None unless a grid field trains with a
+    multiplier other than 1. (Pyramid levels, whose multiplier is also
+    scaled by ``GRID_LEVEL_LR``, are refused before this: slice 5.)"""
+    uses_grid = cfg.fine_field == "grid" or (cfg.proposal and cfg.prop_field == "grid")
+    if not uses_grid or (cfg.grid_lr_mult == 1.0 and cfg.grid_level_lr == 1.0):
+        return None
+
+    def scale(tree, in_lines=False):
+        if isinstance(tree, dict):
+            return {k: scale(v, in_lines or k == "lines") for k, v in tree.items()}
+        return cfg.grid_lr_mult if in_lines else 1.0
+
+    return scale(params)
+
+
 def make_loss_fn(cfg: Config, k_inv: torch.Tensor,
-                 field_fn: Optional[render.FieldFn] = None) -> Callable:
+                 field_fn: Optional[render.FieldFn] = None,
+                 prop_field_fn: Optional[render.FieldFn] = None) -> Callable:
     """``loss(params, batch, generator, occ) -> (loss, (C_coarse, C_fine))``;
     the generator jitters the coarse samples when ``STRATIFIED`` is on, and
-    ``occ`` (the occupancy grid, or None) tightens the rays' bounds."""
+    ``occ`` (the occupancy grid, or None) tightens the rays' bounds. With
+    ``PROPOSAL``, ``params`` is the ``{"net", "prop"}`` pair and the coarse
+    pass runs the proposal field; with ``FINE_FIELD = grid`` and ``GRID_TV``
+    the loss adds ``GRID_TV * tv_loss`` of the main grid."""
     field_fn = field_fn or make_field_fn(cfg)
+    prop_fn = prop_field_fn or make_prop_field_fn(cfg)
 
-    def loss_fn(params: mlp.Params, batch: RayBatch,
+    def loss_fn(params: Any, batch: RayBatch,
                 generator: Optional[torch.Generator] = None,
                 occ: Optional[occupancy.OccGrid] = None):
         c_co, c_fi = render.render_rays(
-            params, batch.rows, batch.cols, batch.pose17, k_inv,
+            net_params(cfg, params), batch.rows, batch.cols, batch.pose17, k_inv,
             cfg.n_coarse, cfg.n_fine, field_fn=field_fn,
             generator=generator if cfg.stratified else None,
             compat_sort=cfg.compat_sort, merge_impl="permute",
             white_bkgd=cfg.white_bkgd, occ_grid=occ,
             occ_march=cfg.occ_march_steps, occ_contract=cfg.contract,
-            occ_march_res=cfg.occ_march_res)
-        return render.ray_loss(c_co, c_fi, batch.rgb), (c_co, c_fi)
+            occ_march_res=cfg.occ_march_res,
+            prop_params=prop_params(cfg, params), prop_field_fn=prop_fn)
+        loss = render.ray_loss(c_co, c_fi, batch.rgb)
+        if cfg.fine_field == "grid" and cfg.grid_tv > 0.0:
+            loss = loss + cfg.grid_tv * gridfield.tv_loss(net_params(cfg, params))
+        return loss, (c_co, c_fi)
 
     return loss_fn
 
 
-def loss_and_grads(loss_fn: Callable, params: mlp.Params, batch: RayBatch,
+def loss_and_grads(loss_fn: Callable, params: Any, batch: RayBatch,
                    generator: Optional[torch.Generator] = None,
                    occ: Optional[occupancy.OccGrid] = None):
-    """``(loss, (C_coarse, C_fine), grads)``, grads shaped like ``params``."""
+    """``(loss, (C_coarse, C_fine), grads)``, grads shaped like ``params``. A
+    leaf the loss does not reach (a grid's ``extent``) gets a zero gradient,
+    as under ``jax.grad``, so Adam leaves it exactly as it is."""
     leaves = optim.tree_map(lambda t: t.detach().requires_grad_(True), params)
     with torch.enable_grad():
         loss, (c_co, c_fi) = loss_fn(leaves, batch, generator, occ)
-        flat = torch.autograd.grad(loss, optim.leaves(leaves))
+        flat = torch.autograd.grad(loss, optim.leaves(leaves), materialize_grads=True)
     return (loss.detach(), (c_co.detach(), c_fi.detach()),
             optim.unflatten_like(leaves, list(flat)))
 
 
 def refresh_occ(cfg: Config, state: TrainState, field_fn: render.FieldFn,
                 draws=None) -> Optional[occupancy.OccGrid]:
-    """The grid this step renders with: ``state.occ`` refreshed from the
-    current params when ``iteration % OCC_UPDATE_EVERY == 0`` (probing
+    """The grid this step renders with: ``state.occ`` refreshed from the main
+    field's current params when ``iteration % OCC_UPDATE_EVERY == 0`` (probing
     ``int(OCC_RES**3 * OCC_SUBSET)`` cells, or all of them at a subset of 1),
     else as it is. Draws come from the state's generator unless ``draws``
     (``occupancy.update_grid``) are given."""
@@ -113,7 +173,7 @@ def refresh_occ(cfg: Config, state: TrainState, field_fn: render.FieldFn,
         return state.occ
     n_total = cfg.occ_res ** 3
     subset = None if cfg.occ_subset >= 1.0 else max(1, int(n_total * cfg.occ_subset))
-    return occupancy.update_grid(state.occ, state.params, field_fn,
+    return occupancy.update_grid(state.occ, net_params(cfg, state.params), field_fn,
                                  generator=state.generator, subset=subset,
                                  contract=cfg.contract, draws=draws)
 
@@ -128,7 +188,8 @@ def _apply_batch(cfg: Config, loss_fn: Callable, lr_fn: Callable,
     loss, (_, c_fi), grads = loss_and_grads(loss_fn, state.params, batch,
                                             state.generator, occ)
     lr = lr_fn(state.iteration)
-    params, opt = optim.adam_update(grads, state.opt, state.params, lr.item())
+    params, opt = optim.adam_update(grads, state.opt, state.params, lr.item(),
+                                    lr_scale=make_lr_scale(cfg, state.params))
     metrics = {"loss": loss, "lr": lr,
                "c_true0": batch.rgb[0], "c_fine0": c_fi[0],
                # the batch, for the host-side preview canvas
