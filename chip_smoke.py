@@ -78,7 +78,24 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
    ``GRID_PALLAS`` for 10 steps (the MLP fine field through kernels 1-2,
    the proposal grid through kernels 5-6, the refresh at 0 through kernel
    3), checking the launch counts and finite losses;
-13. prints one ``{"kernels": [...]}`` line (every kernel form) and, last,
+13. drives ``conf/lego_prop.ini`` with ``PROP_FIELD = mlp`` and
+   ``PROP_PALLAS`` (the 8x256 MLP at bf16 with ``USE_PALLAS``; the proposal
+   MLP, 128 x 4 at ``PROPOSAL_ENC_L`` 10, 57,932 params; 4096 rays, 64 + 128
+   samples, no occupancy grid) from fresh seeded weights: ``Runner.train()``
+   for 100 steps. Checks one launch of each of kernels 1, 2, 7 and 8 a step
+   (and none of 3, 5, 6), a finite falling loss; prints s/step, rays/s and
+   a profile of five steps; holds one step's gradient through the kernels
+   against the plain versions (``field_flat_plain``, ``prop_rays_reference``)
+   on fields with content, cosine >= 0.999 for the net and for the proposal;
+   saves the state;
+14. renders two 800x800 views from that checkpoint: one launch of kernel 7
+   and one of kernel 1 a chunk, finite frames in [0, 1], a chunk through the
+   kernels against the plain versions (1e-3 per pixel), s/frame and a
+   profile of rendered chunks;
+15. drives ``lego_prop`` at ``PRECISION=fp32`` for 10 steps (the fp32 forms
+   of kernels 7 and 8 on a path), checking the launch counts and finite
+   losses;
+16. prints one ``{"kernels": [...]}`` line (every kernel form) and, last,
    one ``{"ok": true, "device": {...}}`` line.
 
 Kernels 5 and 6 (``csrc/grid_rays_fwd.cu``, ``csrc/grid_rays_bwd.cu``) are
@@ -87,6 +104,13 @@ with the fine grid at N = 128 and the proposal grid at N = 64, at ragged
 shapes and on grid nodes and the clip boundary; the backward bit-identical
 across two launches) and timed in phase 4 beside both bounds (the gather
 form's FLOPs and the bytes) and the TPU kernel's own hat-form FLOP count.
+Kernels 7 and 8 (``csrc/prop_rays_fwd.cu``, ``csrc/prop_rays_bwd.cu``) are
+held against their plain versions in phase 3 (fp32 and bf16, at 128 x 4 with
+B = 4096, N = 64, at a ragged B = 1001 and at 64 x 3; fp32 forward within
+1e-5, backward within 1e-4 of max|plain| with rows near a kink given no
+cotangent; bf16 within 1e-2 and 3e-2 of max|plain| and cosine >= 0.999;
+the backward bit-identical across two launches) and timed in phase 4 at
+128 x 4, B = 4096, N = 64 beside both bounds.
 
 
 Any failure raises, and the script exits non-zero without the last line. It
@@ -140,6 +164,12 @@ GRID_MARGIN = 1e-5          # rows this close to a ReLU kink or sigma = 0: no co
 GRID_STEPS = 300            # lego_grid: refreshes at iterations 0 and 256
 GRID_FP32_STEPS = 10        # lego_grid at fp32
 FAST_STEPS = 10             # lego_fast with GRID_PALLAS
+PROP_NETS = {"128x4": (128, 4),          # lego_prop's proposal MLP: width, depth
+             "64x3": (64, 3)}            # a narrower one (the kernels take any such)
+PROP_SHAPE = (4096, 64)                  # a lego_prop step's proposal call
+PROP_CHECKS = (("128x4", 4096, 64), ("128x4", 1001, 64), ("64x3", 4096, 64))
+PROP_STEPS = 100            # lego_prop with PROP_FIELD = mlp and PROP_PALLAS
+PROP_FP32_STEPS = 10        # the same at fp32
 
 
 def phase(title: str) -> None:
@@ -357,6 +387,44 @@ def grid_part_cosines(grads_a, grads_b):
     return out
 
 
+def prop_bwd_errors(kernel, plain):
+    """{output: (max |err|, max |err| / max |plain|, cosine)} over every
+    output of prop_rays_bwd."""
+    import torch
+    (kg, *k_rest), (pg, *p_rest) = kernel, plain
+    pairs = [(f"{n}.{k}", kg[n][k], pg[n][k]) for n in pg for k in ("w", "b")]
+    pairs += list(zip(("d_origins", "d_dirs", "d_ts"), k_rest, p_rest))
+    out = {}
+    for name, a, b in pairs:
+        err = float((a - b).abs().max())
+        cos = float(torch.nn.functional.cosine_similarity(
+            a.flatten().double(), b.flatten().double(), dim=0))
+        out[name] = (err, err / max(float(b.abs().max()), 1e-30), cos)
+    return out
+
+
+def part_cosines(grads_a, grads_b):
+    """{part: cosine} of the flattened gradients of the net and the proposal."""
+    import torch
+    from tinynerf_torch import optim
+    flat = lambda tree: torch.cat([t.flatten().double() for t in optim.leaves(tree)])
+    out = {}
+    for part in ("net", "prop"):
+        a, b = flat(grads_a[part]), flat(grads_b[part])
+        out[part] = float(a @ b / (a.norm() * b.norm()))
+    return out
+
+
+def reference_prop_field(precision: str):
+    """A proposal field whose ``eval_rays`` is ``prop_rays_reference`` (the
+    plain versions both ways): what a step or a chunk through kernels 7 and
+    8 is held against. The renderer calls only ``eval_rays``."""
+    from tinynerf_torch.kernels import proposal_kernel as pk
+    fn = functools.partial(pk.prop_flat, precision=precision)
+    fn.eval_rays = functools.partial(pk.prop_rays_reference, precision=precision)
+    return fn
+
+
 def reference_grid_fields(cfg):
     """The net's and the proposal's grid fields with the plain versions
     (``grid_rays_reference``) as ``eval_rays``: what a step or a chunk
@@ -430,8 +498,10 @@ def main() -> int:
     from tinynerf_torch.config import load_config
     from tinynerf_torch.core import gridfield, mlp, occupancy, rays as raylib, render, sampling
     from tinynerf_torch.kernels import build
+    from tinynerf_torch.core import proposal
     from tinynerf_torch.kernels import grid_kernel as gk
     from tinynerf_torch.kernels import mlp_kernel as mk
+    from tinynerf_torch.kernels import proposal_kernel as pk
     from tinynerf_torch.runner import Runner
 
     # ---- 1. device ----
@@ -461,7 +531,11 @@ def main() -> int:
     for geometry, dims in GRID.items():
         smem[f"{gk.FWD_SOURCE} {geometry}"] = gk._library(gk.FWD_SOURCE).grid_rays_fwd_smem_bytes(*dims)
         smem[f"{gk.BWD_SOURCE} {geometry}"] = gk._library(gk.BWD_SOURCE).grid_rays_bwd_smem_bytes(*dims)
-    for source in (mk.FWD_SOURCE, mk.BWD_SOURCE, mk.FLAT_SOURCE, gk.FWD_SOURCE, gk.BWD_SOURCE):
+    smem[pk.FWD_SOURCE] = pk._library(pk.FWD_SOURCE).prop_rays_fwd_smem_bytes()
+    for net, (width, _) in PROP_NETS.items():
+        smem[f"{pk.BWD_SOURCE} {net}"] = pk._library(pk.BWD_SOURCE).prop_rays_bwd_smem_bytes(width)
+    for source in (mk.FWD_SOURCE, mk.BWD_SOURCE, mk.FLAT_SOURCE, gk.FWD_SOURCE, gk.BWD_SOURCE,
+                   pk.FWD_SOURCE, pk.BWD_SOURCE):
         info = build.build_log[source]
         sizes = ", ".join(f"{k.split()[-1] if ' ' in k else 'main kernel'} {v} B"
                           for k, v in smem.items() if k.split()[0] == source)
@@ -640,6 +714,59 @@ def main() -> int:
             grid_inputs[B, N] = (geometry, o, d, ts, de, cots)
     torch.cuda.empty_cache()
 
+    # ---- 3f. kernels 7 and 8 (the proposal MLP), fp32 and bf16, vs plain ----
+    phase("kernels 7 and 8 (proposal MLP forward and recompute backward) vs plain, "
+          "fp32 and bf16")
+    prop_params = {net: proposal.init_proposal(torch.Generator().manual_seed(i), width, depth,
+                                               device=dev)
+                   for i, (net, (width, depth)) in enumerate(PROP_NETS.items())}
+    prop_inputs = {}
+    prop_err = {f: 0.0 for f in ("fwd fp32", "fwd bf16", "bwd fp32", "bwd bf16")}
+    prop_rel = {"bwd fp32": 0.0, "bwd bf16": 0.0}
+    for net, B, N in PROP_CHECKS:
+        params_p = prop_params[net]
+        o, d, ts = rays(B, N)
+        keep = (mk.preactivation_margin(params_p, o, d, ts) > MARGIN).float()
+        cots = [torch.from_numpy(rng.normal(size=(B, N)).astype(np.float32)).to(dev) * keep
+                for _ in range(4)]
+        for precision in ("fp32", "bf16"):
+            with torch.no_grad():
+                (r, g, b), sigma = pk.prop_rays(params_p, o, d, ts, precision)
+                torch.cuda.synchronize()
+                (pr, pg, pb), p_sigma = pk.prop_rays_plain(params_p, o, d, ts, precision)
+            pairs = ((r, pr), (g, pg), (b, pb), (sigma, p_sigma))
+            fwd_abs = max(float((x - y).abs().max()) for x, y in pairs)
+            fwd_rel = max(rel_err(x, y) for x, y in pairs)
+            fwd_ok = fwd_abs <= COLOR_ATOL if precision == "fp32" else fwd_rel <= BF16_FWD_RTOL
+            kernel = pk.prop_rays_bwd(params_p, o, d, ts, *cots, precision=precision)
+            again = pk.prop_rays_bwd(params_p, o, d, ts, *cots, precision=precision)
+            torch.cuda.synchronize()
+            plain = pk.prop_rays_bwd_plain(params_p, o, d, ts, *cots, precision=precision)
+            errs = prop_bwd_errors(kernel, plain)
+            worst = max(errs, key=lambda k: errs[k][1])
+            cos = min(e[2] for e in errs.values())
+            same = all(e[0] == 0 for e in prop_bwd_errors(kernel, again).values())
+            limit = BWD_RTOL if precision == "fp32" else BF16_BWD_RTOL
+            bwd_ok = errs[worst][1] <= limit and (precision == "fp32" or cos >= BF16_COS)
+            print(f"{net} B={B} N={N} {precision}: forward max |err| {fwd_abs:.3e}, error / "
+                  f"max|plain| {fwd_rel:.3e} (limit {COLOR_ATOL if precision == 'fp32' else BF16_FWD_RTOL}"
+                  f"{' abs' if precision == 'fp32' else ''}); backward ({100 * (1 - float(keep.mean())):.3f}% "
+                  f"of rows within {MARGIN} of a kink, zero cotangent) worst {worst} "
+                  f"{errs[worst][1]:.3e} of max|plain| (limit {limit}), d_ts "
+                  f"{errs['d_ts'][1]:.3e}, trunk_0.w {errs['trunk_0.w'][1]:.3e}, smallest cosine "
+                  f"{cos:.7f}; two launches bit-identical: {same}")
+            if not (fwd_ok and bwd_ok and same):
+                raise AssertionError(f"kernels 7/8 disagree with their plain versions at "
+                                     f"{net} B={B} N={N} {precision}: {errs}")
+            prop_err[f"fwd {precision}"] = max(prop_err[f"fwd {precision}"], fwd_abs)
+            prop_err[f"bwd {precision}"] = max(prop_err[f"bwd {precision}"],
+                                               max(e[0] for e in errs.values()))
+            prop_rel[f"bwd {precision}"] = max(prop_rel[f"bwd {precision}"], errs[worst][1])
+            del kernel, again, plain
+        if (net, B, N) == ("128x4", *PROP_SHAPE):
+            prop_inputs[B, N] = (o, d, ts, *cots)
+    torch.cuda.empty_cache()
+
     # ---- 4. timing ----
     phase("timing (per launch, CUDA events)")
     fwd_time, bwd_time = {}, {}
@@ -743,6 +870,39 @@ def main() -> int:
               f"forward, {bwd_bytes / 1e6:.2f} MB backward, bytes bound "
               f"{1e3 * fwd_bytes / PEAK_BYTES:.4f} / {1e3 * bwd_bytes / PEAK_BYTES:.4f} ms")
     del grid_inputs
+    torch.cuda.empty_cache()
+
+    # kernels 7 and 8 at lego_prop's proposal call: (ms, plain ms, bound ms,
+    # bound_by, f32 FMA bound ms) per (precision, (B, N)); the FLOPs are the
+    # TPU kernel's count (the encoding's sines and cosines not in it)
+    prop_fwd_time = {"fp32": {}, "bf16": {}}
+    prop_bwd_time = {"fp32": {}, "bf16": {}}
+    params_p = prop_params["128x4"]
+    n_prop = sum(t.numel() for layer in params_p.values() for t in layer.values())
+    for (B, N), (o, d, ts, *cots) in prop_inputs.items():
+        flops = pk.flops_per_row(*PROP_NETS["128x4"]) * B * N
+        # in: origins, dirs, ts, params; out: four planes
+        fwd_bytes = 4 * (6 * B + B * N + n_prop + 4 * B * N)
+        # in: the same and four cotangent planes; out: d_o, d_d, d_ts, grads
+        bwd_bytes = 4 * (6 * B + 5 * B * N + n_prop + 6 * B + B * N + n_prop)
+        for precision in ("fp32", "bf16"):
+            with torch.no_grad():
+                k_ms = cuda_ms(lambda: pk.prop_rays(params_p, o, d, ts, precision), iters=20)
+                p_ms = cuda_ms(lambda: pk.prop_rays_plain(params_p, o, d, ts, precision), iters=5)
+            prop_fwd_time[precision][B, N] = report(
+                f"kernel 7 {precision} 128x4 B={B} N={N}", k_ms, p_ms, flops, fwd_bytes,
+                precision)
+            k_ms = cuda_ms(lambda: pk.prop_rays_bwd(params_p, o, d, ts, *cots,
+                                                     precision=precision), iters=10)
+            p_ms = cuda_ms(lambda: pk.prop_rays_bwd_plain(params_p, o, d, ts, *cots,
+                                                          precision=precision), iters=3)
+            prop_bwd_time[precision][B, N] = report(
+                f"kernel 8 {precision} 128x4 B={B} N={N}", k_ms, p_ms, 3 * flops, bwd_bytes,
+                precision)
+        print(f"  128x4: {pk.flops_per_row(*PROP_NETS['128x4']):,} FLOP a row, "
+              f"{flops / 1e9:.2f} GFLOP forward; bytes {fwd_bytes / 1e6:.2f} MB forward, "
+              f"{bwd_bytes / 1e6:.2f} MB backward")
+    del prop_inputs
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1279,7 +1439,175 @@ def main() -> int:
             raise AssertionError("lego_fast: not every loss is finite")
         del runner
 
-    # ---- 13. results ----
+        prop_counts = lambda: (pk.prop_rays.launches, pk.prop_rays_bwd.launches)
+
+        def reset_all():
+            reset_counts()
+            pk.prop_rays.launches = pk.prop_rays_bwd.launches = 0
+
+        # ---- 13. the lego_prop training path, PROP_FIELD = mlp and PROP_PALLAS ----
+        phase("lego_prop training path (PROP_FIELD = mlp, PROP_PALLAS, bf16)")
+        pcfg = run_config("lego_prop", tmp, "prop", PROP_STEPS, prop_field="mlp",
+                          prop_pallas=True)
+        runner = Runner(pcfg, device="cuda",
+                        scene=blender_scene(n_views=TRAIN_VIEWS, hw=800, seed=pcfg.seed))
+        n_net = mlp.num_params(runner.params["net"])
+        n_prop_net = mlp.num_params(runner.params["prop"])
+        print(f"{pcfg.precision}, BATCH_RAY {pcfg.batch_ray}, {pcfg.n_coarse}+{pcfg.n_fine} "
+              f"samples, USE_PALLAS {pcfg.use_pallas}; net 8x256 ({n_net:,} params); proposal "
+              f"MLP {pcfg.proposal_width}x{pcfg.proposal_depth}, PROPOSAL_ENC_L "
+              f"{pcfg.proposal_enc_l} ({n_prop_net:,} params); OCC_GRID {pcfg.occ_grid}, "
+              f"WHITE_BKGD {pcfg.white_bkgd}")
+        if (n_net, n_prop_net) != (593_924, 57_932):
+            raise AssertionError("lego_prop's fields are not at full width")
+        reset_all()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.train()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        prop_launches = prop_counts()
+        prop_mlp_launches = mlp_counts()
+        print(f"Runner.train(): {PROP_STEPS} steps of {pcfg.batch_ray} rays in {seconds:.2f} s "
+              f"({seconds / PROP_STEPS * 1e3:.2f} ms/step, first steps included); launches: "
+              f"proposal forward {prop_launches[0]}, backward {prop_launches[1]}; field forward "
+              f"{prop_mlp_launches[0]}, backward {prop_mlp_launches[1]}, flat "
+              f"{prop_mlp_launches[2]} (expected {PROP_STEPS} of each but flat, 0 flat); grid "
+              f"{(gk.grid_rays.launches, gk.grid_rays_bwd.launches)}")
+        if (prop_launches + prop_mlp_launches != (PROP_STEPS,) * 4 + (0,)
+                or gk.grid_rays.launches or gk.grid_rays_bwd.launches):
+            raise AssertionError("the lego_prop path did not run kernels 1, 2, 7 and 8 "
+                                 "once each a step")
+        losses = logged_losses(runner)
+        if len(losses) != PROP_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{len(losses)} logged losses, not all finite")
+        first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+        print(f"loss: mean of the first 10 steps {first:.4f}, of the last 10 {last:.4f} "
+              f"(step 0 {losses[0]:.4f}, step {PROP_STEPS - 1} {losses[-1]:.4f})")
+        if not last < first:
+            raise AssertionError("the lego_prop loss did not fall")
+
+        step = train.make_train_step(pcfg, runner.train_table, runner.k_inv)
+        state = runner.state
+        for _ in range(2):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(6):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        prop_ms = (time.perf_counter() - t0) / 6 * 1e3
+        prop_kern = (bf16_fwd_time[4096, pcfg.n_fine][0] + bf16_bwd_time[4096, pcfg.n_fine][0]
+                     + prop_fwd_time["bf16"][PROP_SHAPE][0] + prop_bwd_time["bf16"][PROP_SHAPE][0])
+        print(f"BATCH_RAY {pcfg.batch_ray}: {prop_ms / 1e3:.5f} s/step, "
+              f"{pcfg.batch_ray / prop_ms * 1e3:,.0f} rays/s; kernels 1, 2, 7 and 8 "
+              f"{prop_kern:.3f} ms of it ({100 * prop_kern / prop_ms:.1f}%: one launch of each "
+              "at its timed bf16 per-launch ms)")
+        profile_steps(step, state)
+
+        # one step on fields with content: kernels 1, 2, 7, 8 vs their plain versions
+        content = optim.tree_map(lambda t: t.clone(), runner.params)
+        content["net"]["sigma"]["b"] += 1.0
+        content["prop"]["sigma"]["b"] += 1.0
+        batch = runner.train_table.sample(torch.Generator(device=dev).manual_seed(4),
+                                          pcfg.batch_ray)
+        plain_bf16 = functools.partial(mk.field_flat_plain, precision=pcfg.precision)
+        ref_prop = reference_prop_field(pcfg.precision)
+        _, _, g_k = train.loss_and_grads(train.make_loss_fn(pcfg, runner.k_inv), content, batch)
+        _, _, g_p = train.loss_and_grads(train.make_loss_fn(pcfg, runner.k_inv, plain_bf16,
+                                                            ref_prop), content, batch)
+        prop_cos = part_cosines(g_k, g_p)
+        print("one bf16 step, kernels 1, 2, 7 and 8 vs their plain versions (sigma biases +1): "
+              "gradient cosines " + ", ".join(f"{k} {v:.7f}" for k, v in prop_cos.items())
+              + f" (limit {BF16_COS})")
+        if min(prop_cos.values()) < BF16_COS:
+            raise AssertionError("the lego_prop kernels' training gradient disagrees with the "
+                                 "plain versions'")
+        prop_iter = runner.state.iteration - 1
+        ckpt.save_checkpoint(pcfg.ckpt_path, "smoke", prop_iter, runner.params,
+                             runner.state.opt, generator=runner.state.generator)
+        trained_prop = runner.params["prop"]["trunk_1"]["w"]
+        del runner, state, step, g_k, g_p, content
+
+        # ---- 14. the lego_prop render path, from that checkpoint ----
+        phase("lego_prop render path (PROP_FIELD = mlp, PROP_PALLAS)")
+        pcfg.continue_ = True
+        scene = blender_scene(n_views=2, hw=800, seed=pcfg.seed)
+        runner = Runner(pcfg, device="cuda", scene=scene)
+        if runner.last_iter != prop_iter or not torch.equal(
+                runner.params["prop"]["trunk_1"]["w"], trained_prop):
+            raise AssertionError("Runner did not resume the lego_prop checkpoint")
+        expected = n_chunks * scene.images.shape[0]
+        reset_all()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = evallib.render_test_set(
+            pcfg, runner.params, runner.test_table, runner.k_inv, runner.start_time,
+            runner.last_iter, save=False)
+        torch.cuda.synchronize()
+        prop_frame_s = (time.perf_counter() - t0) / frames.shape[0]
+        prop_render_launches = prop_counts()[0]
+        prop_render_field = mlp_counts()[0]
+        print(f"rendered {frames.shape[0]} views of {scene.height}x{scene.width} from the "
+              f"iteration-{prop_iter} checkpoint: {prop_frame_s:.3f} s/frame; proposal forward "
+              f"launches {prop_render_launches}, field forward {prop_render_field} (expected "
+              f"{expected} each = {n_chunks} chunks x {frames.shape[0]} views); backward "
+              f"{prop_counts()[1]}, {mlp_counts()[1]}")
+        if (prop_counts(), mlp_counts()) != ((expected, 0), (expected, 0, 0)):
+            raise AssertionError("the lego_prop render path did not run kernels 7 and 1 (and "
+                                 "only them) on every chunk")
+        if not (frames.shape == (2, scene.height, scene.width, 3) and np.all(np.isfinite(frames))
+                and frames.min() >= 0 and frames.max() <= 1):
+            raise AssertionError("the lego_prop frame is not finite values in [0, 1]")
+        print(f"frame mean {frames.mean():.4f}, std {frames.std():.4f}")
+        with torch.no_grad():
+            span = slice((n_chunks // 2) * pcfg.render_chunk,
+                         (n_chunks // 2 + 1) * pcfg.render_chunk)
+            idx = torch.arange(num_pix, device=dev)[span]
+            rows, cols = (idx // scene.width).float(), (idx % scene.width).float()
+            pose = runner.test_table.poses[0].expand(rows.shape[0], 17)
+            args = (rows, cols, pose, runner.k_inv, pcfg.n_coarse, pcfg.n_fine)
+            kw = dict(prop_params=runner.params["prop"])
+            kern_net, kern_prop = evallib.make_field_fn(pcfg), evallib.make_prop_field_fn(pcfg)
+            _, c_kernel = render.render_rays(runner.params["net"], *args, field_fn=kern_net,
+                                             prop_field_fn=kern_prop, **kw)
+            _, c_plain = render.render_rays(runner.params["net"], *args, field_fn=plain_bf16,
+                                            prop_field_fn=ref_prop, **kw)
+            prop_pix_err = float((c_kernel - c_plain).abs().max())
+            print(f"real chunk, kernels 1 and 7 vs their plain versions (bf16): max |pixel err| "
+                  f"{prop_pix_err:.3e}, mean {float((c_kernel - c_plain).abs().mean()):.3e} "
+                  f"(atol {BF16_CHUNK_ATOL})")
+            if not prop_pix_err <= BF16_CHUNK_ATOL:
+                raise AssertionError("the lego_prop kernels' render disagrees with the plain "
+                                     "render")
+            profile_calls(lambda: render.render_rays(runner.params["net"], *args,
+                                                     field_fn=kern_net, prop_field_fn=kern_prop,
+                                                     **kw), 5, "chunks")
+        del runner
+
+        # ---- 15. lego_prop at fp32, 10 steps ----
+        phase("lego_prop at PRECISION=fp32, 10 steps (the fp32 forms of kernels 7 and 8)")
+        fpcfg = run_config("lego_prop", tmp, "prop_fp32", PROP_FP32_STEPS, prop_field="mlp",
+                           prop_pallas=True, precision="fp32")
+        runner = Runner(fpcfg, device="cuda",
+                        scene=blender_scene(n_views=TRAIN_VIEWS, hw=800, seed=fpcfg.seed))
+        reset_all()
+        runner.train()
+        torch.cuda.synchronize()
+        prop_fp32_launches = prop_counts()
+        prop_fp32_field = mlp_counts()
+        losses = logged_losses(runner)
+        print(f"{PROP_FP32_STEPS} steps: proposal launches forward {prop_fp32_launches[0]}, "
+              f"backward {prop_fp32_launches[1]}; field forward {prop_fp32_field[0]}, backward "
+              f"{prop_fp32_field[1]} (expected {PROP_FP32_STEPS} each); losses {losses[0]:.2f} "
+              f".. {losses[-1]:.2f}")
+        if prop_fp32_launches + prop_fp32_field != (PROP_FP32_STEPS,) * 4 + (0,):
+            raise AssertionError("lego_prop at fp32 did not run the fp32 kernels as expected")
+        if len(losses) != PROP_FP32_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError("lego_prop at fp32: not every loss is finite")
+        del runner
+
+    # ---- 16. results ----
     mean = lambda table, shapes, i: sum(table[s][i] for s in shapes) / len(shapes)
     shape_key = lambda s: f"B={s[0]},N={s[1]}" if len(s) == 2 else f"R={s[0]}"
     render_shapes = [(4096, 64), (4096, 128)]
@@ -1307,22 +1635,27 @@ def main() -> int:
     # no single PyTorch call computes any of these fused functions: library_ms is null
     kernels = [
         form("field_rays_fwd", fwd_src, "tinynerf/kernels/mlp_kernel.py:720",
-             train_launches[0] + render_launches + fp32_launches[0],
+             train_launches[0] + render_launches + fp32_launches[0] + prop_fp32_field[0],
              {"lego train": train_launches[0], "lego render": render_launches,
-              "lego_occ fp32 train": fp32_launches[0]},
+              "lego_occ fp32 train": fp32_launches[0],
+              "lego_prop fp32 train": prop_fp32_field[0]},
              fwd_err, fwd_time, render_shapes),
         form("field_rays_fwd_bf16", fwd_src, "tinynerf/kernels/mlp_kernel.py:720",
-             occ_launches[0] + occ_render_launches + fast_launches[0],
+             occ_launches[0] + occ_render_launches + fast_launches[0] + prop_mlp_launches[0]
+             + prop_render_field,
              {"lego_occ train": occ_launches[0], "lego_occ render": occ_render_launches,
-              "lego_fast train": fast_launches[0]},
+              "lego_fast train": fast_launches[0], "lego_prop train": prop_mlp_launches[0],
+              "lego_prop render": prop_render_field},
              bf16_fwd_err, bf16_fwd_time, list(OCC_SHAPES)),
         form("field_rays_bwd", bwd_src, "tinynerf/kernels/mlp_kernel.py:751",
-             train_launches[1] + fp32_launches[1],
-             {"lego train": train_launches[1], "lego_occ fp32 train": fp32_launches[1]},
+             train_launches[1] + fp32_launches[1] + prop_fp32_field[1],
+             {"lego train": train_launches[1], "lego_occ fp32 train": fp32_launches[1],
+              "lego_prop fp32 train": prop_fp32_field[1]},
              bwd_abs, bwd_time, STEP_SHAPES, {"max_rel_err": bwd_rel}),
         form("field_rays_bwd_bf16", bwd_src, "tinynerf/kernels/mlp_kernel.py:751",
-             occ_launches[1] + fast_launches[1],
-             {"lego_occ train": occ_launches[1], "lego_fast train": fast_launches[1]},
+             occ_launches[1] + fast_launches[1] + prop_mlp_launches[1],
+             {"lego_occ train": occ_launches[1], "lego_fast train": fast_launches[1],
+              "lego_prop train": prop_mlp_launches[1]},
              bf16_bwd_abs, bf16_bwd_time, list(OCC_SHAPES), {"max_rel_err": bf16_bwd_rel}),
         form("field_flat_fwd", flat_src, "tinynerf/kernels/mlp_kernel.py:269",
              fp32_launches[2], {"lego_occ fp32 train": fp32_launches[2]},
@@ -1356,6 +1689,26 @@ def main() -> int:
              grid_err["bwd bf16"], grid_bwd_time["bf16"], grid_shapes,
              {"max_rel_err": grid_rel["bwd bf16"]}),
     ]
+    pfwd_src, pbwd_src = ("tinynerf_torch/csrc/prop_rays_fwd.cu",
+                          "tinynerf_torch/csrc/prop_rays_bwd.cu")
+    prop_rows = {"flops_per_row": pk.flops_per_row(*PROP_NETS["128x4"])}
+    kernels += [
+        form("prop_rays_fwd", pfwd_src, "tinynerf/kernels/proposal_kernel.py:255",
+             prop_fp32_launches[0], {"lego_prop fp32 train": prop_fp32_launches[0]},
+             prop_err["fwd fp32"], prop_fwd_time["fp32"], [PROP_SHAPE], prop_rows),
+        form("prop_rays_fwd_bf16", pfwd_src, "tinynerf/kernels/proposal_kernel.py:255",
+             prop_launches[0] + prop_render_launches,
+             {"lego_prop train": prop_launches[0], "lego_prop render": prop_render_launches},
+             prop_err["fwd bf16"], prop_fwd_time["bf16"], [PROP_SHAPE], prop_rows),
+        form("prop_rays_bwd", pbwd_src, "tinynerf/kernels/proposal_kernel.py:285",
+             prop_fp32_launches[1], {"lego_prop fp32 train": prop_fp32_launches[1]},
+             prop_err["bwd fp32"], prop_bwd_time["fp32"], [PROP_SHAPE],
+             {**prop_rows, "max_rel_err": prop_rel["bwd fp32"]}),
+        form("prop_rays_bwd_bf16", pbwd_src, "tinynerf/kernels/proposal_kernel.py:285",
+             prop_launches[1], {"lego_prop train": prop_launches[1]},
+             prop_err["bwd bf16"], prop_bwd_time["bf16"], [PROP_SHAPE],
+             {**prop_rows, "max_rel_err": prop_rel["bwd bf16"]}),
+    ]
     print(json.dumps({"train_step": {str(b): {"ms": t[0], "kernel_ms": t[1]}
                                      for b, t in step_time.items()},
                       "lego_occ": {"step_ms": occ_ms, "kernel_ms": occ_kern,
@@ -1365,7 +1718,10 @@ def main() -> int:
                       "lego_grid": {"step_ms": grid_ms, "kernel_ms": grid_kern,
                                     "frame_s": grid_frame_s, "grid_shares": grid_shares_after,
                                     "grad_cosines": grid_cos, "chunk_pix_err": grid_pix_err},
-                      "lego_fast": {"seconds_10_steps": fast_s}}))
+                      "lego_fast": {"seconds_10_steps": fast_s},
+                      "lego_prop": {"step_ms": prop_ms, "kernel_ms": prop_kern,
+                                    "frame_s": prop_frame_s, "grad_cosines": prop_cos,
+                                    "chunk_pix_err": prop_pix_err}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -246,9 +246,9 @@ def test_grid_pair_checkpoint_round_trips_between_the_packages(tmp_path):
 
 def test_unported_grid_forms_are_refused_by_name():
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="GRID_HYBRID .*slice 5"):
+    with pytest.raises(NotImplementedError, match="GRID_HYBRID .*the flagship"):
         gridfield.init_grid_field(gen, res=4, hybrid=True)
-    with pytest.raises(NotImplementedError, match="GRID_LEVELS=2 .*slice 5"):
+    with pytest.raises(NotImplementedError, match="GRID_LEVELS=2 .*the flagship"):
         gridfield.init_grid_field(gen, res=4, levels=2)
     with pytest.raises(NotImplementedError, match="GRID_LOOKUP=gather"):
         gridfield.make_field_grid(lookup="gather")
@@ -271,12 +271,31 @@ def test_unported_grid_forms_are_refused_by_name():
     (dict(fine_field="grid", grid_level_fold=True), "GRID_LEVEL_FOLD"),
     (dict(fine_field="grid", grid_upsample="100:64"), "GRID_UPSAMPLE=100:64"),
     (dict(fine_field="grid", grid_lookup="gather"), "GRID_LOOKUP=gather"),
-    (dict(proposal=True, prop_field="mlp"), "PROP_FIELD=mlp"),
     (dict(proposal=True, dist_loss=0.01), "DIST_LOSS"),
     (dict(proposal=True, prop_interlevel=1.0), "PROP_INTERLEVEL")])
 def test_check_supported_refuses_unported_keys(kw, what):
     with pytest.raises(NotImplementedError, match=f"{what} is not ported yet .ROADMAP"):
         evallib.check_supported(Config(**kw))
+
+
+@pytest.mark.parametrize("prop_pallas", [False, True])
+def test_check_supported_accepts_the_proposal_mlp(prop_pallas):
+    """``PROP_FIELD = mlp`` is ported: accepted, and its field runs. With
+    ``PROP_PALLAS`` the field's ``eval_rays`` is ``prop_rays`` (here its
+    plain versions); without it the plain field. A ``PROP_FIELD`` that is
+    neither grid nor mlp raises."""
+    cfg = Config(proposal=True, prop_field="mlp", prop_pallas=prop_pallas,
+                 proposal_width=32, proposal_depth=2)
+    evallib.check_supported(cfg)
+    fn = evallib.make_prop_field_fn(cfg)
+    assert hasattr(fn, "eval_rays") == prop_pallas
+    params = train._fresh_params(cfg, torch.device("cpu"))["prop"]
+    pts = torch.zeros((5, 3))
+    color, sigma = fn(params, pts, pts + torch.tensor([0.0, 0.0, 1.0]))
+    assert color.shape == (5, 3) and sigma.shape == (5, 1)
+    assert torch.all(torch.isfinite(color)) and torch.all(sigma >= 0)
+    with pytest.raises(ValueError, match="PROP_FIELD must be grid or mlp"):
+        evallib.check_supported(Config(proposal=True, prop_field="net"))
 
 
 @pytest.mark.parametrize("kw,what", [

@@ -312,3 +312,85 @@ def test_grid_kernels_match_plain_on_card(geometry, n_rays, n_samples, precision
         assert min(e[1] for e in errors.values()) >= BF16_COS, errors
     assert all(e[0] == 0 for e in _grid_errors(kernel, again).values())
     assert float(kernel[0]["extent"]) == 0.0
+
+
+# ---------------------------------------------------------------- the proposal MLP
+
+from tinynerf_torch.core import proposal  # noqa: E402
+from tinynerf_torch.kernels import proposal_kernel as pk  # noqa: E402
+
+
+def _prop_errors(kernel, plain):
+    """error / max|plain| and the cosine, for every output of prop_rays_bwd."""
+    (kg, *k_rest), (pg, *p_rest) = kernel, plain
+    pairs = [(f"{n}.{k}", kg[n][k], pg[n][k]) for n in pg for k in ("w", "b")]
+    pairs += list(zip(("d_origins", "d_dirs", "d_ts"), k_rest, p_rest))
+    return {name: (_rel(a, b), float(torch.nn.functional.cosine_similarity(
+        a.flatten().double(), b.flatten().double(), dim=0))) for name, a, b in pairs}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("width,depth,n_rays,n_samples", [
+    (128, 4, 4096, 64), (128, 4, 1001, 64), (64, 3, 37, 5), (128, 4, 13, 100),
+    (256, 2, 37, 5), (32, 1, 200, 3)])
+def test_prop_kernels_match_plain_on_card(width, depth, n_rays, n_samples, precision):
+    """Kernels 7 and 8 at conf/lego_prop.ini's proposal MLP (128 x 4) at the
+    step's B = 4096, N = 64, at a ragged B, at 64 x 3, with rays longer than
+    a 64-row tile, and at the ends of the widths and depths the kernels take
+    (256 x 2; 32 x 1, with rays that straddle tiles). fp32: every plane within 1e-5, every gradient within
+    1e-4 of max|plain|; bf16: each output within BF16_FWD_RTOL, each gradient
+    within BF16_BWD_RTOL of max|plain| and at cosine >= BF16_COS. Rows within
+    2e-6 of a ReLU kink or of sigma = 0 get zero cotangents. Two backward
+    calls agree bit for bit."""
+    dev = _card()
+    params = proposal.init_proposal(torch.Generator().manual_seed(width + depth), width, depth,
+                                    device=dev)
+    o, d, t = (torch.from_numpy(a).to(dev) for a in _dyadic_rays(n_rays, n_rays, n_samples))
+    before = (pk.prop_rays.launches, pk.prop_rays_bwd.launches)
+    with torch.no_grad():
+        (r, g, b), sigma = pk.prop_rays(params, o, d, t, precision)
+        (pr, pg, pb), p_sigma = pk.prop_rays_plain(params, o, d, t, precision)
+    torch.cuda.synchronize()
+    errs = [_rel(x, y) for x, y in ((r, pr), (g, pg), (b, pb), (sigma, p_sigma))]
+    if precision == "fp32":
+        for a, p in ((r, pr), (g, pg), (b, pb), (sigma, p_sigma)):
+            torch.testing.assert_close(a, p, atol=1e-5, rtol=0)
+    else:
+        assert max(errs) <= BF16_FWD_RTOL, errs
+    keep = (mk.preactivation_margin(params, o, d, t) > 2e-6).float()
+    rng = np.random.default_rng(n_samples)
+    cots = [torch.from_numpy(rng.normal(size=t.shape).astype(np.float32)).to(dev) * keep
+            for _ in range(4)]
+    kernel = pk.prop_rays_bwd(params, o, d, t, *cots, precision=precision)
+    again = pk.prop_rays_bwd(params, o, d, t, *cots, precision=precision)
+    plain = pk.prop_rays_bwd_plain(params, o, d, t, *cots, precision=precision)
+    torch.cuda.synchronize()
+    assert (pk.prop_rays.launches, pk.prop_rays_bwd.launches) == (before[0] + 1, before[1] + 2)
+    errors = _prop_errors(kernel, plain)
+    worst = max(errors, key=lambda k: errors[k][0])
+    print(f"prop {width}x{depth} {precision} B={n_rays} N={n_samples}: forward {max(errs):.3e}, "
+          f"backward worst {worst} {errors[worst][0]:.3e}, min cosine "
+          f"{min(e[1] for e in errors.values()):.7f}")
+    if precision == "fp32":
+        assert errors[worst][0] <= 1e-4, errors
+    else:
+        assert errors[worst][0] <= BF16_BWD_RTOL, errors
+        assert min(e[1] for e in errors.values()) >= BF16_COS, errors
+    assert all(e[0] == 0 for e in _prop_errors(kernel, again).values())
+
+
+@pytest.mark.gpu
+def test_prop_kernels_refuse_a_width_they_do_not_take():
+    """A width that is no multiple of 32 (or over 256) raises on the card,
+    naming the widths the kernels take; no kernel launches."""
+    dev = _card()
+    o, d, t = (torch.from_numpy(a).to(dev) for a in _dyadic_rays(0, 4, 8))
+    before = (pk.prop_rays.launches, pk.prop_rays_bwd.launches)
+    for width in (100, 288):
+        params = proposal.init_proposal(torch.Generator().manual_seed(0), width, 2, device=dev)
+        with pytest.raises(ValueError, match=r"width in \{32, 64, ..., 256\}"):
+            pk.prop_rays(params, o, d, t)
+        with pytest.raises(ValueError, match=r"width in \{32, 64, ..., 256\}"):
+            pk.prop_rays_bwd(params, o, d, t, t, t, t, t)
+    assert (pk.prop_rays.launches, pk.prop_rays_bwd.launches) == before

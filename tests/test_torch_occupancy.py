@@ -91,7 +91,7 @@ def test_derive_march_steps_matches_jax(res, h, span):
 
 
 def test_contracted_forms_are_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, slice 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, slice 7"):
         occupancy.derive_march_steps_contracted(64, 0.5, 100.0)
     g = occupancy.init_grid(4)
     z = torch.zeros(2)

@@ -165,8 +165,29 @@ def test_render_rays_refuses_what_the_proposal_mode_cannot_do():
         render.render_rays(params["net"], *args, 0, **kw)
     with pytest.raises(ValueError, match="COMPAT_SORT"):
         render.render_rays(params["net"], *args, 16, compat_sort=True, **kw)
-    with pytest.raises(NotImplementedError, match="PROP_FIELD=mlp .*slice 6"):
-        render.render_rays(params["net"], *args, 16, field_fn=field, prop_params=params["prop"])
+
+
+def test_render_rays_defaults_to_the_proposal_mlp():
+    """``prop_params`` without ``prop_field_fn`` runs the coarse pass on the
+    proposal MLP's plain field (``proposal.field_proposal``), as the JAX
+    package's renderer does (``tinynerf/core/render.py:320-322``): both
+    passes' pixels against JAX's within the frame tolerance."""
+    jcfg, _ = _cfgs(prop_field="mlp", proposal_width=32, proposal_depth=2)
+    jparams, params = _with_content(jcfg, 6)
+    rng = np.random.default_rng(7)
+    B = 16
+    rows, cols = (rng.integers(0, 16, B).astype(np.float32) for _ in range(2))
+    pose = _pose_rows(rng, B)
+    ref = jrender.render_rays(jparams["net"], jnp.asarray(rows), jnp.asarray(cols),
+                              jnp.asarray(pose), jmake_k_inv(16, 16, 20.0), 8, 16,
+                              field_fn=jgf.make_field_grid(n_density=4),
+                              prop_params=jparams["prop"])
+    got = render.render_rays(params["net"], torch.from_numpy(rows), torch.from_numpy(cols),
+                             torch.from_numpy(pose), make_k_inv(16, 16, 20.0), 8, 16,
+                             field_fn=functools.partial(gridfield.apply_grid_field, n_density=4),
+                             prop_params=params["prop"])
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=PIXEL_ATOL, rtol=1e-4)
 
 
 # ---------------------------------------------------------------- the step

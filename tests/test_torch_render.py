@@ -212,11 +212,13 @@ def test_render_rays_matches_jax(ray_batch, white_bkgd):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"prop_params": {}}, {"occ_grid": occupancy.init_grid(4), "occ_contract": True},
+    {"prop_params": {}, "lindisp": True},
+    {"occ_grid": occupancy.init_grid(4), "occ_contract": True},
     {"ndc_params": (16.0, 16.0, 20.0)}, {"lindisp": True}])
 def test_render_rays_refuses_unported_options(ray_batch, kwargs):
-    """Options of slices still to port raise by name; the occupancy grid is
-    ported, its contracted form (CONTRACT) is not."""
+    """Options of slices still to port raise by name; the occupancy grid and
+    the proposal field (with the proposal MLP by default) are ported, the
+    contracted grid (CONTRACT) and LINDISP are not, in either mode."""
     rows_px, cols_px, pose = ray_batch
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render.render_rays({}, _t(rows_px), _t(cols_px), _t(pose),

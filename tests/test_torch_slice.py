@@ -20,7 +20,7 @@ from tinynerf.core import mlp as jmlp
 from tinynerf.core.rays import make_k_inv as jmake_k_inv
 from tinynerf.data import paths as jpaths
 from tinynerf.data.poses import load_scene as jload_scene
-from tinynerf_torch import ckpt, eval as evallib
+from tinynerf_torch import ckpt, eval as evallib, train as trainlib
 from tinynerf_torch.__main__ import main as cli_main
 from tinynerf_torch.config import Config, load_config
 from tinynerf_torch.core import mlp
@@ -275,9 +275,9 @@ _GRID = dict(OCC_GRID="True", WHITE_BKGD="True")
 
 
 @pytest.mark.parametrize("extra,what", [
-    # the proposal grid and the grid field are ported; the proposal MLP and
-    # GRID_HYBRID's sigma net are not
-    pytest.param({"PROPOSAL": "True", "PROP_FIELD": "mlp"}, "PROP_FIELD=mlp",
+    # the proposal grid, the proposal MLP and the grid field are ported; the
+    # hybrid grids' sigma nets are not
+    pytest.param({"PROPOSAL": "True", "PROP_GRID_HYBRID": "True"}, "PROP_GRID_HYBRID",
                  id="PROPOSAL-True"),
     # the occupancy grid and bf16 are ported; their forms on the contracted
     # or disparity-spaced march are not
@@ -297,6 +297,25 @@ def test_unported_config_keys_raise(sync_scene_dir, tmp_path, extra, what):
     cfg = load_config(_write_ini(tmp_path, sync_scene_dir, **extra))
     with pytest.raises(NotImplementedError, match=f"{what} is not ported yet .ROADMAP"):
         Runner(cfg, device="cpu")
+
+
+def test_runner_takes_a_step_with_the_proposal_mlp(sync_scene_dir, tmp_path):
+    """``PROPOSAL`` with ``PROP_FIELD = mlp`` (and ``PROP_PALLAS``, here
+    through the kernels' plain versions) is no longer refused: the Runner
+    builds the ``{"net", "prop"}`` state with the proposal MLP at its
+    configured width and depth, and its training step takes one step that
+    moves the proposal's weights."""
+    cfg = load_config(_write_ini(tmp_path, sync_scene_dir, PROPOSAL="True", PROP_FIELD="mlp",
+                                 PROP_PALLAS="True", PROPOSAL_WIDTH=32, PROPOSAL_DEPTH=2,
+                                 BATCH_RAY=32))
+    runner = Runner(cfg, device="cpu")
+    prop = runner.params["prop"]
+    assert sorted(prop) == ["color", "sigma", "trunk_0", "trunk_1"]
+    assert prop["trunk_0"]["w"].shape == (60, 32) and prop["color"]["w"].shape == (56, 3)
+    step = trainlib.make_train_step(cfg, runner.train_table, runner.k_inv)
+    state, metrics = step(runner.state)
+    assert state.iteration == 1 and np.isfinite(float(metrics["loss"]))
+    assert not torch.equal(state.params["prop"]["trunk_1"]["w"], prop["trunk_1"]["w"])
 
 
 def test_psnr_and_ssim_match_jax():

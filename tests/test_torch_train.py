@@ -366,7 +366,7 @@ def test_init_state_refuses_slice_3_fields(what):
     """The grid field and the proposal grid train (slice 4); the forms of
     them still to port are refused by name before any weight is made."""
     if what == "FINE_FIELD":
-        cfg, match = Config(fine_field="grid", grid_levels=2), "GRID_LEVELS=2 .*slice 5"
+        cfg, match = Config(fine_field="grid", grid_levels=2), "GRID_LEVELS=2 .*the flagship"
     else:
         cfg = Config(proposal=True, fine_field="grid", grid_upsample="1000:384")
         match = "GRID_UPSAMPLE=1000:384 .*item 13"

@@ -1,9 +1,10 @@
 """Checkpoints: the JAX package's flat-npz layout, so one file loads in both.
 
 Keys are ``params::<layer>::w`` (``(in, out)``) and ``params::<layer>::b``
-for the MLP; ``params::lines::{x,y,z}``, ``params::decoder::{hidden,color}::
-{w,b}`` and a 0-d ``params::extent`` for the grid field; under ``PROPOSAL``
-the same under ``params::net::`` and ``params::prop::``; plus ``iteration``; a training checkpoint also holds the Adam state,
+for the MLP and the proposal MLP; ``params::lines::{x,y,z}``,
+``params::decoder::{hidden,color}::{w,b}`` and a 0-d ``params::extent`` for
+the grid field; under ``PROPOSAL`` the same under ``params::net::`` and
+``params::prop::``; plus ``iteration``; a training checkpoint also holds the Adam state,
 ``mu::``/``nu::`` moments and ``adam_count``, and with ``OCC_GRID`` the
 occupancy grid, ``occ::raw``, ``occ::density``, ``occ::half_extent`` and
 ``occ::threshold`` (training state: the weights co-adapt to the grid's
@@ -26,7 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from tinynerf_torch.core import gridfield, mlp, occupancy
+from tinynerf_torch.core import gridfield, mlp, occupancy, proposal
 from tinynerf_torch.core.encoding import DIR_ENC_DIM
 
 _SEP = "::"
@@ -86,19 +87,30 @@ def params_from_numpy(tree: Dict[str, Any],
     """The JAX package's parameters, as a nested dict of numpy arrays (or
     anything ``np.asarray`` takes), -> the port's parameters: the same
     nesting, float32 tensors on ``device``. Layouts agree, so nothing is
-    transposed or permuted. Takes the MLP's tree, a grid field's, or the
-    ``{"net", "prop"}`` pair of either (``PROPOSAL``); refuses the grid forms
-    not ported yet (``sigma_net``, pyramid level tables) by name."""
+    transposed or permuted. Takes the MLP's tree, a grid field's, the
+    proposal MLP's (``sigma`` and ``color``, no ``point_info``; its width,
+    depth and point bands from its shapes), or the ``{"net", "prop"}`` pair
+    of a main and a proposal field (``PROPOSAL``); refuses the grid forms not
+    ported yet (``sigma_net``, pyramid level tables) by name."""
     if set(tree) == {"net", "prop"}:
         return {k: params_from_numpy(tree[k], device) for k in ("net", "prop")}
     if "lines" in tree:
         return _grid_from_numpy(tree, device)
     if "trunk_0" not in tree:
         raise ValueError(
-            "expected the reference MLP's parameters (trunk_0 ... color), a grid "
-            f"field's (lines, decoder, extent) or a net/prop pair, got {sorted(tree)}")
+            "expected the reference MLP's parameters (trunk_0 ... color), the proposal "
+            "MLP's (trunk_0 ... sigma, color), a grid field's (lines, decoder, extent) or "
+            f"a net/prop pair, got {sorted(tree)}")
+    if proposal.is_proposal(tree):
+        width, depth, enc_l = proposal.dims(tree)
+        dims = proposal.layer_dims(width, depth, point_dim=6 * enc_l)
+        if set(tree) != {name for name, _, _ in dims}:
+            raise ValueError(f"the proposal MLP's layers {sorted(tree)} are not "
+                             f"{[name for name, _, _ in dims]}")
+    else:
+        dims = mlp.layer_dims()
     params: mlp.Params = {}
-    for name, fan_in, fan_out in mlp.layer_dims():
+    for name, fan_in, fan_out in dims:
         w = np.asarray(tree[name]["w"], dtype=np.float32)
         b = np.asarray(tree[name]["b"], dtype=np.float32)
         if w.shape != (fan_in, fan_out) or b.shape != (fan_out,):

@@ -25,7 +25,7 @@ sigmoid is ``1 / (1 + exp(-x))`` with each step rounded, as XLA lowers it. The f
 another function: it sums sigma and the decoder in float32.
 
 Not ported yet, refused by name: ``GRID_HYBRID`` (the ``sigma_net``),
-``GRID_LEVELS > 1`` and ``GRID_LEVEL_FOLD`` (ROADMAP queue 1, slice 5),
+``GRID_LEVELS > 1`` and ``GRID_LEVEL_FOLD`` (ROADMAP queue 1, the flagship),
 ``GRID_LOOKUP = gather`` and ``upsample_lines`` (queue 1).
 """
 
@@ -56,15 +56,6 @@ def not_ported(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {where})")
 
 
-def _linear_init(generator: torch.Generator, fan_in: int, fan_out: int):
-    """``nn.Linear``'s default, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight
-    and bias, in the ``(in, out)`` layout."""
-    bound = 1.0 / float(fan_in) ** 0.5
-    w = (torch.rand((fan_in, fan_out), generator=generator) * 2 - 1) * bound
-    b = (torch.rand((fan_out,), generator=generator) * 2 - 1) * bound
-    return {"w": w, "b": b}
-
-
 def init_grid_field(generator: torch.Generator, res: int = RES,
                     n_density: int = N_COMP_DENSITY, n_app: int = N_COMP_APP,
                     decoder_width: int = DECODER_WIDTH, extent: float = EXTENT,
@@ -79,14 +70,14 @@ def init_grid_field(generator: torch.Generator, res: int = RES,
     with ``ckpt.params_from_numpy``. ``extent`` is frozen geometry: it gets a
     zero gradient, so Adam leaves it as it is."""
     if hybrid:
-        raise not_ported("GRID_HYBRID (the sigma net)", "queue 1, slice 5: the flagship")
+        raise not_ported("GRID_HYBRID (the sigma net)", "queue 1, items 3-4: the flagship")
     if levels > 1:
-        raise not_ported(f"GRID_LEVELS={levels}", "queue 1, slice 5: the flagship")
+        raise not_ported(f"GRID_LEVELS={levels}", "queue 1, items 3-4: the flagship")
     n_comp = n_density + n_app
     lines = {ax: init_scale * torch.randn((res, n_comp), generator=generator)
              for ax in AXES}
-    decoder = {"hidden": _linear_init(generator, DIR_ENC_DIM + n_app, decoder_width),
-               "color": _linear_init(generator, decoder_width, 3)}
+    decoder = {"hidden": mlp.linear_init(generator, DIR_ENC_DIM + n_app, decoder_width),
+               "color": mlp.linear_init(generator, decoder_width, 3)}
     params = {"lines": lines, "decoder": decoder,
               "extent": torch.tensor(extent, dtype=torch.float32)}
     return optim.tree_map(lambda t: t.to(device), params)
@@ -100,11 +91,11 @@ def check_params(params: Params) -> None:
     """Refuse, by name, the grid forms the port has no field for yet (on a
     tree of tensors or, from a checkpoint, of arrays)."""
     if "sigma_net" in params:
-        raise not_ported("GRID_HYBRID (the sigma net)", "queue 1, slice 5: the flagship")
+        raise not_ported("GRID_HYBRID (the sigma net)", "queue 1, items 3-4: the flagship")
     extra = sorted(set(params["lines"]) - set(AXES))
     if extra:
         raise not_ported(f"GRID_LEVELS > 1 (level tables {extra})",
-                         "queue 1, slice 5: the flagship")
+                         "queue 1, items 3-4: the flagship")
 
 
 def _identity(x):
@@ -196,7 +187,7 @@ def make_field_grid(n_density: int = N_COMP_DENSITY, lookup: str = "onehot",
     if lookup != "onehot":
         raise not_ported(f"GRID_LOOKUP={lookup}", "queue 1, item 14: GRID_LOOKUP = gather")
     if fold:
-        raise not_ported("GRID_LEVEL_FOLD", "queue 1, slice 5: the flagship")
+        raise not_ported("GRID_LEVEL_FOLD", "queue 1, items 3-4: the flagship")
     rounding(precision)
 
     def field(params: Params, points: torch.Tensor, dirs: torch.Tensor):

@@ -52,20 +52,25 @@ def layer_dims(point_dim: int = POINT_ENC_DIM, dir_dim: int = DIR_ENC_DIM,
     return dims
 
 
+def linear_init(generator: torch.Generator, fan_in: int, fan_out: int,
+                device: torch.device = torch.device("cpu")) -> Dict[str, torch.Tensor]:
+    """``nn.Linear``'s default, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight
+    and bias, in the ``(in, out)`` layout, drawn on the CPU from
+    ``generator`` (so a seed gives the same weights on every device), then
+    moved to ``device``."""
+    bound = 1.0 / float(fan_in) ** 0.5
+    w = (torch.rand((fan_in, fan_out), generator=generator) * 2 - 1) * bound
+    b = (torch.rand((fan_out,), generator=generator) * 2 - 1) * bound
+    return {"w": w.to(device), "b": b.to(device)}
+
+
 def init_network(generator: torch.Generator,
                  device: torch.device = torch.device("cpu")) -> Params:
-    """PyTorch ``nn.Linear`` default init, U(-1/sqrt(fan_in), 1/sqrt(fan_in))
-    for weight and bias, drawn on the CPU from ``generator`` (so a seed gives
-    the same weights on every device), then moved to ``device``. The numbers
-    differ from the JAX package's init for the same seed; tests carry JAX
-    weights across with ``ckpt.params_from_numpy``."""
-    params: Params = {}
-    for name, fan_in, fan_out in layer_dims():
-        bound = 1.0 / float(fan_in) ** 0.5
-        w = (torch.rand((fan_in, fan_out), generator=generator) * 2 - 1) * bound
-        b = (torch.rand((fan_out,), generator=generator) * 2 - 1) * bound
-        params[name] = {"w": w.to(device), "b": b.to(device)}
-    return params
+    """PyTorch ``nn.Linear`` default init (``linear_init``) for every layer.
+    The numbers differ from the JAX package's init for the same seed; tests
+    carry JAX weights across with ``ckpt.params_from_numpy``."""
+    return {name: linear_init(generator, fan_in, fan_out, device)
+            for name, fan_in, fan_out in layer_dims()}
 
 
 def num_params(params: Params) -> int:
@@ -94,7 +99,7 @@ def round_bf16_value(x: torch.Tensor) -> torch.Tensor:
     return x + (round_bf16(x) - x).detach()
 
 
-def _rounding(precision: str):
+def rounding(precision: str):
     """(value rounding, activation rounding) for ``precision``: the
     identity at fp32, ``round_bf16_value`` and ``round_bf16`` at bf16."""
     if precision == "fp32":
@@ -114,7 +119,7 @@ def apply_network(params: Params, point_enc: torch.Tensor,
     biases, sums, ``|sigma|`` and the sigmoid stay float32."""
     if point_enc.is_cuda:
         check_no_tf32()
-    value, act = _rounding(precision)
+    value, act = rounding(precision)
     linear = lambda name, x: x @ value(params[name]["w"]) + params[name]["b"]
     point_enc, dir_enc = value(point_enc), value(dir_enc)
     h = point_enc

@@ -17,7 +17,7 @@ needs ``WHITE_BKGD`` (the Runner refuses it otherwise).
   package reads the pooled grid (``OCC_MARCH_RES``) through a one-hot
   matmul because that suits a TPU; here it is a gather, the same values.
 
-Not ported yet (ROADMAP queue 1, slice 8): the contracted grid
+Not ported yet (ROADMAP queue 1, slice 7): the contracted grid
 (``CONTRACT``) and the disparity-spaced march (``LINDISP``).
 """
 
@@ -39,7 +39,7 @@ class OccGrid(NamedTuple):
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, slice 8: contraction/LINDISP/NDC)")
+        f"{what} is not ported yet (ROADMAP queue 1, slice 7: contraction/LINDISP/NDC)")
 
 
 def init_grid(resolution: int = 64, half_extent: float = 1.5,

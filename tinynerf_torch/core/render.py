@@ -17,9 +17,10 @@ Semantics kept:
 - ``ray_loss`` is the sum of squares over rays and channels of both passes;
 - with an occupancy grid (``OCC_GRID``), each ray's [near, far] is first
   tightened to the occupied cells it crosses (``occupancy.tighten_bounds``);
-- with a proposal field (``PROPOSAL``: ``prop_params`` and
-  ``prop_field_fn``) the coarse pass runs on it, the resampler's CDF is fed
-  the detached coarse weights, and the fine pass is composited on its own
+- with a proposal field (``PROPOSAL``: ``prop_params``, and
+  ``prop_field_fn``, by default the proposal MLP's plain
+  ``proposal.field_proposal``) the coarse pass runs on it, the resampler's
+  CDF is fed the detached coarse weights, and the fine pass is composited on its own
   over the ``n_fine`` samples (the last with the constant tail delta): the
   proposal places samples and never enters C_fine.
 
@@ -40,7 +41,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from tinynerf_torch.core import encoding, mlp, occupancy, rays as raylib, sampling
+from tinynerf_torch.core import encoding, mlp, occupancy, proposal, rays as raylib, sampling
 
 TAIL_DELTA = 1e-4
 
@@ -215,8 +216,8 @@ def render_rays(params: mlp.Params,
     ``merge_impl`` is accepted as ``"twolist"`` or ``"permute"``: both are
     the same stable-sort merge here. ``occ_grid`` tightens each ray's bounds
     first, with ``occ_march`` probes per ray (``occupancy.tighten_bounds``).
-    ``prop_params`` with ``prop_field_fn`` runs the coarse pass on the
-    proposal field (``PROPOSAL``; module docstring).
+    ``prop_params`` runs the coarse pass on the proposal field
+    ``prop_field_fn`` (``PROPOSAL``; module docstring).
     """
     if merge_impl not in ("twolist", "permute"):
         raise ValueError(f"unknown merge_impl {merge_impl!r}")
@@ -236,10 +237,9 @@ def render_rays(params: mlp.Params,
                 "per-channel sort defect cannot be reproduced under it. Use "
                 "PROPOSAL=False for parity experiments.")
         if prop_field_fn is None:
-            raise _not_ported("PROP_FIELD=mlp (the proposal MLP, the JAX package's "
-                              "default proposal field)", "slice 6: the proposal MLP")
+            prop_field_fn = proposal.field_proposal
     if ndc_params is not None:
-        raise _not_ported("NDC", "slice 8: contraction/LINDISP/NDC")
+        raise _not_ported("NDC", "slice 7: contraction/LINDISP/NDC")
 
     origins, dirs, near, far = raylib.pixels_to_rays(rows, cols, pose17, k_inv)
     if occ_grid is not None:

@@ -41,10 +41,10 @@ def coarse_ts(near: torch.Tensor, far: torch.Tensor, n_coarse: int,
     ray. With ``generator`` (or an injected (B, N_c) ``jitter`` in [0, 1))
     each t moves up by ``jitter * (far - near) / (N_c - 1)``, clamped at
     ``far`` (stratified sampling, the JAX package's opt-in). LINDISP is not
-    ported yet (ROADMAP queue 1, slice 8)."""
+    ported yet (ROADMAP queue 1, slice 7)."""
     if lindisp:
         raise NotImplementedError(
-            "LINDISP is not ported yet (ROADMAP queue 1, slice 8: "
+            "LINDISP is not ported yet (ROADMAP queue 1, slice 7: "
             "contraction/LINDISP/NDC)")
     frac = linspace_frac(n_coarse, near.device).to(near.dtype)
     ts = near[:, None] + (far - near)[:, None] * frac[None, :]

@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from tinynerf_torch.config import Config
-from tinynerf_torch.core import gridfield, render
+from tinynerf_torch.core import gridfield, proposal, render
+from tinynerf_torch.core.encoding import L_POINT
 from tinynerf_torch.data.rays import RayTable
 
 
@@ -46,39 +47,39 @@ def check_supported(cfg: Config) -> None:
         raise ValueError(f"PRECISION must be fp32 or bf16, got {cfg.precision!r}")
     if cfg.fine_field not in ("mlp", "grid"):
         raise ValueError(f"FINE_FIELD must be mlp or grid, got {cfg.fine_field!r}")
+    if cfg.proposal and cfg.prop_field not in ("grid", "mlp"):
+        raise ValueError(f"PROP_FIELD must be grid or mlp, got {cfg.prop_field!r}")
     _grid_pallas_conflicts(cfg)
     grid = cfg.fine_field == "grid"
     prop_grid = cfg.proposal and cfg.prop_field == "grid"
     refused = [
-        (grid and cfg.grid_hybrid, "GRID_HYBRID", "queue 1, slice 5: the flagship"),
+        (grid and cfg.grid_hybrid, "GRID_HYBRID", "queue 1, items 3-4: the flagship"),
         (prop_grid and cfg.prop_grid_hybrid, "PROP_GRID_HYBRID",
-         "queue 1, slice 5: the flagship"),
+         "queue 1, items 3-4: the flagship"),
         (grid and cfg.grid_levels > 1, f"GRID_LEVELS={cfg.grid_levels}",
-         "queue 1, slice 5: the flagship"),
-        (grid and cfg.grid_level_fold, "GRID_LEVEL_FOLD", "queue 1, slice 5: the flagship"),
+         "queue 1, items 3-4: the flagship"),
+        (grid and cfg.grid_level_fold, "GRID_LEVEL_FOLD", "queue 1, items 3-4: the flagship"),
         (grid and bool(cfg.grid_upsample), f"GRID_UPSAMPLE={cfg.grid_upsample}",
          "queue 1, item 13: GRID_UPSAMPLE"),
         ((grid or prop_grid) and cfg.grid_lookup != "onehot",
          f"GRID_LOOKUP={cfg.grid_lookup}", "queue 1, item 14: GRID_LOOKUP = gather"),
-        (cfg.proposal and cfg.prop_field != "grid", f"PROP_FIELD={cfg.prop_field}",
-         "queue 1, slice 6: the proposal MLP"),
-        (cfg.dist_loss > 0, "DIST_LOSS", "queue 1, slice 8: contraction/LINDISP/NDC"),
+        (cfg.dist_loss > 0, "DIST_LOSS", "queue 1, slice 7: contraction/LINDISP/NDC"),
         (cfg.prop_interlevel > 0, "PROP_INTERLEVEL",
-         "queue 1, slice 8: contraction/LINDISP/NDC"),
+         "queue 1, slice 7: contraction/LINDISP/NDC"),
         (cfg.occ_grid and cfg.contract, "OCC_GRID with CONTRACT",
-         "queue 1, slice 8: contraction/LINDISP/NDC"),
+         "queue 1, slice 7: contraction/LINDISP/NDC"),
         (cfg.occ_grid and cfg.lindisp, "OCC_GRID with LINDISP",
-         "queue 1, slice 8: contraction/LINDISP/NDC"),
+         "queue 1, slice 7: contraction/LINDISP/NDC"),
         (cfg.fused_render, "FUSED_RENDER", "queue 2, item 9: fused renderer"),
         (cfg.host_feed, "HOST_FEED",
          "queue 1, item 5: HOST_FEED and the native ray store"),
         (cfg.val_metrics, "VAL_METRICS", "queue 1, item 6: VAL_METRICS"),
         (cfg.profile_steps > 0, f"PROFILE_STEPS={cfg.profile_steps}",
          "queue 1, item 7: PROFILE_STEPS"),
-        (cfg.contract, "CONTRACT", "queue 1, slice 8: contraction/LINDISP/NDC"),
-        (cfg.lindisp, "LINDISP", "queue 1, slice 8: contraction/LINDISP/NDC"),
+        (cfg.contract, "CONTRACT", "queue 1, slice 7: contraction/LINDISP/NDC"),
+        (cfg.lindisp, "LINDISP", "queue 1, slice 7: contraction/LINDISP/NDC"),
         (cfg.ndc and cfg.data_type == "llff", "NDC",
-         "queue 1, slice 8: contraction/LINDISP/NDC"),
+         "queue 1, slice 7: contraction/LINDISP/NDC"),
     ]
     for bad, what, where in refused:
         if bad:
@@ -130,12 +131,25 @@ def make_field_fn(cfg: Config) -> render.FieldFn:
 
 
 def make_prop_field_fn(cfg: Config) -> Optional[render.FieldFn]:
-    """The proposal field of the coarse pass (None unless ``PROPOSAL``): the
-    proposal grid (``PROP_FIELD = grid``), as ``_grid_field_fn``."""
+    """The proposal field of the coarse pass (None unless ``PROPOSAL``). The
+    proposal grid (``PROP_FIELD = grid``): ``_grid_field_fn``. The proposal
+    MLP (``PROP_FIELD = mlp``) with ``USE_PALLAS``, ``PROP_PALLAS`` and the
+    full point encoding (``PROPOSAL_ENC_L`` 10), as ``tinynerf/train.py:
+    247-249`` chooses: the point field is ``prop_flat`` and its ``eval_rays``
+    is ``prop_rays`` (on the card, TPU kernels 7 and 8). Otherwise the plain
+    field, ``proposal.make_field_proposal`` (at bf16 the JAX package's bf16
+    network), as the JAX package runs it outside any kernel."""
     check_supported(cfg)
     if not cfg.proposal:
         return None
-    return _grid_field_fn(cfg, cfg.prop_grid_comp_density)
+    if cfg.prop_field == "grid":
+        return _grid_field_fn(cfg, cfg.prop_grid_comp_density)
+    if cfg.use_pallas and cfg.prop_pallas and cfg.proposal_enc_l == L_POINT:
+        from tinynerf_torch.kernels.proposal_kernel import prop_flat, prop_rays
+        fn = functools.partial(prop_flat, precision=cfg.precision)
+        fn.eval_rays = functools.partial(prop_rays, precision=cfg.precision)
+        return fn
+    return proposal.make_field_proposal(cfg.proposal_enc_l, cfg.precision)
 
 
 def make_frame_fn(cfg: Config, k_inv: torch.Tensor, height: int, width: int,

@@ -134,20 +134,27 @@ def field_rays_bwd_plain(params: mlp.Params, origins: torch.Tensor,
 def preactivation_margin(params: mlp.Params, origins: torch.Tensor,
                          dirs: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
     """(B, N): each sample row's smallest |pre-activation| over every ReLU
-    and the sigma head's ``abs``. Two float32 implementations that sum in
-    different orders can disagree on a mask (or a sign) only where this is
-    within their rounding difference, so gradient comparisons weight such
-    rows out of their cotangents."""
+    and the sigma head's ``abs``, for the reference MLP or the proposal MLP
+    (a tree without ``point_info``: no skip, no view branch). Two float32
+    implementations that sum in different orders can disagree on a mask (or
+    a sign) only where this is within their rounding difference, so
+    gradient comparisons weight such rows out of their cotangents."""
     points = origins[:, None, :] + ts[..., None] * dirs[:, None, :]
     pe = encoding.encode_points(points)
-    de = encoding.encode_dirs(dirs[:, None, :].expand(points.shape))
     lin = lambda name, x: x @ params[name]["w"] + params[name]["b"]
+    reference = "point_info" in params
+    skip = mlp.SKIP_LAYERS if reference else ()
     h, margin = pe, torch.full(ts.shape, float("inf"), device=ts.device)
-    for i in range(mlp.DEPTH):
-        pre = lin(f"trunk_{i}", torch.cat([h, pe], -1) if i in mlp.SKIP_LAYERS else h)
+    i = 0
+    while f"trunk_{i}" in params:
+        pre = lin(f"trunk_{i}", torch.cat([h, pe], -1) if i in skip else h)
         margin = torch.minimum(margin, pre.abs().amin(-1))
         h = torch.relu(pre)
+        i += 1
     margin = torch.minimum(margin, lin("sigma", h).abs()[..., 0])
+    if not reference:
+        return margin
+    de = encoding.encode_dirs(dirs[:, None, :].expand(points.shape))
     pre = lin("dir_info", torch.cat([de, lin("point_info", h)], -1))
     return torch.minimum(margin, pre.abs().amin(-1))
 

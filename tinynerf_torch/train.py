@@ -1,15 +1,17 @@
 """The training step: sample -> render -> loss -> grad -> Adam.
 
 Counterpart of ``tinynerf/train.py`` for the 8x256 MLP field and the CP
-grid field (``FINE_FIELD = grid``), with or without the proposal grid
-(``PROPOSAL``, ``PROP_FIELD = grid``), at fp32 or bf16, with or without the
-occupancy grid. A step draws a batch (or takes the caller's indices); with
+grid field (``FINE_FIELD = grid``), with or without a proposal field
+(``PROPOSAL``: the proposal grid, ``PROP_FIELD = grid``, or the proposal
+MLP, ``PROP_FIELD = mlp``), at fp32 or bf16, with or without the occupancy
+grid. A step draws a batch (or takes the caller's indices); with
 ``OCC_GRID``, every ``OCC_UPDATE_EVERY`` iterations it first refreshes the
 grid from the main field's current params through its point field (the MLP:
 on the card, the flat field kernel; the grid field: its plain point field,
 as in the JAX package); it renders both passes (``eval.make_field_fn`` /
 ``make_prop_field_fn``: on the card the MLP's calls run kernels 1 and 2, the
-grid fields' calls under ``GRID_PALLAS`` kernels 5 and 6), takes the
+grid fields' calls under ``GRID_PALLAS`` kernels 5 and 6, the proposal
+MLP's under ``PROP_PALLAS`` kernels 7 and 8), takes the
 gradient of ``render.ray_loss`` (plus ``GRID_TV`` times the fine grid's
 ``tv_loss``) with autograd and applies ``optim.adam_update`` at the
 schedule's rate for the current iteration, the grids' line tables at
@@ -30,14 +32,14 @@ import torch
 
 from tinynerf_torch import optim
 from tinynerf_torch.config import Config
-from tinynerf_torch.core import gridfield, mlp, occupancy, render
+from tinynerf_torch.core import gridfield, mlp, occupancy, proposal, render
 from tinynerf_torch.data.rays import RayBatch, RayTable
 # one field for training and rendering
 from tinynerf_torch.eval import (check_supported, make_field_fn, make_prop_field_fn,
                                  net_params, prop_params)
 
 Metrics = dict
-# the proposal grid's fresh weights come from a generator seeded SEED + 2 (SEED
+# the proposal field's fresh weights come from a generator seeded SEED + 2 (SEED
 # seeds the main field's, SEED + 1 the sampling generator)
 PROP_SEED_OFFSET = 2
 
@@ -54,7 +56,7 @@ class TrainState:
 def _fresh_params(cfg: Config, device: torch.device) -> Any:
     """``mlp.init_network`` or ``gridfield.init_grid_field`` from a CPU
     generator seeded with ``SEED``; with ``PROPOSAL`` the ``{"net", "prop"}``
-    pair, the proposal grid from a generator seeded ``SEED + 2``."""
+    pair, the proposal grid or MLP from a generator seeded ``SEED + 2``."""
     gen = torch.Generator().manual_seed(cfg.seed)
     if cfg.fine_field == "grid":
         net = gridfield.init_grid_field(
@@ -66,12 +68,29 @@ def _fresh_params(cfg: Config, device: torch.device) -> Any:
         net = mlp.init_network(gen, device)
     if not cfg.proposal:
         return net
-    prop = gridfield.init_grid_field(
-        torch.Generator().manual_seed(cfg.seed + PROP_SEED_OFFSET),
-        res=cfg.prop_grid_res, n_density=cfg.prop_grid_comp_density,
-        n_app=cfg.prop_grid_comp_app, decoder_width=cfg.prop_grid_decoder_width,
-        extent=cfg.grid_extent, hybrid=cfg.prop_grid_hybrid, device=device)
+    prop_gen = torch.Generator().manual_seed(cfg.seed + PROP_SEED_OFFSET)
+    if cfg.prop_field == "mlp":
+        prop = proposal.init_proposal(prop_gen, cfg.proposal_width, cfg.proposal_depth,
+                                      cfg.proposal_enc_l, device)
+    else:
+        prop = gridfield.init_grid_field(
+            prop_gen, res=cfg.prop_grid_res, n_density=cfg.prop_grid_comp_density,
+            n_app=cfg.prop_grid_comp_app, decoder_width=cfg.prop_grid_decoder_width,
+            extent=cfg.grid_extent, hybrid=cfg.prop_grid_hybrid, device=device)
     return {"net": net, "prop": prop}
+
+
+def check_resumed(cfg: Config, params: Any) -> None:
+    """Refuse resumed params whose proposal MLP disagrees with the config
+    (``PROP_FIELD``, ``PROPOSAL_WIDTH``, ``PROPOSAL_DEPTH``,
+    ``PROPOSAL_ENC_L``), naming the key."""
+    if not (cfg.proposal and cfg.prop_field == "mlp"):
+        return
+    if not proposal.is_proposal(params["prop"]):
+        raise ValueError("the checkpoint's proposal field is not the proposal MLP, which "
+                         "PROP_FIELD = mlp sets")
+    proposal.check_config(params["prop"], cfg.proposal_width, cfg.proposal_depth,
+                          cfg.proposal_enc_l)
 
 
 def init_state(cfg: Config, device: torch.device,
@@ -80,7 +99,8 @@ def init_state(cfg: Config, device: torch.device,
                iteration: int = 0,
                generator: Optional[torch.Generator] = None,
                occ: Optional[occupancy.OccGrid] = None) -> TrainState:
-    """Fresh or resumed state. Fresh weights: ``_fresh_params``. The sampling
+    """Fresh or resumed state. Fresh weights: ``_fresh_params``; resumed ones
+    must agree with the config's proposal MLP (``check_resumed``). The sampling
     generator lives on ``device`` and is seeded with ``SEED + 1``. With
     ``OCC_GRID`` and no resumed ``occ``, the grid starts all occupied
     (``occupancy.init_grid``). A config the port cannot train yet is refused
@@ -88,6 +108,8 @@ def init_state(cfg: Config, device: torch.device,
     check_supported(cfg)
     if params is None:
         params = _fresh_params(cfg, device)
+    else:
+        check_resumed(cfg, params)
     if opt_state is None:
         opt_state = optim.adam_init(params)
     if generator is None:
@@ -101,9 +123,9 @@ def init_state(cfg: Config, device: torch.device,
 def make_lr_scale(cfg: Config, params: Any) -> Optional[Any]:
     """Per-leaf learning-rate multipliers for ``optim.adam_update``, or None:
     ``GRID_LR_MULT`` on every leaf under ``lines`` (the main grid's and the
-    proposal grid's), 1 elsewhere; None unless a grid field trains with a
-    multiplier other than 1. (Pyramid levels, whose multiplier is also
-    scaled by ``GRID_LEVEL_LR``, are refused before this: slice 5.)"""
+    proposal grid's), 1 elsewhere (the proposal MLP's leaves included); None
+    unless a grid field trains with a multiplier other than 1. (Pyramid levels, whose multiplier is also
+    scaled by ``GRID_LEVEL_LR``, are refused before this: the flagship.)"""
     uses_grid = cfg.fine_field == "grid" or (cfg.proposal and cfg.prop_field == "grid")
     if not uses_grid or (cfg.grid_lr_mult == 1.0 and cfg.grid_level_lr == 1.0):
         return None
