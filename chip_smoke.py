@@ -98,6 +98,26 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
 16. prints one ``{"kernels": [...]}`` line (every kernel form) and, last,
    one ``{"ok": true, "device": {...}}`` line.
 
+Phases 6b and 8b (render-lego-fused-800, render-lego_occ-fused-800) render
+the two views of phases 6 and 8 again from the same checkpoints with
+``FUSED_RENDER``: exactly one launch of kernel 9 (``csrc/render_fused_fwd.cu``)
+a chunk and none of kernels 1-3, frames finite in [0, 1], their max and mean
+difference from the unfused frames, s/frame, a real chunk (with the grid in
+8b) through kernel 9 against ``render_fused_plain`` (1e-4; 1e-3 at bf16), a
+profile of three chunks, and one gradient of that chunk's loss through the
+fused branch of ``render_rays`` (one launch each of kernels 9 and 10,
+``csrc/render_fused_bwd.cu``) held against the plain backward as in phase
+3. Kernels 9 and 10 are held against their plain versions in phase 3 (fp32
+and bf16, white background off and on, B = 4096 and a ragged B = 1001 whose
+last 7 rays are empty, 64 + 128 samples, rays from ``pixels_to_rays`` on a
+field with content: colors within 1e-4 / 1e-3; every gradient tensor at
+cosine >= 0.9999 and norm within 1% at fp32, cosine >= 0.999 at bf16,
+against the plain backward taken at kernel 9's own fine t's
+(``render_kernel.grads_agree``), since one ulp of a fine t moves the top
+encoding frequency by 2^9 ulps; two backward launches bit-identical; no
+gradient to the rays) and timed in phase 4 at B = 4096 beside their FLOP
+bounds.
+
 Kernels 5 and 6 (``csrc/grid_rays_fwd.cu``, ``csrc/grid_rays_bwd.cu``) are
 held against their plain versions in phase 3 (fp32 and bf16, at B = 4096
 with the fine grid at N = 128 and the proposal grid at N = 64, at ragged
@@ -170,6 +190,11 @@ PROP_SHAPE = (4096, 64)                  # a lego_prop step's proposal call
 PROP_CHECKS = (("128x4", 4096, 64), ("128x4", 1001, 64), ("64x3", 4096, 64))
 PROP_STEPS = 100            # lego_prop with PROP_FIELD = mlp and PROP_PALLAS
 PROP_FP32_STEPS = 10        # the same at fp32
+FUSED_SAMPLES = (64, 128)   # the fused renderer at lego's N_COARSE + N_FINE
+# kernels 9 and 10: (precision, B, white_bkgd); B = 1001 with 7 empty rays
+FUSED_CHECKS = tuple((p, B, w) for p in ("fp32", "bf16") for B in (4096, 1001)
+                     for w in (False, True))
+FUSED_ATOL = {"fp32": CHUNK_ATOL, "bf16": BF16_CHUNK_ATOL}   # kernel 9: each color
 
 
 def phase(title: str) -> None:
@@ -486,6 +511,28 @@ def blender_scene(n_views: int, hw: int, seed: int):
                      focal=float(focal))
 
 
+def fused_rays(device, n_rays: int, seed: int, empty: int = 0):
+    """(origins, dirs, t_co, near, far) of ``n_rays`` rays from
+    pixels_to_rays through random pixels of an 800x800 view of
+    ``blender_scene`` (lego's field of view, near/far 2/6), t_co at
+    FUSED_SAMPLES[0] samples; the last ``empty`` rays get near == far, as
+    rays the occupancy grid empties."""
+    import numpy as np
+    import torch
+    from tinynerf_torch.core import rays as raylib, sampling
+    scene = blender_scene(1, 800, seed)
+    rng = np.random.default_rng(seed)
+    rows, cols = (torch.from_numpy(rng.uniform(0, 800, n_rays).astype(np.float32)).to(device)
+                  for _ in range(2))
+    pose = torch.from_numpy(scene.poses_bounds[0].astype(np.float32)).to(device)
+    k_inv = raylib.make_k_inv(800, 800, scene.focal).to(device)
+    o, d, near, far = raylib.pixels_to_rays(rows, cols, pose.expand(n_rays, 17), k_inv)
+    near, far = near.contiguous(), far.contiguous().clone()
+    if empty:
+        far[-empty:] = near[-empty:]
+    return o, d.contiguous(), sampling.coarse_ts(near, far, FUSED_SAMPLES[0]), near, far
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -502,6 +549,7 @@ def main() -> int:
     from tinynerf_torch.kernels import grid_kernel as gk
     from tinynerf_torch.kernels import mlp_kernel as mk
     from tinynerf_torch.kernels import proposal_kernel as pk
+    from tinynerf_torch.kernels import render_kernel as rk
     from tinynerf_torch.runner import Runner
 
     # ---- 1. device ----
@@ -534,8 +582,10 @@ def main() -> int:
     smem[pk.FWD_SOURCE] = pk._library(pk.FWD_SOURCE).prop_rays_fwd_smem_bytes()
     for net, (width, _) in PROP_NETS.items():
         smem[f"{pk.BWD_SOURCE} {net}"] = pk._library(pk.BWD_SOURCE).prop_rays_bwd_smem_bytes(width)
+    smem[rk.FWD_SOURCE] = rk._library(rk.FWD_SOURCE).render_fused_fwd_smem_bytes(*FUSED_SAMPLES)
+    smem[rk.BWD_SOURCE] = rk._library(rk.BWD_SOURCE).render_fused_bwd_smem_bytes(*FUSED_SAMPLES)
     for source in (mk.FWD_SOURCE, mk.BWD_SOURCE, mk.FLAT_SOURCE, gk.FWD_SOURCE, gk.BWD_SOURCE,
-                   pk.FWD_SOURCE, pk.BWD_SOURCE):
+                   pk.FWD_SOURCE, pk.BWD_SOURCE, rk.FWD_SOURCE, rk.BWD_SOURCE):
         info = build.build_log[source]
         sizes = ", ".join(f"{k.split()[-1] if ' ' in k else 'main kernel'} {v} B"
                           for k, v in smem.items() if k.split()[0] == source)
@@ -767,6 +817,73 @@ def main() -> int:
             prop_inputs[B, N] = (o, d, ts, *cots)
     torch.cuda.empty_cache()
 
+    # ---- 3g. kernels 9 and 10 (the fused renderer), fp32 and bf16, vs plain ----
+    phase("kernels 9 and 10 (fused renderer forward and recompute backward) vs plain, "
+          "fp32 and bf16")
+    content = optim.tree_map(lambda t: t.clone(), params)
+    content["sigma"]["b"] += 1.0   # a field with content (ROADMAP, tolerances)
+    n_c, n_f = FUSED_SAMPLES
+    fused_inputs = {}
+    fused_err = {f: 0.0 for f in ("fwd fp32", "fwd bf16", "bwd fp32", "bwd bf16")}
+    fused_cos = {"fp32": 1.0, "bf16": 1.0}
+    fused_ratio = {"fp32": [1.0, 1.0], "bf16": [1.0, 1.0]}
+    for precision, B, white in FUSED_CHECKS:
+        args = fused_rays(dev, B, seed=B, empty=7 if B == 1001 else 0)
+        with torch.no_grad():
+            k_out = rk.render_fused(content, *args, n_f, white, precision)
+            torch.cuda.synchronize()
+            p_out = rk._plain(content, *args, n_f, white, precision)
+        errs = [float((a - b).abs().max()) for a, b in zip(k_out, p_out)]
+        finite = all(bool(torch.isfinite(x).all()) for x in k_out)
+        g = [torch.from_numpy(rng.normal(size=(B, 3)).astype(np.float32)).to(dev)
+             for _ in range(2)]
+        kernel = rk.render_fused_bwd(content, *args, *g, n_f, white, precision)
+        again = rk.render_fused_bwd(content, *args, *g, n_f, white, precision)
+        fine_ts = rk.render_fused_ts(content, *args, n_f, white, precision)[2]
+        torch.cuda.synchronize()
+        plain = rk.render_fused_bwd_plain(content, *args, *g, n_f, white, precision, fine_ts)
+        ok, worst, rows = rk.grads_agree(kernel, plain, precision)
+        # for the record: at the plain version's own fine t's
+        own = rk.grad_agreement(kernel, rk.render_fused_bwd_plain(content, *args, *g, n_f,
+                                                                  white, precision))
+        ratios = [v[1] for v in rows.values()]
+        same = all(torch.equal(kernel[n][k], again[n][k]) for n in kernel for k in ("w", "b"))
+        t_diff = (fine_ts - p_out[2]).abs()
+        print(f"{precision} B={B} white_bkgd={white}: kernel 9 max |C_coarse err| {errs[0]:.3e}, "
+              f"|C_fine err| {errs[1]:.3e} (atol {FUSED_ATOL[precision]}), finite {finite}; "
+              f"its fine t's vs the plain's: {int((t_diff > 0).sum())} of {t_diff.numel()} "
+              f"differ, max {float(t_diff.max()):.3e}; kernel 10 vs the plain backward at "
+              f"kernel 9's fine t's: smallest cosine {rows[worst][0]:.8f} ({worst}; bound "
+              f"{rk.GRAD_COS[precision]}), norm ratios {min(ratios):.6f}..{max(ratios):.6f} "
+              f"(bound at fp32 1 +- {rk.GRAD_NORM}); at the plain's own fine t's (no bound): "
+              f"smallest cosine {min(v[0] for v in own.values()):.8f}, norm ratios "
+              f"{min(v[1] for v in own.values()):.6f}..{max(v[1] for v in own.values()):.6f}; "
+              f"two launches bit-identical: {same}")
+        if not (finite and max(errs) <= FUSED_ATOL[precision] and same and ok):
+            raise AssertionError(f"kernels 9/10 disagree with their plain versions at "
+                                 f"{precision} B={B} white_bkgd={white}: {errs} {rows}")
+        fused_err[f"fwd {precision}"] = max(fused_err[f"fwd {precision}"], *errs)
+        fused_err[f"bwd {precision}"] = max(fused_err[f"bwd {precision}"],
+                                            max(v[2] for v in rows.values()))
+        fused_cos[precision] = min(fused_cos[precision], rows[worst][0])
+        fused_ratio[precision] = [min(fused_ratio[precision][0], min(ratios)),
+                                  max(fused_ratio[precision][1], max(ratios))]
+        # timed at the render paths' forms: lego fp32 black, lego_occ bf16 white
+        if B == 4096 and white == (precision == "bf16"):
+            fused_inputs[precision] = (args, g, white)
+        del kernel, again, plain, own, fine_ts
+    # through autograd the params get kernel 10's gradient, the rays none
+    o, d, t_co, near, far = fused_rays(dev, 1001, seed=1)
+    o_leaf = o.clone().requires_grad_(True)
+    leaves = optim.tree_map(lambda t: t.clone().requires_grad_(True), content)
+    c_co, c_fi = rk.render_fused(leaves, o_leaf, d, t_co, near, far, n_f)
+    (c_co.sum() + c_fi.sum()).backward()
+    if o_leaf.grad is not None or leaves["trunk_0"]["w"].grad is None:
+        raise AssertionError("render_fused gave the rays a gradient, or the params none")
+    print("through autograd: the params get a gradient, the origins none")
+    del leaves, o_leaf
+    torch.cuda.empty_cache()
+
     # ---- 4. timing ----
     phase("timing (per launch, CUDA events)")
     fwd_time, bwd_time = {}, {}
@@ -905,6 +1022,35 @@ def main() -> int:
     del prop_inputs
     torch.cuda.empty_cache()
 
+    # kernels 9 and 10 at a render chunk (B = 4096, 64 + 128 samples): (ms,
+    # plain ms, bound ms, bound_by, f32 FMA bound ms) per (precision, shape);
+    # the FLOPs are the field's at every sample (the tail's few not counted)
+    fused_fwd_time = {"fp32": {}, "bf16": {}}
+    fused_bwd_time = {"fp32": {}, "bf16": {}}
+    for precision, (args, g, white) in fused_inputs.items():
+        B = args[0].shape[0]
+        flops = rk.flops_per_ray(n_c, n_f) * B
+        # in: origins, dirs, t_co, near, far, params; out: two (B, 3) colors
+        fwd_bytes = 4 * (B * (3 + 3 + n_c + 2) + n_params + 6 * B)
+        # in: the same and two (B, 3) cotangents; out: every weight gradient
+        bwd_bytes = 4 * (B * (3 + 3 + n_c + 2) + n_params + 6 * B + n_params)
+        with torch.no_grad():
+            k_ms = cuda_ms(lambda: rk.render_fused(content, *args, n_f, white, precision),
+                           iters=5, warmup=1)
+            p_ms = cuda_ms(lambda: rk.render_fused_plain(content, *args, n_f, white, precision),
+                           iters=3, warmup=1)
+        fused_fwd_time[precision][B, n_c, n_f] = report(
+            f"kernel 9 {precision} B={B} {n_c}+{n_f}", k_ms, p_ms, flops, fwd_bytes, precision)
+        k_ms = cuda_ms(lambda: rk.render_fused_bwd(content, *args, *g, n_f, white, precision),
+                       iters=3, warmup=1)
+        p_ms = cuda_ms(lambda: rk.render_fused_bwd_plain(content, *args, *g, n_f, white,
+                                                         precision), iters=2, warmup=1)
+        fused_bwd_time[precision][B, n_c, n_f] = report(
+            f"kernel 10 {precision} B={B} {n_c}+{n_f}", k_ms, p_ms, 3 * flops, bwd_bytes,
+            precision)
+    del fused_inputs
+    torch.cuda.empty_cache()
+
     with tempfile.TemporaryDirectory() as tmp:
         cfg = load_config(os.path.join(ROOT, "conf", "lego.ini"))
         cfg.ckpt_path = os.path.join(tmp, "ckpt")
@@ -913,6 +1059,104 @@ def main() -> int:
         cfg.continue_ = False
         cfg.total_iter = TRAIN_STEPS
         cfg.step = 10 * TRAIN_STEPS  # no preview JPG: imageio is not needed
+
+        def fused_render_phase(fcfg, scene, unfused, unfused_s, atol):
+            """Render ``scene``'s test views from ``fcfg``'s checkpoint with
+            FUSED_RENDER (and its grid, with OCC_GRID) through
+            ``eval.render_test_set``; check one kernel-9 launch a chunk and
+            none of kernels 1-3, frames finite in [0, 1], a real chunk through
+            kernel 9 against ``render_fused_plain`` (``atol``) and one
+            gradient of that chunk's loss through ``render_rays``' fused
+            branch (one launch each of kernels 9 and 10) held against the
+            plain backward at kernel 9's fine t's (``render_kernel.grads_agree``).
+            Returns (render launches, s/frame,
+            chunk error, (gradient launches), smallest gradient cosine)."""
+            runner = Runner(fcfg, device="cuda", scene=scene)
+            occ = runner.state.occ if fcfg.occ_grid else None
+            num_pix = scene.height * scene.width
+            n_chunks = math.ceil(num_pix / fcfg.render_chunk)
+            expected = n_chunks * scene.images.shape[0]
+            counts = lambda: (rk.render_fused.launches, rk.render_fused_bwd.launches,
+                              mk.field_rays.launches, mk.field_rays_bwd.launches,
+                              mk.field_flat.launches)
+            rk.render_fused.launches = rk.render_fused_bwd.launches = 0
+            mk.field_rays.launches = mk.field_rays_bwd.launches = mk.field_flat.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frames = evallib.render_test_set(
+                fcfg, runner.params, runner.test_table, runner.k_inv, runner.start_time,
+                runner.last_iter, save=False, occ_grid=occ)
+            torch.cuda.synchronize()
+            frame_s = (time.perf_counter() - t0) / frames.shape[0]
+            launches = counts()
+            print(f"rendered {frames.shape[0]} views of {scene.height}x{scene.width} "
+                  f"({fcfg.precision}, OCC_GRID {fcfg.occ_grid}, WHITE_BKGD {fcfg.white_bkgd}) "
+                  f"from the iteration-{runner.last_iter} checkpoint with FUSED_RENDER: "
+                  f"{frame_s:.3f} s/frame (unfused {unfused_s:.3f}); launches kernel 9 "
+                  f"{launches[0]} (expected {expected} = {n_chunks} chunks x "
+                  f"{frames.shape[0]} views), kernel 10 {launches[1]}, kernels 1, 2, 3 "
+                  f"{launches[2:]} (expected none)")
+            if launches != (expected, 0, 0, 0, 0):
+                raise AssertionError("the fused render path did not run kernel 9 (and only "
+                                     "it) once a chunk")
+            if not (frames.shape == unfused.shape and np.all(np.isfinite(frames))
+                    and frames.min() >= 0 and frames.max() <= 1):
+                raise AssertionError("the fused frames are not finite values in [0, 1]")
+            diff = np.abs(frames - unfused)
+            print(f"frame mean {frames.mean():.4f}; against the unfused frames of the same "
+                  f"checkpoint: max |diff| {diff.max():.3e}, mean {diff.mean():.3e}")
+
+            span = slice((n_chunks // 2) * fcfg.render_chunk,
+                         (n_chunks // 2 + 1) * fcfg.render_chunk)
+            idx = torch.arange(num_pix, device=dev)[span]
+            rows, cols = (idx // scene.width).float(), (idx % scene.width).float()
+            pose = runner.test_table.poses[0].expand(rows.shape[0], 17)
+            o, d, near, far = raylib.pixels_to_rays(rows, cols, pose, runner.k_inv)
+            if occ is not None:
+                near, far = occupancy.tighten_bounds(occ, o, d, near, far,
+                                                     n_steps=fcfg.occ_march_steps)
+            rays_in = (o, d, sampling.coarse_ts(near, far, fcfg.n_coarse), near, far)
+            form = (fcfg.n_fine, fcfg.white_bkgd, fcfg.precision)
+            with torch.no_grad():
+                k_out = rk.render_fused(runner.params, *rays_in, *form)
+                p_out = rk.render_fused_plain(runner.params, *rays_in, *form)
+            err = max(float((a - b).abs().max()) for a, b in zip(k_out, p_out))
+            print(f"real chunk (view 0, {int((near == far).sum())} of {rows.shape[0]} rays "
+                  f"empty), kernel 9 vs render_fused_plain: max |err| {err:.3e} (atol {atol})")
+            if not err <= atol:
+                raise AssertionError("kernel 9 disagrees with its plain version on a real chunk")
+            field_fn = evallib.make_field_fn(fcfg)
+            args = (rows, cols, pose, runner.k_inv, fcfg.n_coarse, fcfg.n_fine)
+            kw = dict(field_fn=field_fn, merge_impl="twolist", white_bkgd=fcfg.white_bkgd,
+                      occ_grid=occ, occ_march=fcfg.occ_march_steps)
+            with torch.no_grad():
+                profile_calls(lambda: render.render_rays(runner.params, *args, **kw), 3, "chunks")
+
+            # one gradient of the chunk's loss through the fused branch (the
+            # JAX package's test_gradients_match_autodiff path): kernel 10
+            leaves = optim.tree_map(lambda t: t.clone().requires_grad_(True), runner.params)
+            target = torch.full((rows.shape[0], 3), 0.5, device=dev)
+            rk.render_fused.launches = rk.render_fused_bwd.launches = 0
+            mk.field_rays.launches = mk.field_rays_bwd.launches = mk.field_flat.launches = 0
+            c_co, c_fi = render.render_rays(leaves, *args, **kw)
+            render.ray_loss(c_co, c_fi, target).backward()
+            torch.cuda.synchronize()
+            grad_launches = counts()
+            g_out = (2 * (c_co.detach() - target), 2 * (c_fi.detach() - target))
+            fine_ts = rk.render_fused_ts(runner.params, *rays_in, *form)[2]
+            plain = rk.render_fused_bwd_plain(runner.params, *rays_in, *g_out, *form, fine_ts)
+            got = optim.tree_map(lambda t: t.grad, leaves)
+            ok, worst, rows = rk.grads_agree(got, plain, fcfg.precision)
+            cos, ratios = rows[worst][0], [v[1] for v in rows.values()]
+            print(f"one gradient of the chunk's loss through render_rays' fused branch: "
+                  f"launches kernel 9, 10, 1, 2, 3 {grad_launches} (expected (1, 1, 0, 0, 0)); "
+                  f"against the plain backward at kernel 9's fine t's: smallest cosine "
+                  f"{cos:.8f} ({worst}), norm ratios {min(ratios):.6f}..{max(ratios):.6f}")
+            if grad_launches != (1, 1, 0, 0, 0) or not ok:
+                raise AssertionError("the fused branch's gradient did not run kernel 10 or "
+                                     "disagrees with the plain version")
+            del runner, leaves, got, plain, fine_ts
+            return launches[0], frame_s, err, grad_launches[:2], cos
 
         # ---- 5. the training path ----
         phase("training path")
@@ -1052,6 +1296,11 @@ def main() -> int:
             if not pix_err <= CHUNK_ATOL:
                 raise AssertionError("kernel render disagrees with the plain render")
         del runner
+
+        # ---- 6b. render-lego-fused-800: the same checkpoint with FUSED_RENDER ----
+        phase("render-lego-fused-800 (FUSED_RENDER, kernel 9; one gradient through kernel 10)")
+        fused_lego = fused_render_phase(dataclasses.replace(cfg, fused_render=True), scene,
+                                        frames, seconds / frames.shape[0], CHUNK_ATOL)
 
         # ---- 7. the lego_occ training path ----
         phase("lego_occ training path (bf16, occupancy grid)")
@@ -1215,6 +1464,12 @@ def main() -> int:
                                                      merge_impl="twolist", **occ_kw),
                           5, "chunks")
         del runner
+
+        # ---- 8b. render-lego_occ-fused-800: that checkpoint with FUSED_RENDER ----
+        phase("render-lego_occ-fused-800 (FUSED_RENDER, bf16, occupancy grid, kernel 9; one "
+              "gradient through kernel 10)")
+        fused_occ = fused_render_phase(dataclasses.replace(ocfg, fused_render=True), scene,
+                                       frames, occ_frame_s, BF16_CHUNK_ATOL)
 
         # ---- 9. lego_occ at fp32, cut to 10 steps ----
         phase("lego_occ at PRECISION=fp32, 10 steps (the fp32 form of kernel 3)")
@@ -1609,7 +1864,8 @@ def main() -> int:
 
     # ---- 16. results ----
     mean = lambda table, shapes, i: sum(table[s][i] for s in shapes) / len(shapes)
-    shape_key = lambda s: f"B={s[0]},N={s[1]}" if len(s) == 2 else f"R={s[0]}"
+    shape_key = lambda s: (f"B={s[0]},N={s[1]}" if len(s) == 2 else f"R={s[0]}" if len(s) == 1
+                           else f"B={s[0]},N_c={s[1]},N_f={s[2]}")
     render_shapes = [(4096, 64), (4096, 128)]
     times = lambda table: {shape_key(s): dict(zip(("ms", "plain_ms", "bound_ms"), t[:3]))
                            for s, t in table.items()}
@@ -1709,6 +1965,31 @@ def main() -> int:
              prop_err["bwd bf16"], prop_bwd_time["bf16"], [PROP_SHAPE],
              {**prop_rows, "max_rel_err": prop_rel["bwd bf16"]}),
     ]
+    rfwd_src, rbwd_src = ("tinynerf_torch/csrc/render_fused_fwd.cu",
+                          "tinynerf_torch/csrc/render_fused_bwd.cu")
+    fused_shape = [(4096, *FUSED_SAMPLES)]
+    fused_rows = {"flops_per_ray": rk.flops_per_ray(*FUSED_SAMPLES)}
+    # launches: the fused render paths (one a chunk) and the one gradient of
+    # a chunk through each path's fused branch
+    kernels += [
+        form("render_fused_fwd", rfwd_src, "tinynerf/kernels/render_kernel.py:615",
+             fused_lego[0] + fused_lego[3][0],
+             {"lego render fused": fused_lego[0], "lego fused chunk gradient": fused_lego[3][0]},
+             fused_err["fwd fp32"], fused_fwd_time["fp32"], fused_shape, fused_rows),
+        form("render_fused_fwd_bf16", rfwd_src, "tinynerf/kernels/render_kernel.py:615",
+             fused_occ[0] + fused_occ[3][0],
+             {"lego_occ render fused": fused_occ[0],
+              "lego_occ fused chunk gradient": fused_occ[3][0]},
+             fused_err["fwd bf16"], fused_fwd_time["bf16"], fused_shape, fused_rows),
+        form("render_fused_bwd", rbwd_src, "tinynerf/kernels/render_kernel.py:651",
+             fused_lego[3][1], {"lego fused chunk gradient": fused_lego[3][1]},
+             fused_err["bwd fp32"], fused_bwd_time["fp32"], fused_shape,
+             {**fused_rows, "min_cosine_vs_plain": fused_cos["fp32"], "norm_ratio_vs_plain": fused_ratio["fp32"]}),
+        form("render_fused_bwd_bf16", rbwd_src, "tinynerf/kernels/render_kernel.py:651",
+             fused_occ[3][1], {"lego_occ fused chunk gradient": fused_occ[3][1]},
+             fused_err["bwd bf16"], fused_bwd_time["bf16"], fused_shape,
+             {**fused_rows, "min_cosine_vs_plain": fused_cos["bf16"], "norm_ratio_vs_plain": fused_ratio["bf16"]}),
+    ]
     print(json.dumps({"train_step": {str(b): {"ms": t[0], "kernel_ms": t[1]}
                                      for b, t in step_time.items()},
                       "lego_occ": {"step_ms": occ_ms, "kernel_ms": occ_kern,
@@ -1721,7 +2002,11 @@ def main() -> int:
                       "lego_fast": {"seconds_10_steps": fast_s},
                       "lego_prop": {"step_ms": prop_ms, "kernel_ms": prop_kern,
                                     "frame_s": prop_frame_s, "grad_cosines": prop_cos,
-                                    "chunk_pix_err": prop_pix_err}}))
+                                    "chunk_pix_err": prop_pix_err},
+                      "lego_fused": {"frame_s": fused_lego[1], "chunk_err": fused_lego[2],
+                                     "grad_cosine_vs_plain": fused_lego[4]},
+                      "lego_occ_fused": {"frame_s": fused_occ[1], "chunk_err": fused_occ[2],
+                                         "grad_cosine_vs_plain": fused_occ[4]}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -394,3 +394,84 @@ def test_prop_kernels_refuse_a_width_they_do_not_take():
         with pytest.raises(ValueError, match=r"width in \{32, 64, ..., 256\}"):
             pk.prop_rays_bwd(params, o, d, t, t, t, t, t)
     assert (pk.prop_rays.launches, pk.prop_rays_bwd.launches) == before
+
+
+# ---------------------------------------------------------------- the fused renderer
+
+from tinynerf_torch.core import rays as raylib, sampling  # noqa: E402
+from tinynerf_torch.kernels import render_kernel as rk  # noqa: E402
+
+FUSED_ATOL = {"fp32": 1e-4, "bf16": 1e-3}     # each color channel
+
+
+def fused_inputs(dev, B, n_coarse, seed, empty=0):
+    """A field with content (seeded weights, sigma bias +1) and B rays from
+    pixels_to_rays through an 800x800 view 4 units out, near/far 2/6; the
+    last ``empty`` rays get near == far, as rays the occupancy grid empties."""
+    params = mlp.init_network(torch.Generator().manual_seed(seed), dev)
+    params["sigma"]["b"] += 1.0
+    rng = np.random.default_rng(seed)
+    pose = np.concatenate([np.float32([[1, 0, 0, 0.3, 800], [0, 1, 0, -0.2, 800],
+                                       [0, 0, 1, 4.0, 1111]]).ravel(), [2.0, 6.0]])
+    rows, cols = (torch.from_numpy(rng.uniform(0, 800, B).astype(np.float32)).to(dev)
+                  for _ in range(2))
+    pose17 = torch.from_numpy(pose.astype(np.float32)).to(dev).expand(B, 17)
+    o, d, near, far = raylib.pixels_to_rays(rows, cols, pose17,
+                                            raylib.make_k_inv(800, 800, 1111.0).to(dev))
+    near, far = near.contiguous(), far.contiguous().clone()
+    if empty:
+        far[-empty:] = near[-empty:]
+    return params, o, d.contiguous(), sampling.coarse_ts(near, far, n_coarse), near, far
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision,n_rays,n_coarse,n_fine,white", [
+    ("fp32", 4096, 64, 128, False), ("fp32", 1001, 64, 128, True),
+    ("bf16", 4096, 64, 128, True), ("bf16", 1001, 64, 128, False),
+    ("fp32", 13, 8, 16, True)])
+def test_fused_kernels_match_plain_on_card(precision, n_rays, n_coarse, n_fine, white):
+    """Kernels 9 and 10 at the render chunk's B = 4096, 64 + 128 samples, at a
+    ragged B = 1001 whose last 7 rays are empty (near == far), and at 8 + 16
+    samples (8 rays a block). Kernel 9: each color within 1e-4 (fp32) or 1e-3
+    (bf16) of the plain version. Kernel 10, against the plain backward at
+    kernel 9's own fine t's (``render_kernel.grads_agree``): every gradient
+    tensor at cosine >= 0.9999 and norm within 1% (fp32), cosine >= 0.999
+    (bf16). Two backward launches agree bit for bit; the rays get no
+    gradient."""
+    dev = _card()
+    params, o, d, t_co, near, far = fused_inputs(dev, n_rays, n_coarse, n_rays,
+                                                 empty=7 if n_rays == 1001 else 0)
+    before = (rk.render_fused.launches, rk.render_fused_bwd.launches)
+    with torch.no_grad():
+        c_co, c_fi = rk.render_fused(params, o, d, t_co, near, far, n_fine, white, precision)
+        p_co, p_fi = rk.render_fused_plain(params, o, d, t_co, near, far, n_fine, white,
+                                           precision)
+    torch.cuda.synchronize()
+    errs = (float((c_co - p_co).abs().max()), float((c_fi - p_fi).abs().max()))
+    rng = np.random.default_rng(5)
+    g_co, g_fi = (torch.from_numpy(rng.normal(size=(n_rays, 3)).astype(np.float32)).to(dev)
+                  for _ in range(2))
+    args = (params, o, d, t_co, near, far, g_co, g_fi, n_fine, white, precision)
+    kernel, again = rk.render_fused_bwd(*args), rk.render_fused_bwd(*args)
+    fine_ts = rk.render_fused_ts(params, o, d, t_co, near, far, n_fine, white, precision)[2]
+    plain = rk.render_fused_bwd_plain(*args, fine_ts)
+    torch.cuda.synchronize()
+    assert (rk.render_fused.launches, rk.render_fused_bwd.launches) == (before[0] + 2,
+                                                                        before[1] + 2)
+    ok, worst, rows = rk.grads_agree(kernel, plain, precision)
+    print(f"fused {precision} B={n_rays} {n_coarse}+{n_fine} white={white}: |err| "
+          f"coarse {errs[0]:.3e} fine {errs[1]:.3e}; backward vs plain at kernel 9's fine "
+          f"t's: smallest cosine {rows[worst][0]:.8f} ({worst}), norm ratios "
+          f"{min(r[1] for r in rows.values()):.6f}..{max(r[1] for r in rows.values()):.6f}")
+    assert torch.isfinite(c_fi).all() and torch.isfinite(c_co).all()
+    assert max(errs) <= FUSED_ATOL[precision], errs
+    assert ok, rows
+    assert all(torch.equal(kernel[n][k], again[n][k]) for n in kernel for k in ("w", "b"))
+    # through autograd: the params get the kernel's gradient, the rays none
+    leaves = {n: {k: v.clone().requires_grad_(True) for k, v in layer.items()}
+              for n, layer in params.items()}
+    o_leaf = o.clone().requires_grad_(True)
+    c_co, c_fi = rk.render_fused(leaves, o_leaf, d, t_co, near, far, n_fine, white, precision)
+    ((c_co * g_co).sum() + (c_fi * g_fi).sum()).backward()
+    assert o_leaf.grad is None
+    assert torch.equal(leaves["trunk_3"]["w"].grad, kernel["trunk_3"]["w"])

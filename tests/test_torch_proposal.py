@@ -363,3 +363,24 @@ def test_runner_resumes_the_pair_checkpoint(sync_scene_dir, tmp_path):
                                whole.params[part]["lines"][ax]), (part, ax)
         assert float(resumed.params[part]["extent"]) == 1.5
     assert np.isfinite(resumed.display(max_views=1))
+
+
+def test_grid_level_fold_leaves_the_proposal_grid_alone():
+    """``GRID_LEVEL_FOLD`` is a main-grid option: with the MLP fine field and
+    the proposal grid the port builds the proposal field (the fold not
+    applied), as JAX's ``train.make_prop_field_fn`` does, and the two agree
+    on the same params."""
+    kw = dict(SMALL, fine_field="mlp", grid_level_fold=True)
+    jcfg, cfg = JConfig(**kw), Config(**kw)
+    from tinynerf_torch import eval as evallib
+    jparams, params = _with_content(jcfg, 0)
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(-1.6, 1.6, (64, 3)).astype(np.float32)
+    dirs = rng.normal(size=(64, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    ref = jtrain.make_prop_field_fn(jcfg)(jparams["prop"], jnp.asarray(pts), jnp.asarray(dirs))
+    got = evallib.make_prop_field_fn(cfg)(params["prop"], torch.from_numpy(pts),
+                                          torch.from_numpy(dirs))
+    for g, r in zip(got, ref):
+        r = np.stack(r, -1) if isinstance(r, (tuple, list)) else np.asarray(r)
+        np.testing.assert_allclose(g.detach().numpy(), r, atol=1e-5, rtol=1e-5)

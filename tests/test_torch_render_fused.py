@@ -1,0 +1,370 @@
+"""The fused renderer (``FUSED_RENDER``; ``tinynerf_torch.kernels.render_kernel``)
+against the JAX package's ``render_kernel.render_fused``, run in interpret
+mode as its own tests run it, on the CPU at that test's shapes (B = 24, N_c =
+8, N_f = 16, and a partial tile B = 11), on the same inputs; its place in
+``render_rays`` and in frames."""
+
+import functools
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+import tinynerf.kernels.mlp_kernel as jmk
+import tinynerf.kernels.render_kernel as jrk
+from tinynerf import eval as jeval, train as jtrain
+from tinynerf.config import Config as JConfig
+from tinynerf.core import mlp as jmlp, sampling as jsampling
+from tinynerf.core.rays import make_k_inv as jmake_k_inv, pixels_to_rays as jpixels_to_rays
+from tinynerf_torch import ckpt, eval as evallib
+from tinynerf_torch.config import load_config
+from tinynerf_torch.core import occupancy, render, sampling
+from tinynerf_torch.core.rays import make_k_inv
+from tinynerf_torch.kernels import mlp_kernel as mk, render_kernel as rk
+from tinynerf_torch.runner import Runner
+
+NC, NF, B = 8, 16, 24
+PIXEL_ATOL = 1e-4   # the frame tolerance (tests/test_torch_slice.py)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def interpret_mode():
+    prev = jmk.INTERPRET
+    jmk.INTERPRET = True
+    yield
+    jmk.INTERPRET = prev
+
+
+def _camera(rng, n, hw=16.0, f=19.2):
+    """(rows, cols, pose17) for n pixels of tests/test_render_kernel.py's view."""
+    rows = rng.uniform(0, hw, n).astype(np.float32)
+    cols = rng.uniform(0, hw, n).astype(np.float32)
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[:3, 3] = [0.3, -0.2, 4.0]
+    hwf = np.array([[hw], [hw], [f]], np.float32)
+    p17 = np.tile(np.concatenate([np.concatenate([c2w[:3, :4], hwf], 1).flatten(),
+                                  [2.0, 6.0]]), (n, 1)).astype(np.float32)
+    return rows, cols, p17
+
+
+@pytest.fixture(scope="module")
+def rays():
+    """tests/test_render_kernel.py's rays (pixels_to_rays, coarse_ts) and
+    params (JAX init at key 0), for both packages: (JAX inputs, the port's).
+    The sigma bias is raised by 1 (tests/test_torch_render.py::
+    field_with_content): at random init the coarse weights are near zero,
+    where the resampler's slope delta / (w + 1e-7) turns the last-ulp
+    differences of two float32 networks into 5e-5 shifts of the colors (the
+    JAX test runs one network on both sides)."""
+    tree = jax.tree_util.tree_map(np.asarray, jmlp.init_network(jax.random.PRNGKey(0)))
+    tree["sigma"]["b"] = tree["sigma"]["b"] + np.float32(1.0)
+    rows, cols, p17 = _camera(np.random.default_rng(3), B)
+    o, d, near, far = jpixels_to_rays(jnp.asarray(rows), jnp.asarray(cols), jnp.asarray(p17),
+                                      jmake_k_inv(16.0, 16.0, 19.2))
+    t_co = jsampling.coarse_ts(near, far, NC)
+    jax_in = (jax.tree_util.tree_map(jnp.asarray, tree), o, d, t_co, near, far)
+    port_in = (ckpt.params_from_numpy(tree),
+               *(torch.tensor(np.asarray(x)) for x in (o, d, t_co, near, far)))
+    return jax_in, port_in
+
+
+def _cut(inputs, n):
+    params, *rest = inputs
+    return (params, *(x[:n] for x in rest))
+
+
+DTYPES = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
+
+
+@pytest.mark.parametrize("n_rays", [B, 11])
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("white_bkgd", [False, True])
+def test_forward_matches_jax(rays, n_rays, precision, white_bkgd):
+    """``render_fused_plain`` and ``render_fused`` on CPU tensors against the
+    JAX kernel: fp32 within 2e-5 (the JAX kernel test's own bound), bf16
+    within 2e-3 of max|ref|. B = 11 is a partial TPU tile."""
+    jax_in, port_in = _cut(rays[0], n_rays), _cut(rays[1], n_rays)
+    ref = jrk.render_fused(*jax_in, NF, white_bkgd=white_bkgd,
+                           compute_dtype=DTYPES[precision])
+    plain = rk.render_fused_plain(*port_in, NF, white_bkgd, precision)
+    wrapped = rk.render_fused(*port_in, NF, white_bkgd, precision)
+    for got in (plain, wrapped):
+        for g, r in zip(got, ref):
+            r = np.asarray(r)
+            atol = 2e-5 if precision == "fp32" else 2e-3 * np.abs(r).max()
+            np.testing.assert_allclose(g.detach().numpy(), r, atol=atol, rtol=0)
+
+
+def test_empty_rays_match_jax(rays):
+    """Rays the occupancy grid empties (near == far: zero deltas, zero
+    weights, a zero slope) give finite colors equal to the JAX kernel's,
+    and their fine t's stay at near."""
+    (jparams, o, d, _, near, far), (params, *_) = rays
+    far = far.at[:6].set(near[:6])
+    t_co = jsampling.coarse_ts(near, far, NC)
+    ref = jrk.render_fused(jparams, o, d, t_co, near, far, NF, white_bkgd=True,
+                           compute_dtype=jnp.float32)
+    port = [torch.tensor(np.asarray(x)) for x in (o, d, t_co, near, far)]
+    got = rk.render_fused(params, *port, NF, True)
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=2e-5, rtol=0)
+    _, _, t_co, near, far = port
+    dense = torch.zeros_like(t_co)
+    t_fi = sampling.resample(t_co, dense, (far - near) / (NC - 1), NF)
+    assert torch.equal(t_fi[:6], near[:6, None].expand(6, NF))
+
+
+def _cos_and_ratio(a, b):
+    a, b = np.ravel(a).astype(np.float64), np.ravel(b).astype(np.float64)
+    na, nb = np.linalg.norm(a), np.linalg.norm(b)
+    return float(a @ b / (na * nb + 1e-30)), float(na / (nb + 1e-30))
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("white_bkgd", [False, True])
+def test_gradients_match_jax(rays, precision, white_bkgd):
+    """``render_fused``'s gradient (its backward, ``render_fused_bwd`` ->
+    the plain VJP here) against ``jax.grad`` of the JAX kernel: every weight
+    and bias at cosine > 0.9999 and norm within 1% at fp32, cosine >= 0.999
+    at bf16 (element by element is chaotic through the resampler's 1/(w +
+    1e-7), tests/test_render_kernel.py:131-136)."""
+    (jparams, *jrays), (params, *prays) = rays
+    rng = np.random.default_rng(7)
+    g_co, g_fi = (rng.normal(size=(B, 3)).astype(np.float32) for _ in range(2))
+
+    def loss_k(p):
+        c_co, c_fi = jrk.render_fused(p, *jrays, NF, white_bkgd=white_bkgd,
+                                      compute_dtype=DTYPES[precision])
+        return jnp.sum(c_co * g_co) + jnp.sum(c_fi * g_fi)
+
+    ref = jax.grad(loss_k)(jparams)
+    leaves = {n: {k: t.clone().requires_grad_(True) for k, t in layer.items()}
+              for n, layer in params.items()}
+    c_co, c_fi = rk.render_fused(leaves, *prays, NF, white_bkgd, precision)
+    ((c_co * torch.from_numpy(g_co)).sum() + (c_fi * torch.from_numpy(g_fi)).sum()).backward()
+    for name in ref:
+        for leaf in ("w", "b"):
+            cos, ratio = _cos_and_ratio(leaves[name][leaf].grad.numpy(), ref[name][leaf])
+            if precision == "fp32":
+                assert cos > 0.9999 and abs(ratio - 1) < 1e-2, (name, leaf, cos, ratio)
+            else:
+                assert cos >= 0.999, (name, leaf, cos)
+
+
+def test_backward_is_the_plain_vjp(rays):
+    """On CPU tensors ``render_fused_bwd`` is ``render_fused_bwd_plain``, and
+    autograd through ``render_fused`` gives exactly it."""
+    _, (params, *prays) = rays
+    rng = np.random.default_rng(8)
+    g_co, g_fi = (torch.from_numpy(rng.normal(size=(B, 3)).astype(np.float32))
+                  for _ in range(2))
+    plain = rk.render_fused_bwd_plain(params, *prays, g_co, g_fi, NF, True, "fp32")
+    wrapped = rk.render_fused_bwd(params, *prays, g_co, g_fi, NF, True, "fp32")
+    leaves = {n: {k: t.clone().requires_grad_(True) for k, t in layer.items()}
+              for n, layer in params.items()}
+    c_co, c_fi = rk.render_fused(leaves, *prays, NF, True)
+    ((c_co * g_co).sum() + (c_fi * g_fi).sum()).backward()
+    for name in params:
+        for leaf in ("w", "b"):
+            assert torch.equal(wrapped[name][leaf], plain[name][leaf])
+            torch.testing.assert_close(leaves[name][leaf].grad, plain[name][leaf],
+                                       atol=1e-7, rtol=1e-6)
+    assert rk.render_fused.launches == rk.render_fused_bwd.launches == 0
+
+
+def test_render_fused_ts_is_the_plain_forward(rays):
+    """On CPU tensors ``render_fused_ts`` gives the plain colors and the
+    resampler's fine t's, and the plain backward taken at those t's is the
+    plain backward bit for bit."""
+    _, (params, *prays) = rays
+    c_co, c_fi, t_fi = rk.render_fused_ts(params, *prays, NF, True)
+    plain = rk.render_fused_plain(params, *prays, NF, True)
+    assert torch.equal(c_co, plain[0]) and torch.equal(c_fi, plain[1])
+    assert t_fi.shape == (B, NF) and not t_fi.requires_grad
+    g = [torch.from_numpy(np.random.default_rng(9).normal(size=(B, 3)).astype(np.float32))
+         for _ in range(2)]
+    at_ts = rk.render_fused_bwd_plain(params, *prays, *g, NF, True, "fp32", t_fi)
+    own = rk.render_fused_bwd_plain(params, *prays, *g, NF, True, "fp32")
+    assert all(torch.equal(at_ts[n][k], own[n][k]) for n in own for k in ("w", "b"))
+    assert rk.grads_agree(at_ts, own, "fp32")[0]
+    assert rk.render_fused.launches == 0
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("fault", ["no_resampler_backward", "no_d_ts"])
+def test_grads_agree_fails_a_planted_fault(rays, monkeypatch, precision, fault):
+    """The check that holds the backward kernel against the plain backward
+    (``grads_agree``) fails a gradient that drops the resampler's backward,
+    or the fine field's d_ts, at the test's shapes."""
+    _, (params, *prays) = rays
+    g = [torch.from_numpy(np.random.default_rng(10).normal(size=(B, 3)).astype(np.float32))
+         for _ in range(2)]
+    good = rk.render_fused_bwd_plain(params, *prays, *g, NF, False, precision)
+    if fault == "no_resampler_backward":
+        resample = sampling.resample
+        monkeypatch.setattr(sampling, "resample", lambda *a: resample(*a).detach())
+    else:
+        field = mk.field_rays_plain
+        monkeypatch.setattr(mk, "field_rays_plain",
+                            lambda p, o, d, ts, prec: field(p, o, d, ts.detach(), prec))
+    bad = rk.render_fused_bwd_plain(params, *prays, *g, NF, False, precision)
+    assert rk.grads_agree(good, good, precision)[0]
+    assert not rk.grads_agree(bad, good, precision)[0]
+
+
+@pytest.mark.parametrize("which", ["origins", "dirs", "t_co", "near", "far"])
+def test_ray_inputs_get_no_gradient(rays, which):
+    """The rays, coarse t's and bounds are data: the JAX VJP gives them zeros,
+    the port ``None``."""
+    _, (params, *prays) = rays
+    names = ("origins", "dirs", "t_co", "near", "far")
+    args = [x.clone().requires_grad_(n == which) for n, x in zip(names, prays)]
+    _, c_fi = rk.render_fused(params, *args, NF)
+    c_fi.sum().backward()
+    assert args[names.index(which)].grad is None
+
+
+def test_flops_per_ray():
+    assert rk.flops_per_ray(64, 128) == 1_182_976 * 192 == mk.flops_per_row() * 192
+
+
+# ---------------------------------------------------------------- in the renderer
+
+
+def _fused_field(calls):
+    """The port's fp32 kernel field with ``render_fused``, each call of which
+    appends to ``calls``."""
+    fn = functools.partial(mk.field_flat, precision="fp32")
+    fn.eval_rays = functools.partial(mk.field_rays, precision="fp32")
+
+    def counting(*a, **k):
+        calls.append(1)
+        return rk.render_fused(*a, **k)
+
+    fn.render_fused = counting
+    return fn
+
+
+def _render_inputs(n=B, seed=3):
+    """(rows, cols, pose17, k_inv) of n pixels of the test view."""
+    rows, cols, p17 = (torch.from_numpy(a) for a in _camera(np.random.default_rng(seed), n))
+    return rows, cols, p17, make_k_inv(16.0, 16.0, 19.2)
+
+
+def test_fused_composes_with_the_occupancy_grid(rays):
+    """``render_rays`` routes through the fused renderer after
+    ``tighten_bounds``: an all-occupied grid leaves the result as it was
+    (tests/test_render_kernel.py::test_fused_composes_with_occ_grid)."""
+    _, (params, *_) = rays
+    calls = []
+    field_fn, inputs = _fused_field(calls), _render_inputs()
+    base = render.render_rays(params, *inputs, NC, NF, field_fn=field_fn,
+                              merge_impl="twolist")
+    grid = occupancy.init_grid(resolution=8, half_extent=8.0)
+    with_occ = render.render_rays(params, *inputs, NC, NF, field_fn=field_fn,
+                                  merge_impl="twolist", occ_grid=grid, occ_march=32)
+    np.testing.assert_allclose(with_occ[1].numpy(), base[1].numpy(), atol=1e-6)
+    assert len(calls) == 2
+
+
+@pytest.mark.parametrize("kwargs,routed", [
+    ({"merge_impl": "twolist"}, True), ({}, False), ({"merge_impl": "permute"}, False),
+    ({"merge_impl": "twolist", "compat_sort": True}, False),
+    ({"merge_impl": "twolist", "extras": True}, False),
+    ({"merge_impl": "twolist", "n_fine": 0}, False),
+    ({"merge_impl": "twolist", "prop_params": "proposal"}, False)])
+def test_fused_routing_frames_only(rays, kwargs, routed):
+    """As tests/test_render_kernel.py::test_fused_routing_eval_only: a field
+    with ``render_fused`` takes the fused branch under the ``twolist`` merge
+    alone (frames). The default merge is ``permute``, as in the JAX package,
+    so training never reaches it; ``compat_sort``, extras, ``n_fine = 0``
+    and a proposal field keep the unfused march."""
+    _, (params, *_) = rays
+    calls = []
+    field_fn = _fused_field(calls)
+    kwargs = dict(kwargs)
+    n_fine = kwargs.pop("n_fine", NF)
+    if kwargs.get("prop_params") == "proposal":
+        from tinynerf_torch.core import proposal
+        kwargs["prop_params"] = proposal.init_proposal(torch.Generator().manual_seed(0), 32, 2)
+    out = render.render_rays(params, *_render_inputs(), NC, n_fine, field_fn=field_fn,
+                             **kwargs)
+    assert len(calls) == int(routed)
+    assert all(torch.isfinite(x).all() for x in out)
+    if routed:
+        unfused = render.render_rays(params, *_render_inputs(), NC, NF,
+                                     field_fn=render.field_plain, merge_impl="twolist")
+        for a, b in zip(out, unfused):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
+
+
+def test_check_supported_accepts_fused_render_and_attaches_it():
+    """``FUSED_RENDER`` is no longer refused; with ``USE_PALLAS`` the MLP
+    field carries ``render_fused`` at ``PRECISION`` (``tinynerf/train.py:
+    172-179``), without it none."""
+    from tinynerf_torch.config import Config
+    for precision in ("fp32", "bf16"):
+        cfg = Config(fused_render=True, precision=precision)
+        evallib.check_supported(cfg)
+        fn = evallib.make_field_fn(cfg)
+        assert fn.render_fused.func is rk.render_fused
+        assert fn.render_fused.keywords == {"precision": precision}
+    assert not hasattr(evallib.make_field_fn(Config(fused_render=True, use_pallas=False)),
+                       "render_fused")
+    assert not hasattr(evallib.make_field_fn(Config()), "render_fused")
+
+
+# ---------------------------------------------------------------- frames
+
+
+def _field_with_content(seed):
+    """JAX init with the sigma bias raised by 1 (tests/test_torch_render.py::
+    field_with_content): (JAX params, numpy tree)."""
+    tree = jax.tree_util.tree_map(np.asarray, jmlp.init_network(jax.random.PRNGKey(seed)))
+    tree["sigma"]["b"] = tree["sigma"]["b"] + np.float32(1.0)
+    return jax.tree_util.tree_map(jnp.asarray, tree), tree
+
+
+@pytest.mark.parametrize("white_bkgd", [False, True])
+def test_runner_renders_the_fused_frame_of_jax(tmp_path, monkeypatch, white_bkgd):
+    """A Runner with ``FUSED_RENDER = True`` resumes a checkpoint and renders
+    a 16x16 view through ``render_fused``, one call a ``RENDER_CHUNK``
+    chunk; the frame matches JAX's fused frame (``make_frame_fn`` with
+    ``train.make_field_fn(cfg, force_pallas=True)``, one kernel call over the
+    frame) on the same params within 1e-4 a pixel."""
+    from tests.util import make_sync_scene
+    make_sync_scene(str(tmp_path / "scene"), n_pics=2, hw=16)
+    lines = ["[scene]", f"IMG_DIR = {tmp_path}/scene/", f"RESULTS_PATH = {tmp_path}/results/",
+             f"CKPT_PATH = {tmp_path}/ckpt/", "N_COARSE = 8", "N_FINE = 16",
+             "RENDER_CHUNK = 96", "DATA_TYPE = sync", "CONTINUE = True",
+             "FUSED_RENDER = True", f"WHITE_BKGD = {white_bkgd}"]
+    (tmp_path / "scene.ini").write_text("\n".join(lines) + "\n")
+    cfg = load_config(str(tmp_path / "scene.ini"))
+    jparams, tree = _field_with_content(9)
+    ckpt.save_checkpoint(cfg.ckpt_path, "run", 5, ckpt.params_from_numpy(tree))
+    calls = []
+    inner = rk.render_fused
+
+    def counting(*a, **k):
+        calls.append(a[1].shape[0])
+        return inner(*a, **k)
+
+    monkeypatch.setattr(rk, "render_fused", counting)
+    runner = Runner(cfg, device="cpu")
+    frames = evallib.render_test_set(cfg, runner.params, runner.test_table, runner.k_inv,
+                                     runner.start_time, runner.last_iter, save=False,
+                                     max_views=1)
+    assert calls == [96, 96, 96]   # 256 pixels in chunks of 96, the last padded
+    H, W = runner.test_table.height, runner.test_table.width
+    assert (H, W) == (16, 16)
+    jcfg = JConfig(n_coarse=8, n_fine=16, render_chunk=96, fused_render=True,
+                   white_bkgd=white_bkgd)
+    jfield = jtrain.make_field_fn(jcfg, force_pallas=True)
+    k_inv = jnp.asarray(runner.k_inv.numpy())
+    ref = jeval.make_frame_fn(jcfg, k_inv, H, W, field_fn=jfield)(
+        jparams, jnp.asarray(runner.test_table.poses[0].numpy()))
+    np.testing.assert_allclose(frames[0], np.clip(np.asarray(ref), 0, 1), atol=PIXEL_ATOL,
+                               rtol=0)

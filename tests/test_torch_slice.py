@@ -283,7 +283,10 @@ _GRID = dict(OCC_GRID="True", WHITE_BKGD="True")
     # or disparity-spaced march are not
     pytest.param(dict(_GRID, CONTRACT="True"), "OCC_GRID with CONTRACT",
                  id="OCC_GRID-True"),
-    pytest.param({"FUSED_RENDER": "True"}, "FUSED_RENDER", id="FUSED_RENDER-True"),
+    # the fused renderer is ported (tests/test_torch_render_fused.py); the val
+    # metrics that would route val batches through it are not
+    pytest.param({"FUSED_RENDER": "True", "VAL_METRICS": "True"}, "VAL_METRICS",
+                 id="FUSED_RENDER-True"),
     pytest.param({"HOST_FEED": "True"}, "HOST_FEED", id="HOST_FEED-True"),
     pytest.param({"VAL_METRICS": "True"}, "VAL_METRICS", id="VAL_METRICS-True"),
     pytest.param({"PROFILE_STEPS": "5"}, "PROFILE_STEPS=5", id="PROFILE_STEPS-5"),

@@ -32,7 +32,13 @@ either name.
 
 The field is pluggable: ``field_fn(params, points, dirs) -> (color, sigma)``
 on flat points, optionally with an ``eval_rays(params, origins, dirs, ts) ->
-((r, g, b), sigma)`` attribute that takes rays directly (the CUDA kernels do).
+((r, g, b), sigma)`` attribute that takes rays directly (the CUDA kernels do),
+and a ``render_fused(params, origins, dirs, t_co, near, far, n_fine=,
+white_bkgd=) -> (C_coarse, C_fine)`` attribute (``FUSED_RENDER``,
+``kernels/render_kernel.py``) that renders the whole march of a ray batch;
+``render_rays`` takes it where the JAX package does: the ``twolist`` merge
+(which only frames pass), a fine pass, and no ``compat_sort``, extras,
+proposal field or LINDISP.
 """
 
 from __future__ import annotations
@@ -198,7 +204,7 @@ def render_rays(params: mlp.Params,
                 generator: Optional[torch.Generator] = None,
                 compat_sort: bool = False,
                 ndc_params: Optional[Tuple[float, float, float]] = None,
-                merge_impl: str = "twolist",
+                merge_impl: str = "permute",
                 white_bkgd: bool = False,
                 occ_grid: Optional[occupancy.OccGrid] = None,
                 occ_march: Optional[int] = None,
@@ -213,8 +219,10 @@ def render_rays(params: mlp.Params,
     With ``extras=True`` returns ``(C_coarse, C_fine, depth, acc)``, depth
     and acc (B,) over the merged sample set (with a proposal field: over the
     fine samples). ``generator`` jitters the coarse samples (stratified).
-    ``merge_impl`` is accepted as ``"twolist"`` or ``"permute"``: both are
-    the same stable-sort merge here. ``occ_grid`` tightens each ray's bounds
+    ``merge_impl`` is accepted as ``"twolist"`` or ``"permute"`` (the
+    default, as in the JAX package): both are the same stable-sort merge
+    here, but only ``"twolist"`` lets a field's ``render_fused`` take the
+    march. ``occ_grid`` tightens each ray's bounds
     first, with ``occ_march`` probes per ray (``occupancy.tighten_bounds``).
     ``prop_params`` runs the coarse pass on the proposal field
     ``prop_field_fn`` (``PROPOSAL``; module docstring).
@@ -246,6 +254,17 @@ def render_rays(params: mlp.Params,
         near, far = occupancy.tighten_bounds(
             occ_grid, origins, dirs, near, far, n_steps=occ_march,
             contract=occ_contract, lindisp=lindisp, march_res=occ_march_res)
+
+    # ---- the fused renderer (FUSED_RENDER): the whole march in one kernel
+    # launch; training passes the default "permute" merge, so only frames
+    # reach it ----
+    fused = getattr(field_fn, "render_fused", None)
+    if (fused is not None and n_fine > 0 and not compat_sort
+            and merge_impl == "twolist" and not extras
+            and prop_params is None and not lindisp):
+        t_co = sampling.coarse_ts(near, far, n_coarse, generator=generator)
+        return fused(params, origins, dirs, t_co, near, far, n_fine=n_fine,
+                     white_bkgd=white_bkgd)
 
     # ---- coarse pass ----
     t_co = sampling.coarse_ts(near, far, n_coarse, generator=generator,

@@ -70,7 +70,6 @@ def check_supported(cfg: Config) -> None:
          "queue 1, slice 7: contraction/LINDISP/NDC"),
         (cfg.occ_grid and cfg.lindisp, "OCC_GRID with LINDISP",
          "queue 1, slice 7: contraction/LINDISP/NDC"),
-        (cfg.fused_render, "FUSED_RENDER", "queue 2, item 9: fused renderer"),
         (cfg.host_feed, "HOST_FEED",
          "queue 1, item 5: HOST_FEED and the native ray store"),
         (cfg.val_metrics, "VAL_METRICS", "queue 1, item 6: VAL_METRICS"),
@@ -96,14 +95,15 @@ def prop_params(cfg: Config, params: Any) -> Optional[Any]:
     return params["prop"] if cfg.proposal else None
 
 
-def _grid_field_fn(cfg: Config, n_density: int) -> render.FieldFn:
+def _grid_field_fn(cfg: Config, n_density: int, fold: bool = False) -> render.FieldFn:
     """The grid field at ``PRECISION``: the plain point field
     (``gridfield.apply_grid_field``, the occupancy refresh's probes and, as
     in the JAX package, the renderer's field without ``GRID_PALLAS``); with
     ``GRID_PALLAS`` its ``eval_rays`` is ``grid_rays`` (on the card, TPU
-    kernels 5 and 6)."""
-    fn = gridfield.make_field_grid(n_density, cfg.grid_lookup, cfg.precision,
-                                   cfg.grid_level_fold)
+    kernels 5 and 6). ``GRID_LEVEL_FOLD`` reaches the main grid alone: the
+    JAX package builds the proposal grid without it
+    (``tinynerf/train.py:225-228``)."""
+    fn = gridfield.make_field_grid(n_density, cfg.grid_lookup, cfg.precision, fold)
     if cfg.grid_pallas:
         from tinynerf_torch.kernels.grid_kernel import grid_rays
         fn.eval_rays = functools.partial(grid_rays, n_density=n_density,
@@ -117,16 +117,22 @@ def make_field_fn(cfg: Config) -> render.FieldFn:
     with ``USE_PALLAS`` (``kernels/mlp_kernel``; on the card, the CUDA
     kernels): the point field is ``field_flat`` (the occupancy refresh's
     probes) and its ``eval_rays`` is ``field_rays`` (both passes of the
-    renderer, forward and backward). Without it, the plain field
+    renderer, forward and backward); with ``FUSED_RENDER`` it also carries
+    ``render_fused`` (on the card, TPU kernels 9 and 10), which
+    ``render.render_rays`` takes for frames, as ``tinynerf/train.py:172-179``
+    attaches it. Without ``USE_PALLAS``, the plain field
     (``render.field_plain``, or ``render.field_plain_bf16``)."""
     check_supported(cfg)
     if cfg.fine_field == "grid":
-        return _grid_field_fn(cfg, cfg.grid_comp_density)
+        return _grid_field_fn(cfg, cfg.grid_comp_density, cfg.grid_level_fold)
     if not cfg.use_pallas:
         return render.field_plain_bf16 if cfg.precision == "bf16" else render.field_plain
     from tinynerf_torch.kernels.mlp_kernel import field_flat, field_rays
     fn = functools.partial(field_flat, precision=cfg.precision)
     fn.eval_rays = functools.partial(field_rays, precision=cfg.precision)
+    if cfg.fused_render:
+        from tinynerf_torch.kernels.render_kernel import render_fused
+        fn.render_fused = functools.partial(render_fused, precision=cfg.precision)
     return fn
 
 
@@ -159,7 +165,11 @@ def make_frame_fn(cfg: Config, k_inv: torch.Tensor, height: int, width: int,
     -> (H, W, 3) numpy, or with ``extras`` (rgb, depth, acc). ``occ_grid``
     (the trained state's, with ``OCC_GRID``) tightens every ray's bounds.
     With ``PROPOSAL``, ``params`` is the ``{"net", "prop"}`` pair and the
-    coarse pass runs the proposal field (``make_prop_field_fn``)."""
+    coarse pass runs the proposal field (``make_prop_field_fn``). With
+    ``FUSED_RENDER`` each chunk is one launch of the fused renderer; the JAX
+    package renders such a frame in one call over every pixel, a TPU memory
+    workaround (``tinynerf/eval.py:40-43``), and rays are independent, so
+    the chunks change no value."""
     if field_fn is None:
         field_fn = make_field_fn(cfg)
     prop_fn = make_prop_field_fn(cfg)

@@ -276,14 +276,19 @@ def _launch_bwd(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"field_rays_bwd kernel launch failed: CUDA error {err}")
     field_rays_bwd.launches += 1
-    # the kernel writes the gradients layer by layer, weight then bias
+    return grads_from_flat(flat), d_o, d_d, d_ts
+
+
+def grads_from_flat(flat: torch.Tensor) -> mlp.Params:
+    """The gradient tree, as views of the flat buffer that the backward
+    kernels write layer by layer, weight then bias."""
     grads, offset = {}, 0
     for name, fan_in, fan_out in mlp.layer_dims():
         w = flat[offset:offset + fan_in * fan_out].view(fan_in, fan_out)
         offset += fan_in * fan_out
         grads[name] = {"w": w, "b": flat[offset:offset + fan_out]}
         offset += fan_out
-    return grads, d_o, d_d, d_ts
+    return grads
 
 
 def _on_one_device(tensors: List[torch.Tensor], what: str) -> bool:

@@ -1,0 +1,295 @@
+"""The fused renderer's hand-written CUDA kernels and their plain versions.
+
+Counterpart of ``tinynerf/kernels/render_kernel.py`` (``FUSED_RENDER``):
+``render_fused(params, origins, dirs, t_co, near, far, n_fine, white_bkgd,
+precision) -> (C_coarse, C_fine)``, each (B, 3) float32, the whole
+coarse -> fine renderer of a ray batch in one kernel: the 8x256 field at the
+coarse t's, the coarse weights (delta ``(far - near) / N_c``, inclusive
+cumsum, Q5) and composite, the inverse-CDF resample (slope ``(far - near) /
+(N_c - 1) / (w + 1e-7)``, the coarse weights not detached, Q8), the field at
+the fine t's and the merged composite of both sorted lists (a coarse sample
+first at an equal t). ``white_bkgd`` adds ``1 - sum w`` to both colors.
+
+- Its forward, ``render_fused_plain`` in plain PyTorch, is TPU kernel 9
+  (``_fused_render_forward`` / ``_fwd_kernel``), ``csrc/render_fused_fwd.cu``
+  on the card; its backward, ``render_fused_bwd_plain``, the VJP to the
+  params alone, is TPU kernel 10 (``_fused_render_backward``),
+  ``csrc/render_fused_bwd.cu``. ``render_fused`` is an ``autograd.Function``
+  over the two; the ray inputs get no gradient (``None``), as the JAX VJP
+  returns zeros: they are data.
+- On CPU tensors each runs its plain version; on CUDA tensors each launches
+  its kernel or raises. ``render_fused.launches`` and
+  ``render_fused_bwd.launches`` count the calls that launched each kernel.
+- For checks, ``render_fused_ts`` also returns the forward's fine t's, and
+  ``grads_agree`` holds the backward kernel against the plain backward taken
+  at those t's (GRAD_COS, GRAD_NORM).
+
+Rounding at ``precision="bf16"``: the kernels run the field kernels' bf16
+form (``mlp.apply_network(precision="bf16")``), and the backward is kernel
+2's (``field_rays_bwd``) on both passes, so the color head's pre-activation
+gradient stays float32 as TPU kernel 2 keeps it. The TPU's
+``render_kernel._grad_chain`` rounds that one gradient to bf16 as well; the
+port's plain backward, autograd of ``render_fused_plain``, follows kernel
+2's convention, the difference one bf16 rounding of a head gradient.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from tinynerf_torch.core import mlp, render, sampling
+from tinynerf_torch.kernels import mlp_kernel as mk
+
+FWD_SOURCE = "render_fused_fwd.cu"
+BWD_SOURCE = "render_fused_bwd.cu"
+
+Colors = Tuple[torch.Tensor, torch.Tensor]
+
+
+def flops_per_ray(n_coarse: int, n_fine: int) -> int:
+    """FLOPs of the field at one ray's samples (the tail's few are not
+    counted): 1,182,976 x (N_c + N_f). The backward does three times as
+    many."""
+    return mk.flops_per_row() * (n_coarse + n_fine)
+
+
+def render_fused_plain(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
+                       t_co: torch.Tensor, near: torch.Tensor, far: torch.Tensor,
+                       n_fine: int, white_bkgd: bool = False,
+                       precision: str = "fp32", fine_ts: torch.Tensor = None) -> Colors:
+    """The same function as the forward kernel in plain PyTorch: origins,
+    dirs (B, 3), t_co (B, N_c) sorted per ray, near, far (B,) -> (C_coarse,
+    C_fine) (B, 3). Differentiable. With ``fine_ts`` (B, N_f) the fine
+    samples sit at those t's (the kernel's own, from ``render_fused_ts``),
+    differentiated as the resampler's."""
+    return _plain(params, origins, dirs, t_co, near, far, n_fine, white_bkgd, precision,
+                  fine_ts)[:2]
+
+
+def _plain(params, origins, dirs, t_co, near, far, n_fine, white_bkgd, precision,
+           fine_ts=None):
+    """``render_fused_plain`` -> (C_coarse, C_fine, the fine t's)."""
+    n_coarse = t_co.shape[1]
+    color_co, sigma_co = mk.field_rays_plain(params, origins, dirs, t_co, precision)
+    delta_co = ((far - near) / n_coarse)[:, None].expand(t_co.shape)
+    dense_co = render.get_density(delta_co, sigma_co)
+    c_co = render.composite(dense_co, color_co)
+    if white_bkgd:
+        c_co = c_co + (1.0 - torch.sum(dense_co, dim=1))[:, None]
+    t_fi = sampling.resample(t_co, dense_co, (far - near) / (n_coarse - 1), n_fine)
+    if fine_ts is not None:
+        t_fi = fine_ts.detach() + (t_fi - t_fi.detach())   # their value, its derivative
+    color_fi, sigma_fi = mk.field_rays_plain(params, origins, dirs, t_fi, precision)
+    c_fi = render.merged_composite(t_co, t_fi, sigma_co, sigma_fi, color_co, color_fi,
+                                   white_bkgd=white_bkgd)
+    return c_co, c_fi, t_fi
+
+
+def render_fused_bwd_plain(params: mlp.Params, origins: torch.Tensor,
+                           dirs: torch.Tensor, t_co: torch.Tensor, near: torch.Tensor,
+                           far: torch.Tensor, g_cco: torch.Tensor, g_cfi: torch.Tensor,
+                           n_fine: int, white_bkgd: bool = False,
+                           precision: str = "fp32", fine_ts: torch.Tensor = None,
+                           ) -> mlp.Params:
+    """The same function as the backward kernel in plain PyTorch: the VJP of
+    ``render_fused_plain`` (at ``fine_ts``, where given) with the (B, 3)
+    cotangents of both colors, to the params only -> a gradient tree shaped
+    like ``params``."""
+    with torch.enable_grad():
+        leaves = {name: {k: t.detach().requires_grad_(True) for k, t in layer.items()}
+                  for name, layer in params.items()}
+        rays = (x.detach() for x in (origins, dirs, t_co, near, far))
+        c_co, c_fi = render_fused_plain(leaves, *rays, n_fine, white_bkgd, precision, fine_ts)
+        flat = [leaves[name][k] for name, k in mk._PARAM_KEYS]
+        out = torch.autograd.grad((c_co, c_fi), flat, (g_cco, g_cfi))
+    return mk._unflatten(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _library(source: str) -> ctypes.CDLL:
+    from tinynerf_torch.kernels.build import load_library
+    lib = load_library(source)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    if source == FWD_SOURCE:
+        lib.render_fused_fwd.argtypes = [vp] * 9 + [i32] * 5 + [vp]
+        lib.render_fused_fwd.restype = i32
+        lib.render_fused_fwd_smem_bytes.argtypes = [i32, i32]
+        lib.render_fused_fwd_smem_bytes.restype = i32
+    else:
+        lib.render_fused_bwd.argtypes = [vp] * 10 + [i32] * 5 + [vp]
+        lib.render_fused_bwd.restype = i32
+        lib.render_fused_bwd_smem_bytes.argtypes = [i32, i32]
+        lib.render_fused_bwd_smem_bytes.restype = i32
+        lib.render_fused_bwd_workspace_floats.argtypes = [i32] * 3
+        lib.render_fused_bwd_workspace_floats.restype = ctypes.c_longlong
+    return lib
+
+
+def _check_rays(origins, dirs, t_co, near, far) -> None:
+    device, (B, _) = origins.device, t_co.shape
+    mk._check("origins", origins, (B, 3), device)
+    mk._check("dirs", dirs, (B, 3), device)
+    mk._check("t_co", t_co, t_co.shape, device)
+    mk._check("near", near, (B,), device)
+    mk._check("far", far, (B,), device)
+
+
+def _launch(params: mlp.Params, origins, dirs, t_co, near, far, n_fine: int,
+            white_bkgd: bool, precision: str, fine_ts: bool = False):
+    """(C_coarse, C_fine), and with ``fine_ts`` the (B, N_f) fine t's."""
+    device, (B, n_coarse) = origins.device, t_co.shape
+    _check_rays(origins, dirs, t_co, near, far)
+    ptrs = mk._param_ptrs(params, device)
+    lib = _library(FWD_SOURCE)
+    c_co, c_fi = (torch.empty((B, 3), dtype=torch.float32, device=device) for _ in range(2))
+    t_fi = torch.empty((B, n_fine), dtype=torch.float32, device=device) if fine_ts else None
+    with torch.cuda.device(device):
+        err = lib.render_fused_fwd(
+            origins.data_ptr(), dirs.data_ptr(), t_co.data_ptr(), near.data_ptr(),
+            far.data_ptr(), ptrs, c_co.data_ptr(), c_fi.data_ptr(),
+            None if t_fi is None else t_fi.data_ptr(), B, n_coarse, n_fine,
+            int(white_bkgd), int(precision == "bf16"), mk._stream(device))
+    if err != 0:
+        raise RuntimeError(f"render_fused_fwd kernel launch failed: CUDA error {err}")
+    render_fused.launches += 1
+    return (c_co, c_fi) if t_fi is None else (c_co, c_fi, t_fi)
+
+
+def _launch_bwd(params: mlp.Params, origins, dirs, t_co, near, far, g_cco, g_cfi,
+                n_fine: int, white_bkgd: bool, precision: str) -> mlp.Params:
+    device, (B, n_coarse) = origins.device, t_co.shape
+    _check_rays(origins, dirs, t_co, near, far)
+    mk._check("g_cco", g_cco, (B, 3), device)
+    mk._check("g_cfi", g_cfi, (B, 3), device)
+    ptrs = mk._param_ptrs(params, device)
+    lib = _library(BWD_SOURCE)
+    f32 = dict(dtype=torch.float32, device=device)
+    workspace = torch.empty(lib.render_fused_bwd_workspace_floats(B, n_coarse, n_fine), **f32)
+    flat = torch.empty(mlp.num_params(params), **f32)
+    with torch.cuda.device(device):
+        err = lib.render_fused_bwd(
+            origins.data_ptr(), dirs.data_ptr(), t_co.data_ptr(), near.data_ptr(),
+            far.data_ptr(), g_cco.data_ptr(), g_cfi.data_ptr(), ptrs, flat.data_ptr(),
+            workspace.data_ptr(), B, n_coarse, n_fine, int(white_bkgd),
+            int(precision == "bf16"), mk._stream(device))
+    if err != 0:
+        raise RuntimeError(f"render_fused_bwd kernel launch failed: CUDA error {err}")
+    render_fused_bwd.launches += 1
+    return mk.grads_from_flat(flat)
+
+
+def render_fused_bwd(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
+                     t_co: torch.Tensor, near: torch.Tensor, far: torch.Tensor,
+                     g_cco: torch.Tensor, g_cfi: torch.Tensor, n_fine: int,
+                     white_bkgd: bool = False, precision: str = "fp32") -> mlp.Params:
+    """The fused renderer's recompute backward to the params: CUDA tensors
+    launch the kernel; CPU tensors take ``render_fused_bwd_plain``."""
+    mk._check_precision(precision)
+    args = (params, origins, dirs, t_co, near, far, g_cco, g_cfi, n_fine, white_bkgd,
+            precision)
+    tensors = [origins, dirs, t_co, near, far, g_cco, g_cfi] + [
+        t for layer in params.values() for t in layer.values()]
+    if mk._on_one_device(tensors, "render_fused_bwd"):
+        return _launch_bwd(*args)
+    return render_fused_bwd_plain(*args)
+
+
+render_fused_bwd.launches = 0
+
+
+class _RenderFused(torch.autograd.Function):
+    """``render_fused`` with ``render_fused_bwd`` as its backward."""
+
+    @staticmethod
+    def forward(ctx, origins, dirs, t_co, near, far, n_fine, white_bkgd, precision,
+                *flat):
+        args = (mk._unflatten(flat), origins, dirs, t_co, near, far, n_fine,
+                white_bkgd, precision)
+        if mk._on_one_device([origins, dirs, t_co, near, far, *flat], "render_fused"):
+            c_co, c_fi = _launch(*args)
+        else:
+            c_co, c_fi = render_fused_plain(*args)
+        ctx.save_for_backward(origins, dirs, t_co, near, far, *flat)
+        ctx.config = (n_fine, white_bkgd, precision)
+        return c_co, c_fi
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_cco, g_cfi):
+        origins, dirs, t_co, near, far, *flat = ctx.saved_tensors
+        grads = render_fused_bwd(mk._unflatten(flat), origins, dirs, t_co, near, far,
+                                 mk._kernel_ready(g_cco), mk._kernel_ready(g_cfi),
+                                 *ctx.config)
+        # the rays, t's and bounds are data: no gradient
+        return (None,) * 8 + tuple(grads[name][k] for name, k in mk._PARAM_KEYS)
+
+
+def render_fused(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
+                 t_co: torch.Tensor, near: torch.Tensor, far: torch.Tensor,
+                 n_fine: int, white_bkgd: bool = False, precision: str = "fp32",
+                 ) -> Colors:
+    """Fused coarse + fine render of a ray batch: origins, dirs (B, 3), t_co
+    (B, N_c) sorted per ray, near, far (B,) -> (C_coarse, C_fine), each (B,
+    3) float32, differentiable in the params alone. CUDA tensors launch the
+    kernels; CPU tensors take the plain versions."""
+    mk._check_precision(precision)
+    rays = [mk._kernel_ready(x.float()) for x in (origins, dirs, t_co, near, far)]
+    return _RenderFused.apply(*rays, int(n_fine), bool(white_bkgd), precision,
+                              *[params[name][k] for name, k in mk._PARAM_KEYS])
+
+
+render_fused.launches = 0
+
+
+def render_fused_ts(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
+                    t_co: torch.Tensor, near: torch.Tensor, far: torch.Tensor,
+                    n_fine: int, white_bkgd: bool = False, precision: str = "fp32",
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``render_fused``'s forward, not differentiable, that also returns the
+    fine t's (B, N_f) it sampled: CUDA tensors launch the forward kernel
+    (counted in ``render_fused.launches``); CPU tensors take the plain
+    version."""
+    mk._check_precision(precision)
+    rays = [mk._kernel_ready(x.detach().float()) for x in (origins, dirs, t_co, near, far)]
+    if mk._on_one_device(rays + [t for layer in params.values() for t in layer.values()],
+                         "render_fused_ts"):
+        return _launch(params, *rays, n_fine, white_bkgd, precision, fine_ts=True)
+    with torch.no_grad():
+        return _plain(params, *rays, n_fine, white_bkgd, precision)
+
+
+# Kernel 10 against its plain version, each gradient tensor: the cosine, and
+# at fp32 the norm ratio. The plain backward is taken at kernel 9's own fine
+# t's (``render_fused_ts``): one ulp of a fine t moves the top encoding
+# frequency's phase by 2^9 ulp(t) (2.4e-4 at t = 4), and two float32
+# resamplers that sum their cdf in different orders differ by that ulp; at
+# their own t's the two backwards miss these bounds (PERF.md, section 6).
+GRAD_COS = {"fp32": 0.9999, "bf16": 0.999}
+GRAD_NORM = 1e-2
+
+
+def grad_agreement(got: mlp.Params, want: mlp.Params) -> dict:
+    """{"layer.leaf": (cosine, norm ratio got / want, max |got - want|)} of
+    two gradient trees of the MLP, in float64."""
+    out = {}
+    for name in want:
+        for k in ("w", "b"):
+            a, b = got[name][k].flatten().double(), want[name][k].flatten().double()
+            out[f"{name}.{k}"] = (float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300)),
+                                  float(a.norm() / b.norm().clamp_min(1e-300)),
+                                  float((a - b).abs().max()))
+    return out
+
+
+def grads_agree(got: mlp.Params, want: mlp.Params, precision: str):
+    """Whether kernel 10's gradient tree ``got`` meets GRAD_COS (and, at
+    fp32, GRAD_NORM) against the plain one ``want`` in every tensor ->
+    (ok, the tensor of the smallest cosine, ``grad_agreement``'s rows)."""
+    rows = grad_agreement(got, want)
+    ok = all(c >= GRAD_COS[precision] and (precision == "bf16" or abs(r - 1) <= GRAD_NORM)
+             for c, r, _ in rows.values())
+    return ok, min(rows, key=lambda n: rows[n][0]), rows
