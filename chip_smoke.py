@@ -95,8 +95,51 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
 15. drives ``lego_prop`` at ``PRECISION=fp32`` for 10 steps (the fp32 forms
    of kernels 7 and 8 on a path), checking the launch counts and finite
    losses;
-16. prints one ``{"kernels": [...]}`` line (every kernel form) and, last,
+16. drives unbounded360-mlp: ``conf/unbounded360.ini`` with ``FINE_FIELD =
+   mlp`` (CONTRACT, LINDISP, STRATIFIED, the proposal grid at R = 64, 16 +
+   16, width 16, DIST_LOSS 0.003, PROP_INTERLEVEL 0.01; the 8x256 MLP at
+   bf16, 4096 rays, 64 + 128 samples) from fresh seeded weights on an
+   in-memory outward-facing 360 ring (4 views of 1008x756, a 4032x3024
+   capture at LOW_RES 4; bounds about 0.5 / 100): ``Runner.train()`` for
+   50 steps. Under CONTRACT the MLP runs its point interface, so checks
+   exactly one launch of kernel 3 (``csrc/field_flat_fwd.cu``) and one of
+   kernel 4 (``csrc/field_flat_bwd.cu``) a step and nothing else, a finite
+   falling loss; prints s/step, rays/s and a profile of five steps; holds
+   one step's gradient through kernels 3 and 4 against the plain field
+   under the contraction on fields with content (cosine >= 0.999 for the
+   net and for the proposal grid); saves the state;
+17. renders one 1008x756 view from that checkpoint: one launch of kernel 3
+   a chunk and nothing else, a finite frame in [0, 1], s/frame, a chunk
+   through kernel 3 against the plain field (1e-3 per pixel) and a profile
+   of rendered chunks;
+18. drives unbounded360-mlp with the contracted occupancy grid (OCC_GRID,
+   OCC_RES 64, OCC_MARCH_RES 16, OCC_MARCH_STEPS 32, OCC_UPDATE_EVERY 256,
+   OCC_SUBSET 0.125, conf/synthetic360.ini's block) for 10 steps: the
+   refresh at 0 probes through kernel 3 (11 launches of it, 10 of kernel
+   4), the extent forced to 2;
+19. drives unbounded360-mlp with ``PROP_FIELD = mlp`` and ``PROP_PALLAS``
+   for 10 steps: the proposal MLP through ``prop_flat`` (kernels 7 and 8 at
+   one sample a ray, t = 0), one launch each of kernels 3, 4, 7, 8 a step;
+20. drives unbounded360-mlp at ``PRECISION=fp32`` for 10 steps (the fp32
+   forms of kernels 3 and 4 on a path);
+21. drives ``conf/fern_ndc.ini`` (NDC, bf16, u8 pixels, 4096 rays) on an
+   in-memory forward-facing capture (4 views of 1008x756) for 20 steps:
+   the Runner recentres the poses and sets ``ndc_params``; two launches
+   each of kernels 1 and 2 a step and nothing else, a finite falling loss,
+   s/step; saves the state;
+22. renders one view of that checkpoint unfused (two kernel-1 launches a
+   chunk) and with ``FUSED_RENDER`` (one kernel-9 launch a chunk, nothing
+   else), both finite in [0, 1], the two within 1e-3 per pixel;
+23. prints one ``{"kernels": [...]}`` line (every kernel form) and, last,
    one ``{"ok": true, "device": {...}}`` line.
+
+Kernel 4 (``csrc/field_flat_bwd.cu``) is held against its plain version in
+phase 3h (fp32 and bf16, at an unbounded360-mlp step's R = 524,288 fine
+rows and at a ragged R = 1001, on points in the contracted ball; fp32 every
+gradient within 1e-4 of max|plain|, bf16 within 3e-2 and cosine >= 0.999;
+rows whose smallest |pre-activation| in the compared form is under 2e-6
+given no cotangent; two launches bit-identical) and timed in phase 4 at R =
+524,288 beside both bounds, with kernel 3 at that R.
 
 Phases 6b and 8b (render-lego-fused-800, render-lego_occ-fused-800) render
 the two views of phases 6 and 8 again from the same checkpoints with
@@ -195,6 +238,13 @@ FUSED_SAMPLES = (64, 128)   # the fused renderer at lego's N_COARSE + N_FINE
 FUSED_CHECKS = tuple((p, B, w) for p in ("fp32", "bf16") for B in (4096, 1001)
                      for w in (False, True))
 FUSED_ATOL = {"fp32": CHUNK_ATOL, "bf16": BF16_CHUNK_ATOL}   # kernel 9: each color
+FLAT_BWD_ROWS = (4096 * 128, 1001)       # an unbounded360-mlp step's fine rows; ragged
+U360_STEPS = 50             # unbounded360-mlp (conf/unbounded360.ini, FINE_FIELD = mlp)
+U360_SHORT_STEPS = 10       # the same with the contracted grid, the proposal MLP, at fp32
+U360_VIEWS = 4
+CAPTURE_HW = (756, 1008)    # a 4032x3024 capture at LOW_RES 4: height, width
+FERN_STEPS = 20             # conf/fern_ndc.ini
+FERN_VIEWS = 4
 
 
 def phase(title: str) -> None:
@@ -511,6 +561,49 @@ def blender_scene(n_views: int, hw: int, seed: int):
                      focal=float(focal))
 
 
+def contracted_rows(rng, rows: int):
+    """Rows as the renderer hands them to the field under CONTRACT: points in
+    the contracted radius-2 ball, unit directions."""
+    import numpy as np
+    d = rng.normal(size=(rows, 3))
+    radius = rng.uniform(0.0, 2.0, (rows, 1))
+    pts = (d / np.linalg.norm(d, axis=-1, keepdims=True) * radius).astype(np.float32)
+    v = rng.normal(size=(rows, 3))
+    return pts, (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def llff_capture(n_views: int, seed: int, outward: bool):
+    """An in-memory LLFF-style capture at ``CAPTURE_HW`` (a 4032x3024 capture
+    at LOW_RES 4), seeded smooth images. ``outward``: an unbounded 360 ring,
+    cameras on a radius-0.3 circle looking outward, per-image bounds about
+    0.5 / 100 (conf/unbounded360.ini's capture); else a forward-facing one,
+    cameras a few units apart all looking down -z at bounds about 2 / 25
+    (conf/fern_ndc.ini's)."""
+    import numpy as np
+    from tinynerf_torch.data.poses import SceneData, view_matrix
+    rng = np.random.default_rng(seed)
+    height, width = CAPTURE_HW
+    focal = 0.8 * width
+    rows = np.zeros((n_views, 17))
+    for i in range(n_views):
+        if outward:
+            theta = 2 * np.pi * i / n_views
+            out = np.array([np.sin(theta), 0.0, np.cos(theta)])
+            c2w = view_matrix(-out, np.array([0.0, 1.0, 0.0]), 0.3 * out)
+            bounds = (0.5 * rng.uniform(1.0, 1.2), 100.0 * rng.uniform(0.9, 1.0))
+        else:
+            back = np.array([0.0, 0.0, 1.0]) + rng.normal(scale=0.03, size=3)
+            c2w = view_matrix(back, np.array([0.0, 1.0, 0.0]),
+                              np.array([0.4 * (i % 2), 0.3 * (i // 2), 0.0]))
+            bounds = (2.0 * rng.uniform(1.0, 1.1), 25.0 * rng.uniform(0.9, 1.0))
+        rows[i, :15] = np.concatenate([c2w, [[height], [width], [focal]]], axis=1).ravel()
+        rows[i, 15:] = bounds
+    base = rng.uniform(0.0, 1.0, (n_views, 9, 12, 3))
+    images = np.kron(base, np.ones((1, height // 9, width // 12, 1))).astype(np.float32)
+    return SceneData(images=images, poses_bounds=rows, height=height, width=width,
+                     focal=float(focal))
+
+
 def fused_rays(device, n_rays: int, seed: int, empty: int = 0):
     """(origins, dirs, t_co, near, far) of ``n_rays`` rays from
     pixels_to_rays through random pixels of an 800x800 view of
@@ -575,7 +668,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     smem = {mk.FWD_SOURCE: mk._library(mk.FWD_SOURCE).field_rays_fwd_smem_bytes(),
             mk.BWD_SOURCE: mk._library(mk.BWD_SOURCE).field_rays_bwd_smem_bytes(),
-            mk.FLAT_SOURCE: mk._library(mk.FLAT_SOURCE).field_flat_fwd_smem_bytes()}
+            mk.FLAT_SOURCE: mk._library(mk.FLAT_SOURCE).field_flat_fwd_smem_bytes(),
+            mk.FLAT_BWD_SOURCE: mk._library(mk.FLAT_BWD_SOURCE).field_flat_bwd_smem_bytes()}
     for geometry, dims in GRID.items():
         smem[f"{gk.FWD_SOURCE} {geometry}"] = gk._library(gk.FWD_SOURCE).grid_rays_fwd_smem_bytes(*dims)
         smem[f"{gk.BWD_SOURCE} {geometry}"] = gk._library(gk.BWD_SOURCE).grid_rays_bwd_smem_bytes(*dims)
@@ -584,8 +678,9 @@ def main() -> int:
         smem[f"{pk.BWD_SOURCE} {net}"] = pk._library(pk.BWD_SOURCE).prop_rays_bwd_smem_bytes(width)
     smem[rk.FWD_SOURCE] = rk._library(rk.FWD_SOURCE).render_fused_fwd_smem_bytes(*FUSED_SAMPLES)
     smem[rk.BWD_SOURCE] = rk._library(rk.BWD_SOURCE).render_fused_bwd_smem_bytes(*FUSED_SAMPLES)
-    for source in (mk.FWD_SOURCE, mk.BWD_SOURCE, mk.FLAT_SOURCE, gk.FWD_SOURCE, gk.BWD_SOURCE,
-                   pk.FWD_SOURCE, pk.BWD_SOURCE, rk.FWD_SOURCE, rk.BWD_SOURCE):
+    for source in (mk.FWD_SOURCE, mk.BWD_SOURCE, mk.FLAT_SOURCE, mk.FLAT_BWD_SOURCE,
+                   gk.FWD_SOURCE, gk.BWD_SOURCE, pk.FWD_SOURCE, pk.BWD_SOURCE, rk.FWD_SOURCE,
+                   rk.BWD_SOURCE):
         info = build.build_log[source]
         sizes = ", ".join(f"{k.split()[-1] if ' ' in k else 'main kernel'} {v} B"
                           for k, v in smem.items() if k.split()[0] == source)
@@ -884,6 +979,47 @@ def main() -> int:
     del leaves, o_leaf
     torch.cuda.empty_cache()
 
+    # ---- 3h. kernel 4 (the flat field's recompute backward), fp32 and bf16, vs plain ----
+    phase("kernel 4 (flat field recompute backward) vs plain, fp32 and bf16")
+    flat_bwd_inputs, flat_bwd_err, flat_bwd_rel, flat_bwd_cos = {}, {}, {}, {}
+    for R in FLAT_BWD_ROWS:
+        pts, dirs = (torch.from_numpy(a).to(dev) for a in contracted_rows(rng, R))
+        g_rows = torch.from_numpy(rng.normal(size=(R, 4)).astype(np.float32)).to(dev)
+        for precision in ("fp32", "bf16"):
+            # rows this close to a kink (in the form compared) get no cotangent
+            keep = mk.preactivation_margin(params, pts, dirs, pts.new_zeros(R, 1),
+                                           precision) > MARGIN
+            g = g_rows * keep.float()
+            kernel = mk.field_flat_bwd(params, pts, dirs, g, precision)
+            again = mk.field_flat_bwd(params, pts, dirs, g, precision)
+            plain = mk.field_flat_bwd_plain(params, pts, dirs, g, precision)
+            torch.cuda.synchronize()
+            errs = bwd_errors(kernel, plain)
+            errs["d_points"], errs["d_dirs"] = errs.pop("d_origins"), errs.pop("d_dirs")
+            cos = bwd_cosines(kernel, plain)
+            same = all(v[0] == 0 for v in bwd_errors(kernel, again).values())
+            worst = max(errs, key=lambda k: errs[k][1])
+            limit = BWD_RTOL if precision == "fp32" else BF16_BWD_RTOL
+            print(f"R={R} {precision} ({100 * (1 - float(keep.float().mean())):.3f}% of rows "
+                  f"within {MARGIN} of a kink, zero cotangent): worst {worst} error / "
+                  f"max|plain| {errs[worst][1]:.3e} (limit {limit}); d_points "
+                  f"{errs['d_points'][1]:.3e}, d_dirs {errs['d_dirs'][1]:.3e}, trunk_4.w "
+                  f"{errs['trunk_4.w'][1]:.3e}, sigma.w {errs['sigma.w'][1]:.3e}; smallest "
+                  f"cosine {cos:.7f}{'' if precision == 'fp32' else f' (limit {BF16_COS})'}; "
+                  f"two launches bit-identical: {same}")
+            if not (errs[worst][1] <= limit and same
+                    and (precision == "fp32" or cos >= BF16_COS)):
+                raise AssertionError(f"kernel 4 disagrees with field_flat_bwd_plain at R={R} "
+                                     f"{precision}: {errs}")
+            flat_bwd_err[precision] = max(flat_bwd_err.get(precision, 0.0),
+                                          max(e[0] for e in errs.values()))
+            flat_bwd_rel[precision] = max(flat_bwd_rel.get(precision, 0.0), errs[worst][1])
+            flat_bwd_cos[precision] = min(flat_bwd_cos.get(precision, 1.0), cos)
+            if R == FLAT_BWD_ROWS[0]:
+                flat_bwd_inputs[precision] = (pts, dirs, g)
+            del kernel, again, plain
+    torch.cuda.empty_cache()
+
     # ---- 4. timing ----
     phase("timing (per launch, CUDA events)")
     fwd_time, bwd_time = {}, {}
@@ -926,7 +1062,8 @@ def main() -> int:
         return k_ms, p_ms, b_ms, b_by, f32_ms
 
     with torch.no_grad():
-        for R in FLAT_ROWS[:2]:
+        flat_inputs[FLAT_BWD_ROWS[0]] = flat_bwd_inputs["fp32"][:2]
+        for R in (*FLAT_ROWS[:2], FLAT_BWD_ROWS[0]):
             pts, dirs = flat_inputs[R]
             for precision in ("fp32", "bf16"):
                 k_ms = cuda_ms(lambda: mk.field_flat(params, pts, dirs, precision), iters=20)
@@ -948,6 +1085,22 @@ def main() -> int:
             f"kernel 2 bf16 B={B} N={N}", k_ms, p_ms, 3 * mk.flops_per_row() * B * N,
             4 * (2 * 3 * B + 5 * B * N + n_params + 2 * 3 * B + B * N + n_params), "bf16")
     del bf16_inputs, flat_inputs
+    torch.cuda.empty_cache()
+
+    # kernel 4 at an unbounded360-mlp step's fine rows: (ms, plain ms, bound
+    # ms, bound_by, f32 FMA bound ms) per precision
+    flat_bwd_time = {}
+    for precision, (pts, dirs, g) in flat_bwd_inputs.items():
+        R = pts.shape[0]
+        k_ms = cuda_ms(lambda: mk.field_flat_bwd(params, pts, dirs, g, precision), iters=3,
+                       warmup=1)
+        p_ms = cuda_ms(lambda: mk.field_flat_bwd_plain(params, pts, dirs, g, precision),
+                       iters=2, warmup=1)
+        # in: points, dirs, the (R, 4) cotangent, params; out: d_points, d_dirs, grads
+        flat_bwd_time[R, precision] = report(
+            f"kernel 4 {precision} R={R}", k_ms, p_ms, 3 * mk.flops_per_row() * R,
+            4 * (6 * R + 4 * R + n_params + 6 * R + n_params), precision)
+    del flat_bwd_inputs
     torch.cuda.empty_cache()
 
     # kernels 5 and 6: (ms, plain ms, bound ms, bound_by, f32 FMA bound ms)
@@ -1862,7 +2015,318 @@ def main() -> int:
             raise AssertionError("lego_prop at fp32: not every loss is finite")
         del runner
 
-    # ---- 16. results ----
+        # ---- 16. unbounded360-mlp: conf/unbounded360.ini with FINE_FIELD = mlp ----
+        phase("unbounded360-mlp training path (CONTRACT, LINDISP, the proposal grid, "
+              "DIST_LOSS, PROP_INTERLEVEL, bf16: kernels 3 and 4)")
+        from tinynerf_torch.core import contract
+
+        def reset_slice7():
+            reset_all()
+            mk.field_flat_bwd.launches = 0
+            rk.render_fused.launches = rk.render_fused_bwd.launches = 0
+
+        def counts7():
+            return {"flat": mk.field_flat.launches, "flat_bwd": mk.field_flat_bwd.launches,
+                    "rays": mk.field_rays.launches, "rays_bwd": mk.field_rays_bwd.launches,
+                    "grid": gk.grid_rays.launches + gk.grid_rays_bwd.launches,
+                    "prop": pk.prop_rays.launches, "prop_bwd": pk.prop_rays_bwd.launches,
+                    "fused": rk.render_fused.launches, "fused_bwd": rk.render_fused_bwd.launches}
+
+        def only(**launches):
+            return {**{k: 0 for k in counts7()}, **launches}
+
+        def plain_contracted(precision):
+            """The MLP's plain field under the contraction: what a step or a
+            chunk through kernels 3 and 4 is held against."""
+            return contract.wrap_field_contract(
+                functools.partial(mk.field_flat_plain, precision=precision))
+
+        ucfg = run_config("unbounded360", tmp, "u360", U360_STEPS, fine_field="mlp")
+        u_scene = llff_capture(U360_VIEWS, ucfg.seed, outward=True)
+        runner = Runner(ucfg, device="cuda", scene=u_scene)
+        n_net = mlp.num_params(runner.params["net"])
+        print(f"{ucfg.precision}, BATCH_RAY {ucfg.batch_ray}, {ucfg.n_coarse}+{ucfg.n_fine} "
+              f"samples, CONTRACT {ucfg.contract}, LINDISP {ucfg.lindisp}, STRATIFIED "
+              f"{ucfg.stratified}, DIST_LOSS {ucfg.dist_loss}, PROP_INTERLEVEL "
+              f"{ucfg.prop_interlevel}; net 8x256 ({n_net:,} params), proposal grid R="
+              f"{ucfg.prop_grid_res} {ucfg.prop_grid_comp_density}+{ucfg.prop_grid_comp_app} "
+              f"width {ucfg.prop_grid_decoder_width}; {U360_VIEWS} views of "
+              f"{u_scene.height}x{u_scene.width}, bounds {u_scene.poses_bounds[:, 15].min():.2f}"
+              f" / {u_scene.poses_bounds[:, 16].max():.1f}")
+        if n_net != 593_924 or not (ucfg.contract and ucfg.lindisp and ucfg.dist_loss > 0
+                                    and ucfg.prop_interlevel > 0):
+            raise AssertionError("unbounded360-mlp is not at full width with its stack")
+        reset_slice7()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.train()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        u_launches = counts7()
+        print(f"Runner.train(): {U360_STEPS} steps of {ucfg.batch_ray} rays in {seconds:.2f} s "
+              f"({seconds / U360_STEPS * 1e3:.2f} ms/step, first steps included); launches "
+              f"{u_launches} (expected kernels 3 and 4 once a step, nothing else)")
+        if u_launches != only(flat=U360_STEPS, flat_bwd=U360_STEPS):
+            raise AssertionError("the unbounded360-mlp path did not run kernels 3 and 4 (and "
+                                 "only them) once a step")
+        losses = logged_losses(runner)
+        if len(losses) != U360_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{len(losses)} logged losses, not all finite")
+        first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+        print(f"loss: mean of the first 10 steps {first:.4f}, of the last 10 {last:.4f} "
+              f"(step 0 {losses[0]:.4f}, step {U360_STEPS - 1} {losses[-1]:.4f})")
+        if not last < first:
+            raise AssertionError("the unbounded360-mlp loss did not fall")
+
+        step = train.make_train_step(ucfg, runner.train_table, runner.k_inv)
+        state = runner.state
+        for _ in range(2):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(6):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        u360_ms = (time.perf_counter() - t0) / 6 * 1e3
+        rows_u = ucfg.batch_ray * ucfg.n_fine  # FLAT_BWD_ROWS[0], where both were timed
+        u360_kern = flat_time[rows_u, "bf16"][0] + flat_bwd_time[rows_u, "bf16"][0]
+        print(f"BATCH_RAY {ucfg.batch_ray}: {u360_ms / 1e3:.5f} s/step, "
+              f"{ucfg.batch_ray / u360_ms * 1e3:,.0f} rays/s; kernels 3 and 4 {u360_kern:.3f} "
+              f"ms of it ({100 * u360_kern / u360_ms:.1f}%: one launch of each at its timed "
+              f"bf16 per-launch ms at R={rows_u})")
+        profile_steps(step, state)
+
+        # one step on fields with content: kernels 3 and 4 vs the plain field
+        content = optim.tree_map(lambda t: t.clone(), runner.params)
+        content["net"]["sigma"]["b"] += 1.0
+        content["prop"] = scale_density(content["prop"], ucfg.prop_grid_comp_density)
+        batch = runner.train_table.sample(torch.Generator(device=dev).manual_seed(5),
+                                          ucfg.batch_ray)
+        _, _, g_k = train.loss_and_grads(train.make_loss_fn(ucfg, runner.k_inv), content, batch)
+        _, _, g_p = train.loss_and_grads(
+            train.make_loss_fn(ucfg, runner.k_inv, plain_contracted(ucfg.precision)), content,
+            batch)
+        u360_cos = part_cosines(g_k, g_p)
+        print("one bf16 step, kernels 3 and 4 vs the plain field (sigma bias +1, the proposal "
+              "grid's density x3): gradient cosines "
+              + ", ".join(f"{k} {v:.7f}" for k, v in u360_cos.items()) + f" (limit {BF16_COS})")
+        if min(u360_cos.values()) < BF16_COS:
+            raise AssertionError("the unbounded360-mlp kernels' training gradient disagrees "
+                                 "with the plain field's")
+        u360_iter = runner.state.iteration - 1
+        ckpt.save_checkpoint(ucfg.ckpt_path, "smoke", u360_iter, runner.params,
+                             runner.state.opt, generator=runner.state.generator)
+        trained_u360 = runner.params["net"]["trunk_1"]["w"]
+        del runner, state, step, g_k, g_p, content
+
+        # ---- 17. the unbounded360-mlp render path, from that checkpoint ----
+        phase("unbounded360-mlp render path (kernel 3)")
+        ucfg.continue_ = True
+        runner = Runner(ucfg, device="cuda", scene=u_scene)
+        if runner.last_iter != u360_iter or not torch.equal(
+                runner.params["net"]["trunk_1"]["w"], trained_u360):
+            raise AssertionError("Runner did not resume the unbounded360-mlp checkpoint")
+        u_pix = u_scene.height * u_scene.width
+        u_chunks = math.ceil(u_pix / ucfg.render_chunk)
+        reset_slice7()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = evallib.render_test_set(ucfg, runner.params, runner.test_table, runner.k_inv,
+                                         runner.start_time, runner.last_iter, save=False,
+                                         max_views=1)
+        torch.cuda.synchronize()
+        u360_frame_s = time.perf_counter() - t0
+        u_render = counts7()
+        print(f"rendered 1 view of {u_scene.height}x{u_scene.width} from the iteration-"
+              f"{u360_iter} checkpoint: {u360_frame_s:.3f} s/frame; launches {u_render} "
+              f"(expected kernel 3 once a chunk, {u_chunks} chunks)")
+        if u_render != only(flat=u_chunks):
+            raise AssertionError("the unbounded360-mlp render path did not run kernel 3 (and "
+                                 "only it) once a chunk")
+        if not (frames.shape == (1, u_scene.height, u_scene.width, 3)
+                and np.all(np.isfinite(frames)) and frames.min() >= 0 and frames.max() <= 1):
+            raise AssertionError("the unbounded360-mlp frame is not finite values in [0, 1]")
+        print(f"frame mean {frames.mean():.4f}, std {frames.std():.4f}")
+        with torch.no_grad():
+            span = slice((u_chunks // 2) * ucfg.render_chunk,
+                         (u_chunks // 2 + 1) * ucfg.render_chunk)
+            idx = torch.arange(u_pix, device=dev)[span]
+            rows, cols = (idx // u_scene.width).float(), (idx % u_scene.width).float()
+            pose = runner.test_table.poses[0].expand(rows.shape[0], 17)
+            args = (runner.params["net"], rows, cols, pose, runner.k_inv, ucfg.n_coarse,
+                    ucfg.n_fine)
+            kw = dict(prop_params=runner.params["prop"],
+                      prop_field_fn=evallib.make_prop_field_fn(ucfg), lindisp=ucfg.lindisp)
+            kern_u = evallib.make_field_fn(ucfg)
+            _, c_kernel = render.render_rays(*args, field_fn=kern_u, **kw)
+            _, c_plain = render.render_rays(*args, field_fn=plain_contracted(ucfg.precision),
+                                            **kw)
+            u360_pix_err = float((c_kernel - c_plain).abs().max())
+            print(f"real chunk, kernel 3 vs the plain field (bf16): max |pixel err| "
+                  f"{u360_pix_err:.3e}, mean {float((c_kernel - c_plain).abs().mean()):.3e} "
+                  f"(atol {BF16_CHUNK_ATOL})")
+            if not u360_pix_err <= BF16_CHUNK_ATOL:
+                raise AssertionError("the unbounded360-mlp render disagrees with the plain "
+                                     "render")
+            profile_calls(lambda: render.render_rays(*args, field_fn=kern_u, **kw), 5, "chunks")
+        del runner
+
+        # ---- 18. unbounded360-mlp with the contracted occupancy grid, 10 steps ----
+        phase("unbounded360-mlp with the contracted occupancy grid (conf/synthetic360.ini's "
+              "block), 10 steps")
+        gcfg7 = run_config("unbounded360", tmp, "u360_occ", U360_SHORT_STEPS, fine_field="mlp",
+                           occ_grid=True, occ_res=64, occ_march_res=16, occ_march_steps=32,
+                           occ_update_every=256, occ_subset=0.125)
+        runner = Runner(gcfg7, device="cuda", scene=u_scene)
+        reset_slice7()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.train()
+        torch.cuda.synchronize()
+        u_occ_s = time.perf_counter() - t0
+        u_occ = counts7()
+        probes = int(gcfg7.occ_res ** 3 * gcfg7.occ_subset)
+        u_occ_shares = grid_shares(runner.state.occ)
+        losses = logged_losses(runner)
+        print(f"OCC_EXTENT {gcfg7.occ_extent}, OCC_RES {gcfg7.occ_res}, OCC_MARCH_RES "
+              f"{gcfg7.occ_march_res}, OCC_MARCH_STEPS {gcfg7.occ_march_steps}; "
+              f"{U360_SHORT_STEPS} steps in {u_occ_s:.2f} s; launches {u_occ} (expected kernel 3 "
+              f"{U360_SHORT_STEPS} + 1, the refresh at 0 through it with {probes} probes; kernel "
+              f"4 {U360_SHORT_STEPS}); grid after the refresh: {100 * u_occ_shares[0]:.2f}% of "
+              f"cells probed, {100 * u_occ_shares[1]:.2f}% occupied; losses {losses[0]:.2f} .. "
+              f"{losses[-1]:.2f}")
+        if (gcfg7.occ_extent != 2.0
+                or u_occ != only(flat=U360_SHORT_STEPS + 1, flat_bwd=U360_SHORT_STEPS)):
+            raise AssertionError("the contracted grid did not run as expected")
+        if len(losses) != U360_SHORT_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError("unbounded360-mlp with the grid: not every loss is finite")
+        del runner
+
+        # ---- 19. unbounded360-mlp with PROP_FIELD = mlp and PROP_PALLAS, 10 steps ----
+        phase("unbounded360-mlp with PROP_FIELD = mlp and PROP_PALLAS, 10 steps (prop_flat: "
+              "kernels 7 and 8 at N = 1)")
+        pcfg7 = run_config("unbounded360", tmp, "u360_prop", U360_SHORT_STEPS, fine_field="mlp",
+                           prop_field="mlp", prop_pallas=True)
+        runner = Runner(pcfg7, device="cuda", scene=u_scene)
+        reset_slice7()
+        runner.train()
+        torch.cuda.synchronize()
+        u_prop = counts7()
+        losses = logged_losses(runner)
+        print(f"proposal MLP {pcfg7.proposal_width}x{pcfg7.proposal_depth}; launches {u_prop} "
+              f"(expected kernels 3, 4, 7 and 8 {U360_SHORT_STEPS} each); losses "
+              f"{losses[0]:.2f} .. {losses[-1]:.2f}")
+        if u_prop != only(flat=U360_SHORT_STEPS, flat_bwd=U360_SHORT_STEPS,
+                          prop=U360_SHORT_STEPS, prop_bwd=U360_SHORT_STEPS):
+            raise AssertionError("unbounded360-mlp with the proposal MLP did not run prop_flat")
+        if len(losses) != U360_SHORT_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError("unbounded360-mlp with the proposal MLP: not every loss is "
+                                 "finite")
+        del runner
+
+        # ---- 20. unbounded360-mlp at fp32, 10 steps ----
+        phase("unbounded360-mlp at PRECISION=fp32, 10 steps (the fp32 forms of kernels 3 and 4)")
+        fcfg7 = run_config("unbounded360", tmp, "u360_fp32", U360_SHORT_STEPS, fine_field="mlp",
+                           precision="fp32")
+        runner = Runner(fcfg7, device="cuda", scene=u_scene)
+        reset_slice7()
+        runner.train()
+        torch.cuda.synchronize()
+        u_fp32 = counts7()
+        losses = logged_losses(runner)
+        print(f"launches {u_fp32} (expected kernels 3 and 4 {U360_SHORT_STEPS} each); losses "
+              f"{losses[0]:.2f} .. {losses[-1]:.2f}")
+        if u_fp32 != only(flat=U360_SHORT_STEPS, flat_bwd=U360_SHORT_STEPS):
+            raise AssertionError("unbounded360-mlp at fp32 did not run kernels 3 and 4")
+        if len(losses) != U360_SHORT_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError("unbounded360-mlp at fp32: not every loss is finite")
+        del runner, u_scene
+
+        # ---- 21. conf/fern_ndc.ini: NDC, bf16, u8 pixels ----
+        phase("fern_ndc training path (NDC, bf16: kernels 1 and 2)")
+        ncfg = run_config("fern_ndc", tmp, "fern", FERN_STEPS)
+        f_scene = llff_capture(FERN_VIEWS, ncfg.seed, outward=False)
+        runner = Runner(ncfg, device="cuda", scene=f_scene)
+        print(f"{ncfg.precision}, BATCH_RAY {ncfg.batch_ray}, {ncfg.n_coarse}+{ncfg.n_fine} "
+              f"samples, PIXEL_DTYPE {ncfg.pixel_dtype}; ndc_params {runner.ndc_params}; "
+              f"{FERN_VIEWS} views of {f_scene.height}x{f_scene.width}; recentred bounds "
+              f"{float(runner.train_table.poses[:, 15].min()):.3f} / "
+              f"{float(runner.train_table.poses[:, 16].max()):.3f}")
+        if runner.ndc_params is None:
+            raise AssertionError("the fern_ndc Runner did not set ndc_params")
+        reset_slice7()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.train()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        fern_launches = counts7()
+        print(f"Runner.train(): {FERN_STEPS} steps in {seconds:.2f} s; launches {fern_launches} "
+              f"(expected kernels 1 and 2 twice a step)")
+        if fern_launches != only(rays=2 * FERN_STEPS, rays_bwd=2 * FERN_STEPS):
+            raise AssertionError("the fern_ndc path did not run kernels 1 and 2 twice a step")
+        losses = logged_losses(runner)
+        if len(losses) != FERN_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{len(losses)} logged losses, not all finite")
+        first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+        print(f"loss: mean of the first 5 steps {first:.4f}, of the last 5 {last:.4f}")
+        if not last < first:
+            raise AssertionError("the fern_ndc loss did not fall")
+        step = train.make_train_step(ncfg, runner.train_table, runner.k_inv,
+                                     ndc_params=runner.ndc_params)
+        state = runner.state
+        for _ in range(2):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(6):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        fern_ms = (time.perf_counter() - t0) / 6 * 1e3
+        print(f"BATCH_RAY {ncfg.batch_ray}: {fern_ms / 1e3:.5f} s/step, "
+              f"{ncfg.batch_ray / fern_ms * 1e3:,.0f} rays/s")
+        fern_iter = runner.state.iteration - 1
+        ckpt.save_checkpoint(ncfg.ckpt_path, "smoke", fern_iter, runner.params,
+                             runner.state.opt, generator=runner.state.generator)
+        del runner, state, step
+
+        # ---- 22. the fern_ndc render path: unfused, then FUSED_RENDER (kernel 9) ----
+        phase("fern_ndc render path (NDC; unfused: kernel 1; FUSED_RENDER: kernel 9)")
+        ncfg.continue_ = True
+        runner = Runner(ncfg, device="cuda", scene=f_scene)
+        if runner.last_iter != fern_iter:
+            raise AssertionError("Runner did not resume the fern_ndc checkpoint")
+        f_chunks = math.ceil(f_scene.height * f_scene.width / ncfg.render_chunk)
+        fern_frames, fern_frame_s, fern_render = {}, {}, {}
+        for fused in (False, True):
+            rcfg = dataclasses.replace(ncfg, fused_render=fused)
+            reset_slice7()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fern_frames[fused] = evallib.render_test_set(
+                rcfg, runner.params, runner.test_table, runner.k_inv, runner.start_time,
+                runner.last_iter, save=False, max_views=1, ndc_params=runner.ndc_params)
+            torch.cuda.synchronize()
+            fern_frame_s[fused] = time.perf_counter() - t0
+            fern_render[fused] = counts7()
+            frames = fern_frames[fused]
+            print(f"FUSED_RENDER {fused}: 1 view of {f_scene.height}x{f_scene.width} in "
+                  f"{fern_frame_s[fused]:.3f} s; launches {fern_render[fused]}; frame mean "
+                  f"{frames.mean():.4f}")
+            want = only(fused=f_chunks) if fused else only(rays=2 * f_chunks)
+            if fern_render[fused] != want:
+                raise AssertionError(f"the fern_ndc render (FUSED_RENDER {fused}) did not run "
+                                     "its kernel once a chunk")
+            if not (np.all(np.isfinite(frames)) and frames.min() >= 0 and frames.max() <= 1):
+                raise AssertionError("the fern_ndc frame is not finite values in [0, 1]")
+        fern_diff = float(np.abs(fern_frames[True] - fern_frames[False]).max())
+        print(f"fused against unfused frame: max |diff| {fern_diff:.3e} (limit "
+              f"{BF16_CHUNK_ATOL})")
+        if not fern_diff <= BF16_CHUNK_ATOL:
+            raise AssertionError("the fused NDC frame disagrees with the unfused one")
+        del runner, f_scene
+
+    # ---- 23. results ----
     mean = lambda table, shapes, i: sum(table[s][i] for s in shapes) / len(shapes)
     shape_key = lambda s: (f"B={s[0]},N={s[1]}" if len(s) == 2 else f"R={s[0]}" if len(s) == 1
                            else f"B={s[0]},N_c={s[1]},N_f={s[2]}")
@@ -1887,7 +2351,18 @@ def main() -> int:
 
     fwd_src, bwd_src = "tinynerf_torch/csrc/field_rays_fwd.cu", "tinynerf_torch/csrc/field_rays_bwd.cu"
     flat_src = "tinynerf_torch/csrc/field_flat_fwd.cu"
-    flat = lambda precision: {(R,): flat_time[R, precision] for R in FLAT_ROWS[:2]}
+    flat_bwd_src = "tinynerf_torch/csrc/field_flat_bwd.cu"
+    flat = lambda precision: {(R,): flat_time[R, precision]
+                              for R in (*FLAT_ROWS[:2], FLAT_BWD_ROWS[0])}
+    flat_bwd = lambda precision: {(R,): flat_bwd_time[R, precision] for R in FLAT_BWD_ROWS[:1]}
+    # the unbounded360-mlp paths' launches per form (bf16 unless fp32)
+    u_fwd_bf16 = {"unbounded360-mlp train": u_launches["flat"],
+                  "unbounded360-mlp render": u_render["flat"],
+                  "unbounded360-mlp contracted grid train": u_occ["flat"],
+                  "unbounded360-mlp proposal MLP train": u_prop["flat"]}
+    u_bwd_bf16 = {"unbounded360-mlp train": u_launches["flat_bwd"],
+                  "unbounded360-mlp contracted grid train": u_occ["flat_bwd"],
+                  "unbounded360-mlp proposal MLP train": u_prop["flat_bwd"]}
     # no single PyTorch call computes any of these fused functions: library_ms is null
     kernels = [
         form("field_rays_fwd", fwd_src, "tinynerf/kernels/mlp_kernel.py:720",
@@ -1898,10 +2373,11 @@ def main() -> int:
              fwd_err, fwd_time, render_shapes),
         form("field_rays_fwd_bf16", fwd_src, "tinynerf/kernels/mlp_kernel.py:720",
              occ_launches[0] + occ_render_launches + fast_launches[0] + prop_mlp_launches[0]
-             + prop_render_field,
+             + prop_render_field + fern_launches["rays"] + fern_render[False]["rays"],
              {"lego_occ train": occ_launches[0], "lego_occ render": occ_render_launches,
               "lego_fast train": fast_launches[0], "lego_prop train": prop_mlp_launches[0],
-              "lego_prop render": prop_render_field},
+              "lego_prop render": prop_render_field, "fern_ndc train": fern_launches["rays"],
+              "fern_ndc render": fern_render[False]["rays"]},
              bf16_fwd_err, bf16_fwd_time, list(OCC_SHAPES)),
         form("field_rays_bwd", bwd_src, "tinynerf/kernels/mlp_kernel.py:751",
              train_launches[1] + fp32_launches[1] + prop_fp32_field[1],
@@ -1909,17 +2385,30 @@ def main() -> int:
               "lego_prop fp32 train": prop_fp32_field[1]},
              bwd_abs, bwd_time, STEP_SHAPES, {"max_rel_err": bwd_rel}),
         form("field_rays_bwd_bf16", bwd_src, "tinynerf/kernels/mlp_kernel.py:751",
-             occ_launches[1] + fast_launches[1] + prop_mlp_launches[1],
+             occ_launches[1] + fast_launches[1] + prop_mlp_launches[1]
+             + fern_launches["rays_bwd"],
              {"lego_occ train": occ_launches[1], "lego_fast train": fast_launches[1],
-              "lego_prop train": prop_mlp_launches[1]},
+              "lego_prop train": prop_mlp_launches[1],
+              "fern_ndc train": fern_launches["rays_bwd"]},
              bf16_bwd_abs, bf16_bwd_time, list(OCC_SHAPES), {"max_rel_err": bf16_bwd_rel}),
         form("field_flat_fwd", flat_src, "tinynerf/kernels/mlp_kernel.py:269",
-             fp32_launches[2], {"lego_occ fp32 train": fp32_launches[2]},
-             flat_err["fp32"], flat("fp32"), [(FLAT_ROWS[0],)]),
+             fp32_launches[2] + u_fp32["flat"],
+             {"lego_occ fp32 train": fp32_launches[2],
+              "unbounded360-mlp fp32 train": u_fp32["flat"]},
+             flat_err["fp32"], flat("fp32"), [(FLAT_BWD_ROWS[0],)]),
         form("field_flat_fwd_bf16", flat_src, "tinynerf/kernels/mlp_kernel.py:269",
-             occ_launches[2] + fast_launches[2],
-             {"lego_occ train": occ_launches[2], "lego_fast train": fast_launches[2]},
-             flat_err["bf16"], flat("bf16"), [(FLAT_ROWS[0],)]),
+             occ_launches[2] + fast_launches[2] + sum(u_fwd_bf16.values()),
+             {"lego_occ train": occ_launches[2], "lego_fast train": fast_launches[2],
+              **u_fwd_bf16},
+             flat_err["bf16"], flat("bf16"), [(FLAT_BWD_ROWS[0],)]),
+        form("field_flat_bwd", flat_bwd_src, "tinynerf/kernels/mlp_kernel.py:566",
+             u_fp32["flat_bwd"], {"unbounded360-mlp fp32 train": u_fp32["flat_bwd"]},
+             flat_bwd_err["fp32"], flat_bwd("fp32"), [(FLAT_BWD_ROWS[0],)],
+             {"max_rel_err": flat_bwd_rel["fp32"], "min_cosine_vs_plain": flat_bwd_cos["fp32"]}),
+        form("field_flat_bwd_bf16", flat_bwd_src, "tinynerf/kernels/mlp_kernel.py:566",
+             sum(u_bwd_bf16.values()), u_bwd_bf16,
+             flat_bwd_err["bf16"], flat_bwd("bf16"), [(FLAT_BWD_ROWS[0],)],
+             {"max_rel_err": flat_bwd_rel["bf16"], "min_cosine_vs_plain": flat_bwd_cos["bf16"]}),
     ]
     gfwd_src, gbwd_src = ("tinynerf_torch/csrc/grid_rays_fwd.cu",
                           "tinynerf_torch/csrc/grid_rays_bwd.cu")
@@ -1953,15 +2442,18 @@ def main() -> int:
              prop_fp32_launches[0], {"lego_prop fp32 train": prop_fp32_launches[0]},
              prop_err["fwd fp32"], prop_fwd_time["fp32"], [PROP_SHAPE], prop_rows),
         form("prop_rays_fwd_bf16", pfwd_src, "tinynerf/kernels/proposal_kernel.py:255",
-             prop_launches[0] + prop_render_launches,
-             {"lego_prop train": prop_launches[0], "lego_prop render": prop_render_launches},
+             prop_launches[0] + prop_render_launches + u_prop["prop"],
+             {"lego_prop train": prop_launches[0], "lego_prop render": prop_render_launches,
+              "unbounded360-mlp proposal MLP train (prop_flat)": u_prop["prop"]},
              prop_err["fwd bf16"], prop_fwd_time["bf16"], [PROP_SHAPE], prop_rows),
         form("prop_rays_bwd", pbwd_src, "tinynerf/kernels/proposal_kernel.py:285",
              prop_fp32_launches[1], {"lego_prop fp32 train": prop_fp32_launches[1]},
              prop_err["bwd fp32"], prop_bwd_time["fp32"], [PROP_SHAPE],
              {**prop_rows, "max_rel_err": prop_rel["bwd fp32"]}),
         form("prop_rays_bwd_bf16", pbwd_src, "tinynerf/kernels/proposal_kernel.py:285",
-             prop_launches[1], {"lego_prop train": prop_launches[1]},
+             prop_launches[1] + u_prop["prop_bwd"],
+             {"lego_prop train": prop_launches[1],
+              "unbounded360-mlp proposal MLP train (prop_flat)": u_prop["prop_bwd"]},
              prop_err["bwd bf16"], prop_bwd_time["bf16"], [PROP_SHAPE],
              {**prop_rows, "max_rel_err": prop_rel["bwd bf16"]}),
     ]
@@ -1977,9 +2469,10 @@ def main() -> int:
              {"lego render fused": fused_lego[0], "lego fused chunk gradient": fused_lego[3][0]},
              fused_err["fwd fp32"], fused_fwd_time["fp32"], fused_shape, fused_rows),
         form("render_fused_fwd_bf16", rfwd_src, "tinynerf/kernels/render_kernel.py:615",
-             fused_occ[0] + fused_occ[3][0],
+             fused_occ[0] + fused_occ[3][0] + fern_render[True]["fused"],
              {"lego_occ render fused": fused_occ[0],
-              "lego_occ fused chunk gradient": fused_occ[3][0]},
+              "lego_occ fused chunk gradient": fused_occ[3][0],
+              "fern_ndc render fused": fern_render[True]["fused"]},
              fused_err["fwd bf16"], fused_fwd_time["bf16"], fused_shape, fused_rows),
         form("render_fused_bwd", rbwd_src, "tinynerf/kernels/render_kernel.py:651",
              fused_lego[3][1], {"lego fused chunk gradient": fused_lego[3][1]},
@@ -2006,7 +2499,15 @@ def main() -> int:
                       "lego_fused": {"frame_s": fused_lego[1], "chunk_err": fused_lego[2],
                                      "grad_cosine_vs_plain": fused_lego[4]},
                       "lego_occ_fused": {"frame_s": fused_occ[1], "chunk_err": fused_occ[2],
-                                         "grad_cosine_vs_plain": fused_occ[4]}}))
+                                         "grad_cosine_vs_plain": fused_occ[4]},
+                      "unbounded360_mlp": {"step_ms": u360_ms, "kernel_ms": u360_kern,
+                                           "frame_s": u360_frame_s, "grad_cosines": u360_cos,
+                                           "chunk_pix_err": u360_pix_err,
+                                           "contracted_grid_seconds_10_steps": u_occ_s,
+                                           "contracted_grid_shares": u_occ_shares},
+                      "fern_ndc": {"step_ms": fern_ms, "frame_s": fern_frame_s[False],
+                                   "fused_frame_s": fern_frame_s[True],
+                                   "fused_vs_unfused_max_diff": fern_diff}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

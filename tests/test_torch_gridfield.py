@@ -270,12 +270,24 @@ def test_unported_grid_forms_are_refused_by_name():
     (dict(fine_field="grid", grid_levels=2), "GRID_LEVELS=2"),
     (dict(fine_field="grid", grid_level_fold=True), "GRID_LEVEL_FOLD"),
     (dict(fine_field="grid", grid_upsample="100:64"), "GRID_UPSAMPLE=100:64"),
-    (dict(fine_field="grid", grid_lookup="gather"), "GRID_LOOKUP=gather"),
-    (dict(proposal=True, dist_loss=0.01), "DIST_LOSS"),
-    (dict(proposal=True, prop_interlevel=1.0), "PROP_INTERLEVEL")])
+    (dict(fine_field="grid", grid_lookup="gather"), "GRID_LOOKUP=gather")])
 def test_check_supported_refuses_unported_keys(kw, what):
     with pytest.raises(NotImplementedError, match=f"{what} is not ported yet .ROADMAP"):
         evallib.check_supported(Config(**kw))
+
+
+@pytest.mark.parametrize("kw", [dict(dist_loss=0.01), dict(prop_interlevel=1.0)],
+                         ids=["DIST_LOSS", "PROP_INTERLEVEL"])
+def test_check_supported_accepts_the_aux_losses(kw):
+    """``DIST_LOSS`` and ``PROP_INTERLEVEL`` are ported (their agreement with
+    JAX: tests/test_torch_unbounded.py): accepted with ``PROPOSAL``; without
+    it the loss raises the JAX package's ``ValueError``, as
+    ``tinynerf/train.py:331-334`` does."""
+    evallib.check_supported(Config(proposal=True, **kw))
+    train.make_loss_fn(Config(proposal=True, fine_field="grid", grid_res=8, **kw),
+                       torch.eye(3))
+    with pytest.raises(ValueError, match="require PROPOSAL=True"):
+        train.make_loss_fn(Config(**kw), torch.eye(3))
 
 
 @pytest.mark.parametrize("prop_pallas", [False, True])

@@ -1,5 +1,6 @@
 """The CUDA field kernels (the ray-major forward and backward, the flat
-forward; fp32 and bf16) against their plain PyTorch versions, on the card.
+forward and backward; fp32 and bf16) against their plain PyTorch versions,
+on the card.
 
 This file imports neither JAX nor ``tinynerf``, so it also runs on a machine
 that has only PyTorch with CUDA:
@@ -151,8 +152,71 @@ def test_flat_kernel_matches_plain_on_card(precision, R):
         errs = (_rel(color, p_color), _rel(sigma, p_sigma))
         print(f"flat bf16 R={R}: color {errs[0]:.3e} sigma {errs[1]:.3e}")
         assert max(errs) <= BF16_FWD_RTOL, errs
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mk.field_flat(params, pts.clone().requires_grad_(True), dirs, precision)
+    # under autograd the backward is kernel 4's launch
+    before = mk.field_flat_bwd.launches
+    pts_g = pts.clone().requires_grad_(True)
+    _, sigma_g = mk.field_flat(params, pts_g, dirs, precision)
+    (g,) = torch.autograd.grad(sigma_g.sum(), pts_g)
+    torch.cuda.synchronize()
+    assert mk.field_flat_bwd.launches == before + 1
+    assert torch.isfinite(g).all()
+
+
+def _flat_errors(kernel, plain):
+    """error / max|plain| and the cosine, for every output of field_flat_bwd."""
+    (kg, *k_rest), (pg, *p_rest) = kernel, plain
+    pairs = [(f"{n}.{k}", kg[n][k], pg[n][k]) for n in pg for k in ("w", "b")]
+    pairs += list(zip(("d_points", "d_dirs"), k_rest, p_rest))
+    return {name: (_rel(a, b), float(torch.nn.functional.cosine_similarity(
+        a.flatten().double(), b.flatten().double(), dim=0))) for name, a, b in pairs}
+
+
+def contracted_rows(rng, R):
+    """Rows as the renderer hands them to the field under CONTRACT: points
+    in the contracted radius-2 ball, unit directions."""
+    d = rng.normal(size=(R, 3))
+    radius = rng.uniform(0.0, 2.0, (R, 1))
+    pts = (d / np.linalg.norm(d, axis=-1, keepdims=True) * radius).astype(np.float32)
+    v = rng.normal(size=(R, 3))
+    return pts, (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("R", [524288, 1001])
+def test_flat_bwd_kernel_matches_plain_on_card(precision, R):
+    """Kernel 4 (the flat field's recompute backward) at an unbounded360-mlp
+    step's fine rows (4096 x 128 = 524,288, eight chunks of rows) and at a
+    ragged R. fp32: every gradient within 1e-4 of max|plain|; bf16: within
+    BF16_BWD_RTOL of max|plain| and at cosine >= BF16_COS. Rows whose
+    smallest |pre-activation| in the form compared is under 2e-6 get zero
+    cotangents (at bf16 too: with 1001 rows one row's ReLU taking the other
+    side moves a bias gradient by 3.8% of its max). Two calls agree bit for
+    bit."""
+    dev = _card()
+    params = mlp.init_network(torch.Generator().manual_seed(3), dev)
+    rng = np.random.default_rng(R)
+    pts, dirs = (torch.from_numpy(a).to(dev) for a in contracted_rows(rng, R))
+    g = torch.from_numpy(rng.normal(size=(R, 4)).astype(np.float32)).to(dev)
+    keep = mk.preactivation_margin(params, pts, dirs, pts.new_zeros(R, 1), precision) > 2e-6
+    g = g * keep.float()
+    before = mk.field_flat_bwd.launches
+    kernel = mk.field_flat_bwd(params, pts, dirs, g, precision)
+    again = mk.field_flat_bwd(params, pts, dirs, g, precision)
+    plain = mk.field_flat_bwd_plain(params, pts, dirs, g, precision)
+    torch.cuda.synchronize()
+    assert mk.field_flat_bwd.launches == before + 2
+    errors = _flat_errors(kernel, plain)
+    worst = max(errors, key=lambda k: errors[k][0])
+    cos = min(e[1] for e in errors.values())
+    print(f"flat bwd {precision} R={R}: worst {worst} {errors[worst][0]:.3e}, "
+          f"min cosine {cos:.7f}")
+    if precision == "fp32":
+        assert errors[worst][0] <= 1e-4, errors
+    else:
+        assert errors[worst][0] <= BF16_BWD_RTOL, errors
+        assert cos >= BF16_COS, errors
+    assert all(e[0] == 0 for e in _flat_errors(kernel, again).values())
 
 
 @pytest.mark.gpu
@@ -378,6 +442,59 @@ def test_prop_kernels_match_plain_on_card(width, depth, n_rays, n_samples, preci
         assert errors[worst][0] <= BF16_BWD_RTOL, errors
         assert min(e[1] for e in errors.values()) >= BF16_COS, errors
     assert all(e[0] == 0 for e in _prop_errors(kernel, again).values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_prop_flat_matches_plain_on_card(precision):
+    """``prop_flat`` (kernels 7 and 8 at N = 1, t = 0: what ``CONTRACT`` +
+    ``PROP_FIELD = mlp`` + ``PROP_PALLAS`` runs) at conf/lego_prop.ini's
+    proposal MLP (128 x 4) on 4096 x 64 contracted rows and its gradient by
+    autograd, against the plain versions at N = 1 (``prop_rays_reference``
+    with one sample a ray at t = 0). fp32: every plane within 1e-5, every
+    gradient within 1e-4 of max|plain|; bf16: BF16_FWD_RTOL, and
+    BF16_BWD_RTOL with cosine >= BF16_COS. Rows within 2e-6 of a ReLU kink
+    or of sigma = 0 get zero cotangents."""
+    dev = _card()
+    params = proposal.init_proposal(torch.Generator().manual_seed(9), 128, 4, device=dev)
+    R = 4096 * 64
+    rng = np.random.default_rng(11)
+    pts, dirs = (torch.from_numpy(a).to(dev) for a in contracted_rows(rng, R))
+    zeros = pts.new_zeros(R, 1)
+    keep = (mk.preactivation_margin(params, pts, dirs, zeros) > 2e-6).float()
+    g = torch.from_numpy(rng.normal(size=(R, 4)).astype(np.float32)).to(dev) * keep
+
+    def grads(fn):
+        leaves = {n: {k: v.clone().requires_grad_(True) for k, v in l.items()}
+                  for n, l in params.items()}
+        p, d = pts.clone().requires_grad_(True), dirs.clone().requires_grad_(True)
+        color, sigma = fn(leaves, p, d)
+        out = torch.cat([color, sigma], dim=-1)
+        flat = [t for l in leaves.values() for t in l.values()]
+        got = torch.autograd.grad(out, flat + [p, d], g)
+        return out.detach(), got
+
+    def plain(leaves, p, d):
+        (r, gg, b), sigma = pk.prop_rays_reference(leaves, p, d, zeros, precision)
+        return torch.cat([r, gg, b], dim=-1), sigma
+
+    before = (pk.prop_rays.launches, pk.prop_rays_bwd.launches)
+    k_out, k_grads = grads(lambda l, p, d: pk.prop_flat(l, p, d, precision))
+    p_out, p_grads = grads(plain)
+    torch.cuda.synchronize()
+    assert (pk.prop_rays.launches, pk.prop_rays_bwd.launches) == (before[0] + 1, before[1] + 1)
+    fwd = _rel(k_out, p_out)
+    bwd = [_rel(a, b) for a, b in zip(k_grads, p_grads)]
+    cos = min(float(torch.nn.functional.cosine_similarity(
+        a.flatten().double(), b.flatten().double(), dim=0)) for a, b in zip(k_grads, p_grads))
+    print(f"prop_flat {precision}: forward {fwd:.3e}, backward worst {max(bwd):.3e}, "
+          f"min cosine {cos:.7f}")
+    if precision == "fp32":
+        torch.testing.assert_close(k_out, p_out, atol=1e-5, rtol=0)
+        assert max(bwd) <= 1e-4, bwd
+    else:
+        assert fwd <= BF16_FWD_RTOL and max(bwd) <= BF16_BWD_RTOL, (fwd, bwd)
+        assert cos >= BF16_COS
 
 
 @pytest.mark.gpu

@@ -90,16 +90,124 @@ def test_derive_march_steps_matches_jax(res, h, span):
         assert occupancy.derive_march_steps(res, h, span) == 64
 
 
-def test_contracted_forms_are_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, slice 7"):
-        occupancy.derive_march_steps_contracted(64, 0.5, 100.0)
-    g = occupancy.init_grid(4)
-    z = torch.zeros(2)
-    for kw in ({"contract": True}, {"lindisp": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            occupancy.tighten_bounds(g, torch.zeros(2, 3), torch.ones(2, 3), z + 2, z + 6, **kw)
-    with pytest.raises(NotImplementedError, match="CONTRACT"):
-        occupancy.update_grid(g, None, None, contract=True)
+def test_contracted_forms_match_jax():
+    """The contracted grid's probe count, and its disparity-spaced march:
+    ``derive_march_steps_contracted`` equal to JAX's, and one
+    ``tighten_bounds`` with ``contract``, ``lindisp`` and ``march_res``
+    exact (the rest: ``test_tighten_bounds_contracted_matches_jax``)."""
+    for res, near, far in ((64, 0.5, 100.0), (128, 0.05, 1e4), (16, 1.0, 2.0), (64, 0.0, 5.0)):
+        assert occupancy.derive_march_steps_contracted(res, near, far) == \
+            joccupancy.derive_march_steps_contracted(res, near, far)
+    assert occupancy.derive_march_steps_contracted(64, 0.5, 100.0) == 64
+    _compare_contracted_march(contract=True, lindisp=True, march_res=4)
+
+
+def _contracted_rays(seed, B):
+    """Rays of an outward-facing capture: origins near the centre, every
+    direction, near/far 0.5/100."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(scale=0.2, size=(B, 3)).astype(np.float32)
+    d = rng.normal(size=(B, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return o, d, np.full(B, 0.5, np.float32), np.full(B, 100.0, np.float32)
+
+
+def _edge_rays(o, d, near, far, n_steps, lindisp, contract, lres, half_extent):
+    """Rays with a probe within 1e-6 of a lookup cell's boundary, where two
+    float32 evaluations of floor() may differ."""
+    from tinynerf_torch.core.contract import contract_mip360
+    near, far = _t(near), _t(far)
+    frac = (torch.arange(n_steps, dtype=torch.float32) + 0.5) / n_steps
+    if lindisp:
+        ts = 1.0 / (1.0 / near[:, None] + (1.0 / far - 1.0 / near)[:, None] * frac[None, :])
+    else:
+        ts = near[:, None] + (far - near)[:, None] * frac[None, :]
+    pts = _t(o)[:, None] + ts[..., None] * _t(d)[:, None]
+    if contract:
+        pts = contract_mip360(pts)
+    pos = (pts / half_extent * 0.5 + 0.5) * lres
+    return torch.any(torch.abs(pos - torch.round(pos)) < 1e-6 * lres, dim=(1, 2)).numpy()
+
+
+def _compare_contracted_march(contract, lindisp, march_res):
+    res, n_steps, B = 8, 48, 256
+    h = 2.0 if contract else 1.5
+    raw = _random_raw(11, res)
+    raw[raw > 0.01] *= (np.random.default_rng(12).uniform(size=raw[raw > 0.01].shape) < 0.2)
+    o, d, near, far = _contracted_rays(13, B)
+    if not contract:
+        near, far = near * 4, far / 20
+    kw = dict(n_steps=n_steps, contract=contract, lindisp=lindisp, march_res=march_res)
+    ref = joccupancy.tighten_bounds(_jgrid(raw, h), *map(jnp.asarray, (o, d, near, far)), **kw)
+    got = occupancy.tighten_bounds(_grid(raw, h), *map(_t, (o, d, near, far)), **kw)
+    edge = _edge_rays(o, d, near, far, n_steps, lindisp, contract, march_res or res, h)
+    assert edge.sum() <= 4
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy()[~edge], np.asarray(r)[~edge])
+    tightened = (got[0].numpy() > near) | (got[1].numpy() < far)
+    assert int(tightened.sum()) > 0  # the grid tightened rays
+
+
+@pytest.mark.parametrize("contract,lindisp,march_res", [
+    (True, True, None), (True, False, None), (False, True, None), (False, True, 4),
+    (True, True, 2)])
+def test_tighten_bounds_contracted_matches_jax(contract, lindisp, march_res):
+    """``tighten_bounds`` with the contracted lookup, the disparity march
+    (local-spacing margins, floored at the cell diagonal without contract)
+    and the pooled lookup, against JAX's: exact, except rays with a probe
+    within 1e-6 of a cell boundary."""
+    _compare_contracted_march(contract, lindisp, march_res)
+
+
+def test_update_grid_contracted_matches_jax():
+    """The contracted refresh: each probe at ``inv_contract`` of its jittered
+    cell point, through the contracting wrapper, so the field sees the cell
+    itself. A partial refresh with JAX's draws injected, against JAX's
+    ``update_grid(contract=True)`` with its own wrapper; cells drawn twice
+    left out, as in ``test_update_grid_subset_matches_jax``."""
+    from tinynerf.core.contract import wrap_field_contract as jwrap
+    from tinynerf_torch.core.contract import wrap_field_contract
+    res, subset = 8, 200
+    jparams, params = _field_with_content(14)
+    raw = _random_raw(15, res)
+    key = jax.random.PRNGKey(16)
+    ref = joccupancy.update_grid(_jgrid(raw, 2.0), jparams, jwrap(jrender.field_jnp), key,
+                                 subset=subset, contract=True)
+    kidx, kjit = jax.random.split(key)
+    idx = np.asarray(jax.random.randint(kidx, (subset,), 0, res ** 3))
+    u = np.asarray(jax.random.uniform(kjit, (subset, 3)))
+    got = occupancy.update_grid(_grid(raw, 2.0), params, wrap_field_contract(render.field_plain),
+                                subset=subset, contract=True, draws=(_t(idx), _t(u)))
+    once = np.bincount(idx, minlength=res ** 3) == 1
+    g_raw, r_raw = got.raw.numpy().reshape(-1), np.asarray(ref.raw).reshape(-1)
+    np.testing.assert_allclose(g_raw[once], r_raw[once], atol=SIGMA_ATOL, rtol=1e-5)
+    # the probes went through the inverse: the field saw points at the cells
+    seen = []
+    occupancy.update_grid(_grid(raw, 2.0), None,
+                          wrap_field_contract(lambda p, x, d: seen.append(x) or
+                                              (torch.zeros_like(x), x[:, :1])),
+                          subset=subset, contract=True, draws=(_t(idx), _t(u)))
+    cells = torch.floor((seen[0] / 2.0 * 0.5 + 0.5) * res).long()
+    flat = (cells[:, 0] * res + cells[:, 1]) * res + cells[:, 2]
+    idx3 = np.stack([idx // (res * res), (idx // res) % res, idx % res], axis=-1)
+    c = ((idx3 + 0.5) / res * 2.0 - 1.0) * 2.0 + (u - 0.5) * (4.0 / res)
+    reachable = np.linalg.norm(c, axis=-1) < 1.98  # past 1.99 the inverse clamps
+    assert (flat.numpy() == idx)[reachable].mean() > 0.99
+
+
+def test_runner_refuses_the_contracted_grid_without_lindisp(sync_scene_dir, tmp_path):
+    """``OCC_GRID`` with ``CONTRACT`` needs ``LINDISP``: the JAX package's
+    ``ValueError`` (``tinynerf/runner.py:83-99``); with it the grid's extent
+    is forced to 2 with a note."""
+    def cfg(**kw):
+        return Config(img_dir=sync_scene_dir, data_type="sync", occ_grid=True, white_bkgd=True,
+                      contract=True, occ_res=8, n_coarse=8, n_fine=16, batch_ray=32,
+                      ckpt_path=str(tmp_path / "ckpt"), log_dir=str(tmp_path / "runs"), **kw)
+    with pytest.raises(ValueError, match="OCC_GRID with CONTRACT requires LINDISP"):
+        Runner(cfg(), device="cpu")
+    runner = Runner(cfg(lindisp=True, occ_extent=1.5), device="cpu")
+    assert runner.cfg.occ_extent == 2.0
+    assert runner.cfg.occ_march_steps == occupancy.derive_march_steps_contracted(8, 2.0, 6.0)
 
 
 def _rays(seed, B):

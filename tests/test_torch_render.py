@@ -7,7 +7,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from tinynerf.core import mlp as jmlp, rays as jrays, render as jrender
+from tinynerf.core import mlp as jmlp, occupancy as jocc, proposal as jproposal
+from tinynerf.core import rays as jrays, render as jrender
 from tinynerf.core import sampling as jsampling
 from tinynerf_torch.ckpt import params_from_numpy
 from tinynerf_torch.core import occupancy, rays, render, sampling
@@ -72,11 +73,15 @@ def test_coarse_ts_bit_equal_to_jax(n):
     np.testing.assert_array_equal(got, ref)
 
 
-def test_coarse_ts_refuses_unported_options():
-    """LINDISP is refused; stratified jitter (a generator) is ported."""
+def test_coarse_ts_takes_lindisp_and_stratified_jitter():
+    """LINDISP is ported (disparity-linear t's, JAX's within 1e-6; with
+    jitter: tests/test_torch_unbounded.py); stratified jitter (a generator)
+    is ported."""
     near, far = torch.full((2,), 2.0), torch.full((2,), 6.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sampling.coarse_ts(near, far, 8, lindisp=True)
+    lin = sampling.coarse_ts(near, far, 8, lindisp=True)
+    ref = jsampling.coarse_ts(jnp.full((2,), 2.0), jnp.full((2,), 6.0), 8, lindisp=True)
+    np.testing.assert_allclose(lin.numpy(), np.asarray(ref), rtol=1e-6)
+    np.testing.assert_allclose(1.0 / lin.numpy()[0], np.linspace(0.5, 1.0 / 6.0, 8), rtol=1e-6)
     jittered = sampling.coarse_ts(near, far, 8, generator=torch.Generator().manual_seed(0))
     assert jittered.shape == (2, 8) and not torch.equal(jittered, sampling.coarse_ts(near, far, 8))
 
@@ -211,18 +216,76 @@ def test_render_rays_matches_jax(ray_batch, white_bkgd):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), **tol)
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"prop_params": {}, "lindisp": True},
-    {"occ_grid": occupancy.init_grid(4), "occ_contract": True},
-    {"ndc_params": (16.0, 16.0, 20.0)}, {"lindisp": True}])
-def test_render_rays_refuses_unported_options(ray_batch, kwargs):
-    """Options of slices still to port raise by name; the occupancy grid and
-    the proposal field (with the proposal MLP by default) are ported, the
-    contracted grid (CONTRACT) and LINDISP are not, in either mode."""
+def _forward_facing(rng, B):
+    """NDC-ready rows: cameras near the origin looking down -z (recentred
+    LLFF poses), near/far 1/20."""
+    rows = np.zeros((B, 17), np.float32)
+    for i in range(B):
+        q, _ = np.linalg.qr(np.eye(3) + rng.normal(scale=0.05, size=(3, 3)))
+        q = q * np.sign(np.diag(q))[None, :]
+        c2w = np.concatenate([q, rng.normal(scale=0.2, size=(3, 1))], axis=1)
+        rows[i, :15] = np.concatenate([c2w, [[16.0], [16.0], [20.0]]], axis=1).ravel()
+        rows[i, 15:] = (1.0, 20.0)
+    return rows
+
+
+def _contracted_grid(seed, res=8):
+    """A grid over the contracted ball (half extent 2), some cells empty."""
+    rng = np.random.default_rng(seed)
+    raw = np.where(rng.uniform(size=(res,) * 3) < 0.02, rng.uniform(0.02, 2.0, (res,) * 3),
+                   0.0).astype(np.float32)
+    j = jocc.OccGrid(density=jocc._dilate(jnp.asarray(raw)), raw=jnp.asarray(raw),
+                     half_extent=jnp.float32(2.0), threshold=jnp.float32(0.01))
+    raw_t = _t(raw)
+    return j, occupancy.OccGrid(density=occupancy._dilate(raw_t), raw=raw_t,
+                                half_extent=torch.tensor(2.0), threshold=torch.tensor(0.01))
+
+
+@pytest.mark.parametrize("option", ["proposal-lindisp", "occ_contract", "ndc", "lindisp"])
+def test_render_rays_slice7_options_match_jax(ray_batch, option):
+    """The options slice 7 ports, once refused by name, against JAX's
+    ``render_rays`` on a field with content (every output within the frame
+    tolerance): LINDISP with a proposal field (the proposal MLP by default)
+    and with the merge, the contracted occupancy grid (rays whose tightened
+    bounds differ, a probe within 1e-6 of a cell boundary, are left out, at
+    most 2), and NDC on forward-facing rays."""
     rows_px, cols_px, pose = ray_batch
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render.render_rays({}, _t(rows_px), _t(cols_px), _t(pose),
-                           rays.make_k_inv(16, 16, 20.0), 8, 16, **kwargs)
+    jparams, params = field_with_content(21)
+    jkw, kw = {"extras": True}, {"extras": True}
+    if option == "proposal-lindisp":
+        tree = jax.tree_util.tree_map(np.asarray, jproposal.init_proposal(
+            jax.random.PRNGKey(22), 32, 2))
+        tree["sigma"]["b"] = tree["sigma"]["b"] + np.float32(1.0)
+        jkw.update(prop_params=jax.tree_util.tree_map(jnp.asarray, tree), lindisp=True)
+        kw.update(prop_params=params_from_numpy(tree), lindisp=True)
+    elif option == "occ_contract":
+        jgrid, grid = _contracted_grid(23)
+        jkw.update(occ_grid=jgrid, occ_contract=True, occ_march=64)
+        kw.update(occ_grid=grid, occ_contract=True, occ_march=64)
+    elif option == "ndc":
+        pose = _forward_facing(np.random.default_rng(24), pose.shape[0])
+        jkw["ndc_params"] = kw["ndc_params"] = (16.0, 16.0, 20.0)
+    else:
+        jkw["lindisp"] = kw["lindisp"] = True
+    ref = jrender.render_rays(jparams, jnp.asarray(rows_px), jnp.asarray(cols_px),
+                              jnp.asarray(pose), jrays.make_k_inv(16, 16, 20.0), 8, 16,
+                              merge_impl="twolist", **jkw)
+    got = render.render_rays(params, _t(rows_px), _t(cols_px), _t(pose),
+                             rays.make_k_inv(16, 16, 20.0), 8, 16, merge_impl="twolist", **kw)
+    keep = np.ones(rows_px.shape[0], bool)
+    if option == "occ_contract":
+        o, d, near, far = rays.pixels_to_rays(_t(rows_px), _t(cols_px), _t(pose),
+                                              rays.make_k_inv(16, 16, 20.0))
+        a = occupancy.tighten_bounds(grid, o, d, near, far, n_steps=64, contract=True)
+        b = jocc.tighten_bounds(jgrid, *(jnp.asarray(x.numpy()) for x in (o, d, near, far)),
+                                n_steps=64, contract=True)
+        keep = np.all([x.numpy() == np.asarray(y) for x, y in zip(a, b)], axis=0)
+        assert (~keep).sum() <= 2
+        # the grid tightened some rays
+        assert bool(torch.any((a[0] > near) | (a[1] < far)))
+    for i, (g, r) in enumerate(zip(got, ref)):
+        tol = dict(atol=1e-4, rtol=1e-4) if i == 2 else dict(atol=1e-4)
+        np.testing.assert_allclose(g.numpy()[keep], np.asarray(r)[keep], **tol)
 
 
 @pytest.mark.parametrize("kwargs,error", [

@@ -279,10 +279,6 @@ _GRID = dict(OCC_GRID="True", WHITE_BKGD="True")
     # hybrid grids' sigma nets are not
     pytest.param({"PROPOSAL": "True", "PROP_GRID_HYBRID": "True"}, "PROP_GRID_HYBRID",
                  id="PROPOSAL-True"),
-    # the occupancy grid and bf16 are ported; their forms on the contracted
-    # or disparity-spaced march are not
-    pytest.param(dict(_GRID, CONTRACT="True"), "OCC_GRID with CONTRACT",
-                 id="OCC_GRID-True"),
     # the fused renderer is ported (tests/test_torch_render_fused.py); the val
     # metrics that would route val batches through it are not
     pytest.param({"FUSED_RENDER": "True", "VAL_METRICS": "True"}, "VAL_METRICS",
@@ -290,16 +286,37 @@ _GRID = dict(OCC_GRID="True", WHITE_BKGD="True")
     pytest.param({"HOST_FEED": "True"}, "HOST_FEED", id="HOST_FEED-True"),
     pytest.param({"VAL_METRICS": "True"}, "VAL_METRICS", id="VAL_METRICS-True"),
     pytest.param({"PROFILE_STEPS": "5"}, "PROFILE_STEPS=5", id="PROFILE_STEPS-5"),
-    pytest.param({"CONTRACT": "True"}, "CONTRACT", id="CONTRACT-True"),
-    pytest.param({"LINDISP": "True"}, "LINDISP", id="LINDISP-True"),
     pytest.param({"FINE_FIELD": "grid", "GRID_HYBRID": "True"}, "GRID_HYBRID",
-                 id="FINE_FIELD-grid"),
-    pytest.param(dict(_GRID, PRECISION="bf16", LINDISP="True"),
-                 "OCC_GRID with LINDISP", id="PRECISION-bf16")])
+                 id="FINE_FIELD-grid")])
 def test_unported_config_keys_raise(sync_scene_dir, tmp_path, extra, what):
     cfg = load_config(_write_ini(tmp_path, sync_scene_dir, **extra))
     with pytest.raises(NotImplementedError, match=f"{what} is not ported yet .ROADMAP"):
         Runner(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("extra", [
+    pytest.param(dict(_GRID, OCC_RES="8", CONTRACT="True", LINDISP="True"), id="OCC_GRID-True"),
+    pytest.param({"CONTRACT": "True"}, id="CONTRACT-True"),
+    pytest.param({"LINDISP": "True"}, id="LINDISP-True"),
+    pytest.param(dict(_GRID, OCC_RES="8", PRECISION="bf16", LINDISP="True"),
+                 id="PRECISION-bf16")])
+def test_slice7_config_keys_train_and_render(sync_scene_dir, tmp_path, extra):
+    """The keys slice 7 ports, once refused by name, take a step and render a
+    frame through the Runner: the contracted occupancy grid (its extent
+    forced to 2), CONTRACT alone, LINDISP alone, and the grid's disparity
+    march at bf16. (Their agreement with the JAX package:
+    tests/test_torch_unbounded.py, tests/test_torch_occupancy.py.)"""
+    cfg = load_config(_write_ini(tmp_path, sync_scene_dir, TOTAL_ITER="1", STEP="1000",
+                                 BATCH_RAY="64", LOG_DIR=f"{tmp_path}/runs/", **extra))
+    runner = Runner(cfg, device="cpu")
+    if cfg.occ_grid and cfg.contract:
+        assert cfg.occ_extent == 2.0 and float(runner.state.occ.half_extent) == 2.0
+    runner.train()
+    frame = evallib.make_frame_fn(cfg, runner.k_inv, runner.test_table.height,
+                                  runner.test_table.width, occ_grid=runner.state.occ)(
+        runner.params, runner.test_table.poses[0].numpy())
+    assert frame.shape == (runner.test_table.height, runner.test_table.width, 3)
+    assert np.isfinite(frame).all()
 
 
 def test_runner_takes_a_step_with_the_proposal_mlp(sync_scene_dir, tmp_path):

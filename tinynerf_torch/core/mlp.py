@@ -99,6 +99,24 @@ def round_bf16_value(x: torch.Tensor) -> torch.Tensor:
     return x + (round_bf16(x) - x).detach()
 
 
+class _RoundGrad(torch.autograd.Function):
+    """The identity whose gradient is rounded to bfloat16."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return round_bf16(g)
+
+
+def round_bf16_grad(x: torch.Tensor) -> torch.Tensor:
+    """``x`` unchanged; its gradient rounded to the nearest bfloat16 (a
+    pre-activation gradient's cast where the value itself stays float32)."""
+    return _RoundGrad.apply(x)
+
+
 def rounding(precision: str):
     """(value rounding, activation rounding) for ``precision``: the
     identity at fp32, ``round_bf16_value`` and ``round_bf16`` at bf16."""
@@ -111,15 +129,21 @@ def rounding(precision: str):
 
 def apply_network(params: Params, point_enc: torch.Tensor,
                   dir_enc: torch.Tensor, precision: str = "fp32",
+                  round_head_grads: bool = False,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``point_enc (..., 60)``, ``dir_enc (..., 24)`` ->
     ``(color (..., 3), sigma (..., 1))``. With ``precision="bf16"`` the
     weights and the encodings are rounded to bfloat16, and so is every
     ReLU output and ``point_info`` (``mlp_kernel.py::_forward_tile``);
-    biases, sums, ``|sigma|`` and the sigmoid stay float32."""
+    biases, sums, ``|sigma|`` and the sigmoid stay float32. At bf16
+    ``round_head_grads`` also rounds the gradients of the two heads'
+    pre-activations, as the flat backward does (``mlp_kernel.py::_bwd_core``
+    casts them; the ray backward keeps them float32); the values do not
+    change."""
     if point_enc.is_cuda:
         check_no_tf32()
     value, act = rounding(precision)
+    head = round_bf16_grad if round_head_grads and precision == "bf16" else (lambda x: x)
     linear = lambda name, x: x @ value(params[name]["w"]) + params[name]["b"]
     point_enc, dir_enc = value(point_enc), value(dir_enc)
     h = point_enc
@@ -127,11 +151,11 @@ def apply_network(params: Params, point_enc: torch.Tensor,
         if i in SKIP_LAYERS:
             h = torch.cat([h, point_enc], dim=-1)          # hidden first
         h = act(torch.relu(linear(f"trunk_{i}", h)))
-    sigma = torch.abs(linear("sigma", h))
+    sigma = torch.abs(head(linear("sigma", h)))
     point_info = act(linear("point_info", h))              # no activation
     color_in = torch.cat([dir_enc, point_info], dim=-1)    # dir first
     h_dir = act(torch.relu(linear("dir_info", color_in)))
-    color = torch.sigmoid(linear("color", h_dir))
+    color = torch.sigmoid(head(linear("color", h_dir)))
     return color, sigma
 
 

@@ -16,9 +16,11 @@ needs ``WHITE_BKGD`` (the Runner refuses it otherwise).
 - ``tighten_bounds`` marches a fixed number of probes per ray. The JAX
   package reads the pooled grid (``OCC_MARCH_RES``) through a one-hot
   matmul because that suits a TPU; here it is a gather, the same values.
-
-Not ported yet (ROADMAP queue 1, slice 7): the contracted grid
-(``CONTRACT``) and the disparity-spaced march (``LINDISP``).
+- Under ``CONTRACT`` the cells live in the contracted radius-2 ball: the
+  refresh probes the field (the contracting wrapper) at ``inv_contract`` of
+  each jittered cell point, and the march contracts its probes. Under
+  ``LINDISP`` the probes are disparity-spaced and each occupied probe is
+  widened by its local spacing.
 """
 
 from __future__ import annotations
@@ -29,17 +31,14 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from tinynerf_torch.core.contract import contract_mip360, inv_contract_mip360
+
 
 class OccGrid(NamedTuple):
     density: torch.Tensor      # (R, R, R) dilated query grid (what rays test)
     raw: torch.Tensor          # (R, R, R) undilated EMA of sigma at cell centers
     half_extent: torch.Tensor  # scalar: the grid spans [-h, h]^3
     threshold: torch.Tensor    # scalar occupancy cutoff on sigma
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, slice 7: contraction/LINDISP/NDC)")
 
 
 def init_grid(resolution: int = 64, half_extent: float = 1.5,
@@ -106,9 +105,12 @@ def update_grid(grid: OccGrid, params, field_fn,
     ``draws = (flat_idx (K,) or None, uniform (K or R^3, 3) in [0, 1))``
     replaces the draws from ``generator``: the cells and the jitter,
     ``(uniform - 0.5) * cell``.
+
+    ``contract=True`` (``CONTRACT``; ``half_extent`` 2): the cells live in
+    the contracted ball and ``field_fn`` is the contracting wrapper, which
+    takes world points, so each probe goes through ``inv_contract_mip360``
+    first and the wrapper's warp lands it back on its cell.
     """
-    if contract:
-        raise _not_ported("OCC_GRID with CONTRACT (the contracted grid)")
     res = grid.density.shape[0]
     n_total = res ** 3
     device = grid.raw.device
@@ -124,6 +126,8 @@ def update_grid(grid: OccGrid, params, field_fn,
 
     def sigma_at(points: torch.Tensor) -> torch.Tensor:
         out = []
+        if contract:
+            points = inv_contract_mip360(points)
         for p in torch.split(points, chunk):
             up = torch.zeros_like(p)
             up[:, 2] = 1.0
@@ -163,8 +167,14 @@ def derive_march_steps(resolution: int, half_extent: float, ray_span: float,
 
 def derive_march_steps_contracted(resolution: int, near: float, far: float,
                                   safety: float = 1.25) -> int:
-    """The contracted grid's probe count: not ported yet."""
-    raise _not_ported("OCC_GRID with CONTRACT (derive_march_steps_contracted)")
+    """Probe count for the contracted grid's disparity-spaced march.
+    Disparity-uniform probes have uniform contracted-radial spacing
+    ``(1/near - 1/far) / n`` (for ``t > 1``, ``r_c = 2 - 1/t``), so the
+    3-cell dilation margin ``6 * 2 / resolution`` bounds ``n`` as in
+    ``derive_march_steps``."""
+    span = 1.0 / max(near, 1e-6) - 1.0 / max(far, 1e-6)
+    margin = 6.0 * 2.0 / resolution
+    return max(64, int(-(-span * safety // margin)))
 
 
 @torch.no_grad()
@@ -183,18 +193,25 @@ def tighten_bounds(grid: OccGrid, origins: torch.Tensor, dirs: torch.Tensor,
     ``[far - 1e-3, far]``. ``march_res=M`` looks the probes up in the grid
     max-pooled to M^3 (R % M == 0), a superset of the full grid's occupancy.
     No gradient flows through the bounds.
+
+    ``lindisp`` spaces the probes in disparity (needs ``near > 0``) and
+    widens each occupied probe by its local spacing (one-sided
+    differences), floored at the cell diagonal unless ``contract``;
+    ``contract`` looks the probes up at their contracted positions.
     """
-    if contract:
-        raise _not_ported("OCC_GRID with CONTRACT (the contracted march)")
-    if lindisp:
-        raise _not_ported("OCC_GRID with LINDISP (the disparity-spaced march)")
     res = grid.density.shape[0]
     if n_steps is None:
         n_steps = max(64, res)
     frac = (torch.arange(n_steps, dtype=torch.float32, device=near.device)
             + 0.5) / n_steps
-    ts = near[:, None] + (far - near)[:, None] * frac[None, :]        # (B, S)
+    if lindisp:
+        ts = 1.0 / (1.0 / near[:, None]
+                    + (1.0 / far - 1.0 / near)[:, None] * frac[None, :])
+    else:
+        ts = near[:, None] + (far - near)[:, None] * frac[None, :]    # (B, S)
     pts = origins[:, None, :] + ts[..., None] * dirs[:, None, :]      # (B, S, 3)
+    if contract:
+        pts = contract_mip360(pts)
 
     lookup, lres = grid.density, res
     if march_res is not None and march_res != res:
@@ -215,9 +232,22 @@ def tighten_bounds(grid: OccGrid, origins: torch.Tensor, dirs: torch.Tensor,
     # Python scalars, not tensors made on the device: such a tensor is a
     # copy from pageable host memory, which waits for the stream to drain
     cell_diag = 2.0 * grid.half_extent / res * math.sqrt(3.0)
-    step = torch.maximum((far - near) / n_steps, cell_diag)
-    t_enter = torch.where(occ, ts, 3.4e38).amin(dim=1) - step
-    t_exit = torch.where(occ, ts, -3.4e38).amax(dim=1) + step
+    if lindisp:
+        # the probe spacing varies along a disparity march: each occupied
+        # probe's own; under contract the world cell size varies too, so
+        # the local spacing alone bounds it
+        dt = ts[:, 1:] - ts[:, :-1]
+        dt_left = torch.cat([dt[:, :1], dt], dim=1)
+        dt_right = torch.cat([dt, dt[:, -1:]], dim=1)
+        if not contract:
+            dt_left = torch.maximum(dt_left, cell_diag)
+            dt_right = torch.maximum(dt_right, cell_diag)
+        t_enter = torch.where(occ, ts - dt_left, 3.4e38).amin(dim=1)
+        t_exit = torch.where(occ, ts + dt_right, -3.4e38).amax(dim=1)
+    else:
+        step = torch.maximum((far - near) / n_steps, cell_diag)
+        t_enter = torch.where(occ, ts, 3.4e38).amin(dim=1) - step
+        t_exit = torch.where(occ, ts, -3.4e38).amax(dim=1) + step
     hit = occ.any(dim=1)
     new_near = torch.where(hit, torch.maximum(t_enter, near), far - 1e-3)
     new_far = torch.where(hit, torch.minimum(t_exit, far), far)

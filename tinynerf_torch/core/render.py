@@ -1,8 +1,8 @@
 """Volume rendering: coarse + hierarchical fine march, compositing and loss.
 
-Counterpart of ``tinynerf/core/render.py`` for the reference-semantics
-march, the occupancy grid and the proposal field (no NDC or LINDISP).
-Semantics kept:
+Counterpart of ``tinynerf/core/render.py``: the reference-semantics march,
+the occupancy grid, the proposal field, NDC, LINDISP and the proposal
+mode's auxiliary losses. Semantics kept:
 
 - Q5: **inclusive** cumsum in the transmittance exponent,
   ``w_i = exp(-sum_{j<=i} sigma_j delta_j) * (1 - exp(-sigma_i delta_i))``;
@@ -16,13 +16,22 @@ Semantics kept:
   fine pass's gradient reaches the coarse sigma through ``d_ts``;
 - ``ray_loss`` is the sum of squares over rays and channels of both passes;
 - with an occupancy grid (``OCC_GRID``), each ray's [near, far] is first
-  tightened to the occupied cells it crosses (``occupancy.tighten_bounds``);
+  tightened to the occupied cells it crosses (``occupancy.tighten_bounds``),
+  except under NDC;
+- with ``ndc_params = (H, W, focal)`` (``NDC``, forward-facing scenes) the
+  rays are warped into the NDC cube and marched at t in [0, 1];
+- with ``lindisp`` (``LINDISP``) the coarse samples are linear in disparity,
+  their density deltas are the forward differences (plus the constant
+  tail) and the resampler takes each bin's own spacing;
 - with a proposal field (``PROPOSAL``: ``prop_params``, and
   ``prop_field_fn``, by default the proposal MLP's plain
   ``proposal.field_proposal``) the coarse pass runs on it, the resampler's
   CDF is fed the detached coarse weights, and the fine pass is composited on its own
   over the ``n_fine`` samples (the last with the constant tail delta): the
-  proposal places samples and never enters C_fine.
+  proposal places samples and never enters C_fine. There ``want_dist`` and
+  ``want_interlevel`` return a third item, the ``aux`` dict of per-ray
+  ``distortion_loss`` and ``interlevel_loss`` (``DIST_LOSS``,
+  ``PROP_INTERLEVEL``).
 
 The JAX package composites the merged set without sorting, through compare
 masks (``merge_impl="twolist"``) or one-hot rank products (``"permute"``,
@@ -177,9 +186,10 @@ def _eval_field(field_fn: FieldFn, params: mlp.Params, origins: torch.Tensor,
 
 
 def _standalone_composite(t_fi: torch.Tensor, sigma_fi: torch.Tensor, color_fi,
-                          white_bkgd: bool, extras: bool):
-    """The proposal mode's fine pass alone: (C_fine,) or, with ``extras``,
-    (C_fine, depth, acc) over the fine samples."""
+                          white_bkgd: bool, extras: bool, return_weights: bool = False):
+    """The proposal mode's fine pass alone: (C_fine,); with ``extras``
+    (C_fine, depth, acc) over the fine samples; with ``return_weights``
+    (C_fine, the (B, N_f) compositing weights)."""
     delta = torch.cat([t_fi[:, 1:] - t_fi[:, :-1],
                        torch.full_like(t_fi[:, :1], TAIL_DELTA)], dim=1)
     weights = get_density(delta, sigma_fi)
@@ -189,11 +199,9 @@ def _standalone_composite(t_fi: torch.Tensor, sigma_fi: torch.Tensor, color_fi,
         c_fine = c_fine + (1.0 - acc)[:, None]
     if extras:
         return c_fine, torch.sum(weights * t_fi, dim=1) / torch.clamp(acc, min=1e-10), acc
+    if return_weights:
+        return c_fine, weights
     return (c_fine,)
-
-
-def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, {where})")
 
 
 def render_rays(params: mlp.Params,
@@ -213,12 +221,18 @@ def render_rays(params: mlp.Params,
                 extras: bool = False,
                 prop_params=None,
                 prop_field_fn: Optional[FieldFn] = None,
+                want_dist: bool = False,
+                want_interlevel: bool = False,
                 lindisp: bool = False):
     """Coarse + fine march for a ray batch -> (C_coarse, C_fine), each (B, 3).
 
     With ``extras=True`` returns ``(C_coarse, C_fine, depth, acc)``, depth
     and acc (B,) over the merged sample set (with a proposal field: over the
-    fine samples). ``generator`` jitters the coarse samples (stratified).
+    fine samples). With a proposal field, ``want_dist`` / ``want_interlevel``
+    return ``(C_coarse, C_fine, aux)``, ``aux`` holding the per-ray (B,)
+    ``"dist"`` / ``"interlevel"`` losses. ``generator`` jitters the coarse
+    samples (stratified). ``ndc_params = (H, W, focal)`` marches the NDC
+    cube; ``lindisp`` spaces the coarse samples in disparity.
     ``merge_impl`` is accepted as ``"twolist"`` or ``"permute"`` (the
     default, as in the JAX package): both are the same stable-sort merge
     here, but only ``"twolist"`` lets a field's ``render_fused`` take the
@@ -232,6 +246,17 @@ def render_rays(params: mlp.Params,
     if compat_sort and extras:
         raise ValueError("extras needs the coupled merge; COMPAT_SORT "
                          "sorts every channel on its own")
+    if lindisp and ndc_params is not None:
+        raise ValueError(
+            "LINDISP is incompatible with NDC: the NDC march runs t in "
+            "[0, 1] with near = 0, where disparity (1/t) diverges. Use one "
+            "or the other (both exist for the same forward-facing/unbounded "
+            "problem).")
+    if (want_dist or want_interlevel) and prop_params is None:
+        raise ValueError(
+            "DIST_LOSS / PROP_INTERLEVEL require PROPOSAL=True: both are "
+            "defined on the standalone fine-pass weights (and the proposal "
+            "histogram), which only exist under the proposal composite")
     if prop_params is not None:
         if n_fine == 0:
             raise ValueError(
@@ -244,16 +269,20 @@ def render_rays(params: mlp.Params,
                 "composites the fine pass standalone, so the reference's Q4 "
                 "per-channel sort defect cannot be reproduced under it. Use "
                 "PROPOSAL=False for parity experiments.")
+        if (want_dist or want_interlevel) and extras:
+            raise ValueError("aux losses and extras are mutually exclusive")
         if prop_field_fn is None:
             prop_field_fn = proposal.field_proposal
-    if ndc_params is not None:
-        raise _not_ported("NDC", "slice 7: contraction/LINDISP/NDC")
 
     origins, dirs, near, far = raylib.pixels_to_rays(rows, cols, pose17, k_inv)
-    if occ_grid is not None:
+    if occ_grid is not None and ndc_params is None:
         near, far = occupancy.tighten_bounds(
             occ_grid, origins, dirs, near, far, n_steps=occ_march,
             contract=occ_contract, lindisp=lindisp, march_res=occ_march_res)
+    if ndc_params is not None:
+        ndc_h, ndc_w, ndc_f = ndc_params
+        origins, dirs = raylib.ndc_rays(ndc_h, ndc_w, ndc_f, 1.0, origins, dirs)
+        near, far = torch.zeros_like(near), torch.ones_like(far)
 
     # ---- the fused renderer (FUSED_RENDER): the whole march in one kernel
     # launch; training passes the default "permute" merge, so only frames
@@ -273,7 +302,13 @@ def render_rays(params: mlp.Params,
         color_co, sigma_co = _eval_field(prop_field_fn, prop_params, origins, dirs, t_co)
     else:
         color_co, sigma_co = _eval_field(field_fn, params, origins, dirs, t_co)
-    delta_co = ((far - near) / n_coarse)[:, None].expand(t_co.shape)
+    if lindisp:
+        # disparity bins are not uniform in t: the forward differences and
+        # the tail, not the reference's constant (far - near) / N_c
+        delta_co = torch.cat([t_co[:, 1:] - t_co[:, :-1],
+                              torch.full_like(t_co[:, :1], TAIL_DELTA)], dim=1)
+    else:
+        delta_co = ((far - near) / n_coarse)[:, None].expand(t_co.shape)
     dense_co = get_density(delta_co, sigma_co)
     c_coarse = composite(dense_co, color_co)
     if white_bkgd:
@@ -288,10 +323,22 @@ def render_rays(params: mlp.Params,
     # ---- a proposal field trains only on its own coarse loss: the CDF is
     # fed the detached weights ----
     dense_for_cdf = dense_co.detach() if prop_params is not None else dense_co
-    t_fi = sampling.resample(t_co, dense_for_cdf, (far - near) / (n_coarse - 1),
-                             n_fine)
+    # LINDISP: each CDF segment inverts with its own bin's spacing
+    cdf_delta = (t_co[:, 1:] - t_co[:, :-1] if lindisp
+                 else (far - near) / (n_coarse - 1))
+    t_fi = sampling.resample(t_co, dense_for_cdf, cdf_delta, n_fine)
     color_fi, sigma_fi = _eval_field(field_fn, params, origins, dirs, t_fi)
     if prop_params is not None:
+        if want_dist or want_interlevel:
+            c_fine, dense_fi = _standalone_composite(t_fi, sigma_fi, color_fi,
+                                                     white_bkgd, extras=False,
+                                                     return_weights=True)
+            aux = {}
+            if want_dist:
+                aux["dist"] = distortion_loss(t_fi, dense_fi, near, far)
+            if want_interlevel:
+                aux["interlevel"] = interlevel_loss(t_co, dense_co, t_fi, dense_fi)
+            return c_coarse, c_fine, aux
         return (c_coarse, *_standalone_composite(t_fi, sigma_fi, color_fi,
                                                  white_bkgd, extras))
     if compat_sort:
@@ -303,3 +350,44 @@ def render_rays(params: mlp.Params,
         c_fine, depth, acc = out
         return c_coarse, c_fine, depth, acc
     return c_coarse, out
+
+
+def distortion_loss(t: torch.Tensor, weights: torch.Tensor,
+                    near: torch.Tensor, far: torch.Tensor) -> torch.Tensor:
+    """Per-ray mip-NeRF-360 distortion loss (Barron et al. 2022, Eq. 15),
+    point-sample form, (B,):
+
+        sum_{i,j} w_i w_j |s_i - s_j|  +  (1/3) sum_i w_i^2 ds_i
+
+    with ``s`` the march coordinate normalised to [0, 1] by each ray's
+    near/far (under NDC, 0/1). ``t`` is sorted per ray, so the pairwise term
+    is ``2 sum_i w_i (s_i W<_i - (sW)<_i)`` with exclusive prefix sums, as
+    in the JAX package (which writes its cumsums as triangular matmuls)."""
+    span = torch.clamp(far - near, min=1e-10)
+    s = (t - near[:, None]) / span[:, None]
+    ds = torch.cat([s[:, 1:] - s[:, :-1], torch.zeros_like(s[:, :1])], dim=1)
+    w = weights
+    cw = torch.cumsum(w, dim=1) - w
+    csw = torch.cumsum(w * s, dim=1) - w * s
+    pairwise = 2.0 * torch.sum(w * (s * cw - csw), dim=1)
+    intra = torch.sum(torch.square(w) * ds, dim=1) / 3.0
+    return pairwise + intra
+
+
+def interlevel_loss(t_prop: torch.Tensor, w_prop: torch.Tensor,
+                    t_fine: torch.Tensor, w_fine: torch.Tensor) -> torch.Tensor:
+    """Per-ray mip-NeRF-360 interlevel (proposal) loss (Eq. 13-14), (B,):
+    ``sum_i relu(w_i - outer_i)^2 / (w_i + 1e-7)``, where ``outer_i`` is the
+    proposal mass of every proposal interval that overlaps fine interval i
+    (strictly: ``p_hi > f_lo`` and ``p_lo < f_hi``) and the fine weights are
+    detached, so only the proposal trains on it. Intervals run from each
+    sample to the next, the last one ``TAIL_DELTA`` long."""
+    hi = lambda t: torch.cat([t[:, 1:], t[:, -1:] + TAIL_DELTA], dim=1)
+    p_lo, p_hi = t_prop, hi(t_prop)
+    f_lo, f_hi = t_fine, hi(t_fine)
+    w_fine = w_fine.detach()
+    mask = ((p_hi[:, None, :] > f_lo[:, :, None])
+            & (p_lo[:, None, :] < f_hi[:, :, None]))             # (B, N_f, N_c)
+    outer = torch.sum(mask.to(w_prop.dtype) * w_prop[:, None, :], dim=2)
+    excess = torch.relu(w_fine - outer)
+    return torch.sum(excess * excess / (w_fine + 1e-7), dim=1)

@@ -9,14 +9,17 @@ Semantics kept:
 - coarse t's are an inclusive linspace(near, far, N_c) per ray, optionally
   jittered within the linspace spacing (stratified);
   the fraction is ``arange(n) * (1 / (n - 1))`` in float32, which is what
-  ``jnp.linspace`` computes (``torch.linspace`` rounds differently);
+  ``jnp.linspace`` computes (``torch.linspace`` rounds differently); with
+  ``LINDISP`` the linspace is in disparity (1/t), jittered on the fraction;
 - fine levels are N_f uniform points strictly between the per-ray CDF min and
   max (``arange(1, N_f + 1) / (N_f + 1)``), not random, and not
   differentiated (Q8): gradients reach the coarse weights only through the
   gathered cdf and slope;
 - the bin below each level is ``searchsorted(cdf, level, side='left') - 1``,
   clamped to the valid range;
-- ``slope_inv = delta / (dense[:, 1:] + 1e-7)`` with a zero last column.
+- ``slope_inv = delta / (dense[:, 1:] + 1e-7)`` with a zero last column;
+  ``delta`` is the per-ray linspace spacing, or (LINDISP) a per-bin
+  spacing whose bin i pairs with ``dense[:, i + 1]``.
 """
 
 from __future__ import annotations
@@ -40,17 +43,25 @@ def coarse_ts(near: torch.Tensor, far: torch.Tensor, n_coarse: int,
     """(B,) near/far -> (B, N_c) sample distances: an inclusive linspace per
     ray. With ``generator`` (or an injected (B, N_c) ``jitter`` in [0, 1))
     each t moves up by ``jitter * (far - near) / (N_c - 1)``, clamped at
-    ``far`` (stratified sampling, the JAX package's opt-in). LINDISP is not
-    ported yet (ROADMAP queue 1, slice 7)."""
-    if lindisp:
-        raise NotImplementedError(
-            "LINDISP is not ported yet (ROADMAP queue 1, slice 7: "
-            "contraction/LINDISP/NDC)")
+    ``far`` (stratified sampling, the JAX package's opt-in).
+
+    ``lindisp=True`` (``LINDISP``; needs ``near > 0``) spaces the samples
+    linearly in disparity: ``1 / (1/near + (1/far - 1/near) * frac)``. The
+    jitter then moves the fraction, ``min(frac + jitter / (N_c - 1), 1)``,
+    which keeps each ray's t's sorted."""
     frac = linspace_frac(n_coarse, near.device).to(near.dtype)
-    ts = near[:, None] + (far - near)[:, None] * frac[None, :]
     if generator is not None and jitter is None:
-        jitter = torch.rand(ts.shape, generator=generator, dtype=ts.dtype,
-                            device=ts.device)
+        jitter = torch.rand((near.shape[0], n_coarse), generator=generator,
+                            dtype=near.dtype, device=near.device)
+    if lindisp:
+        if jitter is not None:
+            frac = torch.clamp(frac[None, :] + jitter / (n_coarse - 1), max=1.0)
+        else:
+            frac = frac[None, :].expand(near.shape[0], n_coarse)
+        inv_near = 1.0 / near[:, None]
+        inv_far = 1.0 / far[:, None]
+        return 1.0 / (inv_near + (inv_far - inv_near) * frac)
+    ts = near[:, None] + (far - near)[:, None] * frac[None, :]
     if jitter is not None:
         spacing = ((far - near) / (n_coarse - 1))[:, None]
         ts = torch.minimum(ts + jitter * spacing, far[:, None])
@@ -81,8 +92,10 @@ def resample(t_coarse: torch.Tensor, dense_coarse: torch.Tensor,
 
     t_coarse (B, N_c) sorted per ray; dense_coarse (B, N_c) compositing
     weights; delta_coarse (B,) the per-ray coarse linspace spacing
-    ``(far - near) / (N_c - 1)``. Returns (B, N_f) fine distances, sorted per
-    ray by construction.
+    ``(far - near) / (N_c - 1)``, or (B, N_c - 1) per-bin spacings (LINDISP,
+    whose bins are not uniform in t), bin i's pairing with
+    ``dense_coarse[:, i + 1]`` in the slope. Returns (B, N_f) fine
+    distances, sorted per ray by construction.
     """
     cdf = torch.cumsum(dense_coarse, dim=1)               # nondecreasing
     t_inv = fine_levels(cdf, n_fine)

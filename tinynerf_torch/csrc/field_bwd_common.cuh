@@ -1,6 +1,7 @@
 // Kernel 2's device code and host orchestration (the field's recompute
-// backward), shared by field_rays_bwd.cu and render_fused_bwd.cu. The
-// design note is in field_rays_bwd.cu.
+// backward), shared by field_rays_bwd.cu and render_fused_bwd.cu, and, read
+// through RowCoord, kernel 4's (field_flat_bwd.cu: flat rows of points, one
+// sample a "ray"). The design note is in field_rays_bwd.cu.
 
 #pragma once
 
@@ -90,7 +91,7 @@ struct Smem {
   float gcol[TILE_M][4];     // g_c * c * (1 - c)
   float dpt[TILE_M][3];      // d loss / d point
   float ddir[TILE_M][3];     // d loss / d direction, through its encoding
-  float ray_do[TILE_M][3];   // per-ray sums of the block's rays
+  float ray_do[TILE_M][3];   // per-ray sums of the block's rays (ray form)
   float ray_dd[TILE_M][3];
 };
 
@@ -122,20 +123,25 @@ __device__ __forceinline__ void store_grad(float (&acc)[ROWS][NC],
   __syncthreads();
 }
 
-template <bool BF16>
+// Coord is RayCoord (kernel 2: rows are (ray, sample) pairs; d_o, d_d are
+// per-ray sums and d_ts per sample) or RowCoord (kernel 4: flat rows with
+// n_samples = 1; d_o, d_d are each row's d_points, d_dirs and d_ts is not
+// written). The flat form also rounds the heads' pre-activation gradients
+// at bf16, where the TPU kernel's _bwd_core casts them and
+// _ray_bwd_kernel does not.
+template <bool BF16, class Coord>
 __global__ void __launch_bounds__(THREADS, 2)
-field_rays_bwd_kernel(const float* __restrict__ origins,
-                      const float* __restrict__ dirs,
-                      const float* __restrict__ ts,
-                      const float* __restrict__ g_sigma,
-                      const float* __restrict__ g_r,
-                      const float* __restrict__ g_g,
-                      const float* __restrict__ g_b, Params p,
-                      const float* __restrict__ wt, float* __restrict__ ws_a,
-                      float* __restrict__ ws_g, float* __restrict__ d_o,
-                      float* __restrict__ d_d, float* __restrict__ d_ts,
-                      int n_samples, int ray_begin, int ray_end,
-                      int rays_per_block) {
+field_bwd_kernel(Coord coord, const float* __restrict__ g_sigma,
+                 const float* __restrict__ g_r,
+                 const float* __restrict__ g_g,
+                 const float* __restrict__ g_b, Params p,
+                 const float* __restrict__ wt, float* __restrict__ ws_a,
+                 float* __restrict__ ws_g, float* __restrict__ d_o,
+                 float* __restrict__ d_d, float* __restrict__ d_ts,
+                 int n_samples, int ray_begin, int ray_end,
+                 int rays_per_block) {
+  constexpr bool FLAT = Coord::kFlat;
+  constexpr bool ROUND_HEADS = BF16 && FLAT;
   extern __shared__ float4 smem_raw[];
   Smem& s = *reinterpret_cast<Smem*>(smem_raw);
   const int lane = threadIdx.x & 31;
@@ -156,8 +162,7 @@ field_rays_bwd_kernel(const float* __restrict__ origins,
     float* g_tile = ws_g + (size_t)(base - ws_base) * G_STRIDE;
 
     // ================= recompute the forward, saving inputs =================
-    encode_tile(RayCoord{origins, dirs, ts, n_samples}, p.freqs, base,
-                row_end, s.enc_pt, s.enc_dir);
+    encode_tile(coord, p.freqs, base, row_end, s.enc_pt, s.enc_dir);
     for (int idx = threadIdx.x; idx < valid * PT_ENC; idx += THREADS)
       a_tile[(size_t)(idx / PT_ENC) * A_STRIDE + A_ENC_PT + idx % PT_ENC] =
           rnd<BF16>(s.enc_pt[idx / PT_ENC][idx % PT_ENC]);
@@ -191,7 +196,7 @@ field_rays_bwd_kernel(const float* __restrict__ origins,
         const int r = row0 + i;
         const float pre = v + __ldg(p.b[SIGMA]);
         const float sgn = pre > 0.f ? 1.f : (pre < 0.f ? -1.f : 0.f);
-        const float gs = r < valid ? g_sigma[base + r] * sgn : 0.f;
+        const float gs = r < valid ? rnd<ROUND_HEADS>(g_sigma[base + r] * sgn) : 0.f;
         s.gsig[r] = gs;
         if (r < valid) g_tile[(size_t)r * G_STRIDE + G_SIGMA] = gs;
       }
@@ -227,7 +232,8 @@ field_rays_bwd_kernel(const float* __restrict__ origins,
         if (lane == 0) {
           const float y = 1.f / (1.f + expf(-x));
           const float* gin = c == 0 ? g_r : c == 1 ? g_g : g_b;
-          const float gc = r < valid ? (gin[base + r] * y) * (1.f - y) : 0.f;
+          const float gc =
+              r < valid ? rnd<ROUND_HEADS>((gin[base + r] * y) * (1.f - y)) : 0.f;
           s.gcol[r][c] = gc;
           if (r < valid) g_tile[(size_t)r * G_STRIDE + G_COLOR + c] = gc;
         }
@@ -343,32 +349,44 @@ field_rays_bwd_kernel(const float* __restrict__ origins,
     }
     __syncthreads();
 
-    // to the ray: d_ts = d_pts . d; per-ray sums in sample order
-    for (int r = threadIdx.x; r < valid; r += THREADS) {
-      const int m = base + r, ray = m / n_samples;
-      float v = s.dpt[r][0] * dirs[3 * ray];
-      v += s.dpt[r][1] * dirs[3 * ray + 1];
-      v += s.dpt[r][2] * dirs[3 * ray + 2];
-      d_ts[m] = v;
-    }
-    for (int idx = threadIdx.x; idx < (r1 - r0) * 3; idx += THREADS) {
-      const int rr = idx / 3, c = idx % 3, ray = r0 + rr;
-      const int lo = max(base, ray * n_samples);
-      const int hi = min(base + valid, (ray + 1) * n_samples);
-      float so = s.ray_do[rr][c], sd = s.ray_dd[rr][c];
-      for (int m = lo; m < hi; ++m) {
-        so += s.dpt[m - base][c];
-        sd += s.dpt[m - base][c] * ts[m] + s.ddir[m - base][c];
+    if constexpr (FLAT) {
+      // each row's own d_points and d_dirs
+      for (int idx = threadIdx.x; idx < valid * 3; idx += THREADS) {
+        d_o[3 * (size_t)base + idx] = (&s.dpt[0][0])[idx];
+        d_d[3 * (size_t)base + idx] = (&s.ddir[0][0])[idx];
       }
-      s.ray_do[rr][c] = so;
-      s.ray_dd[rr][c] = sd;
+    } else {
+      // to the ray: d_ts = d_pts . d; per-ray sums in sample order
+      const float* dirs = coord.dirs;
+      const float* ts = coord.ts;
+      for (int r = threadIdx.x; r < valid; r += THREADS) {
+        const int m = base + r, ray = m / n_samples;
+        float v = s.dpt[r][0] * dirs[3 * ray];
+        v += s.dpt[r][1] * dirs[3 * ray + 1];
+        v += s.dpt[r][2] * dirs[3 * ray + 2];
+        d_ts[m] = v;
+      }
+      for (int idx = threadIdx.x; idx < (r1 - r0) * 3; idx += THREADS) {
+        const int rr = idx / 3, c = idx % 3, ray = r0 + rr;
+        const int lo = max(base, ray * n_samples);
+        const int hi = min(base + valid, (ray + 1) * n_samples);
+        float so = s.ray_do[rr][c], sd = s.ray_dd[rr][c];
+        for (int m = lo; m < hi; ++m) {
+          so += s.dpt[m - base][c];
+          sd += s.dpt[m - base][c] * ts[m] + s.ddir[m - base][c];
+        }
+        s.ray_do[rr][c] = so;
+        s.ray_dd[rr][c] = sd;
+      }
     }
     __syncthreads();
   }
 
-  for (int idx = threadIdx.x; idx < (r1 - r0) * 3; idx += THREADS) {
-    d_o[3 * r0 + idx] = (&s.ray_do[0][0])[idx];
-    d_d[3 * r0 + idx] = (&s.ray_dd[0][0])[idx];
+  if constexpr (!FLAT) {
+    for (int idx = threadIdx.x; idx < (r1 - r0) * 3; idx += THREADS) {
+      d_o[3 * r0 + idx] = (&s.ray_do[0][0])[idx];
+      d_d[3 * r0 + idx] = (&s.ray_dd[0][0])[idx];
+    }
   }
 }
 
@@ -465,19 +483,22 @@ inline long long field_bwd_workspace_floats(int n_rays, int n_samples) {
          (long long)ceil_div(rows, SPLIT_ROWS) * N_GRAD;
 }
 
-// The field's recompute backward (kernel 2) on `st`: see field_rays_bwd.cu
-// for the arguments. With `accumulate` the weight gradients are added to
+// The field's recompute backward on `st`, over rows read through `coord`
+// (field_bwd_kernel): kernel 2 with a RayCoord (see field_rays_bwd.cu for
+// the arguments), kernel 4 with a RowCoord (field_flat_bwd.cu; n_rays
+// rows, n_samples = 1). With `accumulate` the weight gradients are added to
 // `grads` (in the same fixed order), else they overwrite it. Returns the
 // first launch error, or 0.
-inline int field_bwd_run(const float* origins, const float* dirs, const float* ts,
-                         const float* g_sigma, const float* g_r, const float* g_g,
-                         const float* g_b, const Params& p, float* d_o, float* d_d,
-                         float* d_ts, float* grads, float* workspace, int n_rays,
-                         int n_samples, bool bf16, bool accumulate, cudaStream_t st) {
+template <class Coord>
+inline int field_bwd_launch(Coord coord, const float* g_sigma, const float* g_r,
+                            const float* g_g, const float* g_b, const Params& p,
+                            float* d_o, float* d_d, float* d_ts, float* grads,
+                            float* workspace, int n_rays, int n_samples, bool bf16,
+                            bool accumulate, cudaStream_t st) {
   if (n_rays <= 0 || n_samples <= 0) return 0;
   if ((long long)n_rays * n_samples > 0x7fffffffLL - TILE_M)
     return (int)cudaErrorInvalidValue;
-  auto kernel = bf16 ? &field_rays_bwd_kernel<true> : &field_rays_bwd_kernel<false>;
+  auto kernel = bf16 ? &field_bwd_kernel<true, Coord> : &field_bwd_kernel<false, Coord>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Smem));
   if (err != cudaSuccess) return (int)err;
@@ -533,8 +554,8 @@ inline int field_bwd_run(const float* origins, const float* dirs, const float* t
     const int ray1 = std::min(n_rays, ray0 + c_rays);
     const int rows = (ray1 - ray0) * n_samples;
     kernel<<<ceil_div(ray1 - ray0, rays_per_block), THREADS, sizeof(Smem), st>>>(
-        origins, dirs, ts, g_sigma, g_r, g_g, g_b, p, wt, ws_a, ws_g, d_o, d_d,
-        d_ts, n_samples, ray0, ray1, rays_per_block);
+        coord, g_sigma, g_r, g_g, g_b, p, wt, ws_a, ws_g, d_o, d_d, d_ts,
+        n_samples, ray0, ray1, rays_per_block);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     const int splits = ceil_div(rows, SPLIT_ROWS);
     wgrad_kernel<<<dim3(wg.n_tiles, splits), THREADS, 0, st>>>(ws_a, ws_g, rows,
@@ -545,6 +566,17 @@ inline int field_bwd_run(const float* origins, const float* dirs, const float* t
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// Kernel 2 on `st`: see field_rays_bwd.cu for the arguments.
+inline int field_bwd_run(const float* origins, const float* dirs, const float* ts,
+                         const float* g_sigma, const float* g_r, const float* g_g,
+                         const float* g_b, const Params& p, float* d_o, float* d_d,
+                         float* d_ts, float* grads, float* workspace, int n_rays,
+                         int n_samples, bool bf16, bool accumulate, cudaStream_t st) {
+  return field_bwd_launch(RayCoord{origins, dirs, ts, n_samples}, g_sigma, g_r, g_g,
+                          g_b, p, d_o, d_d, d_ts, grads, workspace, n_rays, n_samples,
+                          bf16, accumulate, st);
 }
 
 }  // namespace

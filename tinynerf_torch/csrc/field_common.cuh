@@ -83,6 +83,7 @@ __device__ __forceinline__ float4 rnd4(float4 v) {
 // The coordinates of a ray-major row m = ray * n_samples + sample: channel c
 // of the point o + t*d, or of the direction d.
 struct RayCoord {
+  static constexpr bool kFlat = false;
   const float* __restrict__ origins;
   const float* __restrict__ dirs;
   const float* __restrict__ ts;
@@ -91,6 +92,16 @@ struct RayCoord {
     const int ray = m / n_samples;
     const float d = dirs[3 * ray + c];
     return is_pt ? __fadd_rn(origins[3 * ray + c], __fmul_rn(ts[m], d)) : d;
+  }
+};
+
+// The coordinates of flat row m: channel c of its point or of its direction.
+struct RowCoord {
+  static constexpr bool kFlat = true;
+  const float* __restrict__ points;
+  const float* __restrict__ dirs;
+  __device__ __forceinline__ float operator()(int m, int c, bool is_pt) const {
+    return (is_pt ? points : dirs)[3 * m + c];
   }
 };
 

@@ -23,15 +23,6 @@
 
 namespace {
 
-// The coordinates of row m: channel c of its point or of its direction.
-struct RowCoord {
-  const float* __restrict__ points;
-  const float* __restrict__ dirs;
-  __device__ __forceinline__ float operator()(int m, int c, bool is_pt) const {
-    return (is_pt ? points : dirs)[3 * m + c];
-  }
-};
-
 template <bool BF16>
 __global__ void __launch_bounds__(THREADS, 2)
 field_flat_fwd_kernel(const float* __restrict__ points,

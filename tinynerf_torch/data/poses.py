@@ -193,3 +193,33 @@ def average_pose(c2ws: np.ndarray) -> np.ndarray:
     if abs(float(np.dot(back, up))) > 0.99:  # collinear: pick any transverse up
         up = np.array([0.0, 1.0, 0.0]) if abs(back[1]) < 0.9 else np.array([1.0, 0.0, 0.0])
     return view_matrix(back, up, center)
+
+
+def recenter_and_rescale(rows: np.ndarray, bd_factor: float = 0.75) -> np.ndarray:
+    """Standard LLFF pose normalisation for the NDC path: rescale so the
+    nearest bound maps to ``1 / bd_factor``, then express every camera in the
+    average camera's frame (cameras cluster at the origin looking down -z).
+
+    The h/w/f column and the row layout are untouched; only the c2w block and
+    the near/far bounds change. This is the preprocessing the original NeRF
+    applies before its NDC warp — absent from the reference (which has no NDC
+    path, SURVEY.md Q10/D1).
+    """
+    rows = np.array(rows, dtype=np.float64, copy=True)
+    c2ws = rows[:, :15].reshape(-1, 3, 5)[:, :, :4].copy()
+
+    scale = 1.0 / (rows[:, 15].min() * bd_factor)
+    c2ws[:, :, 3] *= scale
+    rows[:, 15:17] *= scale
+
+    avg = average_pose(c2ws)                       # (3, 4)
+    avg_hom = np.concatenate([avg, [[0, 0, 0, 1]]], axis=0)
+    inv = np.linalg.inv(avg_hom)
+    for i in range(c2ws.shape[0]):
+        hom = np.concatenate([c2ws[i], [[0, 0, 0, 1]]], axis=0)
+        c2ws[i] = (inv @ hom)[:3, :4]
+
+    pose_block = rows[:, :15].reshape(-1, 3, 5)  # a copy (strided source)
+    pose_block[:, :, :4] = c2ws
+    rows[:, :15] = pose_block.reshape(-1, 15)
+    return rows

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from tinynerf_torch.config import Config
-from tinynerf_torch.core import gridfield, proposal, render
+from tinynerf_torch.core import contract, gridfield, proposal, render
 from tinynerf_torch.core.encoding import L_POINT
 from tinynerf_torch.data.rays import RayTable
 
@@ -63,22 +63,11 @@ def check_supported(cfg: Config) -> None:
          "queue 1, item 13: GRID_UPSAMPLE"),
         ((grid or prop_grid) and cfg.grid_lookup != "onehot",
          f"GRID_LOOKUP={cfg.grid_lookup}", "queue 1, item 14: GRID_LOOKUP = gather"),
-        (cfg.dist_loss > 0, "DIST_LOSS", "queue 1, slice 7: contraction/LINDISP/NDC"),
-        (cfg.prop_interlevel > 0, "PROP_INTERLEVEL",
-         "queue 1, slice 7: contraction/LINDISP/NDC"),
-        (cfg.occ_grid and cfg.contract, "OCC_GRID with CONTRACT",
-         "queue 1, slice 7: contraction/LINDISP/NDC"),
-        (cfg.occ_grid and cfg.lindisp, "OCC_GRID with LINDISP",
-         "queue 1, slice 7: contraction/LINDISP/NDC"),
         (cfg.host_feed, "HOST_FEED",
          "queue 1, item 5: HOST_FEED and the native ray store"),
         (cfg.val_metrics, "VAL_METRICS", "queue 1, item 6: VAL_METRICS"),
         (cfg.profile_steps > 0, f"PROFILE_STEPS={cfg.profile_steps}",
          "queue 1, item 7: PROFILE_STEPS"),
-        (cfg.contract, "CONTRACT", "queue 1, slice 7: contraction/LINDISP/NDC"),
-        (cfg.lindisp, "LINDISP", "queue 1, slice 7: contraction/LINDISP/NDC"),
-        (cfg.ndc and cfg.data_type == "llff", "NDC",
-         "queue 1, slice 7: contraction/LINDISP/NDC"),
     ]
     for bad, what, where in refused:
         if bad:
@@ -111,9 +100,33 @@ def _grid_field_fn(cfg: Config, n_density: int, fold: bool = False) -> render.Fi
     return fn
 
 
+def _maybe_contract(cfg: Config, fn: render.FieldFn) -> render.FieldFn:
+    """With ``CONTRACT``, ``fn`` wrapped to evaluate at contracted points
+    (``contract.wrap_field_contract``, which drops ``eval_rays`` and
+    ``render_fused``); ``CONTRACT`` with ``NDC`` raises the JAX package's
+    ``ValueError`` (``tinynerf/train.py:108-120``)."""
+    if not cfg.contract:
+        return fn
+    if cfg.ndc:
+        raise ValueError(
+            "CONTRACT is incompatible with NDC: both are warps of the march "
+            "domain (NDC for forward-facing, contraction for unbounded 360) "
+            "and composing them distorts the scene twice.")
+    return contract.wrap_field_contract(fn)
+
+
 def make_field_fn(cfg: Config) -> render.FieldFn:
-    """The main field at ``PRECISION``, shared by training, rendering and the
-    occupancy refresh. ``FINE_FIELD = grid``: ``_grid_field_fn``. The MLP
+    """The main field at ``PRECISION`` (``_make_field_fn``), shared by
+    training, rendering and the occupancy refresh, wrapped by
+    ``_maybe_contract`` (``CONTRACT``: the MLP then runs ``field_flat``
+    alone, on the card TPU kernels 3 and 4)."""
+    check_supported(cfg)
+    return _maybe_contract(cfg, _make_field_fn(cfg))
+
+
+def _make_field_fn(cfg: Config) -> render.FieldFn:
+    """The main field without the contraction. ``FINE_FIELD = grid``:
+    ``_grid_field_fn``. The MLP
     with ``USE_PALLAS`` (``kernels/mlp_kernel``; on the card, the CUDA
     kernels): the point field is ``field_flat`` (the occupancy refresh's
     probes) and its ``eval_rays`` is ``field_rays`` (both passes of the
@@ -122,7 +135,6 @@ def make_field_fn(cfg: Config) -> render.FieldFn:
     ``render.render_rays`` takes for frames, as ``tinynerf/train.py:172-179``
     attaches it. Without ``USE_PALLAS``, the plain field
     (``render.field_plain``, or ``render.field_plain_bf16``)."""
-    check_supported(cfg)
     if cfg.fine_field == "grid":
         return _grid_field_fn(cfg, cfg.grid_comp_density, cfg.grid_level_fold)
     if not cfg.use_pallas:
@@ -137,17 +149,24 @@ def make_field_fn(cfg: Config) -> render.FieldFn:
 
 
 def make_prop_field_fn(cfg: Config) -> Optional[render.FieldFn]:
-    """The proposal field of the coarse pass (None unless ``PROPOSAL``). The
-    proposal grid (``PROP_FIELD = grid``): ``_grid_field_fn``. The proposal
+    """The proposal field of the coarse pass (None unless ``PROPOSAL``),
+    wrapped by ``_maybe_contract`` (``CONTRACT``): sample placement sees the
+    scene the fine pass renders. ``_make_prop_field_fn``."""
+    check_supported(cfg)
+    if not cfg.proposal:
+        return None
+    return _maybe_contract(cfg, _make_prop_field_fn(cfg))
+
+
+def _make_prop_field_fn(cfg: Config) -> render.FieldFn:
+    """The proposal field without the contraction. The proposal grid
+    (``PROP_FIELD = grid``): ``_grid_field_fn``. The proposal
     MLP (``PROP_FIELD = mlp``) with ``USE_PALLAS``, ``PROP_PALLAS`` and the
     full point encoding (``PROPOSAL_ENC_L`` 10), as ``tinynerf/train.py:
     247-249`` chooses: the point field is ``prop_flat`` and its ``eval_rays``
     is ``prop_rays`` (on the card, TPU kernels 7 and 8). Otherwise the plain
     field, ``proposal.make_field_proposal`` (at bf16 the JAX package's bf16
     network), as the JAX package runs it outside any kernel."""
-    check_supported(cfg)
-    if not cfg.proposal:
-        return None
     if cfg.prop_field == "grid":
         return _grid_field_fn(cfg, cfg.prop_grid_comp_density)
     if cfg.use_pallas and cfg.prop_pallas and cfg.proposal_enc_l == L_POINT:
@@ -160,12 +179,14 @@ def make_prop_field_fn(cfg: Config) -> Optional[render.FieldFn]:
 
 def make_frame_fn(cfg: Config, k_inv: torch.Tensor, height: int, width: int,
                   field_fn: Optional[render.FieldFn] = None,
-                  extras: bool = False, occ_grid=None):
+                  extras: bool = False, occ_grid=None, ndc_params=None):
     """Whole-frame renderer on ``k_inv``'s device: ``frame(params, pose17_row)``
     -> (H, W, 3) numpy, or with ``extras`` (rgb, depth, acc). ``occ_grid``
     (the trained state's, with ``OCC_GRID``) tightens every ray's bounds.
     With ``PROPOSAL``, ``params`` is the ``{"net", "prop"}`` pair and the
-    coarse pass runs the proposal field (``make_prop_field_fn``). With
+    coarse pass runs the proposal field (``make_prop_field_fn``).
+    ``ndc_params = (H, W, focal)`` marches the NDC cube (``NDC`` on a
+    forward-facing scene; the Runner's). With
     ``FUSED_RENDER`` each chunk is one launch of the fused renderer; the JAX
     package renders such a frame in one call over every pixel, a TPU memory
     workaround (``tinynerf/eval.py:40-43``), and rays are independent, so
@@ -195,11 +216,12 @@ def make_frame_fn(cfg: Config, k_inv: torch.Tensor, height: int, width: int,
             out = render.render_rays(
                 net_params(cfg, params), rows[span], cols[span], pose, k_inv,
                 cfg.n_coarse, cfg.n_fine, field_fn=field_fn,
-                compat_sort=cfg.compat_sort, merge_impl="twolist",
-                white_bkgd=cfg.white_bkgd, occ_grid=occ_grid,
+                compat_sort=cfg.compat_sort, ndc_params=ndc_params,
+                merge_impl="twolist", white_bkgd=cfg.white_bkgd, occ_grid=occ_grid,
                 occ_march=cfg.occ_march_steps, occ_contract=cfg.contract,
                 occ_march_res=cfg.occ_march_res, extras=extras,
-                prop_params=prop_params(cfg, params), prop_field_fn=prop_fn)
+                prop_params=prop_params(cfg, params), prop_field_fn=prop_fn,
+                lindisp=cfg.lindisp)
             rgb[span] = out[1]
             if extras:
                 depth[span], acc[span] = out[2], out[3]
@@ -257,13 +279,16 @@ def render_test_set(cfg: Config, params: Any, table: RayTable,
                     k_inv: torch.Tensor, start_time: str, last_iter: int,
                     field_fn=None, save: bool = True,
                     max_views: Optional[int] = None,
-                    depth: bool = False, occ_grid=None) -> np.ndarray:
+                    depth: bool = False, occ_grid=None,
+                    ndc_params=None) -> np.ndarray:
     """Render every view of ``table`` in order; with ``save`` write per-view
     JPGs under ``results_path/<start_time>/`` and a video. ``depth=True``
-    also writes ``<pic>_depth.jpg`` and ``<pic>_acc.jpg``. Returns the
-    (N, H, W, 3) stack, clipped to [0, 1]."""
+    also writes ``<pic>_depth.jpg`` and ``<pic>_acc.jpg`` (under NDC the
+    depth is in NDC units, [0, 1] already). Returns the (N, H, W, 3) stack,
+    clipped to [0, 1]."""
     frame_fn = make_frame_fn(cfg, k_inv, table.height, table.width,
-                             field_fn=field_fn, extras=depth, occ_grid=occ_grid)
+                             field_fn=field_fn, extras=depth, occ_grid=occ_grid,
+                             ndc_params=ndc_params)
     n_views = table.num_pics if max_views is None else min(max_views, table.num_pics)
     frames = np.empty((n_views, table.height, table.width, 3), np.float32)
     if depth:
@@ -286,7 +311,10 @@ def render_test_set(cfg: Config, params: Any, table: RayTable,
             imageio.imwrite(os.path.join(save_dir, f"{pic}.jpg"),
                             (frames[pic] * 255.0).astype(np.uint8))
             if depth:
-                near, far = poses[pic, 15], poses[pic, 16]
+                # under NDC the march runs t in [0, 1]: normalising by the
+                # world near/far would clip the depth
+                near, far = ((0.0, 1.0) if ndc_params is not None
+                             else (poses[pic, 15], poses[pic, 16]))
                 dn = np.clip((depths[pic] - near) / max(far - near, 1e-6),
                              0.0, 1.0)
                 imageio.imwrite(os.path.join(save_dir, f"{pic}_depth.jpg"),
@@ -301,13 +329,14 @@ def render_test_set(cfg: Config, params: Any, table: RayTable,
 
 def render_path(cfg: Config, params: Any, pose_rows: np.ndarray,
                 k_inv: torch.Tensor, out_base: str, field_fn=None,
-                fps: int = 30, save: bool = True, occ_grid=None) -> np.ndarray:
+                fps: int = 30, save: bool = True, occ_grid=None,
+                ndc_params=None) -> np.ndarray:
     """Render a camera path (``data/paths.py``) to a video. The frame size
     comes from the pose rows' h/w column; ``k_inv`` must match it."""
     height = int(pose_rows[0, :15].reshape(3, 5)[0, 4])
     width = int(pose_rows[0, :15].reshape(3, 5)[1, 4])
     frame_fn = make_frame_fn(cfg, k_inv, height, width, field_fn=field_fn,
-                             occ_grid=occ_grid)
+                             occ_grid=occ_grid, ndc_params=ndc_params)
     frames = np.empty((pose_rows.shape[0], height, width, 3), np.float32)
     for i in range(pose_rows.shape[0]):
         frames[i] = frame_fn(params, pose_rows[i])

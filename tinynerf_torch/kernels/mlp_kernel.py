@@ -14,21 +14,26 @@ Counterpart of ``tinynerf/kernels/mlp_kernel.py``:
 - ``field_flat(params, points, dirs)``, the counterpart of
   ``field_pallas``: its forward (``_fused_forward`` / ``_fwd_kernel``, TPU
   kernel 3) over points and directions (..., 3) -> ``(color (..., 3),
-  sigma (..., 1))``. The occupancy grid's refresh calls it.
+  sigma (..., 1))``, and its recompute backward (``_fused_backward`` /
+  ``_bwd_kernel``, TPU kernel 4). The occupancy grid's refresh calls it,
+  and under ``CONTRACT`` (which warps the points outside any kernel) the
+  renderer's every call. It is differentiable: an ``autograd.Function``
+  whose backward is ``field_flat_bwd``, which gives the gradients of every
+  weight and bias, of ``points`` and of ``dirs``.
 
 Each takes ``precision``: ``"fp32"``, or ``"bf16"``, the TPU kernels'
 ``compute_dtype=bfloat16`` form (``mlp.apply_network``'s rounding: weights,
 encodings and activations rounded to bfloat16, sums in float32).
 
 - On CPU tensors each runs its plain PyTorch version (``field_rays_plain``,
-  ``field_rays_bwd_plain``, ``field_flat_plain``), which is what the CPU
-  tests reach.
+  ``field_rays_bwd_plain``, ``field_flat_plain``, ``field_flat_bwd_plain``),
+  which is what the CPU tests reach.
 - On CUDA tensors each launches its kernel (``csrc/field_rays_fwd.cu``,
-  ``csrc/field_rays_bwd.cu``, ``csrc/field_flat_fwd.cu``) or raises; none
-  falls back to a plain version. ``field_rays.launches``,
-  ``field_rays_bwd.launches`` and ``field_flat.launches`` count the calls
-  that launched each kernel. ``field_flat`` is forward only on the card:
-  its backward, TPU kernel 4, is not ported (ROADMAP queue 2).
+  ``csrc/field_rays_bwd.cu``, ``csrc/field_flat_fwd.cu``,
+  ``csrc/field_flat_bwd.cu``) or raises; none falls back to a plain
+  version. ``field_rays.launches``, ``field_rays_bwd.launches``,
+  ``field_flat.launches`` and ``field_flat_bwd.launches`` count the calls
+  that launched each kernel.
 
 The TPU kernels' block-major encoding layout, permuted weight rows and
 8-row tiles are TPU lane tricks, not semantics: the CUDA kernels read the
@@ -52,6 +57,7 @@ from tinynerf_torch.core.encoding import (DIR_ENC_DIM, L_DIR, L_POINT,
 FWD_SOURCE = "field_rays_fwd.cu"
 BWD_SOURCE = "field_rays_bwd.cu"
 FLAT_SOURCE = "field_flat_fwd.cu"
+FLAT_BWD_SOURCE = "field_flat_bwd.cu"
 WIDTH = mlp.WIDTH
 PRECISIONS = ("fp32", "bf16")
 
@@ -86,6 +92,34 @@ def field_flat_plain(params: mlp.Params, points: torch.Tensor,
     gradient rounds as the ray backward's does)."""
     return mlp.apply_network(params, encoding.encode_points(points),
                              encoding.encode_dirs(dirs), precision)
+
+
+def field_flat_bwd_plain(params: mlp.Params, points: torch.Tensor,
+                         dirs: torch.Tensor, g: torch.Tensor,
+                         precision: str = "fp32",
+                         ) -> Tuple[mlp.Params, torch.Tensor, torch.Tensor]:
+    """The same function as the flat backward kernel in plain PyTorch: the
+    VJP of ``field_flat_plain`` at points, dirs (R, 3) with the (R, 4)
+    cotangent of ``[r, g, b, sigma]`` -> ``(grads, d_points (R, 3),
+    d_dirs (R, 3))``, ``grads`` shaped like ``params``. At bf16 autograd
+    rounds where ``_bwd_core`` casts: every pre-activation gradient, the
+    heads' included (``mlp.apply_network(round_head_grads=True)``); the
+    encoding's gradients and every weight gradient stay float32."""
+    with torch.enable_grad():
+        leaves = {name: {k: t.detach().requires_grad_(True)
+                         for k, t in layer.items()}
+                  for name, layer in params.items()}
+        p, d = (x.detach().requires_grad_(True) for x in (points, dirs))
+        color, sigma = mlp.apply_network(leaves, encoding.encode_points(p),
+                                         encoding.encode_dirs(d), precision,
+                                         round_head_grads=True)
+        flat = [leaves[name][k] for name, k in _PARAM_KEYS]
+        out = torch.autograd.grad((color, sigma), flat + [p, d],
+                                  (g[:, :3], g[:, 3:]))
+    grads = {name: {} for name in params}
+    for (name, k), grad in zip(_PARAM_KEYS, out):
+        grads[name][k] = grad
+    return grads, out[-2], out[-1]
 
 
 def field_rays_plain(params: mlp.Params, origins: torch.Tensor,
@@ -132,16 +166,20 @@ def field_rays_bwd_plain(params: mlp.Params, origins: torch.Tensor,
 
 
 def preactivation_margin(params: mlp.Params, origins: torch.Tensor,
-                         dirs: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
+                         dirs: torch.Tensor, ts: torch.Tensor,
+                         precision: str = "fp32") -> torch.Tensor:
     """(B, N): each sample row's smallest |pre-activation| over every ReLU
     and the sigma head's ``abs``, for the reference MLP or the proposal MLP
-    (a tree without ``point_info``: no skip, no view branch). Two float32
-    implementations that sum in different orders can disagree on a mask (or
-    a sign) only where this is within their rounding difference, so
-    gradient comparisons weight such rows out of their cotangents."""
+    (a tree without ``point_info``: no skip, no view branch), in the form
+    ``precision`` computes (at bf16 with ``mlp.apply_network``'s rounding).
+    Two float32 implementations that sum in different orders can disagree
+    on a mask (or a sign) only where this is within their rounding
+    difference, so gradient comparisons weight such rows out of their
+    cotangents."""
+    value, act = mlp.rounding(precision)
     points = origins[:, None, :] + ts[..., None] * dirs[:, None, :]
-    pe = encoding.encode_points(points)
-    lin = lambda name, x: x @ params[name]["w"] + params[name]["b"]
+    pe = value(encoding.encode_points(points))
+    lin = lambda name, x: x @ value(params[name]["w"]) + params[name]["b"]
     reference = "point_info" in params
     skip = mlp.SKIP_LAYERS if reference else ()
     h, margin = pe, torch.full(ts.shape, float("inf"), device=ts.device)
@@ -149,13 +187,13 @@ def preactivation_margin(params: mlp.Params, origins: torch.Tensor,
     while f"trunk_{i}" in params:
         pre = lin(f"trunk_{i}", torch.cat([h, pe], -1) if i in skip else h)
         margin = torch.minimum(margin, pre.abs().amin(-1))
-        h = torch.relu(pre)
+        h = act(torch.relu(pre))
         i += 1
     margin = torch.minimum(margin, lin("sigma", h).abs()[..., 0])
     if not reference:
         return margin
-    de = encoding.encode_dirs(dirs[:, None, :].expand(points.shape))
-    pre = lin("dir_info", torch.cat([de, lin("point_info", h)], -1))
+    de = value(encoding.encode_dirs(dirs[:, None, :].expand(points.shape)))
+    pre = lin("dir_info", torch.cat([de, act(lin("point_info", h))], -1))
     return torch.minimum(margin, pre.abs().amin(-1))
 
 
@@ -185,6 +223,13 @@ def _library(source: str) -> ctypes.CDLL:
         lib.field_flat_fwd.restype = i32
         lib.field_flat_fwd_smem_bytes.argtypes = []
         lib.field_flat_fwd_smem_bytes.restype = i32
+    elif source == FLAT_BWD_SOURCE:
+        lib.field_flat_bwd.argtypes = [vp] * 11 + [i32, i32, vp]
+        lib.field_flat_bwd.restype = i32
+        lib.field_flat_bwd_smem_bytes.argtypes = []
+        lib.field_flat_bwd_smem_bytes.restype = i32
+        lib.field_flat_bwd_workspace_floats.argtypes = [i32]
+        lib.field_flat_bwd_workspace_floats.restype = ctypes.c_longlong
     else:
         lib.field_rays_bwd.argtypes = [vp] * 13 + [i32, i32, i32, vp]
         lib.field_rays_bwd.restype = i32
@@ -391,26 +436,87 @@ def _launch_flat(params: mlp.Params, points: torch.Tensor, dirs: torch.Tensor,
     return out
 
 
+def _launch_flat_bwd(params: mlp.Params, points: torch.Tensor,
+                     dirs: torch.Tensor, g: torch.Tensor, precision: str,
+                     ) -> Tuple[mlp.Params, torch.Tensor, torch.Tensor]:
+    device = points.device
+    R = points.shape[0]
+    _check("points", points, (R, 3), device)
+    _check("dirs", dirs, (R, 3), device)
+    _check("g", g, (R, 4), device)
+    # the kernel takes the four cotangent planes, sigma first
+    planes = [g[:, c].contiguous() for c in (3, 0, 1, 2)]
+    ptrs = _param_ptrs(params, device)
+    lib = _library(FLAT_BWD_SOURCE)
+    f32 = dict(dtype=torch.float32, device=device)
+    workspace = torch.empty(lib.field_flat_bwd_workspace_floats(R), **f32)
+    flat = torch.empty(sum(n for layer in params.values()
+                           for n in (layer["w"].numel(), layer["b"].numel())), **f32)
+    d_p, d_d = torch.empty((R, 3), **f32), torch.empty((R, 3), **f32)
+    with torch.cuda.device(device):
+        err = lib.field_flat_bwd(
+            points.data_ptr(), dirs.data_ptr(), *[t.data_ptr() for t in planes],
+            ptrs, d_p.data_ptr(), d_d.data_ptr(), flat.data_ptr(),
+            workspace.data_ptr(), R, int(precision == "bf16"), _stream(device))
+    if err != 0:
+        raise RuntimeError(f"field_flat_bwd kernel launch failed: CUDA error {err}")
+    field_flat_bwd.launches += 1
+    return grads_from_flat(flat), d_p, d_d
+
+
+def field_flat_bwd(params: mlp.Params, points: torch.Tensor, dirs: torch.Tensor,
+                   g: torch.Tensor, precision: str = "fp32",
+                   ) -> Tuple[mlp.Params, torch.Tensor, torch.Tensor]:
+    """The flat field's recompute backward: points, dirs (R, 3) and the (R, 4)
+    cotangent of ``[r, g, b, sigma]`` -> ``(grads, d_points, d_dirs)``, all
+    float32. CUDA tensors launch the kernel; CPU tensors take
+    ``field_flat_bwd_plain``."""
+    _check_precision(precision)
+    tensors = [points, dirs, g] + [t for layer in params.values() for t in layer.values()]
+    if _on_one_device(tensors, "field_flat_bwd"):
+        return _launch_flat_bwd(params, points, dirs, g, precision)
+    return field_flat_bwd_plain(params, points, dirs, g, precision)
+
+
+field_flat_bwd.launches = 0
+
+
+class _FieldFlat(torch.autograd.Function):
+    """``field_flat`` over (R, 3) rows -> (R, 4) ``[r, g, b, sigma]``, with
+    ``field_flat_bwd`` as its backward."""
+
+    @staticmethod
+    def forward(ctx, points, dirs, precision, *flat):
+        params = _unflatten(flat)
+        if _on_one_device([points, dirs, *flat], "field_flat"):
+            out = _launch_flat(params, points, dirs, precision)
+        else:
+            out = torch.cat(field_flat_plain(params, points, dirs, precision), dim=-1)
+        ctx.save_for_backward(points, dirs, *flat)
+        ctx.precision = precision
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        points, dirs, *flat = ctx.saved_tensors
+        grads, d_p, d_d = field_flat_bwd(_unflatten(flat), points, dirs,
+                                         _kernel_ready(g), precision=ctx.precision)
+        return (d_p, d_d, None, *[grads[name][k] for name, k in _PARAM_KEYS])
+
+
 def field_flat(params: mlp.Params, points: torch.Tensor, dirs: torch.Tensor,
                precision: str = "fp32") -> Tuple[torch.Tensor, torch.Tensor]:
     """The field at flat points: points, dirs (..., 3) -> (color (..., 3),
-    sigma (..., 1)), float32. CUDA tensors launch the forward kernel, and
-    raise where autograd would record a graph (its backward is not ported);
-    CPU tensors take ``field_flat_plain``, which is differentiable."""
+    sigma (..., 1)), float32, differentiable in every input. CUDA tensors
+    launch the forward kernel (and, under autograd, the backward kernel);
+    CPU tensors take the plain versions."""
     _check_precision(precision)
     lead = points.shape[:-1]
-    pts, drs = points.reshape(-1, 3), dirs.reshape(-1, 3)
-    tensors = [pts, drs] + [t for layer in params.values() for t in layer.values()]
-    if not _on_one_device(tensors, "field_flat"):
-        color, sigma = field_flat_plain(params, pts, drs, precision)
-    elif torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "field_flat on the card is forward only: its backward, TPU kernel 4 "
-            "(mlp_kernel.py::_fused_backward), is not ported yet (ROADMAP queue 2)")
-    else:
-        out = _launch_flat(params, _kernel_ready(pts), _kernel_ready(drs), precision)
-        color, sigma = out[:, :3], out[:, 3:]
-    return color.reshape(*lead, 3), sigma.reshape(*lead, 1)
+    out = _FieldFlat.apply(_kernel_ready(points.reshape(-1, 3)),
+                           _kernel_ready(dirs.reshape(-1, 3)), precision,
+                           *[params[name][k] for name, k in _PARAM_KEYS])
+    return out[:, :3].reshape(*lead, 3), out[:, 3:].reshape(*lead, 1)
 
 
 field_flat.launches = 0

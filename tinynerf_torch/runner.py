@@ -2,8 +2,9 @@
 ``tinynerf/runner.py`` for the configurations the port has
 (``eval.check_supported``).
 
-``Runner(cfg)`` loads the scene's splits onto the device, builds ``k_inv``,
-starts fresh or resumes the latest checkpoint under ``CKPT_PATH`` with its
+``Runner(cfg)`` loads the scene's splits onto the device (under ``NDC`` on
+an LLFF scene, with the poses recentred and rescaled, and ``ndc_params``
+set), builds ``k_inv``, starts fresh or resumes the latest checkpoint under ``CKPT_PATH`` with its
 Adam state (and its occupancy grid, with ``OCC_GRID``; with ``PROPOSAL`` the
 ``{"net", "prop"}`` pair), and then trains (``train()``), renders the test split
 (``display()``) or renders a camera path (``render_path_video()``). The
@@ -14,6 +15,7 @@ checkpoint. Rendering refuses fresh weights unless this Runner trained them.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Optional
@@ -23,9 +25,9 @@ import torch
 
 from tinynerf_torch import ckpt, eval as evallib, train as trainlib
 from tinynerf_torch.config import Config
-from tinynerf_torch.core.occupancy import derive_march_steps
+from tinynerf_torch.core.occupancy import derive_march_steps, derive_march_steps_contracted
 from tinynerf_torch.core.rays import make_k_inv
-from tinynerf_torch.data.poses import SceneData, load_scene
+from tinynerf_torch.data.poses import SceneData, load_scene, recenter_and_rescale
 from tinynerf_torch.data.rays import RayTable
 from tinynerf_torch.device import DeviceLike, resolve_device
 from tinynerf_torch.logging import MetricLogger, PreviewCanvas
@@ -55,8 +57,13 @@ class Runner:
         self.start_time = time.strftime("%m-%d-%H-%M-%S", time.localtime())
         self._scene = scene
 
-        self.train_table = RayTable(self._ingest("train"), self.device,
-                                    cfg.pixel_dtype)
+        train_scene = self._ingest("train")
+        if cfg.ndc and cfg.data_type == "llff":
+            # NDC needs LLFF-standard recentred and rescaled poses (on a copy:
+            # a caller's scene may serve another Runner)
+            train_scene = dataclasses.replace(
+                train_scene, poses_bounds=recenter_and_rescale(train_scene.poses_bounds))
+        self.train_table = RayTable(train_scene, self.device, cfg.pixel_dtype)
         # llff splits are identical (Q10): the same images serve all three
         if cfg.data_type == "llff":
             self.val_table = self.test_table = self.train_table
@@ -67,6 +74,24 @@ class Runner:
                                        cfg.pixel_dtype, device_pixels=False)
         self.k_inv = make_k_inv(self.train_table.height, self.train_table.width,
                                 self.train_table.focal, self.device)
+        # the NDC warp, for forward-facing scenes
+        self.ndc_params = ((float(self.train_table.height), float(self.train_table.width),
+                            float(self.train_table.focal))
+                           if cfg.ndc and cfg.data_type == "llff" else None)
+        if cfg.occ_grid and cfg.contract:
+            # the contracted grid: cells in the radius-2 ball, a
+            # disparity-spaced march (before init_state builds the grid)
+            if not cfg.lindisp:
+                raise ValueError(
+                    "OCC_GRID with CONTRACT requires LINDISP: only a "
+                    "disparity-spaced probe march keeps contracted-radial "
+                    "probe spacing within the grid's dilation margin over "
+                    "an unbounded depth range.")
+            if float(cfg.occ_extent) != 2.0:
+                print(f"NOTE: OCC_EXTENT={cfg.occ_extent} overridden to 2.0 "
+                      "— under CONTRACT the occupancy grid spans the "
+                      "contracted radius-2 ball")
+                cfg.occ_extent = 2.0
 
         self.last_iter = -1
         self.trained = False  # set by train(): rendering may then proceed
@@ -94,8 +119,12 @@ class Runner:
             # the probe count must out-resolve the grid's 3-cell dilation
             # margin over this scene's longest ray span
             pb = self.train_table.poses.cpu().numpy()
-            cfg.occ_march_steps = derive_march_steps(
-                cfg.occ_res, cfg.occ_extent, float(np.max(pb[:, 16] - pb[:, 15])))
+            if cfg.contract:
+                cfg.occ_march_steps = derive_march_steps_contracted(
+                    cfg.occ_res, float(np.min(pb[:, 15])), float(np.max(pb[:, 16])))
+            else:
+                cfg.occ_march_steps = derive_march_steps(
+                    cfg.occ_res, cfg.occ_extent, float(np.max(pb[:, 16] - pb[:, 15])))
         self.logger: Optional[MetricLogger] = None  # opened by train()
 
     @property
@@ -134,10 +163,12 @@ class Runner:
             perm = torch.randperm(table.num_pix, generator=self.state.generator,
                                   device=self.device)
             epoch = perm[:n_batches * cfg.batch_ray].view(n_batches, cfg.batch_ray)
-            step_fn = trainlib.make_indexed_train_step(cfg, table, self.k_inv)
+            step_fn = trainlib.make_indexed_train_step(cfg, table, self.k_inv,
+                                                       ndc_params=self.ndc_params)
         else:
             end = cfg.total_iter
-            step_fn = trainlib.make_train_step(cfg, table, self.k_inv)
+            step_fn = trainlib.make_train_step(cfg, table, self.k_inv,
+                                               ndc_params=self.ndc_params)
         print(f"[STEP] {mode}: iterations {start} -> {end}")
 
         meter = Throughput(rays_per_step=cfg.batch_ray)
@@ -190,7 +221,7 @@ class Runner:
         frames = evallib.render_test_set(
             self.cfg, self.params, self.test_table, self.k_inv,
             self.start_time, self.last_iter, save=True, max_views=max_views,
-            depth=depth, occ_grid=self.state.occ)
+            depth=depth, occ_grid=self.state.occ, ndc_params=self.ndc_params)
         score = evallib.test_psnr(frames, self.test_table)
         ssim_score = evallib.test_ssim(frames, self.test_table)
         print(f"Test PSNR: {score:.2f} dB over {frames.shape[0]} views "
@@ -214,4 +245,5 @@ class Runner:
         print(f"Rendering {n_views}-view path at "
               f"{int(hwf[0])}x{int(hwf[1])} -> {out_base}")
         return evallib.render_path(self.cfg, self.params, pose_rows, k_inv,
-                                   out_base, occ_grid=self.state.occ)
+                                   out_base, occ_grid=self.state.occ,
+                                   ndc_params=self.ndc_params)

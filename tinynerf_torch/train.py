@@ -13,9 +13,14 @@ as in the JAX package); it renders both passes (``eval.make_field_fn`` /
 grid fields' calls under ``GRID_PALLAS`` kernels 5 and 6, the proposal
 MLP's under ``PROP_PALLAS`` kernels 7 and 8), takes the
 gradient of ``render.ray_loss`` (plus ``GRID_TV`` times the fine grid's
-``tv_loss``) with autograd and applies ``optim.adam_update`` at the
-schedule's rate for the current iteration, the grids' line tables at
-``GRID_LR_MULT`` times it (``make_lr_scale``).
+``tv_loss``, ``DIST_LOSS`` times the summed distortion loss and
+``PROP_INTERLEVEL`` times the summed interlevel loss) with autograd and
+applies ``optim.adam_update`` at the schedule's rate for the current
+iteration, the grids' line tables at ``GRID_LR_MULT`` times it
+(``make_lr_scale``). Under ``CONTRACT`` the fields take contracted points
+(``eval.make_field_fn``): the MLP's calls then run kernels 3 and 4, and the
+contracted occupancy grid probes through the same wrapper; under ``NDC``
+(``ndc_params``, the Runner's) the rays march the NDC cube.
 
 The JAX package fuses several steps into one XLA program (``lax.scan`` in
 ``make_multi_step`` / ``make_chunked_*``) only to amortise XLA's dispatch;
@@ -140,29 +145,45 @@ def make_lr_scale(cfg: Config, params: Any) -> Optional[Any]:
 
 def make_loss_fn(cfg: Config, k_inv: torch.Tensor,
                  field_fn: Optional[render.FieldFn] = None,
-                 prop_field_fn: Optional[render.FieldFn] = None) -> Callable:
+                 prop_field_fn: Optional[render.FieldFn] = None,
+                 ndc_params=None) -> Callable:
     """``loss(params, batch, generator, occ) -> (loss, (C_coarse, C_fine))``;
     the generator jitters the coarse samples when ``STRATIFIED`` is on, and
     ``occ`` (the occupancy grid, or None) tightens the rays' bounds. With
     ``PROPOSAL``, ``params`` is the ``{"net", "prop"}`` pair and the coarse
-    pass runs the proposal field; with ``FINE_FIELD = grid`` and ``GRID_TV``
-    the loss adds ``GRID_TV * tv_loss`` of the main grid."""
+    pass runs the proposal field; there ``DIST_LOSS`` and ``PROP_INTERLEVEL``
+    add their weight times the per-ray losses summed over the batch (the
+    house sum-loss scale), and without ``PROPOSAL`` they raise the JAX
+    package's ``ValueError``. With ``FINE_FIELD = grid`` and ``GRID_TV`` the
+    loss adds ``GRID_TV * tv_loss`` of the main grid. ``ndc_params`` marches
+    the NDC cube."""
     field_fn = field_fn or make_field_fn(cfg)
     prop_fn = prop_field_fn or make_prop_field_fn(cfg)
+    want_dist = cfg.dist_loss > 0.0
+    want_il = cfg.prop_interlevel > 0.0
+    if (want_dist or want_il) and not cfg.proposal:
+        raise ValueError("DIST_LOSS / PROP_INTERLEVEL require PROPOSAL=True "
+                         "(see render.distortion_loss / interlevel_loss)")
 
     def loss_fn(params: Any, batch: RayBatch,
                 generator: Optional[torch.Generator] = None,
                 occ: Optional[occupancy.OccGrid] = None):
-        c_co, c_fi = render.render_rays(
+        out = render.render_rays(
             net_params(cfg, params), batch.rows, batch.cols, batch.pose17, k_inv,
             cfg.n_coarse, cfg.n_fine, field_fn=field_fn,
             generator=generator if cfg.stratified else None,
-            compat_sort=cfg.compat_sort, merge_impl="permute",
-            white_bkgd=cfg.white_bkgd, occ_grid=occ,
+            compat_sort=cfg.compat_sort, ndc_params=ndc_params,
+            merge_impl="permute", white_bkgd=cfg.white_bkgd, occ_grid=occ,
             occ_march=cfg.occ_march_steps, occ_contract=cfg.contract,
             occ_march_res=cfg.occ_march_res,
-            prop_params=prop_params(cfg, params), prop_field_fn=prop_fn)
+            prop_params=prop_params(cfg, params), prop_field_fn=prop_fn,
+            want_dist=want_dist, want_interlevel=want_il, lindisp=cfg.lindisp)
+        c_co, c_fi = out[0], out[1]
         loss = render.ray_loss(c_co, c_fi, batch.rgb)
+        if want_dist:
+            loss = loss + cfg.dist_loss * torch.sum(out[2]["dist"])
+        if want_il:
+            loss = loss + cfg.prop_interlevel * torch.sum(out[2]["interlevel"])
         if cfg.fine_field == "grid" and cfg.grid_tv > 0.0:
             loss = loss + cfg.grid_tv * gridfield.tv_loss(net_params(cfg, params))
         return loss, (c_co, c_fi)
@@ -188,8 +209,9 @@ def refresh_occ(cfg: Config, state: TrainState, field_fn: render.FieldFn,
                 draws=None) -> Optional[occupancy.OccGrid]:
     """The grid this step renders with: ``state.occ`` refreshed from the main
     field's current params when ``iteration % OCC_UPDATE_EVERY == 0`` (probing
-    ``int(OCC_RES**3 * OCC_SUBSET)`` cells, or all of them at a subset of 1),
-    else as it is. Draws come from the state's generator unless ``draws``
+    ``int(OCC_RES**3 * OCC_SUBSET)`` cells, or all of them at a subset of 1;
+    under ``CONTRACT`` at the cells' inverse-contracted points), else as it
+    is. Draws come from the state's generator unless ``draws``
     (``occupancy.update_grid``) are given."""
     if state.occ is None or state.iteration % cfg.occ_update_every != 0:
         return state.occ
@@ -222,12 +244,12 @@ def _apply_batch(cfg: Config, loss_fn: Callable, lr_fn: Callable,
 
 
 def make_train_step(cfg: Config, table: RayTable, k_inv: torch.Tensor,
-                    field_fn: Optional[render.FieldFn] = None,
+                    field_fn: Optional[render.FieldFn] = None, ndc_params=None,
                     ) -> Callable[[TrainState], Tuple[TrainState, Metrics]]:
     """``step(state) -> (state, metrics)`` over a batch of ``BATCH_RAY``
     pixels drawn uniformly with replacement."""
     field_fn = field_fn or make_field_fn(cfg)
-    loss_fn = make_loss_fn(cfg, k_inv, field_fn)
+    loss_fn = make_loss_fn(cfg, k_inv, field_fn, ndc_params=ndc_params)
     lr_fn = optim.make_lr_fn(cfg)
 
     def step(state: TrainState) -> Tuple[TrainState, Metrics]:
@@ -238,7 +260,7 @@ def make_train_step(cfg: Config, table: RayTable, k_inv: torch.Tensor,
 
 
 def make_indexed_train_step(cfg: Config, table: RayTable, k_inv: torch.Tensor,
-                            field_fn: Optional[render.FieldFn] = None,
+                            field_fn: Optional[render.FieldFn] = None, ndc_params=None,
                             ) -> Callable[..., Tuple[TrainState, Metrics]]:
     """``step(state, idx, occ_draws=None) -> (state, metrics)`` over the
     given (B,) flat pixel indices: the epoch path (a without-replacement
@@ -246,7 +268,7 @@ def make_indexed_train_step(cfg: Config, table: RayTable, k_inv: torch.Tensor,
     drop_last=True``), and the way tests feed the JAX package's index stream
     (and, through ``occ_draws``, its grid-refresh draws)."""
     field_fn = field_fn or make_field_fn(cfg)
-    loss_fn = make_loss_fn(cfg, k_inv, field_fn)
+    loss_fn = make_loss_fn(cfg, k_inv, field_fn, ndc_params=ndc_params)
     lr_fn = optim.make_lr_fn(cfg)
 
     def step(state: TrainState, idx: torch.Tensor,
