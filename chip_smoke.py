@@ -8,7 +8,10 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
 1. prints the card (name, count, and ``nvidia-smi``'s name and power limit);
 2. builds every CUDA kernel from ``tinynerf_torch/csrc`` (one ``nvcc`` per
    source, all at once) and prints each build's time and ``ptxas``'
-   register/shared-memory report;
+   register/shared-memory report, and each kernel's count of tensor-core
+   instructions (``HMMA``/``HGMMA``) in its SASS (``cuobjdump -sass``):
+   above 0 in every bf16 form of the field kernels (1-4, 9, 10), whose
+   products run on the tensor cores, and 0 in their fp32 forms;
 3. holds each kernel form against its plain PyTorch version on the card, on
    dyadic inputs at the main paths' shapes (tolerances below): the field
    forward (kernel 1) at the render chunk's B=4096, and the field's
@@ -16,11 +19,17 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
    B=4096, N=64 and 128, every gradient within 1e-4 of max|plain|; the flat
    field forward (kernel 3) at fp32 and bf16 at one grid refresh's R=32,768
    probes, at R=65,536 and at a ragged R; kernels 1 and 2 in their bf16 form
-   at B=4096, N=64 and 128 (bf16 bounds below);
+   at B=4096, N=64 and 128, and at B=1001, N=37, whose rows are no multiple
+   of 16 or of the 64-row tile (bf16 bounds below; there the backward's rows
+   within 2e-6 of a kink in the bf16 form take no cotangent, as kernel 4's);
 4. times each kernel form and its plain version with CUDA events, beside
    the kernel's bound (the least time the card could take for the same
    work: float32 FLOPs at the FMA rate, bf16 ones at the tensor cores'
-   rate; the f32 FMA bound is printed for the bf16 forms too);
+   rate; the f32 FMA bound is printed for the bf16 forms too); beside kernel
+   1 bf16 also ``gemm_chain_ms``, ``torch.matmul`` in bf16 over the same
+   twelve layer products at M = 524,288 rows (a yardstick, not the same
+   function, never called by the port); profiles one call each of kernels 2
+   and 4 in bf16 (the recompute / weight-gradient split);
 5. drives the training path: ``conf/lego.ini`` at full width from fresh
    seeded weights on an in-memory Blender-style scene of 4 views of
    800x800 (lego has 100 training views: cut to 4), ``Runner.train()`` for
@@ -244,6 +253,11 @@ U360_SHORT_STEPS = 10       # the same with the contracted grid, the proposal ML
 U360_VIEWS = 4
 CAPTURE_HW = (756, 1008)    # a 4032x3024 capture at LOW_RES 4: height, width
 FERN_STEPS = 20             # conf/fern_ndc.ini
+# the field kernels' sources, whose bf16 forms run their products on the tensor cores
+FIELD_SOURCES = ("field_rays_fwd.cu", "field_rays_bwd.cu", "field_flat_fwd.cu",
+                 "field_flat_bwd.cu", "render_fused_fwd.cu", "render_fused_bwd.cu")
+BF16_EDGE = (1001, 37)      # rows no multiple of 16 or of the 64-row tile
+GEMM_CHAIN_ROWS = 4096 * 128
 FERN_VIEWS = 4
 
 
@@ -327,6 +341,86 @@ def least_ms(flops: float, n_bytes: float, precision: str):
     peak = PEAK_BF16_FLOPS if precision == "bf16" else PEAK_F32_FLOPS
     ops_ms, bytes_ms = 1e3 * flops / peak, 1e3 * n_bytes / PEAK_BYTES
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def short_kernel(name: str) -> str:
+    """A SASS function name without its return type, namespace and parameter
+    list."""
+    for noise in ("(anonymous namespace)::", "<unnamed>::"):
+        name = name.replace(noise, "")
+    name, depth = name.removeprefix("void "), 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            return name[:i]
+    return name
+
+
+def kernel_form(name: str):
+    """"bf16" for a bf16 form of the field kernels (a template on true, or
+    a tensor-core kernel), "fp32" for an fp32 form, else None (the packing,
+    reducing and resampling kernels, which compute no product)."""
+    import re
+    if re.search(r"<\(bool\)1>|<true>|ILb1E|_tc_kernel", name):
+        return "bf16"
+    if re.search(r"<\(bool\)0>|<false>|ILb0E", name) or re.search(
+            r"field_bwd_kernel|wgrad_kernel|transpose_kernel", name):
+        return "fp32"
+    return None
+
+
+def exact_sum_bwd(mk, params, args):
+    """``field_rays_bwd_plain`` at bf16 with every matmul's products summed in
+    float64 and rounded to float32 once: the same function summed exactly,
+    for the record of how far a correct implementation that sums in another
+    order than cuBLAS (k ascending, one float32 FMA a term) lands from the
+    plain version."""
+    import torch
+
+    class Exact(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w):
+            ctx.save_for_backward(x, w)
+            out = torch.matmul(x.reshape(-1, x.shape[-1]).double(), w.double())
+            return out.float().reshape(*x.shape[:-1], w.shape[-1])
+
+        @staticmethod
+        def backward(ctx, g):
+            x, w = ctx.saved_tensors
+            x2, g2 = x.reshape(-1, x.shape[-1]).double(), g.reshape(-1, g.shape[-1]).double()
+            return (torch.matmul(g2, w.double().T).float().reshape(x.shape),
+                    torch.matmul(x2.T, g2).float())
+
+    matmul = torch.Tensor.__matmul__
+    torch.Tensor.__matmul__ = lambda a, b: Exact.apply(a, b)
+    try:
+        return mk.field_rays_bwd_plain(params, *args, precision="bf16")
+    finally:
+        torch.Tensor.__matmul__ = matmul
+
+
+def sum_order_record(params, pts, dirs):
+    """For the record behind the bf16 backward's fix-up bound
+    (``csrc/field_tc.cuh``, FIX_TOL = 2^-22): over the plain bf16 field's
+    trunk at these rows, max |cuBLAS's float32 sum - the exact sum| in units
+    of 2^-24 |x_r| |w_c|, and the share of outputs that bound flags."""
+    import torch
+    from tinynerf_torch.core import encoding, mlp
+    r16 = lambda x: x.to(torch.bfloat16).float()
+    pe = r16(encoding.encode_points(pts))
+    h, worst, flagged = pe, 0.0, []
+    for i in range(mlp.DEPTH):
+        x = torch.cat([h, pe], -1) if i in mlp.SKIP_LAYERS else h
+        w, b = r16(params[f"trunk_{i}"]["w"]), params[f"trunk_{i}"]["b"]
+        s32 = x @ w
+        unit = 2.0 ** -24 * x.norm(dim=-1, keepdim=True) * w.norm(dim=0, keepdim=True)
+        worst = max(worst, float(((s32.double() - x.double() @ w.double()).abs()
+                                  / unit.double()).max()))
+        v, e = s32 + b, 4.0 * unit
+        lo, hi = r16(torch.relu(v - e)), r16(torch.relu(v + e))
+        flagged.append(float((lo != hi).float().mean()))
+        h = r16(torch.relu(v))
+    return worst, min(flagged), max(flagged)
 
 
 def grid_probes(rng, rows: int):
@@ -687,6 +781,18 @@ def main() -> int:
         print(f"{source}: nvcc {info['seconds']:.1f} s; dynamic smem per block: {sizes}")
         for line in info["ptxas"]:
             print(f"  ptxas: {line}")
+    # the tensor cores at work: HMMA/HGMMA instructions per kernel in the SASS
+    for source in sorted(build.build_log):
+        counts = build.mma_counts(source)
+        print(f"{source}: HMMA/HGMMA per kernel: " + "; ".join(
+            f"{short_kernel(name)} {n}" for name, n in counts.items()))
+        if source not in FIELD_SOURCES:
+            continue
+        for name, n in counts.items():
+            form_ = kernel_form(name)
+            if (form_ == "bf16" and n == 0) or (form_ == "fp32" and n > 0):
+                raise AssertionError(f"{source}: {short_kernel(name)} ({form_} form) has {n} "
+                                     "tensor-core instructions")
 
     params = mlp.init_network(torch.Generator().manual_seed(0), dev)
     rng = np.random.default_rng(0)
@@ -767,9 +873,14 @@ def main() -> int:
     # ---- 3d. kernels 1 and 2 in their bf16 form vs their bf16 plain versions ----
     phase("kernels 1 and 2, bf16 form, vs their bf16 plain versions")
     bf16_inputs, bf16_fwd_err, bf16_bwd_abs, bf16_bwd_rel = {}, 0.0, 0.0, 0.0
-    for B, N in OCC_SHAPES:
+    for B, N in (*OCC_SHAPES, BF16_EDGE):
         o, d, ts = rays(B, N)
-        cots = [torch.from_numpy(rng.normal(size=(B, N)).astype(np.float32)).to(dev)
+        # at the ragged shape, rows this close to a kink in the bf16 form get
+        # no cotangent (few rows: one ReLU taking the other side moves a bias
+        # gradient by percents, as kernel 4's check found at R = 1001)
+        keep = ((mk.preactivation_margin(params, o, d, ts, "bf16") > MARGIN).float()
+                if (B, N) == BF16_EDGE else 1.0)
+        cots = [torch.from_numpy(rng.normal(size=(B, N)).astype(np.float32)).to(dev) * keep
                 for _ in range(4)]
         bf16_inputs[B, N] = (o, d, ts, *cots)
         with torch.no_grad():
@@ -778,25 +889,39 @@ def main() -> int:
             (pr, pg, pb), p_sigma = mk.field_rays_plain(params, o, d, ts, "bf16")
         fwd_rel = max(rel_err(x, y) for x, y in ((r, pr), (g, pg), (b, pb), (sigma, p_sigma)))
         kernel = mk.field_rays_bwd(params, *bf16_inputs[B, N], precision="bf16")
+        again = mk.field_rays_bwd(params, *bf16_inputs[B, N], precision="bf16")
         torch.cuda.synchronize()
         plain = mk.field_rays_bwd_plain(params, *bf16_inputs[B, N], precision="bf16")
         errs = bwd_errors(kernel, plain)
         worst = max(errs, key=lambda k: errs[k][1])
         cos = bwd_cosines(kernel, plain)
+        same = all(v[0] == 0 for v in bwd_errors(kernel, again).values())
         print(f"B={B} N={N}: kernel 1 bf16 error / max|plain| {fwd_rel:.3e} (limit "
               f"{BF16_FWD_RTOL}); kernel 2 bf16 worst {worst} {errs[worst][1]:.3e} (limit "
               f"{BF16_BWD_RTOL}), d_ts {errs['d_ts'][1]:.3e}, smallest cosine {cos:.7f} "
-              f"(limit {BF16_COS})")
+              f"(limit {BF16_COS}); two launches bit-identical: {same}")
         if fwd_rel > BF16_FWD_RTOL:
             raise AssertionError(f"kernel 1 bf16 disagrees with its plain version at B={B} N={N}")
-        if errs[worst][1] > BF16_BWD_RTOL or cos < BF16_COS:
+        if errs[worst][1] > BF16_BWD_RTOL or cos < BF16_COS or not same:
             raise AssertionError(f"kernel 2 bf16 disagrees with its plain version at "
                                  f"B={B} N={N}: {errs}")
+        if (B, N) == OCC_SHAPES[0]:
+            sum_err, flag_lo, flag_hi = sum_order_record(
+                params, *(torch.from_numpy(a).to(dev) for a in grid_probes(rng, 262144)))
+            print(f"  for the record, cuBLAS's float32 trunk sums vs exact sums at 262,144 "
+                  f"rows: max |error| {sum_err:.3f} x 2^-24 |x_r| |w_c| (the fix-up's bound: "
+                  f"4); outputs it flags: {100 * flag_lo:.3f}-{100 * flag_hi:.3f}% a layer")
+            exact = bwd_errors(exact_sum_bwd(mk, params, bf16_inputs[B, N]), plain)
+            print(f"  for the record, the plain version summed exactly (float64 products "
+                  f"and sums): d_ts {exact['d_ts'][1]:.3e}, d_origins "
+                  f"{exact['d_origins'][1]:.3e} of max|plain| (the kernel's backward "
+                  f"re-sums its ambiguous forward roundings in the plain version's order)")
         bf16_fwd_err = max(bf16_fwd_err, max(float((x - y).abs().max()) for x, y in
                                              ((r, pr), (g, pg), (b, pb), (sigma, p_sigma))))
         bf16_bwd_abs = max(bf16_bwd_abs, max(e[0] for e in errs.values()))
         bf16_bwd_rel = max(bf16_bwd_rel, errs[worst][1])
-        del kernel, plain, errs
+        del kernel, again, plain, errs
+    del bf16_inputs[BF16_EDGE]
     torch.cuda.empty_cache()
 
     # ---- 3e. kernels 5 and 6 (the grid field), fp32 and bf16, vs plain ----
@@ -1084,7 +1209,26 @@ def main() -> int:
         bf16_bwd_time[B, N] = report(
             f"kernel 2 bf16 B={B} N={N}", k_ms, p_ms, 3 * mk.flops_per_row() * B * N,
             4 * (2 * 3 * B + 5 * B * N + n_params + 2 * 3 * B + B * N + n_params), "bf16")
-    del bf16_inputs, flat_inputs
+    # kernel 2 bf16's launches: recompute + input gradients, weight
+    # gradients, reduce (and the weights' packing)
+    args = bf16_inputs[OCC_SHAPES[-1]]
+    profile_calls(lambda: mk.field_rays_bwd(params, *args, precision="bf16"), 3, "calls")
+    del bf16_inputs, flat_inputs, args
+    torch.cuda.empty_cache()
+
+    # a yardstick beside kernel 1 bf16, not the same function (no encoding,
+    # biases, activations or heads) and never called by the port: torch.matmul
+    # in bf16 over the same twelve layer products at M = 524,288 rows
+    dims = [(fan_in, fan_out) for _, fan_in, fan_out in mlp.layer_dims()]
+    xs = {k: torch.randn(GEMM_CHAIN_ROWS, k, device=dev, dtype=torch.bfloat16)
+          for k in {k for k, _ in dims}}
+    ws = [torch.randn(k, n, device=dev, dtype=torch.bfloat16) for k, n in dims]
+    gemm_chain_ms = cuda_ms(lambda: [torch.matmul(xs[k], w) for (k, _), w in zip(dims, ws)],
+                            iters=10)
+    print(f"gemm_chain_ms {gemm_chain_ms:.3f}: torch.matmul bf16 over the twelve layer "
+          f"products at M = {GEMM_CHAIN_ROWS} (kernel 1 bf16 at B=4096 N=128: "
+          f"{bf16_fwd_time[OCC_SHAPES[-1]][0]:.3f} ms)")
+    del xs, ws
     torch.cuda.empty_cache()
 
     # kernel 4 at an unbounded360-mlp step's fine rows: (ms, plain ms, bound
@@ -1100,6 +1244,9 @@ def main() -> int:
         flat_bwd_time[R, precision] = report(
             f"kernel 4 {precision} R={R}", k_ms, p_ms, 3 * mk.flops_per_row() * R,
             4 * (6 * R + 4 * R + n_params + 6 * R + n_params), precision)
+        if precision == "bf16":
+            profile_calls(lambda: mk.field_flat_bwd(params, pts, dirs, g, precision), 2,
+                          "calls")
     del flat_bwd_inputs
     torch.cuda.empty_cache()
 
@@ -2378,7 +2525,7 @@ def main() -> int:
               "lego_fast train": fast_launches[0], "lego_prop train": prop_mlp_launches[0],
               "lego_prop render": prop_render_field, "fern_ndc train": fern_launches["rays"],
               "fern_ndc render": fern_render[False]["rays"]},
-             bf16_fwd_err, bf16_fwd_time, list(OCC_SHAPES)),
+             bf16_fwd_err, bf16_fwd_time, list(OCC_SHAPES), {"gemm_chain_ms": gemm_chain_ms}),
         form("field_rays_bwd", bwd_src, "tinynerf/kernels/mlp_kernel.py:751",
              train_launches[1] + fp32_launches[1] + prop_fp32_field[1],
              {"lego train": train_launches[1], "lego_occ fp32 train": fp32_launches[1],

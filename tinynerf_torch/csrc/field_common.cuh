@@ -5,27 +5,28 @@
 // heads over the float32 positional encoding of the point and of the
 // direction.
 //
-// A block of THREADS threads takes TILE_M consecutive sample rows; warp w
-// owns rows 8w .. 8w+7 and each thread holds an 8-row x (OUT/32)-column
-// register tile (row_i = 8*warp + i, col_j = lane + 32*j), accumulated with
-// float32 FMA (no tensor cores, no TF32). A layer's weights, (fan_in,
-// fan_out) row-major, stream through a KT-row shared K-tile from L2.
+// The fp32 form (here): a block of THREADS threads takes TILE_M
+// consecutive sample rows; warp w owns rows 8w .. 8w+7 and each thread
+// holds an 8-row x (OUT/32)-column register tile (row_i = 8*warp + i, col_j
+// = lane + 32*j), accumulated with float32 FMA (no tensor cores, no TF32).
+// A layer's weights, (fan_in, fan_out) row-major, stream through a KT-row
+// shared K-tile from L2. The bf16 form runs its products on the tensor
+// cores instead (field_tc.cuh) and keeps the heads and the encoding here.
 //
 // Numerics follow the plain PyTorch version: o + t*d and freq*x use
 // __fmul_rn/__fadd_rn so that nvcc cannot contract them into an FMA, and
 // the encoding uses the accurate sinf/cosf (never __sinf/__cosf or
 // --use_fast_math, whose argument reduction is wrong at |arg| ~ 6e3).
 //
-// Precision: every kernel is a template over BF16. With BF16 it rounds to
-// bfloat16 (round to nearest even) where the TPU kernel casts to its
-// compute dtype: the weights as they enter the K-tile (and the head weights
-// as they are read), the encoding as a product reads it, and every
-// activation as it is written to shared memory (the backward also rounds
-// each pre-activation gradient). The encoding itself stays float32 in
-// shared memory, for the backward's chain through sin/cos. A product of two
-// bfloat16 values is exact in float32 and the sums stay float32, so this is
-// the TPU's bf16 matrix unit with f32 accumulation, up to summation order.
-// Biases stay float32 and are added after the sum.
+// Precision: the bf16 form rounds to bfloat16 (round to nearest even)
+// where the TPU kernel casts to its compute dtype: the weights (packed
+// once a call, and the head weights as they are read), the encoding, and
+// every activation as it is written to shared memory (the backward also
+// rounds each pre-activation gradient). A product of two bfloat16 values
+// is exact in float32 and the sums stay float32, so this is the TPU's bf16
+// matrix unit with f32 accumulation, up to summation order. Biases stay
+// float32 and are added after the sum. gemm_segment's BF16 rounding serves
+// the proposal MLP's kernels (prop_common.cuh).
 
 #pragma once
 
@@ -54,6 +55,7 @@ struct Params {
   const float* w[N_LAYERS];
   const float* b[N_LAYERS];
   const float* freqs;  // L_PT point frequencies, then L_DIR direction ones
+  const __nv_bfloat16* wb;  // the bf16 form's packed weights (field_tc.cuh), else null
 };
 
 // params: the 12 weights, the 12 biases (layer order above), then the 14
@@ -65,6 +67,7 @@ inline Params unpack_params(const void* const* params) {
     p.b[i] = static_cast<const float*>(params[N_LAYERS + i]);
   }
   p.freqs = static_cast<const float*>(params[2 * N_LAYERS]);
+  p.wb = nullptr;
   return p;
 }
 
@@ -188,10 +191,9 @@ __device__ __forceinline__ void zero(float (&acc)[ROWS][NC]) {
   }
 }
 
-// act[row_i][col_j] = (relu)(acc + bias), rounded with BF16, then a barrier.
-// With `save`, rows below `valid` are also written to save[row *
-// save_stride + col].
-template <int NC, bool RELU, bool BF16>
+// act[row_i][col_j] = (relu)(acc + bias), then a barrier. With `save`, rows
+// below `valid` are also written to save[row * save_stride + col].
+template <int NC, bool RELU>
 __device__ __forceinline__ void store(float (&acc)[ROWS][NC],
                                       const float* __restrict__ bias,
                                       float (*act)[WIDTH],
@@ -205,7 +207,7 @@ __device__ __forceinline__ void store(float (&acc)[ROWS][NC],
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
       const float v = acc[i][j] + bj;
-      const float y = rnd<BF16>(RELU ? fmaxf(v, 0.f) : v);
+      const float y = RELU ? fmaxf(v, 0.f) : v;
       act[row0 + i][lane + 32 * j] = y;
       if (save != nullptr && row0 + i < valid)
         save[(size_t)(row0 + i) * save_stride + lane + 32 * j] = y;
@@ -232,21 +234,22 @@ struct FwdSmem {
 // the trunk (8 x 256, input skip at layer 4, hidden first), sigma = |h .
 // w_sigma + b|, point_info, the view branch relu([dir_enc, point_info] W +
 // b) and color = sigmoid(h_dir W + b). For each row m < total it calls
-// out(m, ch, value) with ch 0, 1, 2 for r, g, b and 3 for sigma.
-template <bool BF16, class Out>
+// out(m, ch, value) with ch 0, 1, 2 for r, g, b and 3 for sigma. The fp32
+// form; the bf16 one is field_tc.cuh's network_tc.
+template <class Out>
 __device__ __forceinline__ void network_fwd(FwdSmem& s, const Params& p,
                                             int base, int total, Out out) {
   float acc[ROWS][8];
   zero(acc);
-  gemm_segment<8, BF16, true>(acc, &s.enc_pt[0][0], PT_ENC, PT_ENC, p.w[0], s.wt);
-  store<8, true, BF16>(acc, p.b[0], s.act);
+  gemm_segment<8, false>(acc, &s.enc_pt[0][0], PT_ENC, PT_ENC, p.w[0], s.wt);
+  store<8, true>(acc, p.b[0], s.act);
   for (int layer = 1; layer < 8; ++layer) {
     zero(acc);
-    gemm_segment<8, BF16>(acc, &s.act[0][0], WIDTH, WIDTH, p.w[layer], s.wt);
+    gemm_segment<8, false>(acc, &s.act[0][0], WIDTH, WIDTH, p.w[layer], s.wt);
     if (layer == 4)
-      gemm_segment<8, BF16, true>(acc, &s.enc_pt[0][0], PT_ENC, PT_ENC,
-                                  p.w[4] + WIDTH * WIDTH, s.wt);
-    store<8, true, BF16>(acc, p.b[layer], s.act);
+      gemm_segment<8, false>(acc, &s.enc_pt[0][0], PT_ENC, PT_ENC,
+                             p.w[4] + WIDTH * WIDTH, s.wt);
+    store<8, true>(acc, p.b[layer], s.act);
   }
 
   const int lane = threadIdx.x & 31;
@@ -258,7 +261,7 @@ __device__ __forceinline__ void network_fwd(FwdSmem& s, const Params& p,
 #pragma unroll
     for (int q = 0; q < WIDTH / 32; ++q)
       v = fmaf(s.act[row0 + i][lane + 32 * q],
-               rnd<BF16>(__ldg(p.w[SIGMA] + lane + 32 * q)), v);
+               __ldg(p.w[SIGMA] + lane + 32 * q), v);
     v = warp_sum(v);
     const int m = base + row0 + i;
     if (lane == 0 && m < total) out(m, 3, fabsf(v + __ldg(p.b[SIGMA])));
@@ -266,17 +269,16 @@ __device__ __forceinline__ void network_fwd(FwdSmem& s, const Params& p,
 
   // point_info = h W + b, no activation
   zero(acc);
-  gemm_segment<8, BF16>(acc, &s.act[0][0], WIDTH, WIDTH, p.w[POINT_INFO], s.wt);
-  store<8, false, BF16>(acc, p.b[POINT_INFO], s.act);
+  gemm_segment<8, false>(acc, &s.act[0][0], WIDTH, WIDTH, p.w[POINT_INFO], s.wt);
+  store<8, false>(acc, p.b[POINT_INFO], s.act);
 
   // the view branch, 280 -> 128
   float acc4[ROWS][4];
   zero(acc4);
-  gemm_segment<4, BF16, true>(acc4, &s.enc_dir[0][0], DIR_ENC, DIR_ENC,
-                              p.w[DIR_INFO], s.wt);
-  gemm_segment<4, BF16>(acc4, &s.act[0][0], WIDTH, WIDTH,
-                        p.w[DIR_INFO] + DIR_ENC * (WIDTH / 2), s.wt);
-  store<4, true, BF16>(acc4, p.b[DIR_INFO], s.act);
+  gemm_segment<4, false>(acc4, &s.enc_dir[0][0], DIR_ENC, DIR_ENC, p.w[DIR_INFO], s.wt);
+  gemm_segment<4, false>(acc4, &s.act[0][0], WIDTH, WIDTH,
+                         p.w[DIR_INFO] + DIR_ENC * (WIDTH / 2), s.wt);
+  store<4, true>(acc4, p.b[DIR_INFO], s.act);
 
   // color, 128 -> 3
   for (int i = 0; i < ROWS; ++i) {
@@ -287,7 +289,7 @@ __device__ __forceinline__ void network_fwd(FwdSmem& s, const Params& p,
       const float h = s.act[row0 + i][k];
 #pragma unroll
       for (int c = 0; c < 3; ++c)
-        v[c] = fmaf(h, rnd<BF16>(__ldg(p.w[COLOR] + 3 * k + c)), v[c]);
+        v[c] = fmaf(h, __ldg(p.w[COLOR] + 3 * k + c), v[c]);
     }
     const int m = base + row0 + i;
 #pragma unroll

@@ -14,12 +14,13 @@
 // floats out).
 //
 // Design: the ray-major forward's tile machinery unchanged (64-row tiles,
-// activations in shared memory, weights streamed through a 16-row shared
-// K-tile, float32 FMA; field_common.cuh, network_fwd), with a row-major
-// encode in place of the (ray, sample) expansion. The ragged end of R is
-// masked; nothing is padded.
+// activations in shared memory, weights streamed from L2; float32 FMA in
+// the fp32 form, field_common.cuh's network_fwd; the tensor cores in the
+// bf16 form, field_tc.cuh's network_tc), with a row-major encode in place
+// of the (ray, sample) expansion. The ragged end of R is masked; nothing is
+// padded.
 
-#include "field_common.cuh"
+#include "field_tc.cuh"
 
 namespace {
 
@@ -31,10 +32,8 @@ field_flat_fwd_kernel(const float* __restrict__ points,
   extern __shared__ float4 smem_raw[];
   FwdSmem& s = *reinterpret_cast<FwdSmem*>(smem_raw);
   const int base = blockIdx.x * TILE_M;
-  encode_tile(RowCoord{points, dirs}, p.freqs, base, total, s.enc_pt, s.enc_dir);
-  network_fwd<BF16>(s, p, base, total, [&](int m, int ch, float v) {
-    out[4 * (size_t)m + ch] = v;
-  });
+  field_tile<BF16>(s, p, RowCoord{points, dirs}, base, total,
+                   [&](int m, int ch, float v) { out[4 * (size_t)m + ch] = v; });
 }
 
 }  // namespace
@@ -44,16 +43,26 @@ extern "C" {
 // Bytes of dynamic shared memory one block takes.
 int field_flat_fwd_smem_bytes() { return (int)sizeof(FwdSmem); }
 
+// bf16 elements of the `packed` buffer the bf16 form takes.
+int field_packed_weights_elems() { return PK_ELEMS; }
+
 // points, dirs: (n_rows, 3); out: (n_rows, 4) = [r, g, b, sigma]; all
 // float32, contiguous, on the current device. params: as for
-// field_rays_fwd. bf16: nonzero for the bf16 form. Launches on `stream` and
-// returns cudaGetLastError().
+// field_rays_fwd. bf16, packed: as for field_rays_fwd. Launches on `stream`
+// and returns the first launch error, or 0.
 int field_flat_fwd(const float* points, const float* dirs,
-                   const void* const* params, float* out, int n_rows, int bf16,
-                   void* stream) {
-  const Params p = unpack_params(params);
+                   const void* const* params, float* out, void* packed, int n_rows,
+                   int bf16, void* stream) {
+  Params p = unpack_params(params);
   if (n_rows <= 0) return 0;
   if (n_rows > 0x7fffffff - TILE_M) return (int)cudaErrorInvalidValue;
+  if (bf16) {
+    if (packed == nullptr) return (int)cudaErrorInvalidValue;
+    __nv_bfloat16* wb = static_cast<__nv_bfloat16*>(packed);
+    p.wb = wb;
+    const int e = pack_weights(p, wb, static_cast<cudaStream_t>(stream), false);
+    if (e != 0) return e;
+  }
   auto kernel = bf16 ? &field_flat_fwd_kernel<true> : &field_flat_fwd_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(FwdSmem));

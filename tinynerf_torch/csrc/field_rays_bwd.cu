@@ -17,26 +17,32 @@
 // What bounds it: FLOPs. A row costs 3x the forward's 1,182,976
 // FLOP (recompute, input gradients, weight gradients).
 //
-// Design (a simple first kernel; wgmma, TMA and 3xTF32 are later work). The
-// TPU kernel keeps a 1024-row tile's eight trunk activations in VMEM and
-// accumulates the weight gradients across its sequential grid. On Hopper a
-// 64-row tile's activations alone (512 KB) exceed a block's 227 KB of
-// shared memory, and blocks run concurrently, so one call is four launches,
-// all on `stream`:
-// 1. transpose: every weight matrix the input-gradient products read is
-//    copied transposed (and zero-padded to a multiple of 32 columns) into
-//    the workspace, so those products reuse the forward's streamed K-tile
-//    GEMM (field_common.cuh) unchanged;
+// Design. The TPU kernel keeps a 1024-row tile's eight trunk activations
+// in VMEM and accumulates the weight gradients across its sequential grid.
+// On Hopper a 64-row tile's activations alone (512 KB in float32) exceed a
+// block's 227 KB of shared memory, and blocks run concurrently, so one call
+// is a few launches, all on `stream`:
+// 1. the weights, for the products' use: fp32, every weight matrix the
+//    input-gradient products read is copied transposed (and zero-padded to
+//    a multiple of 32 columns) into the workspace, so those products reuse
+//    the forward's streamed K-tile GEMM (field_common.cuh) unchanged; bf16,
+//    all of them packed into bf16 once (field_tc.cuh's pack_weights), which
+//    the input-gradient products read untransposed through ldmatrix;
 // 2. recompute + input gradients, per 64-row tile: the forward of
 //    field_rays_fwd.cu, saving each layer's input to a workspace A, then
-//    the heads' gradients and the chain down the trunk with the transposed
-//    weights, saving each layer's pre-activation gradient to a workspace G;
-//    then the encoding's backward and the per-ray sums. A block owns whole
-//    rays (max(1, 64 / N) of them, in 64-row sub-tiles), so the per-ray
-//    sums need no second pass;
+//    the heads' gradients and the chain down the trunk, saving each layer's
+//    pre-activation gradient to a workspace G; then the encoding's backward
+//    and the per-ray sums. A block owns whole rays (max(1, 64 / N) of them,
+//    in 64-row sub-tiles), so the per-ray sums need no second pass. The
+//    fp32 form runs float32 FMA and keeps A and G in float32; the bf16 form
+//    runs its products on the tensor cores (mma.sync, f32 accumulation) and
+//    keeps A and G in bf16, the heads' gradients and trunk_4's share of the
+//    encoding's gradient in a float32 side area, which halves their traffic;
 // 3. weight gradients: dW = A^T G and db = sum G for all 12 layers as one
-//    launch of 64 x 64 output tiles, split over the rows into fixed
-//    SPLIT_ROWS slices, each slice's partial sums written to its own buffer;
+//    launch of output tiles (fp32: 64 x 64, float32 FMA; bf16: 128 x 128 on
+//    the tensor cores, the heads on float32 FMA), split over the rows into
+//    fixed slices (SPLIT_ROWS; WB_SPLIT at bf16), each slice's partial sums
+//    written to its own buffer;
 // 4. reduce: the slices' partials summed in a fixed order.
 // No atomics: a call is deterministic. Rows are processed in chunks of at
 // most CHUNK_ROWS (whole rays), the weight gradients accumulating across

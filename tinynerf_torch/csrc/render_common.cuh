@@ -9,10 +9,11 @@
 // A block owns `rpb` whole rays. Their per-sample state (t, sigma, r, g, b
 // at every coarse and fine sample, the coarse weights and cdf) lives in
 // shared memory after the field's FwdSmem, so device memory sees only the
-// rays in and the colors out. The field passes reuse field_common.cuh's
-// encode_tile / network_fwd on the block's rows (ray-major, coarse then
-// fine); the tail between them runs one thread per ray (the sums, the
-// merge) or one thread per fine sample (the resample).
+// rays in and the colors out. The field passes run field_tc.cuh's
+// field_tile on the block's rows (ray-major, coarse then fine: fp32 through
+// field_common.cuh's encode_tile / network_fwd, bf16 on the tensor cores
+// in the same shared memory); the tail between them runs one thread per
+// ray (the sums, the merge) or one thread per fine sample (the resample).
 //
 // Numerics follow the plain PyTorch version: every product, sum and
 // quotient of the tail is a rounded intrinsic (__fmul_rn, __fadd_rn,
@@ -23,7 +24,7 @@
 
 #include <algorithm>
 
-#include "field_common.cuh"
+#include "field_tc.cuh"
 
 namespace {
 
@@ -102,12 +103,9 @@ struct TileCoord {
 template <bool BF16>
 __device__ void field_pass(FwdSmem& s, const Params& p, TileCoord coord, int rows,
                            float* sig, float* const* col) {
-  for (int base = 0; base < rows; base += TILE_M) {
-    encode_tile(coord, p.freqs, base, rows, s.enc_pt, s.enc_dir);
-    network_fwd<BF16>(s, p, base, rows, [&](int m, int ch, float v) {
-      (ch == 3 ? sig : col[ch])[m] = v;
-    });
-  }
+  for (int base = 0; base < rows; base += TILE_M)
+    field_tile<BF16>(s, p, coord, base, rows,
+                     [&](int m, int ch, float v) { (ch == 3 ? sig : col[ch])[m] = v; });
   __syncthreads();
 }
 

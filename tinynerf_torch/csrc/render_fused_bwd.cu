@@ -225,7 +225,14 @@ int render_fused_bwd(const float* origins, const float* dirs, const float* t_co,
   const size_t smem = render_smem_bytes(rpb, n_coarse, n_fine, true);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Params p = unpack_params(params);
+  Params p = unpack_params(params);
+  if (bf16) {
+    // the tail's forward reads the packed weights where kernel 2 packs them
+    __nv_bfloat16* wb = reinterpret_cast<__nv_bfloat16*>(workspace);
+    p.wb = wb;
+    const int e = pack_weights(p, wb, st, false);
+    if (e != 0) return e;
+  }
 
   const long long b = n_rays, nm = std::max(n_coarse, n_fine);
   float* f = workspace + field_ws_floats(n_rays, n_coarse, n_fine);

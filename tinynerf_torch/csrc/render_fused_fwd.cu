@@ -16,13 +16,14 @@
 // the two field passes (the per-sample sigma and color, weights, cdf, fine
 // t's) stays in shared memory (render_common.cuh).
 //
-// Design (a simple first kernel; wgmma and a parallel tail are later work).
+// Design (a simple first kernel; a parallel tail is later work).
 // The TPU kernel's triangular-matmul cumsums, one-hot gathers, (T, N_c,
 // N_f) compare masks and sentinels are lane workarounds and are not
 // carried over: the lists are sorted, so the merge is a two-pointer walk.
 // - a block of 256 threads owns max(1, 64 / N_c) whole rays (one ray at
-//   N_c = 64): the coarse rows as 64-row tiles through field_common.cuh's
-//   network, then one thread a ray for the weights and the coarse color,
+//   N_c = 64): the coarse rows as 64-row tiles through the field kernels'
+//   tile (field_tc.cuh's field_tile: float32 FMA, or the tensor cores at
+//   bf16), then one thread a ray for the weights and the coarse color,
 //   one thread a fine sample for the resample (a count over the N_c cdf
 //   values), the fine rows as tiles, and one thread a ray for the merge;
 // - the block's shared memory is the field's 103 KB tile plus 4.4 KB of
@@ -70,29 +71,43 @@ int render_fused_fwd_smem_bytes(int n_coarse, int n_fine) {
                                 n_fine, false);
 }
 
+// bf16 elements of the `packed` buffer the bf16 form takes.
+int field_packed_weights_elems() { return PK_ELEMS; }
+
 // origins, dirs, c_co, c_fi: (n_rays, 3); t_co: (n_rays, n_coarse), sorted
 // per ray; near, far: (n_rays,); t_fi: null, or (n_rays, n_fine) for the
 // fine t's (for checks); all float32, contiguous, on the current device.
 // params: 25 device pointers, as for field_rays_fwd. white: nonzero for the
-// white-background term; bf16: nonzero for the bf16 form. Launches
-// on `stream` and returns cudaGetLastError(), or cudaErrorInvalidValue for
-// sample counts whose state does not fit in a block.
+// white-background term; bf16: nonzero for the bf16 form, which packs the
+// weights into `packed` (field_packed_weights_elems() bf16, 16-byte
+// aligned; null for fp32). Launches on `stream` and returns the first
+// launch error, or cudaErrorInvalidValue for sample counts whose state does
+// not fit in a block.
 int render_fused_fwd(const float* origins, const float* dirs, const float* t_co,
                      const float* near, const float* far, const void* const* params,
-                     float* c_co, float* c_fi, float* t_fi, int n_rays, int n_coarse,
-                     int n_fine, int white, int bf16, void* stream) {
+                     float* c_co, float* c_fi, float* t_fi, void* packed, int n_rays,
+                     int n_coarse, int n_fine, int white, int bf16, void* stream) {
   if (n_rays <= 0) return 0;
   if (n_coarse < 2 || n_fine < 1) return (int)cudaErrorInvalidValue;
   const int rpb = rays_per_block(n_coarse, n_fine, false);
   const size_t smem = render_smem_bytes(rpb, n_coarse, n_fine, false);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Params p = unpack_params(params);
+  if (bf16) {
+    if (packed == nullptr) return (int)cudaErrorInvalidValue;
+    __nv_bfloat16* wb = static_cast<__nv_bfloat16*>(packed);
+    p.wb = wb;
+    const int e = pack_weights(p, wb, st, false);
+    if (e != 0) return e;
+  }
   auto kernel = bf16 ? &render_fused_fwd_kernel<true> : &render_fused_fwd_kernel<false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(n_rays + rpb - 1) / rpb, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      origins, dirs, t_co, near, far, unpack_params(params), c_co, c_fi, t_fi, n_rays,
-      n_coarse, n_fine, rpb, white);
+  kernel<<<(n_rays + rpb - 1) / rpb, THREADS, smem, st>>>(
+      origins, dirs, t_co, near, far, p, c_co, c_fi, t_fi, n_rays, n_coarse, n_fine, rpb,
+      white);
   return (int)cudaGetLastError();
 }
 

@@ -16,6 +16,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -119,3 +120,32 @@ def load_library(source: str) -> ctypes.CDLL:
             _build([source])
             _libs[source] = ctypes.CDLL(_lib_path(source))
         return _libs[source]
+
+
+def _demangle(names: List[str]) -> List[str]:
+    """Readable kernel names through the toolkit's ``cu++filt``, else the
+    mangled ones."""
+    tool = os.path.join(os.path.dirname(os.path.realpath(find_nvcc())), "cu++filt")
+    if not os.path.isfile(tool):
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True,
+                         check=True).stdout.splitlines()
+    return out if len(out) == len(names) else names
+
+
+def mma_counts(source: str) -> Dict[str, int]:
+    """For each kernel in the built library of ``csrc/<source>``, the number
+    of tensor-core instructions (``HMMA``, ``HGMMA``) in its SASS, read with
+    the toolkit's ``cuobjdump -sass``. Build the library first."""
+    tool = os.path.join(os.path.dirname(os.path.realpath(find_nvcc())), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", _lib_path(source)], capture_output=True,
+                          text=True, check=True).stdout
+    names, counts = [], []
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            names.append(found.group(1))
+            counts.append(0)
+        elif names and re.search(r"\bH(G)?MMA\b", line):
+            counts[-1] += 1
+    return dict(zip(_demangle(names), counts))

@@ -23,7 +23,8 @@ Counterpart of ``tinynerf/kernels/mlp_kernel.py``:
 
 Each takes ``precision``: ``"fp32"``, or ``"bf16"``, the TPU kernels'
 ``compute_dtype=bfloat16`` form (``mlp.apply_network``'s rounding: weights,
-encodings and activations rounded to bfloat16, sums in float32).
+encodings and activations rounded to bfloat16, sums in float32), whose
+kernels run their products on the tensor cores (``csrc/field_tc.cuh``).
 
 - On CPU tensors each runs its plain PyTorch version (``field_rays_plain``,
   ``field_rays_bwd_plain``, ``field_flat_plain``, ``field_flat_bwd_plain``),
@@ -213,13 +214,16 @@ def _library(source: str) -> ctypes.CDLL:
     from tinynerf_torch.kernels.build import load_library
     lib = load_library(source)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
+    if source in (FWD_SOURCE, FLAT_SOURCE):
+        lib.field_packed_weights_elems.argtypes = []
+        lib.field_packed_weights_elems.restype = i32
     if source == FWD_SOURCE:
-        lib.field_rays_fwd.argtypes = [vp] * 8 + [i32, i32, i32, vp]
+        lib.field_rays_fwd.argtypes = [vp] * 9 + [i32, i32, i32, vp]
         lib.field_rays_fwd.restype = i32
         lib.field_rays_fwd_smem_bytes.argtypes = []
         lib.field_rays_fwd_smem_bytes.restype = i32
     elif source == FLAT_SOURCE:
-        lib.field_flat_fwd.argtypes = [vp] * 4 + [i32, i32, vp]
+        lib.field_flat_fwd.argtypes = [vp] * 5 + [i32, i32, vp]
         lib.field_flat_fwd.restype = i32
         lib.field_flat_fwd_smem_bytes.argtypes = []
         lib.field_flat_fwd_smem_bytes.restype = i32
@@ -270,6 +274,20 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def packed_weights(lib: ctypes.CDLL, precision: str, device: torch.device):
+    """The bf16 forms' scratch for the weights, which the kernel packs into
+    bf16 itself (``field_packed_weights_elems()`` elements); None at
+    fp32."""
+    if precision != "bf16":
+        return None
+    return torch.empty(lib.field_packed_weights_elems(), dtype=torch.bfloat16,
+                       device=device)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _launch(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
             ts: torch.Tensor, precision: str) -> Tuple[Planes, torch.Tensor]:
     device = origins.device
@@ -281,11 +299,12 @@ def _launch(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
     lib = _library(FWD_SOURCE)
     outs = [torch.empty((B, N), dtype=torch.float32, device=device)
             for _ in range(4)]
+    packed = packed_weights(lib, precision, device)
     with torch.cuda.device(device):
         err = lib.field_rays_fwd(
             origins.data_ptr(), dirs.data_ptr(), ts.data_ptr(), ptrs,
-            *[o.data_ptr() for o in outs], B, N, int(precision == "bf16"),
-            _stream(device))
+            *[o.data_ptr() for o in outs], _ptr(packed), B, N,
+            int(precision == "bf16"), _stream(device))
     if err != 0:
         raise RuntimeError(f"field_rays_fwd kernel launch failed: CUDA error {err}")
     field_rays.launches += 1
@@ -426,10 +445,11 @@ def _launch_flat(params: mlp.Params, points: torch.Tensor, dirs: torch.Tensor,
     ptrs = _param_ptrs(params, device)
     lib = _library(FLAT_SOURCE)
     out = torch.empty((R, 4), dtype=torch.float32, device=device)
+    packed = packed_weights(lib, precision, device)
     with torch.cuda.device(device):
         err = lib.field_flat_fwd(points.data_ptr(), dirs.data_ptr(), ptrs,
-                                 out.data_ptr(), R, int(precision == "bf16"),
-                                 _stream(device))
+                                 out.data_ptr(), _ptr(packed), R,
+                                 int(precision == "bf16"), _stream(device))
     if err != 0:
         raise RuntimeError(f"field_flat_fwd kernel launch failed: CUDA error {err}")
     field_flat.launches += 1

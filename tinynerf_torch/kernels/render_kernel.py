@@ -115,8 +115,10 @@ def _library(source: str) -> ctypes.CDLL:
     lib = load_library(source)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     if source == FWD_SOURCE:
-        lib.render_fused_fwd.argtypes = [vp] * 9 + [i32] * 5 + [vp]
+        lib.render_fused_fwd.argtypes = [vp] * 10 + [i32] * 5 + [vp]
         lib.render_fused_fwd.restype = i32
+        lib.field_packed_weights_elems.argtypes = []
+        lib.field_packed_weights_elems.restype = i32
         lib.render_fused_fwd_smem_bytes.argtypes = [i32, i32]
         lib.render_fused_fwd_smem_bytes.restype = i32
     else:
@@ -147,12 +149,13 @@ def _launch(params: mlp.Params, origins, dirs, t_co, near, far, n_fine: int,
     lib = _library(FWD_SOURCE)
     c_co, c_fi = (torch.empty((B, 3), dtype=torch.float32, device=device) for _ in range(2))
     t_fi = torch.empty((B, n_fine), dtype=torch.float32, device=device) if fine_ts else None
+    packed = mk.packed_weights(lib, precision, device)
     with torch.cuda.device(device):
         err = lib.render_fused_fwd(
             origins.data_ptr(), dirs.data_ptr(), t_co.data_ptr(), near.data_ptr(),
-            far.data_ptr(), ptrs, c_co.data_ptr(), c_fi.data_ptr(),
-            None if t_fi is None else t_fi.data_ptr(), B, n_coarse, n_fine,
-            int(white_bkgd), int(precision == "bf16"), mk._stream(device))
+            far.data_ptr(), ptrs, c_co.data_ptr(), c_fi.data_ptr(), mk._ptr(t_fi),
+            mk._ptr(packed), B, n_coarse, n_fine, int(white_bkgd),
+            int(precision == "bf16"), mk._stream(device))
     if err != 0:
         raise RuntimeError(f"render_fused_fwd kernel launch failed: CUDA error {err}")
     render_fused.launches += 1
