@@ -10,8 +10,10 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
    source, all at once) and prints each build's time and ``ptxas``'
    register/shared-memory report, and each kernel's count of tensor-core
    instructions (``HMMA``/``HGMMA``) in its SASS (``cuobjdump -sass``):
-   above 0 in every bf16 form of the field kernels (1-4, 9, 10), whose
-   products run on the tensor cores, and 0 in their fp32 forms;
+   above 0 in every bf16 form of the field kernels (1-4, 9, 10) and the
+   grid kernels (5, 6), whose products run on the tensor cores, and 0 in
+   their fp32 forms; it also builds kernel 6 with its phase clocks
+   (``GRID_PHASE_CLOCKS``, a library of its own that only phase 4 reads);
 3. holds each kernel form against its plain PyTorch version on the card, on
    dyadic inputs at the main paths' shapes (tolerances below): the field
    forward (kernel 1) at the render chunk's B=4096, and the field's
@@ -174,8 +176,12 @@ Kernels 5 and 6 (``csrc/grid_rays_fwd.cu``, ``csrc/grid_rays_bwd.cu``) are
 held against their plain versions in phase 3 (fp32 and bf16, at B = 4096
 with the fine grid at N = 128 and the proposal grid at N = 64, at ragged
 shapes and on grid nodes and the clip boundary; the backward bit-identical
-across two launches) and timed in phase 4 beside both bounds (the gather
-form's FLOPs and the bytes) and the TPU kernel's own hat-form FLOP count.
+across two launches) and timed in phase 4 (kernel 5 as the wrapper's call,
+as every kernel is, and as its bare launch, ``launch_ms``) beside both
+bounds (the gather form's FLOPs, in the bf16 forms the decoder's product at
+the tensor cores' rate and the rest at the f32 FMA rate; the bytes) and the
+TPU kernel's own hat-form FLOP count, with kernel 6's phase split
+(``grid_kernel.bwd_phase_split``).
 Kernels 7 and 8 (``csrc/prop_rays_fwd.cu``, ``csrc/prop_rays_bwd.cu``) are
 held against their plain versions in phase 3 (fp32 and bf16, at 128 x 4 with
 B = 4096, N = 64, at a ragged B = 1001 and at 64 x 3; fp32 forward within
@@ -256,6 +262,8 @@ FERN_STEPS = 20             # conf/fern_ndc.ini
 # the field kernels' sources, whose bf16 forms run their products on the tensor cores
 FIELD_SOURCES = ("field_rays_fwd.cu", "field_rays_bwd.cu", "field_flat_fwd.cu",
                  "field_flat_bwd.cu", "render_fused_fwd.cu", "render_fused_bwd.cu")
+# the grid kernels' sources: their bf16 forms run the decoder's products on the tensor cores
+GRID_SOURCES = ("grid_rays_fwd.cu", "grid_rays_bwd.cu")
 BF16_EDGE = (1001, 37)      # rows no multiple of 16 or of the 64-row tile
 GEMM_CHAIN_ROWS = 4096 * 128
 FERN_VIEWS = 4
@@ -335,11 +343,18 @@ def flat_grads(grads):
     return torch.cat([grads[n][k].flatten() for n in grads for k in ("w", "b")])
 
 
-def least_ms(flops: float, n_bytes: float, precision: str):
+def least_ms(flops: float, n_bytes: float, precision: str, tc_flops: float = None):
     """(bound ms, bound_by): the least time for ``flops`` at the peak rate of
-    their type and ``n_bytes`` at the memory rate."""
-    peak = PEAK_BF16_FLOPS if precision == "bf16" else PEAK_F32_FLOPS
-    ops_ms, bytes_ms = 1e3 * flops / peak, 1e3 * n_bytes / PEAK_BYTES
+    their type and ``n_bytes`` at the memory rate. With ``tc_flops`` (the
+    part a bf16 form can run on the tensor cores) the bf16 operations take
+    tc_flops at the tensor cores' rate plus the rest at the f32 FMA rate."""
+    if precision != "bf16":
+        ops_ms = 1e3 * flops / PEAK_F32_FLOPS
+    elif tc_flops is None:
+        ops_ms = 1e3 * flops / PEAK_BF16_FLOPS
+    else:
+        ops_ms = 1e3 * (tc_flops / PEAK_BF16_FLOPS + (flops - tc_flops) / PEAK_F32_FLOPS)
+    bytes_ms = 1e3 * n_bytes / PEAK_BYTES
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
@@ -757,16 +772,19 @@ def main() -> int:
     # ---- 2. build ----
     phase("build")
     t0 = time.perf_counter()
-    build.build_all()
+    build.build_all(variants=[(gk.BWD_SOURCE, gk.PHASE_DEFINES)])
     print(f"built {', '.join(sorted(build.build_log))} in parallel: "
           f"{time.perf_counter() - t0:.1f} s")
     smem = {mk.FWD_SOURCE: mk._library(mk.FWD_SOURCE).field_rays_fwd_smem_bytes(),
             mk.BWD_SOURCE: mk._library(mk.BWD_SOURCE).field_rays_bwd_smem_bytes(),
             mk.FLAT_SOURCE: mk._library(mk.FLAT_SOURCE).field_flat_fwd_smem_bytes(),
             mk.FLAT_BWD_SOURCE: mk._library(mk.FLAT_BWD_SOURCE).field_flat_bwd_smem_bytes()}
+    grid_smem = ((gk.FWD_SOURCE, gk._library(gk.FWD_SOURCE).grid_rays_fwd_smem_bytes),
+                 (gk.BWD_SOURCE, gk._library(gk.BWD_SOURCE).grid_rays_bwd_smem_bytes))
     for geometry, dims in GRID.items():
-        smem[f"{gk.FWD_SOURCE} {geometry}"] = gk._library(gk.FWD_SOURCE).grid_rays_fwd_smem_bytes(*dims)
-        smem[f"{gk.BWD_SOURCE} {geometry}"] = gk._library(gk.BWD_SOURCE).grid_rays_bwd_smem_bytes(*dims)
+        for bf, form_ in enumerate(("fp32", "bf16")):
+            for source, fn in grid_smem:
+                smem[f"{source} {geometry}_{form_}"] = fn(*dims, bf)
     smem[pk.FWD_SOURCE] = pk._library(pk.FWD_SOURCE).prop_rays_fwd_smem_bytes()
     for net, (width, _) in PROP_NETS.items():
         smem[f"{pk.BWD_SOURCE} {net}"] = pk._library(pk.BWD_SOURCE).prop_rays_bwd_smem_bytes(width)
@@ -786,7 +804,7 @@ def main() -> int:
         counts = build.mma_counts(source)
         print(f"{source}: HMMA/HGMMA per kernel: " + "; ".join(
             f"{short_kernel(name)} {n}" for name, n in counts.items()))
-        if source not in FIELD_SOURCES:
+        if source.split()[0] not in FIELD_SOURCES + GRID_SOURCES:
             continue
         for name, n in counts.items():
             form_ = kernel_form(name)
@@ -1177,8 +1195,8 @@ def main() -> int:
     # the new forms: (ms, plain ms, bound ms, bound_by, f32 FMA bound ms)
     flat_time, bf16_fwd_time, bf16_bwd_time = {}, {}, {}
 
-    def report(what, k_ms, p_ms, flops, n_bytes, precision):
-        b_ms, b_by = least_ms(flops, n_bytes, precision)
+    def report(what, k_ms, p_ms, flops, n_bytes, precision, tc_flops=None):
+        b_ms, b_by = least_ms(flops, n_bytes, precision, tc_flops)
         f32_ms = least_ms(flops, n_bytes, "fp32")[0]
         print(f"{what}: kernel_ms {k_ms:.3f} plain_ms {p_ms:.3f} bound_ms {b_ms:.4f} "
               f"({precision} {b_by} bound, {flops / 1e9:.1f} GFLOP; {100 * b_ms / k_ms:.2f}%); "
@@ -1251,14 +1269,22 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # kernels 5 and 6: (ms, plain ms, bound ms, bound_by, f32 FMA bound ms)
-    # per (precision, (B, N)); the bound counts the gather form's FLOPs
+    # per (precision, (B, N)); the bound counts the gather form's FLOPs, in
+    # the bf16 forms the decoder's product at the tensor cores' rate and the
+    # rest at the f32 FMA rate. Kernel 5's ms is the wrapper's call
+    # (gk.grid_rays, the encoding included), as every row is timed;
+    # grid_launch_ms times its bare launch (gk._launch, the encoding given).
+    # grid_split: kernel 6's phase split (the clock64 variant build).
     grid_fwd_time = {"fp32": {}, "bf16": {}}
     grid_bwd_time = {"fp32": {}, "bf16": {}}
+    grid_launch_ms = {"fp32": {}, "bf16": {}}
+    grid_split = {"fp32": {}, "bf16": {}}
     for (B, N), (geometry, o, d, ts, de, cots) in grid_inputs.items():
         params_g, dims = grid_params[geometry], GRID[geometry]
         nd = dims[1]
         n_grid = gridfield.num_params(params_g)
         flops = gk.flops_per_row(*dims) * B * N
+        tc_flops = gk.flops_split_per_row(*dims)[0] * B * N
         hat = gk.hat_flops_per_row(*dims) * B * N
         # in: origins, dirs, ts, the encoding, params; out: four planes
         fwd_bytes = 4 * (6 * B + B * N + 24 * B + n_grid + 4 * B * N)
@@ -1268,11 +1294,16 @@ def main() -> int:
         for precision in ("fp32", "bf16"):
             with torch.no_grad():
                 k_ms = cuda_ms(lambda: gk.grid_rays(params_g, o, d, ts, nd, precision), iters=20)
+                launch_ms = cuda_ms(lambda: gk._launch(params_g, o, d, ts, de, nd, precision),
+                                    iters=20)
                 p_ms = cuda_ms(lambda: gk.grid_rays_plain(params_g, o, d, ts, de, nd, precision),
                                iters=5)
+            grid_launch_ms[precision][B, N] = launch_ms
             grid_fwd_time[precision][B, N] = report(
                 f"kernel 5 {precision} {geometry} B={B} N={N}", k_ms, p_ms, flops, fwd_bytes,
-                precision)
+                precision, tc_flops)
+            print(f"  the bare launch (grid_kernel._launch, the encoding given): "
+                  f"{launch_ms:.3f} ms")
             k_ms = cuda_ms(lambda: gk.grid_rays_bwd(params_g, o, d, ts, de, *cots,
                                                      n_density=nd, precision=precision), iters=10)
             p_ms = cuda_ms(lambda: gk.grid_rays_bwd_plain(params_g, o, d, ts, de, *cots,
@@ -1280,11 +1311,16 @@ def main() -> int:
                            iters=3)
             grid_bwd_time[precision][B, N] = report(
                 f"kernel 6 {precision} {geometry} B={B} N={N}", k_ms, p_ms, 3 * flops,
-                bwd_bytes, precision)
+                bwd_bytes, precision, 3 * tc_flops)
+            split = grid_split[precision][B, N] = gk.bwd_phase_split(
+                params_g, o, d, ts, de, *cots, n_density=nd, precision=precision)
+            print("  kernel 6 phase split (clock64 variant, shares of the blocks' cycles): "
+                  + ", ".join(f"{k} {100 * v:.1f}% ({v * k_ms:.3f} ms)" for k, v in split.items()))
         print(f"  {geometry}: the TPU kernel's own hat-form count {hat / 1e9:.2f} GFLOP "
               f"forward ({gk.hat_flops_per_row(*dims):,} a row) against the gather form's "
-              f"{flops / 1e9:.3f} ({gk.flops_per_row(*dims):,} a row); bytes {fwd_bytes / 1e6:.2f} MB "
-              f"forward, {bwd_bytes / 1e6:.2f} MB backward, bytes bound "
+              f"{flops / 1e9:.3f} ({gk.flops_per_row(*dims):,} a row, "
+              f"{gk.flops_split_per_row(*dims)[0]:,} of it the decoder's product); bytes "
+              f"{fwd_bytes / 1e6:.2f} MB forward, {bwd_bytes / 1e6:.2f} MB backward, bytes bound "
               f"{1e3 * fwd_bytes / PEAK_BYTES:.4f} / {1e3 * bwd_bytes / PEAK_BYTES:.4f} ms")
     del grid_inputs
     torch.cuda.empty_cache()
@@ -2561,25 +2597,30 @@ def main() -> int:
                           "tinynerf_torch/csrc/grid_rays_bwd.cu")
     grid_shapes = [(B, N) for _, B, N in GRID_SHAPES]
     rows = {"flops_per_row": {g: gk.flops_per_row(*dims) for g, dims in GRID.items()},
+            "flops_split_per_row": {g: gk.flops_split_per_row(*dims) for g, dims in GRID.items()},
             "hat_flops_per_row": {g: gk.hat_flops_per_row(*dims) for g, dims in GRID.items()}}
+    launch = lambda precision: {"launch_ms": {shape_key(k): v for k, v in
+                                              grid_launch_ms[precision].items()}}
+    split = lambda precision: {"phase_split": {shape_key(k): v for k, v in
+                                               grid_split[precision].items()}}
     kernels += [
         form("grid_rays_fwd", gfwd_src, "tinynerf/kernels/grid_kernel.py:309",
              grid_fp32_launches[0], {"lego_grid fp32 train": grid_fp32_launches[0]},
-             grid_err["fwd fp32"], grid_fwd_time["fp32"], grid_shapes, rows),
+             grid_err["fwd fp32"], grid_fwd_time["fp32"], grid_shapes, {**rows, **launch("fp32")}),
         form("grid_rays_fwd_bf16", gfwd_src, "tinynerf/kernels/grid_kernel.py:309",
              grid_launches[0] + grid_render_launches + fast_launches[3],
              {"lego_grid train": grid_launches[0], "lego_grid render": grid_render_launches,
               "lego_fast train": fast_launches[3]},
-             grid_err["fwd bf16"], grid_fwd_time["bf16"], grid_shapes, rows),
+             grid_err["fwd bf16"], grid_fwd_time["bf16"], grid_shapes, {**rows, **launch("bf16")}),
         form("grid_rays_bwd", gbwd_src, "tinynerf/kernels/grid_kernel.py:344",
              grid_fp32_launches[1], {"lego_grid fp32 train": grid_fp32_launches[1]},
              grid_err["bwd fp32"], grid_bwd_time["fp32"], grid_shapes,
-             {"max_rel_err": grid_rel["bwd fp32"]}),
+             {"max_rel_err": grid_rel["bwd fp32"], **split("fp32")}),
         form("grid_rays_bwd_bf16", gbwd_src, "tinynerf/kernels/grid_kernel.py:344",
              grid_launches[1] + fast_launches[4],
              {"lego_grid train": grid_launches[1], "lego_fast train": fast_launches[4]},
              grid_err["bwd bf16"], grid_bwd_time["bf16"], grid_shapes,
-             {"max_rel_err": grid_rel["bwd bf16"]}),
+             {"max_rel_err": grid_rel["bwd bf16"], **split("bf16")}),
     ]
     pfwd_src, pbwd_src = ("tinynerf_torch/csrc/prop_rays_fwd.cu",
                           "tinynerf_torch/csrc/prop_rays_bwd.cu")

@@ -33,12 +33,14 @@ GEOMETRY = {  # (res, n_density, n_app, width), (B, N)
     "small": ((32, 8, 16, 32), (20, 9)),      # tests/test_grid_kernel.py's
     "lego": ((256, 64, 64, 128), (3, 8)),     # conf/lego_grid.ini's fine grid
     "odd": ((33, 4, 8, 16), None),            # R odd: coordinate 0 is a node
+    "wide": ((8, 64, 64, 256), (2, 3)),       # the backward over a block's shared memory
+    "many": ((8, 8, 256, 16), (2, 3)),        # over the kernels' 256 columns
 }
 # fp32: the JAX kernel test's bounds (color 1e-5, sigma 1e-5 and 1e-4 at
 # R = 256, every gradient 2e-5 of max|ref|); bf16: 2e-3 of max|ref| forward
 # and 1e-2 backward, as in slice 3 (measured: forward equal, the line
 # tables' gradients within 2.1e-3, all others within 4e-7)
-SIGMA_ATOL = {"small": 1e-5, "lego": 1e-4, "odd": 1e-5}
+SIGMA_ATOL = {"small": 1e-5, "lego": 1e-4, "odd": 1e-5, "wide": 1e-4, "many": 1e-5}
 GRAD_RTOL = {"fp32": 2e-5, "bf16": 1e-2}
 
 
@@ -194,3 +196,35 @@ def test_flop_counts():
     assert gk.flops_per_row(64, 16, 16, 16) == 1_840
     assert gk.hat_flops_per_row(256, 64, 64, 128) == jgk._flops_per_row(256, 128, 24, 128)
     assert gk.hat_flops_per_row(64, 16, 16, 16) == jgk._flops_per_row(64, 32, 24, 16)
+
+
+@pytest.mark.parametrize("dims,split", [((256, 64, 64, 128), (22_528, 2_624)),
+                                        ((64, 16, 16, 16), (1_280, 560)),
+                                        ((384, 64, 64, 128), (22_528, 2_624)),
+                                        ((32, 8, 16, 32), (2_560, 536))])
+def test_flop_split(dims, split):
+    """The split of the gather form's count into the decoder's product (the
+    tensor cores' share in the bf16 forms) and the elementwise rest: at the
+    fine and proposal grids, lego_hybrid's R = 384 and the small geometry;
+    its two parts sum to ``flops_per_row``."""
+    assert gk.flops_split_per_row(*dims) == split
+    assert sum(gk.flops_split_per_row(*dims)) == gk.flops_per_row(*dims)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("geometry", ["wide", "many"])
+def test_plain_path_takes_tiles_the_kernels_refuse(geometry, precision):
+    """A decoder of width 256 at F = 128 (its backward's tile is over a
+    block's shared memory in either form) and F = 264 (over the kernels' 256
+    table columns) run on CPU tensors, whose plain versions have no such
+    limit, and match the JAX kernels; the refusal is the launch's
+    (``_check_fits``), by name."""
+    B, N = GEOMETRY[geometry][1]
+    _compare(geometry, _rays(B, N, seed=B), precision)
+    dm = GEOMETRY[geometry][0]
+    if dm[1] + dm[2] > gk.MAX_F:
+        with pytest.raises(ValueError, match="F <= 256"):
+            gk._check_fits(lambda *a: 0, dm, precision)
+    with pytest.raises(ValueError, match="shared memory"):
+        gk._check_fits(lambda *a: gk.MAX_SMEM + 1, dm[:1] + (8, 8, dm[3]), precision)
+    gk._check_fits(lambda *a: gk.MAX_SMEM, dm[:1] + (8, 8, dm[3]), precision)

@@ -318,7 +318,8 @@ from tinynerf_torch.core import gridfield  # noqa: E402
 from tinynerf_torch.kernels import grid_kernel as gk  # noqa: E402
 
 GRID = {"fine": (256, 64, 64, 128),   # conf/lego_grid.ini's fine grid
-        "prop": (64, 16, 16, 16)}     # its proposal grid
+        "prop": (64, 16, 16, 16),     # its proposal grid
+        "hybrid": (384, 64, 64, 128)}  # conf/lego_hybrid.ini's resolution: a 590 KB partial
 GRID_MARGIN = 1e-5   # rows this close to a ReLU's kink or to sigma = 0: no cotangent
 
 
@@ -342,6 +343,14 @@ def _grid_rays(seed, B, N):
     dirs = q(d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
     ts = np.sort(q(rng.uniform(0.0, 2.5, (B, N))).astype(np.float32), axis=1)
     return origins, dirs, ts
+
+
+def _one_cell_rays(seed, B, N):
+    """Rays whose samples, 2^-16 apart, all fall in one cell of the fine grid
+    (or two, where a ray starts by a cell's edge): the longest runs of rows
+    that the backward's table gradient merges."""
+    origins, dirs, ts = _grid_rays(seed, B, 1)
+    return origins, dirs, ts + np.arange(N, dtype=np.float32) * np.float32(2.0 ** -16)
 
 
 def _node_rays(N):
@@ -369,18 +378,24 @@ def _grid_errors(kernel, plain):
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
 @pytest.mark.parametrize("geometry,n_rays,n_samples", [
     ("fine", 4096, 128), ("prop", 4096, 64), ("fine", 13, 7), ("prop", 37, 5),
-    ("fine", "nodes", 8)])
+    ("fine", "nodes", 8), ("fine", "cell", 128), ("fine", 300, 100), ("fine", 300, 200),
+    ("fine", 1, 128), ("prop", 13, 64), ("hybrid", 1024, 128)])
 def test_grid_kernels_match_plain_on_card(geometry, n_rays, n_samples, precision):
     """Kernels 5 and 6 at conf/lego_grid.ini's fine (N = 128) and proposal
     (N = 64) grids at B = 4096, at ragged shapes and at grid-node hits and
-    the clip boundary. fp32: color 1e-5, sigma 1e-4 abs + 1e-4 rel, every
+    the clip boundary; and at the edges of the tiles and the table
+    gradient's run merging: rays whose samples all fall in one cell, rays of
+    N = 100 and 200 (across the 64-row tiles), fewer rays than the
+    backward's slices (B = 1, 13), and R = 384 (lego_hybrid.ini). fp32: color 1e-5, sigma 1e-4 abs + 1e-4 rel, every
     gradient within 1e-4 of max|plain|; bf16: each output within
     BF16_FWD_RTOL, each gradient within BF16_BWD_RTOL of max|plain| and at
     cosine >= BF16_COS. Rows within 1e-5 of a ReLU kink or of sigma = 0 get
     zero cotangents. Two backward calls agree bit for bit."""
     dev = _card()
     params, nd = _grid_params(geometry, dev, seed=n_samples)
-    rays = _node_rays(n_samples) if n_rays == "nodes" else _grid_rays(7, n_rays, n_samples)
+    rays = (_node_rays(n_samples) if n_rays == "nodes"
+            else _one_cell_rays(7, 512, n_samples) if n_rays == "cell"
+            else _grid_rays(7, n_rays, n_samples))
     o, d, t = (torch.from_numpy(a).to(dev) for a in rays)
     de = gk.encoding.encode_dirs(d)
     before = (gk.grid_rays.launches, gk.grid_rays_bwd.launches)
@@ -416,6 +431,40 @@ def test_grid_kernels_match_plain_on_card(geometry, n_rays, n_samples, precision
         assert min(e[1] for e in errors.values()) >= BF16_COS, errors
     assert all(e[0] == 0 for e in _grid_errors(kernel, again).values())
     assert float(kernel[0]["extent"]) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_grid_wrappers_refuse_tiles_that_do_not_fit_on_card(precision):
+    """On CUDA tensors F = 264 (over the kernels' 256 table columns) is
+    refused by name before any launch in both directions, and a decoder of
+    width 256 at F = 128 in the backward, whose tile (dW1 held in shared
+    memory) is over a block's, by the library's own count; its forward fits
+    and launches. Every geometry of conf/ fits."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(0)
+    o, d, t = (torch.from_numpy(a).to(dev) for a in _grid_rays(7, 2, 3))
+    de, cots = gk.encoding.encode_dirs(d), [torch.ones_like(t)] * 4
+    bf16 = int(precision == "bf16")
+    for (nd, na, width), fwd_fits, match in (((64, 64, 256), True, "shared memory"),
+                                             ((8, 256, 16), False, "F <= 256")):
+        params = gridfield.init_grid_field(gen, res=8, n_density=nd, n_app=na,
+                                           decoder_width=width, device=dev)
+        before = gk.grid_rays.launches
+        if fwd_fits:
+            gk.grid_rays(params, o, d, t, nd, precision)
+        else:
+            with pytest.raises(ValueError, match=match):
+                gk.grid_rays(params, o, d, t, nd, precision)
+        assert gk.grid_rays.launches == before + fwd_fits
+        before = gk.grid_rays_bwd.launches
+        with pytest.raises(ValueError, match=match):
+            gk.grid_rays_bwd(params, o, d, t, de, *cots, n_density=nd, precision=precision)
+        assert gk.grid_rays_bwd.launches == before
+    assert gk._library(gk.BWD_SOURCE).grid_rays_bwd_smem_bytes(8, 64, 64, 256, bf16) > gk.MAX_SMEM
+    for dims in GRID.values():
+        assert gk._library(gk.FWD_SOURCE).grid_rays_fwd_smem_bytes(*dims, bf16) <= gk.MAX_SMEM
+        assert gk._library(gk.BWD_SOURCE).grid_rays_bwd_smem_bytes(*dims, bf16) <= gk.MAX_SMEM
 
 
 # ---------------------------------------------------------------- the proposal MLP

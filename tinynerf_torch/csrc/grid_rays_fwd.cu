@@ -11,84 +11,66 @@
 //
 // What bounds it: the card's least time for this work is its FLOPs (the
 // decoder's products, 2 * (24 + Fa) * W + 6 * W per row, plus the lerps) at
-// the float32 FMA rate, and at bf16 the bytes (t in; four planes out) are
-// close behind. What this kernel is held by is shared-memory and L2 traffic:
-// per row the lerps read six table rows of F floats from L2 (3 KB a row at
-// the fine geometry, 1.6 GB per fine forward at B = 4096, N = 128), and the
-// hidden layer reads its operands from shared memory, 1.25 loads per FMA.
+// the float32 FMA rate; in the bf16 form the decoder runs on the tensor
+// cores and the lerps, the CP products and the sigma sum bound it at the
+// FMA rate, with the bytes (t in; four planes out) close behind. What holds
+// the kernel is L2 and shared-memory traffic: per row the lerps read six
+// table rows of F values from L2 (bf16 tables in the bf16 form: 1.5 KB a
+// row at the fine geometry, 0.8 GB per fine forward at B = 4096, N = 128).
 //
-// Design (a simple first kernel):
-// - each block stages W1 (rounded with BF16, rows padded to W + 1) and W2
-//   in shared memory once, then walks the flat B*N rows in 32-row tiles
-//   (grid-stride), masking the ragged end instead of padding;
-// - per tile: 96 threads make the taps; every thread then takes (row,
-//   feature) elements, reading the two table rows per axis from L2 (float32
-//   tables: 393 KB at the fine geometry, 24 KB for the proposal), and writes
-//   the product next to the row's encoding; one warp per row sums sigma and,
-//   after the hidden layer (each thread 4 rows x 1 column), the color head.
-// - Staging the tables themselves in shared memory (bf16: 196 KB for the
-//   three fine axes, under the 227 KB limit) would take the gathers off L2:
-//   later work, with bf16 tensor-core products for the decoder.
-
-#include <algorithm>
+// Design:
+// - the bf16 form packs the tables to bf16 first (one launch, pack_tables);
+// - each block stages W1 and W2 (rounded with BF16) in shared memory once,
+//   then walks the flat B*N rows in tiles (grid-stride, 64 rows in the bf16
+//   form, 32 in fp32), masking the ragged end instead of padding; the
+//   blocks fill the card (as many a multiprocessor as its shared memory and
+//   registers allow);
+// - per tile (grid_common.cuh): the taps, then one warp a row reads the six
+//   table rows and writes the products and sigma_pre; the hidden layer (bf16:
+//   mma.sync units of 16 x 16 outputs, one warp each; fp32: FMAs); one warp
+//   a row for the color head.
 
 #include "grid_common.cuh"
 
 namespace {
 
-constexpr int MAX_BLOCKS = 1024;
-
-// Shared memory of one block, carved from one float buffer (`base` null:
-// offsets only, for the size).
-struct FwdLayout {
-  float *w1s, *w2s, *x, *hp;
-  TileTaps tp;
-  size_t bytes;
-  __host__ __device__ FwdLayout(const Dims& dm, float* base) {
-    const int W = dm.width;
-    size_t q = 0;
-    w1s = carve(base, q, (size_t)dm.K() * (W + 1));
-    w2s = carve(base, q, (size_t)W * 3);
-    x = carve(base, q, (size_t)TILE * dm.XS());
-    hp = carve(base, q, (size_t)TILE * W);
-    tp.w0 = carve(base, q, TILE * 3);
-    tp.w1 = carve(base, q, TILE * 3);
-    tp.i0 = reinterpret_cast<int*>(carve(base, q, TILE * 3));
-    tp.i1 = reinterpret_cast<int*>(carve(base, q, TILE * 3));
-    tp.m0 = tp.m1 = tp.clip_grad = nullptr;
-    bytes = q * sizeof(float);
-  }
-};
-
 template <bool BF16>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(MAX_THREADS)
 grid_rays_fwd_kernel(Rays rays, GridParams p, Dims dm, float* __restrict__ sigma_out,
                      float* __restrict__ r_out, float* __restrict__ g_out,
                      float* __restrict__ b_out, long long total) {
+  constexpr int TILE = Form<BF16>::TILE;
   extern __shared__ float4 smem_raw[];
-  FwdLayout L(dm, reinterpret_cast<float*>(smem_raw));
-  stage_decoder<BF16>(p, dm, L.w1s, L.w2s);
+  Carver c(smem_raw);
+  const TileBufs<BF16> L(dm, c, false);
+  stage_decoder<BF16>(p, dm, L);
+  const Tables<BF16> tabs(p, dm);
   const float ext = __ldg(p.ext);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (long long base = (long long)blockIdx.x * TILE; base < total;
        base += (long long)gridDim.x * TILE) {
-    load_tile<BF16, false>(rays, p, dm, ext, base, total, L.x, L.tp, nullptr);
-    for (int r = warp; r < TILE; r += THREADS / 32) {
-      const float s = row_sigma_pre(dm, L.x, r);
-      if (lane == 0 && base + r < total) sigma_out[base + r] = fabsf(s);
-    }
-    hidden_layer(p, dm, L.x, L.w1s, L.hp);
-    for (int r = warp; r < TILE; r += THREADS / 32) {
+    load_tile<BF16, false>(rays, tabs, dm, ext, base, total, L, nullptr);
+    for (int r = threadIdx.x; r < TILE; r += nthreads())
+      if (base + r < total) sigma_out[base + r] = fabsf(L.sig[r]);
+    hidden_layer<BF16>(p, dm, L);
+    for (int r = warp; r < TILE; r += nwarps()) {
       float col[3];
-      row_color<BF16>(p, dm, L.hp, L.w2s, r, col);
+      row_color<BF16>(p, dm, L, r, col);
       if (lane == 0 && base + r < total) {
         r_out[base + r] = col[0];
         g_out[base + r] = col[1];
         b_out[base + r] = col[2];
       }
     }
-    __syncthreads();  // the next tile overwrites x, hp and the taps
+    __syncthreads();  // the next tile overwrites hin, hp and the taps
   }
+}
+
+template <bool BF16>
+size_t fwd_smem(const Dims& dm) {
+  Carver c(nullptr);
+  TileBufs<BF16> t(dm, c, false);
+  return c.q;
 }
 
 }  // namespace
@@ -96,33 +78,57 @@ grid_rays_fwd_kernel(Rays rays, GridParams p, Dims dm, float* __restrict__ sigma
 extern "C" {
 
 // Bytes of dynamic shared memory one block takes at these dimensions.
-int grid_rays_fwd_smem_bytes(int res, int nd, int na, int width) {
-  return (int)FwdLayout(Dims{res, nd, na, width}, nullptr).bytes;
+int grid_rays_fwd_smem_bytes(int res, int nd, int na, int width, int use_bf16) {
+  const Dims dm{res, nd, na, width};
+  return (int)(use_bf16 ? fwd_smem<true>(dm) : fwd_smem<false>(dm));
+}
+
+// Float32 elements of workspace grid_rays_fwd needs: the bf16 form's packed
+// tables.
+long long grid_rays_fwd_workspace_floats(int res, int nd, int na, int use_bf16) {
+  return use_bf16 ? packed_table_elems(Dims{res, nd, na, 16}) / 2 : 0;
 }
 
 // origins, dirs: (n_rays, 3); ts and the four outputs: (n_rays, n_samples);
 // de: (n_rays, 24); all float32, contiguous, on the current device. params:
 // 8 device pointers: the x, y, z line tables (res, nd + na), W1 (24 + na,
 // width), b1 (width), W2 (width, 3), b2 (3), extent (one float). width must
-// divide 256. bf16: nonzero for the bf16 form. Launches on `stream` and
-// returns the launch error, or 0.
+// divide 256, nd + na be at most 256. use_bf16: nonzero for the bf16 form.
+// workspace: grid_rays_fwd_workspace_floats(...) floats, 16-byte aligned.
+// Launches on `stream` and returns the first launch error, or 0.
 int grid_rays_fwd(const float* origins, const float* dirs, const float* ts,
                   const float* de, const void* const* params, float* sigma, float* r,
-                  float* g, float* b, int n_rays, int n_samples, int res, int nd,
-                  int na, int width, int bf16, void* stream) {
+                  float* g, float* b, float* workspace, int n_rays, int n_samples, int res,
+                  int nd, int na, int width, int use_bf16, void* stream) {
   const Dims dm{res, nd, na, width};
   if (int bad = check_dims(dm)) return bad;
   const long long total = (long long)n_rays * n_samples;
   if (total <= 0) return 0;
-  const GridParams p = unpack_grid_params(params);
-  const size_t smem = FwdLayout(dm, nullptr).bytes;
-  auto kernel = bf16 ? &grid_rays_fwd_kernel<true> : &grid_rays_fwd_kernel<false>;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = use_bf16 ? fwd_smem<true>(dm) : fwd_smem<false>(dm);
+  if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+  auto kernel = use_bf16 ? &grid_rays_fwd_kernel<true> : &grid_rays_fwd_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (int)std::min<long long>(ceil_div(total, TILE), MAX_BLOCKS);
-  kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      Rays{origins, dirs, ts, de, n_samples}, p, dm, sigma, r, g, b, total);
+  auto* tab16 = reinterpret_cast<__nv_bfloat16*>(workspace);
+  if (use_bf16) {
+    if (int e = pack_tables(params, dm, tab16, st)) return e;
+  }
+  const GridParams p = unpack_grid_params(params, tab16);
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+      cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads_for(dm), smem)) !=
+      cudaSuccess)
+    return (int)err;
+  const int tile = use_bf16 ? Form<true>::TILE : Form<false>::TILE;
+  const int blocks = (int)std::min<long long>(ceil_div(total, tile),
+                                              (long long)sms * std::max(per_sm, 1));
+  kernel<<<blocks, threads_for(dm), smem, st>>>(Rays{origins, dirs, ts, de, n_samples}, p, dm, sigma,
+                                        r, g, b, total);
   return (int)cudaGetLastError();
 }
 

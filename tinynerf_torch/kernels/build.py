@@ -55,71 +55,86 @@ def _ptxas_lines(text: str) -> List[str]:
             if "registers" in ln or "spill" in ln or "smem" in ln]
 
 
-def _lib_path(source: str) -> str:
-    """Where ``csrc/<source>`` builds to: named by a hash of the source, the
-    shared headers and the flags."""
+def _flags(defines) -> List[str]:
+    return NVCC_FLAGS + [f"-D{d}" for d in defines]
+
+
+def _lib_path(source: str, defines=()) -> str:
+    """Where ``csrc/<source>`` builds to (with ``-D`` for each of
+    ``defines``): named by a hash of the source, the shared headers and the
+    flags."""
     h = hashlib.sha256()
     for path in [os.path.join(CSRC_DIR, source)] + sorted(
             glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
 
 
-def _build(sources: List[str]) -> None:
-    """Compile every source whose library is missing, one ``nvcc`` process
-    per source, all started together; record each one's seconds and ptxas
-    report in ``build_log``. Call with ``_lock`` held."""
+def _key(source: str, defines=()) -> str:
+    """``build_log``'s and the loaded libraries' key of a build: the source,
+    then each define after a space."""
+    return " ".join([source, *defines])
+
+
+def _build(builds) -> None:
+    """Compile every (source, defines) build whose library is missing, one
+    ``nvcc`` process each, all started together; record each one's seconds
+    and ptxas report in ``build_log``. Call with ``_lock`` held."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     running = {}
     t0 = time.perf_counter()
-    for source in sources:
-        lib_path = _lib_path(source)
+    for source, defines in builds:
+        lib_path = _lib_path(source, defines)
         if not os.path.isfile(lib_path):
             tmp = f"{lib_path}.{os.getpid()}.tmp"
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+            cmd = [find_nvcc(), *_flags(defines), "-o", tmp,
                    os.path.join(CSRC_DIR, source)]
-            running[source] = (tmp, subprocess.Popen(
+            running[source, defines] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
     failed = []
-    for source, (tmp, proc) in running.items():
+    for (source, defines), (tmp, proc) in running.items():
         out, _ = proc.communicate()
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
-            failed.append(f"nvcc failed on {source} ({proc.returncode}):\n{out}")
+            failed.append(f"nvcc failed on {_key(source, defines)} ({proc.returncode}):\n{out}")
             continue
-        lib_path = _lib_path(source)
+        lib_path = _lib_path(source, defines)
         with open(lib_path + ".log", "w") as f:
             f.write(out)
         os.replace(tmp, lib_path)
-        build_log[source] = {"seconds": seconds, "ptxas": _ptxas_lines(out)}
+        build_log[_key(source, defines)] = {"seconds": seconds, "ptxas": _ptxas_lines(out)}
     if failed:
         raise RuntimeError("\n".join(failed))
-    for source in sources:
-        if source not in build_log:
-            with open(_lib_path(source) + ".log") as f:
-                build_log[source] = {"seconds": 0.0,
-                                     "ptxas": _ptxas_lines(f.read())}
+    for source, defines in builds:
+        if _key(source, defines) not in build_log:
+            with open(_lib_path(source, defines) + ".log") as f:
+                build_log[_key(source, defines)] = {"seconds": 0.0,
+                                                    "ptxas": _ptxas_lines(f.read())}
 
 
-def build_all() -> None:
-    """Build the library of every ``csrc/*.cu`` in parallel, without loading
-    them."""
+def build_all(variants=()) -> None:
+    """Build the library of every ``csrc/*.cu`` and of each (source,
+    defines) in ``variants`` in parallel, without loading them."""
     with _lock:
-        _build(sorted(os.path.basename(p)
-                      for p in glob.glob(os.path.join(CSRC_DIR, "*.cu"))))
+        _build([(os.path.basename(p), ()) for p in
+                sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))]
+               + [(source, tuple(defines)) for source, defines in variants])
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` for sm_90a (once per content) and load it."""
+def load_library(source: str, defines=()) -> ctypes.CDLL:
+    """Compile ``csrc/<source>`` for sm_90a, with ``-D`` for each of
+    ``defines`` (once per content), and load it."""
+    defines = tuple(defines)
     with _lock:
-        if source not in _libs:
-            _build([source])
-            _libs[source] = ctypes.CDLL(_lib_path(source))
-        return _libs[source]
+        key = _key(source, defines)
+        if key not in _libs:
+            _build([(source, defines)])
+            _libs[key] = ctypes.CDLL(_lib_path(source, defines))
+        return _libs[key]
 
 
 def _demangle(names: List[str]) -> List[str]:
@@ -133,12 +148,14 @@ def _demangle(names: List[str]) -> List[str]:
     return out if len(out) == len(names) else names
 
 
-def mma_counts(source: str) -> Dict[str, int]:
-    """For each kernel in the built library of ``csrc/<source>``, the number
-    of tensor-core instructions (``HMMA``, ``HGMMA``) in its SASS, read with
-    the toolkit's ``cuobjdump -sass``. Build the library first."""
+def mma_counts(key: str) -> Dict[str, int]:
+    """For each kernel in the built library of a ``build_log`` key (a
+    ``csrc`` source, then its defines), the number of tensor-core
+    instructions (``HMMA``, ``HGMMA``) in its SASS, read with the toolkit's
+    ``cuobjdump -sass``. Build the library first."""
     tool = os.path.join(os.path.dirname(os.path.realpath(find_nvcc())), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", _lib_path(source)], capture_output=True,
+    source, *defines = key.split()
+    sass = subprocess.run([tool, "-sass", _lib_path(source, defines)], capture_output=True,
                           text=True, check=True).stdout
     names, counts = [], []
     for line in sass.splitlines():

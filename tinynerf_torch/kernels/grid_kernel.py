@@ -42,6 +42,12 @@ sum and the decoder too; the port has both, as the JAX package does.
 The TPU kernel's hat-basis matmuls, outer-product bridges and 8-row ray
 tiles are its MXU's and layouts' needs, not semantics: the CUDA kernels
 read two table rows per axis and mask the ragged end of the rows.
+Their bf16 forms run the decoder's products on the tensor cores
+(``csrc/grid_common.cuh``). Every path takes a decoder width dividing 256;
+on CUDA tensors the wrappers also refuse by name more than 256 table
+columns and a tile that does not fit a block's shared memory (the
+library's ``grid_rays_*_smem_bytes``, ``_check_fits``), which the plain
+versions take. No grid of ``conf/`` is refused.
 """
 
 from __future__ import annotations
@@ -59,7 +65,14 @@ from tinynerf_torch.kernels.mlp_kernel import (_check, _check_precision, _kernel
 
 FWD_SOURCE = "grid_rays_fwd.cu"
 BWD_SOURCE = "grid_rays_bwd.cu"
-THREADS = 256   # the kernels' block: the decoder width must divide it
+# the backward's phase-clock variant (a measurement's library, never the main path's)
+PHASE_DEFINES = ("GRID_PHASE_CLOCKS",)
+PHASES = ("recompute", "decoder gradients", "g_in", "table gradient", "coordinates",
+          "per-ray sums")
+PHASE_BLOCKS = 1024   # blocks the variant counts (MAX_PHASE_BLOCKS, csrc/grid_common.cuh)
+MAX_WIDTH = 256   # the decoder width must divide it
+MAX_F = 256     # table columns the kernels take
+MAX_SMEM = 232_448   # dynamic shared memory a block may take
 
 Params = Dict[str, object]
 Planes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -90,6 +103,18 @@ def flops_per_row(res: int, n_density: int, n_app: int, width: int) -> int:
     F = n_density + n_app
     macs = 3 * 2 * F + (DIR_ENC_DIM + n_app) * width + width * 3
     return 2 * macs + 2 * F + n_density
+
+
+def flops_split_per_row(res: int, n_density: int, n_app: int,
+                        width: int) -> Tuple[int, int]:
+    """``flops_per_row`` split as (decoder products, elementwise): the hidden
+    layer's product, 2 (24 + Fa) W, which the bf16 forms run on the tensor
+    cores, and the rest (the lerps, the CP products, the sigma sum and the
+    3-wide color head), which no form can put there. (22,528, 2,624) at the
+    fine geometry, (1,280, 560) for the proposal grid; the backward does
+    three times each (its dW1 and g_in products beside the recompute's)."""
+    decoder = 2 * (DIR_ENC_DIM + n_app) * width
+    return decoder, flops_per_row(res, n_density, n_app, width) - decoder
 
 
 def hat_flops_per_row(res: int, n_density: int, n_app: int, width: int) -> int:
@@ -148,9 +173,24 @@ def _forward(params: Params, origins, dirs, ts, de, n_density: int, precision: s
 def _check_dims(params: Params, n_density: int) -> None:
     gridfield.check_params(params)
     res, nd, na, width = dims(params, n_density)
-    if not 0 < nd <= nd + na or width > THREADS or THREADS % width:
+    if not 0 < nd <= nd + na or width > MAX_WIDTH or MAX_WIDTH % width:
         raise ValueError(f"the grid kernels take 0 < n_density <= F and a decoder width "
-                         f"dividing {THREADS}; got n_density {nd}, F {nd + na}, width {width}")
+                         f"dividing {MAX_WIDTH}; got n_density {nd}, F {nd + na}, width {width}")
+
+
+def _check_fits(smem_bytes, dm: Tuple[int, int, int, int], precision: str) -> None:
+    """Refuse by name, before a launch, what the kernels do not take: more
+    than ``MAX_F`` table columns, or a tile whose shared memory (the
+    library's ``grid_rays_*_smem_bytes``) is over a block's ``MAX_SMEM``.
+    The plain versions take both."""
+    res, nd, na, width = dm
+    if nd + na > MAX_F:
+        raise ValueError(f"the grid kernels take F <= {MAX_F} table columns; got F {nd + na}")
+    need = smem_bytes(*dm, int(precision == "bf16"))
+    if need > MAX_SMEM:
+        raise ValueError(f"the grid kernels' {precision} tile takes {need} bytes of shared "
+                         f"memory at F {nd + na}, n_app {na}, width {width}, over a block's "
+                         f"{MAX_SMEM}")
 
 
 def grid_rays_plain(params: Params, origins: torch.Tensor, dirs: torch.Tensor,
@@ -241,24 +281,29 @@ def grid_rays_bwd_plain(params: Params, origins: torch.Tensor, dirs: torch.Tenso
 
 
 @functools.lru_cache(maxsize=None)
-def _library(source: str) -> ctypes.CDLL:
+def _library(source: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     from tinynerf_torch.kernels.build import load_library
-    lib = load_library(source)
+    lib = load_library(source, defines)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if source == FWD_SOURCE:
-        lib.grid_rays_fwd.argtypes = [vp] * 9 + [i32] * 7 + [vp]
+        lib.grid_rays_fwd.argtypes = [vp] * 10 + [i32] * 7 + [vp]
         lib.grid_rays_fwd.restype = i32
-        lib.grid_rays_fwd_smem_bytes.argtypes = [i32] * 4
+        lib.grid_rays_fwd_smem_bytes.argtypes = [i32] * 5
         lib.grid_rays_fwd_smem_bytes.restype = i32
+        lib.grid_rays_fwd_workspace_floats.argtypes = [i32] * 4
+        lib.grid_rays_fwd_workspace_floats.restype = i64
     else:
         lib.grid_rays_bwd.argtypes = [vp] * 15 + [i32] * 7 + [vp]
         lib.grid_rays_bwd.restype = i32
-        lib.grid_rays_bwd_smem_bytes.argtypes = [i32] * 4
+        lib.grid_rays_bwd_smem_bytes.argtypes = [i32] * 5
         lib.grid_rays_bwd_smem_bytes.restype = i32
         lib.grid_rays_bwd_grad_floats.argtypes = [i32] * 4
         lib.grid_rays_bwd_grad_floats.restype = i64
-        lib.grid_rays_bwd_workspace_floats.argtypes = [i32] * 6
+        lib.grid_rays_bwd_workspace_floats.argtypes = [i32] * 7
         lib.grid_rays_bwd_workspace_floats.restype = i64
+        if defines == PHASE_DEFINES:
+            lib.grid_rays_bwd_phase_clocks.argtypes = [vp]
+            lib.grid_rays_bwd_phase_clocks.restype = i32
     return lib
 
 
@@ -283,13 +328,17 @@ def _launch(params: Params, origins, dirs, ts, de, n_density: int,
     for name, t, shape in (("origins", origins, (B, 3)), ("dirs", dirs, (B, 3)),
                            ("ts", ts, (B, N)), ("de", de, (B, DIR_ENC_DIM))):
         _check(name, t, shape, device)
+    lib, dm, bf16 = _library(FWD_SOURCE), dims(params, n_density), int(precision == "bf16")
+    _check_fits(lib.grid_rays_fwd_smem_bytes, dm, precision)
     ptrs = _param_ptrs(params, n_density, device)
     outs = [torch.empty((B, N), dtype=torch.float32, device=device) for _ in range(4)]
+    workspace = torch.empty(max(lib.grid_rays_fwd_workspace_floats(*dm[:3], bf16), 1),
+                            dtype=torch.float32, device=device)
     with torch.cuda.device(device):
-        err = _library(FWD_SOURCE).grid_rays_fwd(
+        err = lib.grid_rays_fwd(
             origins.data_ptr(), dirs.data_ptr(), ts.data_ptr(), de.data_ptr(), ptrs,
-            *[o.data_ptr() for o in outs], B, N, *dims(params, n_density),
-            int(precision == "bf16"), _stream(device))
+            *[o.data_ptr() for o in outs], workspace.data_ptr(), B, N, *dm, bf16,
+            _stream(device))
     if err != 0:
         raise RuntimeError(f"grid_rays_fwd kernel launch failed: CUDA error {err}")
     grid_rays.launches += 1
@@ -298,7 +347,7 @@ def _launch(params: Params, origins, dirs, ts, de, n_density: int,
 
 
 def _launch_bwd(params: Params, origins, dirs, ts, de, g_sigma, g_r, g_g, g_b,
-                n_density: int, precision: str) -> Grads:
+                n_density: int, precision: str, defines: Tuple[str, ...] = ()) -> Grads:
     device = origins.device
     B, N = ts.shape
     for name, t, shape in (("origins", origins, (B, 3)), ("dirs", dirs, (B, 3)),
@@ -306,11 +355,16 @@ def _launch_bwd(params: Params, origins, dirs, ts, de, g_sigma, g_r, g_g, g_b,
                            ("g_sigma", g_sigma, (B, N)), ("g_r", g_r, (B, N)),
                            ("g_g", g_g, (B, N)), ("g_b", g_b, (B, N))):
         _check(name, t, shape, device)
+    lib = _library(BWD_SOURCE, defines)
+    dm, bf16 = dims(params, n_density), int(precision == "bf16")
+    _check_fits(lib.grid_rays_bwd_smem_bytes, dm, precision)
     ptrs = _param_ptrs(params, n_density, device)
-    lib = _library(BWD_SOURCE)
-    dm = dims(params, n_density)
     f32 = dict(dtype=torch.float32, device=device)
-    workspace = torch.empty(lib.grid_rays_bwd_workspace_floats(B, N, *dm), **f32)
+    with torch.cuda.device(device):
+        n_work = lib.grid_rays_bwd_workspace_floats(B, N, *dm, bf16)
+    if n_work < 0:
+        raise RuntimeError(f"grid_rays_bwd_workspace_floats failed at B={B} N={N} dims {dm}")
+    workspace = torch.empty(max(n_work, 1), **f32)
     flat = torch.empty(lib.grid_rays_bwd_grad_floats(*dm), **f32)
     d_o, d_d = torch.empty((B, 3), **f32), torch.empty((B, 3), **f32)
     d_ts, d_de = torch.empty((B, N), **f32), torch.empty((B, DIR_ENC_DIM), **f32)
@@ -319,11 +373,11 @@ def _launch_bwd(params: Params, origins, dirs, ts, de, g_sigma, g_r, g_g, g_b,
             origins.data_ptr(), dirs.data_ptr(), ts.data_ptr(), de.data_ptr(),
             g_sigma.data_ptr(), g_r.data_ptr(), g_g.data_ptr(), g_b.data_ptr(), ptrs,
             d_o.data_ptr(), d_d.data_ptr(), d_ts.data_ptr(), d_de.data_ptr(),
-            flat.data_ptr(), workspace.data_ptr(), B, N, *dm,
-            int(precision == "bf16"), _stream(device))
+            flat.data_ptr(), workspace.data_ptr(), B, N, *dm, bf16, _stream(device))
     if err != 0:
         raise RuntimeError(f"grid_rays_bwd kernel launch failed: CUDA error {err}")
-    grid_rays_bwd.launches += 1
+    if not defines:
+        grid_rays_bwd.launches += 1
     # the kernel writes tx, ty, tz, W1, b1, W2, b2 in turn
     res, nd, na, width = dm
     sizes = [res * (nd + na)] * 3 + [(DIR_ENC_DIM + na) * width, width, width * 3, 3]
@@ -334,6 +388,34 @@ def _launch_bwd(params: Params, origins, dirs, ts, de, g_sigma, g_r, g_g, g_b,
                          "color": {"w": w2.view(width, 3), "b": b2}},
              "extent": torch.zeros_like(params["extent"])}
     return grads, d_o, d_d, d_ts, d_de
+
+
+def bwd_phase_split(params: Params, origins, dirs, ts, de, g_sigma, g_r, g_g, g_b,
+                    n_density: int, precision: str = "fp32") -> Dict[str, float]:
+    """One launch of the backward's phase-clock variant (CUDA tensors): for
+    each of ``PHASES``, its share of the blocks' summed clock cycles in that
+    launch. A measurement, not a path: the variant meets at a barrier
+    at each phase's end, and ``grid_rays_bwd.launches`` does not count it."""
+    _check_precision(precision)
+    _check_dims(params, n_density)
+    lib = _library(BWD_SOURCE, PHASE_DEFINES)
+    clocks = (ctypes.c_longlong * (PHASE_BLOCKS * len(PHASES)))()
+
+    def read_clocks():  # into `clocks`, and zero them on the device
+        with torch.cuda.device(origins.device):
+            torch.cuda.synchronize()
+            err = lib.grid_rays_bwd_phase_clocks(ctypes.addressof(clocks))
+        if err != 0:
+            raise RuntimeError(f"grid_rays_bwd_phase_clocks failed: CUDA error {err}")
+
+    read_clocks()
+    _launch_bwd(params, origins, dirs, ts, de, g_sigma, g_r, g_g, g_b, n_density, precision,
+                PHASE_DEFINES)
+    read_clocks()
+    per_phase = [sum(clocks[b * len(PHASES) + i] for b in range(PHASE_BLOCKS))
+                 for i in range(len(PHASES))]
+    total = max(sum(per_phase), 1)
+    return {name: c / total for name, c in zip(PHASES, per_phase)}
 
 
 def _tensors(params: Params) -> List[torch.Tensor]:
