@@ -30,8 +30,13 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
    rate; the f32 FMA bound is printed for the bf16 forms too); beside kernel
    1 bf16 also ``gemm_chain_ms``, ``torch.matmul`` in bf16 over the same
    twelve layer products at M = 524,288 rows (a yardstick, not the same
-   function, never called by the port); profiles one call each of kernels 2
-   and 4 in bf16 (the recompute / weight-gradient split);
+   function, never called by the port), and beside kernel 2 fp32
+   ``bwd_gemm_chain_ms_fp32``, ``torch.matmul`` in float32 over the
+   backward's 36 layer products at M = 51,200 rows (a yardstick likewise);
+   prints kernel 2 fp32's time by launch at B=400 and B=4096, N=128
+   (``launch_split``: the transpose, the recompute + input gradients, the
+   per-ray sums, the weight gradients, the reduce); profiles one call each
+   of kernels 2 and 4 in bf16 (the recompute / weight-gradient split);
 5. drives the training path: ``conf/lego.ini`` at full width from fresh
    seeded weights on an in-memory Blender-style scene of 4 views of
    800x800 (lego has 100 training views: cut to 4), ``Runner.train()`` for
@@ -190,7 +195,6 @@ cotangent; bf16 within 1e-2 and 3e-2 of max|plain| and cosine >= 0.999;
 the backward bit-identical across two launches) and timed in phase 4 at
 128 x 4, B = 4096, N = 64 beside both bounds.
 
-
 Any failure raises, and the script exits non-zero without the last line. It
 exits non-zero at once where ``torch.cuda.is_available()`` is false. It
 imports nothing of JAX or of the ``tinynerf`` package.
@@ -266,6 +270,7 @@ FIELD_SOURCES = ("field_rays_fwd.cu", "field_rays_bwd.cu", "field_flat_fwd.cu",
 GRID_SOURCES = ("grid_rays_fwd.cu", "grid_rays_bwd.cu")
 BF16_EDGE = (1001, 37)      # rows no multiple of 16 or of the 64-row tile
 GEMM_CHAIN_ROWS = 4096 * 128
+BWD_CHAIN_ROWS = 400 * 128  # a lego step's fine call
 FERN_VIEWS = 4
 
 
@@ -462,10 +467,11 @@ def profile_steps(step, state, n: int = 5) -> None:
     profile_calls(run, n, "steps")
 
 
-def profile_calls(fn, n: int, what: str) -> None:
+def device_rows(fn, n: int):
     """Trace ``n`` calls of ``fn`` with torch.profiler (after three more to
-    warm up); print the device time by kernel (top 12) and the device's busy
-    share of the calls' wall time."""
+    warm up): (wall ms, [(kernel, launches, device ms)]), device-side events
+    only, since a CPU op (an autograd node, a ctypes launch) also carries the
+    device time of the kernels it launched."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -477,12 +483,28 @@ def profile_calls(fn, n: int, what: str) -> None:
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only: a CPU op (an autograd node, a ctypes launch)
-    # also carries the device time of the kernels it launched
-    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    return wall_ms, [(e.key, e.count, e.self_device_time_total / 1e3)
+                     for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.self_device_time_total > 0]
+
+
+def launch_split(fn, what: str, n: int = 3) -> dict:
+    """Print and return {kernel: device ms per call} over ``n`` traced calls
+    of ``fn``: one call's time by launch."""
+    _, rows = device_rows(fn, n)
+    split = {short_kernel(name): ms / n for name, _, ms in sorted(rows, key=lambda r: -r[2])}
+    print(f"  {what} by launch (torch.profiler, device events, ms a call): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f"; sum {sum(split.values()):.3f}")
+    return split
+
+
+def profile_calls(fn, n: int, what: str) -> None:
+    """Trace ``n`` calls of ``fn`` with torch.profiler (after three more to
+    warm up); print the device time by kernel (top 12) and the device's busy
+    share of the calls' wall time."""
+    wall_ms, rows = device_rows(fn, n)
     if not rows:
         print(f"profile: {n} {what} in {wall_ms:.2f} ms of wall time; the profiler "
               "recorded no device time (device busy share not measured)")
@@ -733,6 +755,30 @@ def fused_rays(device, n_rays: int, seed: int, empty: int = 0):
     if empty:
         far[-empty:] = near[-empty:]
     return o, d.contiguous(), sampling.coarse_ts(near, far, FUSED_SAMPLES[0]), near, far
+
+
+def bwd_gemm_chain_ms_fp32(dev) -> float:
+    """A yardstick beside kernel 2 fp32, not the same function (no encoding,
+    biases, activations, heads or ray chain rule) and never called by the
+    port: torch.matmul in float32, TF32 off, over the backward's 36 products
+    at M = BWD_CHAIN_ROWS rows (each layer's forward X W, input gradient G
+    W^T and weight gradient X^T G)."""
+    import torch
+    from tinynerf_torch.core import mlp
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rand = lambda *shape: torch.randn(*shape, device=dev, generator=gen)
+    dims = [(fan_in, fan_out) for _, fan_in, fan_out in mlp.layer_dims()]
+    xs = {k: rand(BWD_CHAIN_ROWS, k) for k in {k for k, _ in dims}}
+    gs = {n: rand(BWD_CHAIN_ROWS, n) for n in {n for _, n in dims}}
+    ws = [rand(k, n) for k, n in dims]
+
+    def chain():
+        for (k, n), w in zip(dims, ws):
+            torch.matmul(xs[k], w)
+            torch.matmul(gs[n], w.T)
+            torch.matmul(xs[k].T, gs[n])
+    return cuda_ms(chain, iters=10)
 
 
 def main() -> int:
@@ -1165,7 +1211,7 @@ def main() -> int:
 
     # ---- 4. timing ----
     phase("timing (per launch, CUDA events)")
-    fwd_time, bwd_time = {}, {}
+    fwd_time, bwd_time, bwd_split = {}, {}, {}
     n_params = mlp.num_params(params)
     with torch.no_grad():
         for (B, N), (o, d, ts) in fwd_inputs.items():
@@ -1189,7 +1235,14 @@ def main() -> int:
         print(f"kernel 2 B={B} N={N}: kernel_ms {k_ms:.3f} plain_ms {p_ms:.3f} "
               f"bound_ms {bound:.3f} (f32 FLOP bound, {flops / 1e9:.1f} GFLOP); "
               f"{flops / k_ms / 1e9:.2f} TFLOP/s = {100 * bound / k_ms:.1f}% of peak")
+        if N == 128:
+            bwd_split[B, N] = launch_split(lambda: mk.field_rays_bwd(params, *args),
+                                           f"kernel 2 fp32 B={B} N={N}")
     del bwd_inputs
+    bwd_chain_ms = bwd_gemm_chain_ms_fp32(dev)
+    print(f"bwd_gemm_chain_ms_fp32 {bwd_chain_ms:.3f}: torch.matmul in float32 (TF32 off) over "
+          f"the backward's 36 layer products at M = {BWD_CHAIN_ROWS} (kernel 2 fp32 at B=400 "
+          f"N=128: {bwd_time[STEP_SHAPES[-1]][0]:.3f} ms)")
     torch.cuda.empty_cache()
 
     # the new forms: (ms, plain ms, bound ms, bound_by, f32 FMA bound ms)
@@ -1543,6 +1596,7 @@ def main() -> int:
                   f"kernels {kern:.3f} ms of it ({100 * kern / ms:.1f}%: 2 forward + 2 "
                   "backward launches at their timed per-launch ms)")
 
+        print(f"train-lego-{cfg.batch_ray} (fp32):")
         profile_steps(train.make_train_step(cfg, runner.train_table, runner.k_inv),
                       runner.state)
 
@@ -2566,7 +2620,9 @@ def main() -> int:
              train_launches[1] + fp32_launches[1] + prop_fp32_field[1],
              {"lego train": train_launches[1], "lego_occ fp32 train": fp32_launches[1],
               "lego_prop fp32 train": prop_fp32_field[1]},
-             bwd_abs, bwd_time, STEP_SHAPES, {"max_rel_err": bwd_rel}),
+             bwd_abs, bwd_time, STEP_SHAPES,
+             {"max_rel_err": bwd_rel, "bwd_gemm_chain_ms_fp32": bwd_chain_ms,
+              "split": {shape_key(k): v for k, v in bwd_split.items()}}),
         form("field_rays_bwd_bf16", bwd_src, "tinynerf/kernels/mlp_kernel.py:751",
              occ_launches[1] + fast_launches[1] + prop_mlp_launches[1]
              + fern_launches["rays_bwd"],

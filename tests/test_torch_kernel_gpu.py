@@ -105,6 +105,48 @@ def _card():
     return torch.device("cuda")
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("form,n_rays,n_samples", [
+    ("rays", 333, 37), ("rays", 1, 200), ("rays", 520, 127), ("flat", 4097, 1),
+    ("flat", 65537, 1)])
+def test_fp32_bwd_tile_edges_on_card(form, n_rays, n_samples):
+    """The fp32 form of kernels 2 ("rays") and 4 ("flat") at the edges of
+    their tiles: 12,321 rows (no multiple of the 32-row weight-gradient
+    K-slab, of the 128-row recompute tile, of the 128-wide output tile or
+    of SPLIT_ROWS, and several row slices), one ray of 200 rows (two
+    128-row tiles, so two blocks share the ray and ray_sums_kernel adds
+    its samples from both), 66,040 and 65,537 rows (two chunks of
+    CHUNK_ROWS, the second a few rays or one row), 4097 rows (one past
+    SPLIT_ROWS). Every
+    gradient within 1e-4 of max|plain|, rows within 2e-6 of a kink given no
+    cotangent; two calls bit-identical."""
+    dev = _card()
+    params = mlp.init_network(torch.Generator().manual_seed(5), dev)
+    rng = np.random.default_rng(n_rays)
+    if form == "rays":
+        o, d, t = (torch.from_numpy(a).to(dev)
+                   for a in _dyadic_rays(n_rays, n_rays, n_samples))
+        keep = (mk.preactivation_margin(params, o, d, t) > 2e-6).float()
+        cots = [torch.from_numpy(rng.normal(size=t.shape).astype(np.float32)).to(dev) * keep
+                for _ in range(4)]
+        run = lambda: mk.field_rays_bwd(params, o, d, t, *cots)
+        plain = mk.field_rays_bwd_plain(params, o, d, t, *cots)
+    else:
+        pts, dirs = (torch.from_numpy(a).to(dev) for a in contracted_rows(rng, n_rays))
+        keep = mk.preactivation_margin(params, pts, dirs, pts.new_zeros(n_rays, 1)) > 2e-6
+        g = torch.from_numpy(rng.normal(size=(n_rays, 4)).astype(np.float32)).to(dev)
+        g = g * keep.float()
+        run = lambda: mk.field_flat_bwd(params, pts, dirs, g)
+        plain = mk.field_flat_bwd_plain(params, pts, dirs, g)
+    kernel, again = run(), run()
+    torch.cuda.synchronize()
+    errors = _errors(kernel, plain)
+    worst = max(errors, key=errors.get)
+    print(f"fp32 bwd edges {form} {n_rays}x{n_samples}: worst {worst} {errors[worst]:.3e}")
+    assert errors[worst] <= 1e-4, errors
+    assert all(e == 0 for e in _errors(kernel, again).values())
+
+
 def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 

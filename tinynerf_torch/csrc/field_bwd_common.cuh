@@ -1,13 +1,16 @@
 // Kernel 2's device code and host orchestration (the field's recompute
 // backward), shared by field_rays_bwd.cu and render_fused_bwd.cu, and, read
 // through RowCoord, kernel 4's (field_flat_bwd.cu: flat rows of points, one
-// sample a "ray"). Its fp32 form runs float32 FMA (field_common.cuh's
-// gemm_segment), its bf16 form the tensor cores (field_tc.cuh). The design
-// note is in field_rays_bwd.cu.
+// sample a "ray"). Its fp32 form runs float32 FMA on its own tiles (here:
+// gemm_f32 for the recompute and the input gradients, wgrad_kernel for the
+// weight gradients), its bf16 form the tensor cores (field_tc.cuh). The
+// design note is in field_rays_bwd.cu.
 
 #pragma once
 
 #include <algorithm>
+#include <atomic>
+#include <cmath>
 
 #include "field_tc.cuh"
 
@@ -30,7 +33,8 @@ constexpr int G_PI = 8 * WIDTH;                // trunk i's at i * WIDTH
 constexpr int G_HD = G_PI + WIDTH;
 constexpr int G_SIGMA = G_HD + WIDTH / 2;
 constexpr int G_COLOR = G_SIGMA + 1;
-constexpr int G_ENC4 = G_COLOR + 3;            // scratch: trunk_4's share of g_enc_pt
+constexpr int G_ENC4 = G_COLOR + 3;            // scratch: trunk_4's share of g_enc_pt,
+constexpr int G_DPT = G_ENC4;                  // then (ray form) d_pts and d_dir, 6 floats
 constexpr int G_STRIDE = G_ENC4 + PT_ENC;      // 2496 floats
 
 // ---- transposed weights: (fan_out, padded fan_in) row-major ----
@@ -45,9 +49,22 @@ constexpr int N_TRANSPOSE = 12;
 
 constexpr int N_GRAD = 593924;       // all weights and biases, layer order, w then b
 constexpr int CHUNK_ROWS = 65536;    // sample rows per chunk (whole rays)
-constexpr int SPLIT_ROWS = 4096;     // rows per weight-gradient partial sum
-constexpr int WG_TILE = 64;          // weight-gradient output tile
-constexpr int WG_RT = 32;            // rows per weight-gradient step
+constexpr int SPLIT_ROWS = 4096;     // most rows of a weight-gradient partial sum
+constexpr int BT_M = 128;            // rows a tile of the fp32 recompute kernel
+constexpr int BT_THREADS = 512;      // its 16 warps, 8 rows (ROWS) each
+constexpr int BWD_KT = 16;           // weight rows a gemm_f32 K-tile stage
+constexpr int BWD_STAGES = 2;
+constexpr int WG_STAGES = 2;         // K-slab stages of the weight-gradient tiles
+constexpr int WG_TILE = 128;         // weight-gradient output tile, (fan-in) x (fan-out)
+constexpr int WG_RT = 32;            // rows a weight-gradient K-slab
+constexpr int WG_SMEM = WG_STAGES * 2 * WG_RT * WG_TILE * (int)sizeof(float);  // 65,536 bytes
+// resident wgrad_kernel blocks the row-slice count is chosen for: an H100
+// SXM's 132 SMs x the 2 blocks an SM of its __launch_bounds__. A constant,
+// so that the slices, and with them the gradients' bits, follow from the
+// shapes alone, whatever card runs the call.
+constexpr int WG_SLOTS = 132 * 2;
+constexpr int MAX_DEVICES = 64;
+constexpr int HEADS_TILE = -1;       // the weight-gradient launch's heads block
 constexpr int MAX_TILES = 160;
 
 const int FAN_IN[N_LAYERS] = {PT_ENC, WIDTH, WIDTH, WIDTH, WIDTH + PT_ENC, WIDTH,
@@ -67,8 +84,9 @@ struct Transpose {
 struct WGrad {
   int k[N_LAYERS], out[N_LAYERS], a_col[N_LAYERS], g_col[N_LAYERS],
       goff[N_LAYERS];
+  int split_rows;       // rows a partial sum (blockIdx.y's slice)
   int n_tiles;
-  int tile[MAX_TILES];  // layer << 16 | k-tile << 8 | out-tile
+  int tile[MAX_TILES];  // HEADS_TILE, or layer << 16 | k-tile << 8 | out-tile
 };
 
 // dst[j][k] = src[k][j] for k < rows, 0 for rows <= k < dst_ld.
@@ -83,54 +101,175 @@ __global__ void transpose_kernel(Transpose t, float* __restrict__ wt) {
   }
 }
 
+// 220 KB: one block an SM. gemm_f32 reads an encoding row up to K rounded
+// up to BWD_KT (see there), the last row's past its end: enc_pt's into
+// enc_dir, enc_dir's into enc_pad (zeros).
 struct Smem {
-  float act[TILE_M][WIDTH];
-  float enc_pt[TILE_M][PT_ENC];
-  float enc_dir[TILE_M][DIR_ENC];
-  float genc_dir[TILE_M][DIR_ENC];
-  float wt[KT * WIDTH];
-  float gsig[TILE_M];        // g_sigma * sign(sigma_pre)
-  float gcol[TILE_M][4];     // g_c * c * (1 - c)
-  float dpt[TILE_M][3];      // d loss / d point
-  float ddir[TILE_M][3];     // d loss / d direction, through its encoding
-  float ray_do[TILE_M][3];   // per-ray sums of the block's rays (ray form)
-  float ray_dd[TILE_M][3];
+  float act[BT_M][WIDTH];
+  float enc_pt[BT_M][PT_ENC];
+  float enc_dir[BT_M][DIR_ENC];
+  float enc_pad[8];
+  float genc_dir[BT_M][DIR_ENC];
+  float wt[BWD_STAGES * BWD_KT * WIDTH];  // the K-tile stages
+  float gsig[BT_M];        // g_sigma * sign(sigma_pre)
+  float gcol[BT_M][4];     // g_c * c * (1 - c)
+  float dpt[BT_M][3];      // d loss / d point
+  float ddir[BT_M][3];     // d loss / d direction, through its encoding
 };
+static_assert(BWD_KT % 4 == 0 && BWD_STAGES >= 2, "16-byte K steps, a tile in flight");
+static_assert(BWD_KT - DIR_ENC % BWD_KT <= 8, "enc_pad holds enc_dir's last overrun");
 
-// act[row_i][col_j] = acc (times the ReLU mask h > 0 read from `mask`, the
-// tile's saved activation, when given); rows below `valid` are also saved to
-// save[row * G_STRIDE + col]. Ends with a barrier. The mask was written
-// earlier in this launch, so it is read through L2 (__ldcg), never through
-// the non-coherent read-only path.
+// The fp32 tiles' columns. Thread (warp w, lane) holds rows 8w .. 8w+7 and,
+// of a product 32 NC wide, NC columns in groups of V = min(NC, 4) adjacent
+// ones: its column j is (j / V) 32 V + V lane + j % V, so that a group is
+// one 16-byte shared-memory read of a weight row (V = 4).
 template <int NC>
-__device__ __forceinline__ void store_grad(float (&acc)[ROWS][NC],
-                                           float (*act)[WIDTH],
-                                           float* __restrict__ save,
-                                           const float* mask, int valid) {
-  const int lane = threadIdx.x & 31;
-  const int row0 = (threadIdx.x >> 5) * ROWS;
+__device__ __forceinline__ int col_of(int j) {
+  constexpr int V = NC < 4 ? NC : 4;
+  return (j / V) * (32 * V) + V * (threadIdx.x & 31) + j % V;
+}
+
+// x[0 .. V-1] = p[0 .. V-1] in one access (p aligned to 4 V bytes).
+template <int V>
+__device__ __forceinline__ void load_v(float* x, const float* p) {
+  if constexpr (V == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else if constexpr (V == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x; x[1] = v.y;
+  } else {
+    x[0] = *p;
+  }
+}
+
+// acc[i][j] += sum_k src[row_i][k] w[k][col_j] over the K rows of w ((K, 32
+// NC) row-major in global memory, 16-byte aligned; src rows 16-byte
+// aligned). The weights stream through BWD_STAGES BWD_KT-row K-tile stages
+// of wt by cp.async, the next tile in flight while this one is multiplied;
+// rows of a last tile past K are zero-filled, and the src columns read
+// with them (K = 60 or 24: an encoding's next row, see Smem) hold finite
+// values, so they add exact zeros. k ascends, one FMA a term, as
+// gemm_segment. Warps whose rows all lie at or past `valid` skip the FMAs.
+// Ends with a barrier, so the caller may overwrite src.
+template <int NC>
+__device__ __forceinline__ void gemm_f32(float (&acc)[ROWS][NC], const float* src,
+                                         int src_stride, int K, const float* __restrict__ w,
+                                         float* wt, int valid) {
+  constexpr int OUT = 32 * NC, V = NC < 4 ? NC : 4, STAGE = BWD_KT * OUT;
+  constexpr int CHUNKS = STAGE / 4, PER = (CHUNKS + BT_THREADS - 1) / BT_THREADS;
+  const int lane = threadIdx.x & 31, row0 = (threadIdx.x >> 5) * ROWS;
+  const int tiles = (K + BWD_KT - 1) / BWD_KT;
+  // K-tile t to stage t % BWD_STAGES, one commit group a tile (an empty
+  // group past the last tile, so that the waits count alike)
+  auto load = [&](int t) {
+    if (t < tiles) {
+      float* s = wt + (t % BWD_STAGES) * STAGE;
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int r = row0 + i;
+      for (int it = 0; it < PER; ++it) {
+        const int i = threadIdx.x + it * BT_THREADS;
+        if (CHUNKS % BT_THREADS == 0 || i < CHUNKS) {
+          const int k = t * BWD_KT + i / (OUT / 4);
+          cp_async16(s + 4 * i, w + (size_t)min(k, K - 1) * OUT + 4 * (i % (OUT / 4)), k < K);
+        }
+      }
+    }
+    cp_async_commit();
+  };
 #pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int c = lane + 32 * j;
-      float v = acc[i][j];
-      if (mask != nullptr)
-        v = (r < valid && __ldcg(mask + (size_t)r * A_STRIDE + c) > 0.f) ? v : 0.f;
-      act[r][c] = v;
-      if (r < valid) save[(size_t)r * G_STRIDE + c] = v;
+  for (int t = 0; t + 1 < BWD_STAGES; ++t) load(t);
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<BWD_STAGES - 2>();
+    __syncthreads();  // tile t is in, and every thread is done with tile t - 1
+    load(t + BWD_STAGES - 1);
+    if (row0 >= valid) continue;
+    const float* s = wt + (t % BWD_STAGES) * STAGE + V * lane;
+    const float* a_row = src + row0 * src_stride + t * BWD_KT;
+#pragma unroll 1
+    for (int kk = 0; kk < BWD_KT; kk += 4) {  // not unrolled: fewer live registers
+      float a[ROWS][4];
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) load_v<4>(a[i], a_row + i * src_stride + kk);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float b[NC];
+#pragma unroll
+        for (int g = 0; g < NC / V; ++g) load_v<V>(b + g * V, s + (kk + q) * OUT + g * 32 * V);
+#pragma unroll
+        for (int i = 0; i < ROWS; ++i)
+#pragma unroll
+          for (int j = 0; j < NC; ++j) acc[i][j] = fmaf(a[i][q], b[j], acc[i][j]);
+      }
     }
   }
   __syncthreads();
 }
 
-// The fp32 form. Coord is RayCoord (kernel 2: rows are (ray, sample)
-// pairs; d_o, d_d are per-ray sums and d_ts per sample) or RowCoord (kernel
-// 4: flat rows with n_samples = 1; d_o, d_d are each row's d_points, d_dirs
-// and d_ts is not written).
+// act[r][c] = (relu)(acc + bias[c]) over the thread's rows and columns;
+// rows below `valid` are also saved to save[r * A_STRIDE + c]. Ends with a
+// barrier.
+template <int NC, bool RELU>
+__device__ __forceinline__ void put_act(const float (&acc)[ROWS][NC],
+                                        const float* __restrict__ bias, float (*act)[WIDTH],
+                                        float* __restrict__ save, int valid) {
+  static_assert(NC % 4 == 0, "16-byte groups");
+  const int row0 = (threadIdx.x >> 5) * ROWS;
+#pragma unroll
+  for (int g = 0; g < NC / 4; ++g) {
+    const int c = col_of<NC>(4 * g);
+    const float4 b = __ldg(reinterpret_cast<const float4*>(bias + c));
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      const float* a = acc[i] + 4 * g;
+      float4 y = make_float4(a[0] + b.x, a[1] + b.y, a[2] + b.z, a[3] + b.w);
+      if (RELU) y = make_float4(fmaxf(y.x, 0.f), fmaxf(y.y, 0.f), fmaxf(y.z, 0.f), fmaxf(y.w, 0.f));
+      const int r = row0 + i;
+      *reinterpret_cast<float4*>(&act[r][c]) = y;
+      if (r < valid) *reinterpret_cast<float4*>(save + (size_t)r * A_STRIDE + c) = y;
+    }
+  }
+  __syncthreads();
+}
+
+// act[r][c] = acc, times the ReLU mask h > 0 read from `mask` (the tile's
+// saved activation) when given; rows below `valid` are also saved to
+// save[r * G_STRIDE + c]. Ends with a barrier. The mask was written earlier
+// in this launch, so it is read through L2 (__ldcg), never through the
+// non-coherent read-only path.
+__device__ __forceinline__ void put_grad(const float (&acc)[ROWS][8], float (*act)[WIDTH],
+                                         float* __restrict__ save, const float* mask,
+                                         int valid) {
+  const int row0 = (threadIdx.x >> 5) * ROWS;
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    const int c = col_of<8>(4 * g);
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      const int r = row0 + i;
+      const float* a = acc[i] + 4 * g;
+      float4 v = make_float4(a[0], a[1], a[2], a[3]);
+      if (mask) {
+        const float4 m = r < valid
+            ? __ldcg(reinterpret_cast<const float4*>(mask + (size_t)r * A_STRIDE + c))
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+        v = make_float4(m.x > 0.f ? v.x : 0.f, m.y > 0.f ? v.y : 0.f, m.z > 0.f ? v.z : 0.f,
+                        m.w > 0.f ? v.w : 0.f);
+      }
+      *reinterpret_cast<float4*>(&act[r][c]) = v;
+      if (r < valid) *reinterpret_cast<float4*>(save + (size_t)r * G_STRIDE + c) = v;
+    }
+  }
+  __syncthreads();
+}
+
+// The fp32 form, over rows chunk_begin .. chunk_begin + rows - 1 of the
+// call: block b takes an even share of them (rows * b / gridDim.x onward),
+// in BT_M-row tiles. Coord is RayCoord (kernel 2: rows are (ray, sample)
+// pairs; it writes d_ts and leaves each row's d_pts and d_dir in G for
+// ray_sums_kernel) or RowCoord (kernel 4: flat rows; d_o, d_d are each
+// row's d_points, d_dirs).
 template <class Coord>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(BT_THREADS, 1)
 field_bwd_kernel(Coord coord, const float* __restrict__ g_sigma,
                  const float* __restrict__ g_r,
                  const float* __restrict__ g_g,
@@ -138,48 +277,41 @@ field_bwd_kernel(Coord coord, const float* __restrict__ g_sigma,
                  const float* __restrict__ wt, float* __restrict__ ws_a,
                  float* __restrict__ ws_g, float* __restrict__ d_o,
                  float* __restrict__ d_d, float* __restrict__ d_ts,
-                 int n_samples, int ray_begin, int ray_end,
-                 int rays_per_block) {
+                 int n_samples, int chunk_begin, int rows) {
   constexpr bool FLAT = Coord::kFlat;
   extern __shared__ float4 smem_raw[];
   Smem& s = *reinterpret_cast<Smem*>(smem_raw);
   const int lane = threadIdx.x & 31;
   const int row0 = (threadIdx.x >> 5) * ROWS;
-  const int r0 = ray_begin + blockIdx.x * rays_per_block;
-  const int r1 = min(r0 + rays_per_block, ray_end);
-  const int row_begin = r0 * n_samples, row_end = r1 * n_samples;
-  const int ws_base = ray_begin * n_samples;
+  const int row_begin = chunk_begin + (int)((long long)rows * blockIdx.x / gridDim.x);
+  const int row_end = chunk_begin + (int)((long long)rows * (blockIdx.x + 1) / gridDim.x);
 
-  for (int idx = threadIdx.x; idx < TILE_M * 3; idx += THREADS) {
-    (&s.ray_do[0][0])[idx] = 0.f;
-    (&s.ray_dd[0][0])[idx] = 0.f;
-  }
-
-  for (int base = row_begin; base < row_end; base += TILE_M) {
-    const int valid = min(TILE_M, row_end - base);
-    float* a_tile = ws_a + (size_t)(base - ws_base) * A_STRIDE;
-    float* g_tile = ws_g + (size_t)(base - ws_base) * G_STRIDE;
+  if (threadIdx.x < 8) s.enc_pad[threadIdx.x] = 0.f;
+  for (int base = row_begin; base < row_end; base += BT_M) {
+    const int valid = min(BT_M, row_end - base);
+    float* a_tile = ws_a + (size_t)(base - chunk_begin) * A_STRIDE;
+    float* g_tile = ws_g + (size_t)(base - chunk_begin) * G_STRIDE;
 
     // ================= recompute the forward, saving inputs =================
-    encode_tile(coord, p.freqs, base, row_end, s.enc_pt, s.enc_dir);
-    for (int idx = threadIdx.x; idx < valid * PT_ENC; idx += THREADS)
+    encode_tile<Coord, BT_M, BT_THREADS>(coord, p.freqs, base, row_end, s.enc_pt, s.enc_dir);
+    for (int idx = threadIdx.x; idx < valid * PT_ENC; idx += BT_THREADS)
       a_tile[(size_t)(idx / PT_ENC) * A_STRIDE + A_ENC_PT + idx % PT_ENC] =
           s.enc_pt[idx / PT_ENC][idx % PT_ENC];
-    for (int idx = threadIdx.x; idx < valid * DIR_ENC; idx += THREADS)
+    for (int idx = threadIdx.x; idx < valid * DIR_ENC; idx += BT_THREADS)
       a_tile[(size_t)(idx / DIR_ENC) * A_STRIDE + A_ENC_DIR + idx % DIR_ENC] =
           s.enc_dir[idx / DIR_ENC][idx % DIR_ENC];
 
     float acc[ROWS][8];
     zero(acc);
-    gemm_segment<8, false>(acc, &s.enc_pt[0][0], PT_ENC, PT_ENC, p.w[0], s.wt);
-    store<8, true>(acc, p.b[0], s.act, a_tile + a_hidden(0), A_STRIDE, valid);
+    gemm_f32<8>(acc, &s.enc_pt[0][0], PT_ENC, PT_ENC, p.w[0], s.wt, valid);
+    put_act<8, true>(acc, p.b[0], s.act, a_tile + a_hidden(0), valid);
     for (int layer = 1; layer < 8; ++layer) {
       zero(acc);
-      gemm_segment<8, false>(acc, &s.act[0][0], WIDTH, WIDTH, p.w[layer], s.wt);
+      gemm_f32<8>(acc, &s.act[0][0], WIDTH, WIDTH, p.w[layer], s.wt, valid);
       if (layer == 4)
-        gemm_segment<8, false>(acc, &s.enc_pt[0][0], PT_ENC, PT_ENC, p.w[4] + WIDTH * WIDTH,
-                               s.wt);
-      store<8, true>(acc, p.b[layer], s.act, a_tile + a_hidden(layer), A_STRIDE, valid);
+        gemm_f32<8>(acc, &s.enc_pt[0][0], PT_ENC, PT_ENC, p.w[4] + WIDTH * WIDTH, s.wt,
+                    valid);
+      put_act<8, true>(acc, p.b[layer], s.act, a_tile + a_hidden(layer), valid);
     }
 
     // sigma = |pre|: its gradient is g_sigma * sign(pre), sign(0) = 0
@@ -201,15 +333,15 @@ field_bwd_kernel(Coord coord, const float* __restrict__ g_sigma,
     }
 
     zero(acc);
-    gemm_segment<8, false>(acc, &s.act[0][0], WIDTH, WIDTH, p.w[POINT_INFO], s.wt);
-    store<8, false>(acc, p.b[POINT_INFO], s.act, a_tile + A_PI, A_STRIDE, valid);
+    gemm_f32<8>(acc, &s.act[0][0], WIDTH, WIDTH, p.w[POINT_INFO], s.wt, valid);
+    put_act<8, false>(acc, p.b[POINT_INFO], s.act, a_tile + A_PI, valid);
 
     float acc4[ROWS][4];
     zero(acc4);
-    gemm_segment<4, false>(acc4, &s.enc_dir[0][0], DIR_ENC, DIR_ENC, p.w[DIR_INFO], s.wt);
-    gemm_segment<4, false>(acc4, &s.act[0][0], WIDTH, WIDTH,
-                           p.w[DIR_INFO] + DIR_ENC * (WIDTH / 2), s.wt);
-    store<4, true>(acc4, p.b[DIR_INFO], s.act, a_tile + A_HD, A_STRIDE, valid);
+    gemm_f32<4>(acc4, &s.enc_dir[0][0], DIR_ENC, DIR_ENC, p.w[DIR_INFO], s.wt, valid);
+    gemm_f32<4>(acc4, &s.act[0][0], WIDTH, WIDTH, p.w[DIR_INFO] + DIR_ENC * (WIDTH / 2),
+                s.wt, valid);
+    put_act<4, true>(acc4, p.b[DIR_INFO], s.act, a_tile + A_HD, valid);
 
     // color = sigmoid(x): its gradient is g_c * c * (1 - c)
     for (int i = 0; i < ROWS; ++i) {
@@ -262,57 +394,57 @@ field_bwd_kernel(Coord coord, const float* __restrict__ g_sigma,
     {
       float acc1[ROWS][1];
       zero(acc1);
-      gemm_segment<1, false>(acc1, &s.act[0][0], WIDTH, WIDTH / 2, wt + T_DE, s.wt);
+      gemm_f32<1>(acc1, &s.act[0][0], WIDTH, WIDTH / 2, wt + T_DE, s.wt, valid);
       if (lane < DIR_ENC)
         for (int i = 0; i < ROWS; ++i) s.genc_dir[row0 + i][lane] = acc1[i][0];
     }
     zero(acc);
-    gemm_segment<8, false>(acc, &s.act[0][0], WIDTH, WIDTH / 2, wt + T_DP, s.wt);
-    store_grad<8>(acc, s.act, g_tile + G_PI, nullptr, valid);
+    gemm_f32<8>(acc, &s.act[0][0], WIDTH, WIDTH / 2, wt + T_DP, s.wt, valid);
+    put_grad(acc, s.act, g_tile + G_PI, nullptr, valid);
 
     // into h7: gs * w_sigma + g_pi W_pi^T, then relu'(h7)
     zero(acc);
-    gemm_segment<8, false>(acc, &s.act[0][0], WIDTH, WIDTH, wt + T_PI, s.wt);
+    gemm_f32<8>(acc, &s.act[0][0], WIDTH, WIDTH, wt + T_PI, s.wt, valid);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float ws = __ldg(p.w[SIGMA] + lane + 32 * j);
+      const float ws = __ldg(p.w[SIGMA] + col_of<8>(j));
 #pragma unroll
       for (int i = 0; i < ROWS; ++i) acc[i][j] += s.gsig[row0 + i] * ws;
     }
-    store_grad<8>(acc, s.act, g_tile + 7 * WIDTH, a_tile + a_hidden(7), valid);
+    put_grad(acc, s.act, g_tile + 7 * WIDTH, a_tile + a_hidden(7), valid);
 
     // down the trunk, layers 7..1; the skip layer 4 also feeds g_enc_pt
     for (int layer = 7; layer >= 1; --layer) {
       if (layer == 4) {
         float acc2[ROWS][2];
         zero(acc2);
-        gemm_segment<2, false>(acc2, &s.act[0][0], WIDTH, WIDTH, wt + T_4E, s.wt);
+        gemm_f32<2>(acc2, &s.act[0][0], WIDTH, WIDTH, wt + T_4E, s.wt, valid);
 #pragma unroll
         for (int i = 0; i < ROWS; ++i)
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
-            const int c = lane + 32 * j;
+            const int c = col_of<2>(j);
             if (c < PT_ENC && row0 + i < valid)
               g_tile[(size_t)(row0 + i) * G_STRIDE + G_ENC4 + c] = acc2[i][j];
           }
       }
       zero(acc);
-      gemm_segment<8, false>(acc, &s.act[0][0], WIDTH, WIDTH,
-                             wt + T_TRUNK + (layer - 1) * WIDTH * WIDTH, s.wt);
-      store_grad<8>(acc, s.act, g_tile + (layer - 1) * WIDTH, a_tile + a_hidden(layer - 1),
-                    valid);
+      gemm_f32<8>(acc, &s.act[0][0], WIDTH, WIDTH,
+                  wt + T_TRUNK + (layer - 1) * WIDTH * WIDTH, s.wt, valid);
+      put_grad(acc, s.act, g_tile + (layer - 1) * WIDTH, a_tile + a_hidden(layer - 1),
+               valid);
     }
 
     // layer 0: g_enc_pt = (layer 4's share) + g_pre0 W0^T, into act[:, :60]
     {
       float acc2[ROWS][2];
       zero(acc2);
-      gemm_segment<2, false>(acc2, &s.act[0][0], WIDTH, WIDTH, wt + T_0, s.wt);
+      gemm_f32<2>(acc2, &s.act[0][0], WIDTH, WIDTH, wt + T_0, s.wt, valid);
 #pragma unroll
       for (int i = 0; i < ROWS; ++i)
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          const int r = row0 + i, c = lane + 32 * j;
+          const int r = row0 + i, c = col_of<2>(j);
           if (c < PT_ENC) {
             const float g4 =
                 r < valid ? __ldcg(g_tile + (size_t)r * G_STRIDE + G_ENC4 + c) : 0.f;
@@ -323,7 +455,7 @@ field_bwd_kernel(Coord coord, const float* __restrict__ g_sigma,
     __syncthreads();
 
     // through the encoding (float32 sin/cos): d x_c = sum_l f_l (g_sin cos - g_cos sin)
-    for (int idx = threadIdx.x; idx < TILE_M * 3; idx += THREADS) {
+    for (int idx = threadIdx.x; idx < BT_M * 3; idx += BT_THREADS) {
       const int r = idx / 3, c = idx % 3;
       float dp = 0.f, dd = 0.f;
 #pragma unroll
@@ -347,111 +479,200 @@ field_bwd_kernel(Coord coord, const float* __restrict__ g_sigma,
 
     if constexpr (FLAT) {
       // each row's own d_points and d_dirs
-      for (int idx = threadIdx.x; idx < valid * 3; idx += THREADS) {
+      for (int idx = threadIdx.x; idx < valid * 3; idx += BT_THREADS) {
         d_o[3 * (size_t)base + idx] = (&s.dpt[0][0])[idx];
         d_d[3 * (size_t)base + idx] = (&s.ddir[0][0])[idx];
       }
     } else {
-      // to the ray: d_ts = d_pts . d; per-ray sums in sample order
+      // d_ts = d_pts . d; d_pts and d_dir to G for the per-ray sums (G_DPT:
+      // trunk_4's share was read above)
       const float* dirs = coord.dirs;
-      const float* ts = coord.ts;
-      for (int r = threadIdx.x; r < valid; r += THREADS) {
+      for (int r = threadIdx.x; r < valid; r += BT_THREADS) {
         const int m = base + r, ray = m / n_samples;
         float v = s.dpt[r][0] * dirs[3 * ray];
         v += s.dpt[r][1] * dirs[3 * ray + 1];
         v += s.dpt[r][2] * dirs[3 * ray + 2];
         d_ts[m] = v;
       }
-      for (int idx = threadIdx.x; idx < (r1 - r0) * 3; idx += THREADS) {
-        const int rr = idx / 3, c = idx % 3, ray = r0 + rr;
-        const int lo = max(base, ray * n_samples);
-        const int hi = min(base + valid, (ray + 1) * n_samples);
-        float so = s.ray_do[rr][c], sd = s.ray_dd[rr][c];
-        for (int m = lo; m < hi; ++m) {
-          so += s.dpt[m - base][c];
-          sd += s.dpt[m - base][c] * ts[m] + s.ddir[m - base][c];
-        }
-        s.ray_do[rr][c] = so;
-        s.ray_dd[rr][c] = sd;
+      for (int idx = threadIdx.x; idx < valid * 6; idx += BT_THREADS) {
+        const int r = idx / 6, c = idx % 6;
+        g_tile[(size_t)r * G_STRIDE + G_DPT + c] = c < 3 ? s.dpt[r][c] : s.ddir[r][c - 3];
       }
     }
     __syncthreads();
-  }
-
-  if constexpr (!FLAT) {
-    for (int idx = threadIdx.x; idx < (r1 - r0) * 3; idx += THREADS) {
-      d_o[3 * r0 + idx] = (&s.ray_do[0][0])[idx];
-      d_d[3 * r0 + idx] = (&s.ray_dd[0][0])[idx];
-    }
   }
 }
 
-// partials[split][goff + k * out + j] = sum over the split's rows of
-// A[row][a_col + k] * G[row][g_col + j]; the k-tile-0 blocks also write the
-// bias gradient, sum G[row][g_col + j], at goff + K * out + j.
-__global__ void __launch_bounds__(THREADS)
+// Per ray of rays ray0 .. ray1 - 1 (the chunk), from each sample's d_pts and
+// d_dir in G: d_o = sum_n d_pts, d_d = sum_n (d_pts t_n + d_dir), in sample
+// order. One thread a (ray, channel).
+__global__ void ray_sums_kernel(const float* __restrict__ ws_g, const float* __restrict__ ts,
+                                float* __restrict__ d_o, float* __restrict__ d_d,
+                                int n_samples, int ray0, int ray1) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (ray1 - ray0) * 3) return;
+  const int ray = ray0 + idx / 3, c = idx % 3;
+  const float* g = ws_g + (size_t)(idx / 3) * n_samples * G_STRIDE + G_DPT + c;
+  const float* t = ts + (size_t)ray * n_samples;
+  float so = 0.f, sd = 0.f;
+#pragma unroll 8
+  for (int n = 0; n < n_samples; ++n) {
+    const float dp = __ldg(g + (size_t)n * G_STRIDE);
+    so += dp;
+    sd += dp * t[n] + __ldg(g + (size_t)n * G_STRIDE + 3);
+  }
+  d_o[3 * ray + c] = so;
+  d_d[3 * ray + c] = sd;
+}
+
+// The heads' weight and bias gradients over rows m0 .. m1 - 1: dW_sigma[k] =
+// sum h7[k] g_sigma, dW_color[k][c] = sum h_dir[k] g_c, and the bias sums.
+// Warp w takes rows m0 + w, m0 + w + 8, ..., lane l columns l + 32 q; the
+// warps' sums are then added in warp order through `red` (8 x 644 floats).
+__device__ __forceinline__ void heads_wgrad_f32(const float* __restrict__ ws_a,
+                                                const float* __restrict__ ws_g, int m0,
+                                                int m1, int goff_sigma, int goff_color,
+                                                float* out, float* red) {
+  constexpr int HR = WIDTH + 3 * (WIDTH / 2) + 4;  // 644: sigma w, color w, the biases
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float ws[8], wc[4][3], bs = 0.f, bc[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int q = 0; q < 8; ++q) ws[q] = 0.f;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) wc[q][0] = wc[q][1] = wc[q][2] = 0.f;
+  for (int m = m0 + warp; m < m1; m += THREADS / 32) {
+    const float* a = ws_a + (size_t)m * A_STRIDE;
+    const float* g = ws_g + (size_t)m * G_STRIDE;
+    const float gs = __ldg(g + G_SIGMA);
+    const float gc[3] = {__ldg(g + G_COLOR), __ldg(g + G_COLOR + 1), __ldg(g + G_COLOR + 2)};
+#pragma unroll
+    for (int q = 0; q < 8; ++q) ws[q] = fmaf(__ldg(a + a_hidden(7) + lane + 32 * q), gs, ws[q]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float h = __ldg(a + A_HD + lane + 32 * q);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) wc[q][c] = fmaf(h, gc[c], wc[q][c]);
+    }
+    bs += gs;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) bc[c] += gc[c];
+  }
+  float* r = red + warp * HR;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) r[lane + 32 * q] = ws[q];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) r[WIDTH + 3 * (lane + 32 * q) + c] = wc[q][c];
+  if (lane == 0) {
+    r[HR - 4] = bs;
+    for (int c = 0; c < 3; ++c) r[HR - 3 + c] = bc[c];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < HR; i += THREADS) {
+    float v = red[i];
+    for (int w = 1; w < THREADS / 32; ++w) v += red[w * HR + i];
+    if (i < WIDTH) out[goff_sigma + i] = v;                   // sigma.w (256 x 1)
+    else if (i < HR - 4) out[goff_color + i - WIDTH] = v;     // color.w (128 x 3)
+    else if (i == HR - 4) out[goff_sigma + WIDTH] = v;        // sigma.b
+    else out[goff_color + 3 * (WIDTH / 2) + i - (HR - 3)] = v;  // color.b
+  }
+}
+
+// partials[split][goff + k * out + j] = sum over the split's rows (blockIdx.y's
+// slice of t.split_rows) of A[row][a_col + k] * G[row][g_col + j], one
+// 128 x 128 output tile a block; the k-tile-0 blocks also write the bias
+// gradient, sum G[row][g_col + j], at goff + K * out + j; the HEADS_TILE
+// block, the heads'. A and G come in WG_RT-row K-slabs that cp.async
+// double-buffers (rows past the slice and A columns past the layer's
+// fan-in zero-filled). Thread (tx, ty) = (t % 16, t / 16) holds the 8 x 8
+// outputs k in {4 ty .. +3, 64 + 4 ty .. +3} x j in {4 tx .. +3, 64 + 4 tx
+// .. +3}: two 16-byte reads of A and two of G a row for 64 FMAs. Rows
+// ascend, one FMA a term.
+__global__ void __launch_bounds__(THREADS, 2)
 wgrad_kernel(const float* __restrict__ ws_a, const float* __restrict__ ws_g,
              int rows, WGrad t, float* __restrict__ partials) {
-  __shared__ __align__(16) float as[WG_RT][WG_TILE];
-  __shared__ __align__(16) float gs[WG_RT][WG_TILE];
+  extern __shared__ float4 smem_raw[];
+  float* as = reinterpret_cast<float*>(smem_raw);  // [WG_STAGES][WG_RT][WG_TILE], then G's
+  float* gs = as + WG_STAGES * WG_RT * WG_TILE;
+  const int m0 = blockIdx.y * t.split_rows, m1 = min(rows, m0 + t.split_rows);
   const int packed = t.tile[blockIdx.x];
+  if (packed == HEADS_TILE) {
+    heads_wgrad_f32(ws_a, ws_g, m0, m1, t.goff[SIGMA], t.goff[COLOR],
+                    partials + (size_t)blockIdx.y * N_GRAD, as);
+    return;
+  }
   const int layer = packed >> 16, kt = (packed >> 8) & 0xff, jt = packed & 0xff;
   const int K = t.k[layer], OUT = t.out[layer];
-  const int a_col = t.a_col[layer] + kt * WG_TILE;
-  const int g_col = t.g_col[layer] + jt * WG_TILE;
-  const int k_n = min(WG_TILE, K - kt * WG_TILE), j_n = min(WG_TILE, OUT - jt * WG_TILE);
-  const int m0 = blockIdx.y * SPLIT_ROWS, m1 = min(rows, m0 + SPLIT_ROWS);
+  const int k_in = min(WG_TILE, K - kt * WG_TILE);
+  const float* a_src = ws_a + t.a_col[layer] + kt * WG_TILE;
+  const float* g_src = ws_g + t.g_col[layer] + jt * WG_TILE;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const bool bias = kt == 0 && ty == 0;
 
-  float acc[4][4], bsum[4];
+  // thread t copies 16 bytes, columns 4 (t % 32) .. +3, of rows t / 32 + 8 q
+  // of the slab, of A and of G
+  const int lc = 4 * (threadIdx.x & 31), lr = threadIdx.x >> 5;
+  auto load = [&](int stage, int m) {
+    float* ad = as + (stage * WG_RT + lr) * WG_TILE + lc;
+    float* gd = gs + (stage * WG_RT + lr) * WG_TILE + lc;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+    for (int q = 0; q < WG_RT / (THREADS / 32); ++q) {
+      const int row = m + lr + q * (THREADS / 32);
+      const bool ok = row < m1;
+      const size_t r = ok ? row : m0;  // a valid address when zero-filling
+      cp_async16(ad + q * (THREADS / 32) * WG_TILE, a_src + r * A_STRIDE + lc, ok && lc < k_in);
+      cp_async16(gd + q * (THREADS / 32) * WG_TILE, g_src + r * G_STRIDE + lc, ok);
+    }
+    cp_async_commit();
+  };
+
+  float acc[8][8], bsum[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
     bsum[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   }
-  for (int m = m0; m < m1; m += WG_RT) {
-    for (int idx = threadIdx.x; idx < WG_RT * WG_TILE; idx += THREADS) {
-      const int r = idx / WG_TILE, c = idx % WG_TILE, mm = m + r;
-      as[r][c] = (mm < m1 && c < k_n) ? ws_a[(size_t)mm * A_STRIDE + a_col + c] : 0.f;
-      gs[r][c] = (mm < m1 && c < j_n) ? ws_g[(size_t)mm * G_STRIDE + g_col + c] : 0.f;
-    }
-    __syncthreads();
+  const int slabs = (m1 - m0 + WG_RT - 1) / WG_RT;
+  for (int st = 0; st + 1 < WG_STAGES; ++st) load(st, m0 + st * WG_RT);
+  for (int slab = 0; slab < slabs; ++slab) {
+    cp_async_wait<WG_STAGES - 2>();
+    __syncthreads();  // this slab is in, and every thread is done with the last one
+    load((slab + WG_STAGES - 1) % WG_STAGES, m0 + (slab + WG_STAGES - 1) * WG_RT);
+    const float* A = as + (slab % WG_STAGES) * WG_RT * WG_TILE + 4 * ty;
+    const float* G = gs + (slab % WG_STAGES) * WG_RT * WG_TILE + 4 * tx;
 #pragma unroll 4
     for (int r = 0; r < WG_RT; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(&as[r][ty * 4]);
-      const float4 g = *reinterpret_cast<const float4*>(&gs[r][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, gv[4] = {g.x, g.y, g.z, g.w};
+      float a[8], g[8];
+      load_v<4>(a, A + r * WG_TILE);
+      load_v<4>(a + 4, A + r * WG_TILE + WG_TILE / 2);
+      load_v<4>(g, G + r * WG_TILE);
+      load_v<4>(g + 4, G + r * WG_TILE + WG_TILE / 2);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], gv[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], g[j], acc[i][j]);
       if (bias) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) bsum[j] += gv[j];
+        for (int j = 0; j < 8; ++j) bsum[j] += g[j];
       }
     }
-    __syncthreads();
   }
 
   float* out = partials + (size_t)blockIdx.y * N_GRAD + t.goff[layer];
+  const int j0 = jt * WG_TILE + 4 * tx;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int k = (i / 4) * (WG_TILE / 2) + 4 * ty + i % 4;
+    if (k >= k_in) continue;
+    float* o = out + (size_t)(kt * WG_TILE + k) * OUT + j0;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int jj = tx * 4 + j;
-      if (k < k_n && jj < j_n)
-        out[(size_t)(kt * WG_TILE + k) * OUT + jt * WG_TILE + jj] = acc[i][j];
-    }
+    for (int j = 0; j < 8; ++j) o[(j / 4) * (WG_TILE / 2) + j % 4] = acc[i][j];
   }
   if (bias) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int jj = tx * 4 + j;
-      if (jj < j_n) out[(size_t)K * OUT + jt * WG_TILE + jj] = bsum[j];
-    }
+    for (int j = 0; j < 8; ++j) out[(size_t)K * OUT + j0 + (j / 4) * (WG_TILE / 2) + j % 4] = bsum[j];
   }
 }
 
@@ -470,6 +691,26 @@ int chunk_rays(int n_rays, int n_samples) {
 }
 
 int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
+
+// Rows a weight-gradient partial sum takes at `rows` rows, `tiles` blocks a
+// slice and `slots` resident blocks (WG_SLOTS): of ceil(rows / SPLIT_ROWS)
+// to twice as many slices (and at least a K-slab each), the count whose
+// tiles x slices blocks fill their last wave best; the fewest on a tie.
+inline int wgrad_split_rows(int rows, int tiles, int slots) {
+  const int lo = ceil_div(rows, SPLIT_ROWS);
+  const int hi = std::max(lo, std::min(2 * lo, ceil_div(rows, WG_RT)));
+  int best = lo;
+  double best_fill = 0.0;
+  for (int s = lo; s <= hi; ++s) {
+    const double waves = (double)s * tiles / slots;
+    const double fill = waves / std::ceil(waves);
+    if (fill > best_fill + 1e-9) {
+      best = s;
+      best_fill = fill;
+    }
+  }
+  return ceil_div(rows, best);
+}
 
 
 // ---------------------------------------------------------------- bf16 form
@@ -498,7 +739,6 @@ constexpr int WB_LD = WB_TILE + 8;
 constexpr int WB_SMEM =
     2 * 2 * WB_RT * WB_LD * (int)sizeof(bf16) + THREADS * (int)sizeof(float);
 constexpr int N_SEG = 12;        // products by (layer, fan-in slice); the heads apart
-constexpr int HEADS_TILE = -1;
 
 // Float32 elements of workspace field_bwd_run needs for these shapes, in
 // either form: the fp32 form's transposed weights, A and G, or the bf16
@@ -507,7 +747,7 @@ inline long long field_bwd_workspace_floats(int n_rays, int n_samples) {
   if (n_rays <= 0 || n_samples <= 0) return 0;
   const long long rows = (long long)chunk_rays(n_rays, n_samples) * n_samples;
   return std::max(WT_FLOATS + rows * (A_STRIDE + G_STRIDE) +
-                      (long long)ceil_div(rows, SPLIT_ROWS) * N_GRAD,
+                      2LL * ceil_div(rows, SPLIT_ROWS) * N_GRAD,
                   PK_SCRATCH / 2 + rows * ((AB_STRIDE + GB_STRIDE) / 2 + GS_STRIDE) +
                       (long long)ceil_div(rows, WB_SPLIT) * N_GRAD);
 }
@@ -1076,6 +1316,33 @@ inline int field_bwd_tc_launch(Coord coord, const float* g_sigma, const float* g
   return 0;
 }
 
+// The fp32 recompute grid's size, as many blocks of field_bwd_kernel as the
+// current card holds at once, in `*slots`; the shared-memory limits of it and
+// wgrad_kernel set. Queried once a device, then read from a cache.
+template <class Coord>
+inline cudaError_t fp32_bwd_slots(int* slots) {
+  static std::atomic<int> cached[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && (*slots = cached[dev].load()) > 0) return cudaSuccess;
+  auto kernel = &field_bwd_kernel<Coord>;
+  int sms = 0, per_sm = 0;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)sizeof(Smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               WG_SMEM);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BT_THREADS,
+                                                        sizeof(Smem));
+  if (err != cudaSuccess) return err;
+  *slots = std::max(1, per_sm) * sms;
+  if (dev < MAX_DEVICES) cached[dev].store(*slots);
+  return cudaSuccess;
+}
+
 // The field's recompute backward on `st`, over rows read through `coord`:
 // kernel 2 with a RayCoord (see field_rays_bwd.cu for the arguments),
 // kernel 4 with a RowCoord (field_flat_bwd.cu; n_rays rows, n_samples =
@@ -1096,8 +1363,8 @@ inline int field_bwd_launch(Coord coord, const float* g_sigma, const float* g_r,
     return field_bwd_tc_launch(coord, g_sigma, g_r, g_g, g_b, p, d_o, d_d, d_ts, grads,
                                workspace, n_rays, n_samples, accumulate, st);
   auto kernel = &field_bwd_kernel<Coord>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Smem));
+  int slots = 0;
+  cudaError_t err = fp32_bwd_slots<Coord>(&slots);
   if (err != cudaSuccess) return (int)err;
 
   // ---- 1. transposed weights ----
@@ -1119,7 +1386,8 @@ inline int field_bwd_launch(Coord coord, const float* g_sigma, const float* g_r,
   transpose_kernel<<<dim3(64, N_TRANSPOSE), THREADS, 0, st>>>(tr, wt);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  // ---- the weight-gradient tiles of every layer ----
+  // ---- the weight-gradient tiles: the full 128 x 128 ones first, then the
+  // edge tiles (fan-in 60, 316, 280), then the heads (sigma, color) ----
   WGrad wg;
   const int a_cols[N_LAYERS] = {A_ENC_PT, a_hidden(0), a_hidden(1), a_hidden(2),
                                 a_hidden(3), a_hidden(4), a_hidden(5), a_hidden(6),
@@ -1128,35 +1396,46 @@ inline int field_bwd_launch(Coord coord, const float* g_sigma, const float* g_r,
                                 5 * WIDTH, 6 * WIDTH, 7 * WIDTH, G_SIGMA, G_PI,
                                 G_HD, G_COLOR};
   int goff = 0;
-  wg.n_tiles = 0;
   for (int l = 0; l < N_LAYERS; ++l) {
     wg.k[l] = FAN_IN[l]; wg.out[l] = FAN_OUT[l];
     wg.a_col[l] = a_cols[l]; wg.g_col[l] = g_cols[l]; wg.goff[l] = goff;
     goff += (FAN_IN[l] + 1) * FAN_OUT[l];
-    for (int kt = 0; kt < ceil_div(FAN_IN[l], WG_TILE); ++kt)
-      for (int jt = 0; jt < ceil_div(FAN_OUT[l], WG_TILE); ++jt)
-        wg.tile[wg.n_tiles++] = l << 16 | kt << 8 | jt;
   }
+  wg.n_tiles = 0;
+  for (int edge = 0; edge < 2; ++edge)
+    for (int l = 0; l < N_LAYERS; ++l) {
+      if (l == SIGMA || l == COLOR) continue;
+      for (int kt = 0; kt < ceil_div(FAN_IN[l], WG_TILE); ++kt)
+        if ((FAN_IN[l] - kt * WG_TILE < WG_TILE) == (edge == 1))
+          for (int jt = 0; jt < FAN_OUT[l] / WG_TILE; ++jt)
+            wg.tile[wg.n_tiles++] = l << 16 | kt << 8 | jt;
+    }
+  wg.tile[wg.n_tiles++] = HEADS_TILE;
   if (goff != N_GRAD || wg.n_tiles > MAX_TILES) return (int)cudaErrorInvalidValue;
 
-  // ---- per chunk of whole rays: 2. recompute + input grads, 3. weight
-  // grads, 4. reduce ----
+  // ---- per chunk of whole rays: 2. recompute + input grads (and, ray form,
+  // the per-ray sums), 3. weight grads, 4. reduce ----
   const int c_rays = chunk_rays(n_rays, n_samples);
   const long long c_rows = (long long)c_rays * n_samples;
   float* ws_a = wt + WT_FLOATS;
   float* ws_g = ws_a + c_rows * A_STRIDE;
   float* partials = ws_g + c_rows * G_STRIDE;
-  const int rays_per_block = std::max(1, TILE_M / n_samples);
   for (int ray0 = 0; ray0 < n_rays; ray0 += c_rays) {
     const int ray1 = std::min(n_rays, ray0 + c_rays);
     const int rows = (ray1 - ray0) * n_samples;
-    kernel<<<ceil_div(ray1 - ray0, rays_per_block), THREADS, sizeof(Smem), st>>>(
-        coord, g_sigma, g_r, g_g, g_b, p, wt, ws_a, ws_g, d_o, d_d, d_ts,
-        n_samples, ray0, ray1, rays_per_block);
+    kernel<<<std::min(ceil_div(rows, BT_M), slots), BT_THREADS, sizeof(Smem), st>>>(
+        coord, g_sigma, g_r, g_g, g_b, p, wt, ws_a, ws_g, d_o, d_d, d_ts, n_samples,
+        ray0 * n_samples, rows);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    const int splits = ceil_div(rows, SPLIT_ROWS);
-    wgrad_kernel<<<dim3(wg.n_tiles, splits), THREADS, 0, st>>>(ws_a, ws_g, rows,
-                                                               wg, partials);
+    if constexpr (!Coord::kFlat) {
+      ray_sums_kernel<<<ceil_div(3 * (ray1 - ray0), THREADS), THREADS, 0, st>>>(
+          ws_g, coord.ts, d_o, d_d, n_samples, ray0, ray1);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+    wg.split_rows = wgrad_split_rows(rows, wg.n_tiles, WG_SLOTS);
+    const int splits = ceil_div(rows, wg.split_rows);
+    wgrad_kernel<<<dim3(wg.n_tiles, splits), THREADS, WG_SMEM, st>>>(ws_a, ws_g, rows, wg,
+                                                                     partials);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     reduce_kernel<<<ceil_div(N_GRAD, THREADS), THREADS, 0, st>>>(
         partials, splits, grads, accumulate || ray0 > 0);

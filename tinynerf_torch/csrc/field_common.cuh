@@ -10,8 +10,10 @@
 // holds an 8-row x (OUT/32)-column register tile (row_i = 8*warp + i, col_j
 // = lane + 32*j), accumulated with float32 FMA (no tensor cores, no TF32).
 // A layer's weights, (fan_in, fan_out) row-major, stream through a KT-row
-// shared K-tile from L2. The bf16 form runs its products on the tensor
-// cores instead (field_tc.cuh) and keeps the heads and the encoding here.
+// shared K-tile from L2 (the forward kernels'; the recompute backward's
+// fp32 form has wider tiles of its own, field_bwd_common.cuh). The bf16
+// form runs its products on the tensor cores instead (field_tc.cuh) and
+// keeps the heads and the encoding here.
 //
 // Numerics follow the plain PyTorch version: o + t*d and freq*x use
 // __fmul_rn/__fadd_rn so that nvcc cannot contract them into an FMA, and
@@ -108,18 +110,18 @@ struct RowCoord {
   }
 };
 
-// Encode rows base .. base+TILE_M-1 into enc_pt / enc_dir, interleaved
-// [sin f0 x, cos f0 x, ...] per channel, in float32; coord(m, c, is_pt)
-// gives channel c of row m's point or direction. Rows at or past row_end
-// encode x = 0. Ends with a barrier.
-template <class Coord>
+// Encode rows base .. base+M-1 into enc_pt / enc_dir, interleaved
+// [sin f0 x, cos f0 x, ...] per channel, in float32, with NT threads;
+// coord(m, c, is_pt) gives channel c of row m's point or direction. Rows
+// at or past row_end encode x = 0. Ends with a barrier.
+template <class Coord, int M = TILE_M, int NT = THREADS>
 __device__ __forceinline__ void encode_tile(Coord coord,
                                             const float* __restrict__ freqs,
                                             int base, int row_end,
                                             float (*enc_pt)[PT_ENC],
                                             float (*enc_dir)[DIR_ENC]) {
-  for (int idx = threadIdx.x; idx < TILE_M * 3 * (L_PT + L_DIR);
-       idx += THREADS) {
+  for (int idx = threadIdx.x; idx < M * 3 * (L_PT + L_DIR);
+       idx += NT) {
     const int r = idx / (3 * (L_PT + L_DIR));
     const int rem = idx % (3 * (L_PT + L_DIR));
     const int m = base + r;

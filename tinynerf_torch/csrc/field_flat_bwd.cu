@@ -25,11 +25,11 @@
 // Design: kernel 2's device code and launch sequence (field_bwd_common.cuh;
 // its design note is in field_rays_bwd.cu) read through RowCoord with one
 // sample a "ray": the weights' transpose (fp32) or bf16 packing, the
-// recompute + input-gradient launch over 64-row tiles, the weight-gradient
-// launch over fixed row slices and the ordered reduce, per chunk of
-// CHUNK_ROWS rows. Each row's d_points and d_dirs are written as they are;
-// there is no d_ts and no per-ray sum. No atomics: a call is
-// deterministic.
+// recompute + input-gradient launch over 128-row (fp32) or 64-row (bf16)
+// tiles, the weight-gradient launch over fixed row slices and the ordered
+// reduce, per chunk of CHUNK_ROWS rows. Each row's d_points and d_dirs are
+// written as they are; there is no d_ts and no per-ray sum. No atomics: a
+// call is deterministic.
 
 #include "field_bwd_common.cuh"
 

@@ -8,7 +8,7 @@
 // forward and returns the gradients of all 24 weights and biases, of the
 // origins and dirs (B, 3) and of ts (B, N), all float32. The chain rule to
 // the ray (d_ts = d_pts . d, d_o = sum_n d_pts, d_d = sum_n d_pts t + d_dir)
-// runs inside the kernel: no (B*N, 3) array reaches device memory. It runs
+// runs inside the call: no (B*N, 3) array is returned. It runs
 // in float32 or in the TPU kernel's bf16 form (field_common.cuh, the
 // precision note): as there, the head gradients (sigma, color) stay float32
 // and every other pre-activation gradient is rounded to bf16; the weight
@@ -23,30 +23,52 @@
 // block's 227 KB of shared memory, and blocks run concurrently, so one call
 // is a few launches, all on `stream`:
 // 1. the weights, for the products' use: fp32, every weight matrix the
-//    input-gradient products read is copied transposed (and zero-padded to
-//    a multiple of 32 columns) into the workspace, so those products reuse
-//    the forward's streamed K-tile GEMM (field_common.cuh) unchanged; bf16,
-//    all of them packed into bf16 once (field_tc.cuh's pack_weights), which
-//    the input-gradient products read untransposed through ldmatrix;
+//    input-gradient products read is copied transposed, (fan-out, fan-in
+//    zero-padded to a multiple of 32) row-major, into the workspace, so
+//    that every product reads its weights as K rows of adjacent outputs;
+//    bf16, all of them packed into bf16 once (field_tc.cuh's pack_weights),
+//    which the input-gradient products read untransposed through ldmatrix;
 // 2. recompute + input gradients, per 64-row tile: the forward of
 //    field_rays_fwd.cu, saving each layer's input to a workspace A, then
 //    the heads' gradients and the chain down the trunk, saving each layer's
 //    pre-activation gradient to a workspace G; then the encoding's backward
-//    and the per-ray sums. A block owns whole rays (max(1, 64 / N) of them,
-//    in 64-row sub-tiles), so the per-ray sums need no second pass. The
-//    fp32 form runs float32 FMA and keeps A and G in float32; the bf16 form
-//    runs its products on the tensor cores (mma.sync, f32 accumulation) and
-//    keeps A and G in bf16, the heads' gradients and trunk_4's share of the
-//    encoding's gradient in a float32 side area, which halves their traffic;
+//    and the per-ray sums.
+//    - fp32 (field_bwd_common.cuh's gemm_f32): float32 FMA on 8-row x
+//      8-column register tiles, a thread's columns in groups of 4 adjacent
+//      ones, so a weight K-tile row is read as 16-byte shared-memory loads
+//      and the rows as broadcast 16-byte loads (16 FMAs a load, against
+//      gemm_segment's 6.4); the weights' 16-row K-tiles double-buffered by
+//      cp.async, the next in flight during the FMAs. A block takes 128-row
+//      tiles with 512 threads (220 KB of shared memory, one block an SM),
+//      so each K-tile brought from L2 serves twice the rows of a 64-row
+//      tile: the weights' L2 traffic, 4.6 MB a tile, is what the FMAs wait
+//      on. The grid is persistent, one block an SM, each an even share of
+//      the chunk's rows, and the warps past a tile's last row skip their
+//      FMAs, so no wave is left nearly empty (the lego step's 25,600 and
+//      51,200 rows make 1.5 waves of whole-ray 64-row blocks). A ray may
+//      span two blocks: each row leaves its d_pts and d_dir in G and
+//      ray_sums_kernel adds them per ray, in sample order;
+//    - bf16: a block owns whole rays (max(1, 64 / N) of them, in 64-row
+//      sub-tiles), so the per-ray sums need no second pass; its products
+//      run on the tensor cores (mma.sync, f32 accumulation) and A and G are
+//      kept in bf16, the heads' gradients and trunk_4's share of the
+//      encoding's gradient in a float32 side area, which halves their
+//      traffic;
 // 3. weight gradients: dW = A^T G and db = sum G for all 12 layers as one
-//    launch of output tiles (fp32: 64 x 64, float32 FMA; bf16: 128 x 128 on
-//    the tensor cores, the heads on float32 FMA), split over the rows into
-//    fixed slices (SPLIT_ROWS; WB_SPLIT at bf16), each slice's partial sums
-//    written to its own buffer;
+//    launch of output tiles over fixed row slices, each slice's partial sums
+//    written to its own buffer. fp32: 128 x 128 tiles of float32 FMA, 8 x 8
+//    outputs a thread (two 16-byte reads each of A and G a row for 64
+//    FMAs), A and G in 32-row K-slabs double-buffered by cp.async, so each
+//    256-wide layer's A and G columns are read twice; the heads (sigma,
+//    color) in a block of their own; slices of at most SPLIT_ROWS rows,
+//    their count chosen so that the last wave of an H100's resident blocks
+//    (WG_SLOTS, a constant) is full (wgrad_split_rows). bf16: 128 x 128 tiles on the tensor
+//    cores, the heads on float32 FMA, WB_SPLIT-row slices;
 // 4. reduce: the slices' partials summed in a fixed order.
-// No atomics: a call is deterministic. Rows are processed in chunks of at
-// most CHUNK_ROWS (whole rays), the weight gradients accumulating across
-// chunks in order, which caps the workspace at about 1.3 GB.
+// No atomics: a call is deterministic (its slices depend on the shapes
+// only). Rows are processed in chunks of
+// at most CHUNK_ROWS (whole rays), the weight gradients accumulating across
+// chunks in order, which caps the workspace at about 1.4 GB.
 //
 // The device code and the launch sequence are in field_bwd_common.cuh,
 // which the fused renderer's backward (render_fused_bwd.cu) shares.
