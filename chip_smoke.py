@@ -10,10 +10,12 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
    source, all at once) and prints each build's time and ``ptxas``'
    register/shared-memory report, and each kernel's count of tensor-core
    instructions (``HMMA``/``HGMMA``) in its SASS (``cuobjdump -sass``):
-   above 0 in every bf16 form of the field kernels (1-4, 9, 10) and the
-   grid kernels (5, 6), whose products run on the tensor cores, and 0 in
-   their fp32 forms; it also builds kernel 6 with its phase clocks
-   (``GRID_PHASE_CLOCKS``, a library of its own that only phase 4 reads);
+   above 0 in every bf16 form of the field kernels (1-4, 9, 10), the grid
+   kernels (5, 6) and the proposal MLP's (7, 8), whose products run on the
+   tensor cores, and 0 in their fp32 forms; it also builds kernels 6 and 8
+   with their phase clocks (``GRID_PHASE_CLOCKS``, ``PROP_PHASE_CLOCKS``,
+   libraries of their own that only phase 4 reads) and kernel 8 without its
+   fix-up (``PROP_NO_FIXUP``, whose errors phase 3 prints for the record);
 3. holds each kernel form against its plain PyTorch version on the card, on
    dyadic inputs at the main paths' shapes (tolerances below): the field
    forward (kernel 1) at the render chunk's B=4096, and the field's
@@ -192,8 +194,15 @@ held against their plain versions in phase 3 (fp32 and bf16, at 128 x 4 with
 B = 4096, N = 64, at a ragged B = 1001 and at 64 x 3; fp32 forward within
 1e-5, backward within 1e-4 of max|plain| with rows near a kink given no
 cotangent; bf16 within 1e-2 and 3e-2 of max|plain| and cosine >= 0.999;
-the backward bit-identical across two launches) and timed in phase 4 at
-128 x 4, B = 4096, N = 64 beside both bounds.
+the backward bit-identical across two launches, and its weight gradients
+bit-identical to those of a call asked for no ray gradient, the main
+paths' call) and timed in phase 4 at 128 x 4, B = 4096, N = 64 beside both
+bounds: each as the wrapper's call (``ms``) and as its bare launch
+(``launch_ms``), kernel 8 also without the ray gradients
+(``ray_grads_off_ms``, the main paths' call), with kernel 8's time by
+launch (``launch_split``) and, in its bf16 form, the recompute kernel's
+phase split (``proposal_kernel.bwd_phase_split``: recompute, input
+gradients, weight gradients, ray sums).
 
 Any failure raises, and the script exits non-zero without the last line. It
 exits non-zero at once where ``torch.cuda.is_available()`` is false. It
@@ -268,6 +277,8 @@ FIELD_SOURCES = ("field_rays_fwd.cu", "field_rays_bwd.cu", "field_flat_fwd.cu",
                  "field_flat_bwd.cu", "render_fused_fwd.cu", "render_fused_bwd.cu")
 # the grid kernels' sources: their bf16 forms run the decoder's products on the tensor cores
 GRID_SOURCES = ("grid_rays_fwd.cu", "grid_rays_bwd.cu")
+# the proposal MLP's sources: their bf16 forms run the trunk's products on the tensor cores
+PROP_SOURCES = ("prop_rays_fwd.cu", "prop_rays_bwd.cu")
 BF16_EDGE = (1001, 37)      # rows no multiple of 16 or of the 64-row tile
 GEMM_CHAIN_ROWS = 4096 * 128
 BWD_CHAIN_ROWS = 400 * 128  # a lego step's fine call
@@ -384,7 +395,7 @@ def kernel_form(name: str):
     if re.search(r"<\(bool\)1>|<true>|ILb1E|_tc_kernel", name):
         return "bf16"
     if re.search(r"<\(bool\)0>|<false>|ILb0E", name) or re.search(
-            r"field_bwd_kernel|wgrad_kernel|transpose_kernel", name):
+            r"field_bwd_kernel|wgrad_kernel|transpose_kernel|prop_rays_(fwd|bwd)_kernel", name):
         return "fp32"
     return None
 
@@ -818,7 +829,9 @@ def main() -> int:
     # ---- 2. build ----
     phase("build")
     t0 = time.perf_counter()
-    build.build_all(variants=[(gk.BWD_SOURCE, gk.PHASE_DEFINES)])
+    build.build_all(variants=[(gk.BWD_SOURCE, gk.PHASE_DEFINES),
+                              (pk.BWD_SOURCE, pk.PHASE_DEFINES),
+                              (pk.BWD_SOURCE, pk.NO_FIXUP_DEFINES)])
     print(f"built {', '.join(sorted(build.build_log))} in parallel: "
           f"{time.perf_counter() - t0:.1f} s")
     smem = {mk.FWD_SOURCE: mk._library(mk.FWD_SOURCE).field_rays_fwd_smem_bytes(),
@@ -833,7 +846,8 @@ def main() -> int:
                 smem[f"{source} {geometry}_{form_}"] = fn(*dims, bf)
     smem[pk.FWD_SOURCE] = pk._library(pk.FWD_SOURCE).prop_rays_fwd_smem_bytes()
     for net, (width, _) in PROP_NETS.items():
-        smem[f"{pk.BWD_SOURCE} {net}"] = pk._library(pk.BWD_SOURCE).prop_rays_bwd_smem_bytes(width)
+        smem[f"{pk.BWD_SOURCE} {net}_fp32"] = (
+            pk._library(pk.BWD_SOURCE).prop_rays_bwd_smem_bytes(width))
     smem[rk.FWD_SOURCE] = rk._library(rk.FWD_SOURCE).render_fused_fwd_smem_bytes(*FUSED_SAMPLES)
     smem[rk.BWD_SOURCE] = rk._library(rk.BWD_SOURCE).render_fused_bwd_smem_bytes(*FUSED_SAMPLES)
     for source in (mk.FWD_SOURCE, mk.BWD_SOURCE, mk.FLAT_SOURCE, mk.FLAT_BWD_SOURCE,
@@ -850,7 +864,7 @@ def main() -> int:
         counts = build.mma_counts(source)
         print(f"{source}: HMMA/HGMMA per kernel: " + "; ".join(
             f"{short_kernel(name)} {n}" for name, n in counts.items()))
-        if source.split()[0] not in FIELD_SOURCES + GRID_SOURCES:
+        if source.split()[0] not in FIELD_SOURCES + GRID_SOURCES + PROP_SOURCES:
             continue
         for name, n in counts.items():
             form_ = kernel_form(name)
@@ -1074,12 +1088,18 @@ def main() -> int:
             fwd_ok = fwd_abs <= COLOR_ATOL if precision == "fp32" else fwd_rel <= BF16_FWD_RTOL
             kernel = pk.prop_rays_bwd(params_p, o, d, ts, *cots, precision=precision)
             again = pk.prop_rays_bwd(params_p, o, d, ts, *cots, precision=precision)
+            # the main paths' call: no ray gradient asked for
+            no_rays = pk.prop_rays_bwd(params_p, o, d, ts, *cots, precision=precision,
+                                       ray_grads=False)
             torch.cuda.synchronize()
             plain = pk.prop_rays_bwd_plain(params_p, o, d, ts, *cots, precision=precision)
             errs = prop_bwd_errors(kernel, plain)
             worst = max(errs, key=lambda k: errs[k][1])
             cos = min(e[2] for e in errs.values())
             same = all(e[0] == 0 for e in prop_bwd_errors(kernel, again).values())
+            skip_same = no_rays[1:] == (None, None, None) and all(
+                torch.equal(no_rays[0][n][k], kernel[0][n][k])
+                for n in kernel[0] for k in ("w", "b"))
             limit = BWD_RTOL if precision == "fp32" else BF16_BWD_RTOL
             bwd_ok = errs[worst][1] <= limit and (precision == "fp32" or cos >= BF16_COS)
             print(f"{net} B={B} N={N} {precision}: forward max |err| {fwd_abs:.3e}, error / "
@@ -1088,15 +1108,24 @@ def main() -> int:
                   f"of rows within {MARGIN} of a kink, zero cotangent) worst {worst} "
                   f"{errs[worst][1]:.3e} of max|plain| (limit {limit}), d_ts "
                   f"{errs['d_ts'][1]:.3e}, trunk_0.w {errs['trunk_0.w'][1]:.3e}, smallest cosine "
-                  f"{cos:.7f}; two launches bit-identical: {same}")
-            if not (fwd_ok and bwd_ok and same):
+                  f"{cos:.7f}; two launches bit-identical: {same}; without the ray "
+                  f"gradients, the weight gradients bit-identical: {skip_same}")
+            if not (fwd_ok and bwd_ok and same and skip_same):
                 raise AssertionError(f"kernels 7/8 disagree with their plain versions at "
                                      f"{net} B={B} N={N} {precision}: {errs}")
+            if precision == "bf16" and B == PROP_SHAPE[0]:
+                raw = prop_bwd_errors(pk._launch_bwd(params_p, o, d, ts, *cots, precision,
+                                                     defines=pk.NO_FIXUP_DEFINES), plain)
+                print(f"  for the record, the bf16 backward without its fix-up (the "
+                      f"PROP_NO_FIXUP build: tensor-core sums rounded as they come): worst "
+                      f"{max(raw, key=lambda k: raw[k][1])} {max(e[1] for e in raw.values()):.3e}"
+                      f" of max|plain|, d_ts {raw['d_ts'][1]:.3e}, d_origins "
+                      f"{raw['d_origins'][1]:.3e} (the limit {BF16_BWD_RTOL})")
             prop_err[f"fwd {precision}"] = max(prop_err[f"fwd {precision}"], fwd_abs)
             prop_err[f"bwd {precision}"] = max(prop_err[f"bwd {precision}"],
                                                max(e[0] for e in errs.values()))
             prop_rel[f"bwd {precision}"] = max(prop_rel[f"bwd {precision}"], errs[worst][1])
-            del kernel, again, plain
+            del kernel, again, no_rays, plain
         if (net, B, N) == ("128x4", *PROP_SHAPE):
             prop_inputs[B, N] = (o, d, ts, *cots)
     torch.cuda.empty_cache()
@@ -1380,9 +1409,15 @@ def main() -> int:
 
     # kernels 7 and 8 at lego_prop's proposal call: (ms, plain ms, bound ms,
     # bound_by, f32 FMA bound ms) per (precision, (B, N)); the FLOPs are the
-    # TPU kernel's count (the encoding's sines and cosines not in it)
+    # TPU kernel's count (the encoding's sines and cosines not in it). ms is
+    # the wrapper's call, as every row's (kernel 8's with the ray gradients,
+    # as the parent's row); prop_extra: the bare launch (launch_ms: the
+    # wrapper's checks and autograd left out), kernel 8 without the ray
+    # gradients (the main paths' call), kernel 8's time by launch and the
+    # bf16 recompute kernel's phase split (the clock64 variant build)
     prop_fwd_time = {"fp32": {}, "bf16": {}}
     prop_bwd_time = {"fp32": {}, "bf16": {}}
+    prop_extra = {f"{k} {p}": {} for k in ("fwd", "bwd") for p in ("fp32", "bf16")}
     params_p = prop_params["128x4"]
     n_prop = sum(t.numel() for layer in params_p.values() for t in layer.values())
     for (B, N), (o, d, ts, *cots) in prop_inputs.items():
@@ -1394,17 +1429,43 @@ def main() -> int:
         for precision in ("fp32", "bf16"):
             with torch.no_grad():
                 k_ms = cuda_ms(lambda: pk.prop_rays(params_p, o, d, ts, precision), iters=20)
+                launch_ms = cuda_ms(lambda: pk._launch(params_p, o, d, ts, precision), iters=20)
                 p_ms = cuda_ms(lambda: pk.prop_rays_plain(params_p, o, d, ts, precision), iters=5)
             prop_fwd_time[precision][B, N] = report(
                 f"kernel 7 {precision} 128x4 B={B} N={N}", k_ms, p_ms, flops, fwd_bytes,
                 precision)
-            k_ms = cuda_ms(lambda: pk.prop_rays_bwd(params_p, o, d, ts, *cots,
-                                                     precision=precision), iters=10)
+            print(f"  the bare launch (proposal_kernel._launch): {launch_ms:.3f} ms")
+            prop_extra[f"fwd {precision}"] = {"launch_ms": launch_ms}
+            bwd = lambda **kw: pk.prop_rays_bwd(params_p, o, d, ts, *cots, precision=precision,
+                                                **kw)
+            k_ms = cuda_ms(bwd, iters=10)
+            launch_ms = cuda_ms(lambda: pk._launch_bwd(params_p, o, d, ts, *cots, precision),
+                                iters=10)
+            off_ms = cuda_ms(lambda: bwd(ray_grads=False), iters=10)
             p_ms = cuda_ms(lambda: pk.prop_rays_bwd_plain(params_p, o, d, ts, *cots,
                                                           precision=precision), iters=3)
             prop_bwd_time[precision][B, N] = report(
                 f"kernel 8 {precision} 128x4 B={B} N={N}", k_ms, p_ms, 3 * flops, bwd_bytes,
                 precision)
+            print(f"  the bare launch (proposal_kernel._launch_bwd): {launch_ms:.3f} ms; "
+                  f"without the ray gradients (the main paths' call): {off_ms:.3f} ms")
+            extra = prop_extra[f"bwd {precision}"] = {
+                "launch_ms": launch_ms, "ray_grads_off_ms": off_ms,
+                "launch_split": launch_split(bwd, f"kernel 8 {precision}"),
+                "launch_split_ray_grads_off": launch_split(
+                    lambda: bwd(ray_grads=False),
+                    f"kernel 8 {precision} without the ray gradients")}
+            if precision == "bf16":
+                for rays_on in (True, False):
+                    split = pk.bwd_phase_split(params_p, o, d, ts, *cots, precision=precision,
+                                               ray_grads=rays_on)
+                    ref_ms = k_ms if rays_on else off_ms
+                    print(f"  kernel 8 bf16 {'with' if rays_on else 'without'} the ray "
+                          f"gradients, the recompute kernel's phase split (clock64 variant, "
+                          f"shares of the blocks' cycles; ms of the call): "
+                          + ", ".join(f"{k} {100 * v:.1f}% ({v * ref_ms:.3f})"
+                                      for k, v in split.items()))
+                    extra["phase_split" if rays_on else "phase_split_ray_grads_off"] = split
         print(f"  128x4: {pk.flops_per_row(*PROP_NETS['128x4']):,} FLOP a row, "
               f"{flops / 1e9:.2f} GFLOP forward; bytes {fwd_bytes / 1e6:.2f} MB forward, "
               f"{bwd_bytes / 1e6:.2f} MB backward")
@@ -2684,22 +2745,24 @@ def main() -> int:
     kernels += [
         form("prop_rays_fwd", pfwd_src, "tinynerf/kernels/proposal_kernel.py:255",
              prop_fp32_launches[0], {"lego_prop fp32 train": prop_fp32_launches[0]},
-             prop_err["fwd fp32"], prop_fwd_time["fp32"], [PROP_SHAPE], prop_rows),
+             prop_err["fwd fp32"], prop_fwd_time["fp32"], [PROP_SHAPE],
+             {**prop_rows, **prop_extra["fwd fp32"]}),
         form("prop_rays_fwd_bf16", pfwd_src, "tinynerf/kernels/proposal_kernel.py:255",
              prop_launches[0] + prop_render_launches + u_prop["prop"],
              {"lego_prop train": prop_launches[0], "lego_prop render": prop_render_launches,
               "unbounded360-mlp proposal MLP train (prop_flat)": u_prop["prop"]},
-             prop_err["fwd bf16"], prop_fwd_time["bf16"], [PROP_SHAPE], prop_rows),
+             prop_err["fwd bf16"], prop_fwd_time["bf16"], [PROP_SHAPE],
+             {**prop_rows, **prop_extra["fwd bf16"]}),
         form("prop_rays_bwd", pbwd_src, "tinynerf/kernels/proposal_kernel.py:285",
              prop_fp32_launches[1], {"lego_prop fp32 train": prop_fp32_launches[1]},
              prop_err["bwd fp32"], prop_bwd_time["fp32"], [PROP_SHAPE],
-             {**prop_rows, "max_rel_err": prop_rel["bwd fp32"]}),
+             {**prop_rows, "max_rel_err": prop_rel["bwd fp32"], **prop_extra["bwd fp32"]}),
         form("prop_rays_bwd_bf16", pbwd_src, "tinynerf/kernels/proposal_kernel.py:285",
              prop_launches[1] + u_prop["prop_bwd"],
              {"lego_prop train": prop_launches[1],
               "unbounded360-mlp proposal MLP train (prop_flat)": u_prop["prop_bwd"]},
              prop_err["bwd bf16"], prop_bwd_time["bf16"], [PROP_SHAPE],
-             {**prop_rows, "max_rel_err": prop_rel["bwd bf16"]}),
+             {**prop_rows, "max_rel_err": prop_rel["bwd bf16"], **prop_extra["bwd bf16"]}),
     ]
     rfwd_src, rbwd_src = ("tinynerf_torch/csrc/render_fused_fwd.cu",
                           "tinynerf_torch/csrc/render_fused_bwd.cu")

@@ -14,7 +14,7 @@ import torch
 from tinynerf import ckpt as jckpt, optim as joptim, train as jtrain
 from tinynerf.config import Config as JConfig
 from tinynerf.core import gridfield as jgf, occupancy as joccupancy
-from tinynerf_torch import ckpt, eval as evallib, optim, train
+from tinynerf_torch import ckpt, config, eval as evallib, optim, train
 from tinynerf_torch.config import Config
 from tinynerf_torch.core import gridfield
 
@@ -270,10 +270,23 @@ def test_unported_grid_forms_are_refused_by_name():
     (dict(fine_field="grid", grid_levels=2), "GRID_LEVELS=2"),
     (dict(fine_field="grid", grid_level_fold=True), "GRID_LEVEL_FOLD"),
     (dict(fine_field="grid", grid_upsample="100:64"), "GRID_UPSAMPLE=100:64"),
-    (dict(fine_field="grid", grid_lookup="gather"), "GRID_LOOKUP=gather")])
+    (dict(fine_field="grid", grid_lookup="gather"), "GRID_LOOKUP=gather"),
+    (dict(mesh_shape=4), "MESH_SHAPE=4"),
+    (dict(sample_shard=2), "SAMPLE_SHARD=2")])
 def test_check_supported_refuses_unported_keys(kw, what):
     with pytest.raises(NotImplementedError, match=f"{what} is not ported yet .ROADMAP"):
         evallib.check_supported(Config(**kw))
+
+
+@pytest.mark.parametrize("mesh,shard", [("auto", "0"), ("", "1"), ("1", "0")])
+def test_check_supported_takes_one_device(mesh, shard):
+    """``MESH_SHAPE`` unset, ``auto`` or 1 and ``SAMPLE_SHARD`` 0 or 1 ask for
+    no mesh over several devices (``tinynerf/parallel/mesh.py::mesh_for_config``
+    builds none on one device): the port runs them on its one device."""
+    cfg = Config()
+    config.apply_key(cfg, "MESH_SHAPE", mesh)
+    config.apply_key(cfg, "SAMPLE_SHARD", shard)
+    evallib.check_supported(cfg)
 
 
 @pytest.mark.parametrize("kw", [dict(dist_loss=0.01), dict(prop_interlevel=1.0)],

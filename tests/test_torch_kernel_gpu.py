@@ -538,6 +538,26 @@ def test_prop_kernels_match_plain_on_card(width, depth, n_rays, n_samples, preci
     within BF16_BWD_RTOL of max|plain| and at cosine >= BF16_COS. Rows within
     2e-6 of a ReLU kink or of sigma = 0 get zero cotangents. Two backward
     calls agree bit for bit."""
+    _check_prop_kernels(width, depth, n_rays, n_samples, precision)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("width,depth,n_rays,n_samples", [
+    (128, 4, 333, 37), (128, 4, 1, 300), (128, 4, 5000, 3), (160, 4, 70, 50)])
+def test_prop_kernels_tile_edges_on_card(width, depth, n_rays, n_samples, precision):
+    """Kernels 7 and 8 at the edges of the bf16 backward's 128-row tile and
+    of its ray slices, with the checks and bounds of
+    ``test_prop_kernels_match_plain_on_card``: 12,321 rows (no multiple of
+    a tile; rays that cross tiles, one or two slices of two rays each), one
+    ray of 300 rows (three tiles, the ray's sums carried across two), 5000
+    rays (more than the 264 slices: 19 rays a slice, the last slice short),
+    and 160 x 4 (an odd number of n8-tiles a warp, and activations that do
+    not fit in shared memory, so two buffers and the bf16 workspace)."""
+    _check_prop_kernels(width, depth, n_rays, n_samples, precision)
+
+
+def _check_prop_kernels(width, depth, n_rays, n_samples, precision):
     dev = _card()
     params = proposal.init_proposal(torch.Generator().manual_seed(width + depth), width, depth,
                                     device=dev)
@@ -573,6 +593,45 @@ def test_prop_kernels_match_plain_on_card(width, depth, n_rays, n_samples, preci
         assert errors[worst][0] <= BF16_BWD_RTOL, errors
         assert min(e[1] for e in errors.values()) >= BF16_COS, errors
     assert all(e[0] == 0 for e in _prop_errors(kernel, again).values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("width,depth,n_rays,n_samples", [
+    (128, 4, 4096, 64), (256, 2, 37, 5), (32, 1, 200, 3)])
+def test_prop_bwd_without_ray_gradients_on_card(width, depth, n_rays, n_samples, precision):
+    """Kernel 8 asked for no ray gradient (``ray_grads=False``, what
+    autograd asks when the rays take none, as on lego_prop's path) at
+    conf/lego_prop.ini's proposal MLP and step (128 x 4, B = 4096, N = 64)
+    and at 256 x 2 and 32 x 1: one launch, ``d_origins``, ``d_dirs`` and
+    ``d_ts`` None, and every weight gradient equal to the full call's bit
+    for bit. Through ``prop_rays``' autograd on rays that need no gradient,
+    the same gradients again and none on the rays."""
+    dev = _card()
+    params = proposal.init_proposal(torch.Generator().manual_seed(width + depth), width, depth,
+                                    device=dev)
+    o, d, t = (torch.from_numpy(a).to(dev) for a in _dyadic_rays(n_rays, n_rays, n_samples))
+    rng = np.random.default_rng(n_samples)
+    cots = [torch.from_numpy(rng.normal(size=t.shape).astype(np.float32)).to(dev)
+            for _ in range(4)]
+    full = pk.prop_rays_bwd(params, o, d, t, *cots, precision=precision)
+    before = pk.prop_rays_bwd.launches
+    skip = pk.prop_rays_bwd(params, o, d, t, *cots, precision=precision, ray_grads=False)
+    torch.cuda.synchronize()
+    assert pk.prop_rays_bwd.launches == before + 1
+    assert skip[1:] == (None, None, None) and all(x is not None for x in full[1:])
+    for n in full[0]:
+        for k in ("w", "b"):
+            assert torch.equal(skip[0][n][k], full[0][n][k]), (n, k)
+
+    leaves = {n: {k: v.clone().requires_grad_(True) for k, v in layer.items()}
+              for n, layer in params.items()}
+    (r, g, b), sigma = pk.prop_rays(leaves, o, d, t, precision)
+    torch.autograd.backward([sigma, r, g, b], cots)
+    assert o.grad is None and d.grad is None and t.grad is None
+    for n in full[0]:
+        for k in ("w", "b"):
+            assert torch.equal(leaves[n][k].grad, full[0][n][k]), (n, k)
 
 
 @pytest.mark.gpu

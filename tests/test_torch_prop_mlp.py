@@ -180,6 +180,40 @@ def test_prop_rays_bwd_plain_matches_the_jax_kernel(jax_kernels, net, precision)
     assert torch.equal(o.grad, d_o) and torch.equal(d.grad, d_d) and torch.equal(t.grad, d_ts)
 
 
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("net", list(NETS))
+def test_prop_rays_without_ray_gradients_matches_the_jax_kernel(jax_kernels, net, precision):
+    """Rays that take no gradient (the main paths': the proposal samples
+    are not differentiated): ``prop_rays``' autograd asks the plain
+    backward for no ray gradient, which then returns None for ``d_o``,
+    ``d_d`` and ``d_ts``; the parameter gradients still match ``jax.vjp`` of
+    ``prop_field_pallas_rays`` within GRAD_RTOL of max|ref|, equal the full
+    call's bit for bit, and the rays get no gradient."""
+    rays, cots, out = jax_kernels
+    jparams, _, (jg, *_) = out[net, precision]
+    params = _port(jparams)
+    o, d, t = (torch.from_numpy(a) for a in rays)
+    g = [torch.from_numpy(a) for a in cots]
+    full, *ray_grads = pk.prop_rays_bwd_plain(params, o, d, t, *g, precision=precision)
+    skip = pk.prop_rays_bwd_plain(params, o, d, t, *g, precision=precision, ray_grads=False)
+    assert all(x is not None for x in ray_grads) and skip[1:] == (None, None, None)
+
+    leaves = {n: {k: v.clone().requires_grad_(True) for k, v in layer.items()}
+              for n, layer in params.items()}
+    before = (pk.prop_rays.launches, pk.prop_rays_bwd.launches)
+    (r, gg, b), s = pk.prop_rays(leaves, o, d, t, precision)
+    (torch.sum(s * g[0]) + torch.sum(r * g[1]) + torch.sum(gg * g[2])
+     + torch.sum(b * g[3])).backward()
+    assert (pk.prop_rays.launches, pk.prop_rays_bwd.launches) == before
+    assert o.grad is None and d.grad is None and t.grad is None
+    errors = {f"{n}.{k}": _rel(leaves[n][k].grad, jg[n][k]) for n in jg for k in ("w", "b")}
+    assert max(errors.values()) <= GRAD_RTOL[precision], errors
+    for n in params:
+        for k in ("w", "b"):
+            assert torch.equal(leaves[n][k].grad, full[n][k]), (n, k)
+            assert torch.equal(skip[0][n][k], full[n][k]), (n, k)
+
+
 def test_prop_flat_matches_the_jax_point_form():
     """The point form rides the ray form at t = 0, as ``prop_field_pallas``
     does: its values (color 1e-6, sigma 1e-5) and its gradient to the

@@ -1,7 +1,8 @@
 // Tensor-core building blocks for Hopper (sm_90a): bf16 x bf16 products with
 // float32 accumulation through mma.sync.m16n8k16, their operands loaded
 // from shared memory with ldmatrix, and cp.async copies from global memory.
-// Used by the field kernels' bf16 forms (field_tc.cuh, field_bwd_common.cuh).
+// Used by the bf16 forms of the field, grid and proposal kernels (field_tc.cuh,
+// field_bwd_common.cuh, grid_common.cuh, prop_common.cuh).
 //
 // Fragments of one m16n8k16 product (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), g = lane / 4, t = lane % 4:
@@ -44,6 +45,12 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
 // Two matrices; lanes 0 .. 15 give the addresses.
 __device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_addr(p)));
 }

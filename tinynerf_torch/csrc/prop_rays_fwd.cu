@@ -11,22 +11,29 @@
 //
 // What bounds it: FLOPs. At 128 x 4 a row costs 114,832 FLOP and moves 20
 // bytes (t in; sigma, r, g, b out); the 84 sines and cosines of the
-// encoding are the rest of its work. The weights (232 KB at 128 x 4) stay
-// warm in L2 and stream through shared memory.
+// encoding are the rest of its work. The weights (232 KB at 128 x 4 in
+// float32, 115 KB packed in bf16) stay warm in L2 and stream through shared
+// memory.
 //
-// Design (a simple first kernel; wgmma and TMA are later work): one block
-// of 256 threads takes 64 consecutive sample rows of the flat B*N index,
+// Design: one block takes 64 consecutive sample rows of the flat B*N index,
 // masking the ragged end; the tile's encodings and activations stay in
-// shared memory for the whole network (the forward kernels' FwdSmem, 103
-// KB, two blocks an SM); each layer's weights stream through a 16-row
-// K-tile; the heads are warp reductions. The width is a template parameter
-// (NC = width / 32 columns a thread), so every thread works at every width.
+// shared memory for the whole network, and each layer's weights stream
+// through a shared K-tile.
+// - fp32: 256 threads on field_common.cuh's float32 FMA tile (FwdSmem, 103
+//   KB, two blocks an SM), a 16-row K-tile; the heads are warp reductions.
+// - bf16: the trunk on the tensor cores (prop_common.cuh), the weights
+//   packed into bf16 once a call into the caller's `packed` buffer and
+//   streamed through a double-buffered 32-row cp.async K-tile; one bf16
+//   activation buffer, overwritten in place layer by layer (48-84 KB, so
+//   two or more blocks an SM); the heads one thread a (row, output), 4
+//   threads a row, with the head weights rounded once a block into shared
+//   memory.
 
 #include "prop_common.cuh"
 
 namespace {
 
-template <int NC, bool BF16>
+template <int NC>
 __global__ void __launch_bounds__(THREADS, 2)
 prop_rays_fwd_kernel(const float* __restrict__ origins, const float* __restrict__ dirs,
                      const float* __restrict__ ts, PropParams p,
@@ -38,13 +45,13 @@ prop_rays_fwd_kernel(const float* __restrict__ origins, const float* __restrict_
   const int base = blockIdx.x * TILE_M;
   encode_tile(RayCoord{origins, dirs, ts, n_samples}, p.freqs, base, total, s.enc_pt,
               s.enc_dir);
-  trunk_fwd<NC, BF16>(p, s.enc_pt, &s.act[0][0], WIDTH, s.wt, nullptr);
+  trunk_fwd<NC>(p, s.enc_pt, &s.act[0][0], WIDTH, s.wt, nullptr);
   const int lane = threadIdx.x & 31;
   const int row0 = (threadIdx.x >> 5) * ROWS;
   for (int i = 0; i < ROWS; ++i) {
     const int r = row0 + i, m = base + r;
     float sigma_pre, x[3];
-    heads<NC, BF16>(p, s.act[r], s.enc_dir[r], sigma_pre, x);
+    heads<NC>(p, s.act[r], s.enc_dir[r], sigma_pre, x);
     if (lane == 0 && m < total) {
       sigma_out[m] = fabsf(sigma_pre);
       r_out[m] = sigmoid(x[0]);
@@ -54,34 +61,115 @@ prop_rays_fwd_kernel(const float* __restrict__ origins, const float* __restrict_
   }
 }
 
+// Shared memory of the bf16 forward at width W: one activation buffer, the
+// encodings, two forward K-tiles, then (float32) the rounded head weights.
+struct FwdTcLayout {
+  int act, enc_pt, enc_dir, wt, hw, wce, bytes;
+  explicit FwdTcLayout(int width) {
+    int o = 0;
+    auto take = [&](int n) {
+      const int at = o;
+      o += (n + 15) / 16 * 16;
+      return at;
+    };
+    act = take(FWD_M * (width + 8) * 2);
+    enc_pt = take(FWD_M * PT_LD * 2);
+    enc_dir = take(FWD_M * DIR_ENC * 2);
+    wt = take(2 * PWK * (width + 8) * 2);
+    hw = take(width * 4 * 4);
+    wce = take(3 * DIR_ENC * 4);
+    bytes = o;
+  }
+};
+
+template <int NC>
+__global__ void __launch_bounds__(4 * FWD_M, 2)
+prop_rays_fwd_tc_kernel(const float* __restrict__ origins, const float* __restrict__ dirs,
+                        const float* __restrict__ ts, PropParams p, FwdTcLayout lay,
+                        float* __restrict__ sigma_out, float* __restrict__ r_out,
+                        float* __restrict__ g_out, float* __restrict__ b_out, int n_samples,
+                        int total) {
+  constexpr int W = 32 * NC, LD = W + 8;
+  extern __shared__ float4 smem_raw[];
+  char* sm = reinterpret_cast<char*>(smem_raw);
+  bf16* act = reinterpret_cast<bf16*>(sm + lay.act);
+  bf16* enc_pt = reinterpret_cast<bf16*>(sm + lay.enc_pt);
+  bf16* enc_dir = reinterpret_cast<bf16*>(sm + lay.enc_dir);
+  bf16* wt = reinterpret_cast<bf16*>(sm + lay.wt);
+  float* hw = reinterpret_cast<float*>(sm + lay.hw);
+  float* wce = reinterpret_cast<float*>(sm + lay.wce);
+  const int base = blockIdx.x * FWD_M;
+  load_head_weights<NC>(p, hw, wce);
+  encode_prop_tc<FWD_M>(RayCoord{origins, dirs, ts, n_samples}, p.freqs, base, total, enc_pt,
+                        enc_dir);
+  float acc[2][NC][4];
+  for (int layer = 0; layer < p.depth; ++layer) {
+    // the product ends with a barrier, so its output may overwrite its input
+    layer_product<FWD_M, NC>(acc, p, layer, layer == 0 ? enc_pt : act, layer == 0 ? PT_LD : LD,
+                             wt);
+    store_relu_tc<FWD_M, NC>(acc, p.b[layer], act, LD);
+  }
+  const float pre = head_pre<NC>(p, act, LD, enc_dir, hw, wce);
+  const int m = base + (threadIdx.x >> 2), o = threadIdx.x & 3;
+  if (m < total) {
+    if (o == 0)
+      sigma_out[m] = fabsf(pre);
+    else
+      (o == 1 ? r_out : o == 2 ? g_out : b_out)[m] = sigmoid(pre);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block takes.
+// Bytes of dynamic shared memory one block of the fp32 form takes.
 int prop_rays_fwd_smem_bytes() { return (int)sizeof(FwdSmem); }
+
+// bf16 elements of the `packed` buffer the bf16 form takes.
+long long prop_packed_weights_elems(int width, int depth) {
+  return dims_ok(width, depth) ? pk_elems(width, depth) : 0;
+}
 
 // origins, dirs: (n_rays, 3); ts and the four outputs: (n_rays, n_samples);
 // all float32, contiguous, on the current device. params: 2 * depth + 5
 // device pointers (prop_common.cuh, unpack_prop). width: a multiple of 32
-// up to 256; depth: 1..64. bf16: nonzero for the bf16 form. Launches on
-// `stream` and returns cudaGetLastError(), or cudaErrorInvalidValue for
-// shapes it does not take.
+// up to 256; depth: 1..64. bf16: nonzero for the bf16 form, which packs the
+// weights into `packed` (prop_packed_weights_elems(width, depth) bf16,
+// 16-byte aligned; null for fp32). Launches on `stream` and returns the
+// first launch error, or cudaErrorInvalidValue for shapes it does not take.
 int prop_rays_fwd(const float* origins, const float* dirs, const float* ts,
                   const void* const* params, float* sigma, float* r, float* g, float* b,
-                  int n_rays, int n_samples, int width, int depth, int bf16, void* stream) {
+                  void* packed, int n_rays, int n_samples, int width, int depth, int bf16,
+                  void* stream) {
   if (!dims_ok(width, depth)) return (int)cudaErrorInvalidValue;
-  const PropParams p = unpack_prop(params, depth);
+  PropParams p = unpack_prop(params, depth);
   const long long total = (long long)n_rays * n_samples;
   if (total <= 0) return 0;
   if (total > 0x7fffffffLL - TILE_M) return (int)cudaErrorInvalidValue;
-  const int blocks = (int)((total + TILE_M - 1) / TILE_M);
-  return dispatch(width, bf16, [&](auto nc, auto is_bf16) {
-    auto kernel = &prop_rays_fwd_kernel<decltype(nc)::value, decltype(is_bf16)::value>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(FwdSmem));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    if (packed == nullptr) return (int)cudaErrorInvalidValue;
+    p.wb = static_cast<const __nv_bfloat16*>(packed);
+    const int e = pack_prop(p, width, static_cast<__nv_bfloat16*>(packed), st, false);
+    if (e != 0) return e;
+    const FwdTcLayout lay(width);
+    return dispatch(width, [&](auto nc) {
+      auto kernel = &prop_rays_fwd_tc_kernel<decltype(nc)::value>;
+      static std::atomic<bool> ready[MAX_DEVICES];
+      cudaError_t err = allow_smem(kernel, ready);
+      if (err != cudaSuccess) return (int)err;
+      kernel<<<(int)((total + FWD_M - 1) / FWD_M), 4 * FWD_M, lay.bytes, st>>>(
+          origins, dirs, ts, p, lay, sigma, r, g, b, n_samples, (int)total);
+      return (int)cudaGetLastError();
+    });
+  }
+  return dispatch(width, [&](auto nc) {
+    auto kernel = &prop_rays_fwd_kernel<decltype(nc)::value>;
+    static std::atomic<bool> ready[MAX_DEVICES];
+    cudaError_t err = allow_smem(kernel, ready);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<blocks, THREADS, sizeof(FwdSmem), static_cast<cudaStream_t>(stream)>>>(
+    kernel<<<(int)((total + TILE_M - 1) / TILE_M), THREADS, sizeof(FwdSmem), st>>>(
         origins, dirs, ts, p, sigma, r, g, b, n_samples, (int)total);
     return (int)cudaGetLastError();
   });

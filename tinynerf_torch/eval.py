@@ -68,6 +68,11 @@ def check_supported(cfg: Config) -> None:
         (cfg.val_metrics, "VAL_METRICS", "queue 1, item 6: VAL_METRICS"),
         (cfg.profile_steps > 0, f"PROFILE_STEPS={cfg.profile_steps}",
          "queue 1, item 7: PROFILE_STEPS"),
+        # the port runs on one device; unset or auto is that device
+        ((cfg.mesh_shape or 1) > 1, f"MESH_SHAPE={cfg.mesh_shape}",
+         "queue 1, item 11: parallel/"),
+        (cfg.sample_shard > 1, f"SAMPLE_SHARD={cfg.sample_shard}",
+         "queue 1, item 11: parallel/"),
     ]
     for bad, what, where in refused:
         if bad:

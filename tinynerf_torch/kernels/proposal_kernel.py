@@ -29,9 +29,16 @@ weight gradient stays float32).
   ``abs'(0)`` is +1), the ReLU mask ``pre > 0`` and the sigmoid's
   derivative ``c * (1 - c)``.
 - On CUDA tensors each launches its kernel (``csrc/prop_rays_fwd.cu``,
-  ``csrc/prop_rays_bwd.cu``) or raises; neither falls back.
-  ``prop_rays.launches`` and ``prop_rays_bwd.launches`` count the calls that
-  launched each kernel (``prop_flat``'s included).
+  ``csrc/prop_rays_bwd.cu``) or raises; neither falls back. The bf16 forms
+  run every trunk product on the tensor cores (``csrc/prop_common.cuh``),
+  the fp32 forms on float32 FMA. ``prop_rays.launches`` and
+  ``prop_rays_bwd.launches`` count the calls that launched each kernel
+  (``prop_flat``'s included).
+- The backward computes ``d_origins``, ``d_dirs`` and ``d_ts`` only when
+  asked (``ray_grads``): autograd asks when one of the rays' tensors needs a
+  gradient (``ctx.needs_input_grad``), and otherwise gets ``None`` for them;
+  the kernel then skips the layer-0 input-gradient product, the encoding's
+  backward and the per-ray sums. The weight gradients do not change.
 - ``prop_rays_reference`` is ``prop_rays`` through the plain versions on any
   device: what the card's checks hold a step or a rendered chunk through the
   kernels against.
@@ -59,7 +66,7 @@ from tinynerf_torch.kernels.mlp_kernel import (_check, _check_precision, _freq_t
 FWD_SOURCE = "prop_rays_fwd.cu"
 BWD_SOURCE = "prop_rays_bwd.cu"
 MAX_DEPTH = 64        # the kernels' parameter block holds this many trunk layers
-MAX_WIDTH = 256       # a 64 x width tile of activations in shared memory
+MAX_WIDTH = 256       # NC = width / 32 columns a thread, up to 8
 
 Params = proposal.Params
 Planes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -130,13 +137,14 @@ def _encoding_vjp(g_enc: torch.Tensor, enc: torch.Tensor, n_freqs: int) -> torch
 
 def prop_rays_bwd_plain(params: Params, origins: torch.Tensor, dirs: torch.Tensor,
                         ts: torch.Tensor, g_sigma: torch.Tensor, g_r: torch.Tensor,
-                        g_g: torch.Tensor, g_b: torch.Tensor,
-                        precision: str = "fp32") -> Grads:
+                        g_g: torch.Tensor, g_b: torch.Tensor, precision: str = "fp32",
+                        ray_grads: bool = True) -> Grads:
     """The same function as the backward kernel in plain PyTorch: the VJP of
     ``prop_rays_plain`` with the (B, N) cotangents of (sigma, r, g, b) ->
     ``(grads, d_origins (B, 3), d_dirs (B, 3), d_ts (B, N))``, ``grads``
-    shaped like ``params``. Written out as ``_prop_ray_bwd_kernel`` chains
-    it (module docstring), not autograd."""
+    shaped like ``params``; without ``ray_grads`` the last three are None.
+    Written out as ``_prop_ray_bwd_kernel`` chains it (module docstring),
+    not autograd."""
     depth = proposal.dims(params)[1]
     flat = lambda x: x.reshape(-1, x.shape[-1])
     with torch.no_grad():
@@ -157,7 +165,11 @@ def prop_rays_bwd_plain(params: Params, origins: torch.Tensor, dirs: torch.Tenso
             g_pre = rnd(g_h * (a["pres"][i] > 0).float())
             x = rnd(torch.relu(a["pres"][i - 1])) if i else rnd(a["pe"])
             grads[f"trunk_{i}"] = {"w": flat(x).T @ flat(g_pre), "b": flat(g_pre).sum(0)}
-            g_h = g_pre @ rnd(params[f"trunk_{i}"]["w"]).T
+            if i or ray_grads:
+                g_h = g_pre @ rnd(params[f"trunk_{i}"]["w"]).T
+        grads = {name: grads[name] for name, _, _ in proposal.layer_dims(depth=depth)}
+        if not ray_grads:
+            return grads, None, None, None
         g_de = gp[..., 0:1] * wc[:DIR_ENC_DIM, 0]
         for c in (1, 2):
             g_de = g_de + gp[..., c:c + 1] * wc[:DIR_ENC_DIM, c]
@@ -167,28 +179,41 @@ def prop_rays_bwd_plain(params: Params, origins: torch.Tensor, dirs: torch.Tenso
                 + d_pts[..., 2] * dirs[:, None, 2])
         d_o = d_pts.sum(1)
         d_d = (d_pts * ts[..., None] + d_dir).sum(1)
-    return {name: grads[name] for name, _, _ in proposal.layer_dims(depth=depth)}, d_o, d_d, d_ts
+    return grads, d_o, d_d, d_ts
+
+
+# the backward's phase-clock variant build (a measurement's; bwd_phase_split)
+PHASE_DEFINES = ("PROP_PHASE_CLOCKS",)
+# the bf16 backward without its fix-up (a measurement's: what it is for)
+NO_FIXUP_DEFINES = ("PROP_NO_FIXUP",)
+PHASES = ("recompute", "fix-up", "input gradients", "weight gradients", "ray sums")
+PHASE_BLOCKS = 1024   # blocks the variant counts (MAX_PHASE_BLOCKS, csrc/prop_rays_bwd.cu)
 
 
 @functools.lru_cache(maxsize=None)
-def _library(source: str) -> ctypes.CDLL:
+def _library(source: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     from tinynerf_torch.kernels.build import load_library
-    lib = load_library(source)
+    lib = load_library(source, defines)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if source == FWD_SOURCE:
-        lib.prop_rays_fwd.argtypes = [vp] * 8 + [i32] * 5 + [vp]
+        lib.prop_rays_fwd.argtypes = [vp] * 9 + [i32] * 5 + [vp]
         lib.prop_rays_fwd.restype = i32
         lib.prop_rays_fwd_smem_bytes.argtypes = []
         lib.prop_rays_fwd_smem_bytes.restype = i32
+        lib.prop_packed_weights_elems.argtypes = [i32, i32]
+        lib.prop_packed_weights_elems.restype = i64
     else:
-        lib.prop_rays_bwd.argtypes = [vp] * 13 + [i32] * 6 + [vp]
+        lib.prop_rays_bwd.argtypes = [vp] * 13 + [i32] * 7 + [vp]
         lib.prop_rays_bwd.restype = i32
         lib.prop_rays_bwd_smem_bytes.argtypes = [i32]
         lib.prop_rays_bwd_smem_bytes.restype = i32
-        lib.prop_rays_bwd_slices.argtypes = [i32, i32]
+        lib.prop_rays_bwd_slices.argtypes = [i32]
         lib.prop_rays_bwd_slices.restype = i32
         lib.prop_rays_bwd_workspace_floats.argtypes = [i32, i32, i32]
         lib.prop_rays_bwd_workspace_floats.restype = i64
+        if defines == PHASE_DEFINES:
+            lib.prop_rays_bwd_phase_clocks.argtypes = [vp]
+            lib.prop_rays_bwd_phase_clocks.restype = i32
     return lib
 
 
@@ -217,12 +242,16 @@ def _launch(params: Params, origins, dirs, ts, precision: str) -> Tuple[Planes, 
     _check_rays(device, B, N, origins=origins, dirs=dirs, ts=ts)
     width, depth, _ = proposal.dims(params)   # checked by the caller (check_dims)
     ptrs = _param_ptrs(params, device)
+    lib = _library(FWD_SOURCE)
     outs = [torch.empty((B, N), dtype=torch.float32, device=device) for _ in range(4)]
+    # the bf16 form packs the trunk's weights into bf16 here, once a call
+    packed = (torch.empty(lib.prop_packed_weights_elems(width, depth), dtype=torch.bfloat16,
+                          device=device) if precision == "bf16" else None)
     with torch.cuda.device(device):
-        err = _library(FWD_SOURCE).prop_rays_fwd(
+        err = lib.prop_rays_fwd(
             origins.data_ptr(), dirs.data_ptr(), ts.data_ptr(), ptrs,
-            *[o.data_ptr() for o in outs], B, N, width, depth, int(precision == "bf16"),
-            _stream(device))
+            *[o.data_ptr() for o in outs], None if packed is None else packed.data_ptr(), B, N,
+            width, depth, int(precision == "bf16"), _stream(device))
     if err != 0:
         raise RuntimeError(f"prop_rays_fwd kernel launch failed: CUDA error {err}")
     prop_rays.launches += 1
@@ -231,29 +260,32 @@ def _launch(params: Params, origins, dirs, ts, precision: str) -> Tuple[Planes, 
 
 
 def _launch_bwd(params: Params, origins, dirs, ts, g_sigma, g_r, g_g, g_b,
-                precision: str) -> Grads:
+                precision: str, ray_grads: bool = True, defines: Tuple[str, ...] = ()) -> Grads:
     device = origins.device
     B, N = ts.shape
     _check_rays(device, B, N, origins=origins, dirs=dirs, ts=ts, g_sigma=g_sigma, g_r=g_r,
                 g_g=g_g, g_b=g_b)
     width, depth, _ = proposal.dims(params)   # checked by the caller (check_dims)
     ptrs = _param_ptrs(params, device)
-    lib = _library(BWD_SOURCE)
+    lib = _library(BWD_SOURCE, defines)
     f32 = dict(dtype=torch.float32, device=device)
     with torch.cuda.device(device):
-        slices = lib.prop_rays_bwd_slices(B, width)
+        slices = lib.prop_rays_bwd_slices(B)
         workspace = torch.empty(lib.prop_rays_bwd_workspace_floats(width, depth, slices), **f32)
         flat = torch.empty(sum(t.numel() for layer in params.values() for t in layer.values()),
                            **f32)
-        d_o, d_d, d_ts = torch.empty((B, 3), **f32), torch.empty((B, 3), **f32), torch.empty((B, N), **f32)
+        d_o, d_d, d_ts = ((torch.empty((B, 3), **f32), torch.empty((B, 3), **f32),
+                           torch.empty((B, N), **f32)) if ray_grads else (None, None, None))
         err = lib.prop_rays_bwd(
             origins.data_ptr(), dirs.data_ptr(), ts.data_ptr(), g_sigma.data_ptr(),
-            g_r.data_ptr(), g_g.data_ptr(), g_b.data_ptr(), ptrs, d_o.data_ptr(),
-            d_d.data_ptr(), d_ts.data_ptr(), flat.data_ptr(), workspace.data_ptr(), B, N,
-            width, depth, slices, int(precision == "bf16"), _stream(device))
+            g_r.data_ptr(), g_g.data_ptr(), g_b.data_ptr(), ptrs,
+            *[None if t is None else t.data_ptr() for t in (d_o, d_d, d_ts)], flat.data_ptr(),
+            workspace.data_ptr(), B, N, width, depth, slices, int(precision == "bf16"),
+            int(ray_grads), _stream(device))
     if err != 0:
         raise RuntimeError(f"prop_rays_bwd kernel launch failed: CUDA error {err}")
-    prop_rays_bwd.launches += 1
+    if not defines:
+        prop_rays_bwd.launches += 1
     # the kernel writes the gradients layer by layer, weight then bias
     grads, offset = {}, 0
     for name, fan_in, fan_out in proposal.layer_dims(width, depth):
@@ -277,14 +309,16 @@ def _unflatten(flat) -> Params:
 
 def prop_rays_bwd(params: Params, origins: torch.Tensor, dirs: torch.Tensor,
                   ts: torch.Tensor, g_sigma: torch.Tensor, g_r: torch.Tensor,
-                  g_g: torch.Tensor, g_b: torch.Tensor, precision: str = "fp32") -> Grads:
+                  g_g: torch.Tensor, g_b: torch.Tensor, precision: str = "fp32",
+                  ray_grads: bool = True) -> Grads:
     """The proposal MLP's recompute backward: the (B, N) cotangents of
-    (sigma, r, g, b) -> ``(grads, d_origins, d_dirs, d_ts)``, all float32.
+    (sigma, r, g, b) -> ``(grads, d_origins, d_dirs, d_ts)``, all float32;
+    without ``ray_grads`` the last three are None and are not computed.
     CUDA tensors launch the kernel; CPU tensors take
     ``prop_rays_bwd_plain``."""
     _check_precision(precision)
     check_dims(params)
-    args = (params, origins, dirs, ts, g_sigma, g_r, g_g, g_b, precision)
+    args = (params, origins, dirs, ts, g_sigma, g_r, g_g, g_b, precision, ray_grads)
     if _on_one_device([origins, dirs, ts, g_sigma, g_r, g_g, g_b] + _tensors(params),
                       "prop_rays_bwd"):
         return _launch_bwd(*args)
@@ -292,6 +326,37 @@ def prop_rays_bwd(params: Params, origins: torch.Tensor, dirs: torch.Tensor,
 
 
 prop_rays_bwd.launches = 0
+
+
+def bwd_phase_split(params: Params, origins, dirs, ts, g_sigma, g_r, g_g, g_b,
+                    precision: str = "bf16", ray_grads: bool = True) -> Dict[str, float]:
+    """One launch of the bf16 backward's phase-clock variant (CUDA tensors):
+    for each of ``PHASES``, its share of the recompute kernel's summed block
+    clock cycles in that launch. A measurement, not a path: the variant
+    meets at a barrier at each phase's end, and ``prop_rays_bwd.launches``
+    does not count it."""
+    _check_precision(precision)
+    check_dims(params)
+    if precision != "bf16":
+        raise ValueError("the phase clocks are in the bf16 form's kernel")
+    lib = _library(BWD_SOURCE, PHASE_DEFINES)
+    clocks = (ctypes.c_longlong * (PHASE_BLOCKS * len(PHASES)))()
+
+    def read_clocks():  # into `clocks`, and zero them on the device
+        with torch.cuda.device(origins.device):
+            torch.cuda.synchronize()
+            err = lib.prop_rays_bwd_phase_clocks(ctypes.addressof(clocks))
+        if err != 0:
+            raise RuntimeError(f"prop_rays_bwd_phase_clocks failed: CUDA error {err}")
+
+    read_clocks()
+    _launch_bwd(params, origins, dirs, ts, g_sigma, g_r, g_g, g_b, precision, ray_grads,
+                PHASE_DEFINES)
+    read_clocks()
+    per_phase = [sum(clocks[b * len(PHASES) + i] for b in range(PHASE_BLOCKS))
+                 for i in range(len(PHASES))]
+    total = max(sum(per_phase), 1)
+    return {name: c / total for name, c in zip(PHASES, per_phase)}
 
 
 class _PropRays(torch.autograd.Function):
@@ -315,8 +380,10 @@ class _PropRays(torch.autograd.Function):
         origins, dirs, ts, *flat = ctx.saved_tensors
         cots = [_kernel_ready(g) for g in (g_sigma, g_r, g_g, g_b)]
         bwd = prop_rays_bwd_plain if ctx.plain else prop_rays_bwd
+        # the rays' gradients only where autograd asks for one of them
         grads, d_o, d_d, d_ts = bwd(_unflatten(flat), origins, dirs, ts, *cots,
-                                    precision=ctx.precision)
+                                    precision=ctx.precision,
+                                    ray_grads=any(ctx.needs_input_grad[:3]))
         return (d_o, d_d, d_ts, None, None, *_tensors(grads))
 
 
