@@ -12,9 +12,11 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
    instructions (``HMMA``/``HGMMA``) in its SASS (``cuobjdump -sass``):
    above 0 in every bf16 form of the field kernels (1-4, 9, 10), the grid
    kernels (5, 6) and the proposal MLP's (7, 8), whose products run on the
-   tensor cores, and 0 in their fp32 forms; it also builds kernels 6 and 8
-   with their phase clocks (``GRID_PHASE_CLOCKS``, ``PROP_PHASE_CLOCKS``,
-   libraries of their own that only phase 4 reads) and kernel 8 without its
+   tensor cores, and 0 in their fp32 forms; it also builds kernels 6, 8 and
+   9 with their phase clocks (``GRID_PHASE_CLOCKS``, ``PROP_PHASE_CLOCKS``,
+   ``RENDER_PHASE_CLOCKS``, libraries of their own that only phase 4 reads),
+   kernel 9 with its weight probe (``FIELD_TC_WEIGHT_PROBE``, phase 4) and
+   kernel 8 without its
    fix-up (``PROP_NO_FIXUP``, whose errors phase 3 prints for the record);
 3. holds each kernel form against its plain PyTorch version on the card, on
    dyadic inputs at the main paths' shapes (tolerances below): the field
@@ -175,9 +177,21 @@ field with content: colors within 1e-4 / 1e-3; every gradient tensor at
 cosine >= 0.9999 and norm within 1% at fp32, cosine >= 0.999 at bf16,
 against the plain backward taken at kernel 9's own fine t's
 (``render_kernel.grads_agree``), since one ulp of a fine t moves the top
-encoding frequency by 2^9 ulps; two backward launches bit-identical; no
-gradient to the rays) and timed in phase 4 at B = 4096 beside their FLOP
-bounds.
+encoding frequency by 2^9 ulps; the fine t's that kernel 10's recompute
+hands to its fine field pass equal kernel 9's bit for bit
+(``render_kernel.render_fused_bwd_ts``); two backward launches
+bit-identical; no gradient to the rays) and timed in phase 4 at B = 4096
+beside their FLOP bounds, kernel 9 also beside the unfused path's device
+time on the same rays (kernel 1 at the coarse and the fine t's and the
+PyTorch tail between, ``unfused_chunk``), with its phase split
+(``render_kernel.fwd_phase_split``: the coarse field, the coarse weights,
+the resample, the fine field, the merge, and the share of the warps that
+wait through the tail), the bare launch of bf16 kernel 9 beside its weight
+probe build's (whose products read 176,128 of the 593,920 packed weight
+values a pass: the time the products wait on the weights' L2 reads), the
+L2 weight bytes a call as arithmetic from the shapes (``fused_weight_bytes``:
+this tree's tiles and the earlier 64-row ones; printed, not measured), and
+kernel 10's time by launch (``launch_split``).
 
 Kernels 5 and 6 (``csrc/grid_rays_fwd.cu``, ``csrc/grid_rays_bwd.cu``) are
 held against their plain versions in phase 3 (fp32 and bf16, at B = 4096
@@ -768,6 +782,49 @@ def fused_rays(device, n_rays: int, seed: int, empty: int = 0):
     return o, d.contiguous(), sampling.coarse_ts(near, far, FUSED_SAMPLES[0]), near, far
 
 
+def unfused_chunk(mk, params, origins, dirs, t_co, near, far, n_fine, white, precision):
+    """The unfused path's work on kernel 9's rays, a yardstick for it:
+    kernel 1 at the coarse t's, the PyTorch density, composite and resample,
+    kernel 1 at the fine t's, the merged composite (``render_kernel._plain``
+    with the kernel for the plain field) -> (C_coarse, C_fine)."""
+    from tinynerf_torch.core import render, sampling
+    n_coarse = t_co.shape[1]
+    color_co, sigma_co = mk.field_rays(params, origins, dirs, t_co, precision)
+    dense_co = render.get_density(((far - near) / n_coarse)[:, None].expand(t_co.shape),
+                                  sigma_co)
+    c_co = render.composite(dense_co, color_co)
+    if white:
+        c_co = c_co + (1.0 - dense_co.sum(dim=1))[:, None]
+    t_fi = sampling.resample(t_co, dense_co, (far - near) / (n_coarse - 1), n_fine)
+    color_fi, sigma_fi = mk.field_rays(params, origins, dirs, t_fi, precision)
+    return c_co, render.merged_composite(t_co, t_fi, sigma_co, sigma_fi, color_co, color_fi,
+                                         white_bkgd=white)
+
+
+def fused_weight_bytes(rk, n_rays: int, n_coarse: int, n_fine: int, precision: str,
+                       parent: bool = False) -> int:
+    """Bytes of weights that kernel 9's field tiles read from L2 in one call,
+    as arithmetic from the shapes, not a measurement: every tile streams the
+    products' weights once (bf16: the packed 593,920 values; fp32: the
+    590,848 float32 weights of the eleven products); a block's coarse rows,
+    then its fine rows, in the library's tiles and rays per block, or with
+    ``parent``, the earlier design's rule: 64-row tiles, max(1, 64 / N_c)
+    rays a block, at shapes whose state fits."""
+    lib = rk._library(rk.FWD_SOURCE)
+    bf16 = precision == "bf16"
+    if parent:
+        rows, rpb = 64, max(1, 64 // n_coarse)
+    else:
+        rows = lib.render_fused_tile_rows(int(bf16))
+        rpb = lib.render_fused_fwd_rays_per_block(n_coarse, n_fine, int(bf16))
+    per_tile = 2 * lib.field_packed_weights_elems() if bf16 else 4 * 590_848
+    tiles = 0
+    for ray0 in range(0, n_rays, rpb):
+        nr = min(rpb, n_rays - ray0)
+        tiles += -(-nr * n_coarse // rows) - (-nr * n_fine // rows)
+    return tiles * per_tile
+
+
 def bwd_gemm_chain_ms_fp32(dev) -> float:
     """A yardstick beside kernel 2 fp32, not the same function (no encoding,
     biases, activations, heads or ray chain rule) and never called by the
@@ -831,7 +888,9 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all(variants=[(gk.BWD_SOURCE, gk.PHASE_DEFINES),
                               (pk.BWD_SOURCE, pk.PHASE_DEFINES),
-                              (pk.BWD_SOURCE, pk.NO_FIXUP_DEFINES)])
+                              (pk.BWD_SOURCE, pk.NO_FIXUP_DEFINES),
+                              (rk.FWD_SOURCE, rk.PHASE_DEFINES),
+                              (rk.FWD_SOURCE, rk.WEIGHT_PROBE_DEFINES)])
     print(f"built {', '.join(sorted(build.build_log))} in parallel: "
           f"{time.perf_counter() - t0:.1f} s")
     smem = {mk.FWD_SOURCE: mk._library(mk.FWD_SOURCE).field_rays_fwd_smem_bytes(),
@@ -848,8 +907,11 @@ def main() -> int:
     for net, (width, _) in PROP_NETS.items():
         smem[f"{pk.BWD_SOURCE} {net}_fp32"] = (
             pk._library(pk.BWD_SOURCE).prop_rays_bwd_smem_bytes(width))
-    smem[rk.FWD_SOURCE] = rk._library(rk.FWD_SOURCE).render_fused_fwd_smem_bytes(*FUSED_SAMPLES)
-    smem[rk.BWD_SOURCE] = rk._library(rk.BWD_SOURCE).render_fused_bwd_smem_bytes(*FUSED_SAMPLES)
+    for bf, form_ in enumerate(("fp32", "bf16")):
+        smem[f"{rk.FWD_SOURCE} {form_}"] = (
+            rk._library(rk.FWD_SOURCE).render_fused_fwd_smem_bytes(*FUSED_SAMPLES, bf))
+        smem[f"{rk.BWD_SOURCE} {form_}"] = (
+            rk._library(rk.BWD_SOURCE).render_fused_bwd_smem_bytes(*FUSED_SAMPLES, bf))
     for source in (mk.FWD_SOURCE, mk.BWD_SOURCE, mk.FLAT_SOURCE, mk.FLAT_BWD_SOURCE,
                    gk.FWD_SOURCE, gk.BWD_SOURCE, pk.FWD_SOURCE, pk.BWD_SOURCE, rk.FWD_SOURCE,
                    rk.BWD_SOURCE):
@@ -1150,9 +1212,10 @@ def main() -> int:
         finite = all(bool(torch.isfinite(x).all()) for x in k_out)
         g = [torch.from_numpy(rng.normal(size=(B, 3)).astype(np.float32)).to(dev)
              for _ in range(2)]
-        kernel = rk.render_fused_bwd(content, *args, *g, n_f, white, precision)
+        kernel, bwd_ts = rk.render_fused_bwd_ts(content, *args, *g, n_f, white, precision)
         again = rk.render_fused_bwd(content, *args, *g, n_f, white, precision)
         fine_ts = rk.render_fused_ts(content, *args, n_f, white, precision)[2]
+        same_ts = torch.equal(bwd_ts, fine_ts)
         torch.cuda.synchronize()
         plain = rk.render_fused_bwd_plain(content, *args, *g, n_f, white, precision, fine_ts)
         ok, worst, rows = rk.grads_agree(kernel, plain, precision)
@@ -1171,8 +1234,9 @@ def main() -> int:
               f"(bound at fp32 1 +- {rk.GRAD_NORM}); at the plain's own fine t's (no bound): "
               f"smallest cosine {min(v[0] for v in own.values()):.8f}, norm ratios "
               f"{min(v[1] for v in own.values()):.6f}..{max(v[1] for v in own.values()):.6f}; "
-              f"two launches bit-identical: {same}")
-        if not (finite and max(errs) <= FUSED_ATOL[precision] and same and ok):
+              f"two launches bit-identical: {same}; kernel 10's fine t's equal kernel 9's bit "
+              f"for bit: {same_ts}")
+        if not (finite and max(errs) <= FUSED_ATOL[precision] and same and ok and same_ts):
             raise AssertionError(f"kernels 9/10 disagree with their plain versions at "
                                  f"{precision} B={B} white_bkgd={white}: {errs} {rows}")
         fused_err[f"fwd {precision}"] = max(fused_err[f"fwd {precision}"], *errs)
@@ -1184,7 +1248,7 @@ def main() -> int:
         # timed at the render paths' forms: lego fp32 black, lego_occ bf16 white
         if B == 4096 and white == (precision == "bf16"):
             fused_inputs[precision] = (args, g, white)
-        del kernel, again, plain, own, fine_ts
+        del kernel, again, plain, own, fine_ts, bwd_ts
     # through autograd the params get kernel 10's gradient, the rays none
     o, d, t_co, near, far = fused_rays(dev, 1001, seed=1)
     o_leaf = o.clone().requires_grad_(True)
@@ -1474,9 +1538,13 @@ def main() -> int:
 
     # kernels 9 and 10 at a render chunk (B = 4096, 64 + 128 samples): (ms,
     # plain ms, bound ms, bound_by, f32 FMA bound ms) per (precision, shape);
-    # the FLOPs are the field's at every sample (the tail's few not counted)
+    # the FLOPs are the field's at every sample (the tail's few not counted);
+    # fused_extra: kernel 9's yardstick (the unfused path's device time on the
+    # same rays), phase split and, at bf16, its bare launch beside the weight
+    # probe build's; kernel 10's launch split
     fused_fwd_time = {"fp32": {}, "bf16": {}}
     fused_bwd_time = {"fp32": {}, "bf16": {}}
+    fused_extra = {"fwd fp32": {}, "fwd bf16": {}, "bwd fp32": {}, "bwd bf16": {}}
     for precision, (args, g, white) in fused_inputs.items():
         B = args[0].shape[0]
         flops = rk.flops_per_ray(n_c, n_f) * B
@@ -1498,6 +1566,41 @@ def main() -> int:
         fused_bwd_time[precision][B, n_c, n_f] = report(
             f"kernel 10 {precision} B={B} {n_c}+{n_f}", k_ms, p_ms, 3 * flops, bwd_bytes,
             precision)
+        with torch.no_grad():
+            unfused = lambda: unfused_chunk(mk, content, *args, n_f, white, precision)
+            u_ms = cuda_ms(unfused, iters=5, warmup=1)
+            _, rows = device_rows(unfused, 3)
+        u_dev = sum(r[2] for r in rows) / 3
+        split = rk.fwd_phase_split(content, *args, n_f, white, precision)
+        print(f"  kernel 9 {precision}: the unfused path on the same rays (kernel 1 twice and "
+              f"the PyTorch tail) {u_ms:.3f} ms (CUDA events), {u_dev:.3f} ms of device time "
+              f"(torch.profiler); kernel 9 {fused_fwd_time[precision][B, n_c, n_f][0]:.3f} ms")
+        print(f"  kernel 9 {precision} phase split (clock64 variant, shares of the blocks' "
+              f"cycles): " + ", ".join(f"{k} {100 * v:.1f}%" for k, v in split.items()))
+        print(f"  kernel 9 {precision} L2 -> SM weight bytes a call, arithmetic from the "
+              f"shapes (not measured): this tree's tiles "
+              f"{fused_weight_bytes(rk, B, n_c, n_f, precision) / 1e9:.2f} GB; the earlier "
+              f"design's (64-row tiles, max(1, 64 / N_c) rays a block) "
+              f"{fused_weight_bytes(rk, B, n_c, n_f, precision, parent=True) / 1e9:.2f} GB")
+        fused_extra[f"fwd {precision}"] = {"unfused_chunk_ms": u_ms,
+                                           "unfused_chunk_device_ms": u_dev,
+                                           "phase_split": split}
+        if precision == "bf16":
+            with torch.no_grad():
+                launch = lambda defines=(): rk._launch(content, *args, n_f, white, precision,
+                                                       defines=defines)
+                launch_ms = cuda_ms(launch, iters=5, warmup=1)
+                probe_ms = cuda_ms(lambda: launch(rk.WEIGHT_PROBE_DEFINES), iters=5, warmup=1)
+                launch_ms2 = cuda_ms(launch, iters=5, warmup=1)
+            print(f"  kernel 9 bf16's bare launch {launch_ms:.3f}, {launch_ms2:.3f} ms; its "
+                  f"weight probe build (FIELD_TC_WEIGHT_PROBE: the products read 176,128 of "
+                  f"the 593,920 packed weight values a pass, wrong colors, the same "
+                  f"instructions) {probe_ms:.3f} ms")
+            fused_extra["fwd bf16"].update(launch_ms=[launch_ms, launch_ms2],
+                                           weight_probe_ms=probe_ms)
+        fused_extra[f"bwd {precision}"] = {"split": launch_split(
+            lambda: rk.render_fused_bwd(content, *args, *g, n_f, white, precision),
+            f"kernel 10 {precision} B={B} {n_c}+{n_f}")}
     del fused_inputs
     torch.cuda.empty_cache()
 
@@ -2774,21 +2877,25 @@ def main() -> int:
         form("render_fused_fwd", rfwd_src, "tinynerf/kernels/render_kernel.py:615",
              fused_lego[0] + fused_lego[3][0],
              {"lego render fused": fused_lego[0], "lego fused chunk gradient": fused_lego[3][0]},
-             fused_err["fwd fp32"], fused_fwd_time["fp32"], fused_shape, fused_rows),
+             fused_err["fwd fp32"], fused_fwd_time["fp32"], fused_shape,
+             {**fused_rows, **fused_extra["fwd fp32"]}),
         form("render_fused_fwd_bf16", rfwd_src, "tinynerf/kernels/render_kernel.py:615",
              fused_occ[0] + fused_occ[3][0] + fern_render[True]["fused"],
              {"lego_occ render fused": fused_occ[0],
               "lego_occ fused chunk gradient": fused_occ[3][0],
               "fern_ndc render fused": fern_render[True]["fused"]},
-             fused_err["fwd bf16"], fused_fwd_time["bf16"], fused_shape, fused_rows),
+             fused_err["fwd bf16"], fused_fwd_time["bf16"], fused_shape,
+             {**fused_rows, **fused_extra["fwd bf16"]}),
         form("render_fused_bwd", rbwd_src, "tinynerf/kernels/render_kernel.py:651",
              fused_lego[3][1], {"lego fused chunk gradient": fused_lego[3][1]},
              fused_err["bwd fp32"], fused_bwd_time["fp32"], fused_shape,
-             {**fused_rows, "min_cosine_vs_plain": fused_cos["fp32"], "norm_ratio_vs_plain": fused_ratio["fp32"]}),
+             {**fused_rows, "min_cosine_vs_plain": fused_cos["fp32"],
+              "norm_ratio_vs_plain": fused_ratio["fp32"], **fused_extra["bwd fp32"]}),
         form("render_fused_bwd_bf16", rbwd_src, "tinynerf/kernels/render_kernel.py:651",
              fused_occ[3][1], {"lego_occ fused chunk gradient": fused_occ[3][1]},
              fused_err["bwd bf16"], fused_bwd_time["bf16"], fused_shape,
-             {**fused_rows, "min_cosine_vs_plain": fused_cos["bf16"], "norm_ratio_vs_plain": fused_ratio["bf16"]}),
+             {**fused_rows, "min_cosine_vs_plain": fused_cos["bf16"],
+              "norm_ratio_vs_plain": fused_ratio["bf16"], **fused_extra["bwd bf16"]}),
     ]
     print(json.dumps({"train_step": {str(b): {"ms": t[0], "kernel_ms": t[1]}
                                      for b, t in step_time.items()},

@@ -711,10 +711,12 @@ from tinynerf_torch.kernels import render_kernel as rk  # noqa: E402
 FUSED_ATOL = {"fp32": 1e-4, "bf16": 1e-3}     # each color channel
 
 
-def fused_inputs(dev, B, n_coarse, seed, empty=0):
+def fused_inputs(dev, B, n_coarse, seed, empty=0, ndc=False):
     """A field with content (seeded weights, sigma bias +1) and B rays from
     pixels_to_rays through an 800x800 view 4 units out, near/far 2/6; the
-    last ``empty`` rays get near == far, as rays the occupancy grid empties."""
+    last ``empty`` rays get near == far, as rays the occupancy grid empties.
+    With ``ndc`` the rays are warped to NDC (``ndc_rays``, near plane 1) and
+    their bounds are 0 and 1, as fern_ndc's fused frames."""
     params = mlp.init_network(torch.Generator().manual_seed(seed), dev)
     params["sigma"]["b"] += 1.0
     rng = np.random.default_rng(seed)
@@ -725,29 +727,99 @@ def fused_inputs(dev, B, n_coarse, seed, empty=0):
     pose17 = torch.from_numpy(pose.astype(np.float32)).to(dev).expand(B, 17)
     o, d, near, far = raylib.pixels_to_rays(rows, cols, pose17,
                                             raylib.make_k_inv(800, 800, 1111.0).to(dev))
+    if ndc:
+        o, d = raylib.ndc_rays(800.0, 800.0, 1111.0, 1.0, o, d)
+        near, far = torch.zeros_like(near), torch.ones_like(far)
     near, far = near.contiguous(), far.contiguous().clone()
     if empty:
         far[-empty:] = near[-empty:]
-    return params, o, d.contiguous(), sampling.coarse_ts(near, far, n_coarse), near, far
+    return (params, o.contiguous(), d.contiguous(), sampling.coarse_ts(near, far, n_coarse),
+            near, far)
+
+
+def tie_inputs(dev, B, n_coarse, seed):
+    """``tie_params`` and B rays along -x from x = 2 + eps, eps in [0.004,
+    0.012], near/far 2/2.9: x falls from eps to eps - 0.9, so sigma is
+    positive at each ray's first coarse sample and exactly 0 at the others
+    (the next coarse t is 0.9/63 = 0.0143 on). Each ray's weight is all at
+    its first sample, its cdf flat, every level equal to cdf_0 and every fine
+    t equal to t_co[:, 0]: each fine sample ties with coarse sample 0 at one
+    point, and the merged order decides which of them takes the delta to
+    t_co[:, 1]. The forward cannot tell the orders apart (the tied samples
+    share sigma and color); the fine t's gradient, through the resampler's
+    slope delta / (w_1 + 1e-7) ~ 1.4e5, flips sign with the order."""
+    params = tie_params(torch.Generator().manual_seed(seed), dev)
+    rng = np.random.default_rng(seed)
+    o = np.stack([2.0 + rng.uniform(0.004, 0.012, B), rng.uniform(-1, 1, B),
+                  rng.uniform(-1, 1, B)], 1)
+    d = np.stack([-np.ones(B), rng.uniform(-0.01, 0.01, B), rng.uniform(-0.01, 0.01, B)], 1)
+    near, far = (torch.full((B,), v, device=dev) for v in (2.0, 2.9))
+    o, d = (torch.from_numpy(x.astype(np.float32)).to(dev) for x in (o, d))
+    return params, o, d, sampling.coarse_ts(near, far, n_coarse), near, far
+
+
+def tie_params(generator, dev):
+    """A field whose density lives where 0 < x < 1: trunk unit 0 reads 64
+    sin(pi x) (encoding column 0) and passes it down the trunk, the other
+    trunk units and the skip are zero, sigma = 16 |h_0|; the view branch
+    keeps its seeded weights. Every weight is exact in bf16."""
+    params = mlp.init_network(generator, dev)
+    for name, layer in params.items():
+        if name.startswith("trunk_") or name == "sigma":
+            layer["w"].zero_()
+            layer["b"].zero_()
+            layer["w"][0, 0] = 1.0
+    params["trunk_0"]["w"][0, 0] = 64.0
+    params["sigma"]["w"][0, 0] = 16.0
+    return params
+
+
+def _fused_case(id_, precision, n_rays, n_coarse, n_fine, white, rays="lego"):
+    return pytest.param(precision, n_rays, n_coarse, n_fine, white, rays, id=id_)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("precision,n_rays,n_coarse,n_fine,white", [
-    ("fp32", 4096, 64, 128, False), ("fp32", 1001, 64, 128, True),
-    ("bf16", 4096, 64, 128, True), ("bf16", 1001, 64, 128, False),
-    ("fp32", 13, 8, 16, True)])
-def test_fused_kernels_match_plain_on_card(precision, n_rays, n_coarse, n_fine, white):
+@pytest.mark.parametrize("precision,n_rays,n_coarse,n_fine,white,rays", [
+    _fused_case("fp32-4096-64-128-False", "fp32", 4096, 64, 128, False),
+    _fused_case("fp32-1001-64-128-True", "fp32", 1001, 64, 128, True),
+    _fused_case("bf16-4096-64-128-True", "bf16", 4096, 64, 128, True),
+    _fused_case("bf16-1001-64-128-False", "bf16", 1001, 64, 128, False),
+    _fused_case("fp32-13-8-16-True", "fp32", 13, 8, 16, True),
+    _fused_case("bf16-4097-64-128-False", "bf16", 4097, 64, 128, False),
+    _fused_case("fp32-1024-64-64-False", "fp32", 1024, 64, 64, False),
+    _fused_case("bf16-1024-64-64-True", "bf16", 1024, 64, 64, True),
+    _fused_case("bf16-1001-8-16-False", "bf16", 1001, 8, 16, False),
+    _fused_case("fp32-1001-64-128-True-ndc", "fp32", 1001, 64, 128, True, "ndc"),
+    _fused_case("bf16-4096-64-128-False-ndc", "bf16", 4096, 64, 128, False, "ndc"),
+    _fused_case("fp32-512-64-128-False-ties", "fp32", 512, 64, 128, False, "ties"),
+    _fused_case("bf16-512-64-128-True-ties", "bf16", 512, 64, 128, True, "ties"),
+    _fused_case("fp32-256-64-128-True-unsorted", "fp32", 256, 64, 128, True, "unsorted"),
+    _fused_case("bf16-256-8-16-False-unsorted", "bf16", 256, 8, 16, False, "unsorted")])
+def test_fused_kernels_match_plain_on_card(precision, n_rays, n_coarse, n_fine, white, rays):
     """Kernels 9 and 10 at the render chunk's B = 4096, 64 + 128 samples, at a
-    ragged B = 1001 whose last 7 rays are empty (near == far), and at 8 + 16
-    samples (8 rays a block). Kernel 9: each color within 1e-4 (fp32) or 1e-3
-    (bf16) of the plain version. Kernel 10, against the plain backward at
-    kernel 9's own fine t's (``render_kernel.grads_agree``): every gradient
-    tensor at cosine >= 0.9999 and norm within 1% (fp32), cosine >= 0.999
-    (bf16). Two backward launches agree bit for bit; the rays get no
+    ragged B = 1001 whose last 7 rays are empty (near == far), at B = 4097
+    (no multiple of the bf16 form's 2 rays a block), at 64 + 64 samples, at
+    8 + 16 samples (8 rays a block at fp32, 16 at bf16), on NDC rays with
+    bounds 0 and 1, on rays whose every fine t equals their first coarse t
+    (``tie_inputs``: a coarse sample comes first on a tie), and on coarse
+    t's in reverse order (the merge's ranks by counts where a list is not
+    sorted: the plain version's stable sort takes any order). Kernel
+    9: each color within 1e-4 (fp32) or 1e-3 (bf16) of the plain version.
+    Kernel 10, against the plain backward at kernel 9's own fine t's
+    (``render_kernel.grads_agree``): every gradient tensor at cosine >=
+    0.9999 and norm within 1% (fp32), cosine >= 0.999 (bf16). The fine t's
+    that kernel 10's recompute hands to its fine pass are kernel 9's bit for
+    bit; two backward launches agree bit for bit; the rays get no
     gradient."""
     dev = _card()
-    params, o, d, t_co, near, far = fused_inputs(dev, n_rays, n_coarse, n_rays,
-                                                 empty=7 if n_rays == 1001 else 0)
+    if rays == "ties":
+        params, o, d, t_co, near, far = tie_inputs(dev, n_rays, n_coarse, n_rays)
+    else:
+        params, o, d, t_co, near, far = fused_inputs(dev, n_rays, n_coarse, n_rays,
+                                                     empty=7 if n_rays == 1001 else 0,
+                                                     ndc=rays == "ndc")
+        if rays == "unsorted":
+            t_co = t_co.flip(1).contiguous()
     before = (rk.render_fused.launches, rk.render_fused_bwd.launches)
     with torch.no_grad():
         c_co, c_fi = rk.render_fused(params, o, d, t_co, near, far, n_fine, white, precision)
@@ -759,12 +831,15 @@ def test_fused_kernels_match_plain_on_card(precision, n_rays, n_coarse, n_fine, 
     g_co, g_fi = (torch.from_numpy(rng.normal(size=(n_rays, 3)).astype(np.float32)).to(dev)
                   for _ in range(2))
     args = (params, o, d, t_co, near, far, g_co, g_fi, n_fine, white, precision)
-    kernel, again = rk.render_fused_bwd(*args), rk.render_fused_bwd(*args)
+    (kernel, bwd_ts), again = rk.render_fused_bwd_ts(*args), rk.render_fused_bwd(*args)
     fine_ts = rk.render_fused_ts(params, o, d, t_co, near, far, n_fine, white, precision)[2]
     plain = rk.render_fused_bwd_plain(*args, fine_ts)
     torch.cuda.synchronize()
     assert (rk.render_fused.launches, rk.render_fused_bwd.launches) == (before[0] + 2,
                                                                         before[1] + 2)
+    assert torch.equal(bwd_ts, fine_ts)
+    if rays == "ties":
+        assert torch.equal(fine_ts, t_co[:, :1].expand_as(fine_ts))
     ok, worst, rows = rk.grads_agree(kernel, plain, precision)
     print(f"fused {precision} B={n_rays} {n_coarse}+{n_fine} white={white}: |err| "
           f"coarse {errs[0]:.3e} fine {errs[1]:.3e}; backward vs plain at kernel 9's fine "
@@ -782,3 +857,35 @@ def test_fused_kernels_match_plain_on_card(precision, n_rays, n_coarse, n_fine, 
     ((c_co * g_co).sum() + (c_fi * g_fi).sum()).backward()
     assert o_leaf.grad is None
     assert torch.equal(leaves["trunk_3"]["w"].grad, kernel["trunk_3"]["w"])
+
+
+@pytest.mark.gpu
+def test_fused_kernels_refuse_shapes_that_do_not_fit_on_card():
+    """Sample counts whose per-ray state does not fit in a block's shared
+    memory, and fewer than 2 coarse or 1 fine samples, are refused by name
+    before any launch: 64 + 6000 by both kernels in both forms, 64 + 3000
+    by the bf16 backward alone (its merge state is larger; the forward
+    runs), 1 + 16 by both. The plain versions take them
+    (``tests/test_torch_render_fused.py``)."""
+    dev = _card()
+    params, o, d, _, near, far = fused_inputs(dev, 4, 64, 0)
+    g = torch.ones((4, 3), device=dev)
+    before = (rk.render_fused.launches, rk.render_fused_bwd.launches)
+    for precision in ("fp32", "bf16"):
+        for n_coarse, n_fine in ((64, 6000), (1, 16)):
+            t_co = sampling.coarse_ts(near, far, max(n_coarse, 2))[:, :n_coarse].contiguous()
+            with pytest.raises(ValueError, match=r"render_fused: .*(do not fit|N_c >= 2)"):
+                rk.render_fused(params, o, d, t_co, near, far, n_fine, False, precision)
+            with pytest.raises(ValueError, match=r"render_fused: .*(do not fit|N_c >= 2)"):
+                rk.render_fused_bwd(params, o, d, t_co, near, far, g, g, n_fine, False,
+                                    precision)
+    assert (rk.render_fused.launches, rk.render_fused_bwd.launches) == before
+    t_co = sampling.coarse_ts(near, far, 64)
+    with torch.no_grad():
+        c_co, c_fi = rk.render_fused(params, o, d, t_co, near, far, 3000, False, "bf16")
+    assert torch.isfinite(c_fi).all()
+    with pytest.raises(ValueError, match="do not fit one block's shared memory in the bf16 "
+                                         "backward"):
+        rk.render_fused_bwd(params, o, d, t_co, near, far, g, g, 3000, False, "bf16")
+    assert (rk.render_fused.launches, rk.render_fused_bwd.launches) == (before[0] + 1,
+                                                                        before[1])

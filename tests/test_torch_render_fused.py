@@ -20,7 +20,7 @@ from tinynerf.core import mlp as jmlp, sampling as jsampling
 from tinynerf.core.rays import make_k_inv as jmake_k_inv, pixels_to_rays as jpixels_to_rays
 from tinynerf_torch import ckpt, eval as evallib
 from tinynerf_torch.config import load_config
-from tinynerf_torch.core import occupancy, render, sampling
+from tinynerf_torch.core import occupancy, rays as raylib, render, sampling
 from tinynerf_torch.core.rays import make_k_inv
 from tinynerf_torch.kernels import mlp_kernel as mk, render_kernel as rk
 from tinynerf_torch.runner import Runner
@@ -95,6 +95,128 @@ def test_forward_matches_jax(rays, n_rays, precision, white_bkgd):
             r = np.asarray(r)
             atol = 2e-5 if precision == "fp32" else 2e-3 * np.abs(r).max()
             np.testing.assert_allclose(g.detach().numpy(), r, atol=atol, rtol=0)
+
+
+def _tie_tree(seed):
+    """tests/test_torch_kernel_gpu.py::tie_params as a JAX tree: density only
+    where 0 < x < 1 (trunk unit 0 reads 64 sin(pi x), sigma = 16 |h_0|, the
+    rest of the trunk zero), the view branch from JAX's init."""
+    tree = jax.tree_util.tree_map(np.array, jmlp.init_network(jax.random.PRNGKey(seed)))
+    for name, layer in tree.items():
+        if name.startswith("trunk_") or name == "sigma":
+            layer["w"][:] = 0.0
+            layer["b"][:] = 0.0
+            layer["w"][0, 0] = 1.0
+    tree["trunk_0"]["w"][0, 0] = 64.0
+    tree["sigma"]["w"][0, 0] = 16.0
+    return tree
+
+
+def _shape_inputs(kind, n_rays, n_coarse, seed=5):
+    """(JAX inputs, the port's) of ``n_rays`` rays with ``n_coarse`` coarse
+    t's: "view", the test view's rays (near/far 2/6) and a field with
+    content; "ndc", those rays warped to NDC (``ndc_rays``, near plane 1,
+    bounds 0 and 1); "ties", rays along -x on which every fine t equals the
+    first coarse t (tests/test_torch_kernel_gpu.py::tie_inputs)."""
+    rng = np.random.default_rng(seed)
+    if kind == "ties":
+        tree = _tie_tree(seed)
+        o = np.stack([2.0 + rng.uniform(0.004, 0.012, n_rays), rng.uniform(-1, 1, n_rays),
+                      rng.uniform(-1, 1, n_rays)], 1).astype(np.float32)
+        d = np.stack([-np.ones(n_rays), rng.uniform(-0.01, 0.01, n_rays),
+                      rng.uniform(-0.01, 0.01, n_rays)], 1).astype(np.float32)
+        near, far = np.full(n_rays, 2.0, np.float32), np.full(n_rays, 2.9, np.float32)
+    else:
+        _, tree = _field_with_content(seed)
+        rows, cols, p17 = (torch.from_numpy(a) for a in _camera(rng, n_rays))
+        o, d, near, far = raylib.pixels_to_rays(rows, cols, p17,
+                                                       make_k_inv(16.0, 16.0, 19.2))
+        if kind == "ndc":
+            o, d = raylib.ndc_rays(16.0, 16.0, 19.2, 1.0, o, d)
+            near, far = torch.zeros_like(near), torch.ones_like(far)
+        o, d, near, far = (x.numpy() for x in (o, d, near, far))
+    t_co = sampling.coarse_ts(torch.from_numpy(near), torch.from_numpy(far), n_coarse).numpy()
+    jax_in = (jax.tree_util.tree_map(jnp.asarray, tree),
+              *(jnp.asarray(x) for x in (o, d, t_co, near, far)))
+    port_in = (ckpt.params_from_numpy(tree), *(torch.from_numpy(np.ascontiguousarray(x))
+                                               for x in (o, d, t_co, near, far)))
+    return jax_in, port_in
+
+
+@pytest.mark.parametrize("kind,n_rays,n_coarse,n_fine,white_bkgd", [
+    ("view", 5, 64, 64, True), ("ndc", 6, 8, 16, False), ("ndc", 3, 64, 128, True),
+    ("ties", 4, 64, 128, False), ("ties", 3, 8, 16, True)])
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_forward_matches_jax_at_the_card_cases_shapes(kind, n_rays, n_coarse, n_fine,
+                                                      white_bkgd, precision):
+    """The plain version that the card holds kernel 9 to, against the JAX
+    kernel at the card cases' new shapes, a few rays each: 64 + 64 samples,
+    NDC rays with bounds 0 and 1, and rays whose every fine t ties with
+    their first coarse t (coarse first: the plain version's stable sort;
+    the JAX kernel's masks). fp32 within 2e-5, bf16 within 2e-3 of
+    max|ref|, as ``test_forward_matches_jax``. At the ties the colors
+    cannot tell the orders apart (the tied samples share a point); the
+    JAX kernel's backward splits a tied delta's gradient among the tied
+    samples, so gradients there are compared on the card only, against the
+    plain backward."""
+    jax_in, port_in = _shape_inputs(kind, n_rays, n_coarse)
+    ref = jrk.render_fused(*jax_in, n_fine, white_bkgd=white_bkgd,
+                           compute_dtype=DTYPES[precision])
+    c_co, c_fi, t_fi = rk.render_fused_ts(*port_in, n_fine, white_bkgd, precision)
+    for g, r in zip((c_co, c_fi), ref):
+        r = np.asarray(r)
+        atol = 2e-5 if precision == "fp32" else 2e-3 * np.abs(r).max()
+        np.testing.assert_allclose(g.numpy(), r, atol=atol, rtol=0)
+    assert torch.isfinite(c_fi).all()
+    if kind == "ties":
+        t_co = port_in[3]
+        assert torch.equal(t_fi, t_co[:, :1].expand_as(t_fi))
+        assert float(c_fi.abs().max()) > 1e-2   # the tied sample carries the color
+
+
+def test_plain_path_takes_shapes_the_kernels_refuse():
+    """On CPU tensors ``render_fused`` is the plain version at any sample
+    count: 2 + 6000 samples, whose per-ray state fits no block of either
+    kernel (the card refuses it by name, tests/test_torch_kernel_gpu.py)."""
+    _, (params, *prays) = _shape_inputs("view", 2, 2)
+    got = rk.render_fused(params, *prays, 6000, True, "fp32")
+    want = rk.render_fused_plain(params, *prays, 6000, True, "fp32")
+    assert all(torch.equal(a, b) and torch.isfinite(a).all() for a, b in zip(got, want))
+    assert rk.render_fused.launches == 0
+
+
+def test_render_fused_bwd_ts_is_the_plain_backward_and_ts(rays):
+    """On CPU tensors ``render_fused_bwd_ts`` gives the plain backward and the
+    plain forward's fine t's (the card holds kernel 10's to kernel 9's bit
+    for bit)."""
+    _, (params, *prays) = rays
+    g = [torch.from_numpy(np.random.default_rng(11).normal(size=(B, 3)).astype(np.float32))
+         for _ in range(2)]
+    grads, t_fi = rk.render_fused_bwd_ts(params, *prays, *g, NF, True, "bf16")
+    plain = rk.render_fused_bwd_plain(params, *prays, *g, NF, True, "bf16")
+    assert all(torch.equal(grads[n][k], plain[n][k]) for n in plain for k in ("w", "b"))
+    assert torch.equal(t_fi, rk.render_fused_ts(params, *prays, NF, True, "bf16")[2])
+    assert rk.render_fused_bwd.launches == 0
+
+
+def test_phase_shares_from_the_clock_arrays():
+    """``fwd_phase_split``'s arithmetic on made-up clocks: each phase's share
+    of the summed block cycles, and the share of the tail phases' warp
+    cycles spent waiting (1 - busy / (warps x cycles))."""
+    import ctypes
+    blocks = 4096
+    n = blocks * len(rk.PHASES)
+    clocks, busy = (ctypes.c_longlong * n)(), (ctypes.c_longlong * n)()
+    for block in (0, blocks - 1):
+        for i, c in enumerate((100, 10, 5, 200, 20)):
+            clocks[block * len(rk.PHASES) + i] = c
+        for name, b in (("coarse weights", 80), ("resample", 40), ("merge", 160)):
+            busy[block * len(rk.PHASES) + rk.PHASES.index(name)] = b
+    split = rk.phase_shares(clocks, busy, 16)
+    assert split["coarse field"] == pytest.approx(100 / 335)
+    assert split["fine field"] == pytest.approx(200 / 335)
+    assert sum(split[p] for p in rk.PHASES) == pytest.approx(1.0)
+    assert split["tail warps waiting"] == pytest.approx(1 - 280 / (16 * 35))
 
 
 def test_empty_rays_match_jax(rays):

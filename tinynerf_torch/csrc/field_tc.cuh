@@ -11,14 +11,17 @@
 // rounding points are the precision note's there: weights, encodings and
 // activations are bf16 values, biases are added in float32 after the sum.
 //
-// Layout. A block of THREADS threads takes TILE_M = 64 rows. Its
-// activations (64 x 256) and encodings (64 x 64 and 64 x 32, zero-padded so
-// that K is a multiple of 16) live in shared memory as bf16, each row
-// padded by 8 elements so that ldmatrix's eight row addresses fall in
-// distinct banks. A product's output is split over the 8 warps as 2 (rows)
-// x 4 (columns): warp w owns rows 32 (w % 2) .. +31 and columns
-// (OUT / 4) (w / 2) .. of it, NT = OUT / 32 n8-tiles, so 2 x NT m16n8
-// accumulators of 4 floats a thread. The weights, packed once a call into
+// Layout. A block of 4 M threads takes an M-row tile: M = TILE_M = 64 rows
+// and 256 threads in the field kernels, M = 128 rows and 512 threads in the
+// fused renderer's forward (render_common.cuh), which so streams the
+// weights once per 128 rows. Its activations (M x 256) and encodings (M x
+// 64 and M x 32, zero-padded so that K is a multiple of 16) live in shared
+// memory as bf16, each row padded by 8 elements so that ldmatrix's eight
+// row addresses fall in distinct banks. A product's output is split over
+// the M / 8 warps as M / 32 (rows) x 4 (columns): warp w owns rows 32 (w %
+// (M / 32)) .. +31 and columns (OUT / 4) (w / (M / 32)) .. of it, NT = OUT
+// / 32 n8-tiles, so 2 x NT m16n8 accumulators of 4 floats a thread, at
+// either M. The weights, packed once a call into
 // bf16 (pack_weights), stream from L2 through a double-buffered shared
 // K-tile with cp.async, one tile's copy overlapping the previous tile's
 // products:
@@ -31,7 +34,12 @@
 // added to the accumulator in float32 (mma_bf16_k32), and each forward
 // layer's outputs whose bf16 rounding is ambiguous are summed again in the
 // plain version's order (the fix-up, below), so that the bf16 form rounds
-// where its plain version rounds.
+// where its plain version rounds. That summation is one of two (KSum,
+// a template parameter of its own, apart from M): the fused renderer's
+// forward instead accumulates the whole K in the tensor core (mma_bf16
+// into the accumulator, one barrier a K-tile), as its outputs need only
+// meet the bf16 forward bound against the plain version and kernel 10
+// recomputes them with the same code; the fix-up needs the k32 pairs.
 
 #pragma once
 
@@ -39,6 +47,12 @@
 #include "mma_common.cuh"
 
 namespace {
+
+// How a product sums over K: K32_PAIRS, each K-tile's two k16 steps summed
+// on the tensor cores from zero and added to the accumulator in float32,
+// two barriers a K-tile (the order the fix-up models); WHOLE_K, every k16
+// step into the accumulator on the tensor core, one barrier a K-tile.
+enum class KSum { K32_PAIRS, WHOLE_K };
 
 constexpr int ENC_PT_PAD = 64;   // point encoding, 60 columns + 4 zeros
 constexpr int ENC_DIR_PAD = 32;  // direction encoding, 24 columns + 8 zeros
@@ -147,14 +161,15 @@ inline int pack_weights(const Params& p, bf16* out, cudaStream_t st, bool fixup)
   return (int)cudaGetLastError();
 }
 
-// Encode rows base .. base+TILE_M-1 as encode_tile does (float32 sin/cos),
-// each value rounded to bf16, into enc_pt (row stride ENC_PT_LD) and
-// enc_dir (ENC_DIR_LD), their pad columns zero. Ends with a barrier.
-template <class Coord>
+// Encode rows base .. base+M-1 as encode_tile does (float32 sin/cos), each
+// value rounded to bf16, into enc_pt (row stride ENC_PT_LD) and enc_dir
+// (ENC_DIR_LD), their pad columns zero, with 4 M threads. Ends with a
+// barrier.
+template <int M = TILE_M, class Coord>
 __device__ __forceinline__ void encode_tile_tc(Coord coord, const float* __restrict__ freqs,
                                                int base, int row_end, bf16* enc_pt,
                                                bf16* enc_dir) {
-  for (int idx = threadIdx.x; idx < TILE_M * 3 * (L_PT + L_DIR); idx += THREADS) {
+  for (int idx = threadIdx.x; idx < M * 3 * (L_PT + L_DIR); idx += 4 * M) {
     const int r = idx / (3 * (L_PT + L_DIR));
     const int rem = idx % (3 * (L_PT + L_DIR));
     const int m = base + r;
@@ -169,9 +184,9 @@ __device__ __forceinline__ void encode_tile_tc(Coord coord, const float* __restr
     out[0] = __float2bfloat16_rn(sinf(arg));
     out[1] = __float2bfloat16_rn(cosf(arg));
   }
-  for (int idx = threadIdx.x; idx < TILE_M * (ENC_PT_PAD - PT_ENC); idx += THREADS)
+  for (int idx = threadIdx.x; idx < M * (ENC_PT_PAD - PT_ENC); idx += 4 * M)
     enc_pt[(idx / 4) * ENC_PT_LD + PT_ENC + idx % 4] = __float2bfloat16_rn(0.f);
-  for (int idx = threadIdx.x; idx < TILE_M * (ENC_DIR_PAD - DIR_ENC); idx += THREADS)
+  for (int idx = threadIdx.x; idx < M * (ENC_DIR_PAD - DIR_ENC); idx += 4 * M)
     enc_dir[(idx / 8) * ENC_DIR_LD + DIR_ENC + idx % 8] = __float2bfloat16_rn(0.f);
   __syncthreads();
 }
@@ -186,47 +201,49 @@ __device__ __forceinline__ void zero_tc(float (&acc)[2][NT][4]) {
       for (int q = 0; q < 4; ++q) acc[mi][j][q] = 0.f;
 }
 
-// This thread's accumulator (mi, j, q) sits at row tc_row(mi, q), column
-// tc_col<NT>(j, q) of the product.
+// This thread's accumulator (mi, j, q) of an M-row tile sits at row
+// tc_row<M>(mi, q), column tc_col<NT, M>(j, q) of the product.
+template <int M = TILE_M>
 __device__ __forceinline__ int tc_row(int mi, int q) {
-  return ((threadIdx.x >> 5) & 1) * 32 + mi * 16 + ((threadIdx.x & 31) >> 2) + 8 * (q >> 1);
+  return ((threadIdx.x >> 5) % (M / 32)) * 32 + mi * 16 + ((threadIdx.x & 31) >> 2) + 8 * (q >> 1);
 }
 
-template <int NT>
+template <int NT, int M = TILE_M>
 __device__ __forceinline__ int tc_col(int j, int q) {
-  return (threadIdx.x >> 5 >> 1) * 8 * NT + j * 8 + 2 * (threadIdx.x & 3) + (q & 1);
+  return ((threadIdx.x >> 5) / (M / 32)) * 8 * NT + j * 8 + 2 * (threadIdx.x & 3) + (q & 1);
 }
 
 // Copy K-tile t of the weights w (row stride ldw) into wbuf as one cp.async
-// group: FWD, rows t*WK .. +WK (32 NT wide; shared row stride 32 NT + 8);
-// else, columns t*WK .. +WK of its 32 NT rows (shared row stride WK + 8).
-template <int NT, bool FWD>
+// group, with 4 M threads: FWD, rows t*WK .. +WK (32 NT wide; shared row
+// stride 32 NT + 8); else, columns t*WK .. +WK of its 32 NT rows (shared row
+// stride WK + 8).
+template <int NT, bool FWD, int M = TILE_M>
 __device__ __forceinline__ void load_wtile(bf16* wbuf, const bf16* __restrict__ w, int ldw,
                                            int t) {
   constexpr int OUT = 32 * NT;
   if constexpr (FWD) {
     constexpr int CH = OUT / 8;  // 16-byte chunks a row
     const bf16* src = w + (size_t)t * WK * ldw;
-    for (int i = threadIdx.x; i < WK * CH; i += THREADS)
+    for (int i = threadIdx.x; i < WK * CH; i += 4 * M)
       cp_async16(wbuf + (i / CH) * (OUT + 8) + (i % CH) * 8,
                  src + (size_t)(i / CH) * ldw + (i % CH) * 8);
   } else {
     constexpr int CH = WK / 8;
-    for (int i = threadIdx.x; i < OUT * CH; i += THREADS)
+    for (int i = threadIdx.x; i < OUT * CH; i += 4 * M)
       cp_async16(wbuf + (i / CH) * (WK + 8) + (i % CH) * 8,
                  w + (size_t)(i / CH) * ldw + t * WK + (i % CH) * 8);
   }
   cp_async_commit();
 }
 
-// acc += a[:, k0 .. k0+WK] B_tile, the tile in wt (see load_wtile): its
-// two k16 steps summed on the tensor cores, then added in float32.
-template <int NT, bool FWD>
+// acc += a[:, k0 .. k0+WK] B_tile, the tile in wt (see load_wtile), its
+// two k16 steps summed as KS says.
+template <int NT, bool FWD, int M = TILE_M, KSum KS = KSum::K32_PAIRS>
 __device__ __forceinline__ void mma_wtile(float (&acc)[2][NT][4], const bf16* a, int lda,
                                           int k0, const bf16* wt) {
   constexpr int OUT = 32 * NT;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int m0 = (warp & 1) * 32, n0 = (warp >> 1) * 8 * NT;
+  const int m0 = (warp % (M / 32)) * 32, n0 = (warp / (M / 32)) * 8 * NT;
   uint32_t af[2][2][4];  // [k16 step][mi]
 #pragma unroll
   for (int s = 0; s < 2; ++s)
@@ -234,7 +251,7 @@ __device__ __forceinline__ void mma_wtile(float (&acc)[2][NT][4], const bf16* a,
     for (int mi = 0; mi < 2; ++mi)
       ldsm_x4(af[s][mi], a + (m0 + mi * 16 + (lane & 15)) * lda + k0 + 16 * s + (lane >> 4) * 8);
   if constexpr (NT == 1) {
-    static_assert(!FWD, "a forward product is at least 64 wide");
+    static_assert(!FWD && KS == KSum::K32_PAIRS, "a forward product is at least 64 wide");
     uint32_t b[2][2];
 #pragma unroll
     for (int s = 0; s < 2; ++s)
@@ -257,6 +274,13 @@ __device__ __forceinline__ void mma_wtile(float (&acc)[2][NT][4], const bf16* a,
       }
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
+        if constexpr (KS == KSum::WHOLE_K) {
+          mma_bf16(acc[mi][2 * nj], af[0][mi], b[0][0], b[0][1]);
+          mma_bf16(acc[mi][2 * nj], af[1][mi], b[1][0], b[1][1]);
+          mma_bf16(acc[mi][2 * nj + 1], af[0][mi], b[0][2], b[0][3]);
+          mma_bf16(acc[mi][2 * nj + 1], af[1][mi], b[1][2], b[1][3]);
+          continue;
+        }
         mma_bf16_k32(acc[mi][2 * nj], af[0][mi], b[0][0], b[0][1], af[1][mi], b[1][0], b[1][1]);
         mma_bf16_k32(acc[mi][2 * nj + 1], af[0][mi], b[0][2], b[0][3], af[1][mi], b[1][2],
                      b[1][3]);
@@ -265,37 +289,61 @@ __device__ __forceinline__ void mma_wtile(float (&acc)[2][NT][4], const bf16* a,
   }
 }
 
-// acc[64 x 32 NT] += a[64 x K] B over K (a multiple of WK), a in shared
+// acc[M x 32 NT] += a[M x K] B over K (a multiple of WK), a in shared
 // memory (row stride lda). FWD: B = w, (K x 32 NT) with row stride ldw;
 // else B = w^T, w (32 NT x K) with row stride ldw. wbuf holds two K-tiles.
 // Ends with a barrier, so the caller may overwrite a.
-template <int NT, bool FWD>
+template <int NT, bool FWD, int M = TILE_M, KSum KS = KSum::K32_PAIRS>
 __device__ __forceinline__ void gemm_tc(float (&acc)[2][NT][4], const bf16* a, int lda,
                                         int K, const bf16* __restrict__ w, int ldw,
                                         bf16* wbuf) {
   constexpr int STAGE = FWD ? WK * (32 * NT + 8) : 32 * NT * (WK + 8);
   const int n = K / WK;
-  load_wtile<NT, FWD>(wbuf, w, ldw, 0);
+  if constexpr (KS == KSum::WHOLE_K) {
+    // one barrier a K-tile: each step waits for its tile, then starts the
+    // copy of the next one into the other buffer, which every thread is
+    // done with once past the step's barrier. The probe build
+    // FIELD_TC_WEIGHT_PROBE copies only a product's first two K-tiles and
+    // runs its later K-tiles' products on them (wrong sums, the same
+    // instructions): 176,128 of the 593,920 packed values a pass instead of
+    // all, so that its time beside this build's says how long the products
+    // wait on the weights' L2 reads (chip_smoke.py; never a path)
+    load_wtile<NT, FWD, M>(wbuf, w, ldw, 0);
+    for (int t = 0; t < n; ++t) {
+      cp_async_wait<0>();
+      __syncthreads();  // tile t is in, for every thread, and tile t - 1 is done with
+#ifdef FIELD_TC_WEIGHT_PROBE
+      if (t + 1 < n && t + 1 < 2)
+#else
+      if (t + 1 < n)
+#endif
+        load_wtile<NT, FWD, M>(wbuf + ((t + 1) & 1) * STAGE, w, ldw, t + 1);
+      mma_wtile<NT, FWD, M, KS>(acc, a, lda, t * WK, wbuf + (t & 1) * STAGE);
+    }
+    __syncthreads();  // every thread is done with the tiles and with a
+    return;
+  }
+  load_wtile<NT, FWD, M>(wbuf, w, ldw, 0);
   for (int t = 0; t < n; ++t) {
     if (t + 1 < n) {
-      load_wtile<NT, FWD>(wbuf + ((t + 1) & 1) * STAGE, w, ldw, t + 1);
+      load_wtile<NT, FWD, M>(wbuf + ((t + 1) & 1) * STAGE, w, ldw, t + 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();  // tile t is in, for every thread
-    mma_wtile<NT, FWD>(acc, a, lda, t * WK, wbuf + (t & 1) * STAGE);
+    mma_wtile<NT, FWD, M>(acc, a, lda, t * WK, wbuf + (t & 1) * STAGE);
     __syncthreads();  // every thread is done with tile t (and, at the end, with a)
   }
 }
 
 // act[r][c] = bf16((relu)(acc + bias)), then a barrier.
-template <int NT, bool RELU>
+template <int NT, bool RELU, int M = TILE_M>
 __device__ __forceinline__ void store_tc(const float (&acc)[2][NT][4],
                                          const float* __restrict__ bias, bf16* act) {
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
-    const int c = tc_col<NT>(j, 0);
+    const int c = tc_col<NT, M>(j, 0);
     const float b0 = __ldg(bias + c), b1 = __ldg(bias + c + 1);
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
@@ -306,7 +354,7 @@ __device__ __forceinline__ void store_tc(const float (&acc)[2][NT][4],
           v0 = fmaxf(v0, 0.f);
           v1 = fmaxf(v1, 0.f);
         }
-        *reinterpret_cast<uint32_t*>(act + tc_row(mi, 2 * h) * ACT_LD + c) =
+        *reinterpret_cast<uint32_t*>(act + tc_row<M>(mi, 2 * h) * ACT_LD + c) =
             pack_bf16x2(v0, v1);
       }
   }
@@ -512,43 +560,48 @@ __device__ __forceinline__ void fix_apply(const Params& p, Seg s0, Seg s1,
 // whose layer inputs are saved there), its ambiguous outputs are summed
 // again in the plain version's order (the fix-up above) and act's row
 // norms are left in fx.xn[0] for the next layer. The segments may read
-// act.
-template <int NT, bool RELU, int NSEG>
+// act. The fix-up is the 64-row recompute's, on k32 pairs: other tiles
+// pass no a_tile.
+template <int NT, bool RELU, int NSEG, int M = TILE_M, KSum KS = KSum::K32_PAIRS>
 __device__ __forceinline__ void layer_tc(const Params& p, Seg s0, Seg s1,
                                          const float* __restrict__ bias, bf16* act, bf16* wt,
                                          int wt_elems, FixSmem& fx, const bf16* a_tile,
                                          int valid) {
   float acc[2][NT][4];
   zero_tc(acc);
-  gemm_tc<NT, true>(acc, s0.x, s0.ldx, s0.K, p.wb + s0.at, 32 * NT, wt);
-  if (NSEG > 1) gemm_tc<NT, true>(acc, s1.x, s1.ldx, s1.K, p.wb + s1.at, 32 * NT, wt);
-  if (a_tile == nullptr) {
-    store_tc<NT, RELU>(acc, bias, act);
+  gemm_tc<NT, true, M, KS>(acc, s0.x, s0.ldx, s0.K, p.wb + s0.at, 32 * NT, wt);
+  if (NSEG > 1) gemm_tc<NT, true, M, KS>(acc, s1.x, s1.ldx, s1.K, p.wb + s1.at, 32 * NT, wt);
+  constexpr bool FIXUP = M == TILE_M && KS == KSum::K32_PAIRS;
+  if (!FIXUP || a_tile == nullptr) {
+    store_tc<NT, RELU, M>(acc, bias, act);
     return;
   }
-  store_collect<NT, RELU, NSEG>(acc, bias, act, p, s0, s1, fx, valid);
-  if (fx.n > 0) fix_apply<RELU, NSEG>(p, s0, s1, bias, act, fx, a_tile, wt, wt_elems);
-  row_norms(act, ACT_LD, WIDTH, fx.xn[0]);
+  if constexpr (FIXUP) {
+    store_collect<NT, RELU, NSEG>(acc, bias, act, p, s0, s1, fx, valid);
+    if (fx.n > 0) fix_apply<RELU, NSEG>(p, s0, s1, bias, act, fx, a_tile, wt, wt_elems);
+    row_norms(act, ACT_LD, WIDTH, fx.xn[0]);
+  }
 }
 
 // The trunk over the tile whose encodings are in enc_pt: layers 0..7
 // (input skip at layer 4) into act; after each layer, save(layer). With
 // a_tile, the fix-up (the encodings' row norms in fx, each layer's input
 // saved in a_tile before the layer runs).
-template <class Save>
+template <int M = TILE_M, KSum KS = KSum::K32_PAIRS, class Save>
 __device__ __forceinline__ void trunk_tc(const Params& p, bf16* act, const bf16* enc_pt,
                                          bf16* wt, int wt_elems, FixSmem& fx,
                                          const bf16* a_tile, int valid, Save save) {
   const Seg enc{enc_pt, ENC_PT_LD, PK_W0, ENC_PT_PAD, 1, 0, AB_ENC_PT};
-  layer_tc<8, true, 1>(p, enc, enc, p.b[0], act, wt, wt_elems, fx, a_tile, valid);
+  layer_tc<8, true, 1, M, KS>(p, enc, enc, p.b[0], act, wt, wt_elems, fx, a_tile, valid);
   save(0);
   for (int layer = 1; layer < 8; ++layer) {
     const Seg hidden{act, ACT_LD, pk_hidden(layer), WIDTH, 0, layer, ab_hidden(layer - 1)};
     if (layer == 4) {
       const Seg skip{enc_pt, ENC_PT_LD, PK_4E, ENC_PT_PAD, 1, 8, AB_ENC_PT};
-      layer_tc<8, true, 2>(p, hidden, skip, p.b[4], act, wt, wt_elems, fx, a_tile, valid);
+      layer_tc<8, true, 2, M, KS>(p, hidden, skip, p.b[4], act, wt, wt_elems, fx, a_tile, valid);
     } else {
-      layer_tc<8, true, 1>(p, hidden, hidden, p.b[layer], act, wt, wt_elems, fx, a_tile, valid);
+      layer_tc<8, true, 1, M, KS>(p, hidden, hidden, p.b[layer], act, wt, wt_elems, fx, a_tile,
+                              valid);
     }
     save(layer);
   }
@@ -557,16 +610,16 @@ __device__ __forceinline__ void trunk_tc(const Params& p, bf16* act, const bf16*
 // After the sigma head has read h7 in act: point_info = h W + b (no
 // activation) into act, save(POINT_INFO); then the view branch
 // relu([enc_dir, point_info] W + b) into act[:, :128], save(DIR_INFO).
-template <class Save>
+template <int M = TILE_M, KSum KS = KSum::K32_PAIRS, class Save>
 __device__ __forceinline__ void view_tc(const Params& p, bf16* act, const bf16* enc_dir,
                                         bf16* wt, int wt_elems, FixSmem& fx, const bf16* a_tile,
                                         int valid, Save save) {
   const Seg pi{act, ACT_LD, PK_PI, WIDTH, 0, 9, ab_hidden(7)};
-  layer_tc<8, false, 1>(p, pi, pi, p.b[POINT_INFO], act, wt, wt_elems, fx, a_tile, valid);
+  layer_tc<8, false, 1, M, KS>(p, pi, pi, p.b[POINT_INFO], act, wt, wt_elems, fx, a_tile, valid);
   save(POINT_INFO);
   const Seg de{enc_dir, ENC_DIR_LD, PK_DE, ENC_DIR_PAD, 2, 10, AB_ENC_DIR};
   const Seg dp{act, ACT_LD, PK_DP, WIDTH, 0, 11, AB_PI};
-  layer_tc<4, true, 2>(p, de, dp, p.b[DIR_INFO], act, wt, wt_elems, fx, a_tile, valid);
+  layer_tc<4, true, 2, M, KS>(p, de, dp, p.b[DIR_INFO], act, wt, wt_elems, fx, a_tile, valid);
   save(DIR_INFO);
 }
 
@@ -599,31 +652,35 @@ __device__ __forceinline__ void color_pre_tc(const Params& p, const bf16* act, i
   for (int c = 0; c < 3; ++c) x[c] = warp_sum(v[c]) + __ldg(p.b[COLOR] + c);
 }
 
-// Shared memory of the bf16 forward: 85 KB, inside the FwdSmem that the
-// forward kernels (and the fused renderer's tail after it) allocate.
-struct TcSmem {
-  bf16 act[TILE_M * ACT_LD];
-  bf16 enc_pt[TILE_M * ENC_PT_LD];
-  bf16 enc_dir[TILE_M * ENC_DIR_LD];
+// Shared memory of the bf16 forward on an M-row tile: 85 KB at M = 64,
+// inside the FwdSmem that the forward kernels allocate; 132 KB at M = 128
+// (the fused renderer's forward, render_common.cuh).
+template <int M>
+struct TcSmemT {
+  bf16 act[M * ACT_LD];
+  bf16 enc_pt[M * ENC_PT_LD];
+  bf16 enc_dir[M * ENC_DIR_LD];
   bf16 wt[2 * FWD_STAGE];
   FixSmem fx;
 };
+using TcSmem = TcSmemT<TILE_M>;
 static_assert(sizeof(TcSmem) <= sizeof(FwdSmem), "the bf16 tile must fit in FwdSmem");
 
-// network_fwd's function in its bf16 form, on the tensor cores; the
-// encodings are in s (encode_tile_tc).
-template <class Out>
-__device__ __forceinline__ void network_tc(TcSmem& s, const Params& p, int base, int total,
+// network_fwd's function in its bf16 form on an M-row tile of 4 M threads,
+// on the tensor cores, its products summed as KS says; the encodings are
+// in s (encode_tile_tc).
+template <int M = TILE_M, KSum KS = KSum::K32_PAIRS, class Out>
+__device__ __forceinline__ void network_tc(TcSmemT<M>& s, const Params& p, int base, int total,
                                            Out out) {
   const auto none = [](int) {};
-  trunk_tc(p, s.act, s.enc_pt, s.wt, 2 * FWD_STAGE, s.fx, nullptr, 0, none);
+  trunk_tc<M, KS>(p, s.act, s.enc_pt, s.wt, 2 * FWD_STAGE, s.fx, nullptr, 0, none);
   const int row0 = (threadIdx.x >> 5) * ROWS;
   for (int i = 0; i < ROWS; ++i) {
     const float v = sigma_pre_tc(p, s.act, row0 + i);
     const int m = base + row0 + i;
     if ((threadIdx.x & 31) == 0 && m < total) out(m, 3, fabsf(v));
   }
-  view_tc(p, s.act, s.enc_dir, s.wt, 2 * FWD_STAGE, s.fx, nullptr, 0, none);
+  view_tc<M, KS>(p, s.act, s.enc_dir, s.wt, 2 * FWD_STAGE, s.fx, nullptr, 0, none);
   for (int i = 0; i < ROWS; ++i) {
     float x[3];
     color_pre_tc(p, s.act, row0 + i, x);
@@ -643,8 +700,8 @@ __device__ __forceinline__ void field_tile(FwdSmem& s, const Params& p, Coord co
                                            int base, int total, Out out) {
   if constexpr (BF16) {
     TcSmem& t = *reinterpret_cast<TcSmem*>(&s);
-    encode_tile_tc(coord, p.freqs, base, total, t.enc_pt, t.enc_dir);
-    network_tc(t, p, base, total, out);
+    encode_tile_tc<TILE_M>(coord, p.freqs, base, total, t.enc_pt, t.enc_dir);
+    network_tc<TILE_M>(t, p, base, total, out);
   } else {
     encode_tile(coord, p.freqs, base, total, s.enc_pt, s.enc_dir);
     network_fwd(s, p, base, total, out);

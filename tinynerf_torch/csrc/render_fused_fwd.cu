@@ -14,28 +14,55 @@
 // What bounds it: FLOPs. A ray costs (N_c + N_f) x 1,182,976 FLOP in the
 // field and reads 10 floats and writes 6, as on the TPU: everything between
 // the two field passes (the per-sample sigma and color, weights, cdf, fine
-// t's) stays in shared memory (render_common.cuh).
+// t's) stays in shared memory (render_common.cuh). On this card the field's
+// products run on mma.sync at a fraction of the tensor cores' rate; how
+// much of their time goes to waiting on the weights' L2 reads rather than
+// on instruction issue (fragment loads, address arithmetic, barriers) a
+// probe build reads (-DFIELD_TC_WEIGHT_PROBE, field_tc.cuh; PERF.md).
+// Before this design two more things stood in the way:
+// - the tail (the weights, resample and merge) ran on one thread a ray
+//   while the block's other threads waited at a barrier: 17% of the bf16
+//   form's block cycles (its clock64 split, PERF.md);
+// - at bf16, each 64-row tile streamed all 1.19 MB of packed weights from
+//   L2 (14.6 GB a call at B = 4096, 64 + 128 samples, from the shapes): 64
+//   FLOP per weight byte.
 //
-// Design (a simple first kernel; a parallel tail is later work).
-// The TPU kernel's triangular-matmul cumsums, one-hot gathers, (T, N_c,
-// N_f) compare masks and sentinels are lane workarounds and are not
-// carried over: the lists are sorted, so the merge is a two-pointer walk.
-// - a block of 256 threads owns max(1, 64 / N_c) whole rays (one ray at
-//   N_c = 64): the coarse rows as 64-row tiles through the field kernels'
-//   tile (field_tc.cuh's field_tile: float32 FMA, or the tensor cores at
-//   bf16), then one thread a ray for the weights and the coarse color,
-//   one thread a fine sample for the resample (a count over the N_c cdf
-//   values), the fine rows as tiles, and one thread a ray for the merge;
-// - the block's shared memory is the field's 103 KB tile plus 4.4 KB of
-//   per-ray state at 64 + 128 samples, so two blocks share an SM and one
-//   block's serial tail overlaps the other's products.
+// Design. The TPU kernel's triangular-matmul cumsums, one-hot gathers,
+// (T, N_c, N_f) compare masks and sentinels are lane workarounds and are
+// not carried over.
+// - bf16: a block of 512 threads owns max(1, 128 / N_c) whole rays (2 at
+//   64 + 128 samples, 16 at 8 + 16), their coarse rows then their fine rows
+//   in 128-row tensor-core tiles (field_tc.cuh at M = 128: 16 warps, 4 x 4
+//   over a product's output), so each weight K-tile comes from L2 once per
+//   128 rows (7.3 GB a call, from the shapes); one block an SM (132 KB of
+//   tile). Alone on its SM, the tile takes one barrier a K-tile and
+//   accumulates each output's whole K in the tensor core (KSum::WHOLE_K:
+//   no float32 add between k16 steps), which the forward may, as no
+//   fix-up re-sums its outputs.
+// - fp32: a block of 256 threads owns max(1, 64 / N_c) rays in 64-row
+//   float32 FMA tiles (field_common.cuh's network_fwd, gemm_segment), two
+//   blocks an SM, as before.
+// - the tail, both forms (render_common.cuh): a warp a ray for the coarse
+//   weights, their cdf and the coarse color (warp_scan: lane-local runs,
+//   then a shuffle scan, an order fixed by N_c), a thread a fine sample for
+//   the resample (a binary search over the ray's cdf in shared memory), a
+//   thread a sample for the merge's ranks (binary searches over the other
+//   list; coarse first at an equal t), and a warp a ray for the merged
+//   composite (a warp_scan over the N_c + N_f merged samples). No step of
+//   it runs on one thread of a block.
+// The tail's sums run in an order fixed by the shapes: the backward's
+// recompute (render_fused_bwd.cu) calls the same functions on the same
+// blocks and gets these bits, the fine t's among them.
+// A clock64 variant build (-DRENDER_PHASE_CLOCKS) reads the time of each
+// phase and the share of the block's warps that wait through the tail
+// (render_kernel.fwd_phase_split).
 
 #include "render_common.cuh"
 
 namespace {
 
 template <bool BF16>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(Geo<BF16>::THREADS, Geo<BF16>::BLOCKS)
 render_fused_fwd_kernel(const float* __restrict__ origins,
                         const float* __restrict__ dirs,
                         const float* __restrict__ t_co,
@@ -44,40 +71,59 @@ render_fused_fwd_kernel(const float* __restrict__ origins,
                         float* __restrict__ c_co, float* __restrict__ c_fi,
                         float* __restrict__ t_fi, int n_rays, int nc, int nf, int rpb,
                         int white) {
+  using G = Geo<BF16>;
   extern __shared__ float4 smem_raw[];
-  FwdSmem& s = *reinterpret_cast<FwdSmem*>(smem_raw);
+  auto& s = *reinterpret_cast<typename G::Smem*>(smem_raw);
   const Tail tl = carve_tail(reinterpret_cast<float*>(&s + 1), rpb, nc, nf, false);
   const int ray0 = blockIdx.x * rpb;
   const int nr = min(rpb, n_rays - ray0);
-  render_front<BF16>(s, tl, p, origins, dirs, t_co, near, far, ray0, nr, nc, nf,
-                     white != 0, c_co);
+  PhaseClock clk;
+  render_front<BF16>(s, tl, p, origins, dirs, t_co, near, far, ray0, nr, nc, nf, white != 0,
+                     c_co, clk);
   if (t_fi != nullptr)
-    for (int i = threadIdx.x; i < nr * nf; i += THREADS)
+    for (int i = threadIdx.x; i < nr * nf; i += G::THREADS)
       t_fi[(size_t)ray0 * nf + i] = tl.t_fi[i];
-  for (int r = threadIdx.x; r < nr; r += THREADS) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < nr; r += G::THREADS / 32) {
     float c[3];
     merge_fwd(tl, r, nc, nf, white != 0, c, false);
-    for (int ch = 0; ch < 3; ++ch) c_fi[3 * (ray0 + r) + ch] = c[ch];
+    for (int ch = 0; ch < 3; ++ch)
+      if (lane == ch) c_fi[3 * (ray0 + r) + ch] = c[ch];
   }
+  clk.mark(PH_MERGE);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block takes at these sample counts.
-int render_fused_fwd_smem_bytes(int n_coarse, int n_fine) {
-  return (int)render_smem_bytes(rays_per_block(n_coarse, n_fine, false), n_coarse,
-                                n_fine, false);
+// Rays a block of the given form takes at these sample counts, or 0 where
+// one ray's state does not fit in a block's shared memory (the wrapper
+// refuses those shapes by name).
+int render_fused_fwd_rays_per_block(int n_coarse, int n_fine, int bf16) {
+  if (n_coarse < 2 || n_fine < 1) return 0;
+  return rays_per_block(bf16 != 0, n_coarse, n_fine, false);
+}
+
+// Threads of a block of the given form, and rows of its field tile.
+int render_fused_block_threads(int bf16) {
+  return bf16 ? Geo<true>::THREADS : Geo<false>::THREADS;
+}
+int render_fused_tile_rows(int bf16) { return bf16 ? Geo<true>::M : Geo<false>::M; }
+
+// Bytes of dynamic shared memory one block of the given form takes.
+int render_fused_fwd_smem_bytes(int n_coarse, int n_fine, int bf16) {
+  const int rpb = render_fused_fwd_rays_per_block(n_coarse, n_fine, bf16);
+  return rpb == 0 ? 0 : (int)render_smem_bytes(bf16 != 0, rpb, n_coarse, n_fine, false);
 }
 
 // bf16 elements of the `packed` buffer the bf16 form takes.
 int field_packed_weights_elems() { return PK_ELEMS; }
 
-// origins, dirs, c_co, c_fi: (n_rays, 3); t_co: (n_rays, n_coarse), sorted
-// per ray; near, far: (n_rays,); t_fi: null, or (n_rays, n_fine) for the
-// fine t's (for checks); all float32, contiguous, on the current device.
-// params: 25 device pointers, as for field_rays_fwd. white: nonzero for the
+// origins, dirs, c_co, c_fi: (n_rays, 3); t_co: (n_rays, n_coarse); near,
+// far: (n_rays,); t_fi: null, or (n_rays, n_fine) for the fine t's (for
+// checks); all float32, contiguous, on the current device. params: 25
+// device pointers, as for field_rays_fwd. white: nonzero for the
 // white-background term; bf16: nonzero for the bf16 form, which packs the
 // weights into `packed` (field_packed_weights_elems() bf16, 16-byte
 // aligned; null for fp32). Launches on `stream` and returns the first
@@ -88,10 +134,9 @@ int render_fused_fwd(const float* origins, const float* dirs, const float* t_co,
                      float* c_co, float* c_fi, float* t_fi, void* packed, int n_rays,
                      int n_coarse, int n_fine, int white, int bf16, void* stream) {
   if (n_rays <= 0) return 0;
-  if (n_coarse < 2 || n_fine < 1) return (int)cudaErrorInvalidValue;
-  const int rpb = rays_per_block(n_coarse, n_fine, false);
-  const size_t smem = render_smem_bytes(rpb, n_coarse, n_fine, false);
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const int rpb = render_fused_fwd_rays_per_block(n_coarse, n_fine, bf16);
+  if (rpb == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = render_smem_bytes(bf16 != 0, rpb, n_coarse, n_fine, false);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Params p = unpack_params(params);
   if (bf16) {
@@ -102,13 +147,31 @@ int render_fused_fwd(const float* origins, const float* dirs, const float* t_co,
     if (e != 0) return e;
   }
   auto kernel = bf16 ? &render_fused_fwd_kernel<true> : &render_fused_fwd_kernel<false>;
+  const int threads = render_fused_block_threads(bf16);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(n_rays + rpb - 1) / rpb, THREADS, smem, st>>>(
+  kernel<<<(n_rays + rpb - 1) / rpb, threads, smem, st>>>(
       origins, dirs, t_co, near, far, p, c_co, c_fi, t_fi, n_rays, n_coarse, n_fine, rpb,
       white);
   return (int)cudaGetLastError();
 }
+
+#ifdef RENDER_PHASE_CLOCKS
+// Blocks the phase clocks count: the first MAX_PHASE_BLOCKS of a launch.
+int render_fused_fwd_phase_blocks() { return MAX_PHASE_BLOCKS; }
+
+// Copy the phase clocks and the warps' busy cycles (MAX_PHASE_BLOCKS x
+// N_PHASES int64 each) to host memory, then zero them on the device.
+int render_fused_fwd_phase_clocks(long long* clocks, long long* busy) {
+  const size_t bytes = sizeof(long long) * MAX_PHASE_BLOCKS * N_PHASES;
+  static long long zeros[MAX_PHASE_BLOCKS * N_PHASES];
+  cudaError_t err = cudaMemcpyFromSymbol(clocks, phase_clocks, bytes);
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(busy, phase_busy, bytes);
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(phase_clocks, zeros, bytes);
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(phase_busy, zeros, bytes);
+  return (int)err;
+}
+#endif
 
 }  // extern "C"

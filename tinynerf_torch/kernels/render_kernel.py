@@ -20,9 +20,17 @@ first at an equal t). ``white_bkgd`` adds ``1 - sum w`` to both colors.
 - On CPU tensors each runs its plain version; on CUDA tensors each launches
   its kernel or raises. ``render_fused.launches`` and
   ``render_fused_bwd.launches`` count the calls that launched each kernel.
-- For checks, ``render_fused_ts`` also returns the forward's fine t's, and
-  ``grads_agree`` holds the backward kernel against the plain backward taken
-  at those t's (GRAD_COS, GRAD_NORM).
+- For checks, ``render_fused_ts`` also returns the forward's fine t's,
+  ``render_fused_bwd_ts`` those that the backward kernel's recompute hands
+  to its fine field pass, and ``grads_agree`` holds the backward kernel
+  against the plain backward taken at kernel 9's t's (GRAD_COS, GRAD_NORM).
+- On CUDA tensors both wrappers refuse by name the sample counts whose
+  per-ray state does not fit in a block's shared memory (``_check_fits``);
+  the plain versions take every shape.
+- ``fwd_phase_split`` reads the forward's time by phase from a clock64
+  variant build (a measurement, not a path); ``WEIGHT_PROBE_DEFINES`` names
+  another variant, for a measurement too, whose bf16 products read a
+  quarter of the weights (wrong colors; ``csrc/field_tc.cuh``).
 
 Rounding at ``precision="bf16"``: the kernels run the field kernels' bf16
 form (``mlp.apply_network(precision="bf16")``), and the backward is kernel
@@ -37,7 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -109,26 +117,64 @@ def render_fused_bwd_plain(params: mlp.Params, origins: torch.Tensor,
     return mk._unflatten(out)
 
 
+# the forward's phase-clock variant build (a measurement's; fwd_phase_split)
+PHASE_DEFINES = ("RENDER_PHASE_CLOCKS",)
+PHASES = ("coarse field", "coarse weights", "resample", "fine field", "merge")
+TAIL_PHASES = ("coarse weights", "resample", "merge")
+# the forward's weight probe build: each bf16 product reads its first two
+# weight K-tiles alone (a measurement's, through _launch(defines=...))
+WEIGHT_PROBE_DEFINES = ("FIELD_TC_WEIGHT_PROBE",)
+
+
 @functools.lru_cache(maxsize=None)
-def _library(source: str) -> ctypes.CDLL:
+def _library(source: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     from tinynerf_torch.kernels.build import load_library
-    lib = load_library(source)
+    lib = load_library(source, defines)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     if source == FWD_SOURCE:
         lib.render_fused_fwd.argtypes = [vp] * 10 + [i32] * 5 + [vp]
         lib.render_fused_fwd.restype = i32
         lib.field_packed_weights_elems.argtypes = []
         lib.field_packed_weights_elems.restype = i32
-        lib.render_fused_fwd_smem_bytes.argtypes = [i32, i32]
+        lib.render_fused_fwd_smem_bytes.argtypes = [i32] * 3
         lib.render_fused_fwd_smem_bytes.restype = i32
+        lib.render_fused_fwd_rays_per_block.argtypes = [i32] * 3
+        lib.render_fused_fwd_rays_per_block.restype = i32
+        lib.render_fused_block_threads.argtypes = [i32]
+        lib.render_fused_block_threads.restype = i32
+        lib.render_fused_tile_rows.argtypes = [i32]
+        lib.render_fused_tile_rows.restype = i32
+        if defines == PHASE_DEFINES:
+            lib.render_fused_fwd_phase_blocks.argtypes = []
+            lib.render_fused_fwd_phase_blocks.restype = i32
+            lib.render_fused_fwd_phase_clocks.argtypes = [vp, vp]
+            lib.render_fused_fwd_phase_clocks.restype = i32
     else:
-        lib.render_fused_bwd.argtypes = [vp] * 10 + [i32] * 5 + [vp]
+        lib.render_fused_bwd.argtypes = [vp] * 11 + [i32] * 5 + [vp]
         lib.render_fused_bwd.restype = i32
-        lib.render_fused_bwd_smem_bytes.argtypes = [i32, i32]
+        lib.render_fused_bwd_smem_bytes.argtypes = [i32] * 3
         lib.render_fused_bwd_smem_bytes.restype = i32
+        lib.render_fused_bwd_rays_per_block.argtypes = [i32] * 3
+        lib.render_fused_bwd_rays_per_block.restype = i32
         lib.render_fused_bwd_workspace_floats.argtypes = [i32] * 3
         lib.render_fused_bwd_workspace_floats.restype = ctypes.c_longlong
     return lib
+
+
+def _check_fits(lib, which: str, n_coarse: int, n_fine: int, precision: str) -> None:
+    """Raise ValueError, before any launch, for sample counts that kernel
+    ``which`` ("fwd" or "bwd") does not take: fewer than 2 coarse or 1 fine
+    samples, or a ray whose per-sample state does not fit in a block's
+    shared memory (the library's rays per block is 0)."""
+    if n_coarse < 2 or n_fine < 1:
+        raise ValueError(f"render_fused: the kernels take N_c >= 2 and N_f >= 1 samples a "
+                         f"ray, not {n_coarse} + {n_fine}")
+    if getattr(lib, f"render_fused_{which}_rays_per_block")(
+            n_coarse, n_fine, int(precision == "bf16")) == 0:
+        raise ValueError(f"render_fused: {n_coarse} coarse + {n_fine} fine samples a ray do "
+                         f"not fit one block's shared memory in the {precision} "
+                         f"{'forward' if which == 'fwd' else 'backward'} kernel; the plain "
+                         "version (CPU tensors) takes them")
 
 
 def _check_rays(origins, dirs, t_co, near, far) -> None:
@@ -141,12 +187,16 @@ def _check_rays(origins, dirs, t_co, near, far) -> None:
 
 
 def _launch(params: mlp.Params, origins, dirs, t_co, near, far, n_fine: int,
-            white_bkgd: bool, precision: str, fine_ts: bool = False):
-    """(C_coarse, C_fine), and with ``fine_ts`` the (B, N_f) fine t's."""
+            white_bkgd: bool, precision: str, fine_ts: bool = False,
+            defines: Tuple[str, ...] = ()):
+    """(C_coarse, C_fine), and with ``fine_ts`` the (B, N_f) fine t's; with
+    ``defines``, through that variant build (counted apart: not a path's
+    launch)."""
     device, (B, n_coarse) = origins.device, t_co.shape
     _check_rays(origins, dirs, t_co, near, far)
     ptrs = mk._param_ptrs(params, device)
-    lib = _library(FWD_SOURCE)
+    lib = _library(FWD_SOURCE, defines)
+    _check_fits(lib, "fwd", n_coarse, n_fine, precision)
     c_co, c_fi = (torch.empty((B, 3), dtype=torch.float32, device=device) for _ in range(2))
     t_fi = torch.empty((B, n_fine), dtype=torch.float32, device=device) if fine_ts else None
     packed = mk.packed_weights(lib, precision, device)
@@ -158,31 +208,37 @@ def _launch(params: mlp.Params, origins, dirs, t_co, near, far, n_fine: int,
             int(precision == "bf16"), mk._stream(device))
     if err != 0:
         raise RuntimeError(f"render_fused_fwd kernel launch failed: CUDA error {err}")
-    render_fused.launches += 1
+    if not defines:
+        render_fused.launches += 1
     return (c_co, c_fi) if t_fi is None else (c_co, c_fi, t_fi)
 
 
 def _launch_bwd(params: mlp.Params, origins, dirs, t_co, near, far, g_cco, g_cfi,
-                n_fine: int, white_bkgd: bool, precision: str) -> mlp.Params:
+                n_fine: int, white_bkgd: bool, precision: str, fine_ts: bool = False):
+    """The gradient tree, and with ``fine_ts`` also the (B, N_f) fine t's
+    that the recompute handed to the fine field's backward."""
     device, (B, n_coarse) = origins.device, t_co.shape
     _check_rays(origins, dirs, t_co, near, far)
     mk._check("g_cco", g_cco, (B, 3), device)
     mk._check("g_cfi", g_cfi, (B, 3), device)
     ptrs = mk._param_ptrs(params, device)
     lib = _library(BWD_SOURCE)
+    _check_fits(lib, "bwd", n_coarse, n_fine, precision)
     f32 = dict(dtype=torch.float32, device=device)
     workspace = torch.empty(lib.render_fused_bwd_workspace_floats(B, n_coarse, n_fine), **f32)
     flat = torch.empty(mlp.num_params(params), **f32)
+    t_fi = torch.empty((B, n_fine), **f32) if fine_ts else None
     with torch.cuda.device(device):
         err = lib.render_fused_bwd(
             origins.data_ptr(), dirs.data_ptr(), t_co.data_ptr(), near.data_ptr(),
             far.data_ptr(), g_cco.data_ptr(), g_cfi.data_ptr(), ptrs, flat.data_ptr(),
-            workspace.data_ptr(), B, n_coarse, n_fine, int(white_bkgd),
+            workspace.data_ptr(), mk._ptr(t_fi), B, n_coarse, n_fine, int(white_bkgd),
             int(precision == "bf16"), mk._stream(device))
     if err != 0:
         raise RuntimeError(f"render_fused_bwd kernel launch failed: CUDA error {err}")
     render_fused_bwd.launches += 1
-    return mk.grads_from_flat(flat)
+    grads = mk.grads_from_flat(flat)
+    return grads if t_fi is None else (grads, t_fi)
 
 
 def render_fused_bwd(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
@@ -202,6 +258,29 @@ def render_fused_bwd(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tens
 
 
 render_fused_bwd.launches = 0
+
+
+def render_fused_bwd_ts(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
+                        t_co: torch.Tensor, near: torch.Tensor, far: torch.Tensor,
+                        g_cco: torch.Tensor, g_cfi: torch.Tensor, n_fine: int,
+                        white_bkgd: bool = False, precision: str = "fp32",
+                        ) -> Tuple[mlp.Params, torch.Tensor]:
+    """``render_fused_bwd`` that also returns the fine t's (B, N_f) at which
+    it took the fine field's backward: CUDA tensors launch the backward
+    kernel (counted in ``render_fused_bwd.launches``), whose recompute must
+    give kernel 9's t's bit for bit; CPU tensors take the plain backward and
+    the plain forward's t's."""
+    mk._check_precision(precision)
+    args = (params, origins, dirs, t_co, near, far, g_cco, g_cfi, n_fine, white_bkgd,
+            precision)
+    tensors = [origins, dirs, t_co, near, far, g_cco, g_cfi] + [
+        t for layer in params.values() for t in layer.values()]
+    if mk._on_one_device(tensors, "render_fused_bwd_ts"):
+        return _launch_bwd(*args, fine_ts=True)
+    with torch.no_grad():
+        t_fi = _plain(params, origins, dirs, t_co, near, far, n_fine, white_bkgd,
+                      precision)[2]
+    return render_fused_bwd_plain(*args), t_fi
 
 
 class _RenderFused(torch.autograd.Function):
@@ -263,6 +342,51 @@ def render_fused_ts(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tenso
         return _launch(params, *rays, n_fine, white_bkgd, precision, fine_ts=True)
     with torch.no_grad():
         return _plain(params, *rays, n_fine, white_bkgd, precision)
+
+
+def fwd_phase_split(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
+                    t_co: torch.Tensor, near: torch.Tensor, far: torch.Tensor, n_fine: int,
+                    white_bkgd: bool = False, precision: str = "bf16") -> Dict[str, float]:
+    """One launch of the forward's phase-clock variant (CUDA tensors): for
+    each of ``PHASES``, its share of the blocks' summed clock cycles, and
+    under "tail warps waiting" the share of the warp cycles of the tail
+    phases (``TAIL_PHASES``) that the block's warps spent waiting at the
+    phase's barrier. A measurement, not a path: the variant meets at a
+    barrier at each phase's end, and ``render_fused.launches`` does not
+    count it."""
+    mk._check_precision(precision)
+    rays = [mk._kernel_ready(x.detach().float()) for x in (origins, dirs, t_co, near, far)]
+    lib = _library(FWD_SOURCE, PHASE_DEFINES)
+    n = lib.render_fused_fwd_phase_blocks() * len(PHASES)
+    clocks, busy = (ctypes.c_longlong * n)(), (ctypes.c_longlong * n)()
+
+    def read_clocks():  # into `clocks` and `busy`, and zero them on the device
+        with torch.cuda.device(origins.device):
+            torch.cuda.synchronize()
+            err = lib.render_fused_fwd_phase_clocks(ctypes.addressof(clocks),
+                                                    ctypes.addressof(busy))
+        if err != 0:
+            raise RuntimeError(f"render_fused_fwd_phase_clocks failed: CUDA error {err}")
+
+    read_clocks()
+    _launch(params, *rays, n_fine, white_bkgd, precision, defines=PHASE_DEFINES)
+    read_clocks()
+    return phase_shares(clocks, busy,
+                        lib.render_fused_block_threads(int(precision == "bf16")) // 32)
+
+
+def phase_shares(clocks, busy, warps: int) -> Dict[str, float]:
+    """``fwd_phase_split``'s dict from the variant's two (blocks,
+    len(PHASES)) int64 arrays, flat, for blocks of ``warps`` warps."""
+    k = len(PHASES)
+    per_phase = [sum(clocks[i::k]) for i in range(k)]
+    tail = [PHASES.index(p) for p in TAIL_PHASES]
+    tail_busy = sum(sum(busy[i::k]) for i in tail)
+    tail_cycles = warps * sum(per_phase[i] for i in tail)
+    total = max(sum(per_phase), 1)
+    split = {name: c / total for name, c in zip(PHASES, per_phase)}
+    split["tail warps waiting"] = 1 - tail_busy / max(tail_cycles, 1)
+    return split
 
 
 # Kernel 10 against its plain version, each gradient tensor: the cosine, and
