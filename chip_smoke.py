@@ -173,15 +173,22 @@ fused branch of ``render_rays`` (one launch each of kernels 9 and 10,
 3. Kernels 9 and 10 are held against their plain versions in phase 3 (fp32
 and bf16, white background off and on, B = 4096 and a ragged B = 1001 whose
 last 7 rays are empty, 64 + 128 samples, rays from ``pixels_to_rays`` on a
-field with content: colors within 1e-4 / 1e-3; every gradient tensor at
-cosine >= 0.9999 and norm within 1% at fp32, cosine >= 0.999 at bf16,
-against the plain backward taken at kernel 9's own fine t's
+field with content: colors within 1e-4 / 1e-3, the same bit for bit where
+kernel 9 also writes its residuals; kernel 10 from those residuals, every
+gradient tensor at cosine >= 0.9999 and norm within 1% at fp32, cosine >=
+0.999 at bf16, against the plain backward taken at kernel 9's own fine t's
 (``render_kernel.grads_agree``), since one ulp of a fine t moves the top
-encoding frequency by 2^9 ulps; the fine t's that kernel 10's recompute
-hands to its fine field pass equal kernel 9's bit for bit
-(``render_kernel.render_fused_bwd_ts``); two backward launches
-bit-identical; no gradient to the rays) and timed in phase 4 at B = 4096
-beside their FLOP bounds, kernel 9 also beside the unfused path's device
+encoding frequency by 2^9 ulps; two backward launches and the call without
+residuals bit-identical; its merge launch alone (``merge_bwd``) against
+the float64 evaluation of ``merge_bwd_plain``, each hand-off plane within
+1e-5 of its max more than the float32 plain version
+(``render_kernel.merge_agreement``), its C_fine equal to kernel 9's bit
+for bit; no gradient to the rays) and timed
+in phase 4 at B = 4096 beside their FLOP bounds (kernel 10 as autograd
+calls it, from the residuals; also without them, ``standalone_ms``, and
+one chunk's forward and backward through autograd, ``chunk_fwd_bwd_ms``,
+which no user path of the port runs yet; its merge launch's device time
+alone), kernel 9 also beside the unfused path's device
 time on the same rays (kernel 1 at the coarse and the fine t's and the
 PyTorch tail between, ``unfused_chunk``), with its phase split
 (``render_kernel.fwd_phase_split``: the coarse field, the coarse weights,
@@ -191,7 +198,7 @@ probe build's (whose products read 176,128 of the 593,920 packed weight
 values a pass: the time the products wait on the weights' L2 reads), the
 L2 weight bytes a call as arithmetic from the shapes (``fused_weight_bytes``:
 this tree's tiles and the earlier 64-row ones; printed, not measured), and
-kernel 10's time by launch (``launch_split``).
+kernel 10's time by launch from the residuals (``launch_split``).
 
 Kernels 5 and 6 (``csrc/grid_rays_fwd.cu``, ``csrc/grid_rays_bwd.cu``) are
 held against their plain versions in phase 3 (fp32 and bf16, at B = 4096
@@ -910,8 +917,8 @@ def main() -> int:
     for bf, form_ in enumerate(("fp32", "bf16")):
         smem[f"{rk.FWD_SOURCE} {form_}"] = (
             rk._library(rk.FWD_SOURCE).render_fused_fwd_smem_bytes(*FUSED_SAMPLES, bf))
-        smem[f"{rk.BWD_SOURCE} {form_}"] = (
-            rk._library(rk.BWD_SOURCE).render_fused_bwd_smem_bytes(*FUSED_SAMPLES, bf))
+    smem[f"{rk.BWD_SOURCE} merge_launch"] = (
+        rk._library(rk.BWD_SOURCE).render_fused_bwd_smem_bytes(*FUSED_SAMPLES))
     for source in (mk.FWD_SOURCE, mk.BWD_SOURCE, mk.FLAT_SOURCE, mk.FLAT_BWD_SOURCE,
                    gk.FWD_SOURCE, gk.BWD_SOURCE, pk.FWD_SOURCE, pk.BWD_SOURCE, rk.FWD_SOURCE,
                    rk.BWD_SOURCE):
@@ -1193,14 +1200,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 3g. kernels 9 and 10 (the fused renderer), fp32 and bf16, vs plain ----
-    phase("kernels 9 and 10 (fused renderer forward and recompute backward) vs plain, "
-          "fp32 and bf16")
+    phase("kernels 9 and 10 (fused renderer forward, and its backward from kernel 9's "
+          "residuals) vs plain, fp32 and bf16")
     content = optim.tree_map(lambda t: t.clone(), params)
     content["sigma"]["b"] += 1.0   # a field with content (ROADMAP, tolerances)
     n_c, n_f = FUSED_SAMPLES
     fused_inputs = {}
     fused_err = {f: 0.0 for f in ("fwd fp32", "fwd bf16", "bwd fp32", "bwd bf16")}
     fused_cos = {"fp32": 1.0, "bf16": 1.0}
+    merge_err = {"fp32": 0.0, "bf16": 0.0}   # kernel 10's merge launch vs float64, of max
     fused_ratio = {"fp32": [1.0, 1.0], "bf16": [1.0, 1.0]}
     for precision, B, white in FUSED_CHECKS:
         args = fused_rays(dev, B, seed=B, empty=7 if B == 1001 else 0)
@@ -1212,43 +1220,63 @@ def main() -> int:
         finite = all(bool(torch.isfinite(x).all()) for x in k_out)
         g = [torch.from_numpy(rng.normal(size=(B, 3)).astype(np.float32)).to(dev)
              for _ in range(2)]
-        kernel, bwd_ts = rk.render_fused_bwd_ts(content, *args, *g, n_f, white, precision)
-        again = rk.render_fused_bwd(content, *args, *g, n_f, white, precision)
-        fine_ts = rk.render_fused_ts(content, *args, n_f, white, precision)[2]
-        same_ts = torch.equal(bwd_ts, fine_ts)
+        r_co, r_fi, res = rk.render_fused_residuals(content, *args, n_f, white, precision)
+        same_colors = torch.equal(r_co, k_out[0]) and torch.equal(r_fi, k_out[1])
+        kernel = rk.render_fused_bwd(content, *args, *g, n_f, white, precision, residuals=res)
+        again = rk.render_fused_bwd(content, *args, *g, n_f, white, precision, residuals=res)
+        standalone = rk.render_fused_bwd(content, *args, *g, n_f, white, precision)
+        views = rk.split_residuals(res, B, n_c, n_f)
+        fine_ts = views.t_fi
+        merge_in = (args[2], fine_ts, views.sig_co, views.sig_fi, views.col_co, views.col_fi,
+                    *args[3:], *g, white)
+        merge = rk.merge_bwd(*merge_in)
         torch.cuda.synchronize()
+        merge_ok, merge_rows = rk.merge_agreement(merge, *merge_in)
+        same_c_fi = torch.equal(merge.c_fi, k_out[1])
         plain = rk.render_fused_bwd_plain(content, *args, *g, n_f, white, precision, fine_ts)
         ok, worst, rows = rk.grads_agree(kernel, plain, precision)
         # for the record: at the plain version's own fine t's
         own = rk.grad_agreement(kernel, rk.render_fused_bwd_plain(content, *args, *g, n_f,
                                                                   white, precision))
         ratios = [v[1] for v in rows.values()]
-        same = all(torch.equal(kernel[n][k], again[n][k]) for n in kernel for k in ("w", "b"))
+        same = all(torch.equal(kernel[n][k], again[n][k])
+                   and torch.equal(kernel[n][k], standalone[n][k])
+                   for n in kernel for k in ("w", "b"))
         t_diff = (fine_ts - p_out[2]).abs()
         print(f"{precision} B={B} white_bkgd={white}: kernel 9 max |C_coarse err| {errs[0]:.3e}, "
               f"|C_fine err| {errs[1]:.3e} (atol {FUSED_ATOL[precision]}), finite {finite}; "
+              f"the same colors where it writes its residuals: {same_colors}; "
               f"its fine t's vs the plain's: {int((t_diff > 0).sum())} of {t_diff.numel()} "
-              f"differ, max {float(t_diff.max()):.3e}; kernel 10 vs the plain backward at "
-              f"kernel 9's fine t's: smallest cosine {rows[worst][0]:.8f} ({worst}; bound "
-              f"{rk.GRAD_COS[precision]}), norm ratios {min(ratios):.6f}..{max(ratios):.6f} "
-              f"(bound at fp32 1 +- {rk.GRAD_NORM}); at the plain's own fine t's (no bound): "
-              f"smallest cosine {min(v[0] for v in own.values()):.8f}, norm ratios "
+              f"differ, max {float(t_diff.max()):.3e}; kernel 10 from the residuals vs the "
+              f"plain backward at kernel 9's fine t's: smallest cosine {rows[worst][0]:.8f} "
+              f"({worst}; bound {rk.GRAD_COS[precision]}), norm ratios "
+              f"{min(ratios):.6f}..{max(ratios):.6f} (bound at fp32 1 +- {rk.GRAD_NORM}); at "
+              f"the plain's own fine t's (no bound): smallest cosine "
+              f"{min(v[0] for v in own.values()):.8f}, norm ratios "
               f"{min(v[1] for v in own.values()):.6f}..{max(v[1] for v in own.values()):.6f}; "
-              f"two launches bit-identical: {same}; kernel 10's fine t's equal kernel 9's bit "
-              f"for bit: {same_ts}")
-        if not (finite and max(errs) <= FUSED_ATOL[precision] and same and ok and same_ts):
+              f"two launches and the call without residuals bit-identical: {same}; the merge "
+              f"launch, and in brackets merge_bwd_plain, against the float64 evaluation, of "
+              f"its max (bound {rk.MERGE_RTOL} more than the plain's), then the launch against "
+              f"the plain: " + ", ".join(f"{k} {v[0]:.2e} ({v[1]:.2e}) {v[2]:.2e}"
+                                          for k, v in merge_rows.items())
+              + f"; its C_fine equal to kernel 9's bit for bit: {same_c_fi}")
+        if not (finite and max(errs) <= FUSED_ATOL[precision] and same and ok and same_colors
+                and same_c_fi and merge_ok):
             raise AssertionError(f"kernels 9/10 disagree with their plain versions at "
-                                 f"{precision} B={B} white_bkgd={white}: {errs} {rows}")
+                                 f"{precision} B={B} white_bkgd={white}: {errs} {rows} "
+                                 f"{merge_rows}")
         fused_err[f"fwd {precision}"] = max(fused_err[f"fwd {precision}"], *errs)
         fused_err[f"bwd {precision}"] = max(fused_err[f"bwd {precision}"],
                                             max(v[2] for v in rows.values()))
+        merge_err[precision] = max(merge_err[precision], *(v[0] for v in
+                                                            list(merge_rows.values())[:4]))
         fused_cos[precision] = min(fused_cos[precision], rows[worst][0])
         fused_ratio[precision] = [min(fused_ratio[precision][0], min(ratios)),
                                   max(fused_ratio[precision][1], max(ratios))]
         # timed at the render paths' forms: lego fp32 black, lego_occ bf16 white
         if B == 4096 and white == (precision == "bf16"):
             fused_inputs[precision] = (args, g, white)
-        del kernel, again, plain, own, fine_ts, bwd_ts
+        del kernel, again, standalone, plain, own, fine_ts, res, views, merge
     # through autograd the params get kernel 10's gradient, the rays none
     o, d, t_co, near, far = fused_rays(dev, 1001, seed=1)
     o_leaf = o.clone().requires_grad_(True)
@@ -1550,8 +1578,10 @@ def main() -> int:
         flops = rk.flops_per_ray(n_c, n_f) * B
         # in: origins, dirs, t_co, near, far, params; out: two (B, 3) colors
         fwd_bytes = 4 * (B * (3 + 3 + n_c + 2) + n_params + 6 * B)
-        # in: the same and two (B, 3) cotangents; out: every weight gradient
-        bwd_bytes = 4 * (B * (3 + 3 + n_c + 2) + n_params + 6 * B + n_params)
+        # in: the same, two (B, 3) cotangents and kernel 9's residuals; out:
+        # every weight gradient
+        bwd_bytes = 4 * (B * (3 + 3 + n_c + 2) + n_params + 6 * B + B * (4 * n_c + 5 * n_f)
+                         + n_params)
         with torch.no_grad():
             k_ms = cuda_ms(lambda: rk.render_fused(content, *args, n_f, white, precision),
                            iters=5, warmup=1)
@@ -1559,13 +1589,44 @@ def main() -> int:
                            iters=3, warmup=1)
         fused_fwd_time[precision][B, n_c, n_f] = report(
             f"kernel 9 {precision} B={B} {n_c}+{n_f}", k_ms, p_ms, flops, fwd_bytes, precision)
-        k_ms = cuda_ms(lambda: rk.render_fused_bwd(content, *args, *g, n_f, white, precision),
-                       iters=3, warmup=1)
+        # kernel 10 as autograd calls it, from kernel 9's residuals; without
+        # them (kernel 9, then kernel 10); one chunk's forward and backward
+        # through autograd (no path of the port trains through the fused
+        # renderer: a measurement of the autograd pair, not of a user path)
+        res = rk.render_fused_residuals(content, *args, n_f, white, precision)[2]
+        bwd = lambda: rk.render_fused_bwd(content, *args, *g, n_f, white, precision,
+                                          residuals=res)
+        k_ms = cuda_ms(bwd, iters=3, warmup=1)
+        standalone_ms = cuda_ms(lambda: rk.render_fused_bwd(content, *args, *g, n_f, white,
+                                                            precision), iters=3, warmup=1)
+        leaves = optim.tree_map(lambda t: t.clone().requires_grad_(True), content)
+        flat_leaves = [leaves[name][k] for name, k in mk._PARAM_KEYS]
+
+        def chunk():
+            outs = rk.render_fused(leaves, *args, n_f, white, precision)
+            torch.autograd.grad(outs, flat_leaves, g)
+
+        chunk_ms = cuda_ms(chunk, iters=3, warmup=1)
         p_ms = cuda_ms(lambda: rk.render_fused_bwd_plain(content, *args, *g, n_f, white,
                                                          precision), iters=2, warmup=1)
         fused_bwd_time[precision][B, n_c, n_f] = report(
             f"kernel 10 {precision} B={B} {n_c}+{n_f}", k_ms, p_ms, 3 * flops, bwd_bytes,
             precision)
+        # the merge launch alone, its device time a launch (torch.profiler):
+        # the wrapper's call is host-bound
+        views = rk.split_residuals(res, B, n_c, n_f)
+        merge_in = (args[2], views.t_fi, views.sig_co, views.sig_fi, views.col_co, views.col_fi,
+                    *args[3:], *g, white)
+        merge_ms = sum(r[2] for r in device_rows(lambda: rk._launch_merge(*merge_in),
+                                                 20)[1]) / 20
+        print(f"  kernel 10 {precision}: without residuals (kernel 9, then kernel 10) "
+              f"{standalone_ms:.3f} ms; one chunk's forward and backward through autograd "
+              f"{chunk_ms:.3f} ms; the merge launch alone, device ms (torch.profiler) "
+              f"{merge_ms:.4f}")
+        fused_extra[f"bwd {precision}"] = {
+            "standalone_ms": standalone_ms, "chunk_fwd_bwd_ms": chunk_ms,
+            "merge_launch_device_ms": merge_ms}
+        del leaves, flat_leaves, res, views, merge_in
         with torch.no_grad():
             unfused = lambda: unfused_chunk(mk, content, *args, n_f, white, precision)
             u_ms = cuda_ms(unfused, iters=5, warmup=1)
@@ -1598,9 +1659,12 @@ def main() -> int:
                   f"instructions) {probe_ms:.3f} ms")
             fused_extra["fwd bf16"].update(launch_ms=[launch_ms, launch_ms2],
                                            weight_probe_ms=probe_ms)
-        fused_extra[f"bwd {precision}"] = {"split": launch_split(
-            lambda: rk.render_fused_bwd(content, *args, *g, n_f, white, precision),
-            f"kernel 10 {precision} B={B} {n_c}+{n_f}")}
+        res = rk.render_fused_residuals(content, *args, n_f, white, precision)[2]
+        fused_extra[f"bwd {precision}"]["split"] = launch_split(
+            lambda: rk.render_fused_bwd(content, *args, *g, n_f, white, precision,
+                                        residuals=res),
+            f"kernel 10 {precision} B={B} {n_c}+{n_f} from kernel 9's residuals")
+        del res
     del fused_inputs
     torch.cuda.empty_cache()
 
@@ -2890,12 +2954,14 @@ def main() -> int:
              fused_lego[3][1], {"lego fused chunk gradient": fused_lego[3][1]},
              fused_err["bwd fp32"], fused_bwd_time["fp32"], fused_shape,
              {**fused_rows, "min_cosine_vs_plain": fused_cos["fp32"],
-              "norm_ratio_vs_plain": fused_ratio["fp32"], **fused_extra["bwd fp32"]}),
+              "norm_ratio_vs_plain": fused_ratio["fp32"],
+              "merge_max_rel_err": merge_err["fp32"], **fused_extra["bwd fp32"]}),
         form("render_fused_bwd_bf16", rbwd_src, "tinynerf/kernels/render_kernel.py:651",
              fused_occ[3][1], {"lego_occ fused chunk gradient": fused_occ[3][1]},
              fused_err["bwd bf16"], fused_bwd_time["bf16"], fused_shape,
              {**fused_rows, "min_cosine_vs_plain": fused_cos["bf16"],
-              "norm_ratio_vs_plain": fused_ratio["bf16"], **fused_extra["bwd bf16"]}),
+              "norm_ratio_vs_plain": fused_ratio["bf16"],
+              "merge_max_rel_err": merge_err["bf16"], **fused_extra["bwd bf16"]}),
     ]
     print(json.dumps({"train_step": {str(b): {"ms": t[0], "kernel_ms": t[1]}
                                      for b, t in step_time.items()},

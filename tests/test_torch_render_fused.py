@@ -16,7 +16,7 @@ import tinynerf.kernels.mlp_kernel as jmk
 import tinynerf.kernels.render_kernel as jrk
 from tinynerf import eval as jeval, train as jtrain
 from tinynerf.config import Config as JConfig
-from tinynerf.core import mlp as jmlp, sampling as jsampling
+from tinynerf.core import mlp as jmlp, render as jrender, sampling as jsampling
 from tinynerf.core.rays import make_k_inv as jmake_k_inv, pixels_to_rays as jpixels_to_rays
 from tinynerf_torch import ckpt, eval as evallib
 from tinynerf_torch.config import load_config
@@ -352,6 +352,226 @@ def test_ray_inputs_get_no_gradient(rays, which):
 def test_flops_per_ray():
     assert rk.flops_per_ray(64, 128) == 1_182_976 * 192 == mk.flops_per_row() * 192
 
+
+
+# ---------------------------------------------------------------- kernel 10 from residuals
+
+
+def _merge_inputs(kind, white_bkgd, n_rays=6, n_coarse=NC, n_fine=NF, seed=21):
+    """Seeded inputs of the merge's backward (numpy, float32): t_co, t_fi,
+    sig_co, sig_fi, col_co (3, B, N_c), col_fi (3, B, N_f), near, far,
+    g_cco, g_cfi. "plain": both lists sorted, no ties; "ties": each ray's
+    fine list starts at its first coarse t, the rest after it; "unsorted":
+    the coarse list reversed and the fine one shuffled."""
+    rng = np.random.default_rng(seed + 2 * ["plain", "ties", "unsorted"].index(kind)
+                                + int(white_bkgd))
+    f32 = lambda x: np.asarray(x, np.float32)
+    near, far = f32(np.full(n_rays, 2.0)), f32(np.full(n_rays, 6.0))
+    t_co = f32(2.0 + 4.0 * (np.arange(n_coarse) + rng.uniform(0, 1, (n_rays, n_coarse)))
+               / n_coarse)
+    t_fi = np.sort(f32(rng.uniform(2.0, 6.0, (n_rays, n_fine))), axis=1)
+    if kind == "ties":
+        rest = np.sort(rng.uniform(t_co[:, :1] + 1e-3, 6.0, (n_rays, n_fine - 1)), axis=1)
+        t_fi = np.concatenate([t_co[:, :1], f32(rest)], 1)
+    if kind == "unsorted":
+        t_co = t_co[:, ::-1].copy()
+        t_fi = np.stack([row[rng.permutation(n_fine)] for row in t_fi])
+    sig_co, sig_fi = (f32(rng.uniform(0, 3, (n_rays, n))) for n in (n_coarse, n_fine))
+    col_co, col_fi = (f32(rng.uniform(0, 1, (3, n_rays, n))) for n in (n_coarse, n_fine))
+    g_cco, g_cfi = (f32(rng.normal(size=(n_rays, 3))) for _ in range(2))
+    return t_co, f32(t_fi), sig_co, sig_fi, col_co, col_fi, near, far, g_cco, g_cfi
+
+
+def _jax_merge_vjp(t_co, t_fi, sig_co, sig_fi, col_co, col_fi, near, far, g_cco, g_cfi,
+                   white_bkgd):
+    """The JAX package's merged composite and coarse composite
+    (``tinynerf.core.render``), their VJP (``jax.vjp``) to (sig_co, sig_fi,
+    col_co, col_fi, t_fi, the coarse weights) -> numpy arrays in
+    ``MergeGrads``' order, and C_fine. The JAX merge takes sorted lists:
+    each list is sorted stably first (the port's stable sort of the
+    concatenation gives the same merged order) and the cotangents go back."""
+    pc, pf = np.argsort(t_co, axis=1, kind="stable"), np.argsort(t_fi, axis=1, kind="stable")
+    take = lambda x, p: np.take_along_axis(x, p if x.ndim == 2 else p[None], axis=-1)
+    n_coarse = t_co.shape[1]
+    w_co = jrender.get_density(jnp.asarray(((far - near) / n_coarse)[:, None]
+                                           * np.ones_like(t_co)), jnp.asarray(sig_co))
+
+    def f(s_co, s_fi, c_co, c_fi, tf, w):
+        out_co = jrender.composite(w, tuple(c_co))
+        if white_bkgd:
+            out_co = out_co + (1.0 - jnp.sum(w, axis=1))[:, None]
+        out_fi = jrender.merged_composite(jnp.asarray(take(t_co, pc)), tf, s_co, s_fi,
+                                          tuple(c_co), tuple(c_fi), white_bkgd=white_bkgd)
+        return out_co, out_fi
+
+    ins = [take(sig_co, pc), take(sig_fi, pf), take(col_co, pc), take(col_fi, pf),
+           take(t_fi, pf), np.asarray(take(np.asarray(w_co), pc))]
+    (_, c_fi), vjp = jax.vjp(f, *(jnp.asarray(x) for x in ins))
+    gs_co, gs_fi, gcol_co, gcol_fi, gt_fi, gw_co = (np.asarray(g) for g in vjp(
+        (jnp.asarray(g_cco), jnp.asarray(g_cfi))))
+    back = lambda x, p: np.put_along_axis(out := np.empty_like(x),
+                                          p if x.ndim == 2 else np.broadcast_to(p, x.shape),
+                                          x, axis=-1) or out
+    g_fi = np.concatenate([back(gs_fi, pf)[None], back(gcol_fi, pf)])
+    g_co = np.concatenate([back(gs_co, pc)[None], back(gcol_co, pc)])
+    return (g_fi, back(gt_fi, pf), g_co, back(gw_co, pc)), np.asarray(c_fi)
+
+
+@pytest.mark.parametrize("white_bkgd", [False, True])
+@pytest.mark.parametrize("kind", ["plain", "ties", "unsorted"])
+def test_merge_bwd_plain_matches_jax_vjp(kind, white_bkgd):
+    """``merge_bwd_plain`` (kernel 10's merge launch in plain PyTorch)
+    against ``jax.vjp`` of the JAX package's merged composite and coarse
+    composite on seeded inputs: every hand-off plane within 1e-6 of its
+    max|ref|, C_fine within 1e-6, at sorted lists, at a fine t tied with
+    the first coarse one (the coarse sample first: the two orders give
+    other deltas), and at unsorted lists. A tie later in the list is no
+    case here: the JAX merge takes each delta's successor as a min, whose
+    gradient splits between two tied successors, where the stable sort
+    gives it to the first (the card cases hold such ties against the plain
+    version). On CPU tensors ``merge_bwd`` is the plain version, bit for
+    bit, and launches nothing."""
+    inputs = _merge_inputs(kind, white_bkgd)
+    ref, ref_c_fi = _jax_merge_vjp(*inputs, white_bkgd)
+    port = [torch.from_numpy(np.ascontiguousarray(x)) for x in inputs]
+    got = rk.merge_bwd_plain(*port, white_bkgd)
+    for name, g, r in zip(rk.MergeGrads._fields, got, ref):
+        assert g.shape == r.shape, name
+        np.testing.assert_allclose(g.numpy(), r, atol=1e-6 * np.abs(r).max(), rtol=0,
+                                   err_msg=name)
+    np.testing.assert_allclose(got.c_fi.numpy(), ref_c_fi, atol=1e-6, rtol=0)
+    wrapped = rk.merge_bwd(*port, white_bkgd)
+    assert all(torch.equal(a, b) for a, b in zip(wrapped, got))
+    assert rk.merge_bwd.launches == 0
+
+
+@pytest.mark.parametrize("fault", ["none", "gt_fi", "g_co"])
+def test_merge_agreement_fails_a_planted_fault(fault):
+    """The check that holds kernel 10's merge launch against the float64
+    evaluation of its plain version (``merge_agreement``) passes the plain
+    version itself and fails a plane moved by 1e-4 of its max at one
+    element."""
+    port = [torch.from_numpy(np.ascontiguousarray(x)) for x in _merge_inputs("plain", True)]
+    got = rk.merge_bwd_plain(*port, True)
+    if fault != "none":
+        plane = getattr(got, fault)
+        plane[(0,) * (plane.dim() - 1) + (3,)] += 1e-4 * plane.abs().max()
+    ok, rows = rk.merge_agreement(got, *port, True)
+    assert ok == (fault == "none"), rows
+    assert set(rows) == {*rk.MergeGrads._fields[:4], "c_fi"}
+
+def test_merge_bwd_plain_from_the_forwards_residuals(rays):
+    """Fed the plain forward's residuals (``render_fused_residuals``), the
+    merge's C_fine is the forward's bit for bit, and its hand-off planes
+    are the plain backward's cotangents at the merged composite."""
+    _, (params, o, d, t_co, near, far) = rays
+    c_co, c_fi, res = rk.render_fused_residuals(params, o, d, t_co, near, far, NF, True)
+    r = rk.split_residuals(res, B, NC, NF)
+    assert r.t_fi.shape == (B, NF) and r.col_co.shape == (3, B, NC)
+    assert r.col_fi.shape == (3, B, NF) and r.sig_co.shape == (B, NC)
+    g = [torch.from_numpy(np.random.default_rng(12).normal(size=(B, 3)).astype(np.float32))
+         for _ in range(2)]
+    out = rk.merge_bwd(t_co, r.t_fi, r.sig_co, r.sig_fi, r.col_co, r.col_fi, near, far, *g,
+                       True)
+    assert torch.equal(out.c_fi, c_fi)
+    assert all(torch.isfinite(x).all() for x in out)
+    with pytest.raises(ValueError, match="residual buffer"):
+        rk.split_residuals(res[:-1], B, NC, NF)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_backward_runs_no_second_forward(rays, monkeypatch, precision):
+    """On CPU tensors ``render_fused``'s backward starts from what its
+    forward kept (the plain forward's graph, as the card keeps kernel 9's
+    residuals): the plain field runs twice in the forward and not at all in
+    the backward, and the gradient is the plain backward's."""
+    _, (params, *prays) = rays
+    calls = []
+    field = mk.field_rays_plain
+
+    def counting(*a, **k):
+        calls.append(torch.is_grad_enabled())
+        return field(*a, **k)
+
+    g = [torch.from_numpy(np.random.default_rng(13).normal(size=(B, 3)).astype(np.float32))
+         for _ in range(2)]
+    plain = rk.render_fused_bwd_plain(params, *prays, *g, NF, True, precision)
+    monkeypatch.setattr(mk, "field_rays_plain", counting)
+    leaves = {n: {k: t.clone().requires_grad_(True) for k, t in layer.items()}
+              for n, layer in params.items()}
+    c_co, c_fi = rk.render_fused(leaves, *prays, NF, True, precision)
+    assert calls == [True, True]
+    ((c_co * g[0]).sum() + (c_fi * g[1]).sum()).backward()
+    assert calls == [True, True]
+    for name in params:
+        for leaf in ("w", "b"):
+            assert torch.equal(leaves[name][leaf].grad, plain[name][leaf]), (name, leaf)
+
+
+def test_second_backward_on_cpu(rays):
+    """On CPU tensors a second backward through one ``render_fused`` graph
+    gives the first's gradient again where the first retained the graph,
+    and raises autograd's own error where it did not."""
+    _, (params, *prays) = rays
+    leaves = {n: {k: t.clone().requires_grad_(True) for k, t in layer.items()}
+              for n, layer in params.items()}
+    c_co, c_fi = rk.render_fused(leaves, *prays, NF, True)
+    flat = [leaves[name][k] for name, k in mk._PARAM_KEYS]
+    loss = c_co.sum() + 2 * c_fi.sum()
+    first = torch.autograd.grad(loss, flat, retain_graph=True)
+    second = torch.autograd.grad(loss, flat)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    with pytest.raises(RuntimeError, match="second time"):
+        torch.autograd.grad(loss, flat)
+
+
+def test_no_grad_call_asks_for_no_residuals(rays, monkeypatch):
+    """``render_fused`` asks kernel 9 for its residuals only where a
+    backward can follow: under ``torch.no_grad()`` (every frame) or with no
+    param requiring grad it launches kernel 9 as a frame does, and on the
+    CPU the plain forward keeps no graph. The card's branch is driven here
+    with a stand-in launch that records what it was asked."""
+    _, (params, *prays) = rays
+    asked = []
+
+    def launch(p, *args, residuals=False, defines=()):
+        asked.append(residuals)
+        c_co, c_fi, _, res = rk._plain(p, *args, residuals=True)
+        return (c_co, c_fi, res) if residuals else (c_co, c_fi)
+
+    leaves = {n: {k: t.clone().requires_grad_(True) for k, t in layer.items()}
+              for n, layer in params.items()}
+    with torch.no_grad():
+        out = rk.render_fused(leaves, *prays, NF, True)
+    assert not any(x.requires_grad for x in out)
+    monkeypatch.setattr(rk, "_launch", launch)
+    monkeypatch.setattr(mk, "_on_one_device", lambda tensors, what: True)
+    with torch.no_grad():
+        rk.render_fused(leaves, *prays, NF, True)
+    rk.render_fused(params, *prays, NF, True)
+    c_co, _ = rk.render_fused(leaves, *prays, NF, True)
+    assert asked == [False, False, True]
+    assert c_co.requires_grad
+
+
+def test_backward_from_residuals_on_cpu(rays):
+    """On CPU tensors ``render_fused_bwd`` and ``render_fused_bwd_ts`` with
+    ``residuals=`` take the plain backward at the residuals' fine t's, and
+    without them the plain forward's own: the same gradients, since the
+    plain forward made the residuals."""
+    _, (params, *prays) = rays
+    g = [torch.from_numpy(np.random.default_rng(14).normal(size=(B, 3)).astype(np.float32))
+         for _ in range(2)]
+    _, _, res = rk.render_fused_residuals(params, *prays, NF, False, "bf16")
+    t_fi = rk.split_residuals(res, B, NC, NF).t_fi
+    grads, ts = rk.render_fused_bwd_ts(params, *prays, *g, NF, False, "bf16", residuals=res)
+    own = rk.render_fused_bwd(params, *prays, *g, NF, False, "bf16")
+    at_ts = rk.render_fused_bwd_plain(params, *prays, *g, NF, False, "bf16", t_fi)
+    assert torch.equal(ts, t_fi)
+    for n in own:
+        for k in ("w", "b"):
+            assert torch.equal(grads[n][k], at_ts[n][k]) and torch.equal(grads[n][k], own[n][k])
+    assert rk.render_fused.launches == rk.render_fused_bwd.launches == 0
 
 # ---------------------------------------------------------------- in the renderer
 

@@ -1,10 +1,11 @@
 // Building blocks shared by the fused renderer's kernels for Hopper
 // (sm_90a): render_fused_fwd.cu (its forward) and render_fused_bwd.cu (its
-// recompute backward). Both evaluate the whole per-ray renderer of
+// backward). The forward evaluates the whole per-ray renderer of
 // tinynerf_torch.kernels.render_kernel.render_fused_plain: the field at the
 // coarse samples, the coarse weights and composite, the inverse-CDF
 // resample, the field at the fine samples and the merged composite of the
-// two sorted lists.
+// two sorted lists. The backward starts from the forward's per-ray state
+// (its residuals, Res) and calls the tail's functions again on it.
 //
 // A block owns `rpb` whole rays. Their per-sample state (t, sigma, r, g, b
 // at every coarse and fine sample, the coarse weights and cdf, the merged
@@ -23,9 +24,9 @@
 // thread a sample for the merge's ranks (binary searches over the other
 // list). Every sum of the tail runs in one order fixed by its length
 // (warp_scan; field_common.cuh's warp_sum, whose xor butterfly leaves the
-// same bits on every lane), so the backward's recompute
-// (render_fused_bwd.cu: tail_bwd_kernel, and resample_bwd_kernel's coarse
-// weights) gives the forward's bits.
+// same bits on every lane), so the backward's recompute from the residuals
+// (render_fused_bwd.cu: merge_bwd_kernel's merge and coarse weights,
+// resample_bwd_kernel's coarse weights and bins) gives the forward's bits.
 //
 // Numerics follow the plain PyTorch version: every product, sum and
 // quotient of the tail is a rounded intrinsic (__fmul_rn, __fadd_rn,
@@ -68,18 +69,16 @@ struct Tail {
   float *t_fi, *sig_fi, *col_fi[3];                // (rpb, nf)
   float *near, *far;                               // (rpb)
   int* order;  // (rpb, nc + nf): the merged order, coarse sample n as n, fine m as nc + m
-  // the merge's backward only: the merged weights and transmittances (rpb,
-  // nc + nf), and the fine samples' t cotangents (rpb, nf)
-  float *wm, *em, *gt;
+  // the merge's backward only (merge_fwd's `record`): the merged weights and
+  // transmittances (rpb, nc + nf)
+  float *wm, *em;
 };
 
-inline int tail_floats(int rpb, int nc, int nf, bool merge) {
-  return rpb * (8 * nc + 6 * nf + 2 + (merge ? 2 * (nc + nf) + nf : 0));
-}
+inline int tail_floats(int rpb, int nc, int nf) { return rpb * (8 * nc + 6 * nf + 2); }
 
-__device__ inline Tail carve_tail(float* f, int rpb, int nc, int nf, bool merge) {
+__device__ inline Tail carve_tail(float* f, int rpb, int nc, int nf) {
   Tail t;
-  const int c = rpb * nc, n = rpb * nf, k = rpb * (nc + nf);
+  const int c = rpb * nc, n = rpb * nf;
   t.t_co = f; f += c;
   t.sig_co = f; f += c;
   for (int ch = 0; ch < 3; ++ch) { t.col_co[ch] = f; f += c; }
@@ -90,28 +89,44 @@ __device__ inline Tail carve_tail(float* f, int rpb, int nc, int nf, bool merge)
   for (int ch = 0; ch < 3; ++ch) { t.col_fi[ch] = f; f += n; }
   t.near = f; f += rpb;
   t.far = f; f += rpb;
-  t.order = reinterpret_cast<int*>(f); f += k;
-  t.wm = t.em = t.gt = nullptr;
-  if (merge) {
-    t.wm = f; f += k;
-    t.em = f; f += k;
-    t.gt = f;
-  }
+  t.order = reinterpret_cast<int*>(f);
+  t.wm = t.em = nullptr;
   return t;
 }
 
-inline size_t render_smem_bytes(bool bf16, int rpb, int nc, int nf, bool merge) {
+inline size_t render_smem_bytes(bool bf16, int rpb, int nc, int nf) {
   return (bf16 ? sizeof(Geo<true>::Smem) : sizeof(Geo<false>::Smem)) +
-         sizeof(float) * (size_t)tail_floats(rpb, nc, nf, merge);
+         sizeof(float) * (size_t)tail_floats(rpb, nc, nf);
 }
 
 // Rays per block: enough to fill an M-row tile with coarse samples, fewer
 // where their state would not fit in shared memory; 0 where one ray's does
 // not.
-inline int rays_per_block(bool bf16, int nc, int nf, bool merge) {
+inline int rays_per_block(bool bf16, int nc, int nf) {
   int rpb = std::max(1, (bf16 ? Geo<true>::M : Geo<false>::M) / nc);
-  while (rpb > 1 && render_smem_bytes(bf16, rpb, nc, nf, merge) > MAX_SMEM) --rpb;
-  return render_smem_bytes(bf16, rpb, nc, nf, merge) > MAX_SMEM ? 0 : rpb;
+  while (rpb > 1 && render_smem_bytes(bf16, rpb, nc, nf) > MAX_SMEM) --rpb;
+  return render_smem_bytes(bf16, rpb, nc, nf) > MAX_SMEM ? 0 : rpb;
+}
+
+// The forward's per-ray state that the backward starts from (its
+// residuals), planes of one float32 buffer of residual_floats(B, nc, nf):
+// the fine t's (B, nf), the coarse sigma (B, nc) and color (3, B, nc), the
+// fine sigma (B, nf) and color (3, B, nf); color channel ch at col + ch *
+// B * n.
+struct Res {
+  float *t_fi, *sig_co, *col_co, *sig_fi, *col_fi;
+};
+
+inline long long residual_floats(long long b, int nc, int nf) { return b * (4 * nc + 5 * nf); }
+
+__host__ __device__ inline Res carve_res(float* f, long long b, int nc, int nf) {
+  Res r;
+  r.t_fi = f; f += b * nf;
+  r.sig_co = f; f += b * nc;
+  r.col_co = f; f += 3 * b * nc;
+  r.sig_fi = f; f += b * nf;
+  r.col_fi = f;
+  return r;
 }
 
 // Phase clocks of the forward, only in a variant build (-DRENDER_PHASE_CLOCKS,

@@ -50,9 +50,12 @@
 //   list; coarse first at an equal t), and a warp a ray for the merged
 //   composite (a warp_scan over the N_c + N_f merged samples). No step of
 //   it runs on one thread of a block.
-// The tail's sums run in an order fixed by the shapes: the backward's
-// recompute (render_fused_bwd.cu) calls the same functions on the same
-// blocks and gets these bits, the fine t's among them.
+// The tail's sums run in an order fixed by the shapes. Where a backward
+// can follow, the kernel's RES form also writes its per-ray state (the
+// residuals, Res: the fine t's and both passes' sigma and color) from
+// shared memory, and the backward (render_fused_bwd.cu) starts from them:
+// its merge order, weights and C_fine are these bits. Frames pass none and
+// launch the form without that code.
 // A clock64 variant build (-DRENDER_PHASE_CLOCKS) reads the time of each
 // phase and the share of the block's warps that wait through the tail
 // (render_kernel.fwd_phase_split).
@@ -61,7 +64,10 @@
 
 namespace {
 
-template <bool BF16>
+// RES: write the residuals to `res` (the wrapper's choice: where a backward
+// can follow); frames launch the form without them, which holds no code for
+// it.
+template <bool BF16, bool RES>
 __global__ void __launch_bounds__(Geo<BF16>::THREADS, Geo<BF16>::BLOCKS)
 render_fused_fwd_kernel(const float* __restrict__ origins,
                         const float* __restrict__ dirs,
@@ -69,20 +75,32 @@ render_fused_fwd_kernel(const float* __restrict__ origins,
                         const float* __restrict__ near,
                         const float* __restrict__ far, Params p,
                         float* __restrict__ c_co, float* __restrict__ c_fi,
-                        float* __restrict__ t_fi, int n_rays, int nc, int nf, int rpb,
+                        float* __restrict__ res, int n_rays, int nc, int nf, int rpb,
                         int white) {
   using G = Geo<BF16>;
   extern __shared__ float4 smem_raw[];
   auto& s = *reinterpret_cast<typename G::Smem*>(smem_raw);
-  const Tail tl = carve_tail(reinterpret_cast<float*>(&s + 1), rpb, nc, nf, false);
+  const Tail tl = carve_tail(reinterpret_cast<float*>(&s + 1), rpb, nc, nf);
   const int ray0 = blockIdx.x * rpb;
   const int nr = min(rpb, n_rays - ray0);
   PhaseClock clk;
   render_front<BF16>(s, tl, p, origins, dirs, t_co, near, far, ray0, nr, nc, nf, white != 0,
                      c_co, clk);
-  if (t_fi != nullptr)
-    for (int i = threadIdx.x; i < nr * nf; i += G::THREADS)
-      t_fi[(size_t)ray0 * nf + i] = tl.t_fi[i];
+  if (RES) {
+    const Res out = carve_res(res, n_rays, nc, nf);
+    const size_t cp = (size_t)n_rays * nc, fp = (size_t)n_rays * nf;
+    for (int i = threadIdx.x; i < nr * nf; i += G::THREADS) {
+      const size_t at = (size_t)ray0 * nf + i;
+      out.t_fi[at] = tl.t_fi[i];
+      out.sig_fi[at] = tl.sig_fi[i];
+      for (int ch = 0; ch < 3; ++ch) out.col_fi[ch * fp + at] = tl.col_fi[ch][i];
+    }
+    for (int i = threadIdx.x; i < nr * nc; i += G::THREADS) {
+      const size_t at = (size_t)ray0 * nc + i;
+      out.sig_co[at] = tl.sig_co[i];
+      for (int ch = 0; ch < 3; ++ch) out.col_co[ch * cp + at] = tl.col_co[ch][i];
+    }
+  }
   const int lane = threadIdx.x & 31;
   for (int r = threadIdx.x >> 5; r < nr; r += G::THREADS / 32) {
     float c[3];
@@ -102,7 +120,7 @@ extern "C" {
 // refuses those shapes by name).
 int render_fused_fwd_rays_per_block(int n_coarse, int n_fine, int bf16) {
   if (n_coarse < 2 || n_fine < 1) return 0;
-  return rays_per_block(bf16 != 0, n_coarse, n_fine, false);
+  return rays_per_block(bf16 != 0, n_coarse, n_fine);
 }
 
 // Threads of a block of the given form, and rows of its field tile.
@@ -114,15 +132,22 @@ int render_fused_tile_rows(int bf16) { return bf16 ? Geo<true>::M : Geo<false>::
 // Bytes of dynamic shared memory one block of the given form takes.
 int render_fused_fwd_smem_bytes(int n_coarse, int n_fine, int bf16) {
   const int rpb = render_fused_fwd_rays_per_block(n_coarse, n_fine, bf16);
-  return rpb == 0 ? 0 : (int)render_smem_bytes(bf16 != 0, rpb, n_coarse, n_fine, false);
+  return rpb == 0 ? 0 : (int)render_smem_bytes(bf16 != 0, rpb, n_coarse, n_fine);
 }
 
 // bf16 elements of the `packed` buffer the bf16 form takes.
 int field_packed_weights_elems() { return PK_ELEMS; }
 
+// Float32 elements of the residual buffer (Res) for these shapes.
+long long render_fused_residual_floats(int n_rays, int n_coarse, int n_fine) {
+  return residual_floats(n_rays, n_coarse, n_fine);
+}
+
 // origins, dirs, c_co, c_fi: (n_rays, 3); t_co: (n_rays, n_coarse); near,
-// far: (n_rays,); t_fi: null, or (n_rays, n_fine) for the fine t's (for
-// checks); all float32, contiguous, on the current device. params: 25
+// far: (n_rays,); res: null, or render_fused_residual_floats(n_rays,
+// n_coarse, n_fine) floats for the residuals (Res, render_common.cuh) that
+// the backward starts from; all float32, contiguous, on the current
+// device. params: 25
 // device pointers, as for field_rays_fwd. white: nonzero for the
 // white-background term; bf16: nonzero for the bf16 form, which packs the
 // weights into `packed` (field_packed_weights_elems() bf16, 16-byte
@@ -131,12 +156,12 @@ int field_packed_weights_elems() { return PK_ELEMS; }
 // not fit in a block.
 int render_fused_fwd(const float* origins, const float* dirs, const float* t_co,
                      const float* near, const float* far, const void* const* params,
-                     float* c_co, float* c_fi, float* t_fi, void* packed, int n_rays,
+                     float* c_co, float* c_fi, float* res, void* packed, int n_rays,
                      int n_coarse, int n_fine, int white, int bf16, void* stream) {
   if (n_rays <= 0) return 0;
   const int rpb = render_fused_fwd_rays_per_block(n_coarse, n_fine, bf16);
   if (rpb == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = render_smem_bytes(bf16 != 0, rpb, n_coarse, n_fine, false);
+  const size_t smem = render_smem_bytes(bf16 != 0, rpb, n_coarse, n_fine);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Params p = unpack_params(params);
   if (bf16) {
@@ -146,13 +171,16 @@ int render_fused_fwd(const float* origins, const float* dirs, const float* t_co,
     const int e = pack_weights(p, wb, st, false);
     if (e != 0) return e;
   }
-  auto kernel = bf16 ? &render_fused_fwd_kernel<true> : &render_fused_fwd_kernel<false>;
+  auto kernel = bf16 ? (res != nullptr ? &render_fused_fwd_kernel<true, true>
+                                        : &render_fused_fwd_kernel<true, false>)
+                     : (res != nullptr ? &render_fused_fwd_kernel<false, true>
+                                        : &render_fused_fwd_kernel<false, false>);
   const int threads = render_fused_block_threads(bf16);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(n_rays + rpb - 1) / rpb, threads, smem, st>>>(
-      origins, dirs, t_co, near, far, p, c_co, c_fi, t_fi, n_rays, n_coarse, n_fine, rpb,
+      origins, dirs, t_co, near, far, p, c_co, c_fi, res, n_rays, n_coarse, n_fine, rpb,
       white);
   return (int)cudaGetLastError();
 }

@@ -51,8 +51,16 @@ def find_nvcc() -> str:
 
 
 def _ptxas_lines(text: str) -> List[str]:
-    return [ln.strip() for ln in text.splitlines()
-            if "registers" in ln or "spill" in ln or "smem" in ln]
+    """ptxas' register, spill and shared memory lines, each kernel's after
+    an ``entry <mangled name>`` line."""
+    lines = []
+    for ln in text.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", ln)
+        if entry:
+            lines.append(f"entry {entry.group(1)}")
+        elif "registers" in ln or "spill" in ln or "smem" in ln:
+            lines.append(ln.strip())
+    return lines
 
 
 def _flags(defines) -> List[str]:
