@@ -98,6 +98,27 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
    ``GRID_PALLAS`` for 10 steps (the MLP fine field through kernels 1-2,
    the proposal grid through kernels 5-6, the refresh at 0 through kernel
    3), checking the launch counts and finite losses;
+12b. drives the flagship, ``conf/lego_hybrid.ini`` (the fine grid at R =
+   384, 64 + 64 components, decoder width 128 and the sigma net
+   (``GRID_HYBRID``); the proposal grid with its own (``PROP_GRID_HYBRID``);
+   bf16, 4096 rays, 64 + 128 samples, the occupancy grid), in plain PyTorch,
+   since the JAX package runs it in XLA: ``Runner.train()`` for 300 steps
+   (256 + 44, across the refresh at 256) from fresh seeded weights; checks
+   184,069 + 7,397 params, no launch of any kernel wrapper, a finite falling
+   loss; prints s/step, rays/s, the peak device memory of six steps and a
+   profile of five (the device's busy share); holds one step's gradient on
+   the card against the same step on the CPU (cosine >= 0.999 for each
+   grid's lines, decoder and sigma net); renders one 800x800 view from the
+   saved checkpoint (no launch, s/frame, a profile of five chunks) and
+   holds a chunk on the card against the same chunk on the CPU: at fp32
+   every pixel within 1e-3; at bf16, where a rounding that the two
+   devices' float32 sums decide differently moves a sample's color by one
+   bf16 ulp (2^-8 on [0.5, 1)), the mean within 1e-4 and every pixel within
+   four such ulps;
+   then ``conf/lego_levels.ini`` (384 + 192) and ``conf/lego_fold.ini``
+   (385 + 193, folded) for 10 steps each (257,797 and 258,565 + 7,397
+   params, no launch), each resumed from its checkpoint with its level
+   tables back;
 13. drives ``conf/lego_prop.ini`` with ``PROP_FIELD = mlp`` and
    ``PROP_PALLAS`` (the 8x256 MLP at bf16 with ``USE_PALLAS``; the proposal
    MLP, 128 x 4 at ``PROPOSAL_ENC_L`` 10, 57,932 params; 4096 rays, 64 + 128
@@ -261,6 +282,8 @@ BF16_FWD_RTOL = 1e-2        # each output, error / max|plain|
 BF16_BWD_RTOL = 3e-2        # each gradient, error / max|plain|
 BF16_COS = 0.999            # each gradient tensor; and a bf16 step's gradient
 BF16_CHUNK_ATOL = 1e-3      # rendered pixels, bf16 kernels vs bf16 plain field
+DEVICE_CHUNK_ATOL = 1e-3    # rendered pixels, the plain path, card vs CPU at fp32
+BF16_COLOR_ATOL = 2 ** -6   # the same at bf16, every pixel: four bf16 ulps of a color on [0.5, 1)
 TRAIN_STEPS = 200
 TRAIN_VIEWS = 4
 STEP_SHAPES = ((400, 64), (400, 128))    # the field calls of a lego step
@@ -276,6 +299,12 @@ GRID_MARGIN = 1e-5          # rows this close to a ReLU kink or sigma = 0: no co
 GRID_STEPS = 300            # lego_grid: refreshes at iterations 0 and 256
 GRID_FP32_STEPS = 10        # lego_grid at fp32
 FAST_STEPS = 10             # lego_fast with GRID_PALLAS
+HYBRID_STEPS = 300          # conf/lego_hybrid.ini: refreshes at iterations 0 and 256
+LEVELS_STEPS = 10           # conf/lego_levels.ini, conf/lego_fold.ini
+# the flagship configs' fine grid and proposal grid params, as the JAX
+# package's init_state gives them
+HYBRID_COUNTS = {"lego_hybrid": (184_069, 7_397), "lego_levels": (257_797, 7_397),
+                 "lego_fold": (258_565, 7_397)}
 PROP_NETS = {"128x4": (128, 4),          # lego_prop's proposal MLP: width, depth
              "64x3": (64, 3)}            # a narrower one (the kernels take any such)
 PROP_SHAPE = (4096, 64)                  # a lego_prop step's proposal call
@@ -490,13 +519,14 @@ def grid_shares(grid):
             float((grid.density > grid.threshold).float().mean()))
 
 
-def profile_steps(step, state, n: int = 5) -> None:
+def profile_steps(step, state, n: int = 5):
     """Trace ``n`` training steps with torch.profiler; print the device time
-    by kernel (top 12) and the device's busy share of the steps' wall time."""
+    by kernel (top 12) and the device's busy share of the steps' wall time,
+    and return ``profile_calls``' numbers."""
     def run():
         nonlocal state
         state, _ = step(state)
-    profile_calls(run, n, "steps")
+    return profile_calls(run, n, "steps")
 
 
 def device_rows(fn, n: int):
@@ -532,15 +562,17 @@ def launch_split(fn, what: str, n: int = 3) -> dict:
     return split
 
 
-def profile_calls(fn, n: int, what: str) -> None:
+def profile_calls(fn, n: int, what: str):
     """Trace ``n`` calls of ``fn`` with torch.profiler (after three more to
     warm up); print the device time by kernel (top 12) and the device's busy
-    share of the calls' wall time."""
+    share of the calls' wall time. Returns ``{"wall_ms", "device_ms",
+    "busy_share", "launches"}`` per call, or None where the profiler
+    recorded no device time."""
     wall_ms, rows = device_rows(fn, n)
     if not rows:
         print(f"profile: {n} {what} in {wall_ms:.2f} ms of wall time; the profiler "
               "recorded no device time (device busy share not measured)")
-        return
+        return None
     device_ms = sum(r[2] for r in rows)
     one = what.rstrip("s")
     print(f"profile: {n} {what} in {wall_ms:.2f} ms of wall time; device busy "
@@ -549,6 +581,8 @@ def profile_calls(fn, n: int, what: str) -> None:
           f"on the device in {sum(r[1] for r in rows) / n:.0f} launches")
     for name, calls, ms in sorted(rows, key=lambda r: -r[2])[:12]:
         print(f"  {ms / n:9.3f} ms/{one}  {calls // n:5d}/{one}  {name[:90]}")
+    return {"wall_ms": wall_ms / n, "device_ms": device_ms / n,
+            "busy_share": device_ms / wall_ms, "launches": sum(r[1] for r in rows) / n}
 
 
 def grid_with_content(geometry: str, device, seed: int):
@@ -612,14 +646,15 @@ def grid_bwd_errors(kernel, plain):
     return out
 
 
-def grid_part_cosines(grads_a, grads_b):
-    """{part: cosine} for the lines and decoder of the net and the proposal."""
+def grid_part_cosines(grads_a, grads_b, keys=("lines", "decoder")):
+    """{part: cosine} for the ``keys`` (the lines and decoder) of the net and
+    the proposal, on the CPU in float64 (the two may lie on two devices)."""
     import torch
     from tinynerf_torch import optim
-    flat = lambda tree: torch.cat([t.flatten().double() for t in optim.leaves(tree)])
+    flat = lambda tree: torch.cat([t.flatten().double().cpu() for t in optim.leaves(tree)])
     out = {}
     for part in ("net", "prop"):
-        for key in ("lines", "decoder"):
+        for key in keys:
             a, b = flat(grads_a[part][key]), flat(grads_b[part][key])
             out[f"{part}.{key}"] = float(a @ b / (a.norm() * b.norm()))
     return out
@@ -854,6 +889,250 @@ def bwd_gemm_chain_ms_fp32(dev) -> float:
             torch.matmul(gs[n], w.T)
             torch.matmul(xs[k].T, gs[n])
     return cuda_ms(chain, iters=10)
+
+
+def flagship_phases(tmp: str, device: str) -> dict:
+    """Phase 12b: ``conf/lego_hybrid.ini`` trained and rendered, and
+    ``conf/lego_levels.ini`` and ``conf/lego_fold.ini`` trained and resumed,
+    on ``device`` (the card; the CPU only to rehearse). The JAX package runs
+    these grids in XLA (``GRID_PALLAS`` refuses the sigma net and the
+    pyramid), so no TPU kernel lies on this path: the port runs the plain
+    point field, and every kernel wrapper must stay at 0 launches. Returns
+    the numbers of the summary line."""
+    import numpy as np
+    import torch
+    from tinynerf_torch import ckpt, eval as evallib, optim, train
+    from tinynerf_torch.core import gridfield, render
+    from tinynerf_torch.kernels import grid_kernel as gk
+    from tinynerf_torch.kernels import mlp_kernel as mk
+    from tinynerf_torch.kernels import proposal_kernel as pk
+    from tinynerf_torch.kernels import render_kernel as rk
+    from tinynerf_torch.runner import Runner
+    dev = torch.device(device)
+    wrappers = {"field_rays": mk.field_rays, "field_rays_bwd": mk.field_rays_bwd,
+                "field_flat": mk.field_flat, "field_flat_bwd": mk.field_flat_bwd,
+                "grid_rays": gk.grid_rays, "grid_rays_bwd": gk.grid_rays_bwd,
+                "prop_rays": pk.prop_rays, "prop_rays_bwd": pk.prop_rays_bwd,
+                "render_fused": rk.render_fused, "render_fused_bwd": rk.render_fused_bwd,
+                "merge_bwd": rk.merge_bwd}
+
+    def zero_launches():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def check_no_launches(what):
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        print(f"{what}: kernel launches {launches} (expected none)")
+        if any(launches.values()):
+            raise AssertionError(f"{what} launched a kernel")
+
+    def grid_counts(params, conf):
+        counts = tuple(gridfield.num_params(params[k]) for k in ("net", "prop"))
+        if counts != HYBRID_COUNTS[conf]:
+            raise AssertionError(f"{conf}: {counts[0]:,} + {counts[1]:,} params, not the "
+                                 f"full width's {HYBRID_COUNTS[conf]}")
+        return counts
+
+    def to_cpu(tree):
+        return optim.tree_map(lambda t: t.cpu(), tree)
+
+    phase("train-lego_hybrid-4096 (conf/lego_hybrid.ini: GRID_HYBRID and PROP_GRID_HYBRID, "
+          "R = 384, bf16, occupancy grid; the plain point field, no kernel)")
+    hcfg = run_config("lego_hybrid", tmp, "hybrid", HYBRID_STEPS)
+    runner = Runner(hcfg, device=device,
+                    scene=blender_scene(n_views=TRAIN_VIEWS, hw=800, seed=hcfg.seed))
+    n_net, n_prop = grid_counts(runner.params, "lego_hybrid")
+    sw = hcfg.grid_sigma_width or hcfg.grid_decoder_width
+    print(f"{hcfg.precision}, BATCH_RAY {hcfg.batch_ray}, {hcfg.n_coarse}+{hcfg.n_fine} "
+          f"samples; fine grid R={hcfg.grid_res}, {hcfg.grid_comp_density}+"
+          f"{hcfg.grid_comp_app} components, decoder width {hcfg.grid_decoder_width}, "
+          f"sigma net {hcfg.grid_comp_density}->{sw}->1 ({n_net:,} params); proposal grid "
+          f"R={hcfg.prop_grid_res}, {hcfg.prop_grid_comp_density}+"
+          f"{hcfg.prop_grid_comp_app}, width {hcfg.prop_grid_decoder_width}, sigma net "
+          f"({n_prop:,} params); GRID_LR_MULT {hcfg.grid_lr_mult}, GRID_TV {hcfg.grid_tv}; "
+          f"OCC_RES {hcfg.occ_res}, OCC_MARCH_STEPS {hcfg.occ_march_steps} (derived)")
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hybrid_shares = []
+    for end in (hcfg.occ_update_every, HYBRID_STEPS):  # read the grid after each refresh
+        hcfg.total_iter = end
+        runner.train()
+        hybrid_shares.append(grid_shares(runner.state.occ))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    print(f"Runner.train(): {HYBRID_STEPS} steps of {hcfg.batch_ray} rays in {seconds:.2f} s "
+          f"({seconds / HYBRID_STEPS * 1e3:.2f} ms/step, first steps included)")
+    check_no_launches(f"lego_hybrid, {HYBRID_STEPS} steps")
+    for it, (probed, occupied) in zip((0, hcfg.occ_update_every), hybrid_shares):
+        print(f"grid after the refresh at iteration {it}: {100 * probed:.2f}% of cells "
+              f"probed, {100 * occupied:.2f}% occupied")
+    losses = logged_losses(runner)
+    if len(losses) != HYBRID_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{len(losses)} logged losses, not all finite")
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    print(f"loss: mean of the first 10 steps {first:.4f}, of the last 10 {last:.4f} "
+          f"(step 0 {losses[0]:.4f}, step {HYBRID_STEPS - 1} {losses[-1]:.4f})")
+    if not last < first:
+        raise AssertionError("the lego_hybrid loss did not fall")
+
+    step = train.make_train_step(hcfg, runner.train_table, runner.k_inv)
+    state = runner.state
+    for _ in range(2):
+        state, _ = step(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(6):
+        state, _ = step(state)
+    torch.cuda.synchronize()
+    hybrid_ms = (time.perf_counter() - t0) / 6 * 1e3
+    hybrid_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"BATCH_RAY {hcfg.batch_ray}: {hybrid_ms / 1e3:.5f} s/step, "
+          f"{hcfg.batch_ray / hybrid_ms * 1e3:,.0f} rays/s; peak device memory "
+          f"{hybrid_peak:.2f} GiB (torch.cuda.max_memory_allocated over 6 steps)")
+    hybrid_profile = profile_steps(step, state)
+    del step, state
+
+    # one step's gradient on the card against the same step on the CPU
+    batch = runner.train_table.sample(torch.Generator(device=dev).manual_seed(3),
+                                      hcfg.batch_ray)
+    occ = runner.state.occ
+    _, _, g_card = train.loss_and_grads(train.make_loss_fn(hcfg, runner.k_inv),
+                                        runner.params, batch, None, occ)
+    t0 = time.perf_counter()
+    _, _, g_cpu = train.loss_and_grads(
+        train.make_loss_fn(hcfg, runner.k_inv.cpu()), to_cpu(runner.params),
+        type(batch)(*(t.cpu() for t in batch)), None, type(occ)(*(t.cpu() for t in occ)))
+    hybrid_cos = grid_part_cosines(g_card, g_cpu, ("lines", "decoder", "sigma_net"))
+    print(f"one bf16 step, card vs CPU (the same params and batch; CPU "
+          f"{time.perf_counter() - t0:.1f} s): gradient cosines "
+          + ", ".join(f"{k} {v:.7f}" for k, v in hybrid_cos.items())
+          + f" (limit {BF16_COS})")
+    if min(hybrid_cos.values()) < BF16_COS:
+        raise AssertionError("the lego_hybrid gradient on the card disagrees with the CPU's")
+    hybrid_iter = runner.state.iteration - 1
+    ckpt.save_checkpoint(hcfg.ckpt_path, "smoke", hybrid_iter, runner.params,
+                         runner.state.opt, generator=runner.state.generator,
+                         occ=runner.state.occ)
+    trained_hybrid_occ = runner.state.occ
+    del runner, g_card, g_cpu, batch, occ
+
+    phase("render-lego_hybrid-800 (from that checkpoint: one 800x800 view, the occupancy "
+          "grid; no kernel)")
+    hcfg.continue_ = True
+    scene = blender_scene(n_views=1, hw=800, seed=hcfg.seed)
+    runner = Runner(hcfg, device=device, scene=scene)
+    if runner.last_iter != hybrid_iter or not torch.equal(runner.state.occ.raw,
+                                                         trained_hybrid_occ.raw):
+        raise AssertionError("Runner did not resume the lego_hybrid checkpoint and its grid")
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = evallib.render_test_set(
+        hcfg, runner.params, runner.test_table, runner.k_inv, runner.start_time,
+        runner.last_iter, save=False, occ_grid=runner.state.occ)
+    torch.cuda.synchronize()
+    hybrid_frame_s = (time.perf_counter() - t0) / frames.shape[0]
+    print(f"rendered {frames.shape[0]} view of {scene.height}x{scene.width} from the "
+          f"iteration-{hybrid_iter} checkpoint: {hybrid_frame_s:.3f} s/frame "
+          f"({math.ceil(scene.height * scene.width / hcfg.render_chunk)} chunks of "
+          f"{hcfg.render_chunk} rays)")
+    check_no_launches("the lego_hybrid render")
+    if not (frames.shape == (1, scene.height, scene.width, 3) and np.all(np.isfinite(frames))
+            and frames.min() >= 0 and frames.max() <= 1):
+        raise AssertionError("the lego_hybrid frame is not finite values in [0, 1]")
+    print(f"frame mean {frames.mean():.4f}, std {frames.std():.4f}")
+    with torch.no_grad():
+        hw = scene.height * scene.width
+        n_h_chunks = math.ceil(hw / hcfg.render_chunk)
+        idx = torch.arange(hw, device=dev)[(n_h_chunks // 2) * hcfg.render_chunk:
+                                           (n_h_chunks // 2 + 1) * hcfg.render_chunk]
+        rows, cols = (idx // scene.width).float(), (idx % scene.width).float()
+        pose = runner.test_table.poses[0].expand(rows.shape[0], 17)
+        def chunk(on, cfg=hcfg):
+            occ = runner.state.occ
+            params = to_cpu(runner.params) if on == "cpu" else runner.params
+            return render.render_rays(
+                params["net"], *(t.to(on) for t in (rows, cols, pose, runner.k_inv)),
+                cfg.n_coarse, cfg.n_fine, field_fn=evallib.make_field_fn(cfg),
+                prop_field_fn=evallib.make_prop_field_fn(cfg), white_bkgd=True,
+                occ_grid=type(occ)(*(t.to(on) for t in occ)), occ_march=cfg.occ_march_steps,
+                prop_params=params["prop"], merge_impl="twolist")[1]
+
+        # the same chunk on the card and on the CPU. fp32: every value within
+        # 1e-3 (the two devices' float32 sums and exp differ in the last ulp,
+        # which the resampler's slopes amplify in the fine t's). bf16: such a
+        # difference can flip a rounding, which moves a sample's color by one
+        # bf16 ulp (2^-8 on [0.5, 1)) and its weight with it, in a few
+        # samples of a chunk; so the mean within the fp32 pixel bound, 1e-4,
+        # and every value within four such ulps
+        hybrid_pix_err = {}
+        for precision in ("fp32", "bf16"):
+            cfg = dataclasses.replace(hcfg, precision=precision)
+            err = (chunk(dev, cfg).cpu() - chunk("cpu", cfg)).abs()
+            hybrid_pix_err[precision] = {"max": float(err.max()), "mean": float(err.mean()),
+                                         "above_1e-3": int((err > 1e-3).sum())}
+            if precision == "fp32":
+                bounds, ok = f"max {DEVICE_CHUNK_ATOL}", err.max() <= DEVICE_CHUNK_ATOL
+            else:
+                bounds = f"mean {CHUNK_ATOL}, max {BF16_COLOR_ATOL}"
+                ok = err.mean() <= CHUNK_ATOL and err.max() <= BF16_COLOR_ATOL
+            print(f"one {hcfg.render_chunk}-ray chunk, card vs CPU ({precision}): max |pixel "
+                  f"err| {err.max():.3e}, mean {err.mean():.3e}, {int((err > 1e-3).sum())} of "
+                  f"{err.numel()} values above 1e-3 (limits: {bounds})")
+            if not ok:
+                raise AssertionError(f"the lego_hybrid chunk on the card disagrees with the "
+                                     f"CPU's at {precision}")
+        hybrid_chunk_profile = profile_calls(lambda: chunk(dev), 5, "chunks")
+    del runner
+
+    levels = {}
+    for conf in ("lego_levels", "lego_fold"):
+        phase(f"train-{conf}-4096 (conf/{conf}.ini, {LEVELS_STEPS} steps; resumed from its "
+              "checkpoint; no kernel)")
+        lcfg = run_config(conf, tmp, conf, LEVELS_STEPS)
+        runner = Runner(lcfg, device=device,
+                        scene=blender_scene(n_views=TRAIN_VIEWS, hw=800, seed=lcfg.seed))
+        counts = grid_counts(runner.params, conf)
+        tables = {k: tuple(t.shape) for k, t in runner.params["net"]["lines"].items()}
+        print(f"GRID_RES {lcfg.grid_res}, GRID_LEVELS {lcfg.grid_levels}, GRID_LEVEL_FOLD "
+              f"{lcfg.grid_level_fold}: tables {tables}; {counts[0]:,} + {counts[1]:,} params")
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.train()
+        torch.cuda.synchronize()
+        level_s = time.perf_counter() - t0
+        check_no_launches(f"{conf}, {LEVELS_STEPS} steps")
+        losses = logged_losses(runner)
+        if len(losses) != LEVELS_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{conf}: not every loss is finite")
+        it = runner.state.iteration - 1
+        ckpt.save_checkpoint(lcfg.ckpt_path, "smoke", it, runner.params, runner.state.opt,
+                             generator=runner.state.generator, occ=runner.state.occ)
+        saved = {k: t.clone() for k, t in runner.params["net"]["lines"].items()}
+        del runner
+        lcfg.continue_ = True
+        runner = Runner(lcfg, device=device,
+                        scene=blender_scene(n_views=TRAIN_VIEWS, hw=800, seed=lcfg.seed))
+        back = runner.params["net"]["lines"]
+        if runner.last_iter != it or set(back) != set(saved) or not all(
+                torch.equal(back[k], saved[k]) for k in saved):
+            raise AssertionError(f"{conf}: the resumed level tables are not the saved ones")
+        print(f"{LEVELS_STEPS} steps in {level_s:.2f} s (first steps included); losses "
+              f"{losses[0]:.4f} .. {losses[-1]:.4f}; resumed at iteration {it}: level "
+              f"tables {sorted(back)} back, equal to the saved ones")
+        levels[conf] = {"seconds_10_steps": level_s, "params": counts, "tables": tables}
+        del runner
+
+    return {"lego_hybrid": {"step_ms": hybrid_ms, "rays_per_s": hcfg.batch_ray / hybrid_ms * 1e3,
+                            "peak_memory_gib": hybrid_peak, "step_profile": hybrid_profile,
+                            "frame_s": hybrid_frame_s, "chunk_profile": hybrid_chunk_profile,
+                            "grid_shares": hybrid_shares,
+                            "grad_cosines_card_vs_cpu": hybrid_cos,
+                            "chunk_pix_err_card_vs_cpu": hybrid_pix_err},
+            **levels}
 
 
 def main() -> int:
@@ -2312,6 +2591,9 @@ def main() -> int:
             raise AssertionError("lego_fast: not every loss is finite")
         del runner
 
+        # ---- 12b. the flagship, conf/lego_hybrid.ini, and its pyramids ----
+        flagship = flagship_phases(tmp, "cuda")
+
         prop_counts = lambda: (pk.prop_rays.launches, pk.prop_rays_bwd.launches)
 
         def reset_all():
@@ -2973,6 +3255,7 @@ def main() -> int:
                                     "frame_s": grid_frame_s, "grid_shares": grid_shares_after,
                                     "grad_cosines": grid_cos, "chunk_pix_err": grid_pix_err},
                       "lego_fast": {"seconds_10_steps": fast_s},
+                      **flagship,
                       "lego_prop": {"step_ms": prop_ms, "kernel_ms": prop_kern,
                                     "frame_s": prop_frame_s, "grad_cosines": prop_cos,
                                     "chunk_pix_err": prop_pix_err},

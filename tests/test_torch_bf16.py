@@ -33,6 +33,7 @@ from tinynerf_torch.core.rays import make_k_inv
 from tinynerf_torch.data.poses import load_scene
 from tinynerf_torch.data.rays import RayTable
 from tinynerf_torch.kernels import mlp_kernel as mk
+from tests.torch_workers import torch_threads  # noqa: F401 (autouse)
 
 FWD_RTOL = 2e-3   # measured at most 4.7e-4 of max|ref| (sigma, B=13 N=8)
 BWD_RTOL = 1e-2   # measured at most 6.6e-4 of max|ref| (sigma.w, B=5 N=12)

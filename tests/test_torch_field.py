@@ -19,6 +19,7 @@ from tinynerf.core import encoding as jenc, mlp as jmlp, render as jrender
 from tinynerf_torch.ckpt import params_from_numpy
 from tinynerf_torch.core import encoding, mlp, render
 from tinynerf_torch.kernels import mlp_kernel as mk
+from tests.torch_workers import torch_threads  # noqa: F401 (autouse)
 
 # The JAX kernel test's own bounds (tests/test_pallas_kernel.py:37-38); the
 # port meets them on the CPU, summing in another order than XLA.

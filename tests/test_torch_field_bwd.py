@@ -19,6 +19,7 @@ from tinynerf.core import mlp as jmlp
 from tinynerf_torch.ckpt import params_from_numpy
 from tinynerf_torch.core import mlp
 from tinynerf_torch.kernels import mlp_kernel as mk
+from tests.torch_workers import torch_threads  # noqa: F401 (autouse)
 
 TOL = 2e-5
 

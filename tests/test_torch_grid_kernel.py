@@ -19,6 +19,7 @@ from tinynerf.core import gridfield as jgf
 from tinynerf_torch import ckpt, optim
 from tinynerf_torch.core import encoding, gridfield
 from tinynerf_torch.kernels import grid_kernel as gk
+from tests.torch_workers import torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -1,6 +1,6 @@
 """The port's CP grid field (``tinynerf_torch.core.gridfield``: init, the
-point field, ``tv_loss``), ``train.make_lr_scale``, grid checkpoints and the
-grid forms still refused, against the JAX package's, on the CPU at small
+point field, ``tv_loss``), ``train.make_lr_scale``, grid checkpoints, the
+grid forms still refused and the flagship's keys accepted, against the JAX package's, on the CPU at small
 sizes. Inputs are made with numpy from a seed and handed to both."""
 
 import dataclasses
@@ -17,6 +17,9 @@ from tinynerf.core import gridfield as jgf, occupancy as joccupancy
 from tinynerf_torch import ckpt, config, eval as evallib, optim, train
 from tinynerf_torch.config import Config
 from tinynerf_torch.core import gridfield
+from tinynerf_torch.logging import MetricLogger
+from tinynerf_torch.runner import Runner
+from tests.torch_workers import torch_threads  # noqa: F401 (autouse)
 
 # the JAX kernel test's own bounds (tests/test_grid_kernel.py): 1e-5 at the
 # small geometry, sigma 1e-4 at R = 256; bf16 as in slice 3: 2e-3 of max|ref|
@@ -245,30 +248,15 @@ def test_grid_pair_checkpoint_round_trips_between_the_packages(tmp_path):
 
 
 def test_unported_grid_forms_are_refused_by_name():
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="GRID_HYBRID .*the flagship"):
-        gridfield.init_grid_field(gen, res=4, hybrid=True)
-    with pytest.raises(NotImplementedError, match="GRID_LEVELS=2 .*the flagship"):
-        gridfield.init_grid_field(gen, res=4, levels=2)
+    """``GRID_LOOKUP = gather`` is still to port; the hybrid sigma net, the
+    pyramid and its fold are ported (``tests/test_torch_grid_hybrid.py``)."""
     with pytest.raises(NotImplementedError, match="GRID_LOOKUP=gather"):
         gridfield.make_field_grid(lookup="gather")
-    with pytest.raises(NotImplementedError, match="GRID_LEVEL_FOLD"):
-        gridfield.make_field_grid(fold=True)
-    tree = jax.tree_util.tree_map(np.asarray, jgf.init_grid_field(
-        jax.random.PRNGKey(0), res=8, n_density=2, n_app=2, decoder_width=8, hybrid=True))
-    with pytest.raises(NotImplementedError, match="GRID_HYBRID .*not ported yet .ROADMAP"):
-        ckpt.params_from_numpy(tree)
-    levels = jax.tree_util.tree_map(np.asarray, jgf.init_grid_field(
-        jax.random.PRNGKey(0), res=8, n_density=2, n_app=2, decoder_width=8, levels=2))
-    with pytest.raises(NotImplementedError, match=r"level tables \['x1', 'y1', 'z1'\]"):
-        ckpt.params_from_numpy({"net": levels, "prop": levels})
+    with pytest.raises(NotImplementedError, match="GRID_LOOKUP=gather"):
+        gridfield.make_field_grid(lookup="gather", fold=True)
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(fine_field="grid", grid_hybrid=True), "GRID_HYBRID"),
-    (dict(proposal=True, prop_grid_hybrid=True), "PROP_GRID_HYBRID"),
-    (dict(fine_field="grid", grid_levels=2), "GRID_LEVELS=2"),
-    (dict(fine_field="grid", grid_level_fold=True), "GRID_LEVEL_FOLD"),
     (dict(fine_field="grid", grid_upsample="100:64"), "GRID_UPSAMPLE=100:64"),
     (dict(fine_field="grid", grid_lookup="gather"), "GRID_LOOKUP=gather"),
     (dict(mesh_shape=4), "MESH_SHAPE=4"),
@@ -276,6 +264,34 @@ def test_unported_grid_forms_are_refused_by_name():
 def test_check_supported_refuses_unported_keys(kw, what):
     with pytest.raises(NotImplementedError, match=f"{what} is not ported yet .ROADMAP"):
         evallib.check_supported(Config(**kw))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(fine_field="grid", grid_hybrid=True),
+    dict(proposal=True, prop_grid_hybrid=True),
+    dict(fine_field="grid", grid_levels=2),
+    dict(fine_field="grid", grid_level_fold=True)],
+    ids=["GRID_HYBRID", "PROP_GRID_HYBRID", "GRID_LEVELS=2", "GRID_LEVEL_FOLD"])
+def test_check_supported_accepts_the_flagship_keys(kw, sync_scene_dir, tmp_path):
+    """The keys once refused here as the flagship's are ported: accepted,
+    and a Runner takes one step on the tiny scene with each (the grids at
+    small widths)."""
+    cfg = Config(img_dir=f"{sync_scene_dir}/", data_type="sync", n_coarse=8, n_fine=16,
+                 batch_ray=32, total_iter=1, step=1000, grid_res=9, grid_comp_density=2,
+                 grid_comp_app=3, grid_decoder_width=8, prop_grid_res=8,
+                 prop_grid_comp_density=2, prop_grid_comp_app=2, prop_grid_decoder_width=8,
+                 ckpt_path=str(tmp_path / "ckpt"), log_dir=str(tmp_path / "runs"), **kw)
+    evallib.check_supported(cfg)
+    runner = Runner(cfg, device="cpu")
+    runner.logger = MetricLogger(cfg.log_dir, use_tensorboard=False)   # JSONL alone
+    runner.train()
+    assert runner.state.iteration == 1
+    net = runner.params["net"] if cfg.proposal else runner.params
+    assert ("sigma_net" in net) == cfg.grid_hybrid
+    if cfg.proposal:
+        assert "sigma_net" in runner.params["prop"]
+    else:
+        assert gridfield.num_levels(net["lines"]) == cfg.grid_levels
 
 
 @pytest.mark.parametrize("mesh,shard", [("auto", "0"), ("", "1"), ("1", "0")])

@@ -23,6 +23,7 @@ from tinynerf_torch.config import Config, load_config
 from tinynerf_torch.core import mlp, occupancy, render
 from tinynerf_torch.core.rays import make_k_inv
 from tinynerf_torch.runner import Runner
+from tests.torch_workers import torch_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -21,6 +21,7 @@ from tinynerf_torch import ckpt
 from tinynerf_torch.core import encoding, proposal
 from tinynerf_torch.kernels import mlp_kernel as mk
 from tinynerf_torch.kernels import proposal_kernel as pk
+from tests.torch_workers import torch_threads  # noqa: F401 (autouse)
 
 NETS = {"128x4": (128, 4), "64x3": (64, 3)}    # conf/lego_prop.ini's; the JAX test's variant
 JAX_DTYPE = {"fp32": jnp.float32, "bf16": jnp.bfloat16}

@@ -38,6 +38,7 @@ from tinynerf_torch.data.poses import load_scene
 from tinynerf_torch.data.rays import RayTable
 from tinynerf_torch.kernels import grid_kernel as gk
 from tinynerf_torch.runner import Runner
+from tests.torch_workers import torch_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PIXEL_ATOL = 1e-4   # the frame tolerance (tests/test_torch_slice.py)

@@ -12,6 +12,7 @@ from tinynerf.core import rays as jrays, render as jrender
 from tinynerf.core import sampling as jsampling
 from tinynerf_torch.ckpt import params_from_numpy
 from tinynerf_torch.core import occupancy, rays, render, sampling
+from tests.torch_workers import torch_threads  # noqa: F401 (autouse)
 
 
 def _t(a):

@@ -24,6 +24,7 @@ from tinynerf_torch.core import occupancy, rays as raylib, render, sampling
 from tinynerf_torch.core.rays import make_k_inv
 from tinynerf_torch.kernels import mlp_kernel as mk, render_kernel as rk
 from tinynerf_torch.runner import Runner
+from tests.torch_workers import torch_threads  # noqa: F401 (autouse)
 
 NC, NF, B = 8, 16, 24
 PIXEL_ATOL = 1e-4   # the frame tolerance (tests/test_torch_slice.py)

@@ -28,6 +28,7 @@ from tinynerf_torch.core.rays import make_k_inv
 from tinynerf_torch.data import paths
 from tinynerf_torch.data.poses import load_scene
 from tinynerf_torch.runner import NoCheckpointError, Runner
+from tests.torch_workers import torch_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFS = sorted(glob.glob(os.path.join(REPO, "conf", "*.ini")))
@@ -275,23 +276,40 @@ _GRID = dict(OCC_GRID="True", WHITE_BKGD="True")
 
 
 @pytest.mark.parametrize("extra,what", [
-    # the proposal grid, the proposal MLP and the grid field are ported; the
-    # hybrid grids' sigma nets are not
-    pytest.param({"PROPOSAL": "True", "PROP_GRID_HYBRID": "True"}, "PROP_GRID_HYBRID",
-                 id="PROPOSAL-True"),
     # the fused renderer is ported (tests/test_torch_render_fused.py); the val
     # metrics that would route val batches through it are not
     pytest.param({"FUSED_RENDER": "True", "VAL_METRICS": "True"}, "VAL_METRICS",
                  id="FUSED_RENDER-True"),
     pytest.param({"HOST_FEED": "True"}, "HOST_FEED", id="HOST_FEED-True"),
     pytest.param({"VAL_METRICS": "True"}, "VAL_METRICS", id="VAL_METRICS-True"),
-    pytest.param({"PROFILE_STEPS": "5"}, "PROFILE_STEPS=5", id="PROFILE_STEPS-5"),
-    pytest.param({"FINE_FIELD": "grid", "GRID_HYBRID": "True"}, "GRID_HYBRID",
-                 id="FINE_FIELD-grid")])
+    pytest.param({"PROFILE_STEPS": "5"}, "PROFILE_STEPS=5", id="PROFILE_STEPS-5")])
 def test_unported_config_keys_raise(sync_scene_dir, tmp_path, extra, what):
     cfg = load_config(_write_ini(tmp_path, sync_scene_dir, **extra))
     with pytest.raises(NotImplementedError, match=f"{what} is not ported yet .ROADMAP"):
         Runner(cfg, device="cpu")
+
+
+_SMALL_GRIDS = dict(GRID_RES="9", GRID_COMP_DENSITY="2", GRID_COMP_APP="3",
+                    GRID_DECODER_WIDTH="8", PROP_GRID_RES="8", PROP_GRID_COMP_DENSITY="2",
+                    PROP_GRID_COMP_APP="2", PROP_GRID_DECODER_WIDTH="8")
+
+
+@pytest.mark.parametrize("extra", [
+    # the hybrid grids' sigma nets, once refused here, are ported
+    pytest.param({"PROPOSAL": "True", "PROP_GRID_HYBRID": "True"}, id="PROPOSAL-True"),
+    pytest.param({"FINE_FIELD": "grid", "GRID_HYBRID": "True"}, id="FINE_FIELD-grid")])
+def test_flagship_config_keys_train(sync_scene_dir, tmp_path, extra):
+    """The hybrid grids' keys train: a Runner takes one step on the tiny
+    scene. (Their agreement with the JAX package:
+    tests/test_torch_grid_hybrid.py.)"""
+    cfg = load_config(_write_ini(tmp_path, sync_scene_dir, TOTAL_ITER="1", STEP="1000",
+                                 BATCH_RAY="32", LOG_DIR=f"{tmp_path}/runs/",
+                                 **_SMALL_GRIDS, **extra))
+    runner = Runner(cfg, device="cpu")
+    runner.train()
+    assert runner.state.iteration == 1
+    hybrid = runner.params["prop"] if cfg.proposal else runner.params
+    assert "sigma_net" in hybrid
 
 
 @pytest.mark.parametrize("extra", [

@@ -31,6 +31,7 @@ from tinynerf_torch.core.rays import make_k_inv
 from tinynerf_torch.data.poses import load_scene
 from tinynerf_torch.data.rays import RayTable
 from tinynerf_torch.runner import Runner
+from tests.torch_workers import torch_threads  # noqa: F401 (autouse)
 
 
 def _t(a):
@@ -366,7 +367,7 @@ def test_init_state_refuses_slice_3_fields(what):
     """The grid field and the proposal grid train (slice 4); the forms of
     them still to port are refused by name before any weight is made."""
     if what == "FINE_FIELD":
-        cfg, match = Config(fine_field="grid", grid_levels=2), "GRID_LEVELS=2 .*the flagship"
+        cfg, match = Config(fine_field="grid", grid_lookup="gather"), "GRID_LOOKUP=gather .*item 14"
     else:
         cfg = Config(proposal=True, fine_field="grid", grid_upsample="1000:384")
         match = "GRID_UPSAMPLE=1000:384 .*item 13"

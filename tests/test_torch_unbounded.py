@@ -23,6 +23,7 @@ from tinynerf_torch.ckpt import params_from_numpy
 from tinynerf_torch.config import Config
 from tinynerf_torch.core import contract, rays, render, sampling
 from tinynerf_torch.data import poses
+from tests.torch_workers import torch_threads  # noqa: F401 (autouse)
 
 PIXEL_ATOL = 1e-4
 

@@ -33,6 +33,7 @@ from tinynerf_torch.data.poses import SceneData
 from tinynerf_torch.data.rays import RayTable
 from tinynerf_torch.kernels import mlp_kernel as mk
 from tinynerf_torch.runner import Runner
+from tests.torch_workers import torch_threads  # noqa: F401 (autouse)
 
 # conf/unbounded360.ini with the MLP fine field, cut to CPU size: the
 # proposal grid's resolution and widths, the samples and the batch

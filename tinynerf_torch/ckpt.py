@@ -1,10 +1,11 @@
 """Checkpoints: the JAX package's flat-npz layout, so one file loads in both.
 
 Keys are ``params::<layer>::w`` (``(in, out)``) and ``params::<layer>::b``
-for the MLP and the proposal MLP; ``params::lines::{x,y,z}``,
-``params::decoder::{hidden,color}::{w,b}`` and a 0-d ``params::extent`` for
-the grid field; under ``PROPOSAL`` the same under ``params::net::`` and
-``params::prop::``; plus ``iteration``; a training checkpoint also holds the Adam state,
+for the MLP and the proposal MLP; ``params::lines::{x,y,z}`` (and
+``{x,y,z}{l}`` for a pyramid level), ``params::decoder::{hidden,color}::{w,b}``,
+a 0-d ``params::extent`` and, with ``GRID_HYBRID``,
+``params::sigma_net::{hidden,sigma}::{w,b}`` for the grid field; under
+``PROPOSAL`` the same under ``params::net::`` and ``params::prop::``; plus ``iteration``; a training checkpoint also holds the Adam state,
 ``mu::``/``nu::`` moments and ``adam_count``, and with ``OCC_GRID`` the
 occupancy grid, ``occ::raw``, ``occ::density``, ``occ::half_extent`` and
 ``occ::threshold`` (training state: the weights co-adapt to the grid's
@@ -62,18 +63,33 @@ def _f32(x, device: torch.device) -> torch.Tensor:
 
 
 def _grid_from_numpy(tree: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
-    """A grid field's tree: the x, y, z line tables (one shape), the decoder
-    (``hidden`` (24 + Fa, W), ``color`` (W, 3)) and a 0-d ``extent``."""
-    gridfield.check_params(tree)
-    out = {"lines": {ax: _f32(tree["lines"][ax], device) for ax in gridfield.AXES},
-           "decoder": {name: {k: _f32(tree["decoder"][name][k], device) for k in ("w", "b")}
-                       for name in ("hidden", "color")},
+    """A grid field's tree: the x, y, z line tables (one shape, (R, F)), any
+    pyramid level's ``{x,y,z}{l}`` ((``level_res(R, l)``, F)), the decoder
+    (``hidden`` (24 + Fa [+ sw], W), ``color`` (W, 3)), a 0-d ``extent``
+    and, with ``GRID_HYBRID``, the ``sigma_net`` (``hidden`` (Fd, sw),
+    ``sigma`` (sw, 1)), Fd + Fa = F."""
+    n_levels = gridfield.check_params(tree)
+    linear = lambda p: {k: _f32(p[k], device) for k in ("w", "b")}
+    out = {"lines": {name: _f32(t, device) for name, t in tree["lines"].items()},
+           "decoder": {name: linear(tree["decoder"][name]) for name in ("hidden", "color")},
            "extent": _f32(tree["extent"], device)}
-    res, n_comp = out["lines"]["x"].shape
-    dec = out["decoder"]
+    if "sigma_net" in tree:
+        out["sigma_net"] = {name: linear(tree["sigma_net"][name])
+                            for name in ("hidden", "sigma")}
+    lines, dec = out["lines"], out["decoder"]
+    res, n_comp = lines["x"].shape
     width = dec["hidden"]["w"].shape[1]
-    if (any(out["lines"][ax].shape != (res, n_comp) for ax in gridfield.AXES)
-            or dec["hidden"]["w"].shape[0] - DIR_ENC_DIM not in range(0, n_comp)
+    tables_ok = all(lines[f"{ax}{lvl or ''}"].shape == (gridfield.level_res(res, lvl), n_comp)
+                    for ax in gridfield.AXES for lvl in range(n_levels))
+    n_in = dec["hidden"]["w"].shape[0] - DIR_ENC_DIM   # Fa, or Fa + sw with the sigma net
+    sigma_ok = True
+    if "sigma_net" in out:
+        hidden, sig = out["sigma_net"]["hidden"], out["sigma_net"]["sigma"]
+        n_density, sw = hidden["w"].shape
+        n_in -= sw
+        sigma_ok = (n_density == n_comp - n_in and hidden["b"].shape == (sw,)
+                    and sig["w"].shape == (sw, 1) and sig["b"].shape == (1,))
+    if (not tables_ok or not sigma_ok or n_in not in range(0, n_comp)
             or dec["hidden"]["b"].shape != (width,) or dec["color"]["w"].shape != (width, 3)
             or dec["color"]["b"].shape != (3,) or out["extent"].shape != ()):
         raise ValueError("grid field shapes do not agree: "
@@ -90,8 +106,9 @@ def params_from_numpy(tree: Dict[str, Any],
     transposed or permuted. Takes the MLP's tree, a grid field's, the
     proposal MLP's (``sigma`` and ``color``, no ``point_info``; its width,
     depth and point bands from its shapes), or the ``{"net", "prop"}`` pair
-    of a main and a proposal field (``PROPOSAL``); refuses the grid forms not
-    ported yet (``sigma_net``, pyramid level tables) by name."""
+    of a main and a proposal field (``PROPOSAL``). A grid field's tree may
+    hold a ``sigma_net`` (``GRID_HYBRID``) and pyramid level tables
+    (``GRID_LEVELS``)."""
     if set(tree) == {"net", "prop"}:
         return {k: params_from_numpy(tree[k], device) for k in ("net", "prop")}
     if "lines" in tree:

@@ -24,15 +24,24 @@ products and bias adds rounded as ``_linear`` rounds with bf16 operands; the
 sigmoid is ``1 / (1 + exp(-x))`` with each step rounded, as XLA lowers it. The fused kernels' bf16 form (``kernels/grid_kernel.py``) is
 another function: it sums sigma and the decoder in float32.
 
-Not ported yet, refused by name: ``GRID_HYBRID`` (the ``sigma_net``),
-``GRID_LEVELS > 1`` and ``GRID_LEVEL_FOLD`` (ROADMAP queue 1, the flagship),
-``GRID_LOOKUP = gather`` and ``upsample_lines`` (queue 1).
+``GRID_HYBRID`` (a ``sigma_net`` in the tree) computes sigma with a tiny
+density MLP on the density product, ``sigma = |Linear(relu(Linear(prod[:Fd])))|``,
+whose hidden features join the decoder's input after the appearance
+product. ``GRID_LEVELS > 1`` adds zero-initialised level tables
+``lines["{x,y,z}{l}"]`` of ``((R - 1) >> l) + 1`` rows, each interpolated at
+its own resolution and summed into the axis feature; ``GRID_LEVEL_FOLD``
+instead folds each level into the level-0 table in float32
+(``table + upsample_matrix @ level``) and interpolates once.
+
+Not ported yet, refused by name: ``GRID_LOOKUP = gather`` and
+``upsample_lines`` (``GRID_UPSAMPLE``; ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
 from tinynerf_torch import optim
@@ -56,11 +65,18 @@ def not_ported(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {where})")
 
 
+def level_res(res: int, level: int) -> int:
+    """Rows of a pyramid level's table: the intervals halved ``level``
+    times, ``((res - 1) >> level) + 1`` (at least 2), so that an odd ``res``
+    nests exactly (385 -> 193)."""
+    return max(2, ((res - 1) >> level) + 1)
+
+
 def init_grid_field(generator: torch.Generator, res: int = RES,
                     n_density: int = N_COMP_DENSITY, n_app: int = N_COMP_APP,
                     decoder_width: int = DECODER_WIDTH, extent: float = EXTENT,
                     init_scale: float = INIT_SCALE, hybrid: bool = False,
-                    levels: int = 1,
+                    sigma_width: int = 0, levels: int = 1,
                     device: torch.device = torch.device("cpu")) -> Params:
     """``{"lines": {x, y, z: (res, n_density + n_app)}, "decoder": {"hidden":
     (24 + n_app, width), "color": (width, 3)}, "extent": 0-d}``: lines
@@ -68,18 +84,27 @@ def init_grid_field(generator: torch.Generator, res: int = RES,
     the CPU from ``generator`` and moved to ``device``. The numbers differ
     from the JAX package's for the same seed; tests carry JAX weights across
     with ``ckpt.params_from_numpy``. ``extent`` is frozen geometry: it gets a
-    zero gradient, so Adam leaves it as it is."""
-    if hybrid:
-        raise not_ported("GRID_HYBRID (the sigma net)", "queue 1, items 3-4: the flagship")
-    if levels > 1:
-        raise not_ported(f"GRID_LEVELS={levels}", "queue 1, items 3-4: the flagship")
+    zero gradient, so Adam leaves it as it is.
+
+    ``levels > 1`` adds the zero tables ``lines["{x,y,z}{l}"]``
+    (``level_res`` rows). ``hybrid`` adds ``sigma_net = {"hidden":
+    (n_density, sw), "sigma": (sw, 1)}``, ``sw = sigma_width or
+    decoder_width``, and widens the decoder's input to ``24 + n_app + sw``."""
     n_comp = n_density + n_app
     lines = {ax: init_scale * torch.randn((res, n_comp), generator=generator)
              for ax in AXES}
-    decoder = {"hidden": mlp.linear_init(generator, DIR_ENC_DIM + n_app, decoder_width),
+    for lvl in range(1, levels):
+        for ax in AXES:
+            lines[f"{ax}{lvl}"] = torch.zeros((level_res(res, lvl), n_comp))
+    sw = sigma_width or decoder_width
+    dec_in = DIR_ENC_DIM + n_app + (sw if hybrid else 0)
+    decoder = {"hidden": mlp.linear_init(generator, dec_in, decoder_width),
                "color": mlp.linear_init(generator, decoder_width, 3)}
     params = {"lines": lines, "decoder": decoder,
               "extent": torch.tensor(extent, dtype=torch.float32)}
+    if hybrid:
+        params["sigma_net"] = {"hidden": mlp.linear_init(generator, n_density, sw),
+                               "sigma": mlp.linear_init(generator, sw, 1)}
     return optim.tree_map(lambda t: t.to(device), params)
 
 
@@ -87,15 +112,22 @@ def num_params(params: Params) -> int:
     return sum(int(t.numel()) for t in optim.leaves(params))
 
 
-def check_params(params: Params) -> None:
-    """Refuse, by name, the grid forms the port has no field for yet (on a
-    tree of tensors or, from a checkpoint, of arrays)."""
-    if "sigma_net" in params:
-        raise not_ported("GRID_HYBRID (the sigma net)", "queue 1, items 3-4: the flagship")
-    extra = sorted(set(params["lines"]) - set(AXES))
-    if extra:
-        raise not_ported(f"GRID_LEVELS > 1 (level tables {extra})",
-                         "queue 1, items 3-4: the flagship")
+def num_levels(lines: Dict[str, Any]) -> int:
+    """The pyramid's level count from the table names, as the JAX package
+    reads it on resume: one more than the highest level index."""
+    return 1 + max((int(k[1:]) for k in lines if len(k) > 1), default=0)
+
+
+def check_params(params: Params) -> int:
+    """The level count of a grid field's tree (of tensors or, from a
+    checkpoint, of arrays); ``ValueError`` unless its tables are exactly
+    ``x, y, z`` and ``{x,y,z}{l}`` for every level ``l`` below it."""
+    n_levels = num_levels(params["lines"])
+    want = {f"{ax}{lvl or ''}" for lvl in range(n_levels) for ax in AXES}
+    if set(params["lines"]) != want:
+        raise ValueError(f"grid line tables {sorted(params['lines'])} are not "
+                         f"{sorted(want)}")
+    return n_levels
 
 
 def _identity(x):
@@ -111,15 +143,22 @@ def rounding(precision: str):
     raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
 
 
-def grid_coords(points: torch.Tensor, extent: torch.Tensor, res: int,
+def unit_coords(points: torch.Tensor, extent: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """World points -> ``(xg, raw)``: ``raw = (p + E) / 2E`` (a true division)
-    and ``xg = clip(raw, 0, 1) * (res - 1)``, float32. The clip is
-    ``min(max(raw, 0), 1)``, whose gradient is 0.5 at an exact boundary, as
-    ``jnp.clip``'s. ``extent`` is detached (frozen geometry)."""
+    """World points -> ``(clip(raw, 0, 1), raw)``, ``raw = (p + E) / 2E`` (a
+    true division), float32. The clip is ``min(max(raw, 0), 1)``, whose
+    gradient is 0.5 at an exact boundary, as ``jnp.clip``'s. ``extent`` is
+    detached (frozen geometry)."""
     ext = extent.detach()
     raw = (points + ext) / (2.0 * ext)
-    clipped = torch.minimum(torch.maximum(raw, raw.new_zeros(())), raw.new_ones(()))
+    return torch.minimum(torch.maximum(raw, raw.new_zeros(())), raw.new_ones(())), raw
+
+
+def grid_coords(points: torch.Tensor, extent: torch.Tensor, res: int,
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """World points -> ``(xg, raw)``: ``xg = clip(raw, 0, 1) * (res - 1)``
+    (``unit_coords``)."""
+    clipped, raw = unit_coords(points, extent)
     return clipped * (res - 1), raw
 
 
@@ -141,39 +180,84 @@ def lerp_taps(xg: torch.Tensor, res: int):
     return i0, i1, _hat(xg, lower), _hat(xg, lower + 1.0)
 
 
+def upsample_matrix(old_res: int, new_res: int,
+                    device: torch.device = torch.device("cpu")) -> torch.Tensor:
+    """(new_res, old_res) float32: row ``j`` holds the hat weights
+    ``relu(1 - |x_j - i|)`` of new node ``j`` at ``x_j`` on the old lattice,
+    ``jnp.linspace(0, old_res - 1, new_res)`` bit for bit. XLA folds that
+    linspace's constants into ``j * f32(stop * f32(1 / (new_res - 1)))``,
+    with the last node ``stop`` itself, so the nodes are computed so here."""
+    stop = np.float32(old_res - 1)
+    step = np.float32(stop * (np.float32(1.0) / np.float32(new_res - 1)))
+    nodes = torch.arange(new_res, dtype=torch.float32, device=device) * float(step)
+    nodes[-1] = float(stop)
+    idx = torch.arange(old_res, dtype=torch.float32, device=device)
+    return torch.relu(1.0 - torch.abs(nodes[:, None] - idx[None, :]))
+
+
+def _interp(table: torch.Tensor, coord: torch.Tensor, rnd) -> torch.Tensor:
+    """The table (R, F) interpolated at clipped coordinates ``coord`` in
+    [0, 1] (...): the two taps at ``xg = coord * (R - 1)``, (..., F)."""
+    table = rnd(table)
+    res = table.shape[0]
+    i0, i1, w0, w1 = lerp_taps(coord * (res - 1), res)
+    rows = lambda i: torch.index_select(table, 0, i.reshape(-1)).reshape(
+        *i.shape, table.shape[1])
+    return rnd(rnd(w0)[..., None] * rows(i0) + rnd(w1)[..., None] * rows(i1))
+
+
 def _line_features(lines: Dict[str, torch.Tensor], points: torch.Tensor,
-                   extent: torch.Tensor, rnd) -> Tuple[torch.Tensor, ...]:
-    """points (..., 3) -> the three interpolated line features (..., F)."""
+                   extent: torch.Tensor, rnd, fold: bool = False,
+                   ) -> Tuple[torch.Tensor, ...]:
+    """points (..., 3) -> the three interpolated line features (..., F).
+    Level tables (``GRID_LEVELS``) are interpolated at their own resolution
+    and summed into the axis feature, each sum rounded at bf16; with
+    ``fold`` they are first folded into the level-0 table in float32
+    (``table + upsample_matrix @ level``), which is interpolated once."""
+    n_levels = num_levels(lines)
     feats = []
     for a, ax in enumerate(AXES):
-        table = rnd(lines[ax])
-        res = table.shape[0]
-        xg, _ = grid_coords(points[..., a], extent, res)
-        i0, i1, w0, w1 = lerp_taps(xg, res)
-        rows = lambda i: torch.index_select(table, 0, i.reshape(-1)).reshape(
-            *i.shape, table.shape[1])
-        feats.append(rnd(rnd(w0)[..., None] * rows(i0) + rnd(w1)[..., None] * rows(i1)))
+        coord, _ = unit_coords(points[..., a], extent)
+        levels = [lines[f"{ax}{lvl or ''}"] for lvl in range(n_levels)]
+        if fold:
+            table = levels[0]
+            for tl in levels[1:]:
+                table = table + upsample_matrix(tl.shape[0], table.shape[0],
+                                                tl.device) @ tl
+            feats.append(_interp(table, coord, rnd))
+            continue
+        f = _interp(levels[0], coord, rnd)
+        for tl in levels[1:]:
+            f = rnd(f + _interp(tl, coord, rnd))
+        feats.append(f)
     return tuple(feats)
 
 
 def apply_grid_field(params: Params, points: torch.Tensor, dirs: torch.Tensor,
                      n_density: int = N_COMP_DENSITY, precision: str = "fp32",
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     fold: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """The point field: points, dirs (..., 3) -> (color (..., 3), sigma
     (..., 1)), float32. Counterpart of ``apply_grid_field`` with
-    ``lookup="onehot"``, differentiable in the lines, the decoder and the
-    points."""
-    check_params(params)
+    ``lookup="onehot"``, differentiable in every table, the decoder, the
+    sigma net and the points. With a ``sigma_net`` (``GRID_HYBRID``) sigma is
+    the density MLP's and the decoder reads ``[dir_enc, app, hs]``."""
     rnd = rounding(precision)
     if points.is_cuda:
         mlp.check_no_tf32()
-    fx, fy, fz = _line_features(params["lines"], points, params["extent"], rnd)
+    fx, fy, fz = _line_features(params["lines"], points, params["extent"], rnd, fold)
     prod = rnd(rnd(fx * fy) * fz)
-    sigma = torch.abs(rnd(torch.sum(prod[..., :n_density], dim=-1, keepdim=True)))
+    dens, app = prod[..., :n_density], prod[..., n_density:]
     de = rnd(encoding.encode_dirs(dirs))
     linear = lambda p, x: rnd(rnd(x @ rnd(p["w"])) + rnd(p["b"]))
+    if "sigma_net" in params:
+        hs = torch.relu(linear(params["sigma_net"]["hidden"], dens))
+        sigma = torch.abs(linear(params["sigma_net"]["sigma"], hs))
+        color_in = torch.cat([de, app, hs], dim=-1)
+    else:
+        sigma = torch.abs(rnd(torch.sum(dens, dim=-1, keepdim=True)))
+        color_in = torch.cat([de, app], dim=-1)
     dec = params["decoder"]
-    h = torch.relu(linear(dec["hidden"], torch.cat([de, prod[..., n_density:]], dim=-1)))
+    h = torch.relu(linear(dec["hidden"], color_in))
     x = linear(dec["color"], h)
     # bf16: jax.nn.sigmoid lowers to 1 / (1 + exp(-x)), each step in bf16
     color = torch.sigmoid(x) if precision == "fp32" else rnd(1.0 / rnd(1.0 + rnd(torch.exp(-x))))
@@ -186,13 +270,11 @@ def make_field_grid(n_density: int = N_COMP_DENSITY, lookup: str = "onehot",
     ``make_field_grid``."""
     if lookup != "onehot":
         raise not_ported(f"GRID_LOOKUP={lookup}", "queue 1, item 14: GRID_LOOKUP = gather")
-    if fold:
-        raise not_ported("GRID_LEVEL_FOLD", "queue 1, items 3-4: the flagship")
     rounding(precision)
 
     def field(params: Params, points: torch.Tensor, dirs: torch.Tensor):
         return apply_grid_field(params, points, dirs, n_density=n_density,
-                                precision=precision)
+                                precision=precision, fold=fold)
 
     return field
 

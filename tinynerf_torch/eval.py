@@ -42,7 +42,7 @@ def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for a config the port cannot train or
     render yet, naming the ROADMAP item that will bring it (and the JAX
     package's ``ValueError`` for ``GRID_PALLAS`` with a form its kernels do
-    not compute)."""
+    not compute, or ``GRID_UPSAMPLE`` with a pyramid, before that)."""
     if cfg.precision not in ("fp32", "bf16"):
         raise ValueError(f"PRECISION must be fp32 or bf16, got {cfg.precision!r}")
     if cfg.fine_field not in ("mlp", "grid"):
@@ -52,13 +52,11 @@ def check_supported(cfg: Config) -> None:
     _grid_pallas_conflicts(cfg)
     grid = cfg.fine_field == "grid"
     prop_grid = cfg.proposal and cfg.prop_field == "grid"
+    if grid and cfg.grid_upsample and cfg.grid_levels > 1:
+        # tinynerf/train.py:44-49: on every path, fresh or resumed
+        raise ValueError("GRID_UPSAMPLE is incompatible with "
+                         "GRID_LEVELS>1 (multi-resolution pyramid)")
     refused = [
-        (grid and cfg.grid_hybrid, "GRID_HYBRID", "queue 1, items 3-4: the flagship"),
-        (prop_grid and cfg.prop_grid_hybrid, "PROP_GRID_HYBRID",
-         "queue 1, items 3-4: the flagship"),
-        (grid and cfg.grid_levels > 1, f"GRID_LEVELS={cfg.grid_levels}",
-         "queue 1, items 3-4: the flagship"),
-        (grid and cfg.grid_level_fold, "GRID_LEVEL_FOLD", "queue 1, items 3-4: the flagship"),
         (grid and bool(cfg.grid_upsample), f"GRID_UPSAMPLE={cfg.grid_upsample}",
          "queue 1, item 13: GRID_UPSAMPLE"),
         ((grid or prop_grid) and cfg.grid_lookup != "onehot",
@@ -92,7 +90,8 @@ def prop_params(cfg: Config, params: Any) -> Optional[Any]:
 def _grid_field_fn(cfg: Config, n_density: int, fold: bool = False) -> render.FieldFn:
     """The grid field at ``PRECISION``: the plain point field
     (``gridfield.apply_grid_field``, the occupancy refresh's probes and, as
-    in the JAX package, the renderer's field without ``GRID_PALLAS``); with
+    in the JAX package, the renderer's field without ``GRID_PALLAS``: so
+    the hybrid grids and the pyramids, which ``GRID_PALLAS`` refuses); with
     ``GRID_PALLAS`` its ``eval_rays`` is ``grid_rays`` (on the card, TPU
     kernels 5 and 6). ``GRID_LEVEL_FOLD`` reaches the main grid alone: the
     JAX package builds the proposal grid without it

@@ -171,7 +171,9 @@ def _forward(params: Params, origins, dirs, ts, de, n_density: int, precision: s
 
 
 def _check_dims(params: Params, n_density: int) -> None:
-    gridfield.check_params(params)
+    if "sigma_net" in params or gridfield.check_params(params) > 1:
+        raise ValueError("the grid kernels compute the plain CP form of one level: no "
+                         "sigma net (GRID_HYBRID) and no level tables (GRID_LEVELS)")
     res, nd, na, width = dims(params, n_density)
     if not 0 < nd <= nd + na or width > MAX_WIDTH or MAX_WIDTH % width:
         raise ValueError(f"the grid kernels take 0 < n_density <= F and a decoder width "

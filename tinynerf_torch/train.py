@@ -67,8 +67,8 @@ def _fresh_params(cfg: Config, device: torch.device) -> Any:
         net = gridfield.init_grid_field(
             gen, res=cfg.grid_res, n_density=cfg.grid_comp_density,
             n_app=cfg.grid_comp_app, decoder_width=cfg.grid_decoder_width,
-            extent=cfg.grid_extent, hybrid=cfg.grid_hybrid, levels=cfg.grid_levels,
-            device=device)
+            extent=cfg.grid_extent, hybrid=cfg.grid_hybrid,
+            sigma_width=cfg.grid_sigma_width, levels=cfg.grid_levels, device=device)
     else:
         net = mlp.init_network(gen, device)
     if not cfg.proposal:
@@ -88,7 +88,15 @@ def _fresh_params(cfg: Config, device: torch.device) -> Any:
 def check_resumed(cfg: Config, params: Any) -> None:
     """Refuse resumed params whose proposal MLP disagrees with the config
     (``PROP_FIELD``, ``PROPOSAL_WIDTH``, ``PROPOSAL_DEPTH``,
-    ``PROPOSAL_ENC_L``), naming the key."""
+    ``PROPOSAL_ENC_L``), naming the key. A main grid whose level count is
+    not ``GRID_LEVELS`` keeps the checkpoint's levels, with the JAX
+    package's warning (``tinynerf/train.py:50-62``)."""
+    lines = net_params(cfg, params).get("lines") if cfg.fine_field == "grid" else None
+    if lines is not None and gridfield.num_levels(lines) != cfg.grid_levels:
+        print(f"WARNING: checkpoint has {gridfield.num_levels(lines)} grid level(s) "
+              f"but GRID_LEVELS={cfg.grid_levels}; the checkpoint's "
+              "level structure wins (resume cannot restructure the "
+              "pyramid)")
     if not (cfg.proposal and cfg.prop_field == "mlp"):
         return
     if not proposal.is_proposal(params["prop"]):
@@ -127,18 +135,26 @@ def init_state(cfg: Config, device: torch.device,
 
 def make_lr_scale(cfg: Config, params: Any) -> Optional[Any]:
     """Per-leaf learning-rate multipliers for ``optim.adam_update``, or None:
-    ``GRID_LR_MULT`` on every leaf under ``lines`` (the main grid's and the
-    proposal grid's), 1 elsewhere (the proposal MLP's leaves included); None
-    unless a grid field trains with a multiplier other than 1. (Pyramid levels, whose multiplier is also
-    scaled by ``GRID_LEVEL_LR``, are refused before this: the flagship.)"""
+    a table ``{x,y,z}{l}`` under ``lines`` (the main grid's and the proposal
+    grid's) at ``GRID_LR_MULT * GRID_LEVEL_LR ** l`` (level 0 is ``x, y,
+    z``), every other leaf at 1 (a ``sigma_net``, the decoders and the
+    proposal MLP included); None unless a grid field trains with a
+    multiplier other than 1."""
     uses_grid = cfg.fine_field == "grid" or (cfg.proposal and cfg.prop_field == "grid")
     if not uses_grid or (cfg.grid_lr_mult == 1.0 and cfg.grid_level_lr == 1.0):
         return None
 
-    def scale(tree, in_lines=False):
-        if isinstance(tree, dict):
-            return {k: scale(v, in_lines or k == "lines") for k, v in tree.items()}
-        return cfg.grid_lr_mult if in_lines else 1.0
+    level = lambda name: int(name[1:]) if name[1:].isdigit() else 0
+
+    def scale(tree):
+        out = {}
+        for k, v in tree.items():
+            if k == "lines":
+                out[k] = {name: cfg.grid_lr_mult * cfg.grid_level_lr ** level(name)
+                          for name in v}
+            else:
+                out[k] = scale(v) if isinstance(v, dict) else 1.0
+        return out
 
     return scale(params)
 
