@@ -119,6 +119,28 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
    (385 + 193, folded) for 10 steps each (257,797 and 258,565 + 7,397
    params, no launch), each resumed from its checkpoint with its level
    tables back;
+12c. drives ``conf/lego_grid.ini`` with ``GRID_PALLAS``, ``GRID_RES = 64``,
+   ``GRID_UPSAMPLE = 100:128,200:256`` and ``VAL_METRICS`` (the validated
+   2000/4000 schedule cut to 300 steps) in three segments of 100: the fine
+   tables and both Adam moments at R = 64, 128 and 256 in turn; kernels 5
+   and 6 launched 600 times each and nothing else; at each R one call of
+   kernels 5 and 6 on the trained tables held against their plain versions
+   at phase 3's bounds; a finite val PSNR after each segment; ms/step of
+   each segment; a falling loss. A checkpoint at 199 (the milestone at 200
+   pending) resumes at R = 128 in a second Runner, which reaches R = 256
+   before its first step and trains to 300 with finite losses;
+12d. drives ``conf/fern_ndc.ini`` with ``HOST_FEED``, ``PROFILE_STEPS = 5``,
+   ``VAL_METRICS`` and ``FUSED_RENDER`` for 20 steps on 4 views of a
+   full-resolution 4032x3024 capture: the pixels stay on the host; the
+   Runner's store is the native ``HostRayStore`` (closed after), its batch
+   0 bit-identical to ``NumpyRayStore``'s; kernels 1 and 2 in bf16
+   launched 40 times each and nothing else; the trace under
+   ``LOG_DIR/trace/`` names kernel 1's and kernel 2's entry points; the
+   val PSNR through kernel 9 (one launch) within 0.01 dB of the unfused
+   renderer's; s/step of steady host-fed steps (phase 21 prints it beside
+   the device table's), each batch uploaded asynchronously and its host
+   arrays dropped at once, every upload equal to a host copy of its batch
+   bit for bit once the card has run the steps;
 13. drives ``conf/lego_prop.ini`` with ``PROP_FIELD = mlp`` and
    ``PROP_PALLAS`` (the 8x256 MLP at bf16 with ``USE_PALLAS``; the proposal
    MLP, 128 x 4 at ``PROPOSAL_ENC_L`` 10, 57,932 params; 4096 rays, 64 + 128
@@ -255,6 +277,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import glob
 import json
 import math
 import os
@@ -333,6 +356,18 @@ BF16_EDGE = (1001, 37)      # rows no multiple of 16 or of the 64-row tile
 GEMM_CHAIN_ROWS = 4096 * 128
 BWD_CHAIN_ROWS = 400 * 128  # a lego step's fine call
 FERN_VIEWS = 4
+# phase 12c: lego_grid with GRID_UPSAMPLE, VALIDATION.md's 2000/4000 schedule cut
+# to 100/200 (iteration at each segment's end, R through it)
+UPSAMPLE_SCHEDULE = "100:128,200:256"
+UPSAMPLE_SEGMENTS = ((100, 64), (200, 128), (300, 256))
+UPSAMPLE_STEPS = UPSAMPLE_SEGMENTS[-1][0]
+UPSAMPLE_RESUME_AT = 200    # a checkpoint at 199, the milestone at 200 pending
+# phase 12d: fern_ndc with HOST_FEED on a full-resolution capture (height, width)
+HOSTFEED_HW = (3024, 4032)
+HOSTFEED_PROFILE = 5        # PROFILE_STEPS
+HOSTFEED_PSNR_DB = 0.01     # the val PSNR through kernel 9 vs the unfused renderer
+# kernel 1's and kernel 2's bf16 entry points, as the trace names them
+HOSTFEED_TRACE_NAMES = ("field_rays_fwd_kernel", "field_bwd_tc_kernel")
 
 
 def phase(title: str) -> None:
@@ -646,6 +681,54 @@ def grid_bwd_errors(kernel, plain):
     return out
 
 
+def grid_kernels_check(gk, params, nd: int, o, d, ts, precision: str, rng) -> dict:
+    """One call each of kernels 5 and 6 (``grid_rays``, ``grid_rays_bwd``) on
+    ``params`` and the rays (o, d, ts) against their plain versions, at
+    phase 3's bounds: the forward's colors within COLOR_ATOL and sigma
+    within SIGMA_ATOL / SIGMA_RTOL at fp32, each output within BF16_FWD_RTOL
+    of max|plain| at bf16; every backward output within BWD_RTOL of
+    max|plain| (BF16_BWD_RTOL and cosine >= BF16_COS at bf16), rows within
+    GRID_MARGIN of a kink given no cotangent; two backward launches
+    bit-identical. Returns {"ok", "line", "ce", "se", "errs", "worst_rel",
+    "de", "cots"}."""
+    import numpy as np
+    import torch
+    de = gk.encoding.encode_dirs(d)
+    with torch.no_grad():
+        k_out = gk.grid_rays(params, o, d, ts, nd, precision)
+        torch.cuda.synchronize()
+        p_out = gk.grid_rays_plain(params, o, d, ts, de, nd, precision)
+    ce, se, sigma_ok, _, _ = field_errors(k_out, p_out)
+    if precision == "fp32":
+        fwd_ok = ce <= COLOR_ATOL and sigma_ok
+        fwd_note = f"color atol {COLOR_ATOL}, sigma atol {SIGMA_ATOL} rtol {SIGMA_RTOL}"
+    else:
+        rel = max(rel_err(a, b) for a, b in zip((*k_out[0], k_out[1]), (*p_out[0], p_out[1])))
+        fwd_ok = rel <= BF16_FWD_RTOL
+        fwd_note = f"error / max|plain| {rel:.3e}, limit {BF16_FWD_RTOL}"
+    keep = (gk.preactivation_margin(params, o, d, ts, nd, precision) > GRID_MARGIN).float()
+    cots = [torch.from_numpy(rng.normal(size=tuple(ts.shape)).astype(np.float32)).to(ts.device)
+            * keep for _ in range(4)]
+    kernel = gk.grid_rays_bwd(params, o, d, ts, de, *cots, n_density=nd, precision=precision)
+    again = gk.grid_rays_bwd(params, o, d, ts, de, *cots, n_density=nd, precision=precision)
+    torch.cuda.synchronize()
+    plain = gk.grid_rays_bwd_plain(params, o, d, ts, de, *cots, n_density=nd,
+                                   precision=precision)
+    errs = grid_bwd_errors(kernel, plain)
+    worst = max(errs, key=lambda k: errs[k][1])
+    cos = min(e[2] for e in errs.values())
+    same = all(e[0] == 0 for e in grid_bwd_errors(kernel, again).values())
+    limit = BWD_RTOL if precision == "fp32" else BF16_BWD_RTOL
+    bwd_ok = errs[worst][1] <= limit and (precision == "fp32" or cos >= BF16_COS)
+    line = (f"forward max |color err| {ce:.3e}, max |sigma err| {se:.3e} ({fwd_note}); "
+            f"backward ({100 * (1 - float(keep.mean())):.3f}% of rows within {GRID_MARGIN} of "
+            f"a kink, zero cotangent) worst {worst} {errs[worst][1]:.3e} of max|plain| (limit "
+            f"{limit}), d_ts {errs['d_ts'][1]:.3e}, lines.x {errs['lines.x'][1]:.3e}, smallest "
+            f"cosine {cos:.7f}; two launches bit-identical: {same}")
+    return {"ok": fwd_ok and bwd_ok and same, "line": line, "ce": ce, "se": se, "errs": errs,
+            "worst_rel": errs[worst][1], "de": de, "cots": cots}
+
+
 def grid_part_cosines(grads_a, grads_b, keys=("lines", "decoder")):
     """{part: cosine} for the ``keys`` (the lines and decoder) of the net and
     the proposal, on the CPU in float64 (the two may lie on two devices)."""
@@ -770,9 +853,9 @@ def contracted_rows(rng, rows: int):
     return pts, (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(np.float32)
 
 
-def llff_capture(n_views: int, seed: int, outward: bool):
-    """An in-memory LLFF-style capture at ``CAPTURE_HW`` (a 4032x3024 capture
-    at LOW_RES 4), seeded smooth images. ``outward``: an unbounded 360 ring,
+def llff_capture(n_views: int, seed: int, outward: bool, hw=None):
+    """An in-memory LLFF-style capture at ``hw`` (height, width), by default
+    ``CAPTURE_HW`` (a 4032x3024 capture at LOW_RES 4), seeded smooth images. ``outward``: an unbounded 360 ring,
     cameras on a radius-0.3 circle looking outward, per-image bounds about
     0.5 / 100 (conf/unbounded360.ini's capture); else a forward-facing one,
     cameras a few units apart all looking down -z at bounds about 2 / 25
@@ -780,7 +863,7 @@ def llff_capture(n_views: int, seed: int, outward: bool):
     import numpy as np
     from tinynerf_torch.data.poses import SceneData, view_matrix
     rng = np.random.default_rng(seed)
-    height, width = CAPTURE_HW
+    height, width = hw or CAPTURE_HW
     focal = 0.8 * width
     rows = np.zeros((n_views, 17))
     for i in range(n_views):
@@ -891,6 +974,34 @@ def bwd_gemm_chain_ms_fp32(dev) -> float:
     return cuda_ms(chain, iters=10)
 
 
+def kernel_wrappers() -> dict:
+    """{name: wrapper} of every kernel wrapper, each with its ``launches``."""
+    from tinynerf_torch.kernels import grid_kernel as gk
+    from tinynerf_torch.kernels import mlp_kernel as mk
+    from tinynerf_torch.kernels import proposal_kernel as pk
+    from tinynerf_torch.kernels import render_kernel as rk
+    return {"field_rays": mk.field_rays, "field_rays_bwd": mk.field_rays_bwd,
+            "field_flat": mk.field_flat, "field_flat_bwd": mk.field_flat_bwd,
+            "grid_rays": gk.grid_rays, "grid_rays_bwd": gk.grid_rays_bwd,
+            "prop_rays": pk.prop_rays, "prop_rays_bwd": pk.prop_rays_bwd,
+            "render_fused": rk.render_fused, "render_fused_bwd": rk.render_fused_bwd,
+            "merge_bwd": rk.merge_bwd}
+
+
+def launch_counts() -> dict:
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+
+
+def zero_launches() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def launched(**launches) -> dict:
+    """``launch_counts()``'s form with the given counts and every other 0."""
+    return {**{k: 0 for k in kernel_wrappers()}, **launches}
+
+
 def flagship_phases(tmp: str, device: str) -> dict:
     """Phase 12b: ``conf/lego_hybrid.ini`` trained and rendered, and
     ``conf/lego_levels.ini`` and ``conf/lego_fold.ini`` trained and resumed,
@@ -903,25 +1014,11 @@ def flagship_phases(tmp: str, device: str) -> dict:
     import torch
     from tinynerf_torch import ckpt, eval as evallib, optim, train
     from tinynerf_torch.core import gridfield, render
-    from tinynerf_torch.kernels import grid_kernel as gk
-    from tinynerf_torch.kernels import mlp_kernel as mk
-    from tinynerf_torch.kernels import proposal_kernel as pk
-    from tinynerf_torch.kernels import render_kernel as rk
     from tinynerf_torch.runner import Runner
     dev = torch.device(device)
-    wrappers = {"field_rays": mk.field_rays, "field_rays_bwd": mk.field_rays_bwd,
-                "field_flat": mk.field_flat, "field_flat_bwd": mk.field_flat_bwd,
-                "grid_rays": gk.grid_rays, "grid_rays_bwd": gk.grid_rays_bwd,
-                "prop_rays": pk.prop_rays, "prop_rays_bwd": pk.prop_rays_bwd,
-                "render_fused": rk.render_fused, "render_fused_bwd": rk.render_fused_bwd,
-                "merge_bwd": rk.merge_bwd}
-
-    def zero_launches():
-        for fn in wrappers.values():
-            fn.launches = 0
 
     def check_no_launches(what):
-        launches = {k: fn.launches for k, fn in wrappers.items()}
+        launches = launch_counts()
         print(f"{what}: kernel launches {launches} (expected none)")
         if any(launches.values()):
             raise AssertionError(f"{what} launched a kernel")
@@ -1133,6 +1230,272 @@ def flagship_phases(tmp: str, device: str) -> dict:
                             "grad_cosines_card_vs_cpu": hybrid_cos,
                             "chunk_pix_err_card_vs_cpu": hybrid_pix_err},
             **levels}
+
+
+def option_phases(tmp: str, device: str) -> dict:
+    """Phases 12c-12d: the Runner's one-device options on the card.
+
+    12c, train-lego_grid-upsample-4096: ``conf/lego_grid.ini`` with
+    ``GRID_PALLAS``, ``GRID_RES = 64``, ``GRID_UPSAMPLE = 100:128,200:256``
+    and ``VAL_METRICS`` (the repo's validated schedule, cut to 300 steps) in
+    three segments of 100; a checkpoint at 199 resumed across the milestone
+    at 200. 12d, train-fern_ndc-hostfeed-4096: ``conf/fern_ndc.ini`` with
+    ``HOST_FEED``, ``PROFILE_STEPS = 5``, ``VAL_METRICS`` and
+    ``FUSED_RENDER`` on 4 views of a full-resolution 4032x3024 capture.
+    Returns the numbers of the summary line and the launches by path of the
+    kernels line."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from tinynerf_torch import ckpt, train
+    from tinynerf_torch.data import native
+    from tinynerf_torch.kernels import grid_kernel as gk
+    from tinynerf_torch.runner import Runner
+    dev = torch.device(device)
+    rng = np.random.default_rng(15)
+    paths, phase_s = {}, {}
+    t_phase = time.perf_counter()
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def finite_losses(runner, n, what):
+        losses = logged_losses(runner)
+        if len(losses) != n or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{what}: {len(losses)} logged losses, not all finite")
+        return losses
+
+    # ---- 12c. GRID_UPSAMPLE: kernels 5 and 6 at R = 64, 128 and 256 ----
+    phase("train-lego_grid-upsample-4096 (conf/lego_grid.ini, GRID_PALLAS, GRID_RES 64, "
+          f"GRID_UPSAMPLE {UPSAMPLE_SCHEDULE}, VAL_METRICS; {UPSAMPLE_STEPS} steps in "
+          f"{len(UPSAMPLE_SEGMENTS)} segments)")
+    ucfg = run_config("lego_grid", tmp, "upsample", UPSAMPLE_STEPS, grid_pallas=True,
+                      grid_res=UPSAMPLE_SEGMENTS[0][1], grid_upsample=UPSAMPLE_SCHEDULE,
+                      val_metrics=True)
+    scene = blender_scene(n_views=TRAIN_VIEWS, hw=800, seed=ucfg.seed)
+    runner = Runner(ucfg, device=device, scene=scene)
+    nd = ucfg.grid_comp_density
+    print(f"{ucfg.precision}, BATCH_RAY {ucfg.batch_ray}, {ucfg.n_coarse}+{ucfg.n_fine} "
+          f"samples; fine grid from R={ucfg.grid_res}, {nd}+{ucfg.grid_comp_app} components, "
+          f"decoder width {ucfg.grid_decoder_width}; proposal grid R={ucfg.prop_grid_res}")
+    segments, train_launches, val_launches = [], launched(), launched()
+    for end, want_res in UPSAMPLE_SEGMENTS:
+        ucfg.total_iter = end
+        before = launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        runner.train()
+        sync()
+        seconds = time.perf_counter() - t0
+        after = launch_counts()
+        for k in after:
+            train_launches[k] += after[k] - before[k]
+        trees = {"params": runner.params, "mu": runner.state.opt.mu, "nu": runner.state.opt.nu}
+        res = {name: sorted({t["net"]["lines"][ax].shape[0] for ax in "xyz"})
+               for name, t in trees.items()}
+        if any(r != [want_res] for r in res.values()):
+            raise AssertionError(f"after iteration {end - 1} the fine tables and moments are "
+                                 f"at R {res}, not {want_res}")
+        before = launch_counts()
+        val_db = runner.val_psnr()
+        after = launch_counts()
+        for k in after:
+            val_launches[k] += after[k] - before[k]
+        if not math.isfinite(val_db):
+            raise AssertionError(f"the val PSNR at R={want_res} is not finite")
+        o, d, ts = (torch.from_numpy(a).to(dev) for a in grid_rays_at(rng, *GRID_SHAPES[0][1:]))
+        chk = grid_kernels_check(gk, runner.params["net"], nd, o, d, ts, ucfg.precision, rng)
+        n_steps = end - (segments[-1]["end"] if segments else 0)
+        print(f"iterations {end - n_steps}-{end - 1} at R={want_res} (tables, mu and nu): "
+              f"{seconds:.2f} s, {seconds / n_steps * 1e3:.2f} ms/step (first steps and the "
+              f"milestone included); val PSNR {val_db:.3f} dB; kernels 5 and 6 on the trained "
+              f"tables at B={GRID_SHAPES[0][1]} N={GRID_SHAPES[0][2]}: {chk['line']}")
+        if not chk["ok"]:
+            raise AssertionError(f"kernels 5/6 disagree with their plain versions on the "
+                                 f"trained R={want_res} tables: {chk['errs']}")
+        segments.append({"end": end, "res": want_res, "ms_per_step": seconds / n_steps * 1e3,
+                         "val_psnr_db": val_db, "bwd_worst_rel": chk["worst_rel"]})
+        if end == UPSAMPLE_RESUME_AT:
+            ckpt.save_checkpoint(ucfg.ckpt_path, "smoke", end - 1, runner.params,
+                                 runner.state.opt, generator=runner.state.generator,
+                                 occ=runner.state.occ)
+    want = launched(grid_rays=2 * UPSAMPLE_STEPS, grid_rays_bwd=2 * UPSAMPLE_STEPS)
+    print(f"launches in {UPSAMPLE_STEPS} steps: {train_launches} (expected kernels 5 and 6 "
+          f"{2 * UPSAMPLE_STEPS} each, nothing else); the val passes: {val_launches}")
+    if train_launches != want:
+        raise AssertionError("the upsample path did not run kernels 5 and 6 (and only them) "
+                             "on every grid call")
+    losses = finite_losses(runner, UPSAMPLE_STEPS, "lego_grid upsample")
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    print(f"loss: mean of the first 10 steps {first:.4f}, of the last 10 {last:.4f}")
+    if not last < first:
+        raise AssertionError("the lego_grid upsample loss did not fall")
+    del runner
+
+    rcfg = dataclasses.replace(ucfg, continue_=True, total_iter=UPSAMPLE_STEPS)
+    resumed = Runner(rcfg, device=device, scene=scene)
+    res0 = resumed.params["net"]["lines"]["x"].shape[0]
+    if resumed.last_iter != UPSAMPLE_RESUME_AT - 1 or res0 != UPSAMPLE_SEGMENTS[1][1]:
+        raise AssertionError(f"the resume read iteration {resumed.last_iter} at R={res0}")
+    before = launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        resumed.train()
+    print(out.getvalue(), end="")
+    resumed_launches = {k: v - before[k] for k, v in launch_counts().items()}
+    lines = out.getvalue().splitlines()
+    milestone = (f"[GRID] upsampled line tables to R={UPSAMPLE_SEGMENTS[2][1]} before iter "
+                 f"{UPSAMPLE_RESUME_AT}")
+    resumed_losses = finite_losses(resumed, UPSAMPLE_STEPS - UPSAMPLE_RESUME_AT,
+                                   "the resumed upsample run")
+    res1 = resumed.params["net"]["lines"]["x"].shape[0]
+    print(f"resumed from iteration {UPSAMPLE_RESUME_AT - 1} at R={res0}; the loop's first "
+          f"lines {lines[:2]}; R={res1} after {UPSAMPLE_STEPS - UPSAMPLE_RESUME_AT} steps, "
+          f"losses {resumed_losses[0]:.4f} .. {resumed_losses[-1]:.4f}; launches "
+          f"{resumed_launches}")
+    if lines[1:2] != [milestone] or res1 != UPSAMPLE_SEGMENTS[2][1]:
+        raise AssertionError("the resumed run did not reach R=256 before its first step")
+    del resumed, scene
+    paths["upsample"] = {"train": train_launches, "val": val_launches,
+                         "resumed": resumed_launches}
+    phase_s["upsample"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- 12d. HOST_FEED with the native store, PROFILE_STEPS, VAL_METRICS + FUSED_RENDER ----
+    phase(f"train-fern_ndc-hostfeed-4096 (conf/fern_ndc.ini, HOST_FEED, PROFILE_STEPS "
+          f"{HOSTFEED_PROFILE}, VAL_METRICS, FUSED_RENDER; {FERN_STEPS} steps on "
+          f"{FERN_VIEWS} views of {HOSTFEED_HW[1]}x{HOSTFEED_HW[0]})")
+    hcfg = run_config("fern_ndc", tmp, "hostfeed", FERN_STEPS, host_feed=True,
+                      profile_steps=HOSTFEED_PROFILE, val_metrics=True, fused_render=True)
+    t0 = time.perf_counter()
+    h_scene = llff_capture(FERN_VIEWS, hcfg.seed, outward=False, hw=HOSTFEED_HW)
+    capture_s = time.perf_counter() - t0
+    runner = Runner(hcfg, device=device, scene=h_scene)
+    table = runner.train_table
+    host_bytes = table.host_pixels.nbytes
+    print(f"capture made in {capture_s:.2f} s; host table {table.num_pix:,} pixels, "
+          f"{host_bytes / 2 ** 20:.1f} MiB ({hcfg.pixel_dtype}); device pixels: "
+          f"{table.pixels is not None}")
+    if table.pixels is not None:
+        raise AssertionError("HOST_FEED put the pixel table on the device")
+    stores, first_batch = [], []
+    make_feeder = runner._make_feeder
+
+    def spy(tbl):
+        store = make_feeder(tbl)
+        take = store.next
+
+        def next_batch():
+            batch = take()
+            if not first_batch:
+                first_batch.append([a.copy() for a in batch])
+            return batch
+
+        store.next = next_batch
+        stores.append(store)
+        return store
+
+    runner._make_feeder = spy
+    zero_launches()
+    sync()
+    t0 = time.perf_counter()
+    runner.train()
+    sync()
+    hostfeed_s = time.perf_counter() - t0
+    feed_launches = launch_counts()
+    print(f"Runner.train(): {FERN_STEPS} steps in {hostfeed_s:.2f} s (the traced steps and "
+          f"the first steps included); launches {feed_launches}")
+    if not (len(stores) == 1 and type(stores[0]) is native.HostRayStore):
+        raise AssertionError(f"the Runner's store is {stores}, not one native HostRayStore")
+    if stores[0]._handle is not None:
+        raise AssertionError("the Runner did not close its store")
+    if feed_launches != launched(field_rays=2 * FERN_STEPS, field_rays_bwd=2 * FERN_STEPS):
+        raise AssertionError("the host-fed path did not run kernels 1 and 2 twice a step")
+    finite_losses(runner, FERN_STEPS, "fern_ndc host-fed")
+    plain_store = native.NumpyRayStore(table.host_pixels, table.poses.cpu().numpy(),
+                                       table.height, table.width, seed=hcfg.seed)
+    ref = plain_store.sample(0, hcfg.batch_ray)
+    same = all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(first_batch[0], ref))
+    print(f"batch 0 of the Runner's store against NumpyRayStore's batch 0 (seed "
+          f"{hcfg.seed}): bit-identical {same}")
+    if not same:
+        raise AssertionError("the native store's batch 0 differs from NumpyRayStore's")
+    traces = glob.glob(os.path.join(hcfg.log_dir, "trace", "*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"{len(traces)} trace files under LOG_DIR/trace")
+    with open(traces[0]) as f:
+        text = f.read()
+    names = {n: text.count(n) for n in HOSTFEED_TRACE_NAMES}
+    print(f"trace {os.path.basename(traces[0])} ({len(text) / 2 ** 20:.1f} MiB): "
+          f"occurrences {names}")
+    if not all(names.values()):
+        raise AssertionError("the trace does not name kernel 1's and kernel 2's entry points")
+    zero_launches()
+    fused_db = runner.val_psnr()
+    fused_val = launch_counts()
+    runner.cfg.fused_render = False
+    plain_db = runner.val_psnr()
+    runner.cfg.fused_render = True
+    print(f"val PSNR through kernel 9: {fused_db:.4f} dB (launches {fused_val}); through the "
+          f"unfused renderer: {plain_db:.4f} dB; |diff| {abs(fused_db - plain_db):.2e} dB "
+          f"(limit {HOSTFEED_PSNR_DB})")
+    if fused_val != launched(render_fused=1):
+        raise AssertionError("the fused val pass did not launch kernel 9 once")
+    if not (math.isfinite(fused_db) and abs(fused_db - plain_db) <= HOSTFEED_PSNR_DB):
+        raise AssertionError("the fused val PSNR disagrees with the unfused one")
+    # steady host-fed steps, each batch from the store and uploaded as the
+    # Runner's loop does it: an asynchronous copy, the host arrays dropped at
+    # once. Each upload is held against a host copy of its batch once the
+    # card has run the steps: a copy that read a freed or refilled host
+    # buffer would differ
+    step = train.make_host_fed_train_step(hcfg, runner.k_inv, ndc_params=runner.ndc_params)
+    store = runner._make_feeder(table)
+    copies, uploads = [], []
+
+    def upload_next():
+        host = store.next()
+        copies.append([a.copy() for a in host])
+        uploads.append(table.upload(host))
+        return uploads[-1]
+
+    try:
+        state = runner.state
+        for _ in range(2):
+            state, _ = step(state, upload_next())
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(6):
+            state, _ = step(state, upload_next())
+        sync()
+        hostfeed_ms = (time.perf_counter() - t0) / 6 * 1e3
+    finally:
+        store.close()
+    uploads_same = all(torch.equal(t.cpu(), torch.from_numpy(c))
+                       for up, cs in zip(uploads, copies) for t, c in zip(up, cs))
+    print(f"BATCH_RAY {hcfg.batch_ray}: {hostfeed_ms / 1e3:.5f} s/step host-fed, "
+          f"{hcfg.batch_ray / hostfeed_ms * 1e3:,.0f} rays/s (phase 21 prints the device "
+          f"table's); {len(uploads)} uploads equal to their host batches bit for bit: "
+          f"{uploads_same}")
+    if not uploads_same:
+        raise AssertionError("an asynchronous upload differs from its host batch")
+    paths["hostfeed"] = {"train": feed_launches, "val": fused_val}
+    phase_s["hostfeed"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    del runner, h_scene, table, plain_store, state, step, uploads
+    print("phases 12c-12d took " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
+
+    return {"option_phase_seconds": phase_s,
+            "lego_grid_upsample": {"segments": segments, "loss_first10": float(first),
+                                   "loss_last10": float(last)},
+            "fern_ndc_hostfeed": {"step_ms": hostfeed_ms, "train_s": hostfeed_s,
+                                  "host_table_bytes": host_bytes, "capture_s": capture_s,
+                                  "val_psnr_fused_db": fused_db, "val_psnr_unfused_db": plain_db,
+                                  "trace_names": names},
+            "launches": paths}
 
 
 def main() -> int:
@@ -1360,52 +1723,17 @@ def main() -> int:
     for geometry, B, N in GRID_CHECKS:
         params_g, nd = grid_params[geometry], GRID[geometry][1]
         o, d, ts = (torch.from_numpy(a).to(dev) for a in grid_rays_at(rng, B, N))
-        de = gk.encoding.encode_dirs(d)
         for precision in ("fp32", "bf16"):
-            with torch.no_grad():
-                k_out = gk.grid_rays(params_g, o, d, ts, nd, precision)
-                torch.cuda.synchronize()
-                p_out = gk.grid_rays_plain(params_g, o, d, ts, de, nd, precision)
-            ce, se, sigma_ok, _, _ = field_errors(k_out, p_out)
-            if precision == "fp32":
-                fwd_ok = ce <= COLOR_ATOL and sigma_ok
-                fwd_note = f"color atol {COLOR_ATOL}, sigma atol {SIGMA_ATOL} rtol {SIGMA_RTOL}"
-            else:
-                rel = max(rel_err(a, b) for a, b in zip((*k_out[0], k_out[1]),
-                                                         (*p_out[0], p_out[1])))
-                fwd_ok = rel <= BF16_FWD_RTOL
-                fwd_note = f"error / max|plain| {rel:.3e}, limit {BF16_FWD_RTOL}"
-            keep = (gk.preactivation_margin(params_g, o, d, ts, nd, precision)
-                    > GRID_MARGIN).float()
-            cots = [torch.from_numpy(rng.normal(size=tuple(ts.shape)).astype(np.float32)).to(dev)
-                    * keep for _ in range(4)]
-            kernel = gk.grid_rays_bwd(params_g, o, d, ts, de, *cots, n_density=nd,
-                                      precision=precision)
-            again = gk.grid_rays_bwd(params_g, o, d, ts, de, *cots, n_density=nd,
-                                     precision=precision)
-            torch.cuda.synchronize()
-            plain = gk.grid_rays_bwd_plain(params_g, o, d, ts, de, *cots, n_density=nd,
-                                           precision=precision)
-            errs = grid_bwd_errors(kernel, plain)
-            worst = max(errs, key=lambda k: errs[k][1])
-            cos = min(e[2] for e in errs.values())
-            same = all(e[0] == 0 for e in grid_bwd_errors(kernel, again).values())
-            limit = BWD_RTOL if precision == "fp32" else BF16_BWD_RTOL
-            bwd_ok = errs[worst][1] <= limit and (precision == "fp32" or cos >= BF16_COS)
-            print(f"{geometry} B={B} N={N} {precision}: forward max |color err| {ce:.3e}, "
-                  f"max |sigma err| {se:.3e} ({fwd_note}); backward ({100 * (1 - float(keep.mean())):.3f}% "
-                  f"of rows within {GRID_MARGIN} of a kink, zero cotangent) worst {worst} "
-                  f"{errs[worst][1]:.3e} of max|plain| (limit {limit}), d_ts "
-                  f"{errs['d_ts'][1]:.3e}, lines.x {errs['lines.x'][1]:.3e}, smallest cosine "
-                  f"{cos:.7f}; two launches bit-identical: {same}")
-            if not (fwd_ok and bwd_ok and same):
+            chk = grid_kernels_check(gk, params_g, nd, o, d, ts, precision, rng)
+            print(f"{geometry} B={B} N={N} {precision}: {chk['line']}")
+            if not chk["ok"]:
                 raise AssertionError(f"kernels 5/6 disagree with their plain versions at "
-                                     f"{geometry} B={B} N={N} {precision}: {errs}")
-            grid_err[f"fwd {precision}"] = max(grid_err[f"fwd {precision}"], ce, se)
+                                     f"{geometry} B={B} N={N} {precision}: {chk['errs']}")
+            grid_err[f"fwd {precision}"] = max(grid_err[f"fwd {precision}"], chk["ce"], chk["se"])
             grid_err[f"bwd {precision}"] = max(grid_err[f"bwd {precision}"],
-                                               max(e[0] for e in errs.values()))
-            grid_rel[f"bwd {precision}"] = max(grid_rel[f"bwd {precision}"], errs[worst][1])
-            del kernel, again, plain
+                                               max(e[0] for e in chk["errs"].values()))
+            grid_rel[f"bwd {precision}"] = max(grid_rel[f"bwd {precision}"], chk["worst_rel"])
+            de, cots = chk["de"], chk["cots"]
         if (geometry, B, N) in GRID_SHAPES:
             grid_inputs[B, N] = (geometry, o, d, ts, de, cots)
     torch.cuda.empty_cache()
@@ -2594,6 +2922,11 @@ def main() -> int:
         # ---- 12b. the flagship, conf/lego_hybrid.ini, and its pyramids ----
         flagship = flagship_phases(tmp, "cuda")
 
+        # ---- 12c-12d. GRID_UPSAMPLE, HOST_FEED, VAL_METRICS, PROFILE_STEPS ----
+        options = option_phases(tmp, "cuda")
+        opt_paths = options.pop("launches")
+        up, feed = opt_paths["upsample"], opt_paths["hostfeed"]
+
         prop_counts = lambda: (pk.prop_rays.launches, pk.prop_rays_bwd.launches)
 
         def reset_all():
@@ -3031,7 +3364,9 @@ def main() -> int:
         torch.cuda.synchronize()
         fern_ms = (time.perf_counter() - t0) / 6 * 1e3
         print(f"BATCH_RAY {ncfg.batch_ray}: {fern_ms / 1e3:.5f} s/step, "
-              f"{ncfg.batch_ray / fern_ms * 1e3:,.0f} rays/s")
+              f"{ncfg.batch_ray / fern_ms * 1e3:,.0f} rays/s (the device table); host-fed "
+              f"(phase 12d, {options['fern_ndc_hostfeed']['host_table_bytes'] / 2 ** 20:.1f} "
+              f"MiB host table): {options['fern_ndc_hostfeed']['step_ms'] / 1e3:.5f} s/step")
         fern_iter = runner.state.iteration - 1
         ckpt.save_checkpoint(ncfg.ckpt_path, "smoke", fern_iter, runner.params,
                              runner.state.opt, generator=runner.state.generator)
@@ -3120,11 +3455,13 @@ def main() -> int:
              fwd_err, fwd_time, render_shapes),
         form("field_rays_fwd_bf16", fwd_src, "tinynerf/kernels/mlp_kernel.py:720",
              occ_launches[0] + occ_render_launches + fast_launches[0] + prop_mlp_launches[0]
-             + prop_render_field + fern_launches["rays"] + fern_render[False]["rays"],
+             + prop_render_field + fern_launches["rays"] + fern_render[False]["rays"]
+             + feed["train"]["field_rays"],
              {"lego_occ train": occ_launches[0], "lego_occ render": occ_render_launches,
               "lego_fast train": fast_launches[0], "lego_prop train": prop_mlp_launches[0],
               "lego_prop render": prop_render_field, "fern_ndc train": fern_launches["rays"],
-              "fern_ndc render": fern_render[False]["rays"]},
+              "fern_ndc render": fern_render[False]["rays"],
+              "fern_ndc host-fed train": feed["train"]["field_rays"]},
              bf16_fwd_err, bf16_fwd_time, list(OCC_SHAPES), {"gemm_chain_ms": gemm_chain_ms}),
         form("field_rays_bwd", bwd_src, "tinynerf/kernels/mlp_kernel.py:751",
              train_launches[1] + fp32_launches[1] + prop_fp32_field[1],
@@ -3135,10 +3472,11 @@ def main() -> int:
               "split": {shape_key(k): v for k, v in bwd_split.items()}}),
         form("field_rays_bwd_bf16", bwd_src, "tinynerf/kernels/mlp_kernel.py:751",
              occ_launches[1] + fast_launches[1] + prop_mlp_launches[1]
-             + fern_launches["rays_bwd"],
+             + fern_launches["rays_bwd"] + feed["train"]["field_rays_bwd"],
              {"lego_occ train": occ_launches[1], "lego_fast train": fast_launches[1],
               "lego_prop train": prop_mlp_launches[1],
-              "fern_ndc train": fern_launches["rays_bwd"]},
+              "fern_ndc train": fern_launches["rays_bwd"],
+              "fern_ndc host-fed train": feed["train"]["field_rays_bwd"]},
              bf16_bwd_abs, bf16_bwd_time, list(OCC_SHAPES), {"max_rel_err": bf16_bwd_rel}),
         form("field_flat_fwd", flat_src, "tinynerf/kernels/mlp_kernel.py:269",
              fp32_launches[2] + u_fp32["flat"],
@@ -3174,17 +3512,24 @@ def main() -> int:
              grid_fp32_launches[0], {"lego_grid fp32 train": grid_fp32_launches[0]},
              grid_err["fwd fp32"], grid_fwd_time["fp32"], grid_shapes, {**rows, **launch("fp32")}),
         form("grid_rays_fwd_bf16", gfwd_src, "tinynerf/kernels/grid_kernel.py:309",
-             grid_launches[0] + grid_render_launches + fast_launches[3],
+             grid_launches[0] + grid_render_launches + fast_launches[3]
+             + sum(up[k]["grid_rays"] for k in ("train", "val", "resumed")),
              {"lego_grid train": grid_launches[0], "lego_grid render": grid_render_launches,
-              "lego_fast train": fast_launches[3]},
+              "lego_fast train": fast_launches[3],
+              "lego_grid upsample train (R 64, 128, 256)": up["train"]["grid_rays"],
+              "lego_grid upsample val PSNR": up["val"]["grid_rays"],
+              "lego_grid upsample resumed train": up["resumed"]["grid_rays"]},
              grid_err["fwd bf16"], grid_fwd_time["bf16"], grid_shapes, {**rows, **launch("bf16")}),
         form("grid_rays_bwd", gbwd_src, "tinynerf/kernels/grid_kernel.py:344",
              grid_fp32_launches[1], {"lego_grid fp32 train": grid_fp32_launches[1]},
              grid_err["bwd fp32"], grid_bwd_time["fp32"], grid_shapes,
              {"max_rel_err": grid_rel["bwd fp32"], **split("fp32")}),
         form("grid_rays_bwd_bf16", gbwd_src, "tinynerf/kernels/grid_kernel.py:344",
-             grid_launches[1] + fast_launches[4],
-             {"lego_grid train": grid_launches[1], "lego_fast train": fast_launches[4]},
+             grid_launches[1] + fast_launches[4]
+             + up["train"]["grid_rays_bwd"] + up["resumed"]["grid_rays_bwd"],
+             {"lego_grid train": grid_launches[1], "lego_fast train": fast_launches[4],
+              "lego_grid upsample train (R 64, 128, 256)": up["train"]["grid_rays_bwd"],
+              "lego_grid upsample resumed train": up["resumed"]["grid_rays_bwd"]},
              grid_err["bwd bf16"], grid_bwd_time["bf16"], grid_shapes,
              {"max_rel_err": grid_rel["bwd bf16"], **split("bf16")}),
     ]
@@ -3226,10 +3571,12 @@ def main() -> int:
              fused_err["fwd fp32"], fused_fwd_time["fp32"], fused_shape,
              {**fused_rows, **fused_extra["fwd fp32"]}),
         form("render_fused_fwd_bf16", rfwd_src, "tinynerf/kernels/render_kernel.py:615",
-             fused_occ[0] + fused_occ[3][0] + fern_render[True]["fused"],
+             fused_occ[0] + fused_occ[3][0] + fern_render[True]["fused"]
+             + feed["val"]["render_fused"],
              {"lego_occ render fused": fused_occ[0],
               "lego_occ fused chunk gradient": fused_occ[3][0],
-              "fern_ndc render fused": fern_render[True]["fused"]},
+              "fern_ndc render fused": fern_render[True]["fused"],
+              "fern_ndc host-fed val PSNR": feed["val"]["render_fused"]},
              fused_err["fwd bf16"], fused_fwd_time["bf16"], fused_shape,
              {**fused_rows, **fused_extra["fwd bf16"]}),
         form("render_fused_bwd", rbwd_src, "tinynerf/kernels/render_kernel.py:651",
@@ -3256,6 +3603,7 @@ def main() -> int:
                                     "grad_cosines": grid_cos, "chunk_pix_err": grid_pix_err},
                       "lego_fast": {"seconds_10_steps": fast_s},
                       **flagship,
+                      **options,
                       "lego_prop": {"step_ms": prop_ms, "kernel_ms": prop_kern,
                                     "frame_s": prop_frame_s, "grad_cosines": prop_cos,
                                     "chunk_pix_err": prop_pix_err},

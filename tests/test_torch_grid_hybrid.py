@@ -478,8 +478,8 @@ def test_resume_with_another_level_count_warns_and_keeps_the_checkpoint(capsys):
 
 def test_grid_upsample_with_levels_raises_jax_value_error():
     """``GRID_UPSAMPLE`` with ``GRID_LEVELS > 1``: the JAX package's
-    ``ValueError`` on a fresh and a resumed state, before the not-ported
-    refusal of ``GRID_UPSAMPLE`` (which still stands alone)."""
+    ``ValueError`` on a fresh and a resumed state; ``GRID_UPSAMPLE`` on a
+    single level, once refused as not ported, builds its state."""
     jcfg, cfg = _cfgs(grid_levels=2, grid_upsample="100:16")
     params = train._fresh_params(dataclasses.replace(cfg, grid_upsample=""),
                                  torch.device("cpu"))
@@ -488,8 +488,9 @@ def test_grid_upsample_with_levels_raises_jax_value_error():
             train.init_state(cfg, torch.device("cpu"), **kw)
     with pytest.raises(ValueError, match="GRID_UPSAMPLE is incompatible with GRID_LEVELS>1"):
         jtrain.init_state(jcfg)
-    with pytest.raises(NotImplementedError, match="GRID_UPSAMPLE=100:16 is not ported yet"):
-        train.init_state(dataclasses.replace(cfg, grid_levels=1), torch.device("cpu"))
+    state = train.init_state(dataclasses.replace(cfg, grid_levels=1), torch.device("cpu"))
+    net = state.params["net"] if cfg.proposal else state.params
+    assert gridfield.num_levels(net["lines"]) == 1
 
 
 # ---------------------------------------------------------------- the shipped configs

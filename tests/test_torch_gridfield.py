@@ -248,8 +248,9 @@ def test_grid_pair_checkpoint_round_trips_between_the_packages(tmp_path):
 
 
 def test_unported_grid_forms_are_refused_by_name():
-    """``GRID_LOOKUP = gather`` is still to port; the hybrid sigma net, the
-    pyramid and its fold are ported (``tests/test_torch_grid_hybrid.py``)."""
+    """``GRID_LOOKUP = gather`` is refused by name (ROADMAP queue 1, item
+    14); the hybrid sigma net, the pyramid and its fold are ported
+    (``tests/test_torch_grid_hybrid.py``)."""
     with pytest.raises(NotImplementedError, match="GRID_LOOKUP=gather"):
         gridfield.make_field_grid(lookup="gather")
     with pytest.raises(NotImplementedError, match="GRID_LOOKUP=gather"):
@@ -257,13 +258,29 @@ def test_unported_grid_forms_are_refused_by_name():
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(fine_field="grid", grid_upsample="100:64"), "GRID_UPSAMPLE=100:64"),
+    (dict(fine_field="grid", grid_upsample="1:12"), None),
     (dict(fine_field="grid", grid_lookup="gather"), "GRID_LOOKUP=gather"),
     (dict(mesh_shape=4), "MESH_SHAPE=4"),
     (dict(sample_shard=2), "SAMPLE_SHARD=2")])
-def test_check_supported_refuses_unported_keys(kw, what):
-    with pytest.raises(NotImplementedError, match=f"{what} is not ported yet .ROADMAP"):
-        evallib.check_supported(Config(**kw))
+def test_check_supported_refuses_unported_keys(kw, what, sync_scene_dir, tmp_path):
+    """``GRID_UPSAMPLE``, once refused here, is accepted, and a Runner trains
+    two steps with it (the grid at small widths; the milestone at 1 resizes
+    it to R = 12); ``GRID_LOOKUP = gather`` and a mesh over several devices
+    are still refused by name."""
+    if what is not None:
+        with pytest.raises(NotImplementedError, match=f"{what} is not ported yet .ROADMAP"):
+            evallib.check_supported(Config(**kw))
+        return
+    cfg = Config(img_dir=f"{sync_scene_dir}/", data_type="sync", n_coarse=8, n_fine=16,
+                 batch_ray=32, total_iter=2, step=1000, grid_res=9, grid_comp_density=2,
+                 grid_comp_app=3, grid_decoder_width=8, ckpt_path=str(tmp_path / "ckpt"),
+                 log_dir=str(tmp_path / "runs"), **kw)
+    evallib.check_supported(cfg)
+    runner = Runner(cfg, device="cpu")
+    runner.logger = MetricLogger(cfg.log_dir, use_tensorboard=False)   # JSONL alone
+    runner.train()
+    assert runner.state.iteration == 2
+    assert runner.params["lines"]["x"].shape[0] == 12
 
 
 @pytest.mark.parametrize("kw", [

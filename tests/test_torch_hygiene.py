@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``tinynerf_torch`` and not
 ``chip_smoke.py`` imports JAX or the JAX package (``tinynerf``), and
-importing the package builds no kernel and needs no card."""
+importing the package builds no kernel and needs no card; the host ray
+store is built from the port's own source."""
 
 import ast
 import glob
@@ -48,3 +49,41 @@ def test_package_imports_without_jax_or_a_build():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def _string_constants(path):
+    """The string literals of ``path`` that are not docstrings."""
+    tree = ast.parse(open(path).read(), filename=path)
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef)) and node.body
+            and isinstance(node.body[0], ast.Expr) and isinstance(node.body[0].value, ast.Constant)}
+    return [n.value for n in ast.walk(tree) if isinstance(n, ast.Constant)
+            and isinstance(n.value, str) and id(n) not in docs]
+
+
+def test_the_ray_store_is_built_from_the_port_s_own_source(tmp_path, monkeypatch):
+    """``data/native.py`` compiles ``tinynerf_torch/csrc/raystore.cpp`` into
+    ``build/tinynerf_torch/``: no path of the JAX package (``native/``,
+    ``tinynerf/``) is named in its code, and the one ``g++`` call a fresh build
+    makes takes the port's source."""
+    path = os.path.join(REPO, "tinynerf_torch", "data", "native.py")
+    for text in _string_constants(path):
+        assert "native/" not in text and "tinynerf/" not in text and text != "native", text
+    from tinynerf_torch.data import native
+    assert native.SOURCE == os.path.join(REPO, "tinynerf_torch", "csrc", "raystore.cpp")
+    assert native.BUILD_DIR == os.path.join(REPO, "build", "tinynerf_torch")
+    calls = []
+    real_run = native.subprocess.run
+
+    def run(cmd, **kw):
+        calls.append(cmd)
+        return real_run(cmd, **kw)
+
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(native.subprocess, "run", run)
+    monkeypatch.setattr(native, "_libs", {})
+    native.load_library()
+    (cmd,) = calls
+    assert cmd[0] == "g++" and native.SOURCE in cmd
+    assert not any(os.path.join(REPO, d) in arg for arg in cmd for d in ("native", "tinynerf/"))
+    assert os.listdir(tmp_path) == [os.path.basename(native._lib_path(native.SOURCE))]

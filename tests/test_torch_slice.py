@@ -234,13 +234,17 @@ def test_cli_refuses_to_render_without_checkpoint(sync_scene_dir, tmp_path, mode
 
 
 @pytest.mark.parametrize("mode", ["train", "all"])
-def test_cli_training_modes_are_not_ported(sync_scene_dir, tmp_path, mode):
-    """Training is ported; what it does not port yet, the host-fed path,
-    is refused by name before anything runs."""
-    ini = _write_ini(tmp_path, sync_scene_dir, HOST_FEED="True")
-    with pytest.raises(NotImplementedError, match="HOST_FEED"):
-        cli_main(["--conf", ini, "--mode", mode, "--device", "cpu"])
-    assert not (tmp_path / "ckpt").exists()
+def test_cli_trains_with_host_feed(sync_scene_dir, tmp_path, mode, capsys):
+    """The host-fed path, once refused here, is ported: the CLI trains with
+    ``HOST_FEED`` in both training modes, its batches from the native host
+    ray store, and checkpoints (``all`` then renders the test split)."""
+    ini = _write_ini(tmp_path, sync_scene_dir, HOST_FEED="True", TOTAL_ITER=2, STEP=2,
+                     BATCH_RAY=32, LOG_DIR=f"{tmp_path}/runs/")
+    cli_main(["--conf", ini, "--mode", mode, "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "[ITER] 1 [LOSS]" in out
+    assert glob.glob(str(tmp_path / "ckpt" / "*_1.npz"))
+    assert ("Test PSNR" in out) == (mode == "all")
 
 
 def test_runner_resumes_latest_and_renders(sync_scene_dir, tmp_path):
@@ -275,18 +279,27 @@ def test_cuda_without_a_card_raises(sync_scene_dir, tmp_path):
 _GRID = dict(OCC_GRID="True", WHITE_BKGD="True")
 
 
-@pytest.mark.parametrize("extra,what", [
-    # the fused renderer is ported (tests/test_torch_render_fused.py); the val
-    # metrics that would route val batches through it are not
-    pytest.param({"FUSED_RENDER": "True", "VAL_METRICS": "True"}, "VAL_METRICS",
+@pytest.mark.parametrize("extra,sign", [
+    # the val batch goes through the fused renderer's plain version here
+    pytest.param({"FUSED_RENDER": "True", "VAL_METRICS": "True"}, "[VAL PSNR]",
                  id="FUSED_RENDER-True"),
-    pytest.param({"HOST_FEED": "True"}, "HOST_FEED", id="HOST_FEED-True"),
-    pytest.param({"VAL_METRICS": "True"}, "VAL_METRICS", id="VAL_METRICS-True"),
-    pytest.param({"PROFILE_STEPS": "5"}, "PROFILE_STEPS=5", id="PROFILE_STEPS-5")])
-def test_unported_config_keys_raise(sync_scene_dir, tmp_path, extra, what):
-    cfg = load_config(_write_ini(tmp_path, sync_scene_dir, **extra))
-    with pytest.raises(NotImplementedError, match=f"{what} is not ported yet .ROADMAP"):
-        Runner(cfg, device="cpu")
+    pytest.param({"HOST_FEED": "True"}, "[ITER] 1", id="HOST_FEED-True"),
+    pytest.param({"VAL_METRICS": "True"}, "[VAL PSNR]", id="VAL_METRICS-True"),
+    pytest.param({"PROFILE_STEPS": "5"}, None, id="PROFILE_STEPS-5")])
+def test_runner_options_train(sync_scene_dir, tmp_path, extra, sign, capsys):
+    """The Runner options once refused here are ported: a Runner with each
+    trains two steps and shows it (the val PSNR at the STEP boundary; the
+    host-fed loop; a trace of a window longer than the run, stopped at the
+    loop's end)."""
+    cfg = load_config(_write_ini(tmp_path, sync_scene_dir, TOTAL_ITER=2, STEP=2,
+                                 BATCH_RAY=32, LOG_DIR=f"{tmp_path}/runs/", **extra))
+    runner = Runner(cfg, device="cpu")
+    runner.train()
+    assert runner.state.iteration == 2
+    if sign is not None:
+        assert sign in capsys.readouterr().out
+    else:
+        assert glob.glob(str(tmp_path / "runs" / "trace" / "*.pt.trace.json"))
 
 
 _SMALL_GRIDS = dict(GRID_RES="9", GRID_COMP_DENSITY="2", GRID_COMP_APP="3",

@@ -363,16 +363,24 @@ def test_sampled_step_trains_and_is_seeded(step_setup, stratified):
 
 
 @pytest.mark.parametrize("what", ["FINE_FIELD", "PROPOSAL"])
-def test_init_state_refuses_slice_3_fields(what):
-    """The grid field and the proposal grid train (slice 4); the forms of
-    them still to port are refused by name before any weight is made."""
+def test_init_state_refuses_gather_and_takes_upsample(what):
+    """``GRID_LOOKUP = gather`` is refused by name before any weight is
+    made; ``GRID_UPSAMPLE``, once refused here, is ported: with the proposal
+    grid it builds a state whose fine grid ``upsample_grid_state`` resizes
+    (1000:384, from the default R = 256), the proposal grid left at its own
+    R."""
     if what == "FINE_FIELD":
-        cfg, match = Config(fine_field="grid", grid_lookup="gather"), "GRID_LOOKUP=gather .*item 14"
+        with pytest.raises(NotImplementedError, match="GRID_LOOKUP=gather .*item 14"):
+            train.init_state(Config(fine_field="grid", grid_lookup="gather"),
+                             torch.device("cpu"))
     else:
         cfg = Config(proposal=True, fine_field="grid", grid_upsample="1000:384")
-        match = "GRID_UPSAMPLE=1000:384 .*item 13"
-    with pytest.raises(NotImplementedError, match=match):
-        train.init_state(cfg, torch.device("cpu"))
+        state = train.init_state(cfg, torch.device("cpu"))
+        new = train.upsample_grid_state(cfg, state, 384)
+        assert state.params["net"]["lines"]["x"].shape == (256, 80)
+        assert new.params["net"]["lines"]["x"].shape == (384, 80)
+        assert new.opt.nu["net"]["lines"]["z"].shape == (384, 80)
+        assert new.params["prop"] is state.params["prop"]
 
 
 # ---------------------------------------------------------------- checkpoints

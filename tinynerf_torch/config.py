@@ -13,7 +13,7 @@ from __future__ import annotations
 import configparser
 import dataclasses
 import os
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 CONF_DIR = "./conf/"
 
@@ -166,6 +166,32 @@ _KEY_TO_FIELD = {
     "PROP_GRID_DECODER_WIDTH": "prop_grid_decoder_width",
     "PROP_GRID_HYBRID": "prop_grid_hybrid",
 }
+
+
+def parse_grid_upsample(spec: str) -> List[Tuple[int, int]]:
+    """``GRID_UPSAMPLE`` -> sorted ``[(iter, res), ...]``: comma-separated
+    ``iter:res`` pairs (``;`` also separates), e.g. ``"2000:384,4000:512"``.
+    Iterations must be distinct and resolutions strictly increasing (an
+    upsampling schedule); ``ValueError`` otherwise, as the JAX package's."""
+    spec = spec.strip()
+    if not spec:
+        return []
+    pairs = []
+    for tok in spec.replace(";", ",").split(","):
+        tok = tok.strip()
+        if not tok:
+            continue
+        it_s, _, res_s = tok.partition(":")
+        try:
+            pairs.append((int(it_s), int(res_s)))
+        except ValueError:
+            raise ValueError(f"GRID_UPSAMPLE entry {tok!r} is not 'iter:res'") from None
+    pairs.sort()
+    for (i0, r0), (i1, r1) in zip(pairs, pairs[1:]):
+        if i0 == i1 or r1 <= r0:
+            raise ValueError("GRID_UPSAMPLE iterations must be distinct and resolutions "
+                             f"strictly increasing, got {pairs}")
+    return pairs
 
 
 def _parse_milestones(raw: str) -> List[int]:

@@ -33,8 +33,12 @@ its own resolution and summed into the axis feature; ``GRID_LEVEL_FOLD``
 instead folds each level into the level-0 table in float32
 (``table + upsample_matrix @ level``) and interpolates once.
 
-Not ported yet, refused by name: ``GRID_LOOKUP = gather`` and
-``upsample_lines`` (``GRID_UPSAMPLE``; ROADMAP queue 1).
+Not ported, refused by name: ``GRID_LOOKUP = gather`` (ROADMAP queue 1,
+item 14), which the JAX package keeps to measure its hat-basis matmul
+against a gather; the port's hat form is already a gather.
+
+``upsample_lines`` resamples the level-0 tables onto a finer lattice
+(``GRID_UPSAMPLE``) with ``upsample_matrix`` in true float32.
 """
 
 from __future__ import annotations
@@ -277,6 +281,30 @@ def make_field_grid(n_density: int = N_COMP_DENSITY, lookup: str = "onehot",
                                 precision=precision, fold=fold)
 
     return field
+
+
+def upsample_lines(params: Params, new_res: int) -> Params:
+    """The counterpart of ``upsample_lines``: each level-0 table (R, F)
+    resampled to (``new_res``, F) by ``upsample_matrix`` in true float32; the
+    decoder, the extent and any other leaf passed through as they are. Works
+    on any tree of the grid field's layout, Adam's moment trees included.
+    A pyramid (``GRID_LEVELS > 1``) raises the JAX package's ``ValueError``:
+    resampling each level would change their relative bandwidths."""
+    if any(k not in AXES for k in params["lines"]):
+        raise ValueError("GRID_UPSAMPLE is incompatible with GRID_LEVELS>1 "
+                         "(multi-resolution pyramid)")
+    old_res = params["lines"][AXES[0]].shape[0]
+    if new_res == old_res:
+        return params
+    out = dict(params)
+    out["lines"] = {}
+    for ax in AXES:
+        table = params["lines"][ax]
+        w = upsample_matrix(old_res, new_res, table.device)
+        if table.is_cuda:
+            mlp.check_no_tf32()
+        out["lines"][ax] = w @ table
+    return out
 
 
 def tv_loss(params: Params) -> torch.Tensor:

@@ -8,15 +8,15 @@ replacement (``sample``) or given by the caller (``gather``: the epoch path,
 and the way tests feed the JAX package's index stream).
 
 ``pixel_dtype="u8"`` stores the device table quantized (4x smaller) and
-dequantizes at gather time. A table used only for rendering
-(``device_pixels=False``) keeps its pixels on the host for ``image()``. The
-JAX package's host-fed path (``HOST_FEED``, a C++ ray store) is not ported
-(``eval.check_supported`` refuses it).
+dequantizes at gather time. A table used only for rendering, or under
+``HOST_FEED`` (``device_pixels=False``), keeps its pixels on the host, for
+``image()``, the val batch and the host ray store (``data/native.py``), whose
+batches ``upload`` puts on the device.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -88,6 +88,22 @@ class RayTable:
         idx = torch.randint(0, self.num_pix, (batch,), generator=generator,
                             device=self.device)
         return self.gather(idx)
+
+    def upload(self, host_batch: Sequence[np.ndarray]) -> RayBatch:
+        """A host batch, the ray store's ``(rows, cols, rgb, pose17, pic)``
+        numpy arrays, -> a RayBatch on the table's device.
+
+        On the card each array is copied into a pinned buffer, which the
+        asynchronous copy then reads, so that the host does not wait for the
+        card's queue to drain. The store's ring may refill its arrays at the
+        next ``next()`` because the pinned copy is taken before this returns;
+        the pinned buffers come from PyTorch's caching host allocator, which
+        records the copy's stream event and reuses a buffer only once it has
+        completed. On the CPU the arrays are copied into new tensors."""
+        if self.device.type != "cuda":
+            return RayBatch(*(torch.from_numpy(np.array(a)) for a in host_batch))
+        return RayBatch(*(torch.from_numpy(a).pin_memory().to(self.device, non_blocking=True)
+                          for a in host_batch))
 
     def image(self, pic: int) -> np.ndarray:
         """Ground-truth view (H, W, 3) float32 from the host table."""

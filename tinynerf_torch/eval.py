@@ -40,9 +40,13 @@ def _grid_pallas_conflicts(cfg: Config) -> None:
 
 def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for a config the port cannot train or
-    render yet, naming the ROADMAP item that will bring it (and the JAX
-    package's ``ValueError`` for ``GRID_PALLAS`` with a form its kernels do
-    not compute, or ``GRID_UPSAMPLE`` with a pyramid, before that)."""
+    render yet, naming the ROADMAP item that will bring it: the gather form
+    of the grid lookup (``GRID_LOOKUP = gather``; queue 1, item 14) and a
+    mesh over several devices (``MESH_SHAPE > 1``, ``SAMPLE_SHARD > 1``; item
+    11). Before that, the JAX package's ``ValueError`` for a bad
+    ``PRECISION``, ``FINE_FIELD`` or ``PROP_FIELD``, for ``GRID_PALLAS`` with
+    a form its kernels do not compute, and for ``GRID_UPSAMPLE`` with a
+    pyramid, on a fresh run and on a resume alike."""
     if cfg.precision not in ("fp32", "bf16"):
         raise ValueError(f"PRECISION must be fp32 or bf16, got {cfg.precision!r}")
     if cfg.fine_field not in ("mlp", "grid"):
@@ -57,15 +61,8 @@ def check_supported(cfg: Config) -> None:
         raise ValueError("GRID_UPSAMPLE is incompatible with "
                          "GRID_LEVELS>1 (multi-resolution pyramid)")
     refused = [
-        (grid and bool(cfg.grid_upsample), f"GRID_UPSAMPLE={cfg.grid_upsample}",
-         "queue 1, item 13: GRID_UPSAMPLE"),
         ((grid or prop_grid) and cfg.grid_lookup != "onehot",
          f"GRID_LOOKUP={cfg.grid_lookup}", "queue 1, item 14: GRID_LOOKUP = gather"),
-        (cfg.host_feed, "HOST_FEED",
-         "queue 1, item 5: HOST_FEED and the native ray store"),
-        (cfg.val_metrics, "VAL_METRICS", "queue 1, item 6: VAL_METRICS"),
-        (cfg.profile_steps > 0, f"PROFILE_STEPS={cfg.profile_steps}",
-         "queue 1, item 7: PROFILE_STEPS"),
         # the port runs on one device; unset or auto is that device
         ((cfg.mesh_shape or 1) > 1, f"MESH_SHAPE={cfg.mesh_shape}",
          "queue 1, item 11: parallel/"),

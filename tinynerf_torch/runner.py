@@ -4,13 +4,19 @@
 
 ``Runner(cfg)`` loads the scene's splits onto the device (under ``NDC`` on
 an LLFF scene, with the poses recentred and rescaled, and ``ndc_params``
-set), builds ``k_inv``, starts fresh or resumes the latest checkpoint under ``CKPT_PATH`` with its
+set; under ``HOST_FEED`` the pixels stay on the host), builds ``k_inv``,
+starts fresh or resumes the latest checkpoint under ``CKPT_PATH`` with its
 Adam state (and its occupancy grid, with ``OCC_GRID``; with ``PROPOSAL`` the
-``{"net", "prop"}`` pair), and then trains (``train()``), renders the test split
-(``display()``) or renders a camera path (``render_path_video()``). The
-host loop only ticks: every per-iteration tensor stays on the device until
-a ``STEP`` boundary, where the loop prints, writes the preview canvas and a
-checkpoint. Rendering refuses fresh weights unless this Runner trained them.
+``{"net", "prop"}`` pair; a grid's tables at the checkpoint's resolution),
+and then trains (``train()``), renders the test split (``display()``) or
+renders a camera path (``render_path_video()``). The host loop only ticks:
+every per-iteration tensor stays on the device until a ``STEP`` boundary,
+where the loop prints, takes the val PSNR (``VAL_METRICS``), writes the
+preview canvas and a checkpoint. Within the loop, as in
+``tinynerf/runner.py``: a ``GRID_UPSAMPLE`` milestone resizes the fine grid
+before its iteration, ``HOST_FEED`` takes each batch from the native host
+ray store (``data/native.py``) and ``PROFILE_STEPS`` traces the first steps.
+Rendering refuses fresh weights unless this Runner trained them.
 """
 
 from __future__ import annotations
@@ -24,14 +30,18 @@ import numpy as np
 import torch
 
 from tinynerf_torch import ckpt, eval as evallib, train as trainlib
-from tinynerf_torch.config import Config
+from tinynerf_torch.config import Config, parse_grid_upsample
+from tinynerf_torch.core import render
 from tinynerf_torch.core.occupancy import derive_march_steps, derive_march_steps_contracted
 from tinynerf_torch.core.rays import make_k_inv
 from tinynerf_torch.data.poses import SceneData, load_scene, recenter_and_rescale
-from tinynerf_torch.data.rays import RayTable
+from tinynerf_torch.data.rays import RayBatch, RayTable
 from tinynerf_torch.device import DeviceLike, resolve_device
 from tinynerf_torch.logging import MetricLogger, PreviewCanvas
-from tinynerf_torch.profiling import Throughput
+from tinynerf_torch.profiling import Throughput, Trace
+
+# the val batch's generator is seeded SEED + 777, as the JAX package's
+VAL_SEED_OFFSET = 777
 
 
 class NoCheckpointError(RuntimeError):
@@ -63,13 +73,15 @@ class Runner:
             # a caller's scene may serve another Runner)
             train_scene = dataclasses.replace(
                 train_scene, poses_bounds=recenter_and_rescale(train_scene.poses_bounds))
-        self.train_table = RayTable(train_scene, self.device, cfg.pixel_dtype)
+        # HOST_FEED: the pixels stay on the host, for the native ray store
+        self.train_table = RayTable(train_scene, self.device, cfg.pixel_dtype,
+                                    device_pixels=not cfg.host_feed)
         # llff splits are identical (Q10): the same images serve all three
         if cfg.data_type == "llff":
             self.val_table = self.test_table = self.train_table
         else:
             self.val_table = RayTable(self._ingest("val"), self.device,
-                                      cfg.pixel_dtype)
+                                      cfg.pixel_dtype, device_pixels=not cfg.host_feed)
             self.test_table = RayTable(self._ingest("test"), self.device,
                                        cfg.pixel_dtype, device_pixels=False)
         self.k_inv = make_k_inv(self.train_table.height, self.train_table.width,
@@ -126,6 +138,7 @@ class Runner:
                 cfg.occ_march_steps = derive_march_steps(
                     cfg.occ_res, cfg.occ_extent, float(np.max(pb[:, 16] - pb[:, 15])))
         self.logger: Optional[MetricLogger] = None  # opened by train()
+        self._val_batch: Optional[RayBatch] = None   # built by val_psnr()
 
     @property
     def params(self):
@@ -143,13 +156,70 @@ class Runner:
                 scene.poses_bounds[:, 16] = cfg.far
         return scene
 
+    def val_psnr(self) -> float:
+        """``VAL_METRICS``' held-out metric (``tinynerf/runner.py:172-226``):
+        the PSNR of the fine pass over a fixed val batch, the same rays at
+        every call. The batch is drawn on the host from
+        ``np.random.default_rng(SEED + 777)`` over the val split's host pixels
+        (u8 dequantised), the JAX package's stream, so both packages evaluate
+        the same rays. The pass runs without gradients, without noise and
+        with the two-list merge, so that with ``FUSED_RENDER`` it is one
+        launch of the fused renderer (on the card, kernel 9)."""
+        cfg = self.cfg
+        if self._val_batch is None:
+            table = self.val_table
+            rng = np.random.default_rng(cfg.seed + VAL_SEED_OFFSET)
+            idx = rng.integers(0, table.num_pix, cfg.batch_ray)
+            pic = (idx // table.pic_size).astype(np.int32)
+            in_pic = idx % table.pic_size
+            flat = table.host_pixels[idx]
+            if table.pixel_dtype == "u8":
+                flat = flat.astype(np.float32) * (1.0 / 255.0)
+            host = (
+                (in_pic // table.width).astype(np.float32),
+                (in_pic % table.width).astype(np.float32),
+                flat.astype(np.float32), table.poses.cpu().numpy()[pic], pic)
+            self._val_batch = RayBatch(*(torch.from_numpy(np.ascontiguousarray(a)).to(
+                self.device) for a in host))
+        b, params = self._val_batch, self.state.params
+        with torch.no_grad():
+            _, c_fine = render.render_rays(
+                evallib.net_params(cfg, params), b.rows, b.cols, b.pose17, self.k_inv,
+                cfg.n_coarse, cfg.n_fine, field_fn=evallib.make_field_fn(cfg),
+                compat_sort=cfg.compat_sort, ndc_params=self.ndc_params,
+                merge_impl="twolist", white_bkgd=cfg.white_bkgd, occ_grid=self.state.occ,
+                occ_march=cfg.occ_march_steps, occ_march_res=cfg.occ_march_res,
+                occ_contract=cfg.contract, prop_params=evallib.prop_params(cfg, params),
+                prop_field_fn=evallib.make_prop_field_fn(cfg), lindisp=cfg.lindisp)
+            mse = torch.mean(torch.square(c_fine - b.rgb))
+        return evallib.mse_to_db(float(mse))
+
+    def _make_feeder(self, table: RayTable):
+        """The native host ray store over ``table``'s host pixels, prefetching
+        ``BATCH_RAY`` rays a batch (``HOST_FEED``); it raises where the store
+        cannot be built."""
+        from tinynerf_torch.data.native import make_ray_store
+        store = make_ray_store(table.host_pixels, table.poses.cpu().numpy(),
+                               table.height, table.width, seed=self.cfg.seed)
+        store.start(self.cfg.batch_ray)
+        return store
+
     def train(self, mode: str = "train") -> None:
         """Run the training loop up to ``TOTAL_ITER`` (resuming mid-count).
 
         ``mode="val"`` runs ONE epoch over the val split: a shuffled
         without-replacement pass visiting every val pixel once, in batches of
         ``BATCH_RAY`` with the remainder dropped (the reference's
-        ``trainer("val")``, ``nerf.py:498-499``), with the full step."""
+        ``trainer("val")``, ``nerf.py:498-499``), with the full step. Under
+        ``HOST_FEED`` the epoch keeps its length but its batches come from
+        the host ray store, drawn with replacement, as in the JAX package.
+
+        In train mode, ``GRID_UPSAMPLE``'s milestones at or after the first
+        iteration run resize the fine grid before their iteration (a resumed
+        checkpoint already holds the tables of the milestones before it),
+        and ``PROFILE_STEPS`` traces the first steps (``profiling.Trace``,
+        under ``LOG_DIR/trace``). A step holds no table, so a resize needs no
+        new one."""
         cfg = self.cfg
         if self.logger is None:
             self.logger = MetricLogger(os.path.join(cfg.log_dir, self.start_time))
@@ -160,48 +230,87 @@ class Runner:
         if mode == "val":
             n_batches = table.num_pix // cfg.batch_ray  # drop_last
             end = start + n_batches
+        else:
+            end = cfg.total_iter
+        if cfg.host_feed:
+            step_fn = trainlib.make_host_fed_train_step(cfg, self.k_inv,
+                                                        ndc_params=self.ndc_params)
+        elif mode == "val":
             perm = torch.randperm(table.num_pix, generator=self.state.generator,
                                   device=self.device)
             epoch = perm[:n_batches * cfg.batch_ray].view(n_batches, cfg.batch_ray)
             step_fn = trainlib.make_indexed_train_step(cfg, table, self.k_inv,
                                                        ndc_params=self.ndc_params)
         else:
-            end = cfg.total_iter
             step_fn = trainlib.make_train_step(cfg, table, self.k_inv,
                                                ndc_params=self.ndc_params)
+        upsample = []
+        if mode == "train" and cfg.fine_field == "grid" and cfg.grid_upsample:
+            upsample = [(i, r) for i, r in parse_grid_upsample(cfg.grid_upsample)
+                        if i >= start]
         print(f"[STEP] {mode}: iterations {start} -> {end}")
 
+        trace_dir = os.path.join(cfg.log_dir, "trace")
+        profiling_until = (start + cfg.profile_steps
+                           if cfg.profile_steps and mode == "train" else -1)
+        feeder = tracer = None
         meter = Throughput(rays_per_step=cfg.batch_ray)
         it = start
-        while it < end:
-            if epoch is not None:
-                self.state, metrics = step_fn(self.state, epoch[it - start])
-            else:
-                self.state, metrics = step_fn(self.state)
-            self.logger.log(it, {f"loss/{mode}": metrics["loss"],
-                                 f"lr/{mode}": metrics["lr"]})
-            it += 1
-            meter.tick(1)
-            if it % cfg.step == 0:
-                loss = float(metrics["loss"])
-                c_t = metrics["c_true0"].tolist()
-                c_f = metrics["c_fine0"].tolist()
-                print(f"[ITER] {it - 1} [LOSS] {loss:.4f} "
-                      f"[T] ({c_t[0]:.4f} {c_t[1]:.4f} {c_t[2]:.4f}) "
-                      f"[F] ({c_f[0]:.4f} {c_f[1]:.4f} {c_f[2]:.4f}) "
-                      f"[RAYS/S] {meter.rays_per_sec:,.0f}")
-                self.logger.flush()
-                if mode == "train":
-                    canvas.update(metrics["rows"], metrics["cols"],
-                                  metrics["rgb"], metrics["pic"])
-                    canvas.save(os.path.join(
-                        cfg.results_path, f"{self.start_time}_{it - 1}.jpg"))
-                    ckpt.save_checkpoint(cfg.ckpt_path, self.start_time, it - 1,
-                                         self.state.params, self.state.opt,
-                                         generator=self.state.generator,
-                                         occ=self.state.occ)
-                    self.last_iter = it - 1
-                meter.reset()
+        try:
+            if cfg.host_feed:
+                feeder = self._make_feeder(table)
+            if profiling_until > 0:
+                tracer = Trace(trace_dir, self.device)
+                tracer.start()
+            while it < end:
+                if upsample and it == upsample[0][0]:
+                    _, new_res = upsample.pop(0)
+                    self.state = trainlib.upsample_grid_state(cfg, self.state, new_res)
+                    print(f"[GRID] upsampled line tables to R={new_res} before iter {it}")
+                if it == profiling_until:
+                    tracer.stop()
+                    tracer = None
+                    print(f"[PROFILE] trace of {cfg.profile_steps} steps -> {trace_dir}")
+                    profiling_until = -1
+                if feeder is not None:
+                    self.state, metrics = step_fn(self.state, table.upload(feeder.next()))
+                elif epoch is not None:
+                    self.state, metrics = step_fn(self.state, epoch[it - start])
+                else:
+                    self.state, metrics = step_fn(self.state)
+                self.logger.log(it, {f"loss/{mode}": metrics["loss"],
+                                     f"lr/{mode}": metrics["lr"]})
+                it += 1
+                meter.tick(1)
+                if it % cfg.step == 0:
+                    loss = float(metrics["loss"])
+                    c_t = metrics["c_true0"].tolist()
+                    c_f = metrics["c_fine0"].tolist()
+                    print(f"[ITER] {it - 1} [LOSS] {loss:.4f} "
+                          f"[T] ({c_t[0]:.4f} {c_t[1]:.4f} {c_t[2]:.4f}) "
+                          f"[F] ({c_f[0]:.4f} {c_f[1]:.4f} {c_f[2]:.4f}) "
+                          f"[RAYS/S] {meter.rays_per_sec:,.0f}")
+                    if mode == "train" and cfg.val_metrics:
+                        val_psnr = self.val_psnr()
+                        print(f"[VAL PSNR] {val_psnr:.2f} dB")
+                        self.logger.log(it - 1, {"psnr/val": val_psnr})
+                    self.logger.flush()
+                    if mode == "train":
+                        canvas.update(metrics["rows"], metrics["cols"],
+                                      metrics["rgb"], metrics["pic"])
+                        canvas.save(os.path.join(
+                            cfg.results_path, f"{self.start_time}_{it - 1}.jpg"))
+                        ckpt.save_checkpoint(cfg.ckpt_path, self.start_time, it - 1,
+                                             self.state.params, self.state.opt,
+                                             generator=self.state.generator,
+                                             occ=self.state.occ)
+                        self.last_iter = it - 1
+                    meter.reset()
+        finally:
+            if tracer is not None:   # the loop was shorter than the trace's window
+                tracer.stop()
+            if feeder is not None:
+                feeder.close()
         self.logger.flush()
         self.trained = True
 

@@ -4,7 +4,8 @@ Counterpart of ``tinynerf/train.py`` for the 8x256 MLP field and the CP
 grid field (``FINE_FIELD = grid``), with or without a proposal field
 (``PROPOSAL``: the proposal grid, ``PROP_FIELD = grid``, or the proposal
 MLP, ``PROP_FIELD = mlp``), at fp32 or bf16, with or without the occupancy
-grid. A step draws a batch (or takes the caller's indices); with
+grid. A step draws a batch (or takes the caller's indices, or under
+``HOST_FEED`` the caller's batch); with
 ``OCC_GRID``, every ``OCC_UPDATE_EVERY`` iterations it first refreshes the
 grid from the main field's current params through its point field (the MLP:
 on the card, the flat field kernel; the grid field: its plain point field,
@@ -26,6 +27,9 @@ The JAX package fuses several steps into one XLA program (``lax.scan`` in
 ``make_multi_step`` / ``make_chunked_*``) only to amortise XLA's dispatch;
 the port runs one step per call (ROADMAP queue 1 lists the counterpart,
 CUDA graphs).
+
+``upsample_grid_state`` resizes the fine grid's tables and their Adam
+moments between steps (``GRID_UPSAMPLE``).
 """
 
 from __future__ import annotations
@@ -273,6 +277,39 @@ def make_train_step(cfg: Config, table: RayTable, k_inv: torch.Tensor,
         return _apply_batch(cfg, loss_fn, lr_fn, field_fn, state, batch)
 
     return step
+
+
+def make_host_fed_train_step(cfg: Config, k_inv: torch.Tensor,
+                             field_fn: Optional[render.FieldFn] = None, ndc_params=None,
+                             ) -> Callable[[TrainState, RayBatch], Tuple[TrainState, Metrics]]:
+    """``step(state, batch) -> (state, metrics)`` over a ``RayBatch`` the
+    caller gives (``HOST_FEED``: a batch of the host ray store,
+    ``data/native.py``, put on the device by ``RayTable.upload``)."""
+    field_fn = field_fn or make_field_fn(cfg)
+    loss_fn = make_loss_fn(cfg, k_inv, field_fn, ndc_params=ndc_params)
+    lr_fn = optim.make_lr_fn(cfg)
+
+    def step(state: TrainState, batch: RayBatch) -> Tuple[TrainState, Metrics]:
+        return _apply_batch(cfg, loss_fn, lr_fn, field_fn, state, batch)
+
+    return step
+
+
+def upsample_grid_state(cfg: Config, state: TrainState, new_res: int) -> TrainState:
+    """``GRID_UPSAMPLE``'s step (``tinynerf/train.py:267-290``): the fine grid's
+    line tables and Adam's ``mu`` and ``nu`` for them resampled to ``new_res``
+    nodes an axis (``gridfield.upsample_lines``; ``nu`` stays non-negative,
+    since the weights are). The decoder, the proposal field, the iteration,
+    Adam's count, the generator and the occupancy grid stay as they are. A
+    step made before the resize holds no table, so it serves after it too."""
+    def resize(tree):
+        if cfg.proposal:
+            return dict(tree, net=gridfield.upsample_lines(tree["net"], new_res))
+        return gridfield.upsample_lines(tree, new_res)
+
+    return dataclasses.replace(
+        state, params=resize(state.params),
+        opt=dataclasses.replace(state.opt, mu=resize(state.opt.mu), nu=resize(state.opt.nu)))
 
 
 def make_indexed_train_step(cfg: Config, table: RayTable, k_inv: torch.Tensor,
