@@ -157,7 +157,7 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
    profile of rendered chunks;
 15. drives ``lego_prop`` at ``PRECISION=fp32`` for 10 steps (the fp32 forms
    of kernels 7 and 8 on a path), checking the launch counts and finite
-   losses;
+   losses, and prints its s/step (6 steps after 2 more) and rays/s;
 16. drives unbounded360-mlp: ``conf/unbounded360.ini`` with ``FINE_FIELD =
    mlp`` (CONTRACT, LINDISP, STRATIFIED, the proposal grid at R = 64, 16 +
    16, width 16, DIST_LOSS 0.003, PROP_INTERLEVEL 0.01; the 8x256 MLP at
@@ -264,9 +264,9 @@ paths' call) and timed in phase 4 at 128 x 4, B = 4096, N = 64 beside both
 bounds: each as the wrapper's call (``ms``) and as its bare launch
 (``launch_ms``), kernel 8 also without the ray gradients
 (``ray_grads_off_ms``, the main paths' call), with kernel 8's time by
-launch (``launch_split``) and, in its bf16 form, the recompute kernel's
-phase split (``proposal_kernel.bwd_phase_split``: recompute, input
-gradients, weight gradients, ray sums).
+launch (``launch_split``) and, in both forms, the recompute kernel's
+phase split (``proposal_kernel.bwd_phase_split``: recompute, the fix-up
+(bf16) or the heads (fp32), input gradients, weight gradients, ray sums).
 
 Any failure raises, and the script exits non-zero without the last line. It
 exits non-zero at once where ``torch.cuda.is_available()`` is false. It
@@ -1552,10 +1552,11 @@ def main() -> int:
         for bf, form_ in enumerate(("fp32", "bf16")):
             for source, fn in grid_smem:
                 smem[f"{source} {geometry}_{form_}"] = fn(*dims, bf)
-    smem[pk.FWD_SOURCE] = pk._library(pk.FWD_SOURCE).prop_rays_fwd_smem_bytes()
-    for net, (width, _) in PROP_NETS.items():
+    for net, (width, depth) in PROP_NETS.items():
+        smem[f"{pk.FWD_SOURCE} {net}_fp32"] = (
+            pk._library(pk.FWD_SOURCE).prop_rays_fwd_smem_bytes(width))
         smem[f"{pk.BWD_SOURCE} {net}_fp32"] = (
-            pk._library(pk.BWD_SOURCE).prop_rays_bwd_smem_bytes(width))
+            pk._library(pk.BWD_SOURCE).prop_rays_bwd_smem_bytes(width, depth))
     for bf, form_ in enumerate(("fp32", "bf16")):
         smem[f"{rk.FWD_SOURCE} {form_}"] = (
             rk._library(rk.FWD_SOURCE).render_fused_fwd_smem_bytes(*FUSED_SAMPLES, bf))
@@ -2112,8 +2113,8 @@ def main() -> int:
     # the wrapper's call, as every row's (kernel 8's with the ray gradients,
     # as the parent's row); prop_extra: the bare launch (launch_ms: the
     # wrapper's checks and autograd left out), kernel 8 without the ray
-    # gradients (the main paths' call), kernel 8's time by launch and the
-    # bf16 recompute kernel's phase split (the clock64 variant build)
+    # gradients (the main paths' call), kernel 8's time by launch and its
+    # recompute kernel's phase split in both forms (the clock64 variant build)
     prop_fwd_time = {"fp32": {}, "bf16": {}}
     prop_bwd_time = {"fp32": {}, "bf16": {}}
     prop_extra = {f"{k} {p}": {} for k in ("fwd", "bwd") for p in ("fp32", "bf16")}
@@ -2154,17 +2155,16 @@ def main() -> int:
                 "launch_split_ray_grads_off": launch_split(
                     lambda: bwd(ray_grads=False),
                     f"kernel 8 {precision} without the ray gradients")}
-            if precision == "bf16":
-                for rays_on in (True, False):
-                    split = pk.bwd_phase_split(params_p, o, d, ts, *cots, precision=precision,
-                                               ray_grads=rays_on)
-                    ref_ms = k_ms if rays_on else off_ms
-                    print(f"  kernel 8 bf16 {'with' if rays_on else 'without'} the ray "
-                          f"gradients, the recompute kernel's phase split (clock64 variant, "
-                          f"shares of the blocks' cycles; ms of the call): "
-                          + ", ".join(f"{k} {100 * v:.1f}% ({v * ref_ms:.3f})"
-                                      for k, v in split.items()))
-                    extra["phase_split" if rays_on else "phase_split_ray_grads_off"] = split
+            for rays_on in (True, False):
+                split = pk.bwd_phase_split(params_p, o, d, ts, *cots, precision=precision,
+                                           ray_grads=rays_on)
+                ref_ms = k_ms if rays_on else off_ms
+                print(f"  kernel 8 {precision} {'with' if rays_on else 'without'} the ray "
+                      f"gradients, the recompute kernel's phase split (clock64 variant, "
+                      f"shares of the blocks' cycles; ms of the call): "
+                      + ", ".join(f"{k} {100 * v:.1f}% ({v * ref_ms:.3f})"
+                                  for k, v in split.items()))
+                extra["phase_split" if rays_on else "phase_split_ray_grads_off"] = split
         print(f"  128x4: {pk.flops_per_row(*PROP_NETS['128x4']):,} FLOP a row, "
               f"{flops / 1e9:.2f} GFLOP forward; bytes {fwd_bytes / 1e6:.2f} MB forward, "
               f"{bwd_bytes / 1e6:.2f} MB backward")
@@ -3093,7 +3093,24 @@ def main() -> int:
             raise AssertionError("lego_prop at fp32 did not run the fp32 kernels as expected")
         if len(losses) != PROP_FP32_STEPS or not all(math.isfinite(x) for x in losses):
             raise AssertionError("lego_prop at fp32: not every loss is finite")
-        del runner
+        step = train.make_train_step(fpcfg, runner.train_table, runner.k_inv)
+        state = runner.state
+        for _ in range(2):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(6):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        prop_fp32_ms = (time.perf_counter() - t0) / 6 * 1e3
+        prop_fp32_kern = (fwd_time[4096, fpcfg.n_fine][0] + bwd_time[4096, fpcfg.n_fine][0]
+                          + prop_fwd_time["fp32"][PROP_SHAPE][0]
+                          + prop_bwd_time["fp32"][PROP_SHAPE][0])
+        print(f"BATCH_RAY {fpcfg.batch_ray}: {prop_fp32_ms / 1e3:.5f} s/step, "
+              f"{fpcfg.batch_ray / prop_fp32_ms * 1e3:,.0f} rays/s; kernels 1, 2, 7 and 8 "
+              f"{prop_fp32_kern:.3f} ms of it ({100 * prop_fp32_kern / prop_fp32_ms:.1f}%: one "
+              "launch of each at its timed fp32 per-launch ms)")
+        del runner, state, step
 
         # ---- 16. unbounded360-mlp: conf/unbounded360.ini with FINE_FIELD = mlp ----
         phase("unbounded360-mlp training path (CONTRACT, LINDISP, the proposal grid, "
@@ -3606,7 +3623,8 @@ def main() -> int:
                       **options,
                       "lego_prop": {"step_ms": prop_ms, "kernel_ms": prop_kern,
                                     "frame_s": prop_frame_s, "grad_cosines": prop_cos,
-                                    "chunk_pix_err": prop_pix_err},
+                                    "chunk_pix_err": prop_pix_err,
+                                    "fp32_step_ms": prop_fp32_ms},
                       "lego_fused": {"frame_s": fused_lego[1], "chunk_err": fused_lego[2],
                                      "grad_cosine_vs_plain": fused_lego[4]},
                       "lego_occ_fused": {"frame_s": fused_occ[1], "chunk_err": fused_occ[2],

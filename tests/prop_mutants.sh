@@ -1,12 +1,15 @@
 #!/bin/bash
-# Planted faults in the proposal MLP's bf16 backward on the tensor cores
-# (TPU kernel 8: tinynerf_torch/csrc/prop_rays_bwd.cu): runs the proposal
-# card tests (tests/test_torch_kernel_gpu.py -k prop) on the tree, then on
-# three copies of it, each with one fault, which must fail them: the second
-# k16 step of every weight-gradient product dropped, the ReLU mask dropped
-# from the trunk's pre-activation gradients, and d_ts left unwritten on the
-# path that computes the rays' gradients (an address range anchors it to the
-# bf16 kernel: the fp32 kernel has the same line). Needs a CUDA card and
+# Planted faults in the proposal MLP's backward (TPU kernel 8:
+# tinynerf_torch/csrc/prop_rays_bwd.cu): runs the proposal card tests
+# (tests/test_torch_kernel_gpu.py -k prop) on the tree, then on six copies of
+# it, each with one fault, which must fail them. In the bf16 form on the
+# tensor cores: the second k16 step of every weight-gradient product
+# dropped, the ReLU mask dropped from the trunk's pre-activation gradients,
+# and d_ts left unwritten on the path that computes the rays' gradients (an
+# address range anchors it to the bf16 kernel: the fp32 kernel has the same
+# line). In the fp32 form: the last row of every tile dropped from the
+# weight gradients (wgrad_f32), the ReLU mask dropped (put_grad_f32), and
+# d_ts left unwritten (its kernel's address range). Needs a CUDA card and
 # nvcc.
 # Usage: bash tests/prop_mutants.sh [log dir, default build/mutants]
 # Exits 0 when the tree passes and every copy fails.
@@ -20,12 +23,16 @@ declare -A FAULT=(
   [drop_wgrad_k16_step]='s/^\( *\)a\[1\], b\[1\]\[nj\]\[0\], b\[1\]\[nj\]\[1\]);$/\1a[0], 0u, 0u);/'
   [no_relu_mask]='s/const uint32_t m = \*at;/const uint32_t m = 0x3f803f80u;/'
   [no_d_ts]='/^prop_rays_bwd_tc_kernel(/,$ s/d_ts\[m\] = v;/(void)v;/'
+  [fp32_wgrad_last_row]='s/^      for (int r = 0; r < M; ++r) {$/      for (int r = 0; r < M - 1; ++r) {/'
+  [fp32_no_relu_mask]='s/h\[v\] = h\[v\] > 0.f ? acc\[i\]\[g \* V + v\] : 0.f;/h[v] = acc[i][g * V + v];/'
+  [fp32_no_d_ts]='/^prop_rays_bwd_kernel(/,/^prop_rays_bwd_tc_kernel(/ s/d_ts\[m\] = v;/(void)v;/'
 )
 cd "$ROOT" && "${TESTS[@]}" > "$LOGS/prop_tree.log" 2>&1
 rc=$?
 echo "tree: rc $rc, $(tail -1 "$LOGS/prop_tree.log")"
 status=$(( rc != 0 ))
-for name in drop_wgrad_k16_step no_relu_mask no_d_ts; do
+for name in drop_wgrad_k16_step no_relu_mask no_d_ts fp32_wgrad_last_row fp32_no_relu_mask \
+    fp32_no_d_ts; do
   copy=$(mktemp -d)
   cp -r "$ROOT/." "$copy"
   rm -rf "$copy/build"

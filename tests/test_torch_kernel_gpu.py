@@ -544,16 +544,24 @@ def test_prop_kernels_match_plain_on_card(width, depth, n_rays, n_samples, preci
 @pytest.mark.gpu
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
 @pytest.mark.parametrize("width,depth,n_rays,n_samples", [
-    (128, 4, 333, 37), (128, 4, 1, 300), (128, 4, 5000, 3), (160, 4, 70, 50)])
+    (128, 4, 333, 37), (128, 4, 1, 300), (128, 4, 5000, 3), (160, 4, 70, 50),
+    (128, 4, 600, 50), (192, 3, 700, 40), (256, 4, 530, 33), (128, 4, 65537, 1)])
 def test_prop_kernels_tile_edges_on_card(width, depth, n_rays, n_samples, precision):
-    """Kernels 7 and 8 at the edges of the bf16 backward's 128-row tile and
-    of its ray slices, with the checks and bounds of
+    """Kernels 7 and 8 at the edges of their 128-row tiles (the fp32
+    backward's 64-row ones above width 160) and of the backward's ray
+    slices, with the checks and bounds of
     ``test_prop_kernels_match_plain_on_card``: 12,321 rows (no multiple of
     a tile; rays that cross tiles, one or two slices of two rays each), one
     ray of 300 rows (three tiles, the ray's sums carried across two), 5000
     rays (more than the 264 slices: 19 rays a slice, the last slice short),
-    and 160 x 4 (an odd number of n8-tiles a warp, and activations that do
-    not fit in shared memory, so two buffers and the bf16 workspace)."""
+    160 x 4 (an odd number of n8-tiles a warp, and activations that do not
+    fit in shared memory, so two buffers and the spill in both forms), 600
+    rays of 50 (3 rays a slice: the third straddles two 128-row tiles), 192
+    x 3 and 256 x 4 (the fp32 backward's 64-row tiles, all activations in
+    shared memory at 192 x 3, two buffers and the spill at 256 x 4, more
+    rays than slices and a ray straddling two tiles in each), and
+    ``prop_flat``'s N = 1 at a ragged 65,537 rows (249 rays a slice: two
+    tiles, the second short)."""
     _check_prop_kernels(width, depth, n_rays, n_samples, precision)
 
 

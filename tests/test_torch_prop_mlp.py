@@ -215,6 +215,36 @@ def test_prop_rays_without_ray_gradients_matches_the_jax_kernel(jax_kernels, net
             assert torch.equal(skip[0][n][k], full[n][k]), (n, k)
 
 
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("n_rays,n_samples", [(129, 1), (3, 43)])
+def test_prop_rays_plain_matches_the_jax_kernel_at_tile_edges(n_rays, n_samples, precision):
+    """The plain versions at the fp32 kernels' tile edges against
+    ``prop_field_pallas_rays`` and its ``jax.vjp`` (interpret mode), at
+    conf/lego_prop.ini's 128 x 4: 129 rows at N = 1 (``prop_flat``'s one
+    sample a ray, a row past a 128-row tile) and 3 rays of 43 samples (129
+    rows, the last ray straddling the tile's edge). Each plane within
+    FWD_TOL of max|ref|, every gradient and ``d_o``, ``d_d``, ``d_ts`` within GRAD_RTOL of
+    max|ref|."""
+    jparams = _jax_params("128x4", seed=5)
+    params = _port(jparams)
+    rays = _rays(B=n_rays, N=n_samples, seed=6)
+    cots = _cotangents(rays[2].shape, seed=7)
+    fwd, vjp = jax.vjp(lambda p, o, d, t: jpk.prop_field_pallas_rays(
+        p, o, d, t, compute_dtype=JAX_DTYPE[precision]), jparams, *(jnp.asarray(a) for a in rays))
+    jg, jgo, jgd, jgt = vjp(((jnp.asarray(cots[1]), jnp.asarray(cots[2]), jnp.asarray(cots[3])),
+                             jnp.asarray(cots[0])))
+    args = [torch.from_numpy(a) for a in rays + tuple(cots)]
+    (r, g, b), s = pk.prop_rays_plain(params, *args[:3], precision)
+    (jr, jgg, jb), js = fwd
+    for got, want in zip((r, g, b, s), (jr, jgg, jb, js)):
+        assert got.shape == want.shape == rays[2].shape
+        assert _rel(got.numpy(), want) <= FWD_TOL[precision]
+    grads, d_o, d_d, d_ts = pk.prop_rays_bwd_plain(params, *args, precision=precision)
+    errors = {f"{n}.{k}": _rel(grads[n][k], jg[n][k]) for n in jg for k in ("w", "b")}
+    errors.update(d_o=_rel(d_o, jgo), d_d=_rel(d_d, jgd), d_ts=_rel(d_ts, jgt))
+    assert max(errors.values()) <= GRAD_RTOL[precision], errors
+
+
 def test_prop_flat_matches_the_jax_point_form():
     """The point form rides the ray form at t = 0, as ``prop_field_pallas``
     does: its values (color 1e-6, sigma 1e-5) and its gradient to the

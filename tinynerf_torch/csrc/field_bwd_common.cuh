@@ -1,10 +1,10 @@
 // Kernel 2's device code and host orchestration (the field's recompute
 // backward), shared by field_rays_bwd.cu and render_fused_bwd.cu, and, read
 // through RowCoord, kernel 4's (field_flat_bwd.cu: flat rows of points, one
-// sample a "ray"). Its fp32 form runs float32 FMA on its own tiles (here:
-// gemm_f32 for the recompute and the input gradients, wgrad_kernel for the
-// weight gradients), its bf16 form the tensor cores (field_tc.cuh). The
-// design note is in field_rays_bwd.cu.
+// sample a "ray"). Its fp32 form runs float32 FMA on its own tiles
+// (fma_common.cuh's gemm_f32 for the recompute and the input gradients,
+// wgrad_kernel here for the weight gradients), its bf16 form the tensor
+// cores (field_tc.cuh). The design note is in field_rays_bwd.cu.
 
 #pragma once
 
@@ -13,6 +13,7 @@
 #include <cmath>
 
 #include "field_tc.cuh"
+#include "fma_common.cuh"
 
 namespace {
 
@@ -50,10 +51,6 @@ constexpr int N_TRANSPOSE = 12;
 constexpr int N_GRAD = 593924;       // all weights and biases, layer order, w then b
 constexpr int CHUNK_ROWS = 65536;    // sample rows per chunk (whole rays)
 constexpr int SPLIT_ROWS = 4096;     // most rows of a weight-gradient partial sum
-constexpr int BT_M = 128;            // rows a tile of the fp32 recompute kernel
-constexpr int BT_THREADS = 512;      // its 16 warps, 8 rows (ROWS) each
-constexpr int BWD_KT = 16;           // weight rows a gemm_f32 K-tile stage
-constexpr int BWD_STAGES = 2;
 constexpr int WG_STAGES = 2;         // K-slab stages of the weight-gradient tiles
 constexpr int WG_TILE = 128;         // weight-gradient output tile, (fan-in) x (fan-out)
 constexpr int WG_RT = 32;            // rows a weight-gradient K-slab
@@ -116,94 +113,7 @@ struct Smem {
   float dpt[BT_M][3];      // d loss / d point
   float ddir[BT_M][3];     // d loss / d direction, through its encoding
 };
-static_assert(BWD_KT % 4 == 0 && BWD_STAGES >= 2, "16-byte K steps, a tile in flight");
 static_assert(BWD_KT - DIR_ENC % BWD_KT <= 8, "enc_pad holds enc_dir's last overrun");
-
-// The fp32 tiles' columns. Thread (warp w, lane) holds rows 8w .. 8w+7 and,
-// of a product 32 NC wide, NC columns in groups of V = min(NC, 4) adjacent
-// ones: its column j is (j / V) 32 V + V lane + j % V, so that a group is
-// one 16-byte shared-memory read of a weight row (V = 4).
-template <int NC>
-__device__ __forceinline__ int col_of(int j) {
-  constexpr int V = NC < 4 ? NC : 4;
-  return (j / V) * (32 * V) + V * (threadIdx.x & 31) + j % V;
-}
-
-// x[0 .. V-1] = p[0 .. V-1] in one access (p aligned to 4 V bytes).
-template <int V>
-__device__ __forceinline__ void load_v(float* x, const float* p) {
-  if constexpr (V == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-  } else if constexpr (V == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    x[0] = v.x; x[1] = v.y;
-  } else {
-    x[0] = *p;
-  }
-}
-
-// acc[i][j] += sum_k src[row_i][k] w[k][col_j] over the K rows of w ((K, 32
-// NC) row-major in global memory, 16-byte aligned; src rows 16-byte
-// aligned). The weights stream through BWD_STAGES BWD_KT-row K-tile stages
-// of wt by cp.async, the next tile in flight while this one is multiplied;
-// rows of a last tile past K are zero-filled, and the src columns read
-// with them (K = 60 or 24: an encoding's next row, see Smem) hold finite
-// values, so they add exact zeros. k ascends, one FMA a term, as
-// gemm_segment. Warps whose rows all lie at or past `valid` skip the FMAs.
-// Ends with a barrier, so the caller may overwrite src.
-template <int NC>
-__device__ __forceinline__ void gemm_f32(float (&acc)[ROWS][NC], const float* src,
-                                         int src_stride, int K, const float* __restrict__ w,
-                                         float* wt, int valid) {
-  constexpr int OUT = 32 * NC, V = NC < 4 ? NC : 4, STAGE = BWD_KT * OUT;
-  constexpr int CHUNKS = STAGE / 4, PER = (CHUNKS + BT_THREADS - 1) / BT_THREADS;
-  const int lane = threadIdx.x & 31, row0 = (threadIdx.x >> 5) * ROWS;
-  const int tiles = (K + BWD_KT - 1) / BWD_KT;
-  // K-tile t to stage t % BWD_STAGES, one commit group a tile (an empty
-  // group past the last tile, so that the waits count alike)
-  auto load = [&](int t) {
-    if (t < tiles) {
-      float* s = wt + (t % BWD_STAGES) * STAGE;
-#pragma unroll
-      for (int it = 0; it < PER; ++it) {
-        const int i = threadIdx.x + it * BT_THREADS;
-        if (CHUNKS % BT_THREADS == 0 || i < CHUNKS) {
-          const int k = t * BWD_KT + i / (OUT / 4);
-          cp_async16(s + 4 * i, w + (size_t)min(k, K - 1) * OUT + 4 * (i % (OUT / 4)), k < K);
-        }
-      }
-    }
-    cp_async_commit();
-  };
-#pragma unroll
-  for (int t = 0; t + 1 < BWD_STAGES; ++t) load(t);
-  for (int t = 0; t < tiles; ++t) {
-    cp_async_wait<BWD_STAGES - 2>();
-    __syncthreads();  // tile t is in, and every thread is done with tile t - 1
-    load(t + BWD_STAGES - 1);
-    if (row0 >= valid) continue;
-    const float* s = wt + (t % BWD_STAGES) * STAGE + V * lane;
-    const float* a_row = src + row0 * src_stride + t * BWD_KT;
-#pragma unroll 1
-    for (int kk = 0; kk < BWD_KT; kk += 4) {  // not unrolled: fewer live registers
-      float a[ROWS][4];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) load_v<4>(a[i], a_row + i * src_stride + kk);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float b[NC];
-#pragma unroll
-        for (int g = 0; g < NC / V; ++g) load_v<V>(b + g * V, s + (kk + q) * OUT + g * 32 * V);
-#pragma unroll
-        for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-          for (int j = 0; j < NC; ++j) acc[i][j] = fmaf(a[i][q], b[j], acc[i][j]);
-      }
-    }
-  }
-  __syncthreads();
-}
 
 // act[r][c] = (relu)(acc + bias[c]) over the thread's rows and columns;
 // rows below `valid` are also saved to save[r * A_STRIDE + c]. Ends with a

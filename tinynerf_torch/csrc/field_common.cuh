@@ -11,7 +11,7 @@
 // = lane + 32*j), accumulated with float32 FMA (no tensor cores, no TF32).
 // A layer's weights, (fan_in, fan_out) row-major, stream through a KT-row
 // shared K-tile from L2 (the forward kernels'; the recompute backward's
-// fp32 form has wider tiles of its own, field_bwd_common.cuh). The bf16
+// fp32 form, and the proposal MLP's, run fma_common.cuh's gemm_f32). The bf16
 // form runs its products on the tensor cores instead (field_tc.cuh) and
 // keeps the heads and the encoding here.
 //
@@ -27,8 +27,7 @@
 // rounds each pre-activation gradient). A product of two bfloat16 values
 // is exact in float32 and the sums stay float32, so this is the TPU's bf16
 // matrix unit with f32 accumulation, up to summation order. Biases stay
-// float32 and are added after the sum. gemm_segment's BF16 rounding serves
-// the proposal MLP's kernels (prop_common.cuh).
+// float32 and are added after the sum.
 
 #pragma once
 
@@ -78,11 +77,6 @@ template <bool BF16>
 __device__ __forceinline__ float rnd(float x) {
   if constexpr (BF16) return __bfloat162float(__float2bfloat16_rn(x));
   return x;
-}
-
-template <bool BF16>
-__device__ __forceinline__ float4 rnd4(float4 v) {
-  return make_float4(rnd<BF16>(v.x), rnd<BF16>(v.y), rnd<BF16>(v.z), rnd<BF16>(v.w));
 }
 
 // The coordinates of a ray-major row m = ray * n_samples + sample: channel c
@@ -141,11 +135,8 @@ __device__ __forceinline__ void encode_tile(Coord coord,
 
 // acc[i][j] += sum_k src[row_i][k] * W[k][col_j] over one input segment
 // (K rows of W). OUT = 32*NC. src rows are 16-byte aligned and K is a
-// multiple of 4. With BF16 the weights are rounded as they enter the
-// K-tile, and with ROUND_SRC the src values as they are read (the float32
-// encoding; activations are stored rounded already). Ends with a barrier,
-// so the caller may overwrite src.
-template <int NC, bool BF16, bool ROUND_SRC = false>
+// multiple of 4. Ends with a barrier, so the caller may overwrite src.
+template <int NC>
 __device__ __forceinline__ void gemm_segment(float (&acc)[ROWS][NC],
                                              const float* src, int src_stride,
                                              int K, const float* __restrict__ w,
@@ -157,15 +148,14 @@ __device__ __forceinline__ void gemm_segment(float (&acc)[ROWS][NC],
     const int kt = min(KT, K - k0);
     const float4* g = reinterpret_cast<const float4*>(w + (size_t)k0 * OUT);
     float4* s = reinterpret_cast<float4*>(wt);
-    for (int i = threadIdx.x; i < kt * OUT / 4; i += THREADS) s[i] = rnd4<BF16>(__ldg(g + i));
+    for (int i = threadIdx.x; i < kt * OUT / 4; i += THREADS) s[i] = __ldg(g + i);
     __syncthreads();
     for (int kk = 0; kk < kt; kk += 4) {
       float a[ROWS][4];
 #pragma unroll
       for (int i = 0; i < ROWS; ++i) {
-        float4 v = *reinterpret_cast<const float4*>(
+        const float4 v = *reinterpret_cast<const float4*>(
             src + (row0 + i) * src_stride + k0 + kk);
-        if constexpr (ROUND_SRC) v = rnd4<BF16>(v);
         a[i][0] = v.x; a[i][1] = v.y; a[i][2] = v.z; a[i][3] = v.w;
       }
 #pragma unroll
@@ -243,13 +233,13 @@ __device__ __forceinline__ void network_fwd(FwdSmem& s, const Params& p,
                                             int base, int total, Out out) {
   float acc[ROWS][8];
   zero(acc);
-  gemm_segment<8, false>(acc, &s.enc_pt[0][0], PT_ENC, PT_ENC, p.w[0], s.wt);
+  gemm_segment<8>(acc, &s.enc_pt[0][0], PT_ENC, PT_ENC, p.w[0], s.wt);
   store<8, true>(acc, p.b[0], s.act);
   for (int layer = 1; layer < 8; ++layer) {
     zero(acc);
-    gemm_segment<8, false>(acc, &s.act[0][0], WIDTH, WIDTH, p.w[layer], s.wt);
+    gemm_segment<8>(acc, &s.act[0][0], WIDTH, WIDTH, p.w[layer], s.wt);
     if (layer == 4)
-      gemm_segment<8, false>(acc, &s.enc_pt[0][0], PT_ENC, PT_ENC,
+      gemm_segment<8>(acc, &s.enc_pt[0][0], PT_ENC, PT_ENC,
                              p.w[4] + WIDTH * WIDTH, s.wt);
     store<8, true>(acc, p.b[layer], s.act);
   }
@@ -271,14 +261,14 @@ __device__ __forceinline__ void network_fwd(FwdSmem& s, const Params& p,
 
   // point_info = h W + b, no activation
   zero(acc);
-  gemm_segment<8, false>(acc, &s.act[0][0], WIDTH, WIDTH, p.w[POINT_INFO], s.wt);
+  gemm_segment<8>(acc, &s.act[0][0], WIDTH, WIDTH, p.w[POINT_INFO], s.wt);
   store<8, false>(acc, p.b[POINT_INFO], s.act);
 
   // the view branch, 280 -> 128
   float acc4[ROWS][4];
   zero(acc4);
-  gemm_segment<4, false>(acc4, &s.enc_dir[0][0], DIR_ENC, DIR_ENC, p.w[DIR_INFO], s.wt);
-  gemm_segment<4, false>(acc4, &s.act[0][0], WIDTH, WIDTH,
+  gemm_segment<4>(acc4, &s.enc_dir[0][0], DIR_ENC, DIR_ENC, p.w[DIR_INFO], s.wt);
+  gemm_segment<4>(acc4, &s.act[0][0], WIDTH, WIDTH,
                          p.w[DIR_INFO] + DIR_ENC * (WIDTH / 2), s.wt);
   store<4, true>(acc4, p.b[DIR_INFO], s.act);
 

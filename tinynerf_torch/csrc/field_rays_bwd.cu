@@ -33,7 +33,7 @@
 //    the heads' gradients and the chain down the trunk, saving each layer's
 //    pre-activation gradient to a workspace G; then the encoding's backward
 //    and the per-ray sums.
-//    - fp32 (field_bwd_common.cuh's gemm_f32): float32 FMA on 8-row x
+//    - fp32 (fma_common.cuh's gemm_f32): float32 FMA on 8-row x
 //      8-column register tiles, a thread's columns in groups of 4 adjacent
 //      ones, so a weight K-tile row is read as 16-byte shared-memory loads
 //      and the rows as broadcast 16-byte loads (16 FMAs a load, against

@@ -9,10 +9,13 @@
 // width.
 //
 // Two forms:
-// - fp32: field_common.cuh's float32 FMA tile (encode_tile, the streamed
-//   K-tile GEMM gemm_segment, the 64-row tile whose warp w owns rows 8w ..
-//   8w+7 and a thread the columns lane + 32 j, j < NC); the heads are warp
-//   reductions.
+// - fp32: fma_common.cuh's float32 FMA tile (gemm_f32; the weights stream
+//   through a double-buffered cp.async K-tile): a warp owns 8 rows and a
+//   thread width / 32 columns, except in the forward up to width 128,
+//   where 16 threads own 8 rows and a thread width / 16 columns (8 x 8 at
+//   128: 64 FMAs a k for four 16-byte shared loads); the encoding is
+//   float32 (encode_f32) and the heads are warp reductions (HeadWeights).
+//   Shared memory is sized by the width: a row is max(width, 64) floats.
 // - bf16: every trunk product (act W, the backward's g W^T and X^T G) is
 //   bf16 x bf16 with float32 accumulation on mma.sync.m16n8k16
 //   (mma_common.cuh), as the TPU kernel's jnp.dot with
@@ -38,8 +41,7 @@
 #include <atomic>
 #include <type_traits>
 
-#include "field_common.cuh"
-#include "mma_common.cuh"
+#include "fma_common.cuh"
 
 namespace {
 
@@ -87,75 +89,114 @@ __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)
 
 // ---------------------------------------------------------------- fp32 form
 
-// act[row_i * stride + col_j] = relu(acc + bias), also written to
-// save[row_i * 32 NC + col_j] when save is given; then a barrier.
-template <int NC>
-__device__ __forceinline__ void store_relu(float (&acc)[ROWS][NC],
-                                           const float* __restrict__ bias, float* act,
-                                           int stride, float* __restrict__ save) {
-  const int lane = threadIdx.x & 31;
-  const int row0 = (threadIdx.x >> 5) * ROWS;
+// The fp32 forms' row of activations, in floats: the width, at least 64 so
+// that a row also holds the point encoding (60 columns and 4 zeros).
+__host__ __device__ constexpr int f32_ld(int width) { return width < 64 ? 64 : width; }
+
+
+// Encode rows base .. base+M-1 as encode_tile does (float32 sin/cos) with NT
+// threads: the point's into pt (row stride ld; columns 60..63 zero, so that
+// gemm_f32 may read a 64-column K-tile), and the direction's into dir (row
+// stride DIR_ENC) unless it is null. Rows at or past row_end encode x = 0.
+// Ends with a barrier.
+template <int M, int NT>
+__device__ __forceinline__ void encode_f32(RayCoord coord, const float* __restrict__ freqs,
+                                           int base, int row_end, float* pt, int ld,
+                                           float* dir) {
+  const int per_row = dir != nullptr ? 3 * (L_PT + L_DIR) : 3 * L_PT;
+  for (int idx = threadIdx.x; idx < M * per_row; idx += NT) {
+    const int r = idx / per_row, rem = idx % per_row, m = base + r;
+    const bool is_pt = rem < 3 * L_PT;
+    const int L = is_pt ? L_PT : L_DIR;
+    const int e = is_pt ? rem : rem - 3 * L_PT;
+    const int c = e / L, l = e % L;
+    const float x = m < row_end ? coord(m, c, is_pt) : 0.f;
+    const float arg = __fmul_rn(x, freqs[is_pt ? l : L_PT + l]);
+    float* out = is_pt ? pt + r * ld + c * 2 * L + 2 * l : dir + r * DIR_ENC + c * 2 * L + 2 * l;
+    out[0] = sinf(arg);
+    out[1] = cosf(arg);
+  }
+  for (int idx = threadIdx.x; idx < M * (64 - PT_ENC); idx += NT)
+    pt[(idx / (64 - PT_ENC)) * ld + PT_ENC + idx % (64 - PT_ENC)] = 0.f;
+  __syncthreads();
+}
+
+// act[row_i][col_j] = relu(acc + bias) (row stride ld) over the thread's
+// rows and columns (gemm_f32's, groups of CW threads), a group of V columns
+// a store; with `save`, also to save[row_i * CW NC + col_j] in L2 (rows
+// below `valid`). Ends with a barrier.
+template <int NC, int CW>
+__device__ __forceinline__ void put_relu_f32(const float (&acc)[ROWS][NC],
+                                             const float* __restrict__ bias, float* act, int ld,
+                                             float* __restrict__ save, int valid) {
+  constexpr int V = vec_of<NC>(), W = CW * NC;
+  const int row0 = (threadIdx.x / CW) * ROWS;
 #pragma unroll
-  for (int j = 0; j < NC; ++j) {
-    const int c = lane + 32 * j;
-    const float bj = __ldg(bias + c);
+  for (int g = 0; g < NC / V; ++g) {
+    const int c = col_of<NC, CW>(g * V);
+    float b[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) b[v] = __ldg(bias + c + v);
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
-      const float y = fmaxf(acc[i][j] + bj, 0.f);
-      act[(row0 + i) * stride + c] = y;
-      if (save != nullptr) save[(row0 + i) * 32 * NC + c] = y;
+      float y[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) y[v] = fmaxf(acc[i][g * V + v] + b[v], 0.f);
+      store_v<V>(act + (row0 + i) * ld + c, y);
+      if (save != nullptr && row0 + i < valid) store_v<V>(save + (row0 + i) * W + c, y);
     }
   }
   __syncthreads();
 }
 
-// The trunk over a tile whose point encodings are in enc_pt: h_depth-1 ends
-// in act (row stride `stride`); with `save`, h_i for i < depth - 1 is also
-// written to save + i * TILE_M * width (the backward's layer inputs).
+// The head weights and biases a lane reads in heads, loaded once for many
+// rows: w_sigma[k] and w_ch[k][c] of its columns k = lane + 32 q, and
+// w_ce[lane][c] (0 past lane 23).
 template <int NC>
-__device__ __forceinline__ void trunk_fwd(const PropParams& p, float (*enc_pt)[PT_ENC],
-                                          float* act, int stride, float* wt,
-                                          float* __restrict__ save) {
-  constexpr int W = 32 * NC;
-  float acc[ROWS][NC];
-  zero(acc);
-  gemm_segment<NC, false>(acc, &enc_pt[0][0], PT_ENC, PT_ENC, p.w[0], wt);
-  store_relu<NC>(acc, p.b[0], act, stride, save != nullptr && p.depth > 1 ? save : nullptr);
-  for (int layer = 1; layer < p.depth; ++layer) {
-    zero(acc);
-    gemm_segment<NC, false>(acc, act, stride, W, p.w[layer], wt);
-    store_relu<NC>(acc, p.b[layer], act, stride,
-                   save != nullptr && layer < p.depth - 1
-                       ? save + (size_t)layer * TILE_M * W : nullptr);
+struct HeadWeights {
+  float s[NC], ch[NC][3], ce[3], b_sigma, b_color[3];
+  __device__ explicit HeadWeights(const PropParams& p) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int q = 0; q < NC; ++q) {
+      const int k = lane + 32 * q;
+      s[q] = __ldg(p.w_sigma + k);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) ch[q][c] = __ldg(p.w_color + 3 * (DIR_ENC + k) + c);
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      ce[c] = lane < DIR_ENC ? __ldg(p.w_color + 3 * lane + c) : 0.f;
+      b_color[c] = __ldg(p.b_color + c);
+    }
+    b_sigma = __ldg(p.b_sigma);
   }
-}
+};
 
 // One row's heads, summed over a warp (every lane gets the sums): h is the
 // row's last hidden layer, dir_enc its float32 direction encoding.
 // sigma_pre = h . w_sigma + b_sigma; x[c] = enc_dir . w_ce[:, c] + h .
 // w_ch[:, c] + b_color[c], the TPU kernel's order.
 template <int NC>
-__device__ __forceinline__ void heads(const PropParams& p, const float* h,
+__device__ __forceinline__ void heads(const HeadWeights<NC>& hw, const float* h,
                                       const float* dir_enc, float& sigma_pre, float (&x)[3]) {
   const int lane = threadIdx.x & 31;
   float s = 0.f, vh[3] = {0.f, 0.f, 0.f}, vd[3] = {0.f, 0.f, 0.f};
 #pragma unroll
   for (int q = 0; q < NC; ++q) {
-    const int k = lane + 32 * q;
-    const float hk = h[k];
-    s = fmaf(hk, __ldg(p.w_sigma + k), s);
+    const float hk = h[lane + 32 * q];
+    s = fmaf(hk, hw.s[q], s);
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      vh[c] = fmaf(hk, __ldg(p.w_color + 3 * (DIR_ENC + k) + c), vh[c]);
+    for (int c = 0; c < 3; ++c) vh[c] = fmaf(hk, hw.ch[q][c], vh[c]);
   }
   if (lane < DIR_ENC) {
     const float e = dir_enc[lane];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) vd[c] = e * __ldg(p.w_color + 3 * lane + c);
+    for (int c = 0; c < 3; ++c) vd[c] = e * hw.ce[c];
   }
-  sigma_pre = warp_sum(s) + __ldg(p.b_sigma);
+  sigma_pre = warp_sum(s) + hw.b_sigma;
 #pragma unroll
-  for (int c = 0; c < 3; ++c) x[c] = warp_sum(vd[c]) + warp_sum(vh[c]) + __ldg(p.b_color + c);
+  for (int c = 0; c < 3; ++c) x[c] = warp_sum(vd[c]) + warp_sum(vh[c]) + hw.b_color[c];
 }
 
 // ---------------------------------------------------------------- bf16 form

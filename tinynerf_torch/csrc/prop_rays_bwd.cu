@@ -27,11 +27,22 @@
 // one thread, added in tile order), and a last launch sums the slices'
 // partials in slice order. No atomics: two calls give bit-identical
 // results, and the weight gradients do not depend on `rays`.
-// - fp32 (float32 FMA, field_common.cuh's 64-row tile, two blocks an SM):
-//   every trunk weight transposed into the workspace first, so that the
-//   input-gradient products reuse the forward's streamed K-tile GEMM; each
-//   layer's output also goes to the block's L2 scratch, read back down the
-//   trunk.
+// - fp32 (float32 FMA on fma_common.cuh's gemm_f32: 16-row weight K-tiles
+//   double-buffered by cp.async; 128-row tiles of 512 threads up to width
+//   160, else 64-row tiles of 256, one block an SM): every trunk weight
+//   transposed into the workspace first, so that the input-gradient
+//   products g W^T stream it as the recompute streams W. A tile's
+//   activations stay in shared memory as float32, one buffer a layer where
+//   they fit, else two (128 x 4: 164 KB), each layer's output then also
+//   written to the block's spill in L2 and read back (cp.async) on the way
+//   down; each pre-activation gradient overwrites its layer's output in
+//   place. The weight gradients X^T G (wgrad_f32: 4 x 8 outputs a thread,
+//   32 FMAs a row for three 16-byte reads) go into the block's partial in
+//   L2 once per 128 rows, its earlier sums read before the FMAs so that the
+//   round trip overlaps them. The heads read their weights once a tile into
+//   registers and the tile's cotangents, which are loaded before the
+//   recompute, from shared memory; their weight gradients accumulate over
+//   the slice in registers, spread over the block's threads by row group.
 // - bf16 (the tensor cores, prop_common.cuh; 128-row tiles of 512 threads,
 //   one block an SM): the weights packed into bf16 once a call, with a
 //   transposed copy and column norms for the fix-up below. A tile's
@@ -97,31 +108,92 @@ __global__ void reduce_kernel(const float* __restrict__ slices_ws, long long str
   grads[i] = v;
 }
 
+// Phase clocks of both forms, only in a variant build (-DPROP_PHASE_CLOCKS,
+// a separate library that a measurement loads; the main path's library has
+// none of it): at each mark the block meets at a barrier and its thread 0
+// adds the clock64() cycles since the last mark to phase_clocks[block][i].
+#ifdef PROP_PHASE_CLOCKS
+constexpr int N_PHASES = 5;
+constexpr int MAX_PHASE_BLOCKS = 1024;
+__device__ long long phase_clocks[MAX_PHASE_BLOCKS * N_PHASES];
+__device__ __forceinline__ long long clock_now() {
+  long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t));
+  return t;
+}
+struct PhaseClock {
+  long long t;
+  __device__ PhaseClock() : t(clock_now()) {}
+  __device__ void mark(int i) {
+    __syncthreads();
+    if (threadIdx.x == 0 && blockIdx.x < MAX_PHASE_BLOCKS) {
+      const long long now = clock_now();
+      phase_clocks[blockIdx.x * N_PHASES + i] += now - t;
+      t = now;
+    }
+  }
+};
+#else
+struct PhaseClock {
+  __device__ void mark(int) {}
+};
+#endif
+// The phases (proposal_kernel.PHASES): the bf16 form's slot 1 is its
+// fix-up, the fp32 form's the heads (their forward, their weight gradients
+// and the gradient into the last hidden layer).
+enum { PH_RECOMPUTE, PH_FIXUP, PH_INPUT_GRADS, PH_WEIGHT_GRADS, PH_RAYS };
+constexpr int PH_HEADS = PH_FIXUP;
+
 // ---------------------------------------------------------------- fp32 form
 
-template <int NC>
-struct BwdSmem {
-  static constexpr int W = 32 * NC;
-  static constexpr int XS = W < 64 ? 64 : W;  // x also holds g_enc_pt (60 wide)
-  float x[TILE_M][XS];       // a layer's input (forward: the running activation)
-  float g[TILE_M][W];        // the current pre-activation gradient
-  float enc_pt[TILE_M][PT_ENC];
-  float enc_dir[TILE_M][DIR_ENC];
-  float wt[KT * XS];         // the GEMM's K-tile (OUT = width, or 64 for layer 0's)
-  float gsig[TILE_M];        // g_sigma * sign(sigma_pre)
-  float gcol[TILE_M][4];     // g_c * c * (1 - c)
-  float dpt[TILE_M][3];      // d loss / d point
-  float ddir[TILE_M][3];     // d loss / d direction, through its encoding
-  float carry[2][6];         // a straddling ray's partial d_o, d_d, by tile parity
+// Rows a tile of the fp32 backward at NC = width / 32, with 4 threads a
+// row: 128 where two 128-row activation buffers fit in a block's shared
+// memory (width <= 160), else 64.
+__host__ __device__ constexpr int bwd_f32_rows(int nc) { return nc <= 5 ? 128 : 64; }
+
+// Shared memory of the fp32 backward at `width`, with `slots` activation
+// buffers of m rows (floats from the start, each part 16-byte aligned).
+struct BwdF32Layout {
+  int act, enc_dir, wt, heads, dpt, ddir, carry, floats;
+  __host__ __device__ BwdF32Layout(int width, int m, int slots) {
+    int o = 0;
+    auto take = [&o](int n) {
+      const int at = o;
+      o += (n + 3) / 4 * 4;
+      return at;
+    };
+    act = take(slots * m * f32_ld(width));
+    enc_dir = take(m * DIR_ENC);
+    // the K-tile stages: OUT = width, or 64 for layer 0's g W^T
+    wt = take(BWD_STAGES * BWD_KT * f32_ld(width));
+    heads = take(m * 4);  // gsig, gcol[3] a row
+    dpt = take(m * 3);
+    ddir = take(m * 3);
+    carry = take(2 * 6);
+    floats = o;
+  }
+  __host__ __device__ int bytes() const { return floats * (int)sizeof(float); }
 };
 
-// ---- the fp32 workspace: the transposed weights, then per slice its
-// scratch and its partial gradients ----
+// Activation buffers of the fp32 backward: one a layer where they fit in a
+// block's shared memory (at least two: buffer 1 also holds the point
+// encoding), else two, each layer's output then also saved to the block's
+// spill in L2 for the way down.
+inline int bwd_f32_slots(int width, int depth) {
+  const int all = depth < 2 ? 2 : depth;
+  return BwdF32Layout(width, bwd_f32_rows(width / 32), all).bytes() <= MAX_SMEM ? all : 2;
+}
+
+// Floats of a slice's spill: h_0 .. h_{depth-3}, each read back once.
+inline long long f32_spill_floats(int width, int depth) {
+  return bwd_f32_slots(width, depth) < depth
+             ? (long long)(depth - 2) * bwd_f32_rows(width / 32) * width : 0;
+}
+
+// ---- the fp32 workspace: the transposed weights, then each slice's
+// partial, then each slice's spill ----
 __host__ __device__ constexpr int transposed_offset(int layer, int width) {
   return layer == 0 ? 0 : width * 64 + (layer - 1) * width * width;
-}
-__host__ __device__ constexpr long long slice_floats(int width, int depth) {
-  return (long long)(depth - 1) * TILE_M * width + partial_floats(width, depth);
 }
 
 // wT[layer]: (width, fan_in padded to 64 for layer 0) row-major, the
@@ -137,261 +209,375 @@ __global__ void transpose_kernel(PropParams p, int width, float* __restrict__ wt
   }
 }
 
-// dw[k * W + j] += sum over the tile's rows of in[r][k] g[r][j] (k < K, j <
-// W = 32 NC) and db[j] += sum_r g[r][j], in row order: 64 x 64 output tiles,
-// 4 x 4 elements a thread, added to the block's partial (the same thread
-// owns the same elements in every tile).
-template <int NC>
-__device__ __forceinline__ void wgrad(const float* in, int in_stride, int K, const float* g,
-                                      float* __restrict__ dw, float* __restrict__ db) {
-  constexpr int W = 32 * NC;
-  constexpr int NJT = (W + 63) / 64;
+// dw[k * W + j] (+)= sum over the tile's M = NT / 4 rows of x[r][k] g[r][j]
+// (k < K, j < W = 32 NC) and db[j] (+)= sum_r g[r][j], rows ascending, one
+// FMA a term; x and g in shared memory (row stride ld). With `first` (the
+// slice's first tile) the sums are written, else added to what is there:
+// each element is owned by one thread, added in tile order. Thread (tx, ty)
+// = (t % 16, t / 16) holds, of each (NT / 4) x 128 output tile, k in 4 ty
+// .. +3 and j in 4 tx .. +3, 64 + 4 tx .. +3: one 16-byte read of x and two
+// of g a row for 32 FMAs. The partial's earlier sums are read before the
+// FMAs, so that the L2 round trip overlaps them. Reads shared memory only:
+// no barrier.
+template <int NC, int NT>
+__device__ __forceinline__ void wgrad_f32(const float* x, int K, const float* g, int ld,
+                                          float* __restrict__ dw, float* __restrict__ db,
+                                          bool first) {
+  constexpr int W = 32 * NC, M = NT / 4, KT_OUT = NT / 4;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int n_tiles = (K + 63) / 64 * NJT;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile / NJT * 64 + ty * 4, j0 = tile % NJT * 64 + tx * 4;
-    if (k0 >= K || j0 >= W) continue;
-    const bool bias = k0 == 0;
-    float acc[4][4], bsum[4];
+  const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int k_base = 0; k_base < K; k_base += KT_OUT)
+    for (int j_base = 0; j_base < W; j_base += 128) {
+      const int k0 = k_base + 4 * ty, j0 = j_base + 4 * tx;
+      if (k0 >= K || j0 >= W) continue;
+      const bool hi = j0 + 64 < W, bias = k0 == 0;
+      float4 old[4][2], ob[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      bsum[i] = 0.f;
+      for (int i = 0; i < 4; ++i) {
+        const float4* row = reinterpret_cast<const float4*>(dw + (size_t)(k0 + i) * W + j0);
+        old[i][0] = first ? z4 : __ldcg(row);
+        old[i][1] = first || !hi ? z4 : __ldcg(row + 16);
+      }
+      ob[0] = first || !bias ? z4 : __ldcg(reinterpret_cast<const float4*>(db + j0));
+      ob[1] = first || !bias || !hi ? z4 : __ldcg(reinterpret_cast<const float4*>(db + j0 + 64));
+      float acc[4][8], bs[8];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    }
+      for (int j = 0; j < 8; ++j) {
+        bs[j] = 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][j] = 0.f;
+      }
 #pragma unroll 4
-    for (int r = 0; r < TILE_M; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(in + r * in_stride + k0);
-      const float4 gv = *reinterpret_cast<const float4*>(g + r * W + j0);
-      const float av[4] = {a.x, a.y, a.z, a.w}, gg[4] = {gv.x, gv.y, gv.z, gv.w};
+      for (int r = 0; r < M; ++r) {
+        float a[4], gv[8];
+        load_v<4>(a, x + r * ld + k0);
+        load_v<4>(gv, g + r * ld + j0);
+        if (hi) {
+          load_v<4>(gv + 4, g + r * ld + j0 + 64);
+        } else {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+          for (int j = 4; j < 8; ++j) gv[j] = 0.f;
+        }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], gg[j], acc[i][j]);
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], gv[j], acc[i][j]);
+        if (bias) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) bs[j] += gv[j];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float4* row = reinterpret_cast<float4*>(dw + (size_t)(k0 + i) * W + j0);
+        row[0] = make_float4(old[i][0].x + acc[i][0], old[i][0].y + acc[i][1],
+                             old[i][0].z + acc[i][2], old[i][0].w + acc[i][3]);
+        if (hi)
+          row[16] = make_float4(old[i][1].x + acc[i][4], old[i][1].y + acc[i][5],
+                                old[i][1].z + acc[i][6], old[i][1].w + acc[i][7]);
+      }
       if (bias) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bsum[j] += gg[j];
+        float4* row = reinterpret_cast<float4*>(db + j0);
+        row[0] = make_float4(ob[0].x + bs[0], ob[0].y + bs[1], ob[0].z + bs[2], ob[0].w + bs[3]);
+        if (hi)
+          row[16] =
+              make_float4(ob[1].x + bs[4], ob[1].y + bs[5], ob[1].z + bs[6], ob[1].w + bs[7]);
       }
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float4* row = reinterpret_cast<float4*>(dw + (size_t)(k0 + i) * W + j0);
-      float4 v = __ldcg(row);
-      v.x += acc[i][0]; v.y += acc[i][1]; v.z += acc[i][2]; v.w += acc[i][3];
-      *row = v;
-    }
-    if (bias) {
-      float4* row = reinterpret_cast<float4*>(db + j0);
-      float4 v = __ldcg(row);
-      v.x += bsum[0]; v.y += bsum[1]; v.z += bsum[2]; v.w += bsum[3];
-      *row = v;
-    }
-  }
 }
 
+// x[row_i][col_j] = acc if x[row_i][col_j] > 0, else 0 (row stride ld;
+// gemm_f32's rows and columns): a layer's pre-activation gradient in place
+// of its output h, masked by h's ReLU. Ends with a barrier.
 template <int NC>
-__global__ void __launch_bounds__(THREADS, 2)
+__device__ __forceinline__ void put_grad_f32(const float (&acc)[ROWS][NC], float* x, int ld) {
+  constexpr int V = vec_of<NC>();
+  const int row0 = (threadIdx.x >> 5) * ROWS;
+#pragma unroll
+  for (int g = 0; g < NC / V; ++g) {
+    const int c = col_of<NC>(g * V);
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      float* at = x + (row0 + i) * ld + c;
+      float h[V];
+      load_v<V>(h, at);
+#pragma unroll
+      for (int v = 0; v < V; ++v) h[v] = h[v] > 0.f ? acc[i][g * V + v] : 0.f;
+      store_v<V>(at, h);
+    }
+  }
+  __syncthreads();
+}
+
+// The fp32 recompute backward: one block a slice of whole rays, taken tile
+// by tile (M rows, 4 M threads). Per tile: the encoding and the trunk
+// recomputed on gemm_f32 (layer l's output in activation buffer slot(l);
+// with a spill, also to L2), the heads' forward and gradients, then down
+// the trunk per layer: its weight gradients into the slice's partial
+// (wgrad_f32), then g_{l-1} = relu'(h_{l-1}) (g_l W_l^T) on gemm_f32 with
+// the transposed weights, in place of h_{l-1}; at layer 0 the point
+// encoding is recomputed into buffer 1, where the recompute read it.
+template <int NC>
+__global__ void __launch_bounds__(4 * bwd_f32_rows(NC), 1)
 prop_rays_bwd_kernel(const float* __restrict__ origins, const float* __restrict__ dirs,
                      const float* __restrict__ ts, const float* __restrict__ g_sigma,
                      const float* __restrict__ g_r, const float* __restrict__ g_g,
                      const float* __restrict__ g_b, PropParams p,
-                     const float* __restrict__ wt, float* __restrict__ slices_ws,
-                     float* __restrict__ d_o, float* __restrict__ d_d,
-                     float* __restrict__ d_ts, int n_samples, int n_rays,
-                     int rays_per_slice, int rays) {
-  constexpr int W = 32 * NC;
-  using Smem = BwdSmem<NC>;
-  constexpr int XS = Smem::XS;
-  extern __shared__ float4 smem_raw[];
-  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
-  const int tid = threadIdx.x, lane = tid & 31, row0 = (tid >> 5) * ROWS;
+                     const float* __restrict__ w_t, float* __restrict__ partials,
+                     float* __restrict__ spill_ws, float* __restrict__ d_o,
+                     float* __restrict__ d_d, float* __restrict__ d_ts, int n_samples,
+                     int n_rays, int rays_per_slice, int slots, int rays) {
+  constexpr int W = 32 * NC, M = bwd_f32_rows(NC), NT = 4 * M, LD = f32_ld(W);
+  // the heads' small gradients (w_ce, b_sigma, b_color) and their row groups
+  constexpr int N_SMALL = 3 * DIR_ENC + 4, SMALL_GROUPS = NT / N_SMALL;
   const int depth = p.depth;
+  const bool spill = slots < depth;
+  const BwdF32Layout lay(W, M, slots);
+  extern __shared__ float4 smem_raw[];
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  float* act = sm + lay.act;
+  float* enc_dir = sm + lay.enc_dir;
+  float* wt = sm + lay.wt;
+  float(*hd)[4] = reinterpret_cast<float(*)[4]>(sm + lay.heads);  // gsig, gcol[3]
+  float(*dpt)[3] = reinterpret_cast<float(*)[3]>(sm + lay.dpt);
+  float(*ddir)[3] = reinterpret_cast<float(*)[3]>(sm + lay.ddir);
+  float(*carry)[6] = reinterpret_cast<float(*)[6]>(sm + lay.carry);
+  // layer i's activation (then its pre-activation gradient)
+  auto slot = [&](int i) { return act + (size_t)(spill ? (i & 1) : i) * M * LD; };
+  float* enc_pt = act + (size_t)M * LD;  // buffer 1, free while layer 0 reads it
+
+  const int tid = threadIdx.x, lane = tid & 31, row0 = (tid >> 5) * ROWS;
   const int r0 = blockIdx.x * rays_per_slice, r1 = min(r0 + rays_per_slice, n_rays);
   const int row_begin = r0 * n_samples, row_end = r1 * n_samples;
-  float* scratch = slices_ws + (size_t)blockIdx.x * slice_floats(W, depth);
-  float* partial = scratch + (size_t)(depth - 1) * TILE_M * W;
-  const int off_sigma = sigma_offset(W, depth), off_color = color_offset(W, depth);
+  float* partial = partials + (size_t)blockIdx.x * partial_floats(W, depth);
+  float* scratch = spill ? spill_ws + (size_t)blockIdx.x * (depth - 2) * M * W : nullptr;
+  const RayCoord coord{origins, dirs, ts, n_samples};
 
-  for (int idx = tid; idx < grad_floats(W, depth); idx += THREADS) partial[idx] = 0.f;
-  // the heads' weight gradients, owned by thread: w_sigma[tid], w_ch[tid][c]
-  // (tid < W); w_ce as flat index tid (< 72), b_sigma (72), b_color (73..75)
+  // the heads' weight gradients over the slice: thread tid < groups * W owns
+  // w_sigma[k] and w_ch[k][c] of column k = tid % W over the tile rows of
+  // group tid / W; thread tid < SMALL_GROUPS * N_SMALL owns entry e = tid %
+  // N_SMALL (w_ce's flat index e < 72, b_sigma 72, b_color 73..75) over the
+  // tile rows of small group tid / N_SMALL; the groups are summed in order
+  // at the end
+  const int groups = NT / W, col = tid % W, group = tid / W;
+  const int g_lo = group * M / groups, g_hi = (group + 1) * M / groups;
+  const int e_small = tid % N_SMALL, s_group = tid / N_SMALL;
+  const int s_lo = s_group * M / SMALL_GROUPS, s_hi = (s_group + 1) * M / SMALL_GROUPS;
   float a_sigma = 0.f, a_ch[3] = {0.f, 0.f, 0.f}, a_small = 0.f;
-  __syncthreads();
+  PhaseClock clk;
 
   int par = 0;
-  for (int base = row_begin; base < row_end; base += TILE_M, par ^= 1) {
-    const int valid = min(TILE_M, row_end - base);
+  bool first = true;
+  for (int base = row_begin; base < row_end; base += M, par ^= 1, first = false) {
+    const int valid = min(M, row_end - base);
+    // the tile's cotangents, thread 4 r + o row r's of output o (sigma, r,
+    // g, b), read now and stored to hd after the recompute
+    float cot = 0.f;
+    if (tid / 4 < valid) {
+      const int o = tid & 3;
+      cot = (o == 0 ? g_sigma : o == 1 ? g_r : o == 2 ? g_g : g_b)[base + tid / 4];
+    }
 
     // ================= recompute the forward =================
-    encode_tile(RayCoord{origins, dirs, ts, n_samples}, p.freqs, base, row_end, s.enc_pt,
-                s.enc_dir);
-    trunk_fwd<NC>(p, s.enc_pt, &s.x[0][0], XS, s.wt, scratch);
-    for (int i = 0; i < ROWS; ++i) {
-      const int r = row0 + i, m = base + r;
-      float sigma_pre, x[3];
-      heads<NC>(p, s.x[r], s.enc_dir[r], sigma_pre, x);
-      if (lane == 0) {
-        const bool ok = r < valid;
-        const float sgn = sigma_pre > 0.f ? 1.f : (sigma_pre < 0.f ? -1.f : 0.f);
-        s.gsig[r] = ok ? g_sigma[m] * sgn : 0.f;
+    encode_f32<M, NT>(coord, p.freqs, base, row_end, enc_pt, LD, enc_dir);
+    for (int layer = 0; layer < depth; ++layer) {
+      float acc[ROWS][NC];
+      zero(acc);
+      gemm_f32<NC, NT>(acc, layer == 0 ? enc_pt : slot(layer - 1), LD,
+                       layer == 0 ? PT_ENC : W, p.w[layer], wt, valid);
+      put_relu_f32<NC, 32>(acc, p.b[layer], slot(layer), LD,
+                       spill && layer + 3 <= depth ? scratch + (size_t)layer * M * W : nullptr,
+                       valid);
+    }
+    (&hd[0][0])[tid] = cot;
+    __syncthreads();
+    clk.mark(PH_RECOMPUTE);
+
+    // ================= the heads =================
+    // sigma = |pre|: its gradient g_sigma sign(pre) (sign(0) = 0); color =
+    // sigmoid(x): its gradient g_c c (1 - c)
+    float* h = slot(depth - 1);
+    {
+      const HeadWeights<NC> hw(p);
+      for (int r = tid >> 5; r < M; r += NT / 32) {
+        float sigma_pre, x[3];
+        heads<NC>(hw, h + r * LD, enc_dir + r * DIR_ENC, sigma_pre, x);
+        if (lane == 0) {  // rows past `valid` have zero cotangents
+          const float sgn = sigma_pre > 0.f ? 1.f : (sigma_pre < 0.f ? -1.f : 0.f);
+          hd[r][0] = hd[r][0] * sgn;
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const float y = sigmoid(x[c]);
-          const float* gin = c == 0 ? g_r : c == 1 ? g_g : g_b;
-          s.gcol[r][c] = ok ? (gin[m] * y) * (1.f - y) : 0.f;
+          for (int c = 0; c < 3; ++c) {
+            const float y = sigmoid(x[c]);
+            hd[r][1 + c] = (hd[r][1 + c] * y) * (1.f - y);
+          }
         }
       }
     }
     __syncthreads();
-
-    // ================= the heads' weight gradients =================
-    if (tid < W) {
-      for (int r = 0; r < TILE_M; ++r) {
-        const float h = s.x[r][tid];
-        a_sigma += h * s.gsig[r];
+    if (group < groups) {
+      for (int r = g_lo; r < g_hi; ++r) {
+        const float hk = h[r * LD + col];
+        a_sigma = fmaf(hk, hd[r][0], a_sigma);
 #pragma unroll
-        for (int c = 0; c < 3; ++c) a_ch[c] += h * s.gcol[r][c];
+        for (int c = 0; c < 3; ++c) a_ch[c] = fmaf(hk, hd[r][1 + c], a_ch[c]);
       }
     }
-    if (tid < 3 * DIR_ENC) {
-      const int e = tid / 3, c = tid % 3;
-      for (int r = 0; r < TILE_M; ++r) a_small += s.enc_dir[r][e] * s.gcol[r][c];
-    } else if (tid == 3 * DIR_ENC) {
-      for (int r = 0; r < TILE_M; ++r) a_small += s.gsig[r];
-    } else if (tid < 3 * DIR_ENC + 4) {
-      for (int r = 0; r < TILE_M; ++r) a_small += s.gcol[r][tid - 3 * DIR_ENC - 1];
+    if (s_group < SMALL_GROUPS) {
+      if (e_small < 3 * DIR_ENC) {
+        const int e = e_small / 3, c = e_small % 3;
+        for (int r = s_lo; r < s_hi; ++r)
+          a_small = fmaf(enc_dir[r * DIR_ENC + e], hd[r][1 + c], a_small);
+      } else {
+        for (int r = s_lo; r < s_hi; ++r) a_small += hd[r][e_small - 3 * DIR_ENC];
+      }
     }
-
+    __syncthreads();  // h is read; its gradient overwrites it
     // into the last hidden layer: gs w_sigma + sum_c gc w_ch[:, c], then relu'
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int k = lane + 32 * j;
-      const float ws = __ldg(p.w_sigma + k);
-      const float w0 = __ldg(p.w_color + 3 * (DIR_ENC + k)),
-                  w1 = __ldg(p.w_color + 3 * (DIR_ENC + k) + 1),
-                  w2 = __ldg(p.w_color + 3 * (DIR_ENC + k) + 2);
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        const int r = row0 + i;
-        float v = s.gsig[r] * ws;
-        v += s.gcol[r][0] * w0;
-        v += s.gcol[r][1] * w1;
-        v += s.gcol[r][2] * w2;
-        s.g[r][k] = s.x[r][k] > 0.f ? v : 0.f;
+    if (group < groups) {
+      const float ws = __ldg(p.w_sigma + col);
+      const float w0 = __ldg(p.w_color + 3 * (DIR_ENC + col)),
+                  w1 = __ldg(p.w_color + 3 * (DIR_ENC + col) + 1),
+                  w2 = __ldg(p.w_color + 3 * (DIR_ENC + col) + 2);
+      for (int r = group; r < M; r += groups) {
+        float v = hd[r][0] * ws;
+        v += hd[r][1] * w0;
+        v += hd[r][2] * w1;
+        v += hd[r][3] * w2;
+        float& a = h[r * LD + col];
+        a = a > 0.f ? v : 0.f;
       }
     }
     __syncthreads();
+    clk.mark(PH_HEADS);
 
     // ================= down the trunk =================
     for (int layer = depth - 1; layer >= 0; --layer) {
-      float* dw = partial + trunk_offset(layer, W);
-      if (layer > 0) {
-        // the layer's input h_{layer-1}, written by this block this tile
-        const float4* src =
-            reinterpret_cast<const float4*>(scratch + (size_t)(layer - 1) * TILE_M * W);
-        for (int idx = tid; idx < TILE_M * W / 4; idx += THREADS)
-          *reinterpret_cast<float4*>(&s.x[idx / (W / 4)][4 * (idx % (W / 4))]) = __ldcg(src + idx);
+      float* g = slot(layer);
+      float* x = layer == 0 ? enc_pt : slot(layer - 1);
+      const int K = layer == 0 ? PT_ENC : W;
+      if (layer == 0) {
+        encode_f32<M, NT>(coord, p.freqs, base, row_end, enc_pt, LD, nullptr);
+      } else if (spill && layer <= depth - 2) {
+        // h_{layer-1} back from the spill, rows past `valid` zero
+        const float* src = scratch + (size_t)(layer - 1) * M * W;
+        for (int i = tid; i < M * W / 4; i += NT) {
+          const int r = i / (W / 4);
+          cp_async16(x + r * LD + 4 * (i % (W / 4)), src + 4 * (r < valid ? i : 0), r < valid);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
         __syncthreads();
-        wgrad<NC>(&s.x[0][0], XS, W, &s.g[0][0], dw, dw + W * W);
+      }
+      float* dw = partial + trunk_offset(layer, W);
+      wgrad_f32<NC, NT>(x, K, g, LD, dw, dw + K * W, first);
+      clk.mark(PH_WEIGHT_GRADS);
+      if (layer > 0) {
+        // g_{layer-1} = relu'(h_{layer-1}) (g_layer W^T), in place of h_{layer-1}
         float acc[ROWS][NC];
         zero(acc);
-        gemm_segment<NC, false>(acc, &s.g[0][0], W, W, wt + transposed_offset(layer, W), s.wt);
+        gemm_f32<NC, NT>(acc, g, LD, W, w_t + transposed_offset(layer, W), wt, valid);
+        put_grad_f32<NC>(acc, x, LD);
+        clk.mark(PH_INPUT_GRADS);
+      } else if (rays) {
+        // g_enc_pt = g_0 W_0^T (64 columns, the last 4 zero), in place of g_0
+        float acc[ROWS][2];
+        zero(acc);
+        gemm_f32<2, NT>(acc, g, LD, W, w_t, wt, valid);
 #pragma unroll
-        for (int j = 0; j < NC; ++j)
-#pragma unroll
-          for (int i = 0; i < ROWS; ++i) {
-            const int r = row0 + i, c = lane + 32 * j;
-            s.g[r][c] = s.x[r][c] > 0.f ? acc[i][j] : 0.f;
-          }
-      } else {
-        wgrad<NC>(&s.enc_pt[0][0], PT_ENC, PT_ENC, &s.g[0][0], dw, dw + PT_ENC * W);
-        if (rays) {
-          float acc2[ROWS][2];
-          zero(acc2);
-          gemm_segment<2, false>(acc2, &s.g[0][0], W, W, wt, s.wt);
-#pragma unroll
-          for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const int c = lane + 32 * j;
-              if (c < PT_ENC) s.x[row0 + i][c] = acc2[i][j];  // g_enc_pt
-            }
-        }
+        for (int i = 0; i < ROWS; ++i) store_v<2>(g + (row0 + i) * LD + col_of<2>(0), acc[i]);
+        __syncthreads();
+        clk.mark(PH_INPUT_GRADS);
       }
-      __syncthreads();
     }
+    __syncthreads();  // the next tile's encoding overwrites what layer 0 read
     if (!rays) continue;
 
     // through the encoding (float32 sin/cos): d x_c = sum_l f_l (g_sin cos - g_cos sin)
-    for (int idx = tid; idx < TILE_M * 3; idx += THREADS) {
+    const float* genc = slot(0);
+    for (int idx = tid; idx < M * 3; idx += NT) {
       const int r = idx / 3, c = idx % 3;
       float dp = 0.f, dd = 0.f;
 #pragma unroll
       for (int l = 0; l < L_PT; ++l) {
-        const int k = c * 2 * L_PT + 2 * l;
-        const float g = __fsub_rn(__fmul_rn(s.x[r][k], s.enc_pt[r][k + 1]),
-                                  __fmul_rn(s.x[r][k + 1], s.enc_pt[r][k]));
-        dp = fmaf(g, p.freqs[l], dp);
+        const int k = r * LD + c * 2 * L_PT + 2 * l;
+        const float gl = __fsub_rn(__fmul_rn(genc[k], enc_pt[k + 1]),
+                                   __fmul_rn(genc[k + 1], enc_pt[k]));
+        dp = fmaf(gl, p.freqs[l], dp);
       }
 #pragma unroll
       for (int l = 0; l < L_DIR; ++l) {
         const int k = c * 2 * L_DIR + 2 * l;
-        float gs = s.gcol[r][0] * __ldg(p.w_color + 3 * k);
-        gs += s.gcol[r][1] * __ldg(p.w_color + 3 * k + 1);
-        gs += s.gcol[r][2] * __ldg(p.w_color + 3 * k + 2);
-        float gc = s.gcol[r][0] * __ldg(p.w_color + 3 * (k + 1));
-        gc += s.gcol[r][1] * __ldg(p.w_color + 3 * (k + 1) + 1);
-        gc += s.gcol[r][2] * __ldg(p.w_color + 3 * (k + 1) + 2);
-        const float g = __fsub_rn(__fmul_rn(gs, s.enc_dir[r][k + 1]),
-                                  __fmul_rn(gc, s.enc_dir[r][k]));
-        dd = fmaf(g, p.freqs[L_PT + l], dd);
+        float gs = hd[r][1] * __ldg(p.w_color + 3 * k);
+        gs += hd[r][2] * __ldg(p.w_color + 3 * k + 1);
+        gs += hd[r][3] * __ldg(p.w_color + 3 * k + 2);
+        float gc = hd[r][1] * __ldg(p.w_color + 3 * (k + 1));
+        gc += hd[r][2] * __ldg(p.w_color + 3 * (k + 1) + 1);
+        gc += hd[r][3] * __ldg(p.w_color + 3 * (k + 1) + 2);
+        const float gl = __fsub_rn(__fmul_rn(gs, enc_dir[r * DIR_ENC + k + 1]),
+                                   __fmul_rn(gc, enc_dir[r * DIR_ENC + k]));
+        dd = fmaf(gl, p.freqs[L_PT + l], dd);
       }
-      s.dpt[r][c] = dp;
-      s.ddir[r][c] = dd;
+      dpt[r][c] = dp;
+      ddir[r][c] = dd;
     }
     __syncthreads();
 
     // to the ray: d_ts = d_pts . d; per-ray sums in sample order, a ray that
     // began in the previous tile continuing from its carried sums
-    for (int r = tid; r < valid; r += THREADS) {
+    for (int r = tid; r < valid; r += NT) {
       const int m = base + r, ray = m / n_samples;
-      float v = s.dpt[r][0] * dirs[3 * ray];
-      v += s.dpt[r][1] * dirs[3 * ray + 1];
-      v += s.dpt[r][2] * dirs[3 * ray + 2];
+      float v = dpt[r][0] * dirs[3 * ray];
+      v += dpt[r][1] * dirs[3 * ray + 1];
+      v += dpt[r][2] * dirs[3 * ray + 2];
       d_ts[m] = v;
     }
     const int first_ray = base / n_samples, last_ray = (base + valid - 1) / n_samples;
-    for (int idx = tid; idx < (last_ray - first_ray + 1) * 3; idx += THREADS) {
+    for (int idx = tid; idx < (last_ray - first_ray + 1) * 3; idx += NT) {
       const int ray = first_ray + idx / 3, c = idx % 3;
       const int lo = max(base, ray * n_samples), hi = min(base + valid, (ray + 1) * n_samples);
       const bool begun = ray * n_samples < base;
-      float so = begun ? s.carry[par][c] : 0.f, sd = begun ? s.carry[par][3 + c] : 0.f;
+      float so = begun ? carry[par][c] : 0.f, sd = begun ? carry[par][3 + c] : 0.f;
       for (int m = lo; m < hi; ++m) {
-        so += s.dpt[m - base][c];
-        sd += s.dpt[m - base][c] * ts[m] + s.ddir[m - base][c];
+        so += dpt[m - base][c];
+        sd += dpt[m - base][c] * ts[m] + ddir[m - base][c];
       }
       if ((ray + 1) * n_samples <= base + valid) {
         d_o[3 * ray + c] = so;
         d_d[3 * ray + c] = sd;
       } else {
-        s.carry[par ^ 1][c] = so;
-        s.carry[par ^ 1][3 + c] = sd;
+        carry[par ^ 1][c] = so;
+        carry[par ^ 1][3 + c] = sd;
       }
     }
     __syncthreads();
+    clk.mark(PH_RAYS);
   }
 
-  if (tid < W) {
-    partial[off_sigma + tid] = a_sigma;
+  // the heads' partials: the row groups summed in group order
+  float* red = act;  // 5 NT floats: (a_sigma, a_ch) a thread, then a_small
+  red[4 * tid] = a_sigma;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) partial[off_color + 3 * (DIR_ENC + tid) + c] = a_ch[c];
+  for (int c = 0; c < 3; ++c) red[4 * tid + 1 + c] = a_ch[c];
+  red[4 * NT + tid] = a_small;
+  __syncthreads();
+  const int off_sigma = sigma_offset(W, depth), off_color = color_offset(W, depth);
+  if (tid < W) {
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int q = 0; q < groups; ++q)
+      for (int o = 0; o < 4; ++o) v[o] += red[4 * (q * W + tid) + o];
+    partial[off_sigma + tid] = v[0];
+    for (int c = 0; c < 3; ++c) partial[off_color + 3 * (DIR_ENC + tid) + c] = v[1 + c];
   }
-  if (tid < 3 * DIR_ENC)
-    partial[off_color + tid] = a_small;
-  else if (tid == 3 * DIR_ENC)
-    partial[off_sigma + W] = a_small;
-  else if (tid < 3 * DIR_ENC + 4)
-    partial[off_color + 3 * (DIR_ENC + W) + tid - 3 * DIR_ENC - 1] = a_small;
+  if (tid < N_SMALL) {
+    float v = 0.f;
+    for (int q = 0; q < SMALL_GROUPS; ++q) v += red[4 * NT + q * N_SMALL + tid];
+    if (tid < 3 * DIR_ENC)
+      partial[off_color + tid] = v;
+    else if (tid == 3 * DIR_ENC)
+      partial[off_sigma + W] = v;
+    else
+      partial[off_color + 3 * (DIR_ENC + W) + tid - 3 * DIR_ENC - 1] = v;
+  }
 }
 
 // ---------------------------------------------------------------- bf16 form
@@ -685,39 +871,6 @@ __device__ __forceinline__ void wgrad_tc(const bf16* x, int ldx, int K, int k_re
   }
 }
 
-// Phase clocks of the bf16 backward, only in a variant build
-// (-DPROP_PHASE_CLOCKS, a separate library that a measurement loads; the
-// main path's library has none of it): at each mark the block meets at a
-// barrier and its thread 0 adds the clock64() cycles since the last mark to
-// phase_clocks[block][i].
-#ifdef PROP_PHASE_CLOCKS
-constexpr int N_PHASES = 5;  // recompute, fix-up, input gradients, weight gradients, ray sums
-constexpr int MAX_PHASE_BLOCKS = 1024;
-__device__ long long phase_clocks[MAX_PHASE_BLOCKS * N_PHASES];
-__device__ __forceinline__ long long clock_now() {
-  long long t;
-  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t));
-  return t;
-}
-struct PhaseClock {
-  long long t;
-  __device__ PhaseClock() : t(clock_now()) {}
-  __device__ void mark(int i) {
-    __syncthreads();
-    if (threadIdx.x == 0 && blockIdx.x < MAX_PHASE_BLOCKS) {
-      const long long now = clock_now();
-      phase_clocks[blockIdx.x * N_PHASES + i] += now - t;
-      t = now;
-    }
-  }
-};
-#else
-struct PhaseClock {
-  __device__ void mark(int) {}
-};
-#endif
-enum { PH_RECOMPUTE, PH_FIXUP, PH_INPUT_GRADS, PH_WEIGHT_GRADS, PH_RAYS };
-
 // The record of why the fix-up is there: a variant build (-DPROP_NO_FIXUP,
 // a library of its own that only a measurement loads) keeps the tensor
 // cores' roundings.
@@ -1006,9 +1159,11 @@ inline long long spill_floats(int width, int depth) {
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block of the fp32 recompute kernel takes.
-int prop_rays_bwd_smem_bytes(int width) {
-  return dispatch(width, [&](auto nc) { return (int)sizeof(BwdSmem<decltype(nc)::value>); });
+// Bytes of dynamic shared memory one block of the fp32 recompute kernel
+// takes at width x depth.
+int prop_rays_bwd_smem_bytes(int width, int depth) {
+  if (!dims_ok(width, depth)) return 0;
+  return BwdF32Layout(width, bwd_f32_rows(width / 32), bwd_f32_slots(width, depth)).bytes();
 }
 
 // The number of ray slices for n_rays: PROP_SLOTS at most. It depends on the
@@ -1018,7 +1173,8 @@ int prop_rays_bwd_slices(int n_rays) { return std::max(1, std::min(n_rays, PROP_
 // Float32 elements of workspace prop_rays_bwd needs, in either form.
 long long prop_rays_bwd_workspace_floats(int width, int depth, int slices) {
   if (!dims_ok(width, depth) || slices <= 0) return 0;
-  return std::max((long long)transposed_offset(depth, width) + slices * slice_floats(width, depth),
+  return std::max((long long)transposed_offset(depth, width) +
+                      slices * (partial_floats(width, depth) + f32_spill_floats(width, depth)),
                   bf16_pack_floats(width, depth) +
                       slices * (partial_floats(width, depth) + spill_floats(width, depth)));
 }
@@ -1079,28 +1235,31 @@ int prop_rays_bwd(const float* origins, const float* dirs, const float* ts,
   transpose_kernel<<<dim3(32, depth), THREADS, 0, st>>>(p, width, workspace);
   if ((err = (int)cudaGetLastError()) != 0) return err;
   // ---- 2. recompute + gradients, one block a slice of whole rays ----
-  float* slices_ws = workspace + transposed_offset(depth, width);
+  float* partials = workspace + transposed_offset(depth, width);
+  float* spill = partials + slices * partial_floats(width, depth);
+  const int slots = bwd_f32_slots(width, depth);
   err = dispatch(width, [&](auto nc) {
-    constexpr int NC = decltype(nc)::value;
+    constexpr int NC = decltype(nc)::value, M = bwd_f32_rows(NC);
+    const BwdF32Layout lay(32 * NC, M, slots);
+    if (lay.bytes() > MAX_SMEM) return (int)cudaErrorInvalidValue;
     auto kernel = &prop_rays_bwd_kernel<NC>;
     static std::atomic<bool> ready[MAX_DEVICES];
     cudaError_t e = allow_smem(kernel, ready);
     if (e != cudaSuccess) return (int)e;
-    kernel<<<used, THREADS, sizeof(BwdSmem<NC>), st>>>(
-        origins, dirs, ts, g_sigma, g_r, g_g, g_b, p, workspace, slices_ws, d_o, d_d, d_ts,
-        n_samples, n_rays, rays_per_slice, rays);
+    kernel<<<used, 4 * M, lay.bytes(), st>>>(origins, dirs, ts, g_sigma, g_r, g_g, g_b, p,
+                                             workspace, partials, spill, d_o, d_d, d_ts,
+                                             n_samples, n_rays, rays_per_slice, slots, rays);
     return (int)cudaGetLastError();
   });
   if (err != 0) return err;
   // ---- 3. the slices' partials, in order ----
   reduce_kernel<<<ceil_div(n_grad, THREADS), THREADS, 0, st>>>(
-      slices_ws, slice_floats(width, depth), (long long)(depth - 1) * TILE_M * width, used,
-      n_grad, grads);
+      partials, partial_floats(width, depth), 0, used, n_grad, grads);
   return (int)cudaGetLastError();
 }
 
 #ifdef PROP_PHASE_CLOCKS
-// Copy the bf16 backward's phase clocks (MAX_PHASE_BLOCKS x N_PHASES int64)
+// Copy the backward's phase clocks (MAX_PHASE_BLOCKS x N_PHASES int64)
 // to host memory and zero them. Returns a CUDA error, or 0.
 int prop_rays_bwd_phase_clocks(long long* out) {
   const size_t bytes = sizeof(long long) * MAX_PHASE_BLOCKS * N_PHASES;

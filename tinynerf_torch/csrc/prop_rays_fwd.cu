@@ -15,12 +15,20 @@
 // float32, 115 KB packed in bf16) stay warm in L2 and stream through shared
 // memory.
 //
-// Design: one block takes 64 consecutive sample rows of the flat B*N index,
+// Design: one block takes consecutive sample rows of the flat B*N index,
 // masking the ragged end; the tile's encodings and activations stay in
 // shared memory for the whole network, and each layer's weights stream
 // through a shared K-tile.
-// - fp32: 256 threads on field_common.cuh's float32 FMA tile (FwdSmem, 103
-//   KB, two blocks an SM), a 16-row K-tile; the heads are warp reductions.
+// - fp32: 128-row tiles on fma_common.cuh's float32 FMA tile (gemm_f32:
+//   each layer's weights in 16-row K-tiles double-buffered by cp.async, a
+//   thread's columns read as 16-byte groups where the width allows): up to
+//   width 128, 256 threads, a thread 8 rows x width / 16 columns (8 x 8 at
+//   128: 16 FMAs a shared-memory load), two blocks an SM; above it 512
+//   threads, 8 rows x width / 32 columns, one block an SM. One activation
+//   buffer sized by the width (128 x max(width, 64) floats), overwritten in
+//   place layer by layer: 94 KB at 128 x 4, 176 KB at width 256. A 128-row
+//   tile streams the weights half as often a row as the 64-row one did.
+//   The heads are warp reductions.
 // - bf16: the trunk on the tensor cores (prop_common.cuh), the weights
 //   packed into bf16 once a call into the caller's `packed` buffer and
 //   streamed through a double-buffered 32-row cp.async K-tile; one bf16
@@ -33,25 +41,48 @@
 
 namespace {
 
+// Shared memory of the fp32 forward at width W: the activations (BT_M rows
+// of f32_ld(W) floats, the point encoding first), the direction's encoding,
+// then the K-tile stages.
+__host__ __device__ constexpr int fwd_f32_floats(int width) {
+  return BT_M * f32_ld(width) + BT_M * DIR_ENC + BWD_STAGES * BWD_KT * width;
+}
+
+// The fp32 forward's threads a group of 8 rows at NC = width / 32 (gemm_f32's
+// CW): 16 up to width 128, so that a thread holds 2 NC columns, else 32; and
+// its threads a block.
+__host__ __device__ constexpr int fwd_f32_cw(int nc) { return nc <= 4 ? 16 : 32; }
+__host__ __device__ constexpr int fwd_f32_threads(int nc) { return BT_M / ROWS * fwd_f32_cw(nc); }
+
 template <int NC>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(fwd_f32_threads(NC), fwd_f32_threads(NC) <= 256 ? 2 : 1)
 prop_rays_fwd_kernel(const float* __restrict__ origins, const float* __restrict__ dirs,
                      const float* __restrict__ ts, PropParams p,
                      float* __restrict__ sigma_out, float* __restrict__ r_out,
                      float* __restrict__ g_out, float* __restrict__ b_out, int n_samples,
                      int total) {
+  constexpr int W = 32 * NC, LD = f32_ld(W), CW = fwd_f32_cw(NC), TC = W / CW;
+  constexpr int NT = fwd_f32_threads(NC);
   extern __shared__ float4 smem_raw[];
-  FwdSmem& s = *reinterpret_cast<FwdSmem*>(smem_raw);
-  const int base = blockIdx.x * TILE_M;
-  encode_tile(RayCoord{origins, dirs, ts, n_samples}, p.freqs, base, total, s.enc_pt,
-              s.enc_dir);
-  trunk_fwd<NC>(p, s.enc_pt, &s.act[0][0], WIDTH, s.wt, nullptr);
+  float* act = reinterpret_cast<float*>(smem_raw);
+  float* enc_dir = act + BT_M * LD;
+  float* wt = enc_dir + BT_M * DIR_ENC;
+  const int base = blockIdx.x * BT_M, valid = min(BT_M, total - base);
+  encode_f32<BT_M, NT>(RayCoord{origins, dirs, ts, n_samples}, p.freqs, base, total, act, LD,
+                       enc_dir);
+  for (int layer = 0; layer < p.depth; ++layer) {
+    float acc[ROWS][TC];
+    zero(acc);
+    // the product ends with a barrier, so its output may overwrite its input
+    gemm_f32<TC, NT, CW>(acc, act, LD, layer == 0 ? PT_ENC : W, p.w[layer], wt, valid);
+    put_relu_f32<TC, CW>(acc, p.b[layer], act, LD, nullptr, 0);
+  }
   const int lane = threadIdx.x & 31;
-  const int row0 = (threadIdx.x >> 5) * ROWS;
-  for (int i = 0; i < ROWS; ++i) {
-    const int r = row0 + i, m = base + r;
+  const HeadWeights<NC> hw(p);
+  for (int r = threadIdx.x >> 5; r < BT_M; r += NT / 32) {
+    const int m = base + r;
     float sigma_pre, x[3];
-    heads<NC>(p, s.act[r], s.enc_dir[r], sigma_pre, x);
+    heads<NC>(hw, act + r * LD, enc_dir + r * DIR_ENC, sigma_pre, x);
     if (lane == 0 && m < total) {
       sigma_out[m] = fabsf(sigma_pre);
       r_out[m] = sigmoid(x[0]);
@@ -123,8 +154,10 @@ prop_rays_fwd_tc_kernel(const float* __restrict__ origins, const float* __restri
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block of the fp32 form takes.
-int prop_rays_fwd_smem_bytes() { return (int)sizeof(FwdSmem); }
+// Bytes of dynamic shared memory one block of the fp32 form takes at `width`.
+int prop_rays_fwd_smem_bytes(int width) {
+  return dims_ok(width, 1) ? fwd_f32_floats(width) * (int)sizeof(float) : 0;
+}
 
 // bf16 elements of the `packed` buffer the bf16 form takes.
 long long prop_packed_weights_elems(int width, int depth) {
@@ -146,7 +179,7 @@ int prop_rays_fwd(const float* origins, const float* dirs, const float* ts,
   PropParams p = unpack_prop(params, depth);
   const long long total = (long long)n_rays * n_samples;
   if (total <= 0) return 0;
-  if (total > 0x7fffffffLL - TILE_M) return (int)cudaErrorInvalidValue;
+  if (total > 0x7fffffffLL - BT_M) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {
     if (packed == nullptr) return (int)cudaErrorInvalidValue;
@@ -169,8 +202,9 @@ int prop_rays_fwd(const float* origins, const float* dirs, const float* ts,
     static std::atomic<bool> ready[MAX_DEVICES];
     cudaError_t err = allow_smem(kernel, ready);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<(int)((total + TILE_M - 1) / TILE_M), THREADS, sizeof(FwdSmem), st>>>(
-        origins, dirs, ts, p, sigma, r, g, b, n_samples, (int)total);
+    kernel<<<(int)((total + BT_M - 1) / BT_M), fwd_f32_threads(decltype(nc)::value),
+             fwd_f32_floats(width) * sizeof(float), st>>>(origins, dirs, ts, p, sigma, r, g, b,
+                                                           n_samples, (int)total);
     return (int)cudaGetLastError();
   });
 }

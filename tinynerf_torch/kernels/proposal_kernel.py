@@ -186,7 +186,11 @@ def prop_rays_bwd_plain(params: Params, origins: torch.Tensor, dirs: torch.Tenso
 PHASE_DEFINES = ("PROP_PHASE_CLOCKS",)
 # the bf16 backward without its fix-up (a measurement's: what it is for)
 NO_FIXUP_DEFINES = ("PROP_NO_FIXUP",)
-PHASES = ("recompute", "fix-up", "input gradients", "weight gradients", "ray sums")
+# the phases of each form, in the variant's slot order: the fp32 form has no
+# fix-up, and counts the heads there (their forward, their weight gradients
+# and the gradient into the last hidden layer)
+PHASES = {"bf16": ("recompute", "fix-up", "input gradients", "weight gradients", "ray sums"),
+          "fp32": ("recompute", "heads", "input gradients", "weight gradients", "ray sums")}
 PHASE_BLOCKS = 1024   # blocks the variant counts (MAX_PHASE_BLOCKS, csrc/prop_rays_bwd.cu)
 
 
@@ -198,14 +202,14 @@ def _library(source: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     if source == FWD_SOURCE:
         lib.prop_rays_fwd.argtypes = [vp] * 9 + [i32] * 5 + [vp]
         lib.prop_rays_fwd.restype = i32
-        lib.prop_rays_fwd_smem_bytes.argtypes = []
+        lib.prop_rays_fwd_smem_bytes.argtypes = [i32]
         lib.prop_rays_fwd_smem_bytes.restype = i32
         lib.prop_packed_weights_elems.argtypes = [i32, i32]
         lib.prop_packed_weights_elems.restype = i64
     else:
         lib.prop_rays_bwd.argtypes = [vp] * 13 + [i32] * 7 + [vp]
         lib.prop_rays_bwd.restype = i32
-        lib.prop_rays_bwd_smem_bytes.argtypes = [i32]
+        lib.prop_rays_bwd_smem_bytes.argtypes = [i32, i32]
         lib.prop_rays_bwd_smem_bytes.restype = i32
         lib.prop_rays_bwd_slices.argtypes = [i32]
         lib.prop_rays_bwd_slices.restype = i32
@@ -330,17 +334,16 @@ prop_rays_bwd.launches = 0
 
 def bwd_phase_split(params: Params, origins, dirs, ts, g_sigma, g_r, g_g, g_b,
                     precision: str = "bf16", ray_grads: bool = True) -> Dict[str, float]:
-    """One launch of the bf16 backward's phase-clock variant (CUDA tensors):
-    for each of ``PHASES``, its share of the recompute kernel's summed block
-    clock cycles in that launch. A measurement, not a path: the variant
-    meets at a barrier at each phase's end, and ``prop_rays_bwd.launches``
-    does not count it."""
+    """One launch of the backward's phase-clock variant (CUDA tensors), either
+    form: for each of ``PHASES[precision]``, its share of the recompute
+    kernel's summed block clock cycles in that launch. A measurement, not a
+    path: the variant meets at a barrier at each phase's end, and
+    ``prop_rays_bwd.launches`` does not count it."""
     _check_precision(precision)
     check_dims(params)
-    if precision != "bf16":
-        raise ValueError("the phase clocks are in the bf16 form's kernel")
+    phases = PHASES[precision]
     lib = _library(BWD_SOURCE, PHASE_DEFINES)
-    clocks = (ctypes.c_longlong * (PHASE_BLOCKS * len(PHASES)))()
+    clocks = (ctypes.c_longlong * (PHASE_BLOCKS * len(phases)))()
 
     def read_clocks():  # into `clocks`, and zero them on the device
         with torch.cuda.device(origins.device):
@@ -353,10 +356,10 @@ def bwd_phase_split(params: Params, origins, dirs, ts, g_sigma, g_r, g_g, g_b,
     _launch_bwd(params, origins, dirs, ts, g_sigma, g_r, g_g, g_b, precision, ray_grads,
                 PHASE_DEFINES)
     read_clocks()
-    per_phase = [sum(clocks[b * len(PHASES) + i] for b in range(PHASE_BLOCKS))
-                 for i in range(len(PHASES))]
+    per_phase = [sum(clocks[b * len(phases) + i] for b in range(PHASE_BLOCKS))
+                 for i in range(len(phases))]
     total = max(sum(per_phase), 1)
-    return {name: c / total for name, c in zip(PHASES, per_phase)}
+    return {name: c / total for name, c in zip(phases, per_phase)}
 
 
 class _PropRays(torch.autograd.Function):
