@@ -193,7 +193,39 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
 22. renders one view of that checkpoint unfused (two kernel-1 launches a
    chunk) and with ``FUSED_RENDER`` (one kernel-9 launch a chunk, nothing
    else), both finite in [0, 1], the two within 1e-3 per pixel;
-23. prints one ``{"kernels": [...]}`` line (every kernel form) and, last,
+23. drives ``conf/lego_coarse.ini`` unchanged (bf16, 4096 rays, 64 coarse
+   samples, ``N_FINE = 0``: the coarse pass alone) from fresh seeded
+   weights on 4 views of 800x800 for 50 steps: exactly one launch each of
+   kernels 1 and 2 a step and nothing else, a finite falling loss, s/step;
+   then renders one 800x800 view from its checkpoint: kernel 1 once a chunk
+   and nothing else, a real chunk through kernel 1 against the bf16 plain
+   field (1e-3 per pixel), s/frame;
+24. drives ``conf/unbounded360.ini`` as shipped (the grid fine field at R =
+   256 under CONTRACT, LINDISP, the proposal grid, DIST_LOSS,
+   PROP_INTERLEVEL; bf16, 4096 rays) on phase 16's outward ring (4 views of
+   1008x756) for 30 steps. The JAX package runs these grids in XLA, so no
+   kernel: every wrapper at 0 launches; a finite falling loss; s/step and
+   the peak device memory of 6 steps, a profile of five; one step's
+   gradient on the card against the same step on the CPU (cosine >= 0.999
+   for each grid's lines and decoder); one 1008x756 view from its
+   checkpoint (s/frame, no launch, finite, in [0, 1]);
+25. the same for ``conf/synthetic360.ini`` unchanged (the hybrid grids at
+   R = 384 under CONTRACT and LINDISP, NEAR/FAR 1/80, bf16, 1024 rays) on
+   the same ring for 20 steps, the sigma nets' gradients checked too;
+26. the legacy field (``core/legacy.py``, plain PyTorch as the JAX package
+   runs it in XLA) from seeded params with content (the sigma bias +1), at
+   full width (543,052 params, checked): one 64x64 view of
+   ``tools/render_shipped_ckpt.py``'s orbit, one 4096-ray chunk through
+   ``eval.make_frame_fn`` at 16 + 32 samples, on the card against the CPU
+   within 1e-4 per pixel, no launch, its time;
+27. the render service (``tools/serve_render.py``) on phase 7's
+   ``lego_occ`` checkpoint: ``render_u8`` at scales 0.25 and 1, the first
+   frame at each scale (its frame function made) and 3 more timed, kernel 1
+   twice a chunk and nothing else; ``render_u8`` at one ``free_pose``
+   equal bit for bit to ``eval.make_frame_fn``'s frame at that pose;
+   ``GET /info`` over HTTP on ``127.0.0.1:0`` (a thread, shut down after),
+   its JSON checked against the checkpoint;
+28. prints one ``{"kernels": [...]}`` line (every kernel form) and, last,
    one ``{"ok": true, "device": {...}}`` line.
 
 Kernel 4 (``csrc/field_flat_bwd.cu``) is held against its plain version in
@@ -368,6 +400,16 @@ HOSTFEED_PROFILE = 5        # PROFILE_STEPS
 HOSTFEED_PSNR_DB = 0.01     # the val PSNR through kernel 9 vs the unfused renderer
 # kernel 1's and kernel 2's bf16 entry points, as the trace names them
 HOSTFEED_TRACE_NAMES = ("field_rays_fwd_kernel", "field_bwd_tc_kernel")
+# phases 23-27: the shipped configs that ran on no earlier phase, the legacy
+# field and the render service
+COARSE_STEPS = 50           # conf/lego_coarse.ini
+U360_GRID_STEPS = 30        # conf/unbounded360.ini as shipped (the grid fine field)
+S360_STEPS = 20             # conf/synthetic360.ini
+LEGACY_HW = 64              # one 64x64 view of the legacy field: one 4096-ray chunk
+LEGACY_ATOL = 1e-4          # its pixels, card vs CPU
+SERVE_SCALES = (0.25, 1.0)  # the service's frames, timed at each
+SERVE_FRAMES = 3            # steady frames timed at each scale after the first
+SERVE_VIEW = dict(theta=30.0, elev=25.0, radius=1.0)
 
 
 def phase(title: str) -> None:
@@ -1002,6 +1044,13 @@ def launched(**launches) -> dict:
     return {**{k: 0 for k in kernel_wrappers()}, **launches}
 
 
+def check_no_launches(what: str) -> None:
+    launches = launch_counts()
+    print(f"{what}: kernel launches {launches} (expected none)")
+    if any(launches.values()):
+        raise AssertionError(f"{what} launched a kernel")
+
+
 def flagship_phases(tmp: str, device: str) -> dict:
     """Phase 12b: ``conf/lego_hybrid.ini`` trained and rendered, and
     ``conf/lego_levels.ini`` and ``conf/lego_fold.ini`` trained and resumed,
@@ -1016,12 +1065,6 @@ def flagship_phases(tmp: str, device: str) -> dict:
     from tinynerf_torch.core import gridfield, render
     from tinynerf_torch.runner import Runner
     dev = torch.device(device)
-
-    def check_no_launches(what):
-        launches = launch_counts()
-        print(f"{what}: kernel launches {launches} (expected none)")
-        if any(launches.values()):
-            raise AssertionError(f"{what} launched a kernel")
 
     def grid_counts(params, conf):
         counts = tuple(gridfield.num_params(params[k]) for k in ("net", "prop"))
@@ -1496,6 +1539,388 @@ def option_phases(tmp: str, device: str) -> dict:
                                   "val_psnr_fused_db": fused_db, "val_psnr_unfused_db": plain_db,
                                   "trace_names": names},
             "launches": paths}
+
+
+def falling_losses(runner, n: int, what: str):
+    """The ``n`` logged losses: every one finite, the mean of the last 10
+    below that of the first 10. Returns (first 10's mean, last 10's)."""
+    import numpy as np
+    losses = logged_losses(runner)
+    if len(losses) != n or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{what}: {len(losses)} logged losses, not all finite")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    print(f"loss: mean of the first 10 steps {first:.4f}, of the last 10 {last:.4f} "
+          f"(step 0 {losses[0]:.4f}, step {n - 1} {losses[-1]:.4f})")
+    if not last < first:
+        raise AssertionError(f"the {what} loss did not fall")
+    return first, last
+
+
+def contracted_grid_phase(name: str, cfg, scene, device: str, keys) -> dict:
+    """A shipped config whose fields are grids under ``CONTRACT`` (the JAX
+    package runs them in XLA: no kernel on the path), trained and rendered
+    on ``device`` from fresh seeded weights: every kernel wrapper at 0
+    launches, a finite falling loss, s/step and the peak device memory of 6
+    steps, a profile of five, one step's gradient on the card against the
+    same step on the CPU (cosine >= BF16_COS for each grid's ``keys``), and
+    one view rendered from the saved checkpoint (s/frame, finite, in [0,
+    1])."""
+    import numpy as np
+    import torch
+    from tinynerf_torch import ckpt, eval as evallib, optim, train
+    from tinynerf_torch.core import gridfield
+    from tinynerf_torch.runner import Runner
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    steps = cfg.total_iter
+    runner = Runner(cfg, device=device, scene=scene)
+    counts = tuple(gridfield.num_params(runner.params[k]) for k in ("net", "prop"))
+    print(f"{cfg.precision}, BATCH_RAY {cfg.batch_ray}, {cfg.n_coarse}+{cfg.n_fine} samples, "
+          f"CONTRACT {cfg.contract}, LINDISP {cfg.lindisp}, STRATIFIED {cfg.stratified}, "
+          f"DIST_LOSS {cfg.dist_loss}, PROP_INTERLEVEL {cfg.prop_interlevel}; fine grid "
+          f"R={cfg.grid_res} {cfg.grid_comp_density}+{cfg.grid_comp_app}, width "
+          f"{cfg.grid_decoder_width}, GRID_HYBRID {cfg.grid_hybrid} ({counts[0]:,} params); "
+          f"proposal grid R={cfg.prop_grid_res} {cfg.prop_grid_comp_density}+"
+          f"{cfg.prop_grid_comp_app}, width {cfg.prop_grid_decoder_width}, PROP_GRID_HYBRID "
+          f"{cfg.prop_grid_hybrid} ({counts[1]:,} params); {scene.images.shape[0]} views of "
+          f"{scene.height}x{scene.width}, bounds {runner.train_table.poses[:, 15].min():.2f} / "
+          f"{runner.train_table.poses[:, 16].max():.1f}")
+    zero_launches()
+    sync()
+    t0 = time.perf_counter()
+    runner.train()
+    sync()
+    seconds = time.perf_counter() - t0
+    print(f"Runner.train(): {steps} steps of {cfg.batch_ray} rays in {seconds:.2f} s "
+          f"({seconds / steps * 1e3:.2f} ms/step, first steps included)")
+    check_no_launches(f"{name}, {steps} steps")
+    first, last = falling_losses(runner, steps, name)
+
+    step = train.make_train_step(cfg, runner.train_table, runner.k_inv)
+    state = runner.state
+    for _ in range(2):
+        state, _ = step(state)
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(6):
+        state, _ = step(state)
+    sync()
+    step_ms = (time.perf_counter() - t0) / 6 * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None
+    print(f"BATCH_RAY {cfg.batch_ray}: {step_ms / 1e3:.5f} s/step, "
+          f"{cfg.batch_ray / step_ms * 1e3:,.0f} rays/s; peak device memory "
+          + (f"{peak:.2f} GiB (torch.cuda.max_memory_allocated over 6 steps)" if cuda
+             else "not measured (CPU)"))
+    profile = profile_steps(step, state) if cuda else None
+    del step, state
+
+    # one step's gradient on the card against the same step on the CPU
+    to_cpu = lambda tree: optim.tree_map(lambda t: t.cpu(), tree)
+    batch = runner.train_table.sample(torch.Generator(device=dev).manual_seed(3), cfg.batch_ray)
+    _, _, g_card = train.loss_and_grads(train.make_loss_fn(cfg, runner.k_inv), runner.params,
+                                        batch)
+    t0 = time.perf_counter()
+    _, _, g_cpu = train.loss_and_grads(train.make_loss_fn(cfg, runner.k_inv.cpu()),
+                                       to_cpu(runner.params), type(batch)(*(t.cpu() for t in batch)))
+    cos = grid_part_cosines(g_card, g_cpu, keys)
+    print(f"one {cfg.precision} step, card vs CPU (the same params and batch; CPU "
+          f"{time.perf_counter() - t0:.1f} s): gradient cosines "
+          + ", ".join(f"{k} {v:.7f}" for k, v in cos.items()) + f" (limit {BF16_COS})")
+    if min(cos.values()) < BF16_COS:
+        raise AssertionError(f"the {name} gradient on the card disagrees with the CPU's")
+    it = runner.state.iteration - 1
+    ckpt.save_checkpoint(cfg.ckpt_path, "smoke", it, runner.params, runner.state.opt,
+                         generator=runner.state.generator)
+    del runner, g_card, g_cpu, batch
+
+    phase(f"render-{name} (from that checkpoint: one {scene.height}x{scene.width} view; "
+          "no kernel)")
+    cfg.continue_ = True
+    runner = Runner(cfg, device=device, scene=scene)
+    if runner.last_iter != it:
+        raise AssertionError(f"Runner did not resume the {name} checkpoint")
+    zero_launches()
+    sync()
+    t0 = time.perf_counter()
+    frames = evallib.render_test_set(cfg, runner.params, runner.test_table, runner.k_inv,
+                                     runner.start_time, runner.last_iter, save=False,
+                                     max_views=1)
+    sync()
+    frame_s = time.perf_counter() - t0
+    print(f"rendered 1 view of {scene.height}x{scene.width} from the iteration-{it} "
+          f"checkpoint: {frame_s:.3f} s/frame ({math.ceil(scene.height * scene.width / cfg.render_chunk)}"
+          f" chunks of {cfg.render_chunk} rays); frame mean {frames.mean():.4f}")
+    check_no_launches(f"the {name} render")
+    if not (frames.shape == (1, scene.height, scene.width, 3) and np.all(np.isfinite(frames))
+            and frames.min() >= 0 and frames.max() <= 1):
+        raise AssertionError(f"the {name} frame is not finite values in [0, 1]")
+    del runner
+    return {"step_ms": step_ms, "rays_per_s": cfg.batch_ray / step_ms * 1e3,
+            "train_s": seconds, "peak_memory_gib": peak, "step_profile": profile,
+            "frame_s": frame_s, "grad_cosines_card_vs_cpu": cos, "params": counts,
+            "loss_first10": first, "loss_last10": last}
+
+
+def shipped_phases(tmp: str, device: str, occ_cfg) -> dict:
+    """Phases 23-27 on ``device`` (the card; the CPU only to rehearse):
+    ``conf/lego_coarse.ini``, ``conf/unbounded360.ini`` as shipped and
+    ``conf/synthetic360.ini`` trained and rendered, the legacy field
+    (``core/legacy.py``) card vs CPU, and the render service
+    (``tools/serve_render.py``) on ``occ_cfg``'s checkpoint (phase 7's
+    ``lego_occ``). Returns the numbers of the summary line and the launches
+    by path of the kernels line."""
+    import threading
+    import urllib.request
+    import numpy as np
+    import torch
+    from tinynerf_torch import ckpt, eval as evallib, optim, train
+    from tinynerf_torch.config import Config
+    from tinynerf_torch.core import legacy, render
+    from tinynerf_torch.core.rays import make_k_inv
+    from tinynerf_torch.data import paths
+    from tinynerf_torch.kernels import mlp_kernel as mk
+    from tinynerf_torch.runner import Runner
+    from tinynerf_torch.tools import render_shipped_ckpt, serve_render
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    launches, phase_s = {}, {}
+
+    # ---- 23. conf/lego_coarse.ini: the coarse pass alone, kernels 1 and 2 ----
+    t_phase = time.perf_counter()
+    phase("train-lego_coarse-4096 (conf/lego_coarse.ini: bf16, 64 coarse samples, N_FINE = 0; "
+          "kernels 1 and 2 once a step)")
+    ccfg = run_config("lego_coarse", tmp, "coarse", COARSE_STEPS)
+    if ccfg.n_fine != 0 or ccfg.proposal or ccfg.precision != "bf16":
+        raise AssertionError("conf/lego_coarse.ini is not the bf16 coarse-only config")
+    scene = blender_scene(n_views=TRAIN_VIEWS, hw=800, seed=ccfg.seed)
+    runner = Runner(ccfg, device=device, scene=scene)
+    print(f"{ccfg.precision}, BATCH_RAY {ccfg.batch_ray}, N_COARSE {ccfg.n_coarse}, N_FINE "
+          f"{ccfg.n_fine}; {TRAIN_VIEWS} views of 800x800")
+    zero_launches()
+    sync()
+    t0 = time.perf_counter()
+    runner.train()
+    sync()
+    seconds = time.perf_counter() - t0
+    got = launch_counts()
+    print(f"Runner.train(): {COARSE_STEPS} steps of {ccfg.batch_ray} rays in {seconds:.2f} s "
+          f"({seconds / COARSE_STEPS * 1e3:.2f} ms/step, first steps included); launches {got}")
+    if got != launched(field_rays=COARSE_STEPS, field_rays_bwd=COARSE_STEPS):
+        raise AssertionError("lego_coarse did not run kernels 1 and 2 (and only them) once "
+                             "a step")
+    launches["lego_coarse train"] = got
+    coarse_losses = falling_losses(runner, COARSE_STEPS, "lego_coarse")
+    step = train.make_train_step(ccfg, runner.train_table, runner.k_inv)
+    state = runner.state
+    for _ in range(2):
+        state, _ = step(state)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(6):
+        state, _ = step(state)
+    sync()
+    coarse_ms = (time.perf_counter() - t0) / 6 * 1e3
+    print(f"BATCH_RAY {ccfg.batch_ray}: {coarse_ms / 1e3:.5f} s/step, "
+          f"{ccfg.batch_ray / coarse_ms * 1e3:,.0f} rays/s")
+    coarse_iter = runner.state.iteration - 1
+    ckpt.save_checkpoint(ccfg.ckpt_path, "smoke", coarse_iter, runner.params, runner.state.opt,
+                         generator=runner.state.generator)
+    del runner, state, step
+
+    phase("render-lego_coarse-800 (from that checkpoint: one 800x800 view, kernel 1 once a "
+          "chunk)")
+    ccfg.continue_ = True
+    scene = blender_scene(n_views=1, hw=800, seed=ccfg.seed)
+    runner = Runner(ccfg, device=device, scene=scene)
+    if runner.last_iter != coarse_iter:
+        raise AssertionError("Runner did not resume the lego_coarse checkpoint")
+    n_pix = scene.height * scene.width
+    chunks = math.ceil(n_pix / ccfg.render_chunk)
+    zero_launches()
+    sync()
+    t0 = time.perf_counter()
+    frames = evallib.render_test_set(ccfg, runner.params, runner.test_table, runner.k_inv,
+                                     runner.start_time, runner.last_iter, save=False)
+    sync()
+    coarse_frame_s = time.perf_counter() - t0
+    got = launch_counts()
+    print(f"rendered 1 view of 800x800: {coarse_frame_s:.3f} s/frame; launches {got} "
+          f"(expected kernel 1 once a chunk, {chunks})")
+    if got != launched(field_rays=chunks):
+        raise AssertionError("the lego_coarse render did not run kernel 1 (and only it) once "
+                             "a chunk")
+    launches["lego_coarse render"] = got
+    if not (np.all(np.isfinite(frames)) and frames.min() >= 0 and frames.max() <= 1):
+        raise AssertionError("the lego_coarse frame is not finite values in [0, 1]")
+    with torch.no_grad():
+        idx = torch.arange(n_pix, device=dev)[(chunks // 2) * ccfg.render_chunk:
+                                              (chunks // 2 + 1) * ccfg.render_chunk]
+        args = ((idx // scene.width).float(), (idx % scene.width).float(),
+                runner.test_table.poses[0].expand(idx.shape[0], 17), runner.k_inv,
+                ccfg.n_coarse, ccfg.n_fine)
+        c_kernel = render.render_rays(runner.params, *args, field_fn=evallib.make_field_fn(ccfg))[1]
+        c_plain = render.render_rays(runner.params, *args, field_fn=functools.partial(
+            mk.field_flat_plain, precision=ccfg.precision))[1]
+        coarse_err = float((c_kernel - c_plain).abs().max())
+    print(f"a real chunk, kernel 1 (bf16) vs the bf16 plain field: max |pixel err| "
+          f"{coarse_err:.3e} (atol {BF16_CHUNK_ATOL})")
+    if not coarse_err <= BF16_CHUNK_ATOL:
+        raise AssertionError("the lego_coarse chunk through kernel 1 disagrees with the plain "
+                             "field's")
+    del runner
+    phase_s["lego_coarse"] = time.perf_counter() - t_phase
+
+    # ---- 24-25. the contracted grids, as shipped: no kernel ----
+    t_phase = time.perf_counter()
+    phase("train-unbounded360-4096 (conf/unbounded360.ini as shipped: the grid fine field at "
+          "R = 256 under CONTRACT, LINDISP, the proposal grid, DIST_LOSS, PROP_INTERLEVEL, bf16; "
+          "no kernel)")
+    ucfg = run_config("unbounded360", tmp, "u360_grid", U360_GRID_STEPS)
+    if not (ucfg.fine_field == "grid" and ucfg.contract and ucfg.proposal):
+        raise AssertionError("conf/unbounded360.ini is not the contracted grid config")
+    u360 = contracted_grid_phase("unbounded360", ucfg,
+                                 llff_capture(U360_VIEWS, ucfg.seed, outward=True), device,
+                                 ("lines", "decoder"))
+    phase_s["unbounded360"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    phase("train-synthetic360-1024 (conf/synthetic360.ini: the hybrid grids at R = 384 under "
+          "CONTRACT, LINDISP, bf16; no kernel)")
+    scfg = run_config("synthetic360", tmp, "s360", S360_STEPS)
+    if not (scfg.grid_hybrid and scfg.prop_grid_hybrid and scfg.contract):
+        raise AssertionError("conf/synthetic360.ini is not the contracted hybrid config")
+    s360 = contracted_grid_phase("synthetic360", scfg,
+                                 llff_capture(U360_VIEWS, scfg.seed, outward=True), device,
+                                 ("lines", "decoder", "sigma_net"))
+    phase_s["synthetic360"] = time.perf_counter() - t_phase
+
+    # ---- 26. the legacy field: plain PyTorch, as the JAX package runs it in XLA ----
+    t_phase = time.perf_counter()
+    phase(f"legacy (core/legacy.py: the retired field from seeded params; one "
+          f"{LEGACY_HW}x{LEGACY_HW} view = one {LEGACY_HW ** 2}-ray chunk, card vs CPU; no kernel)")
+    params = legacy.init_legacy(torch.Generator().manual_seed(17))
+    params["sigma"]["b"] += 1.0   # a field with content
+    n_legacy = legacy.n_params(params)
+    if n_legacy != legacy.N_PARAMS:
+        raise AssertionError(f"the legacy field has {n_legacy:,} params, not 543,052")
+    focal = 0.5 * LEGACY_HW / np.tan(render_shipped_ckpt.LEGO_FOV / 2)
+    row = render_shipped_ckpt.orbit_rows(1, LEGACY_HW, focal, 4.03)[0]
+    lcfg = Config(n_coarse=16, n_fine=32, use_pallas=False, render_chunk=LEGACY_HW ** 2,
+                  white_bkgd=True)
+    legacy_frames, legacy_s = {}, None
+    for on in (dev, torch.device("cpu")):
+        frame_fn = evallib.make_frame_fn(lcfg, make_k_inv(LEGACY_HW, LEGACY_HW, focal, on),
+                                         LEGACY_HW, LEGACY_HW, field_fn=legacy.field_legacy)
+        p = optim.tree_map(lambda t: t.to(on), params)
+        zero_launches()
+        legacy_frames[on.type] = frame_fn(p, row)
+        check_no_launches(f"the legacy frame on {on.type}")
+        if legacy_s is None:
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                frame_fn(p, row)
+            sync()
+            legacy_s = (time.perf_counter() - t0) / 5
+    legacy_err = float(np.abs(legacy_frames[dev.type] - legacy_frames["cpu"]).max())
+    print(f"{n_legacy:,} params; {lcfg.n_coarse}+{lcfg.n_fine} samples; one chunk on the "
+          f"card in {legacy_s * 1e3:.2f} ms; card vs CPU: max |pixel err| {legacy_err:.3e} "
+          f"(atol {LEGACY_ATOL}); frame mean {legacy_frames[dev.type].mean():.4f}")
+    if not (np.isfinite(legacy_frames[dev.type]).all() and legacy_err <= LEGACY_ATOL):
+        raise AssertionError("the legacy chunk on the card disagrees with the CPU's")
+    phase_s["legacy"] = time.perf_counter() - t_phase
+
+    # ---- 27. the render service on phase 7's lego_occ checkpoint ----
+    t_phase = time.perf_counter()
+    phase("serve (tools/serve_render.py on phase 7's lego_occ checkpoint: render_u8 at scales "
+          f"{SERVE_SCALES}, kernel 1 twice a chunk; GET /info over HTTP)")
+    occ_cfg.continue_ = True
+    runner = Runner(occ_cfg, device=device,
+                    scene=blender_scene(n_views=2, hw=800, seed=occ_cfg.seed))
+    if runner.last_iter < 0:
+        raise AssertionError("the service found no lego_occ checkpoint")
+    svc = serve_render.Service(occ_cfg, runner)
+    serve = {}
+    zero_launches()
+    for scale in SERVE_SCALES:
+        row = svc.pose(scale=scale, **SERVE_VIEW)
+        h, w = (int(v) for v in row[:15].reshape(3, 5)[:2, 4])
+        chunks = math.ceil(h * w / occ_cfg.render_chunk)
+        before = launch_counts()["field_rays"]
+        sync()
+        t0 = time.perf_counter()
+        u8 = svc.render_u8(scale=scale, **SERVE_VIEW)
+        sync()
+        first_s = time.perf_counter() - t0
+        first_launches = launch_counts()["field_rays"] - before
+        t0 = time.perf_counter()
+        for _ in range(SERVE_FRAMES):
+            svc.render_u8(scale=scale, **SERVE_VIEW)
+        sync()
+        frame_s = (time.perf_counter() - t0) / SERVE_FRAMES
+        print(f"scale {scale}: {h}x{w} frame, {chunks} chunks; the first (its frame function "
+              f"made) in {first_s:.3f} s, then {frame_s:.3f} s/frame over {SERVE_FRAMES}; kernel "
+              f"1 launches {first_launches} a frame ({first_launches / chunks:g} a chunk, "
+              "expected 2); frame mean "
+              f"{u8.mean() / 255:.4f}")
+        if first_launches != 2 * chunks or u8.shape != (h, w, 3) or u8.dtype != np.uint8:
+            raise AssertionError(f"the service's frame at scale {scale} did not run kernel 1 "
+                                 "twice a chunk, or is not (H, W, 3) uint8")
+        serve[f"scale_{scale}"] = {"hw": (h, w), "first_frame_s": first_s, "frame_s": frame_s,
+                                   "field_rays_per_chunk": first_launches / chunks}
+    got = launch_counts()
+    n_frames = len(SERVE_SCALES) * (1 + SERVE_FRAMES)
+    expected = sum(2 * math.ceil(v["hw"][0] * v["hw"][1] / occ_cfg.render_chunk)
+                   for v in serve.values()) * (1 + SERVE_FRAMES)
+    if got != launched(field_rays=expected):
+        raise AssertionError(f"the service's {n_frames} frames launched {got}, not kernel 1 "
+                             f"{expected} times alone")
+    launches["serve render"] = got
+    # render_u8 against the port's frame function at the same free_pose, bit for bit
+    row = paths.free_pose(svc.pose_rows, SERVE_VIEW["theta"], elev_deg=SERVE_VIEW["elev"],
+                          radius_scale=SERVE_VIEW["radius"], res_scale=1.0)
+    hwf = row[:15].reshape(3, 5)[:, 4]
+    frame_fn = evallib.make_frame_fn(occ_cfg, make_k_inv(*(float(v) for v in hwf), dev),
+                                     int(hwf[0]), int(hwf[1]), occ_grid=runner.state.occ,
+                                     ndc_params=runner.ndc_params)
+    want = (np.clip(frame_fn(runner.params, row), 0.0, 1.0) * 255.0).astype(np.uint8)
+    same = bool(np.array_equal(svc.render_u8(scale=1.0, **SERVE_VIEW), want))
+    print(f"render_u8 at free_pose{tuple(SERVE_VIEW.values())} against eval.make_frame_fn at "
+          f"the same pose: equal bit for bit {same}")
+    if not same:
+        raise AssertionError("the service's frame differs from the port's frame function's")
+    server = serve_render.make_server(svc, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{server.server_address[1]}/info"
+        info = json.loads(urllib.request.urlopen(url, timeout=60).read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    print(f"GET /info: {info}")
+    if (info["iteration"] != runner.last_iter or info["backend"] != dev.type
+            or (info["height"], info["width"]) != (runner.train_table.height,
+                                                   runner.train_table.width)
+            or not info["occ_grid"]):
+        raise AssertionError("/info does not describe the served lego_occ checkpoint")
+    serve["info"] = info
+    del runner, svc
+    phase_s["serve"] = time.perf_counter() - t_phase
+    print("phases 23-27 took " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
+
+    return {"shipped_phase_seconds": phase_s,
+            "lego_coarse": {"step_ms": coarse_ms, "rays_per_s": ccfg.batch_ray / coarse_ms * 1e3,
+                            "train_s": seconds, "frame_s": coarse_frame_s,
+                            "chunk_pix_err": coarse_err, "losses": coarse_losses},
+            "unbounded360": u360, "synthetic360": s360,
+            "legacy": {"params": n_legacy, "chunk_ms": legacy_s * 1e3,
+                       "chunk_pix_err_card_vs_cpu": legacy_err},
+            "serve": serve, "launches": launches}
 
 
 def main() -> int:
@@ -3425,7 +3850,11 @@ def main() -> int:
             raise AssertionError("the fused NDC frame disagrees with the unfused one")
         del runner, f_scene
 
-    # ---- 23. results ----
+        # ---- 23-27. lego_coarse, unbounded360 as shipped, synthetic360, the
+        # legacy field, the render service ----
+        shipped = shipped_phases(tmp, "cuda", ocfg)
+
+    # ---- 28. results ----
     mean = lambda table, shapes, i: sum(table[s][i] for s in shapes) / len(shapes)
     shape_key = lambda s: (f"B={s[0]},N={s[1]}" if len(s) == 2 else f"R={s[0]}" if len(s) == 1
                            else f"B={s[0]},N_c={s[1]},N_f={s[2]}")
@@ -3473,12 +3902,14 @@ def main() -> int:
         form("field_rays_fwd_bf16", fwd_src, "tinynerf/kernels/mlp_kernel.py:720",
              occ_launches[0] + occ_render_launches + fast_launches[0] + prop_mlp_launches[0]
              + prop_render_field + fern_launches["rays"] + fern_render[False]["rays"]
-             + feed["train"]["field_rays"],
+             + feed["train"]["field_rays"]
+             + sum(v["field_rays"] for v in shipped["launches"].values()),
              {"lego_occ train": occ_launches[0], "lego_occ render": occ_render_launches,
               "lego_fast train": fast_launches[0], "lego_prop train": prop_mlp_launches[0],
               "lego_prop render": prop_render_field, "fern_ndc train": fern_launches["rays"],
               "fern_ndc render": fern_render[False]["rays"],
-              "fern_ndc host-fed train": feed["train"]["field_rays"]},
+              "fern_ndc host-fed train": feed["train"]["field_rays"],
+              **{k: v["field_rays"] for k, v in shipped["launches"].items()}},
              bf16_fwd_err, bf16_fwd_time, list(OCC_SHAPES), {"gemm_chain_ms": gemm_chain_ms}),
         form("field_rays_bwd", bwd_src, "tinynerf/kernels/mlp_kernel.py:751",
              train_launches[1] + fp32_launches[1] + prop_fp32_field[1],
@@ -3489,11 +3920,13 @@ def main() -> int:
               "split": {shape_key(k): v for k, v in bwd_split.items()}}),
         form("field_rays_bwd_bf16", bwd_src, "tinynerf/kernels/mlp_kernel.py:751",
              occ_launches[1] + fast_launches[1] + prop_mlp_launches[1]
-             + fern_launches["rays_bwd"] + feed["train"]["field_rays_bwd"],
+             + fern_launches["rays_bwd"] + feed["train"]["field_rays_bwd"]
+             + shipped["launches"]["lego_coarse train"]["field_rays_bwd"],
              {"lego_occ train": occ_launches[1], "lego_fast train": fast_launches[1],
               "lego_prop train": prop_mlp_launches[1],
               "fern_ndc train": fern_launches["rays_bwd"],
-              "fern_ndc host-fed train": feed["train"]["field_rays_bwd"]},
+              "fern_ndc host-fed train": feed["train"]["field_rays_bwd"],
+              "lego_coarse train": shipped["launches"]["lego_coarse train"]["field_rays_bwd"]},
              bf16_bwd_abs, bf16_bwd_time, list(OCC_SHAPES), {"max_rel_err": bf16_bwd_rel}),
         form("field_flat_fwd", flat_src, "tinynerf/kernels/mlp_kernel.py:269",
              fp32_launches[2] + u_fp32["flat"],
@@ -3621,6 +4054,7 @@ def main() -> int:
                       "lego_fast": {"seconds_10_steps": fast_s},
                       **flagship,
                       **options,
+                      **{k: v for k, v in shipped.items() if k != "launches"},
                       "lego_prop": {"step_ms": prop_ms, "kernel_ms": prop_kern,
                                     "frame_s": prop_frame_s, "grad_cosines": prop_cos,
                                     "chunk_pix_err": prop_pix_err,

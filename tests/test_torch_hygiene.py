@@ -87,3 +87,25 @@ def test_the_ray_store_is_built_from_the_port_s_own_source(tmp_path, monkeypatch
     assert cmd[0] == "g++" and native.SOURCE in cmd
     assert not any(os.path.join(REPO, d) in arg for arg in cmd for d in ("native", "tinynerf/"))
     assert os.listdir(tmp_path) == [os.path.basename(native._lib_path(native.SOURCE))]
+
+
+NEW_MODULES = ("tinynerf_torch/core/legacy.py", "tinynerf_torch/tools/__init__.py",
+               "tinynerf_torch/tools/render_shipped_ckpt.py",
+               "tinynerf_torch/tools/serve_render.py")
+
+
+@pytest.mark.parametrize("tool", ["serve_render", "render_shipped_ckpt"])
+def test_the_tools_run_without_jax(tool):
+    """The legacy field and the tools are among the files the import test
+    reads, and each tool's ``python -m`` entry point starts (``--help``) in
+    an interpreter where JAX and the JAX package cannot be imported."""
+    assert all(os.path.join(REPO, m) in FILES for m in NEW_MODULES)
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['tinynerf'] = None\n"
+            "sys.argv = ['tool', '--help']\n"
+            f"runpy.run_module('tinynerf_torch.tools.{tool}', run_name='__main__')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "usage:" in proc.stdout

@@ -65,14 +65,38 @@ def test_contract_and_its_gradient_match_jax():
     np.testing.assert_array_equal(got.detach().numpy()[inside], pts[inside])
 
 
+def _inv_contract_f64(c):
+    """``inv_contract_mip360``'s formula in float64 on float32 points, and the
+    inverse's condition number per point, ``1 + |c| / (2 - min(|c|, 1.99))``:
+    outside the unit ball ``|x| = 1 / (2 - |c|)``, so a relative error in
+    ``|c|`` grows by ``|c| / (2 - |c|)`` (about 20-fold at |c| = 1.9)."""
+    c = np.asarray(c, np.float64)
+    n = np.sqrt(np.maximum(np.sum(c * c, axis=-1, keepdims=True), 1e-12))
+    n_cl = np.minimum(n, 1.99)
+    scale = np.where(n <= 1.0, 1.0, 1.0 / ((2.0 - n_cl) * n_cl))
+    return c * scale, 1.0 + n_cl / (2.0 - n_cl)
+
+
+def _assert_inv_contract_near_f64(c):
+    """Both packages' inverse within 4 float32 ulps times the condition
+    number of the float64 value (each measured about 1e-6 from it at
+    |c| = 1.9, where one ulp of the float32 norm becomes 20)."""
+    want, cond = _inv_contract_f64(c)
+    mag = np.abs(want).max(axis=-1, keepdims=True)
+    bound = 4 * np.finfo(np.float32).eps * cond * mag
+    for got in (contract.inv_contract_mip360(_t(c)).numpy(),
+                np.asarray(jcontract.inv_contract_mip360(jnp.asarray(c)))):
+        assert (np.abs(got - want) <= bound).all(), np.max(np.abs(got - want) / bound)
+
+
 def test_inv_contract_matches_jax_and_round_trips():
-    """The inverse against JAX's, and the round trips: contract(inv(c)) = c
-    for |c| < 1.99, inv(contract(x)) = x for |x| below the clamp's radius
-    100; past the clamp every point maps to a finite radius near 100."""
+    """The inverse in both packages against the float64 value of its formula
+    (within its conditioning: ``_assert_inv_contract_near_f64``), and the
+    round trips: contract(inv(c)) = c for |c| < 1.99, inv(contract(x)) = x
+    for |x| below the clamp's radius 100; past the clamp every point maps to
+    a finite radius near 100."""
     c = contract.contract_mip360(_t(_probe_points()))
-    np.testing.assert_allclose(contract.inv_contract_mip360(c).numpy(),
-                               np.asarray(jcontract.inv_contract_mip360(jnp.asarray(c.numpy()))),
-                               rtol=1e-6, atol=1e-7)
+    _assert_inv_contract_near_f64(c.numpy())
     x = _t(_probe_points())
     mid = torch.linalg.norm(x, dim=1) < 50.0
     np.testing.assert_allclose(contract.inv_contract_mip360(contract.contract_mip360(x))[mid],
@@ -88,6 +112,17 @@ def test_inv_contract_matches_jax_and_round_trips():
     np.testing.assert_allclose(far.numpy(), np.asarray(jcontract.inv_contract_mip360(
         jnp.asarray(edge.numpy()))), rtol=1e-6)
     np.testing.assert_allclose(torch.linalg.norm(far, dim=1), 100.0, rtol=3e-3)
+
+
+@pytest.mark.parametrize("radius", [0.5, 1.0, 1.5, 1.9, 1.98])
+def test_inv_contract_is_within_its_conditioning_of_float64(radius):
+    """200 seeded directions at contracted radius ``radius`` (1.9: the
+    world-radius-10 probes, whose float32 norm's last ulp the inverse
+    magnifies 20-fold): both packages within 4 ulps times the condition
+    number of the float64 value, on every host."""
+    d = np.random.default_rng(int(radius * 100)).normal(size=(200, 3))
+    c = (d / np.linalg.norm(d, axis=1, keepdims=True) * radius).astype(np.float32)
+    _assert_inv_contract_near_f64(c)
 
 
 def test_contract_wrapper_takes_the_point_interface():

@@ -1,8 +1,8 @@
-"""Free-viewpoint camera paths for video rendering, for ``--mode=path``.
+"""Free-viewpoint camera paths for video rendering (``--mode=path``) and
+single viewpoints for the render service (``tools/serve_render.py``).
 
-A copy of ``tinynerf/data/paths.py``'s ``make_path`` and its generators (the
-interactive viewer's single-pose helpers come with serving, ROADMAP queue 1,
-item 12).
+A copy of ``tinynerf/data/paths.py``: ``make_path`` and its generators, and
+the viewer's single-pose helpers :func:`orbit_pose` and :func:`free_pose`.
 
 Three scene-appropriate generators, all emitting the framework's native
 (N, 17) pose-row format so the render stack consumes them unchanged:
@@ -21,6 +21,8 @@ Three scene-appropriate generators, all emitting the framework's native
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
@@ -82,6 +84,25 @@ def orbit_path(pose_rows: np.ndarray, n_views: int = 120,
     return _rows_from_c2ws(out, hwf * res_scale, near, far)
 
 
+def orbit_pose(pose_rows: np.ndarray, theta_deg: float,
+               elev_deg: Optional[float] = None, radius_scale: float = 1.0,
+               res_scale: float = 1.0) -> np.ndarray:
+    """ONE free-viewpoint pose row on (a scaling of) the training rig's
+    orbit sphere — the interactive-viewer parameterization
+    (tools/serve_render.py): azimuth/elevation in degrees, radius relative
+    to the rig's mean. ``elev_deg=None`` keeps the rig's mean elevation."""
+    base_radius, elev, hwf, near, far = _orbit_geometry(pose_rows)
+    if elev_deg is not None:
+        elev = float(np.clip(np.deg2rad(elev_deg), -1.4, 1.4))
+    radius = base_radius * float(radius_scale)
+    c2w = _orbit_c2w(radius, np.deg2rad(theta_deg), elev)
+    # near/far track the radius change so the march still brackets the scene
+    shift = radius - base_radius
+    near = max(near + shift, 1e-3)
+    far = far + shift
+    return _rows_from_c2ws(c2w[None], hwf * res_scale, near, far)[0]
+
+
 def is_outward_rig(pose_rows: np.ndarray) -> bool:
     """True when the training cameras look AWAY from the origin (an
     unbounded-360 capture: a ring near the center looking out), detected
@@ -123,13 +144,31 @@ def pan_path(pose_rows: np.ndarray, n_views: int = 120,
     """360-degree outward pan from the training ring — the natural video
     path for unbounded-360 captures (an orbit_path would look INWARD at
     the camera ring and render nothing). Selected automatically by
-    :func:`make_path` via :func:`is_outward_rig`."""
+    :func:`make_path` / :func:`free_pose` via :func:`is_outward_rig`."""
     radius, elev, hwf, near, far = _pan_geometry(pose_rows)
     out = np.zeros((n_views, 3, 4))
     for i, theta in enumerate(np.linspace(0.0, 2.0 * np.pi, n_views,
                                           endpoint=False)):
         out[i] = _pan_c2w(radius, theta, elev)
     return _rows_from_c2ws(out, hwf * res_scale, near, far)
+
+
+def free_pose(pose_rows: np.ndarray, theta_deg: float,
+              elev_deg: Optional[float] = None, radius_scale: float = 1.0,
+              res_scale: float = 1.0) -> np.ndarray:
+    """ONE rig-appropriate free-viewpoint pose row (the interactive-viewer
+    parameterization): outward pan on 360 rings, origin-looking orbit
+    otherwise. On rings, ``radius_scale`` slides the camera along the ring
+    radius (bounds already span the scene, so near/far stay put) and
+    ``elev_deg`` tilts the LOOK direction, not the position."""
+    if not is_outward_rig(pose_rows):
+        return orbit_pose(pose_rows, theta_deg, elev_deg=elev_deg,
+                          radius_scale=radius_scale, res_scale=res_scale)
+    radius, elev, hwf, near, far = _pan_geometry(pose_rows)
+    if elev_deg is not None:
+        elev = float(np.clip(np.deg2rad(elev_deg), -1.4, 1.4))
+    c2w = _pan_c2w(radius * float(radius_scale), np.deg2rad(theta_deg), elev)
+    return _rows_from_c2ws(c2w[None], hwf * res_scale, near, far)[0]
 
 
 def spiral_path(pose_rows: np.ndarray, n_views: int = 120,
