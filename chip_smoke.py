@@ -225,7 +225,31 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
    equal bit for bit to ``eval.make_frame_fn``'s frame at that pose;
    ``GET /info`` over HTTP on ``127.0.0.1:0`` (a thread, shut down after),
    its JSON checked against the checkpoint;
-28. prints one ``{"kernels": [...]}`` line (every kernel form) and, last,
+28. trains ``conf/lego_occ.ini`` with ``MESH_SHAPE = 2`` (``parallel/``:
+   two ranks, started with ``parallel.distributed.spawn``, on the one card
+   under gloo, ``backend="gloo"`` passed; where the machine has two cards
+   or more, a second job on two cards under NCCL) for 20 steps of 4096
+   rays, 2048 a rank, from fresh seeded weights through ``Runner.train``,
+   each rank with its own CKPT_PATH, LOG_DIR and RESULTS_PATH: on each rank
+   and step kernels 1 and 2 twice at B = 2048, kernel 3 once in the
+   refresh at 0 (half the probes a rank) and nothing else; the two ranks'
+   params digests equal after every step; the grid after the refresh at 0
+   equal bit for bit to the one-rank refresh's; the first step's loss on
+   fixed indices within 1e-5 relative of the one-rank step's, its gradient
+   at cosine >= 0.999 per part; a finite falling loss; the checkpoints
+   (9, 19) and the log written by rank 0 alone (the preview canvas saved
+   as ``.npy``: no imageio on the card's machine); s/step, not a speed
+   figure where two ranks share one card; the gradient all-reduce's and
+   the refresh gather's ms. Then one 800x800 view of rank 0's checkpoint,
+   its chunks split over the ranks (kernel 1 twice a chunk on each rank),
+   against the one-rank view within 1e-3;
+28b. ``conf/lego.ini`` with ``MESH_SHAPE = 2`` and ``SAMPLE_SHARD = 2``
+   (data 1 x sample 2, fp32) on phase 5's checkpoint: one 800x800 view,
+   64 coarse + 64 fine samples a rank (kernel 1 twice a chunk on each
+   rank), against phase 6's view 0 within 1e-4; one 4096-ray chunk at
+   ``N_FINE = 512`` (256 fine samples a rank) against the one-rank chunk
+   within 1e-4;
+29. prints one ``{"kernels": [...]}`` line (every kernel form) and, last,
    one ``{"ok": true, "device": {...}}`` line.
 
 Kernel 4 (``csrc/field_flat_bwd.cu``) is held against its plain version in
@@ -410,6 +434,13 @@ LEGACY_ATOL = 1e-4          # its pixels, card vs CPU
 SERVE_SCALES = (0.25, 1.0)  # the service's frames, timed at each
 SERVE_FRAMES = 3            # steady frames timed at each scale after the first
 SERVE_VIEW = dict(theta=30.0, elev=25.0, radius=1.0)
+# phases 28 and 28b: two ranks (parallel/)
+DP_RANKS = 2
+DP_STEPS = 20               # conf/lego_occ.ini with MESH_SHAPE = 2: the refresh at 0
+DP_STEP = 10                # checkpoints at 9 and 19, by rank 0
+DEEP_FINE = 512             # the sample-sharded deep march's N_FINE
+DP_LOSS_RTOL = 1e-5         # the first step's loss, two ranks vs one
+DP_TRAIN = "lego_occ data-parallel train (2 ranks)"
 
 
 def phase(title: str) -> None:
@@ -1923,6 +1954,385 @@ def shipped_phases(tmp: str, device: str, occ_cfg) -> dict:
             "serve": serve, "launches": launches}
 
 
+def _dp_record(store: dict, sync):
+    """``train.make_train_step`` wrapped to record each step of a Runner's
+    loop: its start and end (synchronised), then the params' digest, the
+    launch counts, the loss and the rank's rows, and the occupancy grid
+    after the first step."""
+    from tinynerf_torch import train
+    from tinynerf_torch.parallel import distributed as dist
+    real = train.make_train_step
+
+    def make(*args, **kw):
+        step = real(*args, **kw)
+
+        def recorded(state):
+            sync()
+            start = time.perf_counter()
+            state, m = step(state)
+            sync()
+            store["steps"].append((start, time.perf_counter()))
+            store["digests"].append(dist.params_digest(state.params))
+            store["launches"].append(launch_counts())
+            store["losses"].append(float(m["loss"]))
+            store["rows"].append(int(m["rows"].shape[0]))
+            if "occ_after_0" not in store:
+                store["occ_after_0"] = [state.occ.raw.cpu(), state.occ.density.cpu()]
+            return state, m
+        return recorded
+
+    return real, make
+
+
+def _timed(sync, fn):
+    """``fn()``'s result and its seconds, synchronised on both sides."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def dp_rank(work: str, lego_ckpt: str, tag: str, device: str = "cuda") -> None:
+    """Phases 28 and 28b on one rank of a job of ``DP_RANKS`` (started by
+    ``parallel.distributed.spawn``; ``tag`` names the backend). Trains
+    ``conf/lego_occ.ini`` with ``MESH_SHAPE = 2`` for ``DP_STEPS`` steps
+    from fresh seeded weights through ``Runner.train`` (each rank its own
+    CKPT_PATH, LOG_DIR, RESULTS_PATH: only rank 0's may fill), recording
+    every step (``_dp_record``); before that, one gradient on fixed indices
+    through ``mesh.make_grad_fn`` and the times of the gradient all-reduce
+    and of the refresh's gather. Then one 800x800 view from rank 0's
+    checkpoint, data-parallel; then phase 28b, ``conf/lego.ini`` with
+    ``SAMPLE_SHARD = 2`` on phase 5's checkpoint (``lego_ckpt``): one view
+    and one 4096-ray chunk at ``N_FINE = DEEP_FINE``. Writes
+    ``<tag>_rank<r>.json`` (and rank 0 its tensors) under ``work``. The
+    preview canvas is saved as ``.npy`` beside its JPG's name: the card's
+    machine has no imageio. ``device``: the card (the CPU only to
+    rehearse)."""
+    import numpy as np
+    import torch
+    from tinynerf_torch import eval as evallib, logging as tlog, optim, train
+    from tinynerf_torch.config import load_config
+    from tinynerf_torch.parallel import distributed as dist, mesh as meshlib, sample_shard
+    from tinynerf_torch.runner import Runner
+    rank = dist.rank()
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    mine = os.path.join(work, f"{tag}_rank{rank}")
+    rec = {"rank": rank, "card": torch.cuda.current_device() if cuda else None, "backend": tag,
+           "steps": [], "digests": [], "launches": [], "losses": [], "rows": []}
+    tensors = {}
+
+    def save_preview(canvas, path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.save(path + ".npy", canvas.canvas)
+
+    tlog.PreviewCanvas.save = save_preview
+    cfg = run_config("lego_occ", mine, "dp", DP_STEPS, mesh_shape=DP_RANKS, step=DP_STEP)
+    runner = Runner(cfg, device=device, scene=blender_scene(TRAIN_VIEWS, 800, cfg.seed))
+    mesh = runner.mesh
+    idx = np.random.default_rng(28).integers(0, runner.train_table.num_pix, cfg.batch_ray)
+    batch = runner.train_table.gather(torch.from_numpy(idx))
+    grad_fn = meshlib.make_grad_fn(train.make_loss_fn(cfg, runner.k_inv), mesh)
+    loss, _, grads = grad_fn(runner.params, batch, None, runner.state.occ)
+    tensors["grad"] = (float(loss), optim.tree_map(lambda t: t.cpu(), grads))
+    flat = optim.leaves(grads)
+    probes = torch.zeros(int(cfg.occ_res ** 3 * cfg.occ_subset) // DP_RANKS, device=device)
+    for what, fn in (("allreduce_ms", lambda: meshlib.reduce_grads(mesh, loss, flat)),
+                     ("refresh_gather_ms", lambda: mesh.gather_rows(probes, 2 * probes.shape[0]))):
+        fn()
+        rec[what] = _timed(sync, lambda: [fn() for _ in range(10)])[1] / 10 * 1e3
+    rec["grad_numel"] = sum(g.numel() for g in flat)
+
+    real, recording = _dp_record(rec, sync)
+    train.make_train_step = recording
+    zero_launches()
+    try:
+        rec["train_s"] = _timed(sync, runner.train)[1]
+    finally:
+        train.make_train_step = real
+    rec["train_launches"] = launch_counts()
+    tensors["occ_after_0"] = rec.pop("occ_after_0")
+    rec["files"] = sorted(os.path.relpath(os.path.join(r, f), mine)
+                          for r, _, fs in os.walk(mine) for f in fs)
+    del runner, batch, grads, flat
+
+    # one view from rank 0's checkpoint, its chunks split over the ranks
+    rcfg = dataclasses.replace(cfg, continue_=True,
+                               ckpt_path=os.path.join(work, f"{tag}_rank0", "dp_ckpt"))
+    runner = Runner(rcfg, device=device, scene=blender_scene(2, 800, rcfg.seed))
+    rec["render_iter"] = runner.last_iter
+    zero_launches()
+    frames, rec["frame_s"] = _timed(sync, lambda: evallib.render_test_set(
+        rcfg, runner.params, runner.test_table, runner.k_inv, runner.start_time,
+        runner.last_iter, save=False, max_views=1, occ_grid=runner.state.occ,
+        mesh=runner.mesh))
+    rec["frame_launches"] = launch_counts()
+    tensors["frame"] = frames[0]
+    del runner
+
+    # 28b: lego (fp32) with SAMPLE_SHARD = 2 on phase 5's checkpoint
+    lcfg = load_config(os.path.join(ROOT, "conf", "lego.ini"))
+    lcfg.ckpt_path, lcfg.continue_ = lego_ckpt, True
+    lcfg.results_path = os.path.join(mine, "lego_results")
+    lcfg.log_dir = os.path.join(mine, "lego_runs")
+    lcfg.mesh_shape, lcfg.sample_shard = DP_RANKS, DP_RANKS
+    runner = Runner(lcfg, device=device, scene=blender_scene(2, 800, lcfg.seed))
+    rec["ss_mesh"] = (runner.mesh.n_data, runner.mesh.n_sample)
+    zero_launches()
+    frames, rec["ss_frame_s"] = _timed(sync, lambda: evallib.render_test_set(
+        lcfg, runner.params, runner.test_table, runner.k_inv, runner.start_time,
+        runner.last_iter, save=False, max_views=1, mesh=runner.mesh))
+    rec["ss_frame_launches"] = launch_counts()
+    tensors["ss_frame"] = frames[0]
+    # one chunk of the deep march: the frame's middle chunk of view 0
+    rows, cols, pose = deep_chunk(runner, lcfg)
+    fn = sample_shard.make_sample_sharded_render(
+        runner.mesh, runner.k_inv, lcfg.n_coarse, DEEP_FINE,
+        field_fn=evallib.make_field_fn(lcfg), white_bkgd=lcfg.white_bkgd)
+    fn(runner.params, rows, cols, pose)
+    zero_launches()
+    (c_co, c_fi), seconds = _timed(sync, lambda: fn(runner.params, rows, cols, pose))
+    rec["deep_ms"] = seconds * 1e3
+    rec["deep_launches"] = launch_counts()
+    tensors["deep"] = (c_co.cpu(), c_fi.cpu())
+    del runner
+    with open(os.path.join(work, f"{tag}_rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    if rank == 0:
+        torch.save(tensors, os.path.join(work, f"{tag}_tensors.pt"))
+
+
+def deep_chunk(runner, cfg):
+    """The rows, columns and pose rows of the middle ``RENDER_CHUNK``-ray
+    chunk of the test split's view 0."""
+    import torch
+    height, width = runner.test_table.height, runner.test_table.width
+    start = (height * width // cfg.render_chunk // 2) * cfg.render_chunk
+    idx = torch.arange(start, start + cfg.render_chunk, device=runner.k_inv.device)
+    rows, cols = (idx // width).float(), (idx % width).float()
+    return rows, cols, runner.test_table.poses[0].expand(rows.shape[0], 17)
+
+
+def _dp_train_checks(tag: str, pair, batch_ray: int, first1: float) -> dict:
+    """Phase 28's checks of one job's training: launches per rank and step,
+    the rank's rows, the digests after every step, the losses, rank 0
+    alone writing, the first loss against the one-rank step's."""
+    import numpy as np
+    for r in pair:
+        per_step = [{k: b[k] - a[k] for k in b} for a, b in
+                    zip([launched()] + r["launches"][:-1], r["launches"])]
+        want = [launched(field_rays=2, field_rays_bwd=2, field_flat=int(i == 0))
+                for i in range(DP_STEPS)]
+        ms = [(b - a) * 1e3 for a, b in r["steps"]]
+        print(f"[{tag}] rank {r['rank']} on card {r['card']}: launches per step "
+              f"{per_step[0]} (step 0, with the refresh), {per_step[1]} (step 1); rows a "
+              f"rank {sorted(set(r['rows']))}; ms/step {ms[0]:.2f} (step 0), "
+              f"{np.mean(ms[2:]):.2f} (steps 2-{DP_STEPS - 1}, mean; {min(ms[2:]):.2f}-"
+              f"{max(ms[2:]):.2f}); gradient all-reduce of {r['grad_numel']:,} floats "
+              f"{r['allreduce_ms']:.3f} ms, the refresh's gather {r['refresh_gather_ms']:.3f} ms")
+        if per_step != want:
+            raise AssertionError(f"[{tag}] rank {r['rank']} did not launch kernels 1 and 2 "
+                                 "twice a step and kernel 3 once in the refresh")
+        if set(r["rows"]) != {batch_ray // DP_RANKS}:
+            raise AssertionError(f"[{tag}] rank {r['rank']} did not take half the batch")
+    r0, r1 = pair
+    if r0["digests"] != r1["digests"] or len(r0["digests"]) != DP_STEPS:
+        raise AssertionError(f"[{tag}] the ranks' params differ after some step")
+    losses = r0["losses"]
+    if r1["losses"] != losses:
+        raise AssertionError(f"[{tag}] the ranks' losses differ")
+    if not all(math.isfinite(x) for x in losses) or not np.mean(losses[-5:]) < np.mean(
+            losses[:5]):
+        raise AssertionError(f"[{tag}] the loss is not finite and falling: {losses}")
+    ckpts = [f for f in r0["files"] if f.endswith(".npz")]
+    logs = [f for f in r0["files"] if f.endswith("metrics.jsonl")]
+    rel = abs(losses[0] / first1 - 1)
+    print(f"[{tag}] params digests equal on both ranks after each of {DP_STEPS} steps; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (one rank's first step {first1:.4f}, rel "
+          f"{rel:.2e}, limit {DP_LOSS_RTOL}); rank 0 wrote {len(r0['files'])} files "
+          f"({len(ckpts)} checkpoints, {len(logs)} log), rank 1 {len(r1['files'])}")
+    if len(ckpts) != DP_STEPS // DP_STEP or len(logs) != 1 or r1["files"]:
+        raise AssertionError(f"[{tag}] artifacts were not written by rank 0 alone")
+    if not rel <= DP_LOSS_RTOL:
+        raise AssertionError(f"[{tag}] the first step's loss is not the one-rank step's")
+    ms = [(b - a) * 1e3 for a, b in r0["steps"]]
+    return {"ms_per_step": float(np.mean(ms[2:])), "ms_per_step_range": [min(ms[2:]),
+                                                                          max(ms[2:])],
+            "first_step_ms": ms[0], "train_s": r0["train_s"], "losses": losses,
+            "allreduce_ms": [r["allreduce_ms"] for r in pair],
+            "refresh_gather_ms": [r["refresh_gather_ms"] for r in pair],
+            "first_loss_rel_err": rel}
+
+
+def parallel_phases(tmp: str, lego_ckpt: str, lego_view0, device: str = "cuda") -> dict:
+    """Phases 28 and 28b (``parallel/``): ``dp_rank`` on two ranks of the
+    one card under gloo (``backend="gloo"`` passed) and, where the machine
+    has two cards or more, on two cards under NCCL, held against one rank
+    in this process: launches per rank and step, the ranks' digests after
+    every step, the grid of the refresh at 0 against the one-rank refresh,
+    the first step's loss and gradient against the one-rank step on the
+    same indices, a falling loss, rank 0 alone writing; the data-parallel
+    view against the one-rank view; the sample-sharded view against phase
+    6's view 0 and its deep chunk against the one-rank chunk. Returns the
+    summary line's numbers and the launches by path (the gloo job's).
+    ``device``: the card (the CPU only to rehearse)."""
+    import numpy as np
+    import torch
+    from tinynerf_torch import eval as evallib, train
+    from tinynerf_torch.config import load_config
+    from tinynerf_torch.core import render
+    from tinynerf_torch.parallel import distributed as dist
+    from tinynerf_torch.runner import Runner
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    smi = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+           if cuda else "the CPU")
+    work = os.path.join(tmp, "dp")
+    os.makedirs(work, exist_ok=True)
+    if cuda:
+        torch.cuda.empty_cache()
+    phase(f"train-lego_occ-dp2-4096 (conf/lego_occ.ini with MESH_SHAPE = {DP_RANKS}, "
+          f"{DP_STEPS} steps of 4096 rays, 2048 a rank; a view split over the ranks) and 28b, "
+          f"render-lego-ss2-800 (conf/lego.ini with SAMPLE_SHARD = {DP_RANKS}): {DP_RANKS} ranks "
+          "on the one card under gloo, and on two cards under NCCL where there are two")
+    jobs = {"gloo": dict(backend="gloo", device_index=0 if cuda else None)}
+    if cuda and torch.cuda.device_count() >= DP_RANKS:
+        jobs["nccl"] = {}
+    job_s = {}
+    for tag, kw in jobs.items():
+        t0 = time.perf_counter()
+        dist.spawn("chip_smoke:dp_rank", DP_RANKS, device, (work, lego_ckpt, tag, device), **kw)
+        job_s[tag] = time.perf_counter() - t0
+    recs = {tag: [json.load(open(os.path.join(work, f"{tag}_rank{r}.json")))
+                  for r in range(DP_RANKS)] for tag in jobs}
+    tensors = {tag: torch.load(os.path.join(work, f"{tag}_tensors.pt"), weights_only=False)
+               for tag in jobs}
+    print(f"{smi}; each job of {DP_RANKS} ranks (process start, kernels loaded from the build, "
+          f"scenes, {DP_STEPS} steps, two views, the deep chunk): "
+          + ", ".join(f"{tag} {s:.1f} s" for tag, s in job_s.items())
+          + ("" if "nccl" in jobs else "; one card: no NCCL job"))
+
+    # the one-rank references, in this process
+    one = os.path.join(tmp, "dp_one")
+    cfg = run_config("lego_occ", one, "one", 1)
+    runner = Runner(cfg, device=device, scene=blender_scene(TRAIN_VIEWS, 800, cfg.seed))
+    idx = np.random.default_rng(28).integers(0, runner.train_table.num_pix, cfg.batch_ray)
+    loss1, _, grads1 = train.loss_and_grads(train.make_loss_fn(cfg, runner.k_inv), runner.params,
+                                            runner.train_table.gather(torch.from_numpy(idx)),
+                                            None, runner.state.occ)
+    runner.train()   # one step: the refresh at 0
+    occ1 = (runner.state.occ.raw.cpu(), runner.state.occ.density.cpu())
+    first1 = logged_losses(runner)[0]
+    del runner
+    lcfg = load_config(os.path.join(ROOT, "conf", "lego.ini"))
+    lcfg.ckpt_path, lcfg.continue_ = lego_ckpt, True
+    lcfg.results_path, lcfg.log_dir = os.path.join(one, "lego_res"), os.path.join(one, "lego_runs")
+    runner = Runner(lcfg, device=device, scene=blender_scene(2, 800, lcfg.seed))
+    rows, cols, pose = deep_chunk(runner, lcfg)
+    field_fn = evallib.make_field_fn(lcfg)
+    args = (runner.params, rows, cols, pose, runner.k_inv, lcfg.n_coarse, DEEP_FINE)
+    with torch.no_grad():
+        render.render_rays(*args, field_fn=field_fn, merge_impl="twolist")
+        (c_co1, c_fi1), seconds = _timed(sync, lambda: render.render_rays(
+            *args, field_fn=field_fn, merge_impl="twolist"))
+    deep1 = (c_co1.cpu(), c_fi1.cpu(), seconds * 1e3)
+    del runner
+    n_chunks = math.ceil(800 * 800 / lcfg.render_chunk)
+
+    out = {"card": smi, "job_s": job_s}
+    for tag in jobs:
+        pair, ten = recs[tag], tensors[tag]
+        res = _dp_train_checks(tag, pair, cfg.batch_ray, first1)
+        if tag == "gloo":
+            print(f"s/step with {DP_RANKS} ranks on one card under gloo: "
+                  f"{res['ms_per_step'] / 1e3:.5f} (two processes share the card and the "
+                  "gradient goes through the host: not a speed figure)")
+        # the first step's gradient, and the refresh's grid
+        loss2, grads2 = ten["grad"]
+        worst = min(_tree_cosines(grads2, grads1).values())
+        rel = abs(loss2 / float(loss1) - 1)
+        occ_equal = all(torch.equal(a, b) for a, b in zip(ten["occ_after_0"], occ1))
+        occ_diff = float(torch.nan_to_num((ten["occ_after_0"][0] - occ1[0]).abs(), nan=0.0).max())
+        print(f"[{tag}] the first step on fixed indices, {DP_RANKS} ranks vs one: loss rel "
+              f"{rel:.2e} (limit {DP_LOSS_RTOL}); gradient cosine per part, smallest {worst:.7f} "
+              f"(limit {BF16_COS}); the grid after the refresh at 0 (half the "
+              f"{int(cfg.occ_res ** 3 * cfg.occ_subset)} probes through kernel 3 on each rank) "
+              f"equal to the one-rank grid bit for bit: {occ_equal} (max |diff| {occ_diff:.3e})")
+        if not (rel <= DP_LOSS_RTOL and worst >= BF16_COS and occ_equal):
+            raise AssertionError(f"[{tag}] the data-parallel step disagrees with one rank's")
+        res.update(grad_loss_rel_err=rel, grad_min_cosine=worst, occ_bit_equal=occ_equal)
+
+        # the data-parallel view against the one-rank view of this job's
+        # checkpoint (each job trains its own, and two jobs' need not agree)
+        g0 = pair[0]
+        rcfg = dataclasses.replace(cfg, continue_=True,
+                                   ckpt_path=os.path.join(work, f"{tag}_rank0", "dp_ckpt"))
+        runner = Runner(rcfg, device=device, scene=blender_scene(2, 800, rcfg.seed))
+        frame1 = evallib.render_test_set(
+            rcfg, runner.params, runner.test_table, runner.k_inv, runner.start_time,
+            runner.last_iter, save=False, max_views=1, occ_grid=runner.state.occ)[0]
+        del runner
+        dp_err = float(np.abs(ten["frame"] - frame1).max())
+        ss_err = float(np.abs(ten["ss_frame"] - lego_view0).max())
+        deep_err = max(float((ten["deep"][0] - deep1[0]).abs().max()),
+                       float((ten["deep"][1] - deep1[1]).abs().max()))
+        launches = lambda key: [r[key]["field_rays"] for r in pair]
+        print(f"[{tag}] render-lego_occ-dp2-800: the view from iteration {g0['render_iter']}, "
+              f"its chunks split over the ranks, {g0['frame_s']:.3f} s; kernel 1 launches a "
+              f"rank {launches('frame_launches')} (expected {2 * n_chunks}); against the "
+              f"one-rank view: max |diff| {dp_err:.3e} (limit {BF16_CHUNK_ATOL})")
+        print(f"[{tag}] render-lego-ss2-800: data {g0['ss_mesh'][0]} x sample "
+              f"{g0['ss_mesh'][1]}, {lcfg.n_coarse} coarse + {lcfg.n_fine // DP_RANKS} fine "
+              f"samples a rank, {g0['ss_frame_s']:.3f} s; kernel 1 launches a rank "
+              f"{launches('ss_frame_launches')} (expected {2 * n_chunks}); against phase 6's "
+              f"view 0 (one rank): max |diff| {ss_err:.3e} (limit {CHUNK_ATOL})")
+        print(f"[{tag}] one {lcfg.render_chunk}-ray chunk at {lcfg.n_coarse} + {DEEP_FINE} "
+              f"samples, {DEEP_FINE // DP_RANKS} fine a rank: {g0['deep_ms']:.2f} ms (one rank "
+              f"{deep1[2]:.2f} ms); kernel 1 launches a rank {launches('deep_launches')} "
+              f"(expected 2); against the one-rank chunk: max |diff| {deep_err:.3e} (limit "
+              f"{CHUNK_ATOL})")
+        for r in pair:
+            if (r["frame_launches"] != launched(field_rays=2 * n_chunks)
+                    or r["ss_frame_launches"] != launched(field_rays=2 * n_chunks)
+                    or r["deep_launches"] != launched(field_rays=2)):
+                raise AssertionError(f"[{tag}] a view or the deep chunk did not run kernel 1 "
+                                     "twice a chunk on each rank, and nothing else")
+        if not (dp_err <= BF16_CHUNK_ATOL and ss_err <= CHUNK_ATOL and deep_err <= CHUNK_ATOL):
+            raise AssertionError(f"[{tag}] a data-parallel or sample-sharded render disagrees "
+                                 "with the one-rank render")
+        res.update(frame_s=g0["frame_s"], frame_err=dp_err, ss_frame_s=g0["ss_frame_s"],
+                   ss_frame_err=ss_err, deep_ms=g0["deep_ms"], deep_one_rank_ms=deep1[2],
+                   deep_err=deep_err)
+        out[tag] = res
+
+    both = lambda key: {k: sum(r[key][k] for r in recs["gloo"]) for k in launch_counts()}
+    out["launches"] = {DP_TRAIN: both("train_launches"),
+                       "lego_occ data-parallel render (2 ranks)": both("frame_launches"),
+                       "lego sample-sharded render (2 ranks)": both("ss_frame_launches"),
+                       "lego sample-sharded deep chunk (2 ranks)": both("deep_launches")}
+    return out
+
+
+def _tree_cosines(a, b) -> dict:
+    """Per leaf (keys joined by /), the cosine of two gradient trees."""
+    import torch
+    out = {}
+
+    def walk(x, y, name):
+        if isinstance(x, dict):
+            for k in x:
+                walk(x[k], y[k], f"{name}/{k}" if name else k)
+        else:
+            u, v = x.double().flatten().cpu(), y.double().flatten().cpu()
+            norm = float(u.norm() * v.norm())
+            out[name] = float(u @ v) / norm if norm > 0 else float(torch.equal(u, v))
+
+    walk(a, b, "")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2918,6 +3328,7 @@ def main() -> int:
         if not (np.all(np.isfinite(frames)) and frames.min() >= 0 and frames.max() <= 1):
             raise AssertionError("frames are not finite values in [0, 1]")
         print(f"frame mean {frames.mean():.4f}, std {frames.std():.4f}")
+        lego_view0 = frames[0].copy()   # phase 28b's one-rank view
 
         # one real chunk (the frame's middle), kernel field vs plain field
         with torch.no_grad():
@@ -3854,7 +4265,10 @@ def main() -> int:
         # legacy field, the render service ----
         shipped = shipped_phases(tmp, "cuda", ocfg)
 
-    # ---- 28. results ----
+        # ---- 28, 28b. two ranks: lego_occ data-parallel, lego sample-sharded ----
+        parallel = parallel_phases(tmp, cfg.ckpt_path, lego_view0, "cuda")
+
+    # ---- 29. results ----
     mean = lambda table, shapes, i: sum(table[s][i] for s in shapes) / len(shapes)
     shape_key = lambda s: (f"B={s[0]},N={s[1]}" if len(s) == 2 else f"R={s[0]}" if len(s) == 1
                            else f"B={s[0]},N_c={s[1]},N_f={s[2]}")
@@ -3894,22 +4308,28 @@ def main() -> int:
     # no single PyTorch call computes any of these fused functions: library_ms is null
     kernels = [
         form("field_rays_fwd", fwd_src, "tinynerf/kernels/mlp_kernel.py:720",
-             train_launches[0] + render_launches + fp32_launches[0] + prop_fp32_field[0],
+             train_launches[0] + render_launches + fp32_launches[0] + prop_fp32_field[0]
+             + sum(v["field_rays"] for k, v in parallel["launches"].items()
+                   if "sample-sharded" in k),
              {"lego train": train_launches[0], "lego render": render_launches,
               "lego_occ fp32 train": fp32_launches[0],
-              "lego_prop fp32 train": prop_fp32_field[0]},
+              "lego_prop fp32 train": prop_fp32_field[0],
+              **{k: v["field_rays"] for k, v in parallel["launches"].items()
+                 if "sample-sharded" in k}},
              fwd_err, fwd_time, render_shapes),
         form("field_rays_fwd_bf16", fwd_src, "tinynerf/kernels/mlp_kernel.py:720",
              occ_launches[0] + occ_render_launches + fast_launches[0] + prop_mlp_launches[0]
              + prop_render_field + fern_launches["rays"] + fern_render[False]["rays"]
              + feed["train"]["field_rays"]
-             + sum(v["field_rays"] for v in shipped["launches"].values()),
+             + sum(v["field_rays"] for v in shipped["launches"].values())
+             + sum(v["field_rays"] for k, v in parallel["launches"].items() if "lego_occ" in k),
              {"lego_occ train": occ_launches[0], "lego_occ render": occ_render_launches,
               "lego_fast train": fast_launches[0], "lego_prop train": prop_mlp_launches[0],
               "lego_prop render": prop_render_field, "fern_ndc train": fern_launches["rays"],
               "fern_ndc render": fern_render[False]["rays"],
               "fern_ndc host-fed train": feed["train"]["field_rays"],
-              **{k: v["field_rays"] for k, v in shipped["launches"].items()}},
+              **{k: v["field_rays"] for k, v in shipped["launches"].items()},
+              **{k: v["field_rays"] for k, v in parallel["launches"].items() if "lego_occ" in k}},
              bf16_fwd_err, bf16_fwd_time, list(OCC_SHAPES), {"gemm_chain_ms": gemm_chain_ms}),
         form("field_rays_bwd", bwd_src, "tinynerf/kernels/mlp_kernel.py:751",
              train_launches[1] + fp32_launches[1] + prop_fp32_field[1],
@@ -3921,12 +4341,14 @@ def main() -> int:
         form("field_rays_bwd_bf16", bwd_src, "tinynerf/kernels/mlp_kernel.py:751",
              occ_launches[1] + fast_launches[1] + prop_mlp_launches[1]
              + fern_launches["rays_bwd"] + feed["train"]["field_rays_bwd"]
-             + shipped["launches"]["lego_coarse train"]["field_rays_bwd"],
+             + shipped["launches"]["lego_coarse train"]["field_rays_bwd"]
+             + parallel["launches"][DP_TRAIN]["field_rays_bwd"],
              {"lego_occ train": occ_launches[1], "lego_fast train": fast_launches[1],
               "lego_prop train": prop_mlp_launches[1],
               "fern_ndc train": fern_launches["rays_bwd"],
               "fern_ndc host-fed train": feed["train"]["field_rays_bwd"],
-              "lego_coarse train": shipped["launches"]["lego_coarse train"]["field_rays_bwd"]},
+              "lego_coarse train": shipped["launches"]["lego_coarse train"]["field_rays_bwd"],
+              DP_TRAIN: parallel["launches"][DP_TRAIN]["field_rays_bwd"]},
              bf16_bwd_abs, bf16_bwd_time, list(OCC_SHAPES), {"max_rel_err": bf16_bwd_rel}),
         form("field_flat_fwd", flat_src, "tinynerf/kernels/mlp_kernel.py:269",
              fp32_launches[2] + u_fp32["flat"],
@@ -3934,9 +4356,10 @@ def main() -> int:
               "unbounded360-mlp fp32 train": u_fp32["flat"]},
              flat_err["fp32"], flat("fp32"), [(FLAT_BWD_ROWS[0],)]),
         form("field_flat_fwd_bf16", flat_src, "tinynerf/kernels/mlp_kernel.py:269",
-             occ_launches[2] + fast_launches[2] + sum(u_fwd_bf16.values()),
+             occ_launches[2] + fast_launches[2] + sum(u_fwd_bf16.values())
+             + parallel["launches"][DP_TRAIN]["field_flat"],
              {"lego_occ train": occ_launches[2], "lego_fast train": fast_launches[2],
-              **u_fwd_bf16},
+              **u_fwd_bf16, DP_TRAIN: parallel["launches"][DP_TRAIN]["field_flat"]},
              flat_err["bf16"], flat("bf16"), [(FLAT_BWD_ROWS[0],)]),
         form("field_flat_bwd", flat_bwd_src, "tinynerf/kernels/mlp_kernel.py:566",
              u_fp32["flat_bwd"], {"unbounded360-mlp fp32 train": u_fp32["flat_bwd"]},
@@ -4070,7 +4493,8 @@ def main() -> int:
                                            "contracted_grid_shares": u_occ_shares},
                       "fern_ndc": {"step_ms": fern_ms, "frame_s": fern_frame_s[False],
                                    "fused_frame_s": fern_frame_s[True],
-                                   "fused_vs_unfused_max_diff": fern_diff}}))
+                                   "fused_vs_unfused_max_diff": fern_diff},
+                      "parallel": {k: v for k, v in parallel.items() if k != "launches"}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -4,6 +4,7 @@ grid forms still refused and the flagship's keys accepted, against the JAX packa
 sizes. Inputs are made with numpy from a seed and handed to both."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import jax
@@ -18,6 +19,7 @@ from tinynerf_torch import ckpt, config, eval as evallib, optim, train
 from tinynerf_torch.config import Config
 from tinynerf_torch.core import gridfield
 from tinynerf_torch.logging import MetricLogger
+from tinynerf_torch.parallel import mesh as meshlib
 from tinynerf_torch.runner import Runner
 from tests.torch_workers import torch_threads  # noqa: F401 (autouse)
 
@@ -261,15 +263,24 @@ def test_unported_grid_forms_are_refused_by_name():
     (dict(fine_field="grid", grid_upsample="1:12"), None),
     (dict(fine_field="grid", grid_lookup="gather"), "GRID_LOOKUP=gather"),
     (dict(mesh_shape=4), "MESH_SHAPE=4"),
-    (dict(sample_shard=2), "SAMPLE_SHARD=2")])
+    (dict(mesh_shape=3, sample_shard=2), "SAMPLE_SHARD=2")])
 def test_check_supported_refuses_unported_keys(kw, what, sync_scene_dir, tmp_path):
     """``GRID_UPSAMPLE``, once refused here, is accepted, and a Runner trains
     two steps with it (the grid at small widths; the milestone at 1 resizes
-    it to R = 12); ``GRID_LOOKUP = gather`` and a mesh over several devices
-    are still refused by name."""
+    it to R = 12); ``GRID_LOOKUP = gather`` is still refused by name. A mesh
+    over several ranks is ported (``parallel/``): what is refused by name
+    now is a ``MESH_SHAPE`` other than the job's world size (1 here) and a
+    ``SAMPLE_SHARD`` that does not divide it (a job of 3)."""
     if what is not None:
-        with pytest.raises(NotImplementedError, match=f"{what} is not ported yet .ROADMAP"):
-            evallib.check_supported(Config(**kw))
+        if what.startswith("GRID_LOOKUP"):
+            with pytest.raises(NotImplementedError, match=f"{what} is not ported yet .ROADMAP"):
+                evallib.check_supported(Config(**kw))
+        else:
+            # the world size of this process (1), or of a job of 3
+            check = (functools.partial(meshlib.check_mesh, world=kw["mesh_shape"])
+                     if "sample_shard" in kw else evallib.check_supported)
+            with pytest.raises(ValueError, match=what):
+                check(Config(**kw))
         return
     cfg = Config(img_dir=f"{sync_scene_dir}/", data_type="sync", n_coarse=8, n_fine=16,
                  batch_ray=32, total_iter=2, step=1000, grid_res=9, grid_comp_density=2,

@@ -32,6 +32,14 @@ def test_imports_neither_jax_nor_tinynerf(path):
     assert not roots & {"jax", "jaxlib", "tinynerf", "flax", "optax"}, roots
 
 
+def test_the_parallel_modules_are_held_to_it():
+    """``tinynerf_torch/parallel/`` (the rank processes of a job import it
+    without the JAX package) is among the files checked above."""
+    names = {os.path.relpath(p, REPO) for p in FILES}
+    for module in ("distributed", "mesh", "sample_shard"):
+        assert os.path.join("tinynerf_torch", "parallel", f"{module}.py") in names
+
+
 def test_package_imports_without_jax_or_a_build():
     """In a fresh interpreter with JAX blocked, every module imports, and no
     kernel library is built or loaded."""

@@ -18,6 +18,7 @@ from tinynerf.runner import Runner as JRunner
 from tinynerf_torch import ckpt, eval as evallib, optim, profiling
 from tinynerf_torch.config import Config
 from tinynerf_torch.kernels import render_kernel
+from tinynerf_torch.parallel import mesh as meshlib
 from tinynerf_torch.runner import Runner
 from tests.torch_workers import torch_threads  # noqa: F401 (autouse)
 
@@ -149,16 +150,18 @@ def test_check_supported_accepts_the_runner_options(kw):
 
 def test_check_supported_keeps_the_pyramid_error_and_the_refusals():
     """``GRID_UPSAMPLE`` with a pyramid is the JAX package's ``ValueError``;
-    the gather lookup (item 14), on the fine grid or the proposal grid, and
-    a mesh over several devices (item 11) are refused by name."""
+    the gather lookup (item 14), on the fine grid or the proposal grid, is
+    refused by name; so are a ``MESH_SHAPE`` other than the job's world
+    size and a ``SAMPLE_SHARD`` that does not divide it, now that a mesh
+    over several ranks is ported (``parallel/``)."""
     with pytest.raises(ValueError, match="GRID_UPSAMPLE is incompatible with GRID_LEVELS>1"):
         evallib.check_supported(Config(fine_field="grid", grid_upsample="100:128",
                                        grid_levels=2))
-    for kw, what in (
-            (dict(fine_field="grid", grid_lookup="gather"), "GRID_LOOKUP=gather .*item 14"),
-            (dict(proposal=True, prop_field="grid", grid_lookup="gather"),
-             "GRID_LOOKUP=gather .*item 14"),
-            (dict(mesh_shape=4), "MESH_SHAPE=4 .*item 11"),
-            (dict(sample_shard=2), "SAMPLE_SHARD=2 .*item 11")):
-        with pytest.raises(NotImplementedError, match=f"{what}"):
+    for kw in (dict(fine_field="grid", grid_lookup="gather"),
+               dict(proposal=True, prop_field="grid", grid_lookup="gather")):
+        with pytest.raises(NotImplementedError, match="GRID_LOOKUP=gather .*item 14"):
             evallib.check_supported(Config(**kw))
+    with pytest.raises(ValueError, match="MESH_SHAPE=4 asks for 4 ranks but this job has 1"):
+        evallib.check_supported(Config(mesh_shape=4))
+    with pytest.raises(ValueError, match="SAMPLE_SHARD=3 must divide the device count 4"):
+        meshlib.check_mesh(Config(mesh_shape=4, sample_shard=3), 4)

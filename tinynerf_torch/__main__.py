@@ -6,6 +6,14 @@ The flags are ``main.py``'s, plus ``--device``. ``--mode train`` trains to
 split, as ``main.py`` does. Rendering modes (``display``, ``path``) resume
 the latest checkpoint under ``CKPT_PATH`` whatever ``CONTINUE`` says, and
 refuse to run without one.
+
+Several ranks, one card each (``parallel/``): under ``torchrun
+--nproc-per-node N -m tinynerf_torch``, or with the JAX package's
+``COORDINATOR_ADDRESS`` (``host:port``), ``NUM_PROCESSES`` and
+``PROCESS_ID``, each process joins the job. Outside a job, ``MESH_SHAPE =
+N`` (N > 1) starts N ranks itself, on N cards (fewer cards are refused by
+name), or with ``--device cpu`` on the CPU under gloo. ``MESH_SHAPE``
+unset or ``auto`` is the job's size: one process outside a job.
 """
 
 from __future__ import annotations
@@ -35,6 +43,22 @@ def main(argv=None) -> None:
                         choices=["cuda", "cpu"])
     args = parser.parse_args(argv)
 
+    from tinynerf_torch.config import load_config
+    from tinynerf_torch.parallel import distributed as dist
+
+    dist.maybe_initialize(device=args.device)
+    try:
+        mesh_shape = load_config(args.conf).mesh_shape or 1
+        if dist.world_size() == 1 and mesh_shape > 1:
+            dist.spawn("tinynerf_torch.__main__:run", mesh_shape, args.device, (args,))
+        else:
+            run(args)
+    finally:
+        dist.shutdown()
+
+
+def run(args: argparse.Namespace) -> None:
+    """The CLI's work in this process (one rank of a job, or the only one)."""
     from tinynerf_torch.config import load_config
     from tinynerf_torch.runner import NoCheckpointError, Runner
 

@@ -92,7 +92,7 @@ def update_grid(grid: OccGrid, params, field_fn,
                 ema: float = 0.8, chunk: int = 65536,
                 subset: Optional[int] = None, contract: bool = False,
                 draws: Optional[Tuple[Optional[torch.Tensor], torch.Tensor]] = None,
-                ) -> OccGrid:
+                cell_split=None) -> OccGrid:
     """EMA-update the grid from the field (one jittered probe per cell), then
     re-derive the dilated query grid.
 
@@ -110,6 +110,12 @@ def update_grid(grid: OccGrid, params, field_fn,
     the contracted ball and ``field_fn`` is the contracting wrapper, which
     takes world points, so each probe goes through ``inv_contract_mip360``
     first and the wrapper's warp lands it back on its cell.
+
+    ``cell_split`` (``parallel.mesh.Mesh``, the counterpart of the JAX
+    package's ``cell_sharding``) partitions the probes over the ranks of a
+    job: every rank draws every probe, evaluates its own contiguous rows
+    (``local_rows``) and gathers every rank's sigma back (``gather_rows``),
+    so the grids stay identical and equal the one-rank refresh.
     """
     res = grid.density.shape[0]
     n_total = res ** 3
@@ -126,13 +132,17 @@ def update_grid(grid: OccGrid, params, field_fn,
 
     def sigma_at(points: torch.Tensor) -> torch.Tensor:
         out = []
+        n = points.shape[0]
+        if cell_split is not None:
+            points = cell_split.local_rows(points)
         if contract:
             points = inv_contract_mip360(points)
         for p in torch.split(points, chunk):
             up = torch.zeros_like(p)
             up[:, 2] = 1.0
             out.append(field_fn(params, p, up)[1][:, 0])
-        return torch.cat(out)
+        sigma = torch.cat(out) if out else points.new_zeros((0,))
+        return sigma if cell_split is None else cell_split.gather_rows(sigma, n)
 
     if not partial:
         centers = cell_centers(res, grid.half_extent)

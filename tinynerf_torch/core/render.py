@@ -223,7 +223,8 @@ def render_rays(params: mlp.Params,
                 prop_field_fn: Optional[FieldFn] = None,
                 want_dist: bool = False,
                 want_interlevel: bool = False,
-                lindisp: bool = False):
+                lindisp: bool = False,
+                jitter: Optional[torch.Tensor] = None):
     """Coarse + fine march for a ray batch -> (C_coarse, C_fine), each (B, 3).
 
     With ``extras=True`` returns ``(C_coarse, C_fine, depth, acc)``, depth
@@ -231,8 +232,9 @@ def render_rays(params: mlp.Params,
     fine samples). With a proposal field, ``want_dist`` / ``want_interlevel``
     return ``(C_coarse, C_fine, aux)``, ``aux`` holding the per-ray (B,)
     ``"dist"`` / ``"interlevel"`` losses. ``generator`` jitters the coarse
-    samples (stratified). ``ndc_params = (H, W, focal)`` marches the NDC
-    cube; ``lindisp`` spaces the coarse samples in disparity.
+    samples (stratified), or the caller gives the (B, N_c) ``jitter`` (a
+    rank's rows of a batch's draw). ``ndc_params = (H, W, focal)`` marches
+    the NDC cube; ``lindisp`` spaces the coarse samples in disparity.
     ``merge_impl`` is accepted as ``"twolist"`` or ``"permute"`` (the
     default, as in the JAX package): both are the same stable-sort merge
     here, but only ``"twolist"`` lets a field's ``render_fused`` take the
@@ -291,13 +293,13 @@ def render_rays(params: mlp.Params,
     if (fused is not None and n_fine > 0 and not compat_sort
             and merge_impl == "twolist" and not extras
             and prop_params is None and not lindisp):
-        t_co = sampling.coarse_ts(near, far, n_coarse, generator=generator)
+        t_co = sampling.coarse_ts(near, far, n_coarse, generator=generator, jitter=jitter)
         return fused(params, origins, dirs, t_co, near, far, n_fine=n_fine,
                      white_bkgd=white_bkgd)
 
     # ---- coarse pass ----
     t_co = sampling.coarse_ts(near, far, n_coarse, generator=generator,
-                              lindisp=lindisp)
+                              lindisp=lindisp, jitter=jitter)
     if prop_params is not None:
         color_co, sigma_co = _eval_field(prop_field_fn, prop_params, origins, dirs, t_co)
     else:

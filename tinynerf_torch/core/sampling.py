@@ -68,12 +68,18 @@ def coarse_ts(near: torch.Tensor, far: torch.Tensor, n_coarse: int,
     return ts
 
 
-def fine_levels(cdf: torch.Tensor, n_fine: int) -> torch.Tensor:
+def fine_levels(cdf: torch.Tensor, n_fine: int, level_start: int = 0,
+                level_count: Optional[int] = None) -> torch.Tensor:
     """N_f uniform CDF levels strictly between each ray's CDF min and max,
-    (B, N_c) -> (B, N_f). The levels are not differentiated."""
+    (B, N_c) -> (B, N_f); with ``level_start`` / ``level_count`` only levels
+    ``[level_start, level_start + level_count)`` of them, computed as
+    ``(arange(1, count + 1) + start) / (N_f + 1)``, in that order, so that a
+    slice equals the matching columns of the whole set bit for bit. The
+    levels are not differentiated."""
     high = cdf.max(dim=1).values.detach()
     low = cdf.min(dim=1).values.detach()
-    frac = (torch.arange(1, n_fine + 1, dtype=cdf.dtype, device=cdf.device)
+    count = n_fine if level_count is None else level_count
+    frac = ((torch.arange(1, count + 1, dtype=cdf.dtype, device=cdf.device) + level_start)
             / (n_fine + 1))
     return low[:, None] + (high - low)[:, None] * frac[None, :]
 
@@ -87,7 +93,8 @@ def bin_indices(cdf: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
 
 
 def resample(t_coarse: torch.Tensor, dense_coarse: torch.Tensor,
-             delta_coarse: torch.Tensor, n_fine: int) -> torch.Tensor:
+             delta_coarse: torch.Tensor, n_fine: int, level_start: int = 0,
+             level_count: Optional[int] = None) -> torch.Tensor:
     """Inverse-CDF hierarchical resampling.
 
     t_coarse (B, N_c) sorted per ray; dense_coarse (B, N_c) compositing
@@ -95,10 +102,13 @@ def resample(t_coarse: torch.Tensor, dense_coarse: torch.Tensor,
     ``(far - near) / (N_c - 1)``, or (B, N_c - 1) per-bin spacings (LINDISP,
     whose bins are not uniform in t), bin i's pairing with
     ``dense_coarse[:, i + 1]`` in the slope. Returns (B, N_f) fine
-    distances, sorted per ray by construction.
+    distances, sorted per ray by construction. ``level_start`` /
+    ``level_count`` place only that slice of the N_f levels (a rank's share
+    of a sample-sharded march, ``parallel/sample_shard.py``), the matching
+    columns of the whole march.
     """
     cdf = torch.cumsum(dense_coarse, dim=1)               # nondecreasing
-    t_inv = fine_levels(cdf, n_fine)
+    t_inv = fine_levels(cdf, n_fine, level_start, level_count)
     idx = bin_indices(cdf, t_inv)
 
     if delta_coarse.ndim == 1:

@@ -20,6 +20,8 @@ from tinynerf_torch.config import Config
 from tinynerf_torch.core import contract, gridfield, proposal, render
 from tinynerf_torch.core.encoding import L_POINT
 from tinynerf_torch.data.rays import RayTable
+from tinynerf_torch.parallel import distributed as dist
+from tinynerf_torch.parallel import mesh as meshlib
 
 
 def _grid_pallas_conflicts(cfg: Config) -> None:
@@ -41,12 +43,13 @@ def _grid_pallas_conflicts(cfg: Config) -> None:
 def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for a config the port cannot train or
     render yet, naming the ROADMAP item that will bring it: the gather form
-    of the grid lookup (``GRID_LOOKUP = gather``; queue 1, item 14) and a
-    mesh over several devices (``MESH_SHAPE > 1``, ``SAMPLE_SHARD > 1``; item
-    11). Before that, the JAX package's ``ValueError`` for a bad
-    ``PRECISION``, ``FINE_FIELD`` or ``PROP_FIELD``, for ``GRID_PALLAS`` with
-    a form its kernels do not compute, and for ``GRID_UPSAMPLE`` with a
-    pyramid, on a fresh run and on a resume alike."""
+    of the grid lookup (``GRID_LOOKUP = gather``; queue 1, item 14). Before
+    that, the JAX package's ``ValueError`` for a bad ``PRECISION``,
+    ``FINE_FIELD`` or ``PROP_FIELD``, for ``GRID_PALLAS`` with a form its
+    kernels do not compute, and for ``GRID_UPSAMPLE`` with a pyramid, on a
+    fresh run and on a resume alike; and a ``ValueError`` naming a
+    ``MESH_SHAPE`` other than this job's world size or a ``SAMPLE_SHARD``
+    that does not divide it (``parallel.mesh.check_mesh``)."""
     if cfg.precision not in ("fp32", "bf16"):
         raise ValueError(f"PRECISION must be fp32 or bf16, got {cfg.precision!r}")
     if cfg.fine_field not in ("mlp", "grid"):
@@ -60,18 +63,10 @@ def check_supported(cfg: Config) -> None:
         # tinynerf/train.py:44-49: on every path, fresh or resumed
         raise ValueError("GRID_UPSAMPLE is incompatible with "
                          "GRID_LEVELS>1 (multi-resolution pyramid)")
-    refused = [
-        ((grid or prop_grid) and cfg.grid_lookup != "onehot",
-         f"GRID_LOOKUP={cfg.grid_lookup}", "queue 1, item 14: GRID_LOOKUP = gather"),
-        # the port runs on one device; unset or auto is that device
-        ((cfg.mesh_shape or 1) > 1, f"MESH_SHAPE={cfg.mesh_shape}",
-         "queue 1, item 11: parallel/"),
-        (cfg.sample_shard > 1, f"SAMPLE_SHARD={cfg.sample_shard}",
-         "queue 1, item 11: parallel/"),
-    ]
-    for bad, what, where in refused:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP {where})")
+    meshlib.check_mesh(cfg, dist.world_size())
+    if (grid or prop_grid) and cfg.grid_lookup != "onehot":
+        raise NotImplementedError(f"GRID_LOOKUP={cfg.grid_lookup} is not ported yet "
+                                  "(ROADMAP queue 1, item 14: GRID_LOOKUP = gather)")
 
 
 def net_params(cfg: Config, params: Any) -> Any:
@@ -178,9 +173,20 @@ def _make_prop_field_fn(cfg: Config) -> render.FieldFn:
     return proposal.make_field_proposal(cfg.proposal_enc_l, cfg.precision)
 
 
+def without_fused(field_fn: render.FieldFn) -> render.FieldFn:
+    """``field_fn`` without its ``render_fused`` (its ``eval_rays`` kept)."""
+    if getattr(field_fn, "render_fused", None) is None:
+        return field_fn
+    fn = functools.partial(field_fn)
+    if getattr(field_fn, "eval_rays", None) is not None:
+        fn.eval_rays = field_fn.eval_rays
+    return fn
+
+
 def make_frame_fn(cfg: Config, k_inv: torch.Tensor, height: int, width: int,
                   field_fn: Optional[render.FieldFn] = None,
-                  extras: bool = False, occ_grid=None, ndc_params=None):
+                  extras: bool = False, occ_grid=None, ndc_params=None,
+                  mesh: Optional[meshlib.Mesh] = None):
     """Whole-frame renderer on ``k_inv``'s device: ``frame(params, pose17_row)``
     -> (H, W, 3) numpy, or with ``extras`` (rgb, depth, acc). ``occ_grid``
     (the trained state's, with ``OCC_GRID``) tightens every ray's bounds.
@@ -191,19 +197,56 @@ def make_frame_fn(cfg: Config, k_inv: torch.Tensor, height: int, width: int,
     ``FUSED_RENDER`` each chunk is one launch of the fused renderer; the JAX
     package renders such a frame in one call over every pixel, a TPU memory
     workaround (``tinynerf/eval.py:40-43``), and rays are independent, so
-    the chunks change no value."""
+    the chunks change no value.
+
+    Under a ``mesh`` (``parallel/mesh.py``; every rank calls ``frame``) each
+    chunk, padded to a multiple of the mesh's ranks, is split over the data
+    group and gathered back, so every rank returns the whole frame; the
+    fused renderer is not taken, as the JAX package takes it only without a
+    mesh (``tinynerf/eval.py:56-58``). With ``SAMPLE_SHARD`` and no
+    occupancy grid, extras, ``COMPAT_SORT``, ``PROPOSAL``, NDC or
+    ``LINDISP``, and a fine pass (``tinynerf/eval.py:103-107``), the fine
+    samples are spread over the sample group too
+    (``sample_shard.make_sample_sharded_render``)."""
     if field_fn is None:
         field_fn = make_field_fn(cfg)
+    if mesh is not None:
+        field_fn = without_fused(field_fn)
     prop_fn = make_prop_field_fn(cfg)
     device = k_inv.device
     num_pix = height * width
     chunk = min(cfg.render_chunk, num_pix)
+    if mesh is not None:
+        chunk = -(-chunk // mesh.size) * mesh.size
     n_chunks = -(-num_pix // chunk)
     padded = n_chunks * chunk
     rr, cc = np.meshgrid(np.arange(height, dtype=np.float32),
                          np.arange(width, dtype=np.float32), indexing="ij")
     rows = torch.from_numpy(np.pad(rr.reshape(-1), (0, padded - num_pix))).to(device)
     cols = torch.from_numpy(np.pad(cc.reshape(-1), (0, padded - num_pix))).to(device)
+
+    def march(params, r, c, pose):
+        """The rays' C_fine (and depth, acc with ``extras``)."""
+        out = render.render_rays(
+            net_params(cfg, params), r, c, pose, k_inv,
+            cfg.n_coarse, cfg.n_fine, field_fn=field_fn,
+            compat_sort=cfg.compat_sort, ndc_params=ndc_params,
+            merge_impl="twolist", white_bkgd=cfg.white_bkgd, occ_grid=occ_grid,
+            occ_march=cfg.occ_march_steps, occ_contract=cfg.contract,
+            occ_march_res=cfg.occ_march_res, extras=extras,
+            prop_params=prop_params(cfg, params), prop_field_fn=prop_fn,
+            lindisp=cfg.lindisp)
+        return out[1:4] if extras else out[1:2]
+
+    if (mesh is not None and mesh.n_sample > 1 and occ_grid is None and not extras
+            and not cfg.compat_sort and not cfg.proposal and cfg.n_fine > 0
+            and ndc_params is None and not cfg.lindisp):
+        from tinynerf_torch.parallel.sample_shard import make_sample_sharded_render
+        sh_render = make_sample_sharded_render(mesh, k_inv, cfg.n_coarse, cfg.n_fine,
+                                               field_fn=field_fn, white_bkgd=cfg.white_bkgd)
+        march = lambda params, r, c, pose: sh_render(params, r, c, pose)[1:]
+    elif mesh is not None:
+        march = meshlib.sharded_render_chunk(march, mesh)
 
     @torch.no_grad()
     def frame(params, pose17_row):
@@ -214,18 +257,10 @@ def make_frame_fn(cfg: Config, k_inv: torch.Tensor, height: int, width: int,
         acc = torch.empty((padded,), dtype=torch.float32, device=device)
         for i in range(n_chunks):
             span = slice(i * chunk, (i + 1) * chunk)
-            out = render.render_rays(
-                net_params(cfg, params), rows[span], cols[span], pose, k_inv,
-                cfg.n_coarse, cfg.n_fine, field_fn=field_fn,
-                compat_sort=cfg.compat_sort, ndc_params=ndc_params,
-                merge_impl="twolist", white_bkgd=cfg.white_bkgd, occ_grid=occ_grid,
-                occ_march=cfg.occ_march_steps, occ_contract=cfg.contract,
-                occ_march_res=cfg.occ_march_res, extras=extras,
-                prop_params=prop_params(cfg, params), prop_field_fn=prop_fn,
-                lindisp=cfg.lindisp)
-            rgb[span] = out[1]
+            out = march(params, rows[span], cols[span], pose)
+            rgb[span] = out[0]
             if extras:
-                depth[span], acc[span] = out[2], out[3]
+                depth[span], acc[span] = out[1], out[2]
         img = rgb[:num_pix].reshape(height, width, 3).cpu().numpy()
         if extras:
             shp = (height, width)
@@ -281,15 +316,17 @@ def render_test_set(cfg: Config, params: Any, table: RayTable,
                     field_fn=None, save: bool = True,
                     max_views: Optional[int] = None,
                     depth: bool = False, occ_grid=None,
-                    ndc_params=None) -> np.ndarray:
+                    ndc_params=None, mesh: Optional[meshlib.Mesh] = None) -> np.ndarray:
     """Render every view of ``table`` in order; with ``save`` write per-view
     JPGs under ``results_path/<start_time>/`` and a video. ``depth=True``
     also writes ``<pic>_depth.jpg`` and ``<pic>_acc.jpg`` (under NDC the
     depth is in NDC units, [0, 1] already). Returns the (N, H, W, 3) stack,
-    clipped to [0, 1]."""
+    clipped to [0, 1]. Under a ``mesh`` every rank renders and returns
+    the frames (``make_frame_fn``) and only rank 0 writes them."""
+    save = save and dist.is_main_process()
     frame_fn = make_frame_fn(cfg, k_inv, table.height, table.width,
                              field_fn=field_fn, extras=depth, occ_grid=occ_grid,
-                             ndc_params=ndc_params)
+                             ndc_params=ndc_params, mesh=mesh)
     n_views = table.num_pics if max_views is None else min(max_views, table.num_pics)
     frames = np.empty((n_views, table.height, table.width, 3), np.float32)
     if depth:
@@ -331,13 +368,15 @@ def render_test_set(cfg: Config, params: Any, table: RayTable,
 def render_path(cfg: Config, params: Any, pose_rows: np.ndarray,
                 k_inv: torch.Tensor, out_base: str, field_fn=None,
                 fps: int = 30, save: bool = True, occ_grid=None,
-                ndc_params=None) -> np.ndarray:
+                ndc_params=None, mesh: Optional[meshlib.Mesh] = None) -> np.ndarray:
     """Render a camera path (``data/paths.py``) to a video. The frame size
-    comes from the pose rows' h/w column; ``k_inv`` must match it."""
+    comes from the pose rows' h/w column; ``k_inv`` must match it. Under a
+    ``mesh``, as ``render_test_set``: rank 0 writes the video."""
+    save = save and dist.is_main_process()
     height = int(pose_rows[0, :15].reshape(3, 5)[0, 4])
     width = int(pose_rows[0, :15].reshape(3, 5)[1, 4])
     frame_fn = make_frame_fn(cfg, k_inv, height, width, field_fn=field_fn,
-                             occ_grid=occ_grid, ndc_params=ndc_params)
+                             occ_grid=occ_grid, ndc_params=ndc_params, mesh=mesh)
     frames = np.empty((pose_rows.shape[0], height, width, 3), np.float32)
     for i in range(pose_rows.shape[0]):
         frames[i] = frame_fn(params, pose_rows[i])

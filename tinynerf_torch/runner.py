@@ -17,6 +17,16 @@ preview canvas and a checkpoint. Within the loop, as in
 before its iteration, ``HOST_FEED`` takes each batch from the native host
 ray store (``data/native.py``) and ``PROFILE_STEPS`` traces the first steps.
 Rendering refuses fresh weights unless this Runner trained them.
+
+In a job of several ranks (``parallel/``; ``MESH_SHAPE``), as
+``tinynerf/runner.py:37-44, 122-156, 177-204, 379-393``: the mesh is made
+before the tables; every rank loads the same scene and checkpoint, and rank
+0's state is replicated; every rank runs every step on its rows of the
+batch (the gradient summed over the ranks), the val pass on its rows, the
+``GRID_UPSAMPLE`` milestones and the frames; rank 0 alone prints the
+iteration lines, logs (the others hold a ``NullLogger``) and writes the
+preview canvas (the batch gathered from every rank), the checkpoints and
+the frames. At the end of training each rank prints its params' digest.
 """
 
 from __future__ import annotations
@@ -37,7 +47,8 @@ from tinynerf_torch.core.rays import make_k_inv
 from tinynerf_torch.data.poses import SceneData, load_scene, recenter_and_rescale
 from tinynerf_torch.data.rays import RayBatch, RayTable
 from tinynerf_torch.device import DeviceLike, resolve_device
-from tinynerf_torch.logging import MetricLogger, PreviewCanvas
+from tinynerf_torch.logging import MetricLogger, NullLogger, PreviewCanvas
+from tinynerf_torch.parallel import distributed as dist, mesh as meshlib
 from tinynerf_torch.profiling import Throughput, Trace
 
 # the val batch's generator is seeded SEED + 777, as the JAX package's
@@ -66,6 +77,9 @@ class Runner:
         self.device = resolve_device(device)
         self.start_time = time.strftime("%m-%d-%H-%M-%S", time.localtime())
         self._scene = scene
+        # the mesh before the tables (None on one rank)
+        self.mesh = meshlib.mesh_for_config(cfg)
+        self.is_main = dist.is_main_process()
 
         train_scene = self._ingest("train")
         if cfg.ndc and cfg.data_type == "llff":
@@ -127,6 +141,14 @@ class Runner:
             else:
                 print("Note: the checkpoint's generator state is for another "
                       "device; the sample stream restarts from SEED")
+        if self.mesh is not None:
+            # every rank must resume the same checkpoint (rank 0 writes them)
+            found = dist.all_gather(torch.tensor([self.last_iter]))
+            if any(int(f) != self.last_iter for f in found):
+                raise RuntimeError(
+                    f"the ranks resumed different checkpoints (iterations "
+                    f"{[int(f) for f in found]}): every rank needs rank 0's CKPT_PATH")
+            meshlib.replicate_state(self.state)
         if cfg.occ_grid and cfg.occ_march_steps is None:
             # the probe count must out-resolve the grid's 3-cell dilation
             # margin over this scene's longest ray span
@@ -139,6 +161,7 @@ class Runner:
                     cfg.occ_res, cfg.occ_extent, float(np.max(pb[:, 16] - pb[:, 15])))
         self.logger: Optional[MetricLogger] = None  # opened by train()
         self._val_batch: Optional[RayBatch] = None   # built by val_psnr()
+        dist.barrier()   # every rank's state is in place before any step
 
     @property
     def params(self):
@@ -164,7 +187,9 @@ class Runner:
         (u8 dequantised), the JAX package's stream, so both packages evaluate
         the same rays. The pass runs without gradients, without noise and
         with the two-list merge, so that with ``FUSED_RENDER`` it is one
-        launch of the fused renderer (on the card, kernel 9)."""
+        launch of the fused renderer (on the card, kernel 9). Under a mesh
+        every rank renders its rows of the batch (unfused, as frames) and
+        the squared errors are summed over the ranks."""
         cfg = self.cfg
         if self._val_batch is None:
             table = self.val_table
@@ -182,16 +207,23 @@ class Runner:
             self._val_batch = RayBatch(*(torch.from_numpy(np.ascontiguousarray(a)).to(
                 self.device) for a in host))
         b, params = self._val_batch, self.state.params
+        field_fn = evallib.make_field_fn(cfg)
+        if self.mesh is not None:
+            b, field_fn = self.mesh.local_rows(b), evallib.without_fused(field_fn)
         with torch.no_grad():
             _, c_fine = render.render_rays(
                 evallib.net_params(cfg, params), b.rows, b.cols, b.pose17, self.k_inv,
-                cfg.n_coarse, cfg.n_fine, field_fn=evallib.make_field_fn(cfg),
+                cfg.n_coarse, cfg.n_fine, field_fn=field_fn,
                 compat_sort=cfg.compat_sort, ndc_params=self.ndc_params,
                 merge_impl="twolist", white_bkgd=cfg.white_bkgd, occ_grid=self.state.occ,
                 occ_march=cfg.occ_march_steps, occ_march_res=cfg.occ_march_res,
                 occ_contract=cfg.contract, prop_params=evallib.prop_params(cfg, params),
                 prop_field_fn=evallib.make_prop_field_fn(cfg), lindisp=cfg.lindisp)
-            mse = torch.mean(torch.square(c_fine - b.rgb))
+            if self.mesh is None:
+                mse = torch.mean(torch.square(c_fine - b.rgb))
+            else:
+                sse = self.mesh.sum_over_data(torch.sum(torch.square(c_fine - b.rgb)))
+                mse = sse / (3 * cfg.batch_ray)
         return evallib.mse_to_db(float(mse))
 
     def _make_feeder(self, table: RayTable):
@@ -222,7 +254,8 @@ class Runner:
         new one."""
         cfg = self.cfg
         if self.logger is None:
-            self.logger = MetricLogger(os.path.join(cfg.log_dir, self.start_time))
+            self.logger = (MetricLogger(os.path.join(cfg.log_dir, self.start_time))
+                           if self.is_main else NullLogger())
         table = {"train": self.train_table, "val": self.val_table}[mode]
         canvas = PreviewCanvas(table.height, table.width)
         start = self.state.iteration
@@ -232,23 +265,24 @@ class Runner:
             end = start + n_batches
         else:
             end = cfg.total_iter
+        step_kw = dict(ndc_params=self.ndc_params, mesh=self.mesh)
         if cfg.host_feed:
-            step_fn = trainlib.make_host_fed_train_step(cfg, self.k_inv,
-                                                        ndc_params=self.ndc_params)
+            step_fn = trainlib.make_host_fed_train_step(cfg, self.k_inv, **step_kw)
         elif mode == "val":
             perm = torch.randperm(table.num_pix, generator=self.state.generator,
                                   device=self.device)
             epoch = perm[:n_batches * cfg.batch_ray].view(n_batches, cfg.batch_ray)
-            step_fn = trainlib.make_indexed_train_step(cfg, table, self.k_inv,
-                                                       ndc_params=self.ndc_params)
+            step_fn = trainlib.make_indexed_train_step(cfg, table, self.k_inv, **step_kw)
         else:
-            step_fn = trainlib.make_train_step(cfg, table, self.k_inv,
-                                               ndc_params=self.ndc_params)
+            step_fn = trainlib.make_train_step(cfg, table, self.k_inv, **step_kw)
         upsample = []
         if mode == "train" and cfg.fine_field == "grid" and cfg.grid_upsample:
             upsample = [(i, r) for i, r in parse_grid_upsample(cfg.grid_upsample)
                         if i >= start]
-        print(f"[STEP] {mode}: iterations {start} -> {end}")
+        if self.is_main:
+            print(f"[STEP] {mode}: iterations {start} -> {end}")
+        # the rows of each rank, for the preview canvas
+        data_group = None if self.mesh is None else self.mesh.data
 
         trace_dir = os.path.join(cfg.log_dir, "trace")
         profiling_until = (start + cfg.profile_steps
@@ -266,14 +300,20 @@ class Runner:
                 if upsample and it == upsample[0][0]:
                     _, new_res = upsample.pop(0)
                     self.state = trainlib.upsample_grid_state(cfg, self.state, new_res)
-                    print(f"[GRID] upsampled line tables to R={new_res} before iter {it}")
+                    if self.mesh is not None:
+                        meshlib.replicate_state(self.state)
+                    if self.is_main:
+                        print(f"[GRID] upsampled line tables to R={new_res} before iter {it}")
                 if it == profiling_until:
                     tracer.stop()
                     tracer = None
                     print(f"[PROFILE] trace of {cfg.profile_steps} steps -> {trace_dir}")
                     profiling_until = -1
                 if feeder is not None:
-                    self.state, metrics = step_fn(self.state, table.upload(feeder.next()))
+                    host = feeder.next()
+                    if self.mesh is not None:   # each rank uploads its rows
+                        host = self.mesh.local_rows(host)
+                    self.state, metrics = step_fn(self.state, table.upload(host))
                 elif epoch is not None:
                     self.state, metrics = step_fn(self.state, epoch[it - start])
                 else:
@@ -283,27 +323,31 @@ class Runner:
                 it += 1
                 meter.tick(1)
                 if it % cfg.step == 0:
-                    loss = float(metrics["loss"])
-                    c_t = metrics["c_true0"].tolist()
-                    c_f = metrics["c_fine0"].tolist()
-                    print(f"[ITER] {it - 1} [LOSS] {loss:.4f} "
-                          f"[T] ({c_t[0]:.4f} {c_t[1]:.4f} {c_t[2]:.4f}) "
-                          f"[F] ({c_f[0]:.4f} {c_f[1]:.4f} {c_f[2]:.4f}) "
-                          f"[RAYS/S] {meter.rays_per_sec:,.0f}")
+                    if self.is_main:
+                        loss = float(metrics["loss"])
+                        c_t = metrics["c_true0"].tolist()
+                        c_f = metrics["c_fine0"].tolist()
+                        print(f"[ITER] {it - 1} [LOSS] {loss:.4f} "
+                              f"[T] ({c_t[0]:.4f} {c_t[1]:.4f} {c_t[2]:.4f}) "
+                              f"[F] ({c_f[0]:.4f} {c_f[1]:.4f} {c_f[2]:.4f}) "
+                              f"[RAYS/S] {meter.rays_per_sec:,.0f}")
                     if mode == "train" and cfg.val_metrics:
-                        val_psnr = self.val_psnr()
-                        print(f"[VAL PSNR] {val_psnr:.2f} dB")
+                        val_psnr = self.val_psnr()   # every rank renders its rows
+                        if self.is_main:
+                            print(f"[VAL PSNR] {val_psnr:.2f} dB")
                         self.logger.log(it - 1, {"psnr/val": val_psnr})
                     self.logger.flush()
                     if mode == "train":
-                        canvas.update(metrics["rows"], metrics["cols"],
-                                      metrics["rgb"], metrics["pic"])
-                        canvas.save(os.path.join(
-                            cfg.results_path, f"{self.start_time}_{it - 1}.jpg"))
-                        ckpt.save_checkpoint(cfg.ckpt_path, self.start_time, it - 1,
-                                             self.state.params, self.state.opt,
-                                             generator=self.state.generator,
-                                             occ=self.state.occ)
+                        seen = [dist.to_host(metrics[k], data_group)
+                                for k in ("rows", "cols", "rgb", "pic")]
+                        if self.is_main:
+                            canvas.update(*seen)
+                            canvas.save(os.path.join(
+                                cfg.results_path, f"{self.start_time}_{it - 1}.jpg"))
+                            ckpt.save_checkpoint(cfg.ckpt_path, self.start_time, it - 1,
+                                                 self.state.params, self.state.opt,
+                                                 generator=self.state.generator,
+                                                 occ=self.state.occ)
                         self.last_iter = it - 1
                     meter.reset()
         finally:
@@ -313,6 +357,10 @@ class Runner:
                 feeder.close()
         self.logger.flush()
         self.trained = True
+        if dist.is_multiprocess():
+            print(f"[RANK {dist.rank()}/{dist.world_size()}] params sha256 "
+                  f"{dist.params_digest(self.state.params)}")
+            dist.barrier()   # rank 0's last checkpoint is on disk
 
     def _require_trained(self, what: str) -> None:
         if self.last_iter < 0 and not self.trained:
@@ -330,7 +378,8 @@ class Runner:
         frames = evallib.render_test_set(
             self.cfg, self.params, self.test_table, self.k_inv,
             self.start_time, self.last_iter, save=True, max_views=max_views,
-            depth=depth, occ_grid=self.state.occ, ndc_params=self.ndc_params)
+            depth=depth, occ_grid=self.state.occ, ndc_params=self.ndc_params,
+            mesh=self.mesh)
         score = evallib.test_psnr(frames, self.test_table)
         ssim_score = evallib.test_ssim(frames, self.test_table)
         print(f"Test PSNR: {score:.2f} dB over {frames.shape[0]} views "
@@ -355,4 +404,4 @@ class Runner:
               f"{int(hwf[0])}x{int(hwf[1])} -> {out_base}")
         return evallib.render_path(self.cfg, self.params, pose_rows, k_inv,
                                    out_base, occ_grid=self.state.occ,
-                                   ndc_params=self.ndc_params)
+                                   ndc_params=self.ndc_params, mesh=self.mesh)

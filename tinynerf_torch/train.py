@@ -46,6 +46,7 @@ from tinynerf_torch.data.rays import RayBatch, RayTable
 # one field for training and rendering
 from tinynerf_torch.eval import (check_supported, make_field_fn, make_prop_field_fn,
                                  net_params, prop_params)
+from tinynerf_torch.parallel import mesh as meshlib
 
 Metrics = dict
 # the proposal field's fresh weights come from a generator seeded SEED + 2 (SEED
@@ -166,17 +167,20 @@ def make_lr_scale(cfg: Config, params: Any) -> Optional[Any]:
 def make_loss_fn(cfg: Config, k_inv: torch.Tensor,
                  field_fn: Optional[render.FieldFn] = None,
                  prop_field_fn: Optional[render.FieldFn] = None,
-                 ndc_params=None) -> Callable:
-    """``loss(params, batch, generator, occ) -> (loss, (C_coarse, C_fine))``;
-    the generator jitters the coarse samples when ``STRATIFIED`` is on, and
-    ``occ`` (the occupancy grid, or None) tightens the rays' bounds. With
+                 ndc_params=None, param_terms: bool = True) -> Callable:
+    """``loss(params, batch, generator, occ, jitter=None) -> (loss,
+    (C_coarse, C_fine))``; the generator (or the given (B, N_c) ``jitter``)
+    jitters the coarse samples when ``STRATIFIED`` is on, and ``occ`` (the
+    occupancy grid, or None) tightens the rays' bounds. With
     ``PROPOSAL``, ``params`` is the ``{"net", "prop"}`` pair and the coarse
     pass runs the proposal field; there ``DIST_LOSS`` and ``PROP_INTERLEVEL``
     add their weight times the per-ray losses summed over the batch (the
     house sum-loss scale), and without ``PROPOSAL`` they raise the JAX
     package's ``ValueError``. With ``FINE_FIELD = grid`` and ``GRID_TV`` the
     loss adds ``GRID_TV * tv_loss`` of the main grid. ``ndc_params`` marches
-    the NDC cube."""
+    the NDC cube. ``param_terms=False`` leaves out the terms of the params
+    alone (``GRID_TV``): a rank of a data-parallel step that is not its
+    group's first, so that the sum over ranks counts them once."""
     field_fn = field_fn or make_field_fn(cfg)
     prop_fn = prop_field_fn or make_prop_field_fn(cfg)
     want_dist = cfg.dist_loss > 0.0
@@ -187,7 +191,8 @@ def make_loss_fn(cfg: Config, k_inv: torch.Tensor,
 
     def loss_fn(params: Any, batch: RayBatch,
                 generator: Optional[torch.Generator] = None,
-                occ: Optional[occupancy.OccGrid] = None):
+                occ: Optional[occupancy.OccGrid] = None,
+                jitter: Optional[torch.Tensor] = None):
         out = render.render_rays(
             net_params(cfg, params), batch.rows, batch.cols, batch.pose17, k_inv,
             cfg.n_coarse, cfg.n_fine, field_fn=field_fn,
@@ -197,14 +202,15 @@ def make_loss_fn(cfg: Config, k_inv: torch.Tensor,
             occ_march=cfg.occ_march_steps, occ_contract=cfg.contract,
             occ_march_res=cfg.occ_march_res,
             prop_params=prop_params(cfg, params), prop_field_fn=prop_fn,
-            want_dist=want_dist, want_interlevel=want_il, lindisp=cfg.lindisp)
+            want_dist=want_dist, want_interlevel=want_il, lindisp=cfg.lindisp,
+            jitter=jitter if cfg.stratified else None)
         c_co, c_fi = out[0], out[1]
         loss = render.ray_loss(c_co, c_fi, batch.rgb)
         if want_dist:
             loss = loss + cfg.dist_loss * torch.sum(out[2]["dist"])
         if want_il:
             loss = loss + cfg.prop_interlevel * torch.sum(out[2]["interlevel"])
-        if cfg.fine_field == "grid" and cfg.grid_tv > 0.0:
+        if cfg.fine_field == "grid" and cfg.grid_tv > 0.0 and param_terms:
             loss = loss + cfg.grid_tv * gridfield.tv_loss(net_params(cfg, params))
         return loss, (c_co, c_fi)
 
@@ -213,44 +219,57 @@ def make_loss_fn(cfg: Config, k_inv: torch.Tensor,
 
 def loss_and_grads(loss_fn: Callable, params: Any, batch: RayBatch,
                    generator: Optional[torch.Generator] = None,
-                   occ: Optional[occupancy.OccGrid] = None):
+                   occ: Optional[occupancy.OccGrid] = None,
+                   jitter: Optional[torch.Tensor] = None):
     """``(loss, (C_coarse, C_fine), grads)``, grads shaped like ``params``. A
     leaf the loss does not reach (a grid's ``extent``) gets a zero gradient,
     as under ``jax.grad``, so Adam leaves it exactly as it is."""
     leaves = optim.tree_map(lambda t: t.detach().requires_grad_(True), params)
     with torch.enable_grad():
-        loss, (c_co, c_fi) = loss_fn(leaves, batch, generator, occ)
+        loss, (c_co, c_fi) = loss_fn(leaves, batch, generator, occ, jitter=jitter)
         flat = torch.autograd.grad(loss, optim.leaves(leaves), materialize_grads=True)
     return (loss.detach(), (c_co.detach(), c_fi.detach()),
             optim.unflatten_like(leaves, list(flat)))
 
 
 def refresh_occ(cfg: Config, state: TrainState, field_fn: render.FieldFn,
-                draws=None) -> Optional[occupancy.OccGrid]:
+                draws=None, mesh: Optional[meshlib.Mesh] = None,
+                ) -> Optional[occupancy.OccGrid]:
     """The grid this step renders with: ``state.occ`` refreshed from the main
     field's current params when ``iteration % OCC_UPDATE_EVERY == 0`` (probing
     ``int(OCC_RES**3 * OCC_SUBSET)`` cells, or all of them at a subset of 1;
     under ``CONTRACT`` at the cells' inverse-contracted points), else as it
     is. Draws come from the state's generator unless ``draws``
-    (``occupancy.update_grid``) are given."""
+    (``occupancy.update_grid``) are given. Under a ``mesh`` the probes are
+    partitioned over its data group (``update_grid``'s ``cell_split``)."""
     if state.occ is None or state.iteration % cfg.occ_update_every != 0:
         return state.occ
     n_total = cfg.occ_res ** 3
     subset = None if cfg.occ_subset >= 1.0 else max(1, int(n_total * cfg.occ_subset))
     return occupancy.update_grid(state.occ, net_params(cfg, state.params), field_fn,
                                  generator=state.generator, subset=subset,
-                                 contract=cfg.contract, draws=draws)
+                                 contract=cfg.contract, draws=draws, cell_split=mesh)
 
 
-def _apply_batch(cfg: Config, loss_fn: Callable, lr_fn: Callable,
-                 field_fn: render.FieldFn, state: TrainState, batch: RayBatch,
-                 occ_draws=None) -> Tuple[TrainState, Metrics]:
+def _apply_batch(cfg: Config, parts, state: TrainState, batch: RayBatch,
+                 occ_draws=None, n_rays: Optional[int] = None) -> Tuple[TrainState, Metrics]:
     """Shared step body: grid refresh -> grad -> Adam -> metrics. The
     metrics stay on the device (no synchronisation); ``lr`` is a float32 CPU
-    scalar."""
-    occ = refresh_occ(cfg, state, field_fn, occ_draws)
-    loss, (_, c_fi), grads = loss_and_grads(loss_fn, state.params, batch,
-                                            state.generator, occ)
+    scalar. Under a mesh the gradient is the rank's rows' summed over the
+    data group (``mesh.make_grad_fn``), Adam runs alike on every rank, the
+    loss is the whole batch's and the batch fields of the metrics are the
+    rank's rows; ``n_rays`` says that ``batch`` is already the rank's rows
+    of a batch of that many."""
+    mesh, loss_fn, lr_fn, field_fn, grad_fn = parts
+    occ = refresh_occ(cfg, state, field_fn, occ_draws, mesh)
+    if mesh is None:
+        loss, (_, c_fi), grads = loss_and_grads(loss_fn, state.params, batch,
+                                                state.generator, occ)
+    else:
+        loss, (_, c_fi), grads = grad_fn(state.params, batch, state.generator, occ,
+                                         n_rays=n_rays)
+        if n_rays is None:
+            batch = mesh.local_rows(batch)
     lr = lr_fn(state.iteration)
     params, opt = optim.adam_update(grads, state.opt, state.params, lr.item(),
                                     lr_scale=make_lr_scale(cfg, state.params))
@@ -263,34 +282,50 @@ def _apply_batch(cfg: Config, loss_fn: Callable, lr_fn: Callable,
                       generator=state.generator, occ=occ), metrics
 
 
+def _step_parts(cfg: Config, k_inv: torch.Tensor, field_fn: Optional[render.FieldFn],
+                ndc_params, mesh: Optional[meshlib.Mesh]):
+    """``(mesh, loss_fn, lr_fn, field_fn, grad_fn)`` of a step builder. On a
+    rank that is not its data group's first, the loss leaves out the params'
+    own terms (``make_loss_fn``'s ``param_terms``)."""
+    field_fn = field_fn or make_field_fn(cfg)
+    loss_fn = make_loss_fn(cfg, k_inv, field_fn, ndc_params=ndc_params,
+                           param_terms=mesh is None or mesh.data_index == 0)
+    grad_fn = (None if mesh is None else
+               meshlib.make_grad_fn(loss_fn, mesh, cfg.n_coarse if cfg.stratified else None))
+    return mesh, loss_fn, optim.make_lr_fn(cfg), field_fn, grad_fn
+
+
 def make_train_step(cfg: Config, table: RayTable, k_inv: torch.Tensor,
                     field_fn: Optional[render.FieldFn] = None, ndc_params=None,
+                    mesh: Optional[meshlib.Mesh] = None,
                     ) -> Callable[[TrainState], Tuple[TrainState, Metrics]]:
     """``step(state) -> (state, metrics)`` over a batch of ``BATCH_RAY``
-    pixels drawn uniformly with replacement."""
-    field_fn = field_fn or make_field_fn(cfg)
-    loss_fn = make_loss_fn(cfg, k_inv, field_fn, ndc_params=ndc_params)
-    lr_fn = optim.make_lr_fn(cfg)
+    pixels drawn uniformly with replacement. Under a ``mesh`` every rank
+    draws the whole batch from its generator (the same on every rank) and
+    computes its rows (``_apply_batch``)."""
+    parts = _step_parts(cfg, k_inv, field_fn, ndc_params, mesh)
 
     def step(state: TrainState) -> Tuple[TrainState, Metrics]:
         batch = table.sample(state.generator, cfg.batch_ray)
-        return _apply_batch(cfg, loss_fn, lr_fn, field_fn, state, batch)
+        return _apply_batch(cfg, parts, state, batch)
 
     return step
 
 
 def make_host_fed_train_step(cfg: Config, k_inv: torch.Tensor,
                              field_fn: Optional[render.FieldFn] = None, ndc_params=None,
+                             mesh: Optional[meshlib.Mesh] = None,
                              ) -> Callable[[TrainState, RayBatch], Tuple[TrainState, Metrics]]:
     """``step(state, batch) -> (state, metrics)`` over a ``RayBatch`` the
     caller gives (``HOST_FEED``: a batch of the host ray store,
-    ``data/native.py``, put on the device by ``RayTable.upload``)."""
-    field_fn = field_fn or make_field_fn(cfg)
-    loss_fn = make_loss_fn(cfg, k_inv, field_fn, ndc_params=ndc_params)
-    lr_fn = optim.make_lr_fn(cfg)
+    ``data/native.py``, put on the device by ``RayTable.upload``). Under a
+    ``mesh`` the batch is the rank's rows (``mesh.local_rows``) of a batch
+    of ``BATCH_RAY``."""
+    parts = _step_parts(cfg, k_inv, field_fn, ndc_params, mesh)
 
     def step(state: TrainState, batch: RayBatch) -> Tuple[TrainState, Metrics]:
-        return _apply_batch(cfg, loss_fn, lr_fn, field_fn, state, batch)
+        return _apply_batch(cfg, parts, state, batch,
+                            n_rays=None if mesh is None else cfg.batch_ray)
 
     return step
 
@@ -314,19 +349,18 @@ def upsample_grid_state(cfg: Config, state: TrainState, new_res: int) -> TrainSt
 
 def make_indexed_train_step(cfg: Config, table: RayTable, k_inv: torch.Tensor,
                             field_fn: Optional[render.FieldFn] = None, ndc_params=None,
+                            mesh: Optional[meshlib.Mesh] = None,
                             ) -> Callable[..., Tuple[TrainState, Metrics]]:
     """``step(state, idx, occ_draws=None) -> (state, metrics)`` over the
     given (B,) flat pixel indices: the epoch path (a without-replacement
     permutation, the reference DataLoader's ``shuffle=True,
     drop_last=True``), and the way tests feed the JAX package's index stream
-    (and, through ``occ_draws``, its grid-refresh draws)."""
-    field_fn = field_fn or make_field_fn(cfg)
-    loss_fn = make_loss_fn(cfg, k_inv, field_fn, ndc_params=ndc_params)
-    lr_fn = optim.make_lr_fn(cfg)
+    (and, through ``occ_draws``, its grid-refresh draws). Under a ``mesh``
+    every rank takes the same indices and computes its rows."""
+    parts = _step_parts(cfg, k_inv, field_fn, ndc_params, mesh)
 
     def step(state: TrainState, idx: torch.Tensor,
              occ_draws=None) -> Tuple[TrainState, Metrics]:
-        return _apply_batch(cfg, loss_fn, lr_fn, field_fn, state,
-                            table.gather(idx), occ_draws)
+        return _apply_batch(cfg, parts, state, table.gather(idx), occ_draws)
 
     return step
