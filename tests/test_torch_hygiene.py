@@ -9,6 +9,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -97,12 +98,41 @@ def test_the_ray_store_is_built_from_the_port_s_own_source(tmp_path, monkeypatch
     assert os.listdir(tmp_path) == [os.path.basename(native._lib_path(native.SOURCE))]
 
 
+def test_the_png_unfilter_is_built_from_the_port_s_own_source(tmp_path, monkeypatch):
+    """``imagefile.read_png``'s unfilter is ``tinynerf_torch/csrc/png_unfilter.cpp``,
+    compiled by one ``g++`` call into the build directory at first use, and
+    the file it decodes is the one it was given."""
+    from tinynerf_torch.data import imagefile, native
+    assert native.PNG_SOURCE == os.path.join(REPO, "tinynerf_torch", "csrc", "png_unfilter.cpp")
+    calls = []
+    real_run = native.subprocess.run
+
+    def run(cmd, **kw):
+        calls.append(cmd)
+        return real_run(cmd, **kw)
+
+    path = str(tmp_path / "x.png")
+    pixels = np.arange(5 * 7 * 3, dtype=np.uint8).reshape(5, 7, 3)
+    imagefile.write_png(path, pixels)
+    build = tmp_path / "build"
+    monkeypatch.setattr(native, "BUILD_DIR", str(build))
+    monkeypatch.setattr(native.subprocess, "run", run)
+    monkeypatch.setattr(native, "_libs", {})
+    np.testing.assert_array_equal(imagefile.read_png(path), pixels)
+    (cmd,) = [c for c in calls if c[0] == "g++"]
+    assert native.PNG_SOURCE in cmd
+    assert os.listdir(build) == [os.path.basename(native._lib_path(native.PNG_SOURCE))]
+
+
 NEW_MODULES = ("tinynerf_torch/core/legacy.py", "tinynerf_torch/tools/__init__.py",
                "tinynerf_torch/tools/render_shipped_ckpt.py",
-               "tinynerf_torch/tools/serve_render.py")
+               "tinynerf_torch/tools/serve_render.py", "tinynerf_torch/data/imagefile.py",
+               "tinynerf_torch/tools/make_synthetic_scene.py",
+               "tinynerf_torch/tools/validate.py", "tinynerf_torch/tools/profile_step.py")
 
 
-@pytest.mark.parametrize("tool", ["serve_render", "render_shipped_ckpt"])
+@pytest.mark.parametrize("tool", ["serve_render", "render_shipped_ckpt", "make_synthetic_scene",
+                                  "validate", "profile_step"])
 def test_the_tools_run_without_jax(tool):
     """The legacy field and the tools are among the files the import test
     reads, and each tool's ``python -m`` entry point starts (``--help``) in
@@ -117,3 +147,51 @@ def test_the_tools_run_without_jax(tool):
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "usage:" in proc.stdout
+
+
+# the only functions of the port that import Pillow or imageio: the loader's
+# path for an image that is not a PNG, and the video's .mp4; and chip_smoke.py's
+# yardstick, which times Pillow's decode and JPEG beside the port's
+IMAGE_LIB_USERS = {("tinynerf_torch/data/poses.py", "_load_image", "PIL"),
+                   ("tinynerf_torch/eval.py", "_write_video", "imageio"),
+                   ("chip_smoke.py", "image_file_times", "PIL")}
+
+
+def _image_lib_imports(path):
+    """(enclosing function or None, imported root) of each import of PIL or
+    imageio in ``path``."""
+    tree = ast.parse(open(path).read(), filename=path)
+    found = []
+
+    def visit(node, func):
+        for child in ast.iter_child_nodes(node):
+            inner = child.name if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func
+            roots = []
+            if isinstance(child, ast.Import):
+                roots = [a.name.split(".")[0] for a in child.names]
+            elif isinstance(child, ast.ImportFrom) and child.level == 0 and child.module:
+                roots = [child.module.split(".")[0]]
+            found.extend((func, r) for r in roots if r in ("PIL", "imageio"))
+            visit(child, inner)
+
+    visit(tree, None)
+    return found
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: os.path.relpath(p, REPO))
+def test_pillow_and_imageio_only_inside_two_functions(path):
+    """No module of the port (nor ``chip_smoke.py``) imports Pillow or
+    imageio at module level, and only ``data/poses.py::_load_image`` (an
+    image that is not a PNG) and ``eval.py::_write_video`` (an ``.mp4``)
+    import them at all, beside ``chip_smoke.py``'s timing of Pillow: the
+    CLI, the service and the tools run where neither is installed."""
+    rel = os.path.relpath(path, REPO)
+    for func, root in _image_lib_imports(path):
+        assert func is not None, f"{rel} imports {root} at module level"
+        assert (rel, func, root) in IMAGE_LIB_USERS, f"{rel}::{func} imports {root}"
+
+
+def test_the_image_lib_users_are_found():
+    """The permitted imports are where the check above looks for them."""
+    found = {(os.path.relpath(p, REPO), f, r) for p in FILES for f, r in _image_lib_imports(p)}
+    assert found == IMAGE_LIB_USERS

@@ -177,9 +177,15 @@ def test_routes_over_http(sync_scene_dir, tmp_path):
 
 
 def test_jpeg_encoding_names_pillow_when_it_is_missing(monkeypatch):
+    """The service's JPEG encoding needs Pillow no longer (the port's own
+    encoder, ``data/imagefile.py``): with Pillow unimportable it still
+    answers with a baseline JPEG of the frame's size, in RGB and in gray."""
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(RuntimeError, match="Pillow"):
-        serve_render.encode_jpeg(np.zeros((4, 4, 3), np.uint8))
+    for u8 in (np.zeros((4, 6, 3), np.uint8), np.full((4, 6), 200, np.uint8)):
+        data = serve_render.encode_jpeg(u8)
+        assert data[:2] == b"\xff\xd8" and data[-2:] == b"\xff\xd9"
+        sof = data.index(b"\xff\xc0")
+        assert data[sof + 5:sof + 9] == bytes([0, 4, 0, 6])   # height, width
 
 
 def test_serve_refuses_fresh_weights(sync_scene_dir, tmp_path):

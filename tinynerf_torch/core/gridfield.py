@@ -21,7 +21,10 @@ at ``R - 1``, where its weight is 0. The gradient keeps JAX's conventions:
 function: the hat weights and the table rounded to bfloat16, the two-term
 sum rounded, each CP product rounded, and the sigma sum, the decoder's
 products and bias adds rounded as ``_linear`` rounds with bf16 operands; the
-sigmoid is ``1 / (1 + exp(-x))`` with each step rounded, as XLA lowers it. The fused kernels' bf16 form (``kernels/grid_kernel.py``) is
+sigmoid is ``1 / (1 + exp(-x))`` with each step rounded, as XLA lowers it,
+and its gradient JAX's rule for ``lax.logistic``, ``g * (ans * (1 - ans))``
+with each product rounded (``sigmoid_bf16``), which stays finite where
+``exp(-x)`` overflows. The fused kernels' bf16 form (``kernels/grid_kernel.py``) is
 another function: it sums sigma and the decoder in float32.
 
 ``GRID_HYBRID`` (a ``sigma_net`` in the tree) computes sigma with a tiny
@@ -136,6 +139,33 @@ def check_params(params: Params) -> int:
 
 def _identity(x):
     return x
+
+
+class _SigmoidBF16(torch.autograd.Function):
+    """``jax.nn.sigmoid`` of bf16 values: the forward ``1 / (1 + exp(-x))``
+    with each step rounded to bf16, as XLA lowers ``lax.logistic``; the
+    backward JAX's rule for it, ``g * (ans * (1 - ans))``, each operation
+    rounded to bf16. Autograd through the forward's steps instead multiplies
+    ``1 / (1 + e)^2 = 0`` by ``e = exp(-x) = inf`` where ``x < -88.7``:
+    a NaN gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        rnd = mlp.round_bf16
+        ans = rnd(1.0 / rnd(1.0 + rnd(torch.exp(-x))))
+        ctx.save_for_backward(ans)
+        return ans
+
+    @staticmethod
+    def backward(ctx, g):
+        (ans,) = ctx.saved_tensors
+        rnd = mlp.round_bf16
+        return rnd(rnd(g) * rnd(ans * rnd(1.0 - ans)))
+
+
+def sigmoid_bf16(x: torch.Tensor) -> torch.Tensor:
+    """The bf16 sigmoid of the grid's decoder (``_SigmoidBF16``)."""
+    return _SigmoidBF16.apply(x)
 
 
 def rounding(precision: str):
@@ -263,8 +293,7 @@ def apply_grid_field(params: Params, points: torch.Tensor, dirs: torch.Tensor,
     dec = params["decoder"]
     h = torch.relu(linear(dec["hidden"], color_in))
     x = linear(dec["color"], h)
-    # bf16: jax.nn.sigmoid lowers to 1 / (1 + exp(-x)), each step in bf16
-    color = torch.sigmoid(x) if precision == "fp32" else rnd(1.0 / rnd(1.0 + rnd(torch.exp(-x))))
+    color = torch.sigmoid(x) if precision == "fp32" else sigmoid_bf16(x)
     return color, sigma
 
 

@@ -12,7 +12,8 @@ The library is built at first use with ``g++ -O3 -std=c++17 -shared -fPIC
 named by a hash of the source and the flags, under a temporary name of the
 process and moved into place, so that processes building it at once do not
 read a half-written file. A build that fails raises with the compiler's
-message: nothing falls back to another store. ``NumpyRayStore`` is the plain
+message: nothing falls back to another store. The PNG reader's unfilter
+(``csrc/png_unfilter.cpp``, ``load_png_library``) is built the same way. ``NumpyRayStore`` is the plain
 version of the same stream, which the tests hold the native store against;
 it is used only where a caller asks for it by name.
 """
@@ -30,6 +31,7 @@ import numpy as np
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "raystore.cpp")
+PNG_SOURCE = os.path.join(_PKG_DIR, "csrc", "png_unfilter.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "tinynerf_torch")
 GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
@@ -46,18 +48,43 @@ def _lib_path(source: str) -> str:
     if os.path.isfile(source):
         with open(source, "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libraystore-{h.hexdigest()[:16]}.so")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
 
 
-def _build(source: str, lib_path: str) -> None:
+def _build(source: str, lib_path: str, what: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.{threading.get_ident()}.tmp"
     proc = subprocess.run(["g++", *GXX_FLAGS, source, "-o", tmp],
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed to build the host ray store from {source} "
+        raise RuntimeError(f"g++ failed to build {what} from {source} "
                            f"({proc.returncode}):\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib_path)
+
+
+def _open(source: str, what: str) -> ctypes.CDLL:
+    """Build ``source`` unless its library is there, and load it (under
+    ``_lock``)."""
+    lib_path = _lib_path(source)
+    if not os.path.isfile(lib_path):
+        _build(source, lib_path, what)
+    return ctypes.CDLL(lib_path)
+
+
+def load_png_library() -> ctypes.CDLL:
+    """The PNG unfilter (``PNG_SOURCE``), built at first use as the ray
+    store is. Raises ``RuntimeError`` with the compiler's message where the
+    build fails."""
+    source = PNG_SOURCE
+    with _lock:
+        if source not in _libs:
+            lib = _open(source, "the PNG unfilter")
+            lib.png_unfilter.restype = ctypes.c_int64
+            lib.png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                                         ctypes.c_int64, ctypes.c_void_p]
+            _libs[source] = lib
+        return _libs[source]
 
 
 def load_library() -> ctypes.CDLL:
@@ -68,10 +95,7 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if source in _libs:
             return _libs[source]
-        lib_path = _lib_path(source)
-        if not os.path.isfile(lib_path):
-            _build(source, lib_path)
-        lib = ctypes.CDLL(lib_path)
+        lib = _open(source, "the host ray store")
         lib.rs_create.restype = ctypes.c_void_p
         lib.rs_create.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,

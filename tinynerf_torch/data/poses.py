@@ -1,7 +1,9 @@
 """Host-side scene ingest: poses, intrinsics and images -> numpy arrays.
 
 A copy of ``tinynerf/data/poses.py`` (the port imports nothing of the JAX
-package), with Pillow imported only inside the functions that read images.
+package). PNG files are read by the port's own decoder (``imagefile``), so a
+Blender or downsampled LLFF capture loads without Pillow; any other image
+(an LLFF ``.JPG``) is read through Pillow, imported inside ``_load_image``.
 
 - **Blender synthetic ("sync")**: ``transforms_<mode>.json``; focal length
   ``0.5 * W / tan(0.5 * camera_angle_x)``; per-image 17-vectors
@@ -21,6 +23,8 @@ import os
 from typing import List, Optional
 
 import numpy as np
+
+from tinynerf_torch.data import imagefile
 
 # Reference near/far constants for Blender scenes (loader.py:9-10).
 NEAR_FACTOR = 2.0
@@ -51,10 +55,35 @@ def sorted_image_files(img_dir: str) -> List[str]:
     return files
 
 
+def _composite_white(rgba: np.ndarray) -> np.ndarray:
+    """RGBA uint8 onto white, as Pillow's ``paste`` with the alpha as mask
+    rounds it: ``(255 (255 - a) + c a + 128)`` divided by 255 through
+    ``(t + (t >> 8)) >> 8``."""
+    alpha = rgba[..., 3:].astype(np.int32)
+    t = 255 * (255 - alpha) + rgba[..., :3].astype(np.int32) * alpha + 128
+    return (((t >> 8) + t) >> 8).astype(np.uint8)
+
+
 def _load_image(path: str, white_composite: bool) -> np.ndarray:
     """One image as (H, W, 3) float32 in [0, 1]; RGBA composited onto white
-    for synthetic scenes (reference ``loader.py:63-73``)."""
-    from PIL import Image
+    for synthetic scenes (reference ``loader.py:63-73``). Pillow's rules:
+    only an RGBA file (PNG colour type 6) is composited; gray and alpha, and
+    a palette with transparency, are converted to RGB without it. A PNG is
+    read by ``imagefile.read_png``; any other file needs Pillow."""
+    if path.lower().endswith(".png"):
+        image = imagefile.read_png(path)
+        if white_composite and imagefile.png_header(path).color_type == 6:
+            image = _composite_white(image)
+        elif image.shape[-1] <= 2:   # gray, gray and alpha
+            image = np.repeat(image[..., :1], 3, axis=-1)
+        else:
+            image = image[..., :3]
+        return np.asarray(image, dtype=np.float32) / 255.0
+    try:
+        from PIL import Image
+    except ImportError as exc:
+        raise RuntimeError(f"reading {path} needs Pillow (the PIL package), which is "
+                           "not installed; the port reads PNG files without it") from exc
 
     image = Image.open(path)
     image.load()
@@ -74,11 +103,8 @@ def _build_sync_rows(root_dir: str, mode: str) -> np.ndarray:
     frames = meta["frames"]
     angle = meta["camera_angle_x"]
 
-    from PIL import Image
-
     first = frames[0]["file_path"].lstrip("./")
-    with Image.open(os.path.join(root_dir, first + ".png")) as img0:
-        width, height = img0.size
+    width, height = imagefile.png_size(os.path.join(root_dir, first + ".png"))
     focal = 0.5 * width / np.tan(0.5 * angle)
 
     rows = np.zeros((len(frames), 17))

@@ -4,7 +4,9 @@ Counterpart of ``tinynerf/eval.py``. A frame is a host loop over
 ``RENDER_CHUNK``-ray chunks of the pixel grid; the last chunk is padded with
 pixel (0, 0) and the padding dropped at assembly, as the JAX package pads
 its chunk grid. Results stay on the device until the frame is complete.
-Image files are written through ``imageio``, imported only when saving.
+JPGs and the ``.gif`` are written by the port's own encoders
+(``data/imagefile.py``); a video is an ``.mp4`` only where imageio imports
+and has a video backend.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from tinynerf_torch.config import Config
 from tinynerf_torch.core import contract, gridfield, proposal, render
 from tinynerf_torch.core.encoding import L_POINT
+from tinynerf_torch.data import imagefile
 from tinynerf_torch.data.rays import RayTable
 from tinynerf_torch.parallel import distributed as dist
 from tinynerf_torch.parallel import mesh as meshlib
@@ -303,12 +306,15 @@ def ssim(pred: np.ndarray, target: np.ndarray, sigma: float = 1.5,
 
 
 def _write_video(base: str, frames_u8: np.ndarray, fps: int) -> None:
-    """``base.mp4``, or ``base.gif`` where imageio has no video backend."""
-    import imageio
+    """``base.mp4`` where imageio imports and has a video backend, else
+    ``base.gif`` (``imagefile.write_gif``)."""
     try:
+        import imageio
         imageio.mimwrite(base + ".mp4", frames_u8, fps=fps)
-    except (ValueError, IOError):
-        imageio.mimwrite(base + ".gif", frames_u8, duration=1000 / fps, loop=0)
+        return
+    except (ImportError, ValueError, IOError):
+        pass
+    imagefile.write_gif(base + ".gif", frames_u8, fps=fps)
 
 
 def render_test_set(cfg: Config, params: Any, table: RayTable,
@@ -342,12 +348,11 @@ def render_test_set(cfg: Config, params: Any, table: RayTable,
     frames = np.clip(frames, 0.0, 1.0)
 
     if save:
-        import imageio
         save_dir = os.path.join(cfg.results_path, start_time)
         os.makedirs(save_dir, exist_ok=True)
         for pic in range(n_views):
-            imageio.imwrite(os.path.join(save_dir, f"{pic}.jpg"),
-                            (frames[pic] * 255.0).astype(np.uint8))
+            imagefile.write_jpeg(os.path.join(save_dir, f"{pic}.jpg"),
+                                 (frames[pic] * 255.0).astype(np.uint8))
             if depth:
                 # under NDC the march runs t in [0, 1]: normalising by the
                 # world near/far would clip the depth
@@ -355,11 +360,10 @@ def render_test_set(cfg: Config, params: Any, table: RayTable,
                              else (poses[pic, 15], poses[pic, 16]))
                 dn = np.clip((depths[pic] - near) / max(far - near, 1e-6),
                              0.0, 1.0)
-                imageio.imwrite(os.path.join(save_dir, f"{pic}_depth.jpg"),
-                                ((1.0 - dn) * 255.0).astype(np.uint8))
-                imageio.imwrite(
-                    os.path.join(save_dir, f"{pic}_acc.jpg"),
-                    (np.clip(accs[pic], 0, 1) * 255.0).astype(np.uint8))
+                imagefile.write_jpeg(os.path.join(save_dir, f"{pic}_depth.jpg"),
+                                     ((1.0 - dn) * 255.0).astype(np.uint8))
+                imagefile.write_jpeg(os.path.join(save_dir, f"{pic}_acc.jpg"),
+                                     (np.clip(accs[pic], 0, 1) * 255.0).astype(np.uint8))
         _write_video(os.path.join(cfg.results_path, f"{start_time}_{last_iter}"),
                      (frames * 255.0).astype(np.uint8), fps=30)
     return frames

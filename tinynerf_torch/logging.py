@@ -4,8 +4,9 @@ reference's preview canvas.
 Counterpart of ``tinynerf/logging.py``. The reference writes ``loss/<mode>``
 and ``lr/<mode>`` scalars every iteration (``nerf.py:478-480``), which forces
 a device synchronisation per step. Here values are buffered as tensors and
-read only at flush cadence. TensorBoard and ``imageio`` are imported inside
-the functions that use them, so training runs where neither is installed.
+read only at flush cadence. TensorBoard is imported inside the logger, so
+training runs where it is not installed; the preview JPG is written by the
+port's own encoder (``data/imagefile.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import Any, Dict, List
 
 import numpy as np
 import torch
+
+from tinynerf_torch.data import imagefile
 
 
 def _to_numpy(value: Any) -> np.ndarray:
@@ -102,6 +105,5 @@ class PreviewCanvas:
         self.canvas[rows[mask], cols[mask]] = rgb[mask]
 
     def save(self, path: str) -> None:
-        import imageio
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        imageio.imwrite(path, (np.clip(self.canvas, 0, 1) * 255).astype(np.uint8))
+        imagefile.write_jpeg(path, (np.clip(self.canvas, 0, 1) * 255).astype(np.uint8))

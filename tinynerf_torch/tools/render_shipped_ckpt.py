@@ -12,7 +12,7 @@ legacy.field_legacy)``), on the card unless ``--device cpu``:
 
 All seven shipped artifacts hold a collapsed field (saturated white fog), so
 expect uniform frames: the tool shows that the artifacts load and render.
-Pillow is imported only where a PNG is written.
+The PNGs are written by the port's own encoder (``data/imagefile.py``).
 """
 
 from __future__ import annotations
@@ -67,6 +67,7 @@ def main(argv=None) -> None:
     from tinynerf_torch.config import Config
     from tinynerf_torch.core import legacy
     from tinynerf_torch.core.rays import make_k_inv
+    from tinynerf_torch.data import imagefile
     from tinynerf_torch.device import resolve_device
 
     device = resolve_device(args.device)
@@ -80,9 +81,8 @@ def main(argv=None) -> None:
     os.makedirs(args.out, exist_ok=True)
     for i, row in enumerate(orbit_rows(args.views, hw, focal, args.radius)):
         img = frame_fn(params, row)
-        from PIL import Image
         path = os.path.join(args.out, f"view_{i:03d}.png")
-        Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(path)
+        imagefile.write_png(path, (np.clip(img, 0, 1) * 255).astype(np.uint8))
         print("wrote", path)
 
 

@@ -16,8 +16,8 @@ Scales snap to a fixed ladder, so at most five frame functions are made (one
 per ``(height, width, extras)``, by ``eval.make_frame_fn`` with the Runner's
 occupancy grid and ``ndc_params``), and a frame under 4 pixels is refused.
 Renders are serialised by a lock. A frame's array (``Service.render_u8``)
-sits apart from its JPEG encoding (``encode_jpeg``), which needs Pillow and
-names it when it is missing. The port renders chunk by chunk from the host
+sits apart from its JPEG encoding (``encode_jpeg``, the port's own encoder,
+``data/imagefile.py``: no Pillow). The port renders chunk by chunk from the host
 always, so the JAX tool's ``--lax-map`` and ``--chunk-group`` have no
 counterpart.
 
@@ -29,7 +29,6 @@ Usage (on the card unless ``--cpu``):
 from __future__ import annotations
 
 import argparse
-import io
 import json
 import os
 import sys
@@ -42,7 +41,7 @@ import numpy as np
 
 from tinynerf_torch import eval as evallib
 from tinynerf_torch.core.rays import make_k_inv
-from tinynerf_torch.data import paths
+from tinynerf_torch.data import imagefile, paths
 
 _PAGE = """<!doctype html>
 <html><head><title>tinynerf viewer</title><style>
@@ -91,16 +90,8 @@ VIEWS = ("rgb", "depth", "acc")
 
 
 def encode_jpeg(u8: np.ndarray, quality: int = 90) -> bytes:
-    """(H, W, 3) or (H, W) uint8 -> JPEG bytes. Needs Pillow; without it this
-    raises, naming Pillow (there is no other format to fall back to)."""
-    try:
-        from PIL import Image
-    except ImportError as exc:
-        raise RuntimeError("JPEG encoding needs Pillow (the PIL package), "
-                           "which is not installed") from exc
-    buf = io.BytesIO()
-    Image.fromarray(u8).save(buf, "JPEG", quality=quality)
-    return buf.getvalue()
+    """(H, W, 3) or (H, W) uint8 -> JPEG bytes (``imagefile.write_jpeg``)."""
+    return imagefile.write_jpeg(None, u8, quality)
 
 
 class Service:
