@@ -265,8 +265,25 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
    mean colour, its JPGs and ``.gif`` on disk; on its checkpoint one step,
    one refresh and one view launch kernels 1-3; ``tools.profile_step``'s
    table;
-30. prints one ``{"kernels": [...]}`` line (every kernel form) and, last,
-   one ``{"ok": true, "device": {...}}`` line.
+30. the CUDA graphs (``graph_phases``, ``tinynerf_torch/graphs.py``): on
+   each graphed training path (lego fp32 at 400 rays; lego_occ, its grid
+   refreshed every 4 steps; lego_grid + GRID_PALLAS; lego_prop with the
+   proposal MLP; unbounded360-mlp; the flagship lego_hybrid), 20 eager
+   steps twice from one state and two graphed chunks of 10 from the same
+   state: the same launches by kernel; bit-identical losses and state
+   wherever the two eager runs are, else one replayed step's gradient
+   against an eager step's at the step-gradient bound per part (cosine
+   0.9999 fp32, 0.999 bf16); ms/step eager and graphed, host API launches
+   a step, device idle, capture seconds and pool bytes; view 0 of
+   lego_occ (unfused and fused), lego_grid, unbounded360-mlp and the
+   flagship through one graph a view and a graph a chunk, every frame
+   bit-identical to the eager host loop's, with s/frame of each; lego_grid
+   across a ``GRID_UPSAMPLE`` milestone in chunks, its step graphs captured
+   again on the new shapes; then ``python -m tinynerf_torch --mode all`` on
+   a tiny scene across refreshes and STEP boundaries;
+31. prints one ``{"kernels": [...]}`` line (every kernel form, with its
+   launches under the graphed paths, ``graphed_launches``) and, last, one
+   ``{"ok": true, "device": {...}}`` line.
 
 Kernel 4 (``csrc/field_flat_bwd.cu``) is held against its plain version in
 phase 3h (fp32 and bf16, at an unbounded360-mlp step's R = 524,288 fine
@@ -468,6 +485,21 @@ VALIDATE_HW = 100           # the protocol's capture resolution
 VALIDATE_VIEWS = 30         # training views (the protocol's 100 cut)
 VALIDATE_ITERS = 2000       # steps (the protocol's 20,000 cut)
 VALIDATE_MARGIN_DB = 5.0    # the test PSNR above predicting each view's mean colour
+# phase 30: the graphed chunks and frames (CUDA graphs)
+GRAPH_K = 10                # steps a chunk; each path takes two, against 2 GRAPH_K eager steps
+GRAPH_REFRESH_EVERY = 4     # OCC_UPDATE_EVERY on those paths: the refresh graph is replayed
+GRAPH_PATHS = (("lego", "lego", {}),                       # fp32, 400 rays: kernels 1, 2
+               ("lego_occ", "lego_occ", {}),               # bf16, 4096 rays: kernels 1-3
+               ("lego_grid", "lego_grid", {"grid_pallas": True}),      # kernels 5, 6
+               ("lego_prop", "lego_prop", {"prop_field": "mlp", "prop_pallas": True}),
+               ("unbounded360_mlp", "unbounded360", {"fine_field": "mlp"}),   # kernels 3, 4
+               ("lego_hybrid", "lego_hybrid", {}))         # the flagship: no kernel
+GRAPH_FRAME_PATHS = ("lego_occ", "lego_grid", "unbounded360_mlp", "lego_hybrid")
+GRAPH_UPSAMPLE = "20:128"   # lego_grid + GRID_PALLAS from R = 64, STEP 10: graphs recaptured at 20
+GRAPH_UPSAMPLE_ITERS = 40
+GRAPH_CLI_ITERS = 25        # the CLI's run: chunks of GRAPH_CLI_STEP, then single steps
+GRAPH_CLI_STEP = 10
+GRAPH_CLI_REFRESH = 8
 IMAGE_FILE_HW = 800         # the view whose PNG decode and JPEG encode are timed
 
 
@@ -1044,16 +1076,8 @@ def bwd_gemm_chain_ms_fp32(dev) -> float:
 
 def kernel_wrappers() -> dict:
     """{name: wrapper} of every kernel wrapper, each with its ``launches``."""
-    from tinynerf_torch.kernels import grid_kernel as gk
-    from tinynerf_torch.kernels import mlp_kernel as mk
-    from tinynerf_torch.kernels import proposal_kernel as pk
-    from tinynerf_torch.kernels import render_kernel as rk
-    return {"field_rays": mk.field_rays, "field_rays_bwd": mk.field_rays_bwd,
-            "field_flat": mk.field_flat, "field_flat_bwd": mk.field_flat_bwd,
-            "grid_rays": gk.grid_rays, "grid_rays_bwd": gk.grid_rays_bwd,
-            "prop_rays": pk.prop_rays, "prop_rays_bwd": pk.prop_rays_bwd,
-            "render_fused": rk.render_fused, "render_fused_bwd": rk.render_fused_bwd,
-            "merge_bwd": rk.merge_bwd}
+    from tinynerf_torch.kernels import wrappers
+    return wrappers()
 
 
 def launch_counts() -> dict:
@@ -1942,7 +1966,7 @@ def shipped_phases(tmp: str, device: str, occ_cfg) -> dict:
     for scale in SERVE_SCALES:
         row = svc.pose(scale=scale, **SERVE_VIEW)
         h, w = (int(v) for v in row[:15].reshape(3, 5)[:2, 4])
-        chunks = math.ceil(h * w / occ_cfg.render_chunk)
+        chunks = rendered_chunks(h * w, occ_cfg.render_chunk, serve_render.HOST_CHUNKS)
         before = launch_counts()["field_rays"]
         sync()
         t0 = time.perf_counter()
@@ -1955,7 +1979,8 @@ def shipped_phases(tmp: str, device: str, occ_cfg) -> dict:
             svc.render_u8(scale=scale, **SERVE_VIEW)
         sync()
         frame_s = (time.perf_counter() - t0) / SERVE_FRAMES
-        print(f"scale {scale}: {h}x{w} frame, {chunks} chunks; the first (its frame function "
+        print(f"scale {scale}: {h}x{w} frame, {chunks} chunks rendered (graphs of "
+              f"{serve_render.HOST_CHUNKS}, the last group padded with the last chunk); the first (its frame function "
               f"made) in {first_s:.3f} s, then {frame_s:.3f} s/frame over {SERVE_FRAMES}; kernel "
               f"1 launches {first_launches} a frame ({first_launches / chunks:g} a chunk, "
               "expected 2); frame mean "
@@ -1967,7 +1992,8 @@ def shipped_phases(tmp: str, device: str, occ_cfg) -> dict:
                                    "field_rays_per_chunk": first_launches / chunks}
     got = launch_counts()
     n_frames = len(SERVE_SCALES) * (1 + SERVE_FRAMES)
-    expected = sum(2 * math.ceil(v["hw"][0] * v["hw"][1] / occ_cfg.render_chunk)
+    expected = sum(2 * rendered_chunks(v["hw"][0] * v["hw"][1], occ_cfg.render_chunk,
+                                       serve_render.HOST_CHUNKS)
                    for v in serve.values()) * (1 + SERVE_FRAMES)
     if got != launched(field_rays=expected):
         raise AssertionError(f"the service's {n_frames} frames launched {got}, not kernel 1 "
@@ -2006,7 +2032,7 @@ def shipped_phases(tmp: str, device: str, occ_cfg) -> dict:
     print(f"GET /frame?{query}&scale={SERVE_SCALES[0]}: {len(jpeg)} bytes, SOI "
           f"{jpeg[:2].hex()}, EOI {jpeg[-2:].hex()}, SOF0 {frame_hw[0]}x{frame_hw[1]} (the "
           f"frame {want_hw[0]}x{want_hw[1]}); kernel 1 launches {got['field_rays']}")
-    chunks = math.ceil(want_hw[0] * want_hw[1] / occ_cfg.render_chunk)
+    chunks = rendered_chunks(want_hw[0] * want_hw[1], occ_cfg.render_chunk, serve_render.HOST_CHUNKS)
     if not (jpeg[:2] == b"\xff\xd8" and jpeg[-2:] == b"\xff\xd9" and frame_hw == want_hw
             and len(jpeg) > 1000 and got == launched(field_rays=2 * chunks)):
         raise AssertionError("GET /frame did not answer with the frame's JPEG")
@@ -2599,6 +2625,439 @@ def _tree_cosines(a, b) -> dict:
 
     walk(a, b, "")
     return out
+
+
+def rendered_chunks(n_pix: int, chunk: int, group: int) -> int:
+    """The chunks a frame of ``n_pix`` pixels renders in graphs of ``group``
+    chunks (``eval.make_frame_fn``'s ``host_chunks``; 0 is the whole view):
+    the last group padded with repeats of the last chunk, as the JAX
+    package pads it."""
+    n = math.ceil(n_pix / chunk)
+    group = n if not group else max(1, min(group, n))
+    return math.ceil(n / group) * group
+
+
+def clone_state(state):
+    """A copy of a train state that shares no tensor with it, its generator's
+    state included (a chunk on the card spends the state it is given)."""
+    import torch
+    from tinynerf_torch import optim, train
+    c = lambda t: t.clone()
+    gen = torch.Generator(device=state.generator.device)
+    gen.set_state(state.generator.get_state())
+    occ = None if state.occ is None else type(state.occ)(*[t.clone() for t in state.occ])
+    return train.TrainState(params=optim.tree_map(c, state.params),
+                            opt=optim.AdamState(state.opt.count, optim.tree_map(c, state.opt.mu),
+                                                optim.tree_map(c, state.opt.nu)),
+                            iteration=state.iteration, generator=gen, occ=occ)
+
+
+def state_tensors(state) -> list:
+    from tinynerf_torch import optim
+    return (optim.leaves(state.params) + optim.leaves(state.opt.mu)
+            + optim.leaves(state.opt.nu) + ([] if state.occ is None else list(state.occ)))
+
+
+def moment_cosines(a, b) -> dict:
+    """{part: cosine} of two trees of one structure (Adam's first moments),
+    per top-level part of the params (an MLP's layers; the net and the
+    proposal field), in float64; a part that is 0 in both (a grid's frozen
+    extent) is left out."""
+    import torch
+    from tinynerf_torch import optim
+    out = {}
+    for part in a:
+        flat = lambda tree: torch.cat([t.flatten().double() for t in optim.leaves(
+            tree[part] if isinstance(tree[part], dict) else {"_": tree[part]})])
+        x, y = flat(a), flat(b)
+        if float(x.norm()) == 0.0 and float(y.norm()) == 0.0:
+            continue
+        out[part] = float(x @ y / (x.norm() * y.norm()))
+    return out
+
+
+def api_launches(fn, n: int) -> float:
+    """Host API calls that queue work on the card (kernel and graph launches,
+    asynchronous copies and fills) per call of ``fn``, from torch.profiler's
+    CUDA API events over ``n`` calls (after one untraced)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    names = ("LaunchKernel", "GraphLaunch", "MemcpyAsync", "MemsetAsync", "LaunchCooperative")
+    calls = sum(e.count for e in prof.key_averages()
+                if e.key.startswith("cu") and any(k in e.key for k in names))
+    return calls / n
+
+
+def graph_paths(tmp: str):
+    """(name, cfg, scene) of phase 30's graphed training paths, each at its
+    config's full width; an occupancy grid refreshes every
+    GRAPH_REFRESH_EVERY steps, so that its refresh graph is replayed."""
+    paths = []
+    for name, conf, kw in GRAPH_PATHS:
+        cfg = run_config(conf, tmp, f"graph_{name}", 3 * GRAPH_K, **kw)
+        if cfg.occ_grid:
+            cfg.occ_update_every = GRAPH_REFRESH_EVERY
+        scene = (llff_capture(U360_VIEWS, cfg.seed, outward=True) if conf == "unbounded360"
+                 else blender_scene(n_views=TRAIN_VIEWS, hw=800, seed=cfg.seed))
+        paths.append((name, cfg, scene))
+    return paths
+
+
+def graph_train_path(name: str, cfg, scene, dev) -> dict:
+    """One path of phase 30: ``2 GRAPH_K`` eager steps twice from one state
+    (the tensor-rate step, as a chunk takes it), then two graphed chunks of
+    ``GRAPH_K`` from the same state. Bit-identical losses and state where
+    the two eager runs are; else each part's update within the step
+    gradients' bound (cosine 0.9999 fp32, 0.999 bf16) and the losses within
+    a relative 1e-3. The same launches by kernel. Then ms/step of the eager
+    step as a user's loop takes it and of a graphed chunk (host clock around
+    synchronised calls), the host API launches a step, each one's device
+    busy share and the captures' seconds and pool bytes."""
+    import torch
+    from tinynerf_torch import profiling, train
+    from tinynerf_torch.runner import Runner
+    runner = Runner(cfg, device="cuda", scene=scene)
+    step = train.make_train_step(cfg, runner.train_table, runner.k_inv)
+    s0 = clone_state(runner.state)
+    del runner
+    n = 2 * GRAPH_K
+
+    def eager():
+        st = clone_state(s0)
+        rates = train.chunk_rates(cfg, st, n)[0].to(dev)
+        losses = []
+        for k in range(n):
+            st, m = step(st, rates=rates[k])
+            losses.append(m["loss"])
+        return st, torch.stack(losses)
+
+    zero_launches()
+    e1, l1 = eager()
+    torch.cuda.synchronize()
+    eager_launches = launch_counts()
+    e2, l2 = eager()
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(state_tensors(a), state_tensors(b)))
+    deterministic = bool(torch.equal(l1, l2)) and same(e1, e2)
+    chunk = train.make_chunked_step(step, GRAPH_K)
+    zero_launches()
+    g = clone_state(s0)
+    g, m1 = chunk(g)
+    g, m2 = chunk(g)
+    torch.cuda.synchronize()
+    graph_launches = launch_counts()
+    lg = torch.cat([m1["loss"], m2["loss"]])
+    bit = bool(torch.equal(lg, l1)) and same(g, e1)
+    rel = lambda a, b: float(((a - b).abs() / b.abs()).max())
+    # Adam's first moment: an average of the steps' gradients, per part
+    mu_cos = {"eager": moment_cosines(e2.opt.mu, e1.opt.mu),
+              "graphed": moment_cosines(g.opt.mu, e1.opt.mu)}
+    loss_rel = {"eager": rel(l2, l1), "graphed": rel(lg, l1)}
+    bound = 0.9999 if cfg.precision == "fp32" else 0.999
+    stats = dict(chunk.graphs.stats)
+    print(f"{name}: {n} eager steps twice from one state: "
+          f"{'bit-identical' if deterministic else 'not bit-identical'}; {n} graphed steps "
+          f"({stats['captures']} captures in {stats['capture_s']:.2f} s, "
+          f"{stats['warm_steps']} warm-up steps, {stats['replays']} replays, pool "
+          f"{stats['pool_bytes'] / 2 ** 20:.1f} MiB) against the first: "
+          f"{'bit-identical' if bit else 'not bit-identical'}; losses max rel eager "
+          f"{loss_rel['eager']:.3e}, graphed {loss_rel['graphed']:.3e}; Adam first-moment "
+          f"cosines min eager {min(mu_cos['eager'].values()):.7f}, graphed "
+          f"{min(mu_cos['graphed'].values()):.7f} (bound {bound}); "
+          f"launches eager {dict((k, v) for k, v in eager_launches.items() if v)}, graphed "
+          f"{dict((k, v) for k, v in graph_launches.items() if v)}")
+    if graph_launches != eager_launches:
+        raise AssertionError(f"{name}: the graphed steps launched other kernels than the eager")
+    if deterministic and not bit:
+        raise AssertionError(f"{name}: the graphed steps differ from the eager ones, "
+                             "which repeat bit for bit")
+    step_cos = None
+    if not deterministic:
+        # the eager runs part: hold one replayed step against one eager step
+        # from the same fresh state, by their gradients (the first step's
+        # Adam first moment is 0.1 g), at the step-gradient bound per part
+        one = train.make_chunked_step(step, 1)
+        one(clone_state(s0))                       # the warm-up and the capture
+        replayed, _ = one(clone_state(s0))         # one replay
+        row = train.chunk_rates(cfg, s0, 1)[0][0].to(dev)
+        eager_a, _ = step(clone_state(s0), rates=row)
+        eager_b, _ = step(clone_state(s0), rates=row)
+        step_cos = {"eager": moment_cosines(eager_b.opt.mu, eager_a.opt.mu),
+                    "graphed": moment_cosines(replayed.opt.mu, eager_a.opt.mu)}
+        print(f"{name}: one replayed step's gradient against an eager step's from the same "
+              f"state, per part: min cosine {min(step_cos['graphed'].values()):.7f} (two eager "
+              f"steps: {min(step_cos['eager'].values()):.7f}; bound {bound})")
+        if min(step_cos["graphed"].values()) < bound:
+            raise AssertionError(f"{name}: a replayed step's gradient is outside the bound")
+    if not torch.isfinite(lg).all():
+        raise AssertionError(f"{name}: a graphed loss is not finite")
+
+    # time the eager step as a user's loop takes it, then a graphed chunk
+    state = e1
+
+    def eager_steps():
+        nonlocal state
+        for _ in range(GRAPH_K):
+            state, _ = step(state)
+
+    def graphed_chunk():
+        nonlocal g
+        g, _ = chunk(g)
+
+    times = {}
+    for what, fn in (("eager", eager_steps), ("graphed", graphed_chunk)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times[what] = (time.perf_counter() - t0) * 1e3 / GRAPH_K
+    prof = {}
+    for what, fn in (("eager", eager_steps), ("graphed", graphed_chunk)):
+        wall_ms, rows = profiling.device_rows(fn, 1)
+        prof[what] = profiling.print_profile(wall_ms, rows, GRAPH_K, "steps", top=6)
+        prof[what]["api_launches"] = api_launches(fn, 1) / GRAPH_K
+    # the graphed step's idle share from the eager profile's device time (the
+    # same launches), beside the graphed trace's own
+    prof["graphed"]["idle_from_eager_device"] = 1 - prof["eager"]["device_ms"] / times["graphed"]
+    print(f"{name}: ms/step eager {times['eager']:.3f}, graphed {times['graphed']:.3f}; host "
+          f"API launches a step eager {prof['eager']['api_launches']:.1f}, graphed "
+          f"{prof['graphed']['api_launches']:.2f}; device idle eager "
+          f"{100 * (1 - prof['eager']['busy_share']):.1f}%, graphed "
+          f"{100 * (1 - prof['graphed']['busy_share']):.1f}% (from the eager profile's device "
+          f"time {100 * prof['graphed']['idle_from_eager_device']:.1f}%)")
+    return {"eager_deterministic": deterministic, "graph_bit_identical": bit,
+            "moment_cosines": mu_cos, "step_gradient_cosines": step_cos,
+            "loss_max_rel": loss_rel, "ms_per_step": times,
+            "profile": prof, "captures": stats, "launches": graph_launches,
+            "state": g}
+
+
+def graph_frames(name: str, cfg, scene, state, dev) -> dict:
+    """Phase 30's frames of one path: view 0 of the scene through
+    ``eval.make_frame_fn`` with one graph a view (``host_chunks = 0``) and
+    with a graph a chunk along the view (``host_chunks = 1``, the host
+    loop): the first call renders eagerly and captures, the second
+    replays. Every frame bit-identical to the first call's (the eager host
+    loop's), the same launches each call. s/frame (host clock): the eager
+    host loop (the warm-up), each form's replay."""
+    import numpy as np
+    import torch
+    from tinynerf_torch import eval as evallib
+    from tinynerf_torch.core.rays import make_k_inv
+    h, w = scene.height, scene.width
+    k_inv = make_k_inv(h, w, scene.focal, dev)
+    ndc = ((float(h), float(w), float(scene.focal)) if cfg.ndc and cfg.data_type == "llff"
+           else None)
+    pose = np.asarray(scene.poses_bounds[0], np.float32)
+    out, ref, total = {}, None, {}
+    for host_chunks in (0, 1):
+        fn = evallib.make_frame_fn(cfg, k_inv, h, w, occ_grid=state.occ, ndc_params=ndc,
+                                   host_chunks=host_chunks)
+        seconds, imgs, launches = [], [], []
+        for _ in range(2):
+            zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            imgs.append(fn(state.params, pose))
+            seconds.append(time.perf_counter() - t0)
+            launches.append(launch_counts())
+        held = fn.graph
+        ref = imgs[0] if ref is None else ref
+        if not (np.array_equal(imgs[0], ref) and np.array_equal(imgs[1], ref)):
+            raise AssertionError(f"{name}: a graphed frame (host_chunks {host_chunks}) is "
+                                 "not the eager host loop's bit for bit")
+        if launches[0] != launches[1]:
+            raise AssertionError(f"{name}: the frame's replay launched other kernels")
+        if not (np.all(np.isfinite(ref)) and ref.min() >= 0.0 and ref.max() <= 1.0 + 1e-6):
+            raise AssertionError(f"{name}: the frame is not finite values in [0, 1]")
+        for counted in launches:
+            for k, v in counted.items():
+                total[k] = total.get(k, 0) + v
+        out[host_chunks] = {"first_s": seconds[0], "eager_s": held["warm_s"],
+                            "capture_s": held["graph"].seconds,
+                            "pool_bytes": held["graph"].pool_bytes,
+                            "replay_s": seconds[1],
+                            "launches": {k: v for k, v in launches[1].items() if v}}
+    print(f"{name} frame {h}x{w}: eager host loop {out[0]['eager_s']:.3f} s (the first call's "
+          f"warm-up; capture {out[0]['capture_s']:.2f} s, pool "
+          f"{out[0]['pool_bytes'] / 2 ** 20:.1f} MiB); whole-frame graph "
+          f"{out[0]['replay_s']:.3f} s; graph a chunk (host_chunks 1) {out[1]['replay_s']:.3f} s"
+          f" (capture {out[1]['capture_s']:.2f} s); every frame bit-identical; launches a "
+          f"frame {out[0]['launches']}")
+    return {**out, "launches": total}
+
+
+def graph_cli_run(tmp: str) -> dict:
+    """Phase 30b: ``python -m tinynerf_torch --mode all`` on a tiny sync scene
+    (the scene maker's) across occupancy refreshes and STEP boundaries:
+    chunks of GRAPH_CLI_STEP steps, the refresh graph replayed, a tail of
+    single steps; [ITER] lines and checkpoints at each boundary, one logged
+    loss an iteration, and the test PSNR printed."""
+    import json as _json
+    import glob
+    root = os.path.join(tmp, "graph_cli")
+    scene = os.path.join(root, "scene")
+    subprocess.run([sys.executable, "-m", "tinynerf_torch.tools.make_synthetic_scene", scene,
+                    "--hw", "32", "--views", "4"], check=True, cwd=ROOT, timeout=300,
+                   capture_output=True)
+    ini = os.path.join(root, "cli.ini")
+    with open(ini, "w") as f:
+        f.write("[cli]\n" + "\n".join(f"{k} = {v}" for k, v in {
+            "IMG_DIR": scene + "/", "RESULTS_PATH": os.path.join(root, "results") + "/",
+            "CKPT_PATH": os.path.join(root, "ckpt") + "/",
+            "LOG_DIR": os.path.join(root, "runs") + "/", "DATA_TYPE": "sync",
+            "TOTAL_ITER": GRAPH_CLI_ITERS, "STEP": GRAPH_CLI_STEP, "BATCH_RAY": 1024,
+            "N_COARSE": 32, "N_FINE": 64, "PRECISION": "bf16", "OCC_GRID": True,
+            "WHITE_BKGD": True, "OCC_RES": 16, "OCC_UPDATE_EVERY": GRAPH_CLI_REFRESH,
+            "LEARNING": "5e-4", "CONTINUE": False, "RENDER_CHUNK": 512}.items()) + "\n")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "tinynerf_torch", "--conf", ini,
+                          "--mode", "all"], cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    seconds = time.perf_counter() - t0
+    if run.returncode != 0:
+        print(run.stdout[-3000:], run.stderr[-3000:])
+        raise AssertionError("python -m tinynerf_torch --mode all failed")
+    lines = run.stdout.splitlines()
+    iters = [int(line.split()[1]) for line in lines if line.startswith("[ITER]")]
+    want = [i - 1 for i in range(GRAPH_CLI_STEP, GRAPH_CLI_ITERS + 1, GRAPH_CLI_STEP)]
+    ckpts = sorted(int(os.path.basename(p).rsplit("_", 1)[1].split(".")[0])
+                   for p in glob.glob(os.path.join(root, "ckpt", "*.npz")))
+    logged = [_json.loads(line) for path in glob.glob(os.path.join(root, "runs", "*",
+                                                                   "metrics.jsonl"))
+              for line in open(path)]
+    losses = [(r["iter"], r["loss/train"]) for r in logged if "loss/train" in r]
+    psnr = [line for line in lines if line.startswith("Test PSNR")]
+    print(f"python -m tinynerf_torch --mode all: {GRAPH_CLI_ITERS} steps (STEP "
+          f"{GRAPH_CLI_STEP}, refresh every {GRAPH_CLI_REFRESH}) in {seconds:.1f} s; [ITER] at "
+          f"{iters}, checkpoints at {ckpts}; {len(losses)} logged losses, "
+          f"{len({l for _, l in losses})} distinct; {psnr[-1] if psnr else 'no PSNR line'}")
+    if (iters != want or ckpts != want or [i for i, _ in losses] != list(range(GRAPH_CLI_ITERS))
+            or len({l for _, l in losses}) != GRAPH_CLI_ITERS
+            or not all(math.isfinite(l) for _, l in losses) or not psnr):
+        raise AssertionError("the CLI's chunked run did not log, checkpoint or render as "
+                             "expected")
+    return {"seconds": seconds, "iter_lines": iters, "checkpoints": ckpts}
+
+
+# a kernel wrapper's name -> its kernel form's name in the kernels line (fp32;
+# "_bf16" follows at bf16)
+FORM_OF = {"field_rays": "field_rays_fwd", "field_rays_bwd": "field_rays_bwd",
+           "field_flat": "field_flat_fwd", "field_flat_bwd": "field_flat_bwd",
+           "grid_rays": "grid_rays_fwd", "grid_rays_bwd": "grid_rays_bwd",
+           "prop_rays": "prop_rays_fwd", "prop_rays_bwd": "prop_rays_bwd",
+           "render_fused": "render_fused_fwd", "render_fused_bwd": "render_fused_bwd"}
+
+
+def add_launches(table: dict, counted: dict, precision: str, path: str) -> None:
+    """``counted`` (launches by wrapper) into ``table`` by kernel form, under
+    ``path``."""
+    for kernel, count in counted.items():
+        if count and kernel in FORM_OF:
+            form_ = FORM_OF[kernel] + ("_bf16" if precision == "bf16" else "")
+            table.setdefault(form_, {})[path] = table.get(form_, {}).get(path, 0) + count
+
+
+def graph_upsample_run(tmp: str) -> dict:
+    """Phase 30a: ``Runner.train`` on lego_grid + GRID_PALLAS from R = 64
+    with ``GRID_UPSAMPLE`` 20:128 and STEP 10: chunks of 10 graphed steps,
+    the milestone resizing the tables before iteration 20 and the step
+    graphs captured again on the new shapes (``graphs.capture`` counted:
+    the refresh and plain graphs at R = 64, the plain one at R = 128); the
+    [ITER] lines on every STEP, kernels 5 and 6 twice a step, every loss
+    finite, the tables and moments at R = 128 at the end."""
+    import contextlib as _cl
+    import io as _io
+    from tinynerf_torch import graphs
+    from tinynerf_torch.runner import Runner
+    cfg = run_config("lego_grid", tmp, "graph_upsample", GRAPH_UPSAMPLE_ITERS, grid_pallas=True,
+                     grid_res=64, grid_upsample=GRAPH_UPSAMPLE, step=10)
+    runner = Runner(cfg, device="cuda", scene=blender_scene(TRAIN_VIEWS, 800, cfg.seed))
+    real, captured = graphs.capture, []
+
+    def counting(*a, **kw):
+        captured.append(runner.state.iteration)
+        return real(*a, **kw)
+
+    graphs.capture = counting
+    zero_launches()
+    out = _io.StringIO()
+    try:
+        with _cl.redirect_stdout(out):
+            runner.train()
+    finally:
+        graphs.capture = real
+    lines = out.getvalue().splitlines()
+    got = launch_counts()
+    iters = [int(line.split()[1]) for line in lines if line.startswith("[ITER]")]
+    resize = [line for line in lines if line.startswith("[GRID]")]
+    res = {name: sorted({t["net"]["lines"][ax].shape[0] for ax in "xyz"})
+           for name, t in (("params", runner.params), ("mu", runner.state.opt.mu),
+                           ("nu", runner.state.opt.nu))}
+    losses = logged_losses(runner)
+    print(f"lego_grid GRID_UPSAMPLE {GRAPH_UPSAMPLE}, STEP 10: {resize}; captures at the "
+          f"chunks from iterations {captured}; [ITER] at {iters}; R after {res}; launches "
+          f"{dict((k, v) for k, v in got.items() if v)}; losses {losses[0]:.4f} .. "
+          f"{losses[-1]:.4f}")
+    if (resize != ["[GRID] upsampled line tables to R=128 before iter 20"]
+            or captured != [0, 0, 20] or iters != list(range(9, GRAPH_UPSAMPLE_ITERS, 10))
+            or any(r != [128] for r in res.values())
+            or got != launched(grid_rays=2 * GRAPH_UPSAMPLE_ITERS,
+                               grid_rays_bwd=2 * GRAPH_UPSAMPLE_ITERS)
+            or len(losses) != GRAPH_UPSAMPLE_ITERS
+            or not all(math.isfinite(x) for x in losses)):
+        raise AssertionError("the graphed lego_grid run did not capture again at its "
+                             "milestone as expected")
+    return {"captured_at": captured, "iter_lines": iters, "launches": got,
+            "precision": cfg.precision}
+
+
+def graph_phases(tmp: str) -> dict:
+    """Phase 30: each graphed training path (``graph_train_path``) and its
+    frames (``graph_frames``: lego_occ unfused and fused, lego_grid,
+    unbounded360-mlp, the flagship), then a graphed run across a
+    ``GRID_UPSAMPLE`` milestone (``graph_upsample_run``) and the CLI's
+    chunked run (``graph_cli_run``). Returns ``{"paths", "frames", "cli",
+    "launches"}``, ``launches`` by kernel form and path: the graphed steps'
+    launches (the warm-up steps' among them)."""
+    import dataclasses as _dc
+    import torch
+    dev = torch.device("cuda:0")
+    t_phase = time.perf_counter()
+    results, frames, launches = {}, {}, {}
+    for name, cfg, scene in graph_paths(tmp):
+        phase(f"graphs-{name} ({cfg.precision}, BATCH_RAY {cfg.batch_ray}; "
+              f"{2 * GRAPH_K} eager steps vs two chunks of {GRAPH_K} graphed)")
+        res = graph_train_path(name, cfg, scene, dev)
+        state = res.pop("state")
+        add_launches(launches, res["launches"], cfg.precision, f"{name} graphed train")
+        results[name] = res
+        if name in GRAPH_FRAME_PATHS:
+            phase(f"graphs-{name} frames (whole-frame graph, graph a chunk, eager host loop)")
+            forms = [(name, cfg)]
+            if name == "lego_occ":
+                forms.append(("lego_occ_fused", _dc.replace(cfg, fused_render=True)))
+            for tag, fcfg in forms:
+                frames[tag] = graph_frames(tag, fcfg, scene, state, dev)
+                add_launches(launches, frames[tag]["launches"], cfg.precision,
+                             f"{tag} graphed frames")
+        del state
+        torch.cuda.empty_cache()
+    phase(f"graphs-upsample (lego_grid + GRID_PALLAS, GRID_UPSAMPLE {GRAPH_UPSAMPLE}, STEP 10)")
+    upsample = graph_upsample_run(tmp)
+    add_launches(launches, upsample.pop("launches"), upsample.pop("precision"),
+                 "lego_grid upsample graphed train")
+    phase("graphs-cli (python -m tinynerf_torch --mode all, chunked, across refreshes)")
+    cli = graph_cli_run(tmp)
+    print(f"phase 30 took {time.perf_counter() - t_phase:.1f} s")
+    return {"paths": results, "frames": frames, "upsample": upsample, "cli": cli,
+            "launches": launches}
 
 
 def main() -> int:
@@ -4539,7 +4998,10 @@ def main() -> int:
         # ---- 29. the validate protocol from files on disk ----
         validate = validate_phase(tmp, "cuda")
 
-    # ---- 30. results ----
+        # ---- 30. the CUDA graphs: chunks of steps, frames, the CLI ----
+        graphed = graph_phases(tmp)
+
+    # ---- 31. results ----
     mean = lambda table, shapes, i: sum(table[s][i] for s in shapes) / len(shapes)
     shape_key = lambda s: (f"B={s[0]},N={s[1]}" if len(s) == 2 else f"R={s[0]}" if len(s) == 1
                            else f"B={s[0]},N_c={s[1]},N_f={s[2]}")
@@ -4743,6 +5205,9 @@ def main() -> int:
               "norm_ratio_vs_plain": fused_ratio["bf16"],
               "merge_max_rel_err": merge_err["bf16"], **fused_extra["bwd bf16"]}),
     ]
+    # the graphed paths' launches of each form (phase 30)
+    for entry in kernels:
+        entry["graphed_launches"] = graphed["launches"].get(entry["name"], {})
     print(json.dumps({"train_step": {str(b): {"ms": t[0], "kernel_ms": t[1]}
                                      for b, t in step_time.items()},
                       "lego_occ": {"step_ms": occ_ms, "kernel_ms": occ_kern,
@@ -4773,6 +5238,7 @@ def main() -> int:
                                    "fused_frame_s": fern_frame_s[True],
                                    "fused_vs_unfused_max_diff": fern_diff},
                       "parallel": {k: v for k, v in parallel.items() if k != "launches"},
+                      "graphs": {k: v for k, v in graphed.items() if k != "launches"},
                       **{k: v for k, v in validate.items() if k != "launches"}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

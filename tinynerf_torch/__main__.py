@@ -37,8 +37,10 @@ def main(argv=None) -> None:
                         help="also write per-view depth + opacity maps")
     parser.add_argument("--host-chunks", nargs="?", const=1, default=0,
                         type=int, metavar="K",
-                        help="accepted for main.py compatibility: the port "
-                             "always renders chunk by chunk from the host")
+                        help="render frames through a graph of K chunks "
+                             "replayed along the view (K = 1 without a "
+                             "value) instead of one graph of the whole "
+                             "view; on the card only (main.py's flag)")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"])
     args = parser.parse_args(argv)
@@ -72,10 +74,11 @@ def run(args: argparse.Namespace) -> None:
         if args.mode in ("all", "train"):
             runner.train("train")
         if args.mode in ("all", "display"):
-            runner.display(depth=args.depth)
+            runner.display(depth=args.depth, host_chunks=args.host_chunks)
         if args.mode == "path":
             runner.render_path_video(n_views=args.path_views,
-                                     res_scale=args.path_scale)
+                                     res_scale=args.path_scale,
+                                     host_chunks=args.host_chunks)
     except NoCheckpointError as e:
         raise SystemExit(f"--mode={args.mode}: {e}") from None
 

@@ -14,6 +14,8 @@ Point dim = 3·2·10 = 60; dir dim = 3·2·4 = 24.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -31,14 +33,23 @@ def freq_bank(num_freqs: int) -> np.ndarray:
     ) * np.float32(np.pi)
 
 
-def positional_encode(x: torch.Tensor, freqs: np.ndarray) -> torch.Tensor:
-    """Encode ``(..., 3)`` coordinates to ``(..., 3*2*L)`` in reference layout.
+@functools.lru_cache(maxsize=None)
+def freq_tensor(num_freqs: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``freq_bank(num_freqs)`` on ``device`` as ``dtype``, made once: a copy
+    from host memory on every call would wait for the card's queue, and a
+    CUDA graph cannot capture it."""
+    return torch.as_tensor(freq_bank(num_freqs), dtype=dtype, device=device)
+
+
+def positional_encode(x: torch.Tensor, num_freqs: int) -> torch.Tensor:
+    """Encode ``(..., 3)`` coordinates to ``(..., 3*2*L)`` in reference layout,
+    ``L = num_freqs``.
 
     Per channel c: ``[sin(f_0 c), cos(f_0 c), ..., sin(f_{L-1} c), cos(f_{L-1} c)]``,
     channel blocks concatenated in x, y, z order.
     """
-    L = freqs.shape[0]
-    f = torch.as_tensor(freqs, dtype=x.dtype, device=x.device)
+    L = num_freqs
+    f = freq_tensor(num_freqs, x.dtype, x.device)
     scaled = x[..., :, None] * f                       # (..., 3, L)
     enc = torch.stack([torch.sin(scaled), torch.cos(scaled)], dim=-1)
     return enc.reshape(*x.shape[:-1], 3 * 2 * L)
@@ -46,9 +57,9 @@ def positional_encode(x: torch.Tensor, freqs: np.ndarray) -> torch.Tensor:
 
 def encode_points(points: torch.Tensor) -> torch.Tensor:
     """(..., 3) world points -> (..., 60)."""
-    return positional_encode(points, freq_bank(L_POINT))
+    return positional_encode(points, L_POINT)
 
 
 def encode_dirs(dirs: torch.Tensor) -> torch.Tensor:
     """(..., 3) world unit directions -> (..., 24)."""
-    return positional_encode(dirs, freq_bank(L_DIR))
+    return positional_encode(dirs, L_DIR)

@@ -224,7 +224,8 @@ def upsample_matrix(old_res: int, new_res: int,
     stop = np.float32(old_res - 1)
     step = np.float32(stop * (np.float32(1.0) / np.float32(new_res - 1)))
     nodes = torch.arange(new_res, dtype=torch.float32, device=device) * float(step)
-    nodes[-1] = float(stop)
+    # a fill, not a store from host memory, so that a CUDA graph captures it
+    nodes = torch.cat([nodes[:-1], torch.full((1,), float(stop), device=device)])
     idx = torch.arange(old_res, dtype=torch.float32, device=device)
     return torch.relu(1.0 - torch.abs(nodes[:, None] - idx[None, :]))
 

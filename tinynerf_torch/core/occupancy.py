@@ -75,14 +75,19 @@ def _set_last_wins(flat: torch.Tensor, idx: torch.Tensor,
     """``flat[idx] = values`` where, for an index drawn more than once, the
     last occurrence wins on every device (``index_put_`` with duplicates
     leaves the winner to the device; JAX's ``.at[].set`` leaves it
-    undefined)."""
+    undefined). Every occurrence writes its run's last value, so the
+    writes agree whichever lands; no shape depends on the data, so nothing
+    waits for the card and a CUDA graph can capture it."""
     order = torch.argsort(idx, stable=True)
     sorted_idx = idx[order]
     last = torch.ones_like(sorted_idx, dtype=torch.bool)
     last[:-1] = sorted_idx[1:] != sorted_idx[:-1]
-    keep = order[last]
+    # each sorted position's run end: the least last-position at or after it
+    pos = torch.arange(sorted_idx.shape[0], device=idx.device)
+    ends = torch.where(last, pos, sorted_idx.shape[0])
+    run_end = torch.flip(torch.cummin(torch.flip(ends, (0,)), 0).values, (0,))
     out = flat.clone()
-    out[idx[keep]] = values[keep]
+    out[sorted_idx] = values[order][run_end]
     return out
 
 

@@ -126,12 +126,11 @@ def make_field_proposal(enc_l: int = L_POINT, precision: str = "fp32"):
     """The plain field with ``enc_l`` point bands: ``field(params, points,
     dirs)``. At ``precision="bf16"`` it is the JAX package's bf16 network
     (module docstring), not the kernels' bf16 form."""
-    freqs = encoding.freq_bank(enc_l)
     mlp.rounding(precision)  # refuses an unknown precision
 
     def field(params: Params, points: torch.Tensor, dirs: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        pe = encoding.positional_encode(points, freqs)
+        pe = encoding.positional_encode(points, enc_l)
         de = encoding.encode_dirs(dirs)
         if precision == "fp32":
             return apply_proposal(params, pe, de)

@@ -14,6 +14,7 @@
 
 #include "field_tc.cuh"
 #include "fma_common.cuh"
+#include "launch_cache.cuh"
 
 namespace {
 
@@ -1156,11 +1157,8 @@ inline int field_bwd_tc_launch(Coord coord, const float* g_sigma, const float* g
                                int n_rays, int n_samples, bool accumulate,
                                cudaStream_t st) {
   auto kernel = &field_bwd_tc_kernel<Coord>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(TcBwdSmem));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(wgrad_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               WB_SMEM);
+  cudaError_t err = launch_cache::allow_smem(kernel, sizeof(TcBwdSmem));
+  if (err == cudaSuccess) err = launch_cache::allow_smem(wgrad_tc_kernel, WB_SMEM);
   if (err != cudaSuccess) return (int)err;
   bf16* wb = reinterpret_cast<bf16*>(workspace);
   const int e = pack_weights(p, wb, st, true);

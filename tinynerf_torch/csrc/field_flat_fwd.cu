@@ -21,6 +21,7 @@
 // padded.
 
 #include "field_tc.cuh"
+#include "launch_cache.cuh"
 
 namespace {
 
@@ -64,8 +65,7 @@ int field_flat_fwd(const float* points, const float* dirs,
     if (e != 0) return e;
   }
   auto kernel = bf16 ? &field_flat_fwd_kernel<true> : &field_flat_fwd_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(FwdSmem));
+  cudaError_t err = launch_cache::allow_smem(kernel, sizeof(FwdSmem));
   if (err != cudaSuccess) return (int)err;
   const int blocks = (n_rows + TILE_M - 1) / TILE_M;
   kernel<<<blocks, THREADS, sizeof(FwdSmem), static_cast<cudaStream_t>(stream)>>>(

@@ -37,6 +37,7 @@
 //   other's products.
 
 #include "field_tc.cuh"
+#include "launch_cache.cuh"
 
 namespace {
 
@@ -90,8 +91,7 @@ int field_rays_fwd(const float* origins, const float* dirs, const float* ts,
     if (e != 0) return e;
   }
   auto kernel = bf16 ? &field_rays_fwd_kernel<true> : &field_rays_fwd_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(FwdSmem));
+  cudaError_t err = launch_cache::allow_smem(kernel, sizeof(FwdSmem));
   if (err != cudaSuccess) return (int)err;
   const int blocks = (int)((total + TILE_M - 1) / TILE_M);
   kernel<<<blocks, THREADS, sizeof(FwdSmem), static_cast<cudaStream_t>(stream)>>>(

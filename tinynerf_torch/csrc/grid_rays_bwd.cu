@@ -57,6 +57,7 @@
 // 2. reduce: the slices' partials summed in slice order.
 
 #include "grid_common.cuh"
+#include "launch_cache.cuh"
 
 namespace {
 
@@ -466,16 +467,14 @@ __global__ void reduce_kernel(const float* __restrict__ partials, int slices,
 
 // Blocks of the first launch: SLICES for each block a multiprocessor holds
 // at once (its shared memory and registers; a function of the dimensions
-// and the build, so two calls slice alike), at most one a ray. Returns
-// -1 on a CUDA error.
+// and the build, so two calls slice alike), at most one a ray; the
+// shared-memory limit set. Queried once a device and shape
+// (launch_cache.cuh). Returns -1 on a CUDA error.
 int slices_for(const Dims& dm, int n_rays, int use_bf16) {
   const size_t smem = use_bf16 ? bwd_smem<true>(dm) : bwd_smem<false>(dm);
   auto kernel = use_bf16 ? &grid_rays_bwd_kernel<true> : &grid_rays_bwd_kernel<false>;
   int per_sm = 0;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads_for(dm), smem) !=
-          cudaSuccess)
+  if (launch_cache::blocks_per_sm(kernel, threads_for(dm), smem, &per_sm) != cudaSuccess)
     return -1;
   return std::max(1, std::min(n_rays, SLICES * std::max(per_sm, 1)));
 }
@@ -531,9 +530,7 @@ int grid_rays_bwd(const float* origins, const float* dirs, const float* ts,
   const size_t smem = use_bf16 ? bwd_smem<true>(dm) : bwd_smem<false>(dm);
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   auto kernel = use_bf16 ? &grid_rays_bwd_kernel<true> : &grid_rays_bwd_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err;
   const int slices = slices_for(dm, n_rays, use_bf16);
   if (slices < 0) return (int)cudaGetLastError();
   const long long n_grad = GradLayout(dm).total;

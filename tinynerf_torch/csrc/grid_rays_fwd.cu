@@ -31,6 +31,7 @@
 //   a row for the color head.
 
 #include "grid_common.cuh"
+#include "launch_cache.cuh"
 
 namespace {
 
@@ -108,22 +109,17 @@ int grid_rays_fwd(const float* origins, const float* dirs, const float* ts,
   const size_t smem = use_bf16 ? fwd_smem<true>(dm) : fwd_smem<false>(dm);
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   auto kernel = use_bf16 ? &grid_rays_fwd_kernel<true> : &grid_rays_fwd_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // the shared-memory limit, the card's SMs and the blocks an SM holds:
+  // queried once a device and shape (launch_cache.cuh)
+  int sms = 0, per_sm = 0;
+  cudaError_t err = launch_cache::blocks_per_sm(kernel, threads_for(dm), smem, &per_sm);
+  if (err == cudaSuccess) err = launch_cache::sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
   auto* tab16 = reinterpret_cast<__nv_bfloat16*>(workspace);
   if (use_bf16) {
     if (int e = pack_tables(params, dm, tab16, st)) return e;
   }
   const GridParams p = unpack_grid_params(params, tab16);
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
-      cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads_for(dm), smem)) !=
-      cudaSuccess)
-    return (int)err;
   const int tile = use_bf16 ? Form<true>::TILE : Form<false>::TILE;
   const int blocks = (int)std::min<long long>(ceil_div(total, tile),
                                               (long long)sms * std::max(per_sm, 1));

@@ -288,8 +288,7 @@ int launch_merge(const float* t_co, const float* near, const float* far, const f
   const int rpb = merge_rays_per_block(nc, nf);
   if (rpb == 0) return (int)cudaErrorInvalidValue;
   const int smem = (int)(sizeof(float) * (size_t)rpb * merge_floats(nc, nf));
-  cudaError_t err =
-      cudaFuncSetAttribute(merge_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = launch_cache::allow_smem(merge_bwd_kernel, (size_t)smem);
   if (err != cudaSuccess) return (int)err;
   merge_bwd_kernel<<<(n_rays + rpb - 1) / rpb, 32 * rpb, smem, st>>>(
       t_co, near, far, g_cco, g_cfi, res, h, c_fi, n_rays, nc, nf, rpb, white);

@@ -60,6 +60,7 @@
 // phase and the share of the block's warps that wait through the tail
 // (render_kernel.fwd_phase_split).
 
+#include "launch_cache.cuh"
 #include "render_common.cuh"
 
 namespace {
@@ -176,8 +177,7 @@ int render_fused_fwd(const float* origins, const float* dirs, const float* t_co,
                      : (res != nullptr ? &render_fused_fwd_kernel<false, true>
                                         : &render_fused_fwd_kernel<false, false>);
   const int threads = render_fused_block_threads(bf16);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = launch_cache::allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(n_rays + rpb - 1) / rpb, threads, smem, st>>>(
       origins, dirs, t_co, near, far, p, c_co, c_fi, res, n_rays, n_coarse, n_fine, rpb,

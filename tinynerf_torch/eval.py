@@ -1,9 +1,14 @@
 """Full-frame rendering, PSNR/SSIM, per-view JPG export and video.
 
-Counterpart of ``tinynerf/eval.py``. A frame is a host loop over
+Counterpart of ``tinynerf/eval.py``. A frame is rendered in
 ``RENDER_CHUNK``-ray chunks of the pixel grid; the last chunk is padded with
 pixel (0, 0) and the padding dropped at assembly, as the JAX package pads
-its chunk grid. Results stay on the device until the frame is complete.
+its chunk grid. On the CPU, and under a mesh, the chunks are a host loop.
+On the card every chunk of a view is one CUDA graph, replayed once a view,
+the counterpart of the JAX package's one program a frame; with
+``host_chunks = K`` a graph of K chunks is replayed along the view, the JAX
+package's host loop (``tinynerf/eval.py:137-180``). Results stay on the
+device until the frame is complete.
 JPGs and the ``.gif`` are written by the port's own encoders
 (``data/imagefile.py``); a video is an ``.mp4`` only where imageio imports
 and has a video backend.
@@ -13,11 +18,13 @@ from __future__ import annotations
 
 import functools
 import os
+import time
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from tinynerf_torch import optim
 from tinynerf_torch.config import Config
 from tinynerf_torch.core import contract, gridfield, proposal, render
 from tinynerf_torch.core.encoding import L_POINT
@@ -189,7 +196,7 @@ def without_fused(field_fn: render.FieldFn) -> render.FieldFn:
 def make_frame_fn(cfg: Config, k_inv: torch.Tensor, height: int, width: int,
                   field_fn: Optional[render.FieldFn] = None,
                   extras: bool = False, occ_grid=None, ndc_params=None,
-                  mesh: Optional[meshlib.Mesh] = None):
+                  mesh: Optional[meshlib.Mesh] = None, host_chunks: int = 0):
     """Whole-frame renderer on ``k_inv``'s device: ``frame(params, pose17_row)``
     -> (H, W, 3) numpy, or with ``extras`` (rgb, depth, acc). ``occ_grid``
     (the trained state's, with ``OCC_GRID``) tightens every ray's bounds.
@@ -210,7 +217,16 @@ def make_frame_fn(cfg: Config, k_inv: torch.Tensor, height: int, width: int,
     occupancy grid, extras, ``COMPAT_SORT``, ``PROPOSAL``, NDC or
     ``LINDISP``, and a fine pass (``tinynerf/eval.py:103-107``), the fine
     samples are spread over the sample group too
-    (``sample_shard.make_sample_sharded_render``)."""
+    (``sample_shard.make_sample_sharded_render``).
+
+    On the card without a mesh the chunks are CUDA graphs (``_graphed``):
+    one graph of every chunk of the view, or with ``host_chunks = K`` (an
+    int; ``True`` is 1) of K chunks, replayed along the view, the chunk
+    list padded to whole groups with repeats of its last chunk, as the JAX
+    package pads it. The frame's pixels are the host loop's. On the CPU and
+    under a mesh ``host_chunks`` changes nothing: the chunks are a host
+    loop (under a mesh the JAX package's host loop refuses several
+    processes; the port's keeps it, as it keeps the whole-frame path)."""
     if field_fn is None:
         field_fn = make_field_fn(cfg)
     if mesh is not None:
@@ -251,6 +267,10 @@ def make_frame_fn(cfg: Config, k_inv: torch.Tensor, height: int, width: int,
     elif mesh is not None:
         march = meshlib.sharded_render_chunk(march, mesh)
 
+    if device.type == "cuda" and mesh is None:
+        group = n_chunks if not host_chunks else max(1, min(int(host_chunks), n_chunks))
+        return _graphed(march, rows, cols, chunk, group, (height, width), extras)
+
     @torch.no_grad()
     def frame(params, pose17_row):
         pose_row = torch.as_tensor(pose17_row, dtype=torch.float32, device=device)
@@ -271,6 +291,75 @@ def make_frame_fn(cfg: Config, k_inv: torch.Tensor, height: int, width: int,
                     acc[:num_pix].reshape(shp).cpu().numpy())
         return img
 
+    return frame
+
+
+def _graphed(march, rows: torch.Tensor, cols: torch.Tensor, chunk: int, group: int,
+             shape, extras: bool):
+    """``make_frame_fn``'s frame on the card: ``group`` chunks of ``chunk``
+    rays a CUDA graph (``graphs.capture``), over static pixel, pose and
+    output buffers, replayed for each group of the view. The first call
+    renders its first group eagerly (``graphs.warm``: the libraries and
+    caches the chunks need) and then captures; a call with params at other
+    addresses than the captured ones captures again."""
+    from tinynerf_torch import graphs
+    device = rows.device
+    n_chunks = rows.shape[0] // chunk
+    n_groups = -(-n_chunks // group)
+    span = group * chunk
+    if n_groups * group > n_chunks:   # whole groups: repeat the last chunk
+        extra = n_groups * group - n_chunks
+        rows = torch.cat([rows, rows[-chunk:].repeat(extra)])
+        cols = torch.cat([cols, cols[-chunk:].repeat(extra)])
+    # the group's pixels: the whole view's where one group covers it
+    g_rows, g_cols = ((rows, cols) if n_groups == 1 else
+                      (torch.empty(span, device=device), torch.empty(span, device=device)))
+    pose_buf = torch.empty(17, dtype=torch.float32, device=device)
+    outs = [torch.empty((span, 3), device=device)] + (
+        [torch.empty(span, device=device), torch.empty(span, device=device)] if extras else [])
+    # the graph, the params' addresses it read, and the warm-up's seconds
+    held = {"graph": None, "params": None, "warm_s": None}
+
+    def body(params):
+        pose = pose_buf.expand(chunk, 17)
+        for j in range(group):
+            sl = slice(j * chunk, (j + 1) * chunk)
+            for buf, out in zip(outs, march(params, g_rows[sl], g_cols[sl], pose)):
+                buf[sl] = out
+
+    @torch.no_grad()
+    def frame(params, pose17_row):
+        pose_buf.copy_(torch.as_tensor(pose17_row, dtype=torch.float32))
+        at = [(t.data_ptr(), t.shape, t.dtype) for t in optim.leaves(params)]
+        if held["params"] != at:
+            held["graph"], held["params"] = None, at
+        planes = (outs if n_groups == 1 else
+                  [torch.empty((n_groups * span, *o.shape[1:]), device=device) for o in outs])
+        for gi in range(n_groups):
+            if n_groups > 1:
+                g_rows.copy_(rows[gi * span:(gi + 1) * span])
+                g_cols.copy_(cols[gi * span:(gi + 1) * span])
+            if held["graph"] is None:
+                t0 = time.perf_counter()
+                graphs.warm(functools.partial(body, params), device)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                held["warm_s"] = time.perf_counter() - t0
+                held["graph"] = graphs.capture(functools.partial(body, params), device)
+            else:
+                held["graph"].replay()
+            if n_groups > 1:
+                for plane, out in zip(planes, outs):
+                    plane[gi * span:(gi + 1) * span] = out
+        height, width = shape
+        num_pix = height * width
+        img = planes[0][:num_pix].reshape(height, width, 3).cpu().numpy()
+        if extras:
+            return (img, planes[1][:num_pix].reshape(shape).cpu().numpy(),
+                    planes[2][:num_pix].reshape(shape).cpu().numpy())
+        return img
+
+    frame.graph = held
     return frame
 
 
@@ -322,17 +411,19 @@ def render_test_set(cfg: Config, params: Any, table: RayTable,
                     field_fn=None, save: bool = True,
                     max_views: Optional[int] = None,
                     depth: bool = False, occ_grid=None,
-                    ndc_params=None, mesh: Optional[meshlib.Mesh] = None) -> np.ndarray:
+                    ndc_params=None, mesh: Optional[meshlib.Mesh] = None,
+                    host_chunks: int = 0) -> np.ndarray:
     """Render every view of ``table`` in order; with ``save`` write per-view
     JPGs under ``results_path/<start_time>/`` and a video. ``depth=True``
     also writes ``<pic>_depth.jpg`` and ``<pic>_acc.jpg`` (under NDC the
     depth is in NDC units, [0, 1] already). Returns the (N, H, W, 3) stack,
     clipped to [0, 1]. Under a ``mesh`` every rank renders and returns
-    the frames (``make_frame_fn``) and only rank 0 writes them."""
+    the frames (``make_frame_fn``) and only rank 0 writes them.
+    ``host_chunks``: ``make_frame_fn``'s."""
     save = save and dist.is_main_process()
     frame_fn = make_frame_fn(cfg, k_inv, table.height, table.width,
                              field_fn=field_fn, extras=depth, occ_grid=occ_grid,
-                             ndc_params=ndc_params, mesh=mesh)
+                             ndc_params=ndc_params, mesh=mesh, host_chunks=host_chunks)
     n_views = table.num_pics if max_views is None else min(max_views, table.num_pics)
     frames = np.empty((n_views, table.height, table.width, 3), np.float32)
     if depth:
@@ -372,15 +463,18 @@ def render_test_set(cfg: Config, params: Any, table: RayTable,
 def render_path(cfg: Config, params: Any, pose_rows: np.ndarray,
                 k_inv: torch.Tensor, out_base: str, field_fn=None,
                 fps: int = 30, save: bool = True, occ_grid=None,
-                ndc_params=None, mesh: Optional[meshlib.Mesh] = None) -> np.ndarray:
+                ndc_params=None, mesh: Optional[meshlib.Mesh] = None,
+                host_chunks: int = 0) -> np.ndarray:
     """Render a camera path (``data/paths.py``) to a video. The frame size
     comes from the pose rows' h/w column; ``k_inv`` must match it. Under a
-    ``mesh``, as ``render_test_set``: rank 0 writes the video."""
+    ``mesh``, as ``render_test_set``: rank 0 writes the video.
+    ``host_chunks``: ``make_frame_fn``'s."""
     save = save and dist.is_main_process()
     height = int(pose_rows[0, :15].reshape(3, 5)[0, 4])
     width = int(pose_rows[0, :15].reshape(3, 5)[1, 4])
     frame_fn = make_frame_fn(cfg, k_inv, height, width, field_fn=field_fn,
-                             occ_grid=occ_grid, ndc_params=ndc_params, mesh=mesh)
+                             occ_grid=occ_grid, ndc_params=ndc_params, mesh=mesh,
+                             host_chunks=host_chunks)
     frames = np.empty((pose_rows.shape[0], height, width, 3), np.float32)
     for i in range(pose_rows.shape[0]):
         frames[i] = frame_fn(params, pose_rows[i])

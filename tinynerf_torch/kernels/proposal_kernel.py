@@ -59,7 +59,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from tinynerf_torch.core import encoding, mlp, proposal
-from tinynerf_torch.core.encoding import DIR_ENC_DIM, L_DIR, L_POINT, freq_bank
+from tinynerf_torch.core.encoding import DIR_ENC_DIM, L_DIR, L_POINT, freq_tensor
 from tinynerf_torch.kernels.mlp_kernel import (_check, _check_precision, _freq_table,
                                                _kernel_ready, _on_one_device, _stream)
 
@@ -129,7 +129,7 @@ def prop_rays_plain(params: Params, origins: torch.Tensor, dirs: torch.Tensor,
 def _encoding_vjp(g_enc: torch.Tensor, enc: torch.Tensor, n_freqs: int) -> torch.Tensor:
     """(..., 3 * 2L) cotangents of an encoding and its float32 values ->
     (..., 3) of the coordinates: ``sum_l f_l (g_sin cos - g_cos sin)``."""
-    freqs = torch.as_tensor(freq_bank(n_freqs), device=g_enc.device)
+    freqs = freq_tensor(n_freqs, torch.float32, g_enc.device)
     g = g_enc.reshape(*g_enc.shape[:-1], 3, n_freqs, 2)
     e = enc.reshape(*enc.shape[:-1], 3, n_freqs, 2)
     return torch.sum((g[..., 0] * e[..., 1] - g[..., 1] * e[..., 0]) * freqs, dim=-1)

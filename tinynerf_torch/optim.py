@@ -73,31 +73,69 @@ def _f32(x: float) -> float:
     return torch.tensor(x, dtype=torch.float32).item()
 
 
+def adam_rates(count: int, lr: float, n_leaves: int, lr_scale: Optional[Tree] = None,
+               b1: float = 0.9, b2: float = 0.999) -> List[float]:
+    """The scalars of Adam's update number ``count`` (1 for the first),
+    float32 values computed on the host: ``[1 - b1 ** count, 1 - b2 **
+    count]`` (the power in float32), then each of the ``n_leaves`` leaves'
+    rate, ``lr`` or ``lr`` times its ``lr_scale`` multiplier, each product
+    rounded to float32. ``adam_update`` reads them as tensors."""
+    t = torch.tensor(float(count), dtype=torch.float32)
+    pw = lambda b: torch.pow(torch.tensor(b, dtype=torch.float32), t)
+    lr = _f32(float(lr))
+    rate = ([lr] * n_leaves if lr_scale is None
+            else [_f32(lr * _f32(float(s))) for s in leaves(lr_scale)])
+    return [(1.0 - pw(b1)).item(), (1.0 - pw(b2)).item()] + rate
+
+
+def rate_groups(n_leaves: int, lr_scale: Optional[Tree] = None) -> List[List[int]]:
+    """The leaves' indices grouped by their ``lr_scale`` multiplier (one group
+    without one): the leaves of a group share one rate, so a group's update
+    is one multi-tensor launch."""
+    if lr_scale is None:
+        return [list(range(n_leaves))]
+    groups: Dict[float, List[int]] = {}
+    for i, s in enumerate(leaves(lr_scale)):
+        groups.setdefault(float(s), []).append(i)
+    return list(groups.values())
+
+
+def _device_rates(values: List[float], device: torch.device) -> torch.Tensor:
+    """``values`` as a float32 tensor on ``device``; to the card through a
+    pinned buffer and an asynchronous copy, so the host does not wait for the
+    card's queue."""
+    host = torch.tensor(values, dtype=torch.float32)
+    if device.type != "cuda":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)
+
+
 def adam_update(grads: Tree, state: AdamState, params: Tree,
                 lr: float, b1: float = 0.9, b2: float = 0.999,
-                eps: float = 1e-7, lr_scale: Optional[Tree] = None):
+                eps: float = 1e-7, lr_scale: Optional[Tree] = None,
+                rates: Optional[torch.Tensor] = None):
     """One Adam step. Returns ``(new_params, new_state)``; the inputs are not
     modified. ``lr`` is the learning rate (a float32 value); ``lr_scale`` an
-    optional tree of per-leaf multipliers of it. Every scalar is a float32
+    optional tree of per-leaf multipliers of it. The step's scalars
+    (``adam_rates``) are read as tensors on the params' device: ``rates``, a
+    float32 ``(n_leaves + 2,)`` row of them (a CUDA graph's, which then
+    ignores ``lr``), or else made here from ``lr``. Every scalar is a float32
     value, so each elementwise operation rounds as the JAX package's does;
     the leaves go through PyTorch's multi-tensor (``_foreach``) operations,
     a few launches per step instead of a few per leaf."""
     count = state.count + 1
-    t = torch.tensor(float(count), dtype=torch.float32)
-    pw = lambda b: torch.pow(torch.tensor(b, dtype=torch.float32), t)
-    bc1 = (1.0 - pw(b1)).item()
-    bc2 = (1.0 - pw(b2)).item()
     g, p = leaves(grads), leaves(params)
+    if rates is None:
+        rates = _device_rates(adam_rates(count, lr, len(p), lr_scale, b1, b2), p[0].device)
     mu = torch._foreach_add(torch._foreach_mul(leaves(state.mu), _f32(b1)),
                             torch._foreach_mul(g, _f32(1 - b1)))
     nu = torch._foreach_add(
         torch._foreach_mul(leaves(state.nu), _f32(b2)),
         torch._foreach_mul(torch._foreach_mul(g, _f32(1 - b2)), g))
-    lr = _f32(float(lr))
-    rate = ([lr] * len(p) if lr_scale is None
-            else [_f32(lr * _f32(float(s))) for s in leaves(lr_scale)])
-    step = torch._foreach_mul(torch._foreach_div(mu, bc1), rate)
-    denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)),
+    step = torch._foreach_div(mu, rates[0])
+    for group in rate_groups(len(p), lr_scale):
+        torch._foreach_mul_([step[i] for i in group], rates[2 + group[0]])
+    denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, rates[1])),
                                _f32(eps))
     new_p = torch._foreach_sub(p, torch._foreach_div(step, denom))
     return (unflatten_like(params, new_p),

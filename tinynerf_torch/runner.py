@@ -34,7 +34,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -53,6 +53,23 @@ from tinynerf_torch.profiling import Throughput, Trace
 
 # the val batch's generator is seeded SEED + 777, as the JAX package's
 VAL_SEED_OFFSET = 777
+# the most steps a chunk takes (tinynerf/runner.py:416-421)
+CHUNK_CAP = 200
+
+
+def takes_chunk(it: int, chunk: int, end: int, milestones: List[int], step: int) -> bool:
+    """Whether the call at iteration ``it`` is a chunk of ``chunk`` steps: it
+    ends by ``end`` and crosses no upcoming ``GRID_UPSAMPLE`` milestone, so
+    each resize lands just before its iteration (``tinynerf/runner.py:
+    329-333``), and no multiple of ``step`` (``STEP``), so that the [ITER]
+    line, the preview and the checkpoint land on each. A chunk divides
+    ``STEP``, so only a call off the chunk grid (after a milestone or a
+    start off it) could cross one: the JAX loop takes the chunk there and
+    its [ITER] lines and checkpoints stop landing; here the calls go one
+    step at a time to the boundary. Else the call is one step."""
+    return (chunk > 1 and it + chunk <= end
+            and not (milestones and it + chunk > milestones[0])
+            and it // step == (it + chunk - 1) // step)
 
 
 class NoCheckpointError(RuntimeError):
@@ -251,7 +268,17 @@ class Runner:
         checkpoint already holds the tables of the milestones before it),
         and ``PROFILE_STEPS`` traces the first steps (``profiling.Trace``,
         under ``LOG_DIR/trace``). A step holds no table, so a resize needs no
-        new one."""
+        new one.
+
+        The steps go in chunks of ``_chunk_size(STEP)``, as in the JAX
+        package (``train.make_chunked_step``, and for the val epoch
+        ``make_chunked_indexed_step``; on the card CUDA graphs, which a
+        milestone's new shapes make capture again), one step a call where a
+        chunk would pass ``end``, a milestone or a ``STEP`` boundary
+        (``takes_chunk``), and every step alone under ``HOST_FEED``, while
+        ``PROFILE_STEPS`` traces, and under a mesh (its collectives are not
+        captured; ROADMAP item 18). The logger gets each step's loss and
+        rate all the same."""
         cfg = self.cfg
         if self.logger is None:
             self.logger = (MetricLogger(os.path.join(cfg.log_dir, self.start_time))
@@ -287,6 +314,19 @@ class Runner:
         trace_dir = os.path.join(cfg.log_dir, "trace")
         profiling_until = (start + cfg.profile_steps
                            if cfg.profile_steps and mode == "train" else -1)
+
+        def make_multi():
+            """The chunk size and the chunked step, or (1, None) where every
+            step goes alone."""
+            n = (self._chunk_size(cfg.step) if not cfg.host_feed and profiling_until < 0
+                 and self.mesh is None else 1)
+            if n <= 1:
+                return 1, None
+            if epoch is not None:
+                return n, trainlib.make_chunked_indexed_step(step_fn, n)
+            return n, trainlib.make_chunked_step(step_fn, n)
+
+        chunk, multi_fn = make_multi()
         feeder = tracer = None
         meter = Throughput(rays_per_step=cfg.batch_ray)
         it = start
@@ -309,19 +349,35 @@ class Runner:
                     tracer = None
                     print(f"[PROFILE] trace of {cfg.profile_steps} steps -> {trace_dir}")
                     profiling_until = -1
-                if feeder is not None:
-                    host = feeder.next()
-                    if self.mesh is not None:   # each rank uploads its rows
-                        host = self.mesh.local_rows(host)
-                    self.state, metrics = step_fn(self.state, table.upload(host))
-                elif epoch is not None:
-                    self.state, metrics = step_fn(self.state, epoch[it - start])
+                    chunk, multi_fn = make_multi()
+                if multi_fn is not None and takes_chunk(it, chunk, end,
+                                                        [i for i, _ in upsample], cfg.step):
+                    if epoch is not None:
+                        self.state, metrics = multi_fn(
+                            self.state, epoch[it - start:it - start + chunk])
+                    else:
+                        self.state, metrics = multi_fn(self.state)
+                    # the chunk's own stacked scalars, one entry an iteration
+                    for j in range(chunk):
+                        self.logger.log(it + j, {f"loss/{mode}": metrics["loss"][j],
+                                                 f"lr/{mode}": metrics["lr"][j]})
+                    metrics = {**metrics, "loss": metrics["loss"][-1]}
+                    it += chunk
+                    meter.tick(chunk)
                 else:
-                    self.state, metrics = step_fn(self.state)
-                self.logger.log(it, {f"loss/{mode}": metrics["loss"],
-                                     f"lr/{mode}": metrics["lr"]})
-                it += 1
-                meter.tick(1)
+                    if feeder is not None:
+                        host = feeder.next()
+                        if self.mesh is not None:   # each rank uploads its rows
+                            host = self.mesh.local_rows(host)
+                        self.state, metrics = step_fn(self.state, table.upload(host))
+                    elif epoch is not None:
+                        self.state, metrics = step_fn(self.state, epoch[it - start])
+                    else:
+                        self.state, metrics = step_fn(self.state)
+                    self.logger.log(it, {f"loss/{mode}": metrics["loss"],
+                                         f"lr/{mode}": metrics["lr"]})
+                    it += 1
+                    meter.tick(1)
                 if it % cfg.step == 0:
                     if self.is_main:
                         loss = float(metrics["loss"])
@@ -362,6 +418,16 @@ class Runner:
                   f"{dist.params_digest(self.state.params)}")
             dist.barrier()   # rank 0's last checkpoint is on disk
 
+    @staticmethod
+    def _chunk_size(step: int, cap: int = CHUNK_CAP) -> int:
+        """The largest divisor of the logging cadence ``STEP``, at most
+        ``cap``: chunks then end on every ``STEP`` boundary
+        (``tinynerf/runner.py:416-421``)."""
+        for c in range(min(step, cap), 0, -1):
+            if step % c == 0:
+                return c
+        return 1
+
     def _require_trained(self, what: str) -> None:
         if self.last_iter < 0 and not self.trained:
             raise NoCheckpointError(
@@ -371,25 +437,29 @@ class Runner:
                 "existing run.")
 
     def display(self, max_views: Optional[int] = None,
-                depth: bool = False) -> float:
-        """Render the test split -> JPGs + video; returns the mean PSNR."""
+                depth: bool = False, host_chunks: int = 0) -> float:
+        """Render the test split -> JPGs + video; returns the mean PSNR.
+        ``host_chunks``: ``eval.make_frame_fn``'s (on the card, a graph of
+        that many chunks replayed along each view; 0, every chunk of the
+        view in one graph)."""
         self._require_trained("display")
         print("Start generating video...")
         frames = evallib.render_test_set(
             self.cfg, self.params, self.test_table, self.k_inv,
             self.start_time, self.last_iter, save=True, max_views=max_views,
             depth=depth, occ_grid=self.state.occ, ndc_params=self.ndc_params,
-            mesh=self.mesh)
+            mesh=self.mesh, host_chunks=host_chunks)
         score = evallib.test_psnr(frames, self.test_table)
         ssim_score = evallib.test_ssim(frames, self.test_table)
         print(f"Test PSNR: {score:.2f} dB over {frames.shape[0]} views "
               f"(SSIM {ssim_score:.4f})")
         return score
 
-    def render_path_video(self, n_views: int = 120,
-                          res_scale: float = 1.0) -> np.ndarray:
+    def render_path_video(self, n_views: int = 120, res_scale: float = 1.0,
+                          host_chunks: int = 0) -> np.ndarray:
         """Free-viewpoint video along a scene-appropriate path around the
-        training cameras (spiral for llff, orbit for sync)."""
+        training cameras (spiral for llff, orbit for sync); ``host_chunks``
+        as ``display``'s."""
         from tinynerf_torch.data.paths import make_path
         self._require_trained("path")
         pose_rows = make_path(self.train_table.poses.cpu().numpy(),
@@ -404,4 +474,5 @@ class Runner:
               f"{int(hwf[0])}x{int(hwf[1])} -> {out_base}")
         return evallib.render_path(self.cfg, self.params, pose_rows, k_inv,
                                    out_base, occ_grid=self.state.occ,
-                                   ndc_params=self.ndc_params, mesh=self.mesh)
+                                   ndc_params=self.ndc_params, mesh=self.mesh,
+                                   host_chunks=host_chunks)

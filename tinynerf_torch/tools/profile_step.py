@@ -2,15 +2,18 @@
 
 The port's counterpart of ``tools/profile_step.py``: the same flags and the
 same synthetic scene (4 views of 400x400 uniform noise, cameras at z = 4,
-near/far 2/6), ``train.make_train_step`` warmed up, then ``--steps`` steps
-under ``torch.profiler`` with CUDA activity on the card. It prints the
+near/far 2/6), ``train.make_train_step`` chunked as the Runner chunks it
+(``train.make_chunked_step``: on the card a CUDA graph's replay a step)
+and warmed up, then one chunk of ``--steps`` steps under
+``torch.profiler`` with CUDA activity on the card; ``--eager`` profiles
+``--steps`` eager steps instead, one call each. It prints the
 device time per step by kernel (the top 18: ms, launches, name) and the
 device's busy share of the steps' wall time (``profiling.device_rows``,
 ``profiling.print_profile``), and leaves the Chrome trace (Perfetto,
 ``chrome://tracing``) under ``--out``. On the card unless ``--device cpu``,
 where the table is the ops' self CPU time and no busy share is measured.
 
-    python -m tinynerf_torch.tools.profile_step [--batch 4096] [--steps 5] [--occ]
+    python -m tinynerf_torch.tools.profile_step [--batch 4096] [--steps 5] [--occ] [--eager]
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ def main(argv=None) -> None:
                     help="override any INI config key (repeatable)")
     ap.add_argument("--out", default=os.path.join(tempfile.gettempdir(), "tinynerf_trace"))
     ap.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--eager", action="store_true",
+                    help="profile eager steps, one call each, not a chunk")
     args = ap.parse_args(argv)
 
     from tinynerf_torch import profiling, train as trainlib
@@ -77,15 +82,22 @@ def main(argv=None) -> None:
     step = trainlib.make_train_step(cfg, table, make_k_inv(hw, hw, focal, device))
     state = trainlib.init_state(cfg, device)
 
+    chunk = trainlib.make_chunked_step(step, args.steps) if args.steps > 1 else None
+
     def run():
         nonlocal state
-        state, _ = step(state)
+        if args.eager or chunk is None:
+            state, _ = step(state)
+        else:
+            state, _ = chunk(state)
 
+    calls = args.steps if args.eager or chunk is None else 1
     trace_path = os.path.join(args.out, f"profile_step_{os.getpid()}.pt.trace.json")
-    wall_ms, rows = profiling.device_rows(run, args.steps, device, trace_path=trace_path)
+    wall_ms, rows = profiling.device_rows(run, calls, device, trace_path=trace_path)
     print(f"{args.precision}, BATCH_RAY {cfg.batch_ray}, {cfg.n_coarse}+{cfg.n_fine} samples, "
           f"OCC_GRID {cfg.occ_grid}, PROPOSAL {cfg.proposal}, FINE_FIELD {cfg.fine_field}, "
-          f"GRID_PALLAS {cfg.grid_pallas} on {device.type}; time per step by "
+          f"GRID_PALLAS {cfg.grid_pallas} on {device.type}, "
+          f"{'eager steps' if calls > 1 or args.steps == 1 else 'one chunk'}; time per step by "
           f"{'kernel' if device.type == 'cuda' else 'op'} (top 18, {args.steps} steps traced):")
     profiling.print_profile(wall_ms, rows, args.steps, "steps", top=18,
                             on_device=device.type == "cuda")

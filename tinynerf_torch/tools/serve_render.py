@@ -17,9 +17,9 @@ per ``(height, width, extras)``, by ``eval.make_frame_fn`` with the Runner's
 occupancy grid and ``ndc_params``), and a frame under 4 pixels is refused.
 Renders are serialised by a lock. A frame's array (``Service.render_u8``)
 sits apart from its JPEG encoding (``encode_jpeg``, the port's own encoder,
-``data/imagefile.py``: no Pillow). The port renders chunk by chunk from the host
-always, so the JAX tool's ``--lax-map`` and ``--chunk-group`` have no
-counterpart.
+``data/imagefile.py``: no Pillow). On the card a frame is CUDA graphs of
+``HOST_CHUNKS`` chunks replayed along the view (``eval.make_frame_fn``'s
+``host_chunks``), as the JAX service groups 8 chunks a dispatch.
 
 Usage (on the card unless ``--cpu``):
 
@@ -87,6 +87,8 @@ _PAGE = """<!doctype html>
 SCALES = (0.125, 0.25, 0.5, 1.0, 2.0)
 MIN_FRAME_PX = 4
 VIEWS = ("rgb", "depth", "acc")
+# pixel chunks a CUDA graph, replayed along the view (the JAX service's 8)
+HOST_CHUNKS = 8
 
 
 def encode_jpeg(u8: np.ndarray, quality: int = 90) -> bytes:
@@ -129,7 +131,7 @@ class Service:
                                self.runner.device)
             self._frame_fns[key] = evallib.make_frame_fn(
                 self.cfg, k_inv, h, w, extras=extras, occ_grid=self.runner.state.occ,
-                ndc_params=self.runner.ndc_params)
+                ndc_params=self.runner.ndc_params, host_chunks=HOST_CHUNKS)
         return self._frame_fns[key]
 
     def rig_elev_deg(self) -> float:

@@ -24,9 +24,13 @@ contracted occupancy grid probes through the same wrapper; under ``NDC``
 (``ndc_params``, the Runner's) the rays march the NDC cube.
 
 The JAX package fuses several steps into one XLA program (``lax.scan`` in
-``make_multi_step`` / ``make_chunked_*``) only to amortise XLA's dispatch;
-the port runs one step per call (ROADMAP queue 1 lists the counterpart,
-CUDA graphs).
+``make_multi_step`` / ``make_chunked_*``); the port's counterparts here take
+a chunk of steps a call with the same metrics (the scalars stacked, the
+preview fields of the last step). On the CPU a chunk is its plain version,
+the steps one after another; on the card each step of a chunk is the
+replay of a CUDA graph (``graphs.StepGraphs``). Adam's scalars of a chunk
+are made on the host and read as tensors (``optim.adam_rates``), so a
+graph's replay takes each step's own.
 
 ``upsample_grid_state`` resizes the fine grid's tables and their Adam
 moments between steps (``GRID_UPSAMPLE``).
@@ -234,15 +238,19 @@ def loss_and_grads(loss_fn: Callable, params: Any, batch: RayBatch,
 
 def refresh_occ(cfg: Config, state: TrainState, field_fn: render.FieldFn,
                 draws=None, mesh: Optional[meshlib.Mesh] = None,
-                ) -> Optional[occupancy.OccGrid]:
+                refresh: Optional[bool] = None) -> Optional[occupancy.OccGrid]:
     """The grid this step renders with: ``state.occ`` refreshed from the main
-    field's current params when ``iteration % OCC_UPDATE_EVERY == 0`` (probing
+    field's current params when ``iteration % OCC_UPDATE_EVERY == 0``, or
+    where the caller says so (``refresh``: a step graph's, decided on the
+    host for the iteration it replays at) (probing
     ``int(OCC_RES**3 * OCC_SUBSET)`` cells, or all of them at a subset of 1;
     under ``CONTRACT`` at the cells' inverse-contracted points), else as it
     is. Draws come from the state's generator unless ``draws``
     (``occupancy.update_grid``) are given. Under a ``mesh`` the probes are
     partitioned over its data group (``update_grid``'s ``cell_split``)."""
-    if state.occ is None or state.iteration % cfg.occ_update_every != 0:
+    if refresh is None:
+        refresh = state.iteration % cfg.occ_update_every == 0
+    if state.occ is None or not refresh:
         return state.occ
     n_total = cfg.occ_res ** 3
     subset = None if cfg.occ_subset >= 1.0 else max(1, int(n_total * cfg.occ_subset))
@@ -252,16 +260,21 @@ def refresh_occ(cfg: Config, state: TrainState, field_fn: render.FieldFn,
 
 
 def _apply_batch(cfg: Config, parts, state: TrainState, batch: RayBatch,
-                 occ_draws=None, n_rays: Optional[int] = None) -> Tuple[TrainState, Metrics]:
+                 occ_draws=None, n_rays: Optional[int] = None,
+                 rates: Optional[torch.Tensor] = None,
+                 refresh: Optional[bool] = None) -> Tuple[TrainState, Metrics]:
     """Shared step body: grid refresh -> grad -> Adam -> metrics. The
     metrics stay on the device (no synchronisation); ``lr`` is a float32 CPU
-    scalar. Under a mesh the gradient is the rank's rows' summed over the
+    scalar. ``rates`` (a chunk's row of ``optim.adam_rates``, on the device)
+    and ``refresh`` (``refresh_occ``'s) stand for what the step would
+    otherwise derive from the iteration on the host. Under a mesh the
+    gradient is the rank's rows' summed over the
     data group (``mesh.make_grad_fn``), Adam runs alike on every rank, the
     loss is the whole batch's and the batch fields of the metrics are the
     rank's rows; ``n_rays`` says that ``batch`` is already the rank's rows
     of a batch of that many."""
     mesh, loss_fn, lr_fn, field_fn, grad_fn = parts
-    occ = refresh_occ(cfg, state, field_fn, occ_draws, mesh)
+    occ = refresh_occ(cfg, state, field_fn, occ_draws, mesh, refresh)
     if mesh is None:
         loss, (_, c_fi), grads = loss_and_grads(loss_fn, state.params, batch,
                                                 state.generator, occ)
@@ -272,7 +285,7 @@ def _apply_batch(cfg: Config, parts, state: TrainState, batch: RayBatch,
             batch = mesh.local_rows(batch)
     lr = lr_fn(state.iteration)
     params, opt = optim.adam_update(grads, state.opt, state.params, lr.item(),
-                                    lr_scale=make_lr_scale(cfg, state.params))
+                                    lr_scale=make_lr_scale(cfg, state.params), rates=rates)
     metrics = {"loss": loss, "lr": lr,
                "c_true0": batch.rgb[0], "c_fine0": c_fi[0],
                # the batch, for the host-side preview canvas
@@ -295,6 +308,16 @@ def _step_parts(cfg: Config, k_inv: torch.Tensor, field_fn: Optional[render.Fiel
     return mesh, loss_fn, optim.make_lr_fn(cfg), field_fn, grad_fn
 
 
+def _described(step: Callable, cfg: Config, mesh: Optional[meshlib.Mesh],
+               indexed: Optional[bool]) -> Callable:
+    """``step`` with what a chunk of it needs to know: its config, its mesh
+    and whether it takes indices (True), draws its batch (False) or is
+    given one (None, ``HOST_FEED``). Every step also takes ``rates`` and
+    ``refresh`` (``_apply_batch``)."""
+    step.cfg, step.mesh, step.indexed = cfg, mesh, indexed
+    return step
+
+
 def make_train_step(cfg: Config, table: RayTable, k_inv: torch.Tensor,
                     field_fn: Optional[render.FieldFn] = None, ndc_params=None,
                     mesh: Optional[meshlib.Mesh] = None,
@@ -305,11 +328,11 @@ def make_train_step(cfg: Config, table: RayTable, k_inv: torch.Tensor,
     computes its rows (``_apply_batch``)."""
     parts = _step_parts(cfg, k_inv, field_fn, ndc_params, mesh)
 
-    def step(state: TrainState) -> Tuple[TrainState, Metrics]:
+    def step(state: TrainState, **kw) -> Tuple[TrainState, Metrics]:
         batch = table.sample(state.generator, cfg.batch_ray)
-        return _apply_batch(cfg, parts, state, batch)
+        return _apply_batch(cfg, parts, state, batch, **kw)
 
-    return step
+    return _described(step, cfg, mesh, indexed=False)
 
 
 def make_host_fed_train_step(cfg: Config, k_inv: torch.Tensor,
@@ -323,11 +346,11 @@ def make_host_fed_train_step(cfg: Config, k_inv: torch.Tensor,
     of ``BATCH_RAY``."""
     parts = _step_parts(cfg, k_inv, field_fn, ndc_params, mesh)
 
-    def step(state: TrainState, batch: RayBatch) -> Tuple[TrainState, Metrics]:
+    def step(state: TrainState, batch: RayBatch, **kw) -> Tuple[TrainState, Metrics]:
         return _apply_batch(cfg, parts, state, batch,
-                            n_rays=None if mesh is None else cfg.batch_ray)
+                            n_rays=None if mesh is None else cfg.batch_ray, **kw)
 
-    return step
+    return _described(step, cfg, mesh, indexed=None)
 
 
 def upsample_grid_state(cfg: Config, state: TrainState, new_res: int) -> TrainState:
@@ -360,7 +383,107 @@ def make_indexed_train_step(cfg: Config, table: RayTable, k_inv: torch.Tensor,
     parts = _step_parts(cfg, k_inv, field_fn, ndc_params, mesh)
 
     def step(state: TrainState, idx: torch.Tensor,
-             occ_draws=None) -> Tuple[TrainState, Metrics]:
-        return _apply_batch(cfg, parts, state, table.gather(idx), occ_draws)
+             occ_draws=None, **kw) -> Tuple[TrainState, Metrics]:
+        return _apply_batch(cfg, parts, state, table.gather(idx), occ_draws, **kw)
 
-    return step
+    return _described(step, cfg, mesh, indexed=True)
+
+
+# the fields of a chunk's metrics taken from its last step (the preview
+# canvas's batch and the [ITER] line's first pixel), as the JAX package's
+LAST_STEP_FIELDS = ("c_true0", "c_fine0", "rows", "cols", "rgb", "pic")
+
+
+def chunk_rates(cfg: Config, state: TrainState, unroll: int,
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(rates (unroll, n_leaves + 2), lrs (unroll,))``, float32 on the host:
+    Adam's scalars for the next ``unroll`` steps from ``state``
+    (``optim.adam_rates``) and their learning rates (the schedule's)."""
+    lr_fn = optim.make_lr_fn(cfg)
+    scale = make_lr_scale(cfg, state.params)
+    n = len(optim.leaves(state.params))
+    lrs = torch.stack([lr_fn(state.iteration + k) for k in range(unroll)])
+    rates = torch.tensor([optim.adam_rates(state.opt.count + 1 + k, float(lrs[k]), n, scale)
+                          for k in range(unroll)], dtype=torch.float32)
+    return rates, lrs
+
+
+class ChunkedStep:
+    """``unroll`` steps of ``step_fn`` a call, the counterpart of the JAX
+    package's scan-fused chunks: ``chunk(state) -> (state, metrics)``, or
+    with an indexed step ``chunk(state, idx)`` over an ``(unroll, B)`` index
+    chunk. ``loss`` and ``lr`` are stacked ``(unroll,)`` (``loss`` on the
+    device, ``lr`` on the host) and the ``LAST_STEP_FIELDS`` are the last
+    step's. Each step reads its own row of ``chunk_rates``.
+
+    On the CPU the steps run one after another (the plain version); tests
+    may pass ``occ_draws``, one ``refresh_occ`` draw (or None) a step. On the
+    card the chunk replays step graphs (``graphs.StepGraphs``), which take
+    the state's tensors as their own and update them in place: the state
+    passed in is spent, as the JAX package donates it. A capture or replay
+    error raises. A step under a mesh is refused there: its collectives are
+    not captured (ROADMAP item 18)."""
+
+    def __init__(self, step_fn: Callable, unroll: int):
+        if step_fn.indexed is None:
+            raise ValueError("a chunk draws or indexes its batches: a host-fed step "
+                             "(HOST_FEED) runs one step per call")
+        self.step_fn, self.unroll = step_fn, unroll
+        self.graphs = None   # graphs.StepGraphs, made at the first call on the card
+
+    def __call__(self, state: TrainState, idx: Optional[torch.Tensor] = None,
+                 occ_draws=None) -> Tuple[TrainState, Metrics]:
+        if (idx is not None) != bool(self.step_fn.indexed):
+            raise ValueError("an indexed step's chunk takes an (unroll, B) index chunk, "
+                             "and only it")
+        if idx is not None and idx.shape[0] != self.unroll:
+            raise ValueError(f"index chunk of {idx.shape[0]} rows for {self.unroll} steps")
+        rates, lrs = chunk_rates(self.step_fn.cfg, state, self.unroll)
+        if state.generator.device.type == "cuda":
+            if occ_draws is not None:
+                raise ValueError("occ_draws is a test hook of the plain chunk (the CPU)")
+            if self.graphs is None:
+                from tinynerf_torch.graphs import StepGraphs
+                self.graphs = StepGraphs(self.step_fn, self.unroll)
+            return self.graphs(state, rates, lrs, idx)
+        losses = []
+        for k in range(self.unroll):
+            kw = dict(rates=rates[k])
+            if occ_draws is not None:
+                kw["occ_draws"] = occ_draws[k]
+            args = (state,) if idx is None else (state, idx[k])
+            state, metrics = self.step_fn(*args, **kw)
+            losses.append(metrics["loss"])
+        return state, {"loss": torch.stack(losses), "lr": lrs,
+                       **{f: metrics[f] for f in LAST_STEP_FIELDS}}
+
+
+def make_chunked_step(step_fn: Callable, unroll: int) -> ChunkedStep:
+    """``make_train_step``'s steps ``unroll`` at a time, keeping the whole
+    stream of per-step metrics (``ChunkedStep``): the Runner's training
+    loop (``tinynerf/train.py:515-533``)."""
+    if step_fn.indexed:
+        raise ValueError("an indexed step's chunk is make_chunked_indexed_step")
+    return ChunkedStep(step_fn, unroll)
+
+
+def make_chunked_indexed_step(step_fn: Callable, unroll: int) -> ChunkedStep:
+    """``make_indexed_train_step``'s steps over an ``(unroll, B)`` index chunk
+    (``ChunkedStep``): the val epoch (``tinynerf/train.py:495-512``)."""
+    if not step_fn.indexed:
+        raise ValueError("make_chunked_indexed_step takes make_indexed_train_step's step")
+    return ChunkedStep(step_fn, unroll)
+
+
+def make_multi_step(step_fn: Callable, unroll: int,
+                    ) -> Callable[[TrainState], Tuple[TrainState, torch.Tensor]]:
+    """``multi(state) -> (state, losses (unroll,))``: ``make_chunked_step``
+    keeping only the losses (``tinynerf/train.py:481-492``), for benchmarks
+    and headless training."""
+    chunk = make_chunked_step(step_fn, unroll)
+
+    def multi(state: TrainState, **kw) -> Tuple[TrainState, torch.Tensor]:
+        state, metrics = chunk(state, **kw)
+        return state, metrics["loss"]
+
+    return multi
