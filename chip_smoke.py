@@ -235,8 +235,9 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
    two ranks, started with ``parallel.distributed.spawn``, on the one card
    under gloo, ``backend="gloo"`` passed; where the machine has two cards
    or more, a second job on two cards under NCCL) for 20 steps of 4096
-   rays, 2048 a rank, from fresh seeded weights through ``Runner.train``,
-   each rank with its own CKPT_PATH, LOG_DIR and RESULTS_PATH: on each rank
+   rays, 2048 a rank, from fresh seeded weights through ``Runner.train``
+   one step a call (the eager mesh step; phase 31 takes chunks), each rank
+   with its own CKPT_PATH, LOG_DIR and RESULTS_PATH: on each rank
    and step kernels 1 and 2 twice at B = 2048, kernel 3 once in the
    refresh at 0 (half the probes a rank) and nothing else; the two ranks'
    params digests equal after every step; the grid after the refresh at 0
@@ -270,10 +271,10 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
    refreshed every 4 steps; lego_grid + GRID_PALLAS; lego_prop with the
    proposal MLP; unbounded360-mlp; the flagship lego_hybrid), 20 eager
    steps twice from one state and two graphed chunks of 10 from the same
-   state: the same launches by kernel; bit-identical losses and state
-   wherever the two eager runs are, else one replayed step's gradient
-   against an eager step's at the step-gradient bound per part (cosine
-   0.9999 fp32, 0.999 bf16); ms/step eager and graphed, host API launches
+   state: the same launches by kernel; the two eager runs bit-identical
+   (the resampler's and the grid's gathers sum their backward in a fixed
+   order, ``sampling._BinGather``, ``gridfield._TapRows``) and the graphed
+   chunks bit-identical to them; ms/step eager and graphed, host API launches
    a step, device idle, capture seconds and pool bytes; view 0 of
    lego_occ (unfused and fused), lego_grid, unbounded360-mlp and the
    flagship through one graph a view and a graph a chunk, every frame
@@ -281,9 +282,27 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
    across a ``GRID_UPSAMPLE`` milestone in chunks, its step graphs captured
    again on the new shapes; then ``python -m tinynerf_torch --mode all`` on
    a tiny scene across refreshes and STEP boundaries;
-31. prints one ``{"kernels": [...]}`` line (every kernel form, with its
-   launches under the graphed paths, ``graphed_launches``) and, last, one
-   ``{"ok": true, "device": {...}}`` line.
+31. phase 30 under a mesh (``mesh_phases``): where the machine has two
+   cards or more, ``MESH_SHAPE = N`` over N NCCL ranks, one card each (N =
+   4 with four cards, else 2), through ``parallel.distributed.spawn``:
+   lego_occ (its grid refreshed every 4 steps) and the flagship, 20 eager
+   mesh steps twice from one state and two graphed chunks of 10 whose
+   graphs hold the all-reduce (and the refresh's gather): the eager runs
+   and the graphed chunks bit-identical (where the eager runs differ, one
+   replayed step's gradient at the step bound, the deciding check
+   printed), the params digests after each chunk equal on every rank, the
+   graphed steps' kernel launches equal to the eager steps' on every rank;
+   ms/step eager and graphed, host API launches a step, capture seconds
+   and pool MiB, the all-reduce's ms; the lego_occ view through one graph a
+   view and 8 chunks a graph, and lego with ``SAMPLE_SHARD = 2`` (kernel 1
+   fp32) through one graph a view, each equal to its eager host loop and
+   across the ranks bit for bit; then ``python -m tinynerf_torch --mode
+   train`` with ``MESH_SHAPE = N`` in graphed chunks, every rank's digest
+   equal. With one card it prints that there is no NCCL job;
+32. prints one ``{"kernels": [...]}`` line (every kernel form, with its
+   launches under the graphed paths, phase 31's a rank,
+   ``graphed_launches``) and, last, one ``{"ok": true, "device": {...}}``
+   line.
 
 Kernel 4 (``csrc/field_flat_bwd.cu``) is held against its plain version in
 phase 3h (fp32 and bf16, at an unbounded360-mlp step's R = 524,288 fine
@@ -370,6 +389,7 @@ import glob
 import json
 import math
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -501,6 +521,12 @@ GRAPH_CLI_ITERS = 25        # the CLI's run: chunks of GRAPH_CLI_STEP, then sing
 GRAPH_CLI_STEP = 10
 GRAPH_CLI_REFRESH = 8
 IMAGE_FILE_HW = 800         # the view whose PNG decode and JPEG encode are timed
+# phase 31: phase 30's chunks and frames under a mesh of NCCL ranks
+MESH_PATHS = (("lego_occ", "lego_occ", {}),               # bf16 4096 rays: kernels 1-3
+              ("lego_hybrid", "lego_hybrid", {}))         # the flagship: no kernel
+MESH_FRAME_PATHS = ("lego_occ",)
+MESH_CLI_ITERS = 20         # the CLI under the mesh: two chunks of MESH_CLI_STEP
+MESH_CLI_STEP = 10
 
 
 def phase(title: str) -> None:
@@ -2291,11 +2317,12 @@ def dp_rank(work: str, lego_ckpt: str, tag: str, device: str = "cuda") -> None:
     """Phases 28 and 28b on one rank of a job of ``DP_RANKS`` (started by
     ``parallel.distributed.spawn``; ``tag`` names the backend). Trains
     ``conf/lego_occ.ini`` with ``MESH_SHAPE = 2`` for ``DP_STEPS`` steps
-    from fresh seeded weights through ``Runner.train`` (each rank its own
-    CKPT_PATH, LOG_DIR, RESULTS_PATH: only rank 0's may fill), recording
-    every step (``_dp_record``); before that, one gradient on fixed indices
-    through ``mesh.make_grad_fn`` and the times of the gradient all-reduce
-    and of the refresh's gather. Then one 800x800 view from rank 0's
+    from fresh seeded weights through ``Runner.train``, one step a call
+    (each rank its own CKPT_PATH, LOG_DIR, RESULTS_PATH: only rank 0's may
+    fill), recording every step (``_dp_record``); before that, one
+    gradient on fixed indices through ``mesh.make_grad_fn`` and the times
+    of the gradient all-reduce and of the refresh's gather. Then one
+    800x800 view from rank 0's
     checkpoint, data-parallel; then phase 28b, ``conf/lego.ini`` with
     ``SAMPLE_SHARD = 2`` on phase 5's checkpoint (``lego_ckpt``): one view
     and one 4096-ray chunk at ``N_FINE = DEEP_FINE``. Writes
@@ -2340,11 +2367,15 @@ def dp_rank(work: str, lego_ckpt: str, tag: str, device: str = "cuda") -> None:
 
     real, recording = _dp_record(rec, sync)
     train.make_train_step = recording
+    # the eager mesh step, one a call, each recorded (phase 31 takes chunks)
+    chunk_size = Runner.__dict__["_chunk_size"]
+    Runner._chunk_size = staticmethod(lambda step: 1)
     zero_launches()
     try:
         rec["train_s"] = _timed(sync, runner.train)[1]
     finally:
         train.make_train_step = real
+        Runner._chunk_size = chunk_size
     rec["train_launches"] = launch_counts()
     tensors["occ_after_0"] = rec.pop("occ_after_0")
     rec["files"] = sorted(os.path.relpath(os.path.join(r, f), mine)
@@ -2712,10 +2743,10 @@ def graph_paths(tmp: str):
 def graph_train_path(name: str, cfg, scene, dev) -> dict:
     """One path of phase 30: ``2 GRAPH_K`` eager steps twice from one state
     (the tensor-rate step, as a chunk takes it), then two graphed chunks of
-    ``GRAPH_K`` from the same state. Bit-identical losses and state where
-    the two eager runs are; else each part's update within the step
-    gradients' bound (cosine 0.9999 fp32, 0.999 bf16) and the losses within
-    a relative 1e-3. The same launches by kernel. Then ms/step of the eager
+    ``GRAPH_K`` from the same state. The two eager runs bit-identical, and
+    the graphed chunks bit-identical to them (losses and state); Adam's
+    first moments' cosines printed for the record. The same launches by
+    kernel. Then ms/step of the eager
     step as a user's loop takes it and of a graphed chunk (host clock around
     synchronised calls), the host API launches a step, each one's device
     busy share and the captures' seconds and pool bytes."""
@@ -2758,7 +2789,6 @@ def graph_train_path(name: str, cfg, scene, dev) -> dict:
     mu_cos = {"eager": moment_cosines(e2.opt.mu, e1.opt.mu),
               "graphed": moment_cosines(g.opt.mu, e1.opt.mu)}
     loss_rel = {"eager": rel(l2, l1), "graphed": rel(lg, l1)}
-    bound = 0.9999 if cfg.precision == "fp32" else 0.999
     stats = dict(chunk.graphs.stats)
     print(f"{name}: {n} eager steps twice from one state: "
           f"{'bit-identical' if deterministic else 'not bit-identical'}; {n} graphed steps "
@@ -2768,32 +2798,16 @@ def graph_train_path(name: str, cfg, scene, dev) -> dict:
           f"{'bit-identical' if bit else 'not bit-identical'}; losses max rel eager "
           f"{loss_rel['eager']:.3e}, graphed {loss_rel['graphed']:.3e}; Adam first-moment "
           f"cosines min eager {min(mu_cos['eager'].values()):.7f}, graphed "
-          f"{min(mu_cos['graphed'].values()):.7f} (bound {bound}); "
+          f"{min(mu_cos['graphed'].values()):.7f}; "
           f"launches eager {dict((k, v) for k, v in eager_launches.items() if v)}, graphed "
           f"{dict((k, v) for k, v in graph_launches.items() if v)}")
     if graph_launches != eager_launches:
         raise AssertionError(f"{name}: the graphed steps launched other kernels than the eager")
-    if deterministic and not bit:
+    if not deterministic:
+        raise AssertionError(f"{name}: two eager runs from one state differ")
+    if not bit:
         raise AssertionError(f"{name}: the graphed steps differ from the eager ones, "
                              "which repeat bit for bit")
-    step_cos = None
-    if not deterministic:
-        # the eager runs part: hold one replayed step against one eager step
-        # from the same fresh state, by their gradients (the first step's
-        # Adam first moment is 0.1 g), at the step-gradient bound per part
-        one = train.make_chunked_step(step, 1)
-        one(clone_state(s0))                       # the warm-up and the capture
-        replayed, _ = one(clone_state(s0))         # one replay
-        row = train.chunk_rates(cfg, s0, 1)[0][0].to(dev)
-        eager_a, _ = step(clone_state(s0), rates=row)
-        eager_b, _ = step(clone_state(s0), rates=row)
-        step_cos = {"eager": moment_cosines(eager_b.opt.mu, eager_a.opt.mu),
-                    "graphed": moment_cosines(replayed.opt.mu, eager_a.opt.mu)}
-        print(f"{name}: one replayed step's gradient against an eager step's from the same "
-              f"state, per part: min cosine {min(step_cos['graphed'].values()):.7f} (two eager "
-              f"steps: {min(step_cos['eager'].values()):.7f}; bound {bound})")
-        if min(step_cos["graphed"].values()) < bound:
-            raise AssertionError(f"{name}: a replayed step's gradient is outside the bound")
     if not torch.isfinite(lg).all():
         raise AssertionError(f"{name}: a graphed loss is not finite")
 
@@ -2832,7 +2846,7 @@ def graph_train_path(name: str, cfg, scene, dev) -> dict:
           f"{100 * (1 - prof['graphed']['busy_share']):.1f}% (from the eager profile's device "
           f"time {100 * prof['graphed']['idle_from_eager_device']:.1f}%)")
     return {"eager_deterministic": deterministic, "graph_bit_identical": bit,
-            "moment_cosines": mu_cos, "step_gradient_cosines": step_cos,
+            "moment_cosines": mu_cos,
             "loss_max_rel": loss_rel, "ms_per_step": times,
             "profile": prof, "captures": stats, "launches": graph_launches,
             "state": g}
@@ -3058,6 +3072,360 @@ def graph_phases(tmp: str) -> dict:
     print(f"phase 30 took {time.perf_counter() - t_phase:.1f} s")
     return {"paths": results, "frames": frames, "upsample": upsample, "cli": cli,
             "launches": launches}
+
+
+def mesh_train_path(name: str, cfg, runner, dev) -> dict:
+    """Phase 31's training path on this rank: phase 30's checks
+    (``graph_train_path``) of the data-parallel step under the Runner's
+    mesh. Two runs of ``2 GRAPH_K`` eager mesh steps from one state, then two
+    graphed chunks of ``GRAPH_K`` from it, whose graphs hold the gradient's
+    all-reduce (and the refresh graph the refresh's gather); where the
+    eager runs differ, one replayed step's gradient against an eager step's
+    (Adam's first moment after one step, per part). Every rank runs this in
+    step; nothing here raises on a mismatch, the parent checks the ranks'
+    records (a rank that raised alone would leave the others waiting in a
+    collective)."""
+    import torch
+    from tinynerf_torch import optim, train
+    from tinynerf_torch.parallel import distributed as dist
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    step = train.make_train_step(cfg, runner.train_table, runner.k_inv, mesh=runner.mesh)
+    s0 = clone_state(runner.state)
+    n = 2 * GRAPH_K
+
+    def eager():
+        st = clone_state(s0)
+        rates = train.chunk_rates(cfg, st, n)[0].to(dev)
+        losses = []
+        for k in range(n):
+            st, m = step(st, rates=rates[k])
+            losses.append(m["loss"])
+        return st, torch.stack(losses)
+
+    zero_launches()
+    e1, l1 = eager()
+    sync()
+    eager_launches = launch_counts()
+    e2, l2 = eager()
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(state_tensors(a), state_tensors(b)))
+    deterministic = bool(torch.equal(l1, l2)) and same(e1, e2)
+    chunk = train.make_chunked_step(step, GRAPH_K)
+    zero_launches()
+    g, m1 = chunk(clone_state(s0))
+    digests = [dist.params_digest(g.params)]
+    g, m2 = chunk(g)
+    digests.append(dist.params_digest(g.params))
+    sync()
+    graph_launches = launch_counts()
+    lg = torch.cat([m1["loss"], m2["loss"]])
+    bit = bool(torch.equal(lg, l1)) and same(g, e1)
+    rec = {"eager_deterministic": deterministic, "graph_bit_identical": bit,
+           "losses_finite": bool(torch.isfinite(lg).all()), "digests": digests,
+           "eager_digest": dist.params_digest(e1.params),
+           "loss_max_rel": float(((lg - l1).abs() / l1.abs()).max()),
+           "eager_launches": eager_launches, "graph_launches": graph_launches,
+           "captures": dict(chunk.graphs.stats), "step_cosines": None,
+           "bound": 0.9999 if cfg.precision == "fp32" else 0.999}
+    if not deterministic:
+        one = train.make_chunked_step(step, 1)
+        one(clone_state(s0))
+        replayed, _ = one(clone_state(s0))
+        row = train.chunk_rates(cfg, s0, 1)[0][0].to(dev)
+        eager_a, _ = step(clone_state(s0), rates=row)
+        rec["step_cosines"] = moment_cosines(replayed.opt.mu, eager_a.opt.mu)
+
+    state = e1
+
+    def eager_steps():
+        nonlocal state
+        for _ in range(GRAPH_K):
+            state, _ = step(state)
+
+    def graphed_chunk():
+        nonlocal g
+        g, _ = chunk(g)
+
+    times = {}
+    for what, fn in (("eager", eager_steps), ("graphed", graphed_chunk)):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times[what] = (time.perf_counter() - t0) * 1e3 / GRAPH_K
+    rec["ms_per_step"] = times
+    rec["api_launches"] = {what: api_launches(fn, 1) / GRAPH_K
+                           for what, fn in (("eager", eager_steps), ("graphed", graphed_chunk))}
+    flat = torch.zeros(1 + sum(t.numel() for t in optim.leaves(s0.params)), device=dev)
+    runner.mesh.sum_over_data(flat)
+    rec["allreduce_ms"] = _timed(sync, lambda: [
+        runner.mesh.sum_over_data(flat) for _ in range(10)])[1] / 10 * 1e3
+    rec["allreduce_floats"] = flat.numel()
+    rec["state"] = g
+    return rec
+
+
+def mesh_frames(cfg, scene, state, mesh, dev, forms=(0, 8)) -> dict:
+    """Phase 31's frames of one config on this rank: view 0 through
+    ``eval.make_frame_fn`` under the mesh, for each ``host_chunks`` in
+    ``forms`` (0: one graph a view): the first call renders eagerly (the
+    warm-up: with one graph a view, the eager host loop) and captures, the
+    second replays. Whether every frame equals the first call's of the
+    first form bit for bit, the frame's sha256 (the ranks must agree), the
+    launches of each call, s/frame."""
+    import hashlib
+    import numpy as np
+    import torch
+    from tinynerf_torch import eval as evallib
+    from tinynerf_torch.core.rays import make_k_inv
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    h, w = scene.height, scene.width
+    k_inv = make_k_inv(h, w, scene.focal, dev)
+    pose = np.asarray(scene.poses_bounds[0], np.float32)
+    out, ref, equal = {}, None, True
+    for host_chunks in forms:
+        fn = evallib.make_frame_fn(cfg, k_inv, h, w, occ_grid=state.occ, mesh=mesh,
+                                   host_chunks=host_chunks)
+        seconds, imgs, launches = [], [], []
+        for _ in range(2):
+            zero_launches()
+            sync()
+            t0 = time.perf_counter()
+            imgs.append(fn(state.params, pose))
+            seconds.append(time.perf_counter() - t0)
+            launches.append(launch_counts())
+        ref = imgs[0] if ref is None else ref
+        equal = equal and all(np.array_equal(i, ref) for i in imgs)
+        held = getattr(fn, "graph", None)
+        out[str(host_chunks)] = {
+            "graphed": held is not None, "first_s": seconds[0], "replay_s": seconds[1],
+            "eager_s": None if held is None else held["warm_s"],
+            "capture_s": None if held is None else held["graph"].seconds,
+            "launches": launches, "launches_equal": launches[0] == launches[1]}
+    out["bit_identical"] = bool(equal)
+    out["finite_in_range"] = bool(np.all(np.isfinite(ref)) and ref.min() >= 0.0
+                                  and ref.max() <= 1.0 + 1e-6)
+    out["sha256"] = hashlib.sha256(np.ascontiguousarray(ref).tobytes()).hexdigest()
+    return out
+
+
+def mesh_rank(work: str, n: int, device: str = "cuda") -> None:
+    """Phase 31 on one rank of a job of ``n`` NCCL ranks, one card each
+    (started by ``parallel.distributed.spawn``): ``mesh_train_path`` on
+    ``MESH_PATHS`` with ``MESH_SHAPE = n`` (lego_occ's grid refreshed every
+    GRAPH_REFRESH_EVERY steps, so that both step graphs are captured), the
+    lego_occ view after its chunks (``mesh_frames``: one graph a view and
+    ``MESH_HOST_CHUNKS`` chunks a graph), and lego with ``SAMPLE_SHARD = 2``
+    (kernel 1 fp32; fresh seeded weights), one graph a view. Writes
+    ``mesh_rank<r>.json`` under ``work``. ``device``: the card (the CPU
+    only to rehearse)."""
+    import torch
+    from tinynerf_torch.parallel import distributed as dist
+    from tinynerf_torch.runner import Runner
+    rank = dist.rank()
+    cuda = device == "cuda"
+    dev = torch.device("cuda", torch.cuda.current_device()) if cuda else torch.device("cpu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mine = os.path.join(work, f"rank{rank}")
+    rec = {"rank": rank, "card": dev.index, "paths": {}, "frames": {}}
+    for name, conf, kw in MESH_PATHS:
+        t0 = time.perf_counter()
+        cfg = run_config(conf, mine, f"mesh_{name}", 3 * GRAPH_K, mesh_shape=n, **kw)
+        if cfg.occ_grid:
+            cfg.occ_update_every = GRAPH_REFRESH_EVERY
+        scene = blender_scene(TRAIN_VIEWS, 800, cfg.seed)
+        runner = Runner(cfg, device=device, scene=scene)
+        res = mesh_train_path(name, cfg, runner, dev)
+        state = res.pop("state")
+        res["precision"] = cfg.precision
+        if name in MESH_FRAME_PATHS:
+            rec["frames"][name] = mesh_frames(cfg, scene, state, runner.mesh, dev)
+            rec["frames"][name]["precision"] = cfg.precision
+        res["seconds"] = time.perf_counter() - t0
+        rec["paths"][name] = res
+        del runner, state
+        torch.cuda.empty_cache()
+    lcfg = run_config("lego", mine, "mesh_lego_ss", 1, mesh_shape=n, sample_shard=2)
+    scene = blender_scene(2, 800, lcfg.seed)
+    runner = Runner(lcfg, device=device, scene=scene)
+    rec["ss_mesh"] = [runner.mesh.n_data, runner.mesh.n_sample]
+    rec["frames"]["lego_ss2"] = mesh_frames(lcfg, scene, runner.state, runner.mesh, dev,
+                                            forms=(0,))
+    rec["frames"]["lego_ss2"]["precision"] = lcfg.precision
+    with open(os.path.join(work, f"mesh_rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def mesh_gpu_rank(work: str) -> None:
+    """``tests/test_torch_mesh_gpu.py``'s rank body, on one of two NCCL
+    ranks: ``mesh_train_path`` and ``mesh_frames`` (one graph a view) at a
+    small size, lego_occ at 1024 rays with ``MESH_SHAPE = 2`` and its grid
+    refreshed every two steps, on a 64x64 scene. Writes ``rank<r>.json``
+    under ``work``."""
+    import torch
+    from tinynerf_torch.parallel import distributed as dist
+    from tinynerf_torch.runner import Runner
+    rank = dist.rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = run_config("lego_occ", os.path.join(work, f"r{rank}"), "gpu", 3 * GRAPH_K,
+                     mesh_shape=2, batch_ray=1024, occ_update_every=2)
+    scene = blender_scene(4, 64, cfg.seed)
+    runner = Runner(cfg, device="cuda", scene=scene)
+    rec = mesh_train_path("lego_occ", cfg, runner, dev)
+    rec["frame"] = mesh_frames(cfg, scene, rec.pop("state"), runner.mesh, dev, forms=(0,))
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def mesh_cli_run(tmp: str, n: int) -> dict:
+    """Phase 31's CLI run: ``python -m tinynerf_torch --mode train`` with
+    ``MESH_SHAPE = n`` on the scene maker's tiny capture (the CLI starts the
+    n NCCL ranks itself), in chunks of MESH_CLI_STEP across refreshes: the
+    [CHUNKS] line naming CUDA graphs over NCCL, the [ITER] lines on each
+    STEP, and every rank's params digest, equal."""
+    root = os.path.join(tmp, "mesh_cli")
+    scene = os.path.join(root, "scene")
+    subprocess.run([sys.executable, "-m", "tinynerf_torch.tools.make_synthetic_scene", scene,
+                    "--hw", "32", "--views", "4"], check=True, cwd=ROOT, timeout=300,
+                   capture_output=True)
+    ini = os.path.join(root, "cli.ini")
+    with open(ini, "w") as f:
+        f.write("[cli]\n" + "\n".join(f"{k} = {v}" for k, v in {
+            "IMG_DIR": scene + "/", "RESULTS_PATH": os.path.join(root, "results") + "/",
+            "CKPT_PATH": os.path.join(root, "ckpt") + "/",
+            "LOG_DIR": os.path.join(root, "runs") + "/", "DATA_TYPE": "sync",
+            "TOTAL_ITER": MESH_CLI_ITERS, "STEP": MESH_CLI_STEP, "BATCH_RAY": 1024,
+            "N_COARSE": 32, "N_FINE": 64, "PRECISION": "bf16", "OCC_GRID": True,
+            "WHITE_BKGD": True, "OCC_RES": 16, "OCC_UPDATE_EVERY": GRAPH_CLI_REFRESH,
+            "LEARNING": "5e-4", "CONTINUE": False, "RENDER_CHUNK": 512,
+            "MESH_SHAPE": n}.items()) + "\n")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "tinynerf_torch", "--conf", ini,
+                          "--mode", "train"], cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    seconds = time.perf_counter() - t0
+    # the ranks share the pipe: a rank's line may land inside another's
+    chunks = re.findall(r"\[CHUNKS\][^\n\[]*", run.stdout)
+    iters = [int(i) for i in re.findall(r"\[ITER\] (\d+)", run.stdout)]
+    digests = sorted(re.findall(r"\[RANK (\d+)/\d+\] params sha256 ([0-9a-f]{64})",
+                                run.stdout), key=lambda rd: int(rd[0]))
+    print(f"python -m tinynerf_torch --mode train, MESH_SHAPE = {n}: rc {run.returncode} in "
+          f"{seconds:.1f} s; {chunks}; [ITER] at {iters}; digests {digests}")
+    if (run.returncode != 0 or len(chunks) != 1 or "CUDA graphs" not in chunks[0]
+            or "nccl" not in chunks[0] or [int(r) for r, _ in digests] != list(range(n))
+            or len({d for _, d in digests}) != 1
+            or iters != [i - 1 for i in range(MESH_CLI_STEP, MESH_CLI_ITERS + 1,
+                                              MESH_CLI_STEP)]):
+        print(run.stdout[-3000:], run.stderr[-3000:])
+        raise AssertionError("the CLI under a mesh did not train in graphed chunks with "
+                             "equal digests on every rank")
+    return {"seconds": seconds, "chunks_line": chunks[0], "iter_lines": iters,
+            "digests": digests}
+
+
+def mesh_phases(tmp: str) -> dict:
+    """Phase 31: phase 30's graphed chunks and frames under a mesh of NCCL
+    ranks, one card each: four where the machine has four cards, else two,
+    else none (one card: it prints that there is no NCCL job). ``mesh_rank``
+    on every rank, then the checks of their records: on each path and rank
+    the two eager runs bit-identical and the graphed chunks bit-identical
+    to them (where the eager runs differ: one replayed step's gradient at
+    the step bound, and the check that decided printed), the digests after
+    each chunk equal on every rank, the kernel launches of the graphed
+    steps equal to the eager steps' on every rank; every frame equal to its
+    eager host loop bit for bit and to every rank's; then the CLI
+    (``mesh_cli_run``). Returns the numbers and ``launches`` (rank 0's, by
+    kernel form and path)."""
+    import torch
+    from tinynerf_torch.parallel import distributed as dist
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    n = 4 if cards >= 4 else 2 if cards >= 2 else 0
+    phase(f"mesh-graphs (phase 30's chunks and frames under MESH_SHAPE = N over NCCL, one rank "
+          f"a card: lego_occ and the flagship, {2 * GRAPH_K} eager mesh steps twice vs two "
+          f"graphed chunks of {GRAPH_K}; the lego_occ view and lego SAMPLE_SHARD = 2; the CLI)")
+    if not n:
+        print(f"{cards} card: no NCCL job (phase 31 needs two cards or more)")
+        return {"ranks": 0, "launches": {}}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    work = os.path.join(tmp, "mesh")
+    os.makedirs(work, exist_ok=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dist.spawn("chip_smoke:mesh_rank", n, "cuda", (work, n))
+    job_s = time.perf_counter() - t0
+    recs = [json.load(open(os.path.join(work, f"mesh_rank{r}.json"))) for r in range(n)]
+    print(f"{smi.splitlines()[0]} x {cards}; {n} NCCL ranks; the job {job_s:.1f} s")
+    out = {"ranks": n, "card": smi, "job_s": job_s, "paths": {}, "frames": {}, "launches": {}}
+    failures = []
+    for name in recs[0]["paths"]:
+        rs = [r["paths"][name] for r in recs]
+        r0 = rs[0]
+        if all(r["eager_deterministic"] for r in rs):
+            decided = "bit for bit"
+            ok = all(r["graph_bit_identical"] for r in rs)
+        else:
+            decided = "step gradient cosine"
+            ok = all(min(r["step_cosines"].values()) >= r["bound"] for r in rs)
+        digests_equal = all(r["digests"] == r0["digests"] for r in rs)
+        launches_equal = all(r["graph_launches"] == r["eager_launches"] for r in rs)
+        print(f"{name} ({r0['precision']}, MESH_SHAPE {n}): two eager runs "
+              f"{'bit-identical' if decided == 'bit for bit' else 'differ'} on every rank; "
+              f"graphed chunks vs eager decided {decided}: {'pass' if ok else 'FAIL'} (losses "
+              f"max rel {max(r['loss_max_rel'] for r in rs):.3e}"
+              + ("" if r0["step_cosines"] is None else
+                 f"; step cosines min {min(min(r['step_cosines'].values()) for r in rs):.7f}, "
+                 f"bound {r0['bound']}") + f"); digests after each chunk equal on all ranks: "
+              f"{digests_equal}; kernel launches a rank, eager "
+              f"{ {k: v for k, v in r0['eager_launches'].items() if v} } -> "
+              f"graphed equal: {launches_equal}")
+        print(f"{name}: ms/step eager -> graphed, by rank: "
+              + ", ".join(f"{r['ms_per_step']['eager']:.3f} -> {r['ms_per_step']['graphed']:.3f}"
+                          for r in rs)
+              + f"; host API launches a step {r0['api_launches']['eager']:.1f} -> "
+              f"{r0['api_launches']['graphed']:.2f}; captures {r0['captures']['captures']} in "
+              f"{r0['captures']['capture_s']:.2f} s, pool {r0['captures']['pool_bytes'] / 2 ** 20:.1f}"
+              f" MiB; the all-reduce of {r0['allreduce_floats']:,} floats "
+              + ", ".join(f"{r['allreduce_ms']:.3f}" for r in rs) + " ms")
+        if not (ok and digests_equal and launches_equal and all(r["losses_finite"] for r in rs)):
+            failures.append(name)
+        out["paths"][name] = {"decided": decided, "ok": ok,
+                              "ms_per_step": [r["ms_per_step"] for r in rs],
+                              "api_launches": r0["api_launches"], "captures": r0["captures"],
+                              "allreduce_ms": [r["allreduce_ms"] for r in rs],
+                              "loss_max_rel": max(r["loss_max_rel"] for r in rs),
+                              "step_cosines": r0["step_cosines"]}
+        add_launches(out["launches"], r0["graph_launches"], r0["precision"],
+                     f"{name} mesh {n} graphed train (a rank)")
+    for name in recs[0]["frames"]:
+        fs = [r["frames"][name] for r in recs]
+        f0 = fs[0]
+        forms = [k for k in f0 if k.isdigit()]
+        same_all = len({f["sha256"] for f in fs}) == 1
+        ok = (all(f["bit_identical"] and f["finite_in_range"] for f in fs) and same_all
+              and all(f[k]["graphed"] and f[k]["launches_equal"] for f in fs for k in forms))
+        eager_s = f0["0"]["eager_s"] if f0["0"]["graphed"] else f0["0"]["first_s"]
+        print(f"{name} frame under the mesh: eager host loop {eager_s:.3f} s -> one graph a "
+              f"view {f0['0']['replay_s']:.3f} s (capture {f0['0']['capture_s'] or 0.0:.2f} s)"
+              + "".join(f"; host_chunks {k} {f0[k]['replay_s']:.3f} s" for k in forms if k != "0")
+              + f"; every frame bit-identical to the eager host loop on every rank and the "
+              f"same on all ranks: {ok}; launches a rank a frame "
+              f"{ {k: v for k, v in f0['0']['launches'][1].items() if v} }")
+        if not ok:
+            failures.append(f"{name} frame")
+        out["frames"][name] = {k: {kk: f0[k][kk] for kk in ("eager_s", "replay_s", "capture_s")}
+                               for k in forms}
+        for k in forms:
+            add_launches(out["launches"], f0[k]["launches"][1], f0["precision"],
+                         f"{name} mesh {n} graphed frame (a rank)")
+    out["cli"] = mesh_cli_run(tmp, n)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 31 took {out['seconds']:.1f} s")
+    if failures:
+        raise AssertionError(f"phase 31 failed on {failures}")
+    return out
 
 
 def main() -> int:
@@ -5001,7 +5369,10 @@ def main() -> int:
         # ---- 30. the CUDA graphs: chunks of steps, frames, the CLI ----
         graphed = graph_phases(tmp)
 
-    # ---- 31. results ----
+        # ---- 31. phase 30 under a mesh of NCCL ranks (two cards or more) ----
+        meshed = mesh_phases(tmp)
+
+    # ---- 32. results ----
     mean = lambda table, shapes, i: sum(table[s][i] for s in shapes) / len(shapes)
     shape_key = lambda s: (f"B={s[0]},N={s[1]}" if len(s) == 2 else f"R={s[0]}" if len(s) == 1
                            else f"B={s[0]},N_c={s[1]},N_f={s[2]}")
@@ -5205,9 +5576,10 @@ def main() -> int:
               "norm_ratio_vs_plain": fused_ratio["bf16"],
               "merge_max_rel_err": merge_err["bf16"], **fused_extra["bwd bf16"]}),
     ]
-    # the graphed paths' launches of each form (phase 30)
+    # the graphed paths' launches of each form (phase 30; phase 31's a rank)
     for entry in kernels:
-        entry["graphed_launches"] = graphed["launches"].get(entry["name"], {})
+        entry["graphed_launches"] = {**graphed["launches"].get(entry["name"], {}),
+                                     **meshed["launches"].get(entry["name"], {})}
     print(json.dumps({"train_step": {str(b): {"ms": t[0], "kernel_ms": t[1]}
                                      for b, t in step_time.items()},
                       "lego_occ": {"step_ms": occ_ms, "kernel_ms": occ_kern,
@@ -5239,6 +5611,7 @@ def main() -> int:
                                    "fused_vs_unfused_max_diff": fern_diff},
                       "parallel": {k: v for k, v in parallel.items() if k != "launches"},
                       "graphs": {k: v for k, v in graphed.items() if k != "launches"},
+                      "mesh_graphs": {k: v for k, v in meshed.items() if k != "launches"},
                       **{k: v for k, v in validate.items() if k != "launches"}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

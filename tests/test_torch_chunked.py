@@ -434,8 +434,8 @@ def _eager_capture(monkeypatch):
             self.replays += 1
 
     monkeypatch.setattr(graphs, "warm", lambda body, device: body())
-    monkeypatch.setattr(graphs, "capture", lambda body, device, pool=None, generators=(): Eager(
-        body))
+    monkeypatch.setattr(graphs, "capture", lambda body, device, pool=None, generators=(),
+                        collectives=False: Eager(body))
     monkeypatch.setattr(torch.Tensor, "pin_memory", lambda self, *a, **k: self)
 
 

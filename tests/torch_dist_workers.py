@@ -222,3 +222,114 @@ def run_all(work_dir: str) -> None:
 
     if rank == 0:
         torch.save(out, os.path.join(work_dir, "results.pt"))
+
+
+# ---------------------------------------------------------------- chunks (two ranks)
+
+CHUNK_K = 3          # steps a chunk of the two-rank chunk cases
+CHUNK_CONFIGS = ("mlp_occ", "flagship_tv")
+RUNNER_ITERS, RUNNER_STEP = 10, 4   # the Runner's plan: chunks of 4 at 0 and 4, then 8, 9
+
+
+def _chunk_cases(scene_dir: str, table, k_inv, mesh, out: dict) -> None:
+    """Each of ``CHUNK_CONFIGS`` under ``mesh``: two chunks of ``CHUNK_K``
+    drawn steps (``make_chunked_step``) against ``2 CHUNK_K`` single steps
+    from the same state, and two indexed chunks against single indexed
+    steps on the same indices."""
+    for name in CHUNK_CONFIGS:
+        cfg = step_config(scene_dir, **STEP_CONFIGS[name])
+        for indexed in (False, True):
+            make = train.make_indexed_train_step if indexed else train.make_train_step
+            step = make(cfg, table, k_inv, mesh=mesh)
+            idx = torch.from_numpy(np.random.default_rng(5).integers(
+                0, table.num_pix, (2 * CHUNK_K, cfg.batch_ray)))
+            single = train.init_state(cfg, torch.device("cpu"))
+            losses = []
+            for k in range(2 * CHUNK_K):
+                single, m = step(single, idx[k]) if indexed else step(single)
+                losses.append(m["loss"])
+            chunked = train.init_state(cfg, torch.device("cpu"))
+            chunk = (train.make_chunked_indexed_step if indexed else train.make_chunked_step)(
+                step, CHUNK_K)
+            chunk_losses = []
+            for c in range(2):
+                args = (idx[c * CHUNK_K:(c + 1) * CHUNK_K],) if indexed else ()
+                chunked, m = chunk(chunked, *args)
+                chunk_losses.append(m["loss"])
+                if c == 0:
+                    first = _to_numpy(chunked.params)
+            same = (torch.equal(torch.stack(losses), torch.cat(chunk_losses))
+                    and all(torch.equal(a, b) for a, b in zip(
+                        optim.leaves(single.params) + optim.leaves(single.opt.mu),
+                        optim.leaves(chunked.params) + optim.leaves(chunked.opt.mu)))
+                    and (single.occ is None or torch.equal(single.occ.raw, chunked.occ.raw)))
+            tag = f"chunk_{name}_{'indexed' if indexed else 'drawn'}"
+            out[tag] = {"chunk_equals_single": same,
+                        "losses": [float(x) for x in torch.cat(chunk_losses)],
+                        "first_chunk_params": first, "idx": idx.numpy(),
+                        "ranks_agree": _agree(chunked.params)}
+
+
+def _runner_case(scene_dir: str, work_dir: str, out: dict) -> None:
+    """``Runner.train`` under ``MESH_SHAPE = 2`` on the CPU: the calls that
+    went through a chunk (iteration, steps), rank 0's ``[CHUNKS]`` line,
+    the logged iterations and the ranks' digests; then the val epoch's
+    indexed chunks."""
+    import contextlib
+    import io
+    from tinynerf_torch.runner import Runner
+    base = os.path.join(work_dir, "runner")
+    cfg = step_config(scene_dir, mesh_shape=2, total_iter=RUNNER_ITERS, step=RUNNER_STEP,
+                      ckpt_path=os.path.join(base, "ckpt"), log_dir=os.path.join(base, "runs"),
+                      results_path=os.path.join(base, "results"),
+                      **STEP_CONFIGS["mlp_occ"])
+    calls, real = [], train.ChunkedStep.__call__
+
+    def spy(self, state, *a, **kw):
+        calls.append((state.iteration, self.unroll))
+        return real(self, state, *a, **kw)
+
+    train.ChunkedStep.__call__ = spy
+    text = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(text):
+            runner = Runner(cfg, device="cpu")
+            runner.train()
+            train_calls, train_text = list(calls), text.getvalue()
+            calls.clear()
+            runner.train("val")
+    finally:
+        train.ChunkedStep.__call__ = real
+    out["runner"] = {"train_calls": train_calls, "val_calls": list(calls),
+                     "val_end": runner.state.iteration,
+                     "lines": [line for line in train_text.splitlines()
+                               if line.startswith(("[CHUNKS]", "[ITER]"))],
+                     "iteration": runner.state.iteration,
+                     "ranks_agree": _agree(runner.state.params)}
+
+
+def run_chunks(work_dir: str) -> None:
+    """The chunk cases of ``tests/test_torch_mesh_chunks.py`` on two ranks:
+    ``distributed.captures`` under gloo, ``graphs.StepGraphs``' refusal,
+    ``train.graphs_take``, chunks against single steps under the mesh, and
+    the Runner's plan. Rank 0 writes ``chunks.pt``."""
+    from tinynerf_torch import graphs
+    torch.set_num_threads(1)
+    scene_dir = torch.load(os.path.join(work_dir, "inputs.pt"), weights_only=False)["scene_dir"]
+    table = RayTable(load_scene(scene_dir, "sync", "train"))
+    k_inv = make_k_inv(table.height, table.width, table.focal)
+    mesh = meshlib.make_mesh()
+    out = {"captures": {"world": dist.captures(None), "self": dist.captures(dist.SELF),
+                        "mesh_data": dist.captures(mesh.data)}}
+    step = train.make_train_step(step_config(scene_dir), table, k_inv, mesh=mesh)
+    try:
+        graphs.StepGraphs(step, 2)
+        out["refusal"] = None
+    except ValueError as e:
+        out["refusal"] = str(e)
+    out["graphs_take"] = {dev: train.graphs_take(step, torch.device(dev))
+                          for dev in ("cpu", "cuda")}
+    _chunk_cases(scene_dir, table, k_inv, mesh, out)
+    _runner_case(scene_dir, work_dir, out)
+    if dist.rank() == 0:
+        torch.save(out, os.path.join(work_dir, "chunks.pt"))

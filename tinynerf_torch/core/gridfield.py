@@ -42,6 +42,12 @@ against a gather; the port's hat form is already a gather.
 
 ``upsample_lines`` resamples the level-0 tables onto a finer lattice
 (``GRID_UPSAMPLE``) with ``upsample_matrix`` in true float32.
+
+The two taps' gathers are one ``_TapRows``, whose backward sums each table
+row's cotangents in an order fixed by the data (``segment_sums`` over the
+taps sorted stably by row), where ``index_select``'s ``index_add_`` would
+add them with atomics in whatever order the card runs them: two steps from
+one state then give the same gradient bit for bit.
 """
 
 from __future__ import annotations
@@ -230,15 +236,113 @@ def upsample_matrix(old_res: int, new_res: int,
     return torch.relu(1.0 - torch.abs(nodes[:, None] - idx[None, :]))
 
 
+# rows a block of ``segment_sums``' pyramid
+SUM_BLOCK = 32
+
+
+def segment_sums(x: torch.Tensor, order: torch.Tensor, starts: torch.Tensor,
+                 block: int = SUM_BLOCK) -> torch.Tensor:
+    """(K, F): segment k's sum of the rows ``x[order[p]]`` over positions
+    ``starts[k] <= p < starts[k + 1]`` (``starts`` nondecreasing, from 0 to
+    M, K + 1 of them; ``x`` (M, F), ``order`` (M,)).
+
+    Each sum has an order fixed by the positions, whatever the card's
+    schedule: the rows in order are summed in blocks of ``block``, the
+    block sums in blocks, and so on up to a level of at most ``block``
+    entries (a pyramid); a segment then adds, at each level, the part
+    blocks at its two ends whose next level holds no whole block of it,
+    and at the top what is left. Every sum is short, so no running total
+    over the whole array loses the small segments' precision, and no shape
+    depends on the data, so that a CUDA graph can hold it."""
+    m, width = x.shape
+    n_seg = starts.shape[0] - 1
+    if m == 0:
+        return x.new_zeros((n_seg, width))
+    device = x.device
+    lengths = [m]
+    while lengths[-1] > block:
+        lengths.append(-(-lengths[-1] // block))
+    top = len(lengths) - 1
+    # the pyramid's levels 1..top, one after another in one buffer
+    levels = []
+    if top:
+        levels.append(torch.nn.functional.embedding_bag(
+            order, x, torch.arange(0, m, block, device=device), mode="sum"))
+        for n in lengths[2:]:
+            below = levels[-1]
+            pad = n * block - below.shape[0]
+            if pad:
+                below = torch.cat([below, below.new_zeros((pad, width))])
+            levels.append(below.view(n, block, width).sum(dim=1))
+    # the levels' block sizes S^l and lengths ceil(M / S^l), made on the
+    # device (a capture takes no copy from host memory)
+    level = torch.arange(top + 1, device=device)
+    scale = torch.full_like(level, block).pow(level)[:, None]
+    length = (m + scale - 1) // scale
+    # each level's window starts and ends, (levels, 2 ends, K): the
+    # segment's span at level l is [ceil(a / S^l), max(floor(b / S^l), that))
+    a, b = starts[None, :-1], starts[None, 1:]
+    lo = (a + scale - 1) // scale
+    hi = torch.maximum(b // scale, lo)
+    lo_up = (lo + block - 1) // block * block
+    hi_dn = hi // block * block
+    is_top = (level == top)[:, None]
+    head_hi = torch.where(is_top, hi, torch.minimum(lo_up, hi))
+    tail_lo = torch.where(is_top, hi, torch.maximum(hi_dn, lo_up))
+    starts_w = torch.stack([lo, tail_lo], dim=1)
+    ends_w = torch.stack([head_hi, hi], dim=1)
+    span = torch.arange(block, device=device)
+    pos = starts_w[..., None] + span                                  # (L, 2, K, S)
+    inside = (pos < ends_w[..., None])[..., None]
+    pos = torch.minimum(pos, length[..., None, None] - 1)
+    vals = [x.index_select(0, order.index_select(0, pos[0].reshape(-1)))]
+    if top:
+        # level l's rows start at the lengths of levels 1..l-1 in the buffer
+        above = length[1:]
+        offset = (torch.cumsum(above, dim=0) - above)[..., None, None]
+        vals.append(torch.cat(levels).index_select(0, (pos[1:] + offset).reshape(-1)))
+    vals = torch.cat(vals).view(*pos.shape, width)
+    return torch.where(inside, vals, 0.0).sum(dim=3).sum(dim=(0, 1))
+
+
+class _TapRows(torch.autograd.Function):
+    """The rows ``table[i0]`` and ``table[i1]``, ``i1 = min(i0 + 1, R - 1)``,
+    of a (R, F) table at flat (M,) tap indices ``i0``. The backward sorts
+    ``i0`` stably once and sums each row's cotangents with
+    ``segment_sums``: the upper tap's by ``i0`` too, moved up a row (``i1``
+    is ``i0 + 1`` but at ``R - 1``, whose row takes both)."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, i0: torch.Tensor):
+        res = table.shape[0]
+        i1 = torch.clamp(i0 + 1, max=res - 1)
+        ctx.save_for_backward(i0)
+        ctx.res = res
+        return table.index_select(0, i0), table.index_select(0, i1)
+
+    @staticmethod
+    def backward(ctx, g0: torch.Tensor, g1: torch.Tensor):
+        (i0,) = ctx.saved_tensors
+        res = ctx.res
+        sorted_i0, order = torch.sort(i0, stable=True)
+        starts = torch.searchsorted(sorted_i0, torch.arange(res + 1, device=i0.device))
+        lower = segment_sums(g0, order, starts)
+        upper = segment_sums(g1, order, starts)
+        d_table = lower.clone()
+        d_table[1:] += upper[:-1]
+        d_table[-1] += upper[-1]
+        return d_table, None
+
+
 def _interp(table: torch.Tensor, coord: torch.Tensor, rnd) -> torch.Tensor:
     """The table (R, F) interpolated at clipped coordinates ``coord`` in
     [0, 1] (...): the two taps at ``xg = coord * (R - 1)``, (..., F)."""
     table = rnd(table)
     res = table.shape[0]
-    i0, i1, w0, w1 = lerp_taps(coord * (res - 1), res)
-    rows = lambda i: torch.index_select(table, 0, i.reshape(-1)).reshape(
-        *i.shape, table.shape[1])
-    return rnd(rnd(w0)[..., None] * rows(i0) + rnd(w1)[..., None] * rows(i1))
+    i0, _, w0, w1 = lerp_taps(coord * (res - 1), res)
+    rows0, rows1 = (r.reshape(*i0.shape, table.shape[1])
+                    for r in _TapRows.apply(table, i0.reshape(-1)))
+    return rnd(rnd(w0)[..., None] * rows0 + rnd(w1)[..., None] * rows1)
 
 
 def _line_features(lines: Dict[str, torch.Tensor], points: torch.Tensor,

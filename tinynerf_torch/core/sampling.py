@@ -20,6 +20,12 @@ Semantics kept:
 - ``slope_inv = delta / (dense[:, 1:] + 1e-7)`` with a zero last column;
   ``delta`` is the per-ray linspace spacing, or (LINDISP) a per-bin
   spacing whose bin i pairs with ``dense[:, i + 1]``.
+
+The three gathers at the bins are one ``_BinGather``, whose backward sums
+each bin's cotangents in an order fixed by the shapes (``run_sums``), where
+``torch.gather``'s scatter-add would add them with atomics in whatever order
+the card runs them: two steps from one state then give the same gradient
+bit for bit.
 """
 
 from __future__ import annotations
@@ -92,6 +98,51 @@ def bin_indices(cdf: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
     return idx.clamp(0, cdf.shape[1] - 1)
 
 
+def run_sums(values: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """(B, N, C) values, (B, N) keys nondecreasing along each row -> (B, N,
+    C): at each position the sum of its run of equal keys up to it. A
+    segmented scan of log2(N) doubling steps, so each sum is a tree over
+    the run whose order the shapes fix."""
+    n = values.shape[1]
+    step = 1
+    while step < n:
+        same = (keys[:, step:] == keys[:, :-step])[..., None]
+        values = torch.cat([values[:, :step],
+                            values[:, step:] + torch.where(same, values[:, :-step], 0.0)],
+                           dim=1)
+        step *= 2
+    return values
+
+
+class _BinGather(torch.autograd.Function):
+    """``torch.gather(source, 1, idx)`` of each (B, N_c) source at a (B, N_f)
+    index that is nondecreasing along each ray (the resampler's bins). The
+    backward gives each source the sum of the cotangents of its bin's run
+    (``run_sums``, the run's last position holding it), written once into
+    each bin: no two writes meet, so the result does not depend on the
+    order the card runs them in."""
+
+    @staticmethod
+    def forward(ctx, idx: torch.Tensor, *sources: torch.Tensor):
+        ctx.save_for_backward(idx)
+        ctx.n_bins = sources[0].shape[1]
+        return tuple(torch.gather(s, 1, idx) for s in sources)
+
+    @staticmethod
+    def backward(ctx, *grads: torch.Tensor):
+        (idx,) = ctx.saved_tensors
+        n_rays, n_levels = idx.shape
+        sums = run_sums(torch.stack(grads, dim=-1), idx)
+        last = torch.cat([idx[:, 1:] != idx[:, :-1],
+                          torch.ones_like(idx[:, :1], dtype=torch.bool)], dim=1)
+        # a run's last level writes its bin; every other level a column of its own
+        spare = ctx.n_bins + torch.arange(n_levels, device=idx.device)
+        dest = torch.where(last, idx, spare)
+        out = sums.new_zeros((n_rays, ctx.n_bins + n_levels, len(grads)))
+        out.scatter_(1, dest[..., None].expand_as(sums), sums)
+        return (None, *(out[:, :ctx.n_bins, k].to(g.dtype) for k, g in enumerate(grads)))
+
+
 def resample(t_coarse: torch.Tensor, dense_coarse: torch.Tensor,
              delta_coarse: torch.Tensor, n_fine: int, level_start: int = 0,
              level_count: Optional[int] = None) -> torch.Tensor:
@@ -116,7 +167,5 @@ def resample(t_coarse: torch.Tensor, dense_coarse: torch.Tensor,
     slope_inv = delta_coarse / (dense_coarse[:, 1:] + EPSILON)
     slope_inv = torch.cat([slope_inv, torch.zeros_like(slope_inv[:, :1])], dim=1)
 
-    lower_t = torch.gather(t_coarse, 1, idx)
-    lower_cdf = torch.gather(cdf, 1, idx)
-    lower_slope = torch.gather(slope_inv, 1, idx)
+    lower_t, lower_cdf, lower_slope = _BinGather.apply(idx, t_coarse, cdf, slope_inv)
     return lower_t + (t_inv - lower_cdf) * lower_slope

@@ -3,9 +3,10 @@
 Counterpart of ``tinynerf/eval.py``. A frame is rendered in
 ``RENDER_CHUNK``-ray chunks of the pixel grid; the last chunk is padded with
 pixel (0, 0) and the padding dropped at assembly, as the JAX package pads
-its chunk grid. On the CPU, and under a mesh, the chunks are a host loop.
-On the card every chunk of a view is one CUDA graph, replayed once a view,
-the counterpart of the JAX package's one program a frame; with
+its chunk grid. On the CPU, and under a mesh over gloo, the chunks are a
+host loop. On the card every chunk of a view is one CUDA graph, replayed
+once a view, the counterpart of the JAX package's one program a frame
+(under a mesh over NCCL each rank's graph holds its collectives); with
 ``host_chunks = K`` a graph of K chunks is replayed along the view, the JAX
 package's host loop (``tinynerf/eval.py:137-180``). Results stay on the
 device until the frame is complete.
@@ -219,14 +220,17 @@ def make_frame_fn(cfg: Config, k_inv: torch.Tensor, height: int, width: int,
     samples are spread over the sample group too
     (``sample_shard.make_sample_sharded_render``).
 
-    On the card without a mesh the chunks are CUDA graphs (``_graphed``):
-    one graph of every chunk of the view, or with ``host_chunks = K`` (an
-    int; ``True`` is 1) of K chunks, replayed along the view, the chunk
-    list padded to whole groups with repeats of its last chunk, as the JAX
-    package pads it. The frame's pixels are the host loop's. On the CPU and
-    under a mesh ``host_chunks`` changes nothing: the chunks are a host
-    loop (under a mesh the JAX package's host loop refuses several
-    processes; the port's keeps it, as it keeps the whole-frame path)."""
+    On the card the chunks are CUDA graphs (``_graphed``): one graph of
+    every chunk of the view, or with ``host_chunks = K`` (an int; ``True``
+    is 1) of K chunks, replayed along the view, the chunk list padded to
+    whole groups with repeats of its last chunk, as the JAX package pads
+    it; under a mesh over NCCL each rank its own graph of its share, with
+    the collectives that split and gather the chunks (every rank calls
+    ``frame`` together). The frame's pixels are the host loop's. On the CPU
+    and under a mesh over gloo, whose collectives copy through the host,
+    ``host_chunks`` changes nothing: the chunks are a host loop (under a
+    mesh the JAX package's host loop refuses several processes; the port's
+    keeps it, as it keeps the whole-frame path)."""
     if field_fn is None:
         field_fn = make_field_fn(cfg)
     if mesh is not None:
@@ -267,9 +271,11 @@ def make_frame_fn(cfg: Config, k_inv: torch.Tensor, height: int, width: int,
     elif mesh is not None:
         march = meshlib.sharded_render_chunk(march, mesh)
 
-    if device.type == "cuda" and mesh is None:
+    if device.type == "cuda" and (mesh is None or (dist.captures(mesh.data)
+                                                   and dist.captures(mesh.sample))):
         group = n_chunks if not host_chunks else max(1, min(int(host_chunks), n_chunks))
-        return _graphed(march, rows, cols, chunk, group, (height, width), extras)
+        return _graphed(march, rows, cols, chunk, group, (height, width), extras,
+                        collectives=mesh is not None and mesh.size > 1)
 
     @torch.no_grad()
     def frame(params, pose17_row):
@@ -295,12 +301,13 @@ def make_frame_fn(cfg: Config, k_inv: torch.Tensor, height: int, width: int,
 
 
 def _graphed(march, rows: torch.Tensor, cols: torch.Tensor, chunk: int, group: int,
-             shape, extras: bool):
+             shape, extras: bool, collectives: bool = False):
     """``make_frame_fn``'s frame on the card: ``group`` chunks of ``chunk``
-    rays a CUDA graph (``graphs.capture``), over static pixel, pose and
-    output buffers, replayed for each group of the view. The first call
-    renders its first group eagerly (``graphs.warm``: the libraries and
-    caches the chunks need) and then captures; a call with params at other
+    rays a CUDA graph (``graphs.capture``; ``collectives``: the march calls
+    NCCL collectives), over static pixel, pose and output buffers, replayed
+    for each group of the view. The first call renders its first group
+    eagerly (``graphs.warm``: the libraries and caches the chunks need, and
+    the communicators) and then captures; a call with params at other
     addresses than the captured ones captures again."""
     from tinynerf_torch import graphs
     device = rows.device
@@ -345,7 +352,8 @@ def _graphed(march, rows: torch.Tensor, cols: torch.Tensor, chunk: int, group: i
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 held["warm_s"] = time.perf_counter() - t0
-                held["graph"] = graphs.capture(functools.partial(body, params), device)
+                held["graph"] = graphs.capture(functools.partial(body, params), device,
+                                               collectives=collectives)
             else:
                 held["graph"].replay()
             if n_groups > 1:

@@ -14,7 +14,12 @@ call from the host for the whole sequence of launches.
   so that nothing of it happens inside the capture. The warm-up is real
   work, a step of the chunk or the first frame group, not a throw-away.
 - ``capture`` records a body into a graph under ``capture_error_mode =
-  "global"``. A capture error raises; nothing falls back to eager calls.
+  "global"``, or ``"thread_local"`` where the body holds NCCL collectives:
+  the process group's watchdog thread queries the events of earlier
+  collectives while a capture runs, and under ``"global"`` that call from
+  another thread invalidates the capture; ``"thread_local"`` checks only
+  the capturing thread's calls. A capture error raises; nothing falls back
+  to eager calls.
   The wrapper calls made while capturing launched nothing, so their counts
   are taken back, and each replay adds them (``Captured.replay``).
 - ``StepGraphs`` is a chunk of training steps on the card
@@ -26,6 +31,14 @@ call from the host for the whole sequence of launches.
   and a refresh step graph, each captured at its first use. The state's
   generator is registered with each graph, so a replay draws what the
   eager step would have drawn and advances the generator as far.
+
+Under a mesh over NCCL (``parallel/``) each rank captures its own graphs of
+its share of the step: the gradient's all-reduce in each, the refresh's
+gather in the refresh graph. Every rank decides the same refresh at the
+same iteration, so the ranks capture, and then replay, the same sequence of
+collectives; the warm-up step before each capture creates the
+communicators. Under gloo the collectives copy through the host, which a
+graph cannot hold: a chunk there is a host loop (``train.graphs_take``).
 """
 
 from __future__ import annotations
@@ -39,6 +52,7 @@ import torch
 
 from tinynerf_torch import optim
 from tinynerf_torch.kernels import wrappers
+from tinynerf_torch.parallel import distributed as dist
 
 
 @dataclasses.dataclass
@@ -72,10 +86,12 @@ def warm(body: Callable[[], object], device: torch.device):
 
 
 def capture(body: Callable[[], object], device: torch.device, pool=None,
-            generators: List[torch.Generator] = ()) -> Captured:
+            generators: List[torch.Generator] = (), collectives: bool = False) -> Captured:
     """``body()`` captured into a CUDA graph (in ``pool``, another graph's
     memory pool, where given), with ``generators`` registered so that a
-    replay advances them as the eager body would."""
+    replay advances them as the eager body would. ``collectives``: the body
+    calls NCCL collectives, captured in ``"thread_local"`` mode (module
+    docstring)."""
     counted = wrappers()
     before = {name: fn.launches for name, fn in counted.items()}
     torch.cuda.synchronize(device)
@@ -86,7 +102,8 @@ def capture(body: Callable[[], object], device: torch.device, pool=None,
         graph.register_generator_state(gen)
     t0 = time.perf_counter()
     try:
-        with torch.cuda.graph(graph, pool=pool, capture_error_mode="global"):
+        mode = "thread_local" if collectives else "global"
+        with torch.cuda.graph(graph, pool=pool, capture_error_mode=mode):
             body()
     finally:
         launches = {name: fn.launches - before[name] for name, fn in counted.items()}
@@ -119,9 +136,15 @@ class StepGraphs:
     steps and the replays."""
 
     def __init__(self, step_fn: Callable, unroll: int):
-        if step_fn.mesh is not None:
-            raise ValueError("a step under a mesh runs one step per call: its collectives "
-                             "are not captured (ROADMAP item 18)")
+        mesh = step_fn.mesh
+        if mesh is not None and not dist.captures(mesh.data):
+            raise ValueError(
+                "a step under a mesh over gloo is not graphed: gloo's collectives copy "
+                "through the host, which a CUDA graph cannot capture, so its chunks run "
+                "as a host loop (train.graphs_take); several ranks on one card under gloo "
+                "are a test set-up, a job graphs its steps over NCCL, one rank a card")
+        # the step holds collectives where its data group has other ranks
+        self.collectives = mesh is not None and dist.world_size(mesh.data) > 1
         self.step_fn, self.unroll, self.cfg = step_fn, unroll, step_fn.cfg
         self.static = None       # the TrainState whose tensors the graphs read and write
         self.graphs: Dict[bool, Captured] = {}   # by refresh step
@@ -200,7 +223,7 @@ class StepGraphs:
                 continue
             body = functools.partial(self._body, refresh)
             warm(body, device)
-            graph = capture(body, device, self.pool, [st.generator])
+            graph = capture(body, device, self.pool, [st.generator], self.collectives)
             self.pool = self.pool or graph.graph.pool()
             self.graphs[refresh] = graph
             self.stats["warm_steps"] += 1

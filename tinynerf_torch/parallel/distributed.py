@@ -26,6 +26,12 @@ copy of a card's tensor and NCCL's on a card copy of a host tensor, so that
 one code serves both. A group of one
 rank makes them identities. Every rank of the group must call each of them,
 in the same order.
+
+Under NCCL a card's tensor stays on the card: ``all_reduce``, ``all_gather``
+(one ``all_gather_into_tensor``) and ``gather_rows`` copy nothing through the
+host and read no value there, so a CUDA graph can record them
+(``captures``; ``graphs.py``). Gloo's copy through the host and cannot be
+recorded.
 """
 
 from __future__ import annotations
@@ -162,6 +168,15 @@ def is_multiprocess() -> bool:
     return world_size() > 1
 
 
+def captures(group: Group = None) -> bool:
+    """Whether a CUDA graph can record ``group``'s collectives: true under
+    NCCL, which runs them on the card, and for a group of one rank, which
+    has none; false under gloo, which copies through the host."""
+    if world_size(group) == 1:
+        return True
+    return dist.get_backend(group) == "nccl"
+
+
 def _comm_device(group: Group) -> torch.device:
     """Where ``group``'s backend takes tensors: gloo on the host, NCCL on
     this rank's card."""
@@ -188,6 +203,11 @@ def all_gather(t: torch.Tensor, group: Group = None) -> List[torch.Tensor]:
     n = world_size(group)
     if n == 1:
         return [t]
+    if t.is_cuda and dist.get_backend(group) == "nccl":
+        src = t.contiguous()
+        out = src.new_empty((n, *src.shape))
+        dist.all_gather_into_tensor(out, src, group=group)
+        return list(out.unbind(0))
     src = t.to(_comm_device(group)).contiguous()
     out = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(out, src, group=group)

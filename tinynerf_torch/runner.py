@@ -275,10 +275,14 @@ class Runner:
         ``make_chunked_indexed_step``; on the card CUDA graphs, which a
         milestone's new shapes make capture again), one step a call where a
         chunk would pass ``end``, a milestone or a ``STEP`` boundary
-        (``takes_chunk``), and every step alone under ``HOST_FEED``, while
-        ``PROFILE_STEPS`` traces, and under a mesh (its collectives are not
-        captured; ROADMAP item 18). The logger gets each step's loss and
-        rate all the same."""
+        (``takes_chunk``), and every step alone under ``HOST_FEED`` and
+        while ``PROFILE_STEPS`` traces, as in the JAX package
+        (``tinynerf/runner.py:292-301``). Under a mesh every rank takes the
+        same plan, so the ranks' chunks, and their captures after a
+        milestone, meet: on the card over NCCL each chunk replays graphs
+        that hold the collectives, under gloo it is a host loop
+        (``train.graphs_take``); rank 0 prints which at the first chunk. The
+        logger gets each step's loss and rate all the same."""
         cfg = self.cfg
         if self.logger is None:
             self.logger = (MetricLogger(os.path.join(cfg.log_dir, self.start_time))
@@ -319,7 +323,7 @@ class Runner:
             """The chunk size and the chunked step, or (1, None) where every
             step goes alone."""
             n = (self._chunk_size(cfg.step) if not cfg.host_feed and profiling_until < 0
-                 and self.mesh is None else 1)
+                 else 1)
             if n <= 1:
                 return 1, None
             if epoch is not None:
@@ -327,6 +331,7 @@ class Runner:
             return n, trainlib.make_chunked_step(step_fn, n)
 
         chunk, multi_fn = make_multi()
+        announced = not self.is_main    # rank 0 names the chunks' form at the first
         feeder = tracer = None
         meter = Throughput(rays_per_step=cfg.batch_ray)
         it = start
@@ -352,6 +357,9 @@ class Runner:
                     chunk, multi_fn = make_multi()
                 if multi_fn is not None and takes_chunk(it, chunk, end,
                                                         [i for i, _ in upsample], cfg.step):
+                    if not announced:
+                        print(self._chunk_line(step_fn, chunk))
+                        announced = True
                     if epoch is not None:
                         self.state, metrics = multi_fn(
                             self.state, epoch[it - start:it - start + chunk])
@@ -414,9 +422,18 @@ class Runner:
         self.logger.flush()
         self.trained = True
         if dist.is_multiprocess():
+            # one write: the ranks share their stdout
             print(f"[RANK {dist.rank()}/{dist.world_size()}] params sha256 "
-                  f"{dist.params_digest(self.state.params)}")
+                  f"{dist.params_digest(self.state.params)}", flush=True)
             dist.barrier()   # rank 0's last checkpoint is on disk
+
+    def _chunk_line(self, step_fn, chunk: int) -> str:
+        """``[CHUNKS]``: the chunk size and whether a chunk replays CUDA
+        graphs or runs a host loop (``train.graphs_take``), and where."""
+        form = "CUDA graphs" if trainlib.graphs_take(step_fn, self.device) else "a host loop"
+        where = ("the CPU" if self.device.type != "cuda" else "one card" if self.mesh is None
+                 else f"{dist.world_size()} ranks over {dist.process_info()['backend']}")
+        return f"[CHUNKS] {chunk} steps a call on {where}: {form}"
 
     @staticmethod
     def _chunk_size(step: int, cap: int = CHUNK_CAP) -> int:

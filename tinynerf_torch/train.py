@@ -28,7 +28,9 @@ The JAX package fuses several steps into one XLA program (``lax.scan`` in
 a chunk of steps a call with the same metrics (the scalars stacked, the
 preview fields of the last step). On the CPU a chunk is its plain version,
 the steps one after another; on the card each step of a chunk is the
-replay of a CUDA graph (``graphs.StepGraphs``). Adam's scalars of a chunk
+replay of a CUDA graph (``graphs.StepGraphs``), under a mesh too where its
+collectives run over NCCL; under gloo a chunk is a host loop of steps
+(``graphs_take``). Adam's scalars of a chunk
 are made on the host and read as tensors (``optim.adam_rates``), so a
 graph's replay takes each step's own.
 
@@ -50,7 +52,7 @@ from tinynerf_torch.data.rays import RayBatch, RayTable
 # one field for training and rendering
 from tinynerf_torch.eval import (check_supported, make_field_fn, make_prop_field_fn,
                                  net_params, prop_params)
-from tinynerf_torch.parallel import mesh as meshlib
+from tinynerf_torch.parallel import distributed as dist, mesh as meshlib
 
 Metrics = dict
 # the proposal field's fresh weights come from a generator seeded SEED + 2 (SEED
@@ -408,6 +410,16 @@ def chunk_rates(cfg: Config, state: TrainState, unroll: int,
     return rates, lrs
 
 
+def graphs_take(step_fn: Callable, device: torch.device) -> bool:
+    """Whether a chunk of ``step_fn`` replays CUDA graphs on ``device``: on
+    the card, without a mesh or under one whose data group's collectives a
+    graph can record (NCCL, ``distributed.captures``). On the CPU, and on
+    the card under gloo, which copies its collectives through the host, the
+    chunk is a host loop of steps. The backend decides, before any work."""
+    mesh = step_fn.mesh
+    return torch.device(device).type == "cuda" and (mesh is None or dist.captures(mesh.data))
+
+
 class ChunkedStep:
     """``unroll`` steps of ``step_fn`` a call, the counterpart of the JAX
     package's scan-fused chunks: ``chunk(state) -> (state, metrics)``, or
@@ -420,9 +432,10 @@ class ChunkedStep:
     may pass ``occ_draws``, one ``refresh_occ`` draw (or None) a step. On the
     card the chunk replays step graphs (``graphs.StepGraphs``), which take
     the state's tensors as their own and update them in place: the state
-    passed in is spent, as the JAX package donates it. A capture or replay
-    error raises. A step under a mesh is refused there: its collectives are
-    not captured (ROADMAP item 18)."""
+    passed in is spent, as the JAX package donates it; under a mesh, each
+    rank its own graphs, which hold the step's collectives (NCCL). Under a
+    mesh over gloo the steps run one after another on the card too
+    (``graphs_take``). A capture or replay error raises."""
 
     def __init__(self, step_fn: Callable, unroll: int):
         if step_fn.indexed is None:
@@ -439,7 +452,7 @@ class ChunkedStep:
         if idx is not None and idx.shape[0] != self.unroll:
             raise ValueError(f"index chunk of {idx.shape[0]} rows for {self.unroll} steps")
         rates, lrs = chunk_rates(self.step_fn.cfg, state, self.unroll)
-        if state.generator.device.type == "cuda":
+        if graphs_take(self.step_fn, state.generator.device):
             if occ_draws is not None:
                 raise ValueError("occ_draws is a test hook of the plain chunk (the CPU)")
             if self.graphs is None:
@@ -447,6 +460,7 @@ class ChunkedStep:
                 self.graphs = StepGraphs(self.step_fn, self.unroll)
             return self.graphs(state, rates, lrs, idx)
         losses = []
+        rates = rates.to(state.generator.device)
         for k in range(self.unroll):
             kw = dict(rates=rates[k])
             if occ_draws is not None:
