@@ -299,10 +299,26 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
    across the ranks bit for bit; then ``python -m tinynerf_torch --mode
    train`` with ``MESH_SHAPE = N`` in graphed chunks, every rank's digest
    equal. With one card it prints that there is no NCCL job;
-32. prints one ``{"kernels": [...]}`` line (every kernel form, with its
+32. the gather lookup and the reference state-dict bridge (``gather_phases``):
+   ``conf/lego_grid.ini`` with ``GRID_PALLAS`` and ``GRID_LOOKUP = gather``
+   at bf16 and at fp32, and the flagship (``conf/lego_hybrid.ini``) with the
+   gather, at full width: 8 eager steps twice from one state (the occupancy
+   grid refreshed at 0 and 4) bit-identical, a graphed chunk of 8
+   bit-identical to them with the same launches, every lookup of the point
+   field the gather (lego_grid: the refresh's probes alone, the rays
+   through kernels 5 and 6), one step's gradient card vs CPU per part (fp32
+   cosine >= 0.9999 and norm within 1%, bf16 cosine >= 0.999), ms/step
+   eager and graphed beside the onehot lookup's, in turns; the flagship's
+   800x800 view through the whole-frame graph; then a seeded reference
+   state dict through ``tinynerf_torch.tools.import_torch_ckpt``, the
+   Runner on ``conf/lego.ini`` (fp32) resuming it and rendering one 800x800
+   view through kernel 1, bit-identical to the view from the same weights
+   by ``params_from_numpy``, and ``export_torch_state_dict`` giving the
+   state dict back bit for bit;
+33. prints one ``{"kernels": [...]}`` line (every kernel form, with its
    launches under the graphed paths, phase 31's a rank,
-   ``graphed_launches``) and, last, one ``{"ok": true, "device": {...}}``
-   line.
+   ``graphed_launches``; phase 32's among ``launches_by_path``) and, last,
+   one ``{"ok": true, "device": {...}}`` line.
 
 Kernel 4 (``csrc/field_flat_bwd.cu``) is held against its plain version in
 phase 3h (fp32 and bf16, at an unbounded360-mlp step's R = 524,288 fine
@@ -527,6 +543,16 @@ MESH_PATHS = (("lego_occ", "lego_occ", {}),               # bf16 4096 rays: kern
 MESH_FRAME_PATHS = ("lego_occ",)
 MESH_CLI_ITERS = 20         # the CLI under the mesh: two chunks of MESH_CLI_STEP
 MESH_CLI_STEP = 10
+# phase 32: the gather lookup (GRID_LOOKUP = gather) and the reference state-dict bridge
+GATHER_K = 8                # eager steps a run and steps a chunk; refreshes at 0 and 4
+GATHER_PATHS = (("lego_grid_gather", "lego_grid", {"grid_pallas": True}),  # bf16: kernels 5, 6
+                ("lego_grid_gather_fp32", "lego_grid",
+                 {"grid_pallas": True, "precision": "fp32"}),             # kernels 5, 6 fp32
+                ("lego_hybrid_gather", "lego_hybrid", {}))                # the flagship: none
+GATHER_NORM = 1e-2          # fp32: a step's gradient norm, card vs CPU, per part
+GATHER_TIMING_TURNS = 2     # gather, onehot, in turns: ms/step of each
+BRIDGE_ITER = 19999         # the imported checkpoint's iteration
+BRIDGE_PARAMS = 593_924     # the reference Network's params
 
 
 def phase(title: str) -> None:
@@ -2852,12 +2878,12 @@ def graph_train_path(name: str, cfg, scene, dev) -> dict:
             "state": g}
 
 
-def graph_frames(name: str, cfg, scene, state, dev) -> dict:
+def graph_frames(name: str, cfg, scene, state, dev, forms=(0, 1)) -> dict:
     """Phase 30's frames of one path: view 0 of the scene through
     ``eval.make_frame_fn`` with one graph a view (``host_chunks = 0``) and
     with a graph a chunk along the view (``host_chunks = 1``, the host
-    loop): the first call renders eagerly and captures, the second
-    replays. Every frame bit-identical to the first call's (the eager host
+    loop), or the ``forms`` given: the first call renders eagerly and
+    captures, the second replays. Every frame bit-identical to the first call's (the eager host
     loop's), the same launches each call. s/frame (host clock): the eager
     host loop (the warm-up), each form's replay."""
     import numpy as np
@@ -2870,7 +2896,7 @@ def graph_frames(name: str, cfg, scene, state, dev) -> dict:
            else None)
     pose = np.asarray(scene.poses_bounds[0], np.float32)
     out, ref, total = {}, None, {}
-    for host_chunks in (0, 1):
+    for host_chunks in forms:
         fn = evallib.make_frame_fn(cfg, k_inv, h, w, occ_grid=state.occ, ndc_params=ndc,
                                    host_chunks=host_chunks)
         seconds, imgs, launches = [], [], []
@@ -2901,9 +2927,10 @@ def graph_frames(name: str, cfg, scene, state, dev) -> dict:
     print(f"{name} frame {h}x{w}: eager host loop {out[0]['eager_s']:.3f} s (the first call's "
           f"warm-up; capture {out[0]['capture_s']:.2f} s, pool "
           f"{out[0]['pool_bytes'] / 2 ** 20:.1f} MiB); whole-frame graph "
-          f"{out[0]['replay_s']:.3f} s; graph a chunk (host_chunks 1) {out[1]['replay_s']:.3f} s"
-          f" (capture {out[1]['capture_s']:.2f} s); every frame bit-identical; launches a "
-          f"frame {out[0]['launches']}")
+          f"{out[0]['replay_s']:.3f} s"
+          + (f"; graph a chunk (host_chunks 1) {out[1]['replay_s']:.3f} s (capture "
+             f"{out[1]['capture_s']:.2f} s)" if 1 in out else "")
+          + f"; every frame bit-identical; launches a frame {out[0]['launches']}")
     return {**out, "launches": total}
 
 
@@ -3425,6 +3452,315 @@ def mesh_phases(tmp: str) -> dict:
     print(f"phase 31 took {out['seconds']:.1f} s")
     if failures:
         raise AssertionError(f"phase 31 failed on {failures}")
+    return out
+
+
+def gather_grad_vs_cpu(name: str, cfg, runner, dev) -> dict:
+    """One step's gradient on the card against the same step on the CPU, at
+    the Runner's params and one batch, per part (each grid's lines, decoder
+    and sigma net, in float64): at fp32 (the config at ``PRECISION = fp32``)
+    cosine >= GRAD_COS and the norm within GATHER_NORM; at bf16 (the
+    config's own precision, where it is bf16) cosine >= BF16_COS. With the
+    gather, the table gradients sum in the same fixed order on both devices
+    (``gridfield._TapRows``). Returns the cosines, norm ratios and ``ok``."""
+    import dataclasses
+    import torch
+    from tinynerf_torch import optim, train
+    batch = runner.train_table.sample(torch.Generator(device=dev).manual_seed(3), cfg.batch_ray)
+    batch_cpu = type(batch)(*(t.cpu() for t in batch))
+    params_cpu = optim.tree_map(lambda t: t.cpu(), runner.params)
+    k_cpu = runner.k_inv.cpu()
+    grads = lambda c, k, p, b: train.loss_and_grads(train.make_loss_fn(c, k), p, b)[2]
+    flat = lambda tree: torch.cat([t.flatten().double().cpu() for t in optim.leaves(tree)])
+
+    def parts(a, b):
+        out = {}
+        for part in ("net", "prop"):
+            for key in a[part]:
+                if key == "extent":
+                    continue
+                x, y = flat(a[part][key]), flat(b[part][key])
+                out[f"{part}.{key}"] = (float(x @ y / (x.norm() * y.norm())),
+                                        float(x.norm() / y.norm()))
+        return out
+
+    t0 = time.perf_counter()
+    forms = ["fp32"] + (["bf16"] if cfg.precision == "bf16" else [])
+    result, ok = {}, True
+    for precision in forms:
+        c = dataclasses.replace(cfg, precision=precision)
+        got = parts(grads(c, runner.k_inv, runner.params, batch),
+                    grads(c, k_cpu, params_cpu, batch_cpu))
+        bound = GRAD_COS if precision == "fp32" else BF16_COS
+        passed = all(cos >= bound and (precision == "bf16" or abs(ratio - 1) <= GATHER_NORM)
+                     for cos, ratio in got.values())
+        ok = ok and passed
+        print(f"  {name}: one step's {precision} gradient, card vs CPU (the same params and "
+              f"batch of {cfg.batch_ray}): "
+              + ", ".join(f"{k} cos {cos:.7f} norm {ratio:.5f}" for k, (cos, ratio) in got.items())
+              + f" (cosine >= {bound}" + (f", norm within {GATHER_NORM}" if precision == "fp32"
+                                          else "") + f"): {'pass' if passed else 'FAIL'}")
+        result[precision] = {k: {"cosine": cos, "norm_ratio": ratio}
+                             for k, (cos, ratio) in got.items()}
+    print(f"  ({time.perf_counter() - t0:.1f} s with the CPU's {len(forms)} steps)")
+    return {**result, "ok": ok}
+
+
+def gather_timing(cfg, runner, state, dev) -> dict:
+    """ms/step of the gather and of the onehot lookup on one state, in turns
+    (GATHER_TIMING_TURNS each): GATHER_K eager steps, and a graphed chunk
+    of GATHER_K after its capture (host clock around synchronised calls)."""
+    import dataclasses
+    import torch
+    from tinynerf_torch import train
+    runs = {}
+    for lookup in ("gather", "onehot"):
+        c = dataclasses.replace(cfg, grid_lookup=lookup)
+        step = train.make_train_step(c, runner.train_table, runner.k_inv)
+        chunk = train.make_chunked_step(step, GATHER_K)
+        st = clone_state(state)
+        st, _ = chunk(st)          # the warm-up steps and the captures
+        st, _ = step(st)
+        runs[lookup] = [step, chunk, st]
+    times = {"gather": {"eager": [], "graphed": []}, "onehot": {"eager": [], "graphed": []}}
+    for _ in range(GATHER_TIMING_TURNS):
+        for lookup, run in runs.items():
+            step, chunk, st = run
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(GATHER_K):
+                st, _ = step(st)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            st, _ = chunk(st)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            run[2] = st
+            times[lookup]["eager"].append((t1 - t0) * 1e3 / GATHER_K)
+            times[lookup]["graphed"].append((t2 - t1) * 1e3 / GATHER_K)
+    return times
+
+
+def gather_path(name: str, cfg, scene, device: str) -> dict:
+    """Phase 32a, one path with ``GRID_LOOKUP = gather``: GATHER_K eager
+    steps twice from one state (the occupancy grid refreshed at 0 and 4),
+    bit-identical, and a graphed chunk of GATHER_K from the same state,
+    bit-identical to them, with the same kernel launches; every lookup of
+    the point field the gather (counted around ``gridfield._interp``: with
+    ``GRID_PALLAS`` the refresh's probes alone, three tables a refresh, the
+    rays through kernels 5 and 6); one step's gradient card vs CPU
+    (``gather_grad_vs_cpu``); ms/step eager and graphed beside the onehot
+    lookup's (``gather_timing``). Returns the numbers, the launches by kernel
+    form and the state after the chunk."""
+    import torch
+    from tinynerf_torch import train
+    from tinynerf_torch.core import gridfield
+    from tinynerf_torch.runner import Runner
+    dev = torch.device(device)
+    runner = Runner(cfg, device=device, scene=scene)
+    step = train.make_train_step(cfg, runner.train_table, runner.k_inv)
+    s0 = clone_state(runner.state)
+    lookups = {}
+    real = gridfield._interp
+
+    def counting(table, coord, rnd, lookup="onehot"):
+        lookups[lookup] = lookups.get(lookup, 0) + 1
+        return real(table, coord, rnd, lookup)
+
+    def eager():
+        st = clone_state(s0)
+        rates = train.chunk_rates(cfg, st, GATHER_K)[0].to(dev)
+        losses = []
+        for k in range(GATHER_K):
+            st, m = step(st, rates=rates[k])
+            losses.append(m["loss"])
+        return st, torch.stack(losses)
+
+    zero_launches()
+    gridfield._interp = counting
+    try:
+        e1, l1 = eager()
+    finally:
+        gridfield._interp = real
+    torch.cuda.synchronize()
+    eager_launches = launch_counts()
+    e2, l2 = eager()
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(state_tensors(a), state_tensors(b)))
+    deterministic = bool(torch.equal(l1, l2)) and same(e1, e2)
+    chunk = train.make_chunked_step(step, GATHER_K)
+    zero_launches()
+    g, m = chunk(clone_state(s0))
+    torch.cuda.synchronize()
+    graph_launches = launch_counts()
+    bit = bool(torch.equal(m["loss"], l1)) and same(g, e1)
+    refreshes = len(range(0, GATHER_K, cfg.occ_update_every))
+    # three tables a call of the point field, each by the gather
+    lookups_ok = set(lookups) == {"gather"} and lookups["gather"] % 3 == 0
+    want_launches = (launched(grid_rays=2 * GATHER_K, grid_rays_bwd=2 * GATHER_K)
+                     if cfg.grid_pallas else launched())
+    print(f"{name} ({cfg.precision}, GRID_LOOKUP {cfg.grid_lookup}): {GATHER_K} eager steps "
+          f"twice from one state: {'bit-identical' if deterministic else 'not bit-identical'}; "
+          f"a graphed chunk of {GATHER_K} against them: "
+          f"{'bit-identical' if bit else 'not bit-identical'}; point-field lookups in the first "
+          f"run {lookups} ({refreshes} refreshes); launches eager "
+          f"{ {k: v for k, v in eager_launches.items() if v} }, graphed "
+          f"{ {k: v for k, v in graph_launches.items() if v} }; losses {float(l1[0]):.4f} .. "
+          f"{float(l1[-1]):.4f}")
+    if not deterministic:
+        raise AssertionError(f"{name}: two eager runs from one state differ")
+    if not bit:
+        raise AssertionError(f"{name}: the graphed chunk differs from the eager steps")
+    if not lookups_ok:
+        raise AssertionError(f"{name}: the point field's lookups were not the gather's")
+    if eager_launches != want_launches or graph_launches != eager_launches:
+        raise AssertionError(f"{name}: the steps did not launch the expected kernels")
+    if not torch.isfinite(l1).all():
+        raise AssertionError(f"{name}: a loss is not finite")
+    runner.state = g
+    grad = gather_grad_vs_cpu(name, cfg, runner, dev)
+    if not grad["ok"]:
+        raise AssertionError(f"{name}: the step's gradient on the card disagrees with the CPU's")
+    times = gather_timing(cfg, runner, g, dev)
+    fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)
+    print(f"{name}: ms/step in turns, gather eager {fmt(times['gather']['eager'])}, graphed "
+          f"{fmt(times['gather']['graphed'])}; onehot eager {fmt(times['onehot']['eager'])}, "
+          f"graphed {fmt(times['onehot']['graphed'])}")
+    launches = {}
+    add_launches(launches, eager_launches, cfg.precision, f"{name} train (eager)")
+    add_launches(launches, graph_launches, cfg.precision, f"{name} graphed train")
+    return {"eager_deterministic": deterministic, "graph_bit_identical": bit,
+            "lookups": lookups, "grad_vs_cpu": grad, "ms_per_step": times,
+            "launches": launches, "state": g}
+
+
+def bridge_phase(tmp: str, device: str) -> dict:
+    """Phase 32b, the reference state-dict bridge: a seeded state dict under
+    the reference ``Network``'s names (``nn.Linear``'s uniform, the sigma
+    bias raised by 1), ``torch.save``d; ``python -m
+    tinynerf_torch.tools.import_torch_ckpt`` (its ``main``) turns it into
+    ``imported_<BRIDGE_ITER>.npz``; the Runner on ``conf/lego.ini`` (fp32,
+    ``USE_PALLAS``) resumes it and renders view 0 (800x800) through kernel 1
+    alone, equal bit for bit to the view rendered from the same weights
+    carried by ``ckpt.params_from_numpy``; ``export_torch_state_dict`` of
+    the loaded tree equals the state dict bit for bit."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from tinynerf_torch import ckpt, eval as evallib
+    from tinynerf_torch.core import mlp
+    from tinynerf_torch.runner import Runner
+    from tinynerf_torch.tools import import_torch_ckpt
+    root = os.path.join(tmp, "bridge")
+    os.makedirs(root, exist_ok=True)
+    gen = torch.Generator().manual_seed(7)
+    sd = {}
+    for name, fan_in, fan_out in mlp.layer_dims():
+        ref, bound = ckpt.REFERENCE_LAYERS[name], 1.0 / math.sqrt(fan_in)
+        sd[f"{ref}.weight"] = (torch.rand((fan_out, fan_in), generator=gen) * 2 - 1) * bound
+        sd[f"{ref}.bias"] = (torch.rand(fan_out, generator=gen) * 2 - 1) * bound
+    sd["sigma_layer.0.bias"] += 1.0
+    src = os.path.join(root, "reference_state_dict.pkl")
+    torch.save(sd, src)
+    out_dir = os.path.join(root, "ckpt")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        import_torch_ckpt.main([src, out_dir, "--iter", str(BRIDGE_ITER)])
+    path = os.path.join(out_dir, f"imported_{BRIDGE_ITER}.npz")
+    line = printed.getvalue().strip()
+    print(f"import tool: {line}")
+    if line != f"imported {BRIDGE_PARAMS:,} params -> {path}":
+        raise AssertionError("the import tool did not write the checkpoint it should")
+    cfg = run_config("lego", tmp, "bridge", 1)
+    cfg.ckpt_path, cfg.continue_ = out_dir, True
+    runner = Runner(cfg, device=device, scene=blender_scene(TRAIN_VIEWS, 800, cfg.seed))
+    if runner.last_iter != BRIDGE_ITER:
+        raise AssertionError(f"the Runner resumed iteration {runner.last_iter}")
+    direct = ckpt.params_from_numpy(
+        {name: {"w": sd[f"{ref}.weight"].numpy().T, "b": sd[f"{ref}.bias"].numpy()}
+         for name, ref in ckpt.REFERENCE_LAYERS.items()}, torch.device(device))
+    frames, seconds, launches = {}, {}, {}
+    for tag, params in (("imported", runner.params), ("params_from_numpy", direct)):
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames[tag] = evallib.render_test_set(cfg, params, runner.test_table, runner.k_inv,
+                                              runner.start_time, runner.last_iter, save=False,
+                                              max_views=1)
+        torch.cuda.synchronize()
+        seconds[tag] = time.perf_counter() - t0
+        launches[tag] = launch_counts()
+    frame = frames["imported"]
+    equal = bool(np.array_equal(frame, frames["params_from_numpy"]))
+    back = ckpt.export_torch_state_dict(runner.params)
+    exported = list(back) == list(sd) and all(np.array_equal(back[k], v.numpy())
+                                              for k, v in sd.items())
+    counted = launches["imported"]
+    print(f"lego (fp32, USE_PALLAS) from the imported checkpoint: view 0 {frame.shape[1]}x"
+          f"{frame.shape[2]} in {seconds['imported']:.3f} s (from params_from_numpy "
+          f"{seconds['params_from_numpy']:.3f} s); launches "
+          f"{ {k: v for k, v in counted.items() if v} }; "
+          f"the two views bit-identical: {equal}; frame mean {frame.mean():.4f}, range "
+          f"{frame.min():.4f} .. {frame.max():.4f}; export_torch_state_dict equals the state "
+          f"dict bit for bit: {exported}")
+    if not equal:
+        raise AssertionError("the imported weights' view differs from params_from_numpy's")
+    if not (counted["field_rays"] > 0 and counted == launches["params_from_numpy"]
+            and counted == launched(field_rays=counted["field_rays"])):
+        raise AssertionError("the bridge's views did not run through kernel 1 alone")
+    if not (np.all(np.isfinite(frame)) and frame.min() >= 0 and frame.max() <= 1
+            and frame.max() - frame.min() > 0.01):
+        raise AssertionError("the bridge's view is not finite values in [0, 1] with content")
+    if not exported:
+        raise AssertionError("export_torch_state_dict did not give the state dict back")
+    table = {}
+    for tag in frames:
+        add_launches(table, launches[tag], cfg.precision, f"lego view from the bridge ({tag})")
+    return {"frame_s": seconds, "bit_identical": equal, "exported_equal": exported,
+            "launches": table}
+
+
+def gather_phases(tmp: str, device: str = "cuda") -> dict:
+    """Phase 32: ``GRID_LOOKUP = gather`` on ``conf/lego_grid.ini`` with
+    ``GRID_PALLAS`` at bf16 and fp32 and on the flagship
+    (``conf/lego_hybrid.ini``) (``gather_path``), the flagship's 800x800 view
+    through the whole-frame graph (``graph_frames``), then the reference
+    state-dict bridge (``bridge_phase``), on ``device`` (the card; the CPU
+    only to rehearse, at the sizes the caller sets). Returns the numbers and
+    ``launches`` by kernel form and path."""
+    import torch
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    out = {"card": smi, "paths": {}, "launches": {}}
+    for name, conf, kw in GATHER_PATHS:
+        cfg = run_config(conf, tmp, f"gather_{name}", 2 * GATHER_K, grid_lookup="gather", **kw)
+        cfg.occ_update_every = GRAPH_REFRESH_EVERY
+        phase(f"gather-{name} ({cfg.precision}, GRID_LOOKUP = gather, BATCH_RAY {cfg.batch_ray}"
+              f"{', GRID_PALLAS' if cfg.grid_pallas else ''}; {GATHER_K} eager steps twice vs a "
+              f"graphed chunk; card vs CPU; ms/step beside onehot)")
+        scene = blender_scene(n_views=TRAIN_VIEWS, hw=800, seed=cfg.seed)
+        res = gather_path(name, cfg, scene, device)
+        state = res.pop("state")
+        for form, paths in res.pop("launches").items():
+            for path, count in paths.items():
+                out["launches"].setdefault(form, {})[path] = count
+        if not cfg.grid_pallas:
+            phase(f"gather-{name} frame (one 800x800 view through the whole-frame graph)")
+            res["frame"] = graph_frames(name, cfg, scene, state, dev, forms=(0,))
+            res["frame"].pop("launches")
+        out["paths"][name] = res
+        del state, scene
+        torch.cuda.empty_cache()
+    phase("bridge (a reference state dict -> tools.import_torch_ckpt -> the Runner on "
+          "conf/lego.ini, one 800x800 view through kernel 1; export_torch_state_dict)")
+    bridge = bridge_phase(tmp, device)
+    for form, paths in bridge.pop("launches").items():
+        out["launches"].setdefault(form, {}).update(paths)
+    out["bridge"] = bridge
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"{smi}; phase 32 took {out['seconds']:.1f} s")
     return out
 
 
@@ -5372,7 +5708,10 @@ def main() -> int:
         # ---- 31. phase 30 under a mesh of NCCL ranks (two cards or more) ----
         meshed = mesh_phases(tmp)
 
-    # ---- 32. results ----
+        # ---- 32. the gather lookup and the reference state-dict bridge ----
+        gathered = gather_phases(tmp)
+
+    # ---- 33. results ----
     mean = lambda table, shapes, i: sum(table[s][i] for s in shapes) / len(shapes)
     shape_key = lambda s: (f"B={s[0]},N={s[1]}" if len(s) == 2 else f"R={s[0]}" if len(s) == 1
                            else f"B={s[0]},N_c={s[1]},N_f={s[2]}")
@@ -5580,6 +5919,11 @@ def main() -> int:
     for entry in kernels:
         entry["graphed_launches"] = {**graphed["launches"].get(entry["name"], {}),
                                      **meshed["launches"].get(entry["name"], {})}
+    # phase 32's paths: the gather's steps and chunks, the bridge's views
+    for entry in kernels:
+        extra = gathered["launches"].get(entry["name"], {})
+        entry["launches_by_path"].update(extra)
+        entry["launches"] += sum(extra.values())
     print(json.dumps({"train_step": {str(b): {"ms": t[0], "kernel_ms": t[1]}
                                      for b, t in step_time.items()},
                       "lego_occ": {"step_ms": occ_ms, "kernel_ms": occ_kern,
@@ -5612,6 +5956,7 @@ def main() -> int:
                       "parallel": {k: v for k, v in parallel.items() if k != "launches"},
                       "graphs": {k: v for k, v in graphed.items() if k != "launches"},
                       "mesh_graphs": {k: v for k, v in meshed.items() if k != "launches"},
+                      "gather_bridge": {k: v for k, v in gathered.items() if k != "launches"},
                       **{k: v for k, v in validate.items() if k != "launches"}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

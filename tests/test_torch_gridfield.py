@@ -1,7 +1,8 @@
 """The port's CP grid field (``tinynerf_torch.core.gridfield``: init, the
-point field, ``tv_loss``), ``train.make_lr_scale``, grid checkpoints, the
-grid forms still refused and the flagship's keys accepted, against the JAX package's, on the CPU at small
-sizes. Inputs are made with numpy from a seed and handed to both."""
+point field, ``tv_loss``), ``train.make_lr_scale``, grid checkpoints, both
+grid lookups and the flagship's keys accepted, against the JAX package's, on
+the CPU at small sizes. Inputs are made with numpy from a seed and handed to
+both."""
 
 import dataclasses
 import functools
@@ -249,40 +250,25 @@ def test_grid_pair_checkpoint_round_trips_between_the_packages(tmp_path):
 # ---------------------------------------------------------------- refusals
 
 
-def test_unported_grid_forms_are_refused_by_name():
-    """``GRID_LOOKUP = gather`` is refused by name (ROADMAP queue 1, item
-    14); the hybrid sigma net, the pyramid and its fold are ported
-    (``tests/test_torch_grid_hybrid.py``)."""
-    with pytest.raises(NotImplementedError, match="GRID_LOOKUP=gather"):
-        gridfield.make_field_grid(lookup="gather")
-    with pytest.raises(NotImplementedError, match="GRID_LOOKUP=gather"):
-        gridfield.make_field_grid(lookup="gather", fold=True)
+def test_unported_grid_forms_are_refused_by_name(sync_scene_dir, tmp_path):
+    """No grid form is refused any more: ``GRID_LOOKUP = gather``, once
+    refused by name, builds (plain and folded; ``tests/test_torch_grid_lookup.py``
+    holds it against the JAX package), and a Runner trains two steps with it
+    on the fine grid's fold. The hybrid sigma net, the pyramid and its fold
+    are ported too (``tests/test_torch_grid_hybrid.py``)."""
+    for fold in (False, True):
+        field = gridfield.make_field_grid(n_density=2, lookup="gather", fold=fold)
+        params = gridfield.init_grid_field(torch.Generator().manual_seed(0), res=9, n_density=2,
+                                           n_app=3, decoder_width=8, levels=2)
+        color, sigma = field(params, torch.zeros(5, 3), torch.ones(5, 3) / 3 ** 0.5)
+        assert color.shape == (5, 3) and sigma.shape == (5, 1)
+    _train_two_steps(dict(fine_field="grid", grid_lookup="gather", grid_levels=2,
+                          grid_level_fold=True), sync_scene_dir, tmp_path)
 
 
-@pytest.mark.parametrize("kw,what", [
-    (dict(fine_field="grid", grid_upsample="1:12"), None),
-    (dict(fine_field="grid", grid_lookup="gather"), "GRID_LOOKUP=gather"),
-    (dict(mesh_shape=4), "MESH_SHAPE=4"),
-    (dict(mesh_shape=3, sample_shard=2), "SAMPLE_SHARD=2")])
-def test_check_supported_refuses_unported_keys(kw, what, sync_scene_dir, tmp_path):
-    """``GRID_UPSAMPLE``, once refused here, is accepted, and a Runner trains
-    two steps with it (the grid at small widths; the milestone at 1 resizes
-    it to R = 12); ``GRID_LOOKUP = gather`` is still refused by name. A mesh
-    over several ranks is ported (``parallel/``): what is refused by name
-    now is a ``MESH_SHAPE`` other than the job's world size (1 here) and a
-    ``SAMPLE_SHARD`` that does not divide it (a job of 3)."""
-    if what is not None:
-        if what.startswith("GRID_LOOKUP"):
-            with pytest.raises(NotImplementedError, match=f"{what} is not ported yet .ROADMAP"):
-                evallib.check_supported(Config(**kw))
-        else:
-            # the world size of this process (1), or of a job of 3
-            check = (functools.partial(meshlib.check_mesh, world=kw["mesh_shape"])
-                     if "sample_shard" in kw else evallib.check_supported)
-            with pytest.raises(ValueError, match=what):
-                check(Config(**kw))
-        return
-    cfg = Config(img_dir=f"{sync_scene_dir}/", data_type="sync", n_coarse=8, n_fine=16,
+def _train_two_steps(kw, scene_dir, tmp_path):
+    """A Runner on ``kw`` at small widths trains two steps on the CPU."""
+    cfg = Config(img_dir=f"{scene_dir}/", data_type="sync", n_coarse=8, n_fine=16,
                  batch_ray=32, total_iter=2, step=1000, grid_res=9, grid_comp_density=2,
                  grid_comp_app=3, grid_decoder_width=8, ckpt_path=str(tmp_path / "ckpt"),
                  log_dir=str(tmp_path / "runs"), **kw)
@@ -291,6 +277,36 @@ def test_check_supported_refuses_unported_keys(kw, what, sync_scene_dir, tmp_pat
     runner.logger = MetricLogger(cfg.log_dir, use_tensorboard=False)   # JSONL alone
     runner.train()
     assert runner.state.iteration == 2
+    return runner
+
+
+@pytest.mark.parametrize("kw,what", [
+    (dict(fine_field="grid", grid_upsample="1:12"), None),
+    (dict(fine_field="grid", grid_lookup="gather"), "GRID_LOOKUP=gather"),
+    (dict(mesh_shape=4), "MESH_SHAPE=4"),
+    (dict(mesh_shape=3, sample_shard=2), "SAMPLE_SHARD=2")])
+def test_check_supported_refuses_unported_keys(kw, what, sync_scene_dir, tmp_path):
+    """``GRID_UPSAMPLE`` and ``GRID_LOOKUP = gather``, once refused here, are
+    accepted, and a Runner trains two steps with each (the grid at small
+    widths; the milestone at 1 resizes it to R = 12; the gather on both
+    grids, the proposal's too). A mesh over several ranks is ported
+    (``parallel/``): what is refused by name now is a ``MESH_SHAPE`` other
+    than the job's world size (1 here) and a ``SAMPLE_SHARD`` that does not
+    divide it (a job of 3)."""
+    if what == "GRID_LOOKUP=gather":
+        runner = _train_two_steps(dict(kw, proposal=True, prop_field="grid", prop_grid_res=8,
+                                       prop_grid_comp_density=2, prop_grid_comp_app=2,
+                                       prop_grid_decoder_width=8), sync_scene_dir, tmp_path)
+        assert runner.cfg.grid_lookup == "gather"
+        return
+    if what is not None:
+        # the world size of this process (1), or of a job of 3
+        check = (functools.partial(meshlib.check_mesh, world=kw["mesh_shape"])
+                 if "sample_shard" in kw else evallib.check_supported)
+        with pytest.raises(ValueError, match=what):
+            check(Config(**kw))
+        return
+    runner = _train_two_steps(kw, sync_scene_dir, tmp_path)
     assert runner.params["lines"]["x"].shape[0] == 12
 
 

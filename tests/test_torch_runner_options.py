@@ -18,6 +18,7 @@ from tinynerf.runner import Runner as JRunner
 from tinynerf_torch import ckpt, eval as evallib, optim, profiling
 from tinynerf_torch.config import Config
 from tinynerf_torch.kernels import render_kernel
+from tinynerf_torch.logging import MetricLogger
 from tinynerf_torch.parallel import mesh as meshlib
 from tinynerf_torch.runner import Runner
 from tests.torch_workers import torch_threads  # noqa: F401 (autouse)
@@ -148,19 +149,29 @@ def test_check_supported_accepts_the_runner_options(kw):
     evallib.check_supported(Config(**kw))
 
 
-def test_check_supported_keeps_the_pyramid_error_and_the_refusals():
+def test_check_supported_keeps_the_pyramid_error_and_the_refusals(sync_scene_dir, tmp_path):
     """``GRID_UPSAMPLE`` with a pyramid is the JAX package's ``ValueError``;
-    the gather lookup (item 14), on the fine grid or the proposal grid, is
-    refused by name; so are a ``MESH_SHAPE`` other than the job's world
-    size and a ``SAMPLE_SHARD`` that does not divide it, now that a mesh
-    over several ranks is ported (``parallel/``)."""
+    the gather lookup, once refused by name, is accepted on the fine grid
+    and on the proposal grid, and a Runner trains two steps with each; a
+    ``MESH_SHAPE`` other than the job's world size and a ``SAMPLE_SHARD``
+    that does not divide it are refused, now that a mesh over several ranks
+    is ported (``parallel/``)."""
     with pytest.raises(ValueError, match="GRID_UPSAMPLE is incompatible with GRID_LEVELS>1"):
         evallib.check_supported(Config(fine_field="grid", grid_upsample="100:128",
                                        grid_levels=2))
-    for kw in (dict(fine_field="grid", grid_lookup="gather"),
-               dict(proposal=True, prop_field="grid", grid_lookup="gather")):
-        with pytest.raises(NotImplementedError, match="GRID_LOOKUP=gather .*item 14"):
-            evallib.check_supported(Config(**kw))
+    small = dict(img_dir=f"{sync_scene_dir}/", data_type="sync", n_coarse=8, n_fine=16,
+                 batch_ray=32, total_iter=2, step=1000, grid_res=9, grid_comp_density=2,
+                 grid_comp_app=3, grid_decoder_width=8, prop_grid_res=8,
+                 prop_grid_comp_density=2, prop_grid_comp_app=2, prop_grid_decoder_width=8)
+    for i, kw in enumerate((dict(fine_field="grid", grid_lookup="gather"),
+                            dict(proposal=True, prop_field="grid", grid_lookup="gather"))):
+        cfg = Config(**small, **kw, ckpt_path=str(tmp_path / f"ckpt{i}"),
+                     log_dir=str(tmp_path / f"runs{i}"))
+        evallib.check_supported(cfg)
+        runner = Runner(cfg, device="cpu")
+        runner.logger = MetricLogger(cfg.log_dir, use_tensorboard=False)
+        runner.train()
+        assert runner.state.iteration == 2
     with pytest.raises(ValueError, match="MESH_SHAPE=4 asks for 4 ranks but this job has 1"):
         evallib.check_supported(Config(mesh_shape=4))
     with pytest.raises(ValueError, match="SAMPLE_SHARD=3 must divide the device count 4"):

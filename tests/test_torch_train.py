@@ -30,6 +30,7 @@ from tinynerf_torch.core import mlp, rays, render, sampling
 from tinynerf_torch.core.rays import make_k_inv
 from tinynerf_torch.data.poses import load_scene
 from tinynerf_torch.data.rays import RayTable
+from tinynerf_torch.logging import MetricLogger
 from tinynerf_torch.runner import Runner
 from tests.torch_workers import torch_threads  # noqa: F401 (autouse)
 
@@ -363,16 +364,26 @@ def test_sampled_step_trains_and_is_seeded(step_setup, stratified):
 
 
 @pytest.mark.parametrize("what", ["FINE_FIELD", "PROPOSAL"])
-def test_init_state_refuses_gather_and_takes_upsample(what):
-    """``GRID_LOOKUP = gather`` is refused by name before any weight is
-    made; ``GRID_UPSAMPLE``, once refused here, is ported: with the proposal
-    grid it builds a state whose fine grid ``upsample_grid_state`` resizes
-    (1000:384, from the default R = 256), the proposal grid left at its own
-    R."""
+def test_init_state_refuses_gather_and_takes_upsample(what, sync_scene_dir, tmp_path):
+    """``GRID_LOOKUP = gather``, once refused by name here, is ported: it
+    builds the fine grid's state (the default R = 256, 32 + 48 columns) and
+    a Runner trains two steps with it at small widths. ``GRID_UPSAMPLE``,
+    once refused here too, is ported: with the proposal grid it builds a
+    state whose fine grid ``upsample_grid_state`` resizes (1000:384, from
+    the default R = 256), the proposal grid left at its own R."""
     if what == "FINE_FIELD":
-        with pytest.raises(NotImplementedError, match="GRID_LOOKUP=gather .*item 14"):
-            train.init_state(Config(fine_field="grid", grid_lookup="gather"),
-                             torch.device("cpu"))
+        state = train.init_state(Config(fine_field="grid", grid_lookup="gather"),
+                                 torch.device("cpu"))
+        assert state.params["lines"]["x"].shape == (256, 80)
+        cfg = Config(img_dir=f"{sync_scene_dir}/", data_type="sync", n_coarse=8, n_fine=16,
+                     batch_ray=32, total_iter=2, step=1000, fine_field="grid",
+                     grid_lookup="gather", grid_res=9, grid_comp_density=2, grid_comp_app=3,
+                     grid_decoder_width=8, ckpt_path=str(tmp_path / "ckpt"),
+                     log_dir=str(tmp_path / "runs"))
+        runner = Runner(cfg, device="cpu")
+        runner.logger = MetricLogger(cfg.log_dir, use_tensorboard=False)
+        runner.train()
+        assert runner.state.iteration == 2
     else:
         cfg = Config(proposal=True, fine_field="grid", grid_upsample="1000:384")
         state = train.init_state(cfg, torch.device("cpu"))

@@ -16,6 +16,11 @@ The sample streams cannot cross: a JAX Threefry ``prng_key`` cannot seed a
 torch generator. The port writes its generator's state under a key of its
 own, ``torch_generator``, which the JAX package ignores; resuming a JAX
 checkpoint, it ignores ``prng_key`` and says so.
+
+``import_torch_state_dict`` and ``export_torch_state_dict`` bridge the
+reference's own PyTorch ``Network`` (the 593,924-param 8x256 MLP) and the
+port's MLP tree, as the JAX package's do (``tools.import_torch_ckpt`` and
+``tools.export_torch_ckpt`` are their tools).
 """
 
 from __future__ import annotations
@@ -59,7 +64,10 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
 
 
 def _f32(x, device: torch.device) -> torch.Tensor:
-    return torch.tensor(np.asarray(x, dtype=np.float32), device=device)
+    """A float32 tensor on ``device``, row-major whatever the array's order
+    (an npz may hold Fortran-ordered arrays; the kernels take contiguous
+    weights)."""
+    return torch.tensor(np.asarray(x, dtype=np.float32, order="C"), device=device)
 
 
 def _grid_from_numpy(tree: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
@@ -133,8 +141,7 @@ def params_from_numpy(tree: Dict[str, Any],
         if w.shape != (fan_in, fan_out) or b.shape != (fan_out,):
             raise ValueError(f"{name}: shapes {w.shape}, {b.shape} do not match "
                              f"({fan_in}, {fan_out})")
-        params[name] = {"w": torch.tensor(w, device=device),
-                        "b": torch.tensor(b, device=device)}
+        params[name] = {"w": _f32(w, device), "b": _f32(b, device)}
     return params
 
 
@@ -223,3 +230,47 @@ def find_latest(ckpt_dir: str) -> Optional[str]:
         if m and int(m.group(1)) > best_iter:
             best_iter, best_path = int(m.group(1)), path
     return best_path
+
+
+# the port's MLP layers -> the reference ``Network``'s ``nn.Linear`` names
+REFERENCE_LAYERS = {**{f"trunk_{i}": f"point_layer.{i}.0" for i in range(8)},
+                    "sigma": "sigma_layer.0", "point_info": "point_info",
+                    "dir_info": "dir_info.0", "color": "color_layer.0"}
+
+
+def _array(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+    return np.asarray(x, dtype=np.float32)
+
+
+def import_torch_state_dict(state_dict: Dict[str, Any],
+                            device: torch.device = torch.device("cpu")) -> mlp.Params:
+    """A reference ``Network`` state dict (its current 8x256 architecture:
+    ``point_layer.{0..7}.0``, ``sigma_layer.0``, ``point_info``,
+    ``dir_info.0``, ``color_layer.0``; torch's ``(out, in)`` weights, as
+    tensors or arrays) -> the port's MLP tree, ``(in, out)``, on ``device``
+    (through ``params_from_numpy``, which checks the shapes)."""
+    tree = {name: {"w": _array(state_dict[f"{ref}.weight"]).T,
+                   "b": _array(state_dict[f"{ref}.bias"])}
+            for name, ref in REFERENCE_LAYERS.items()}
+    return params_from_numpy(tree, device)
+
+
+def export_torch_state_dict(params: Any) -> Dict[str, np.ndarray]:
+    """The inverse of ``import_torch_state_dict``: the MLP tree's weights
+    under the reference ``Network``'s names, transposed back to ``(out,
+    in)``, as numpy float32 arrays (the caller makes tensors of them). A
+    ``PROPOSAL`` tree exports its net; a grid field has no reference
+    counterpart and raises the JAX package's ``ValueError``."""
+    if "net" in params and isinstance(params["net"], dict):
+        params = params["net"]
+    if "trunk_0" not in params:
+        raise ValueError(
+            "only the MLP family maps onto the reference Network "
+            "(FINE_FIELD=grid checkpoints have no torch counterpart)")
+    sd: Dict[str, np.ndarray] = {}
+    for name, ref in REFERENCE_LAYERS.items():
+        sd[f"{ref}.weight"] = _array(params[name]["w"]).T.copy()
+        sd[f"{ref}.bias"] = _array(params[name]["b"]).copy()
+    return sd

@@ -36,9 +36,17 @@ its own resolution and summed into the axis feature; ``GRID_LEVEL_FOLD``
 instead folds each level into the level-0 table in float32
 (``table + upsample_matrix @ level``) and interpolates once.
 
-Not ported, refused by name: ``GRID_LOOKUP = gather`` (ROADMAP queue 1,
-item 14), which the JAX package keeps to measure its hat-basis matmul
-against a gather; the port's hat form is already a gather.
+``lookup="gather"`` (``GRID_LOOKUP = gather``) is the JAX package's other
+lookup, a function of its own: ``f0 * (1 - frac) + f1 * frac`` with the same
+taps, ``frac = xg - floor(xg)``. At bf16, XLA on the CPU rounds each step to
+bfloat16 (``frac``, ``1 - frac``, both products and their sum; the table is
+rounded first), and so does the port. ``floor`` is constant, so ``frac``'s
+gradient reaches ``xg`` with slope 1, at an exact node too (there ``d xg =
+dF . (T[k + 1] - T[k])``, and 0 at ``R - 1``, whose two taps are one row);
+no hat convention enters. Each product's cotangent to a tap row and to its
+weight is rounded to bfloat16, as JAX's transpose of the bf16 product rounds
+it, so the two weights' cotangents cancel exactly at ``R - 1``, as JAX's do.
+Any other ``lookup`` is the hat form, as in the JAX package.
 
 ``upsample_lines`` resamples the level-0 tables onto a finer lattice
 (``GRID_UPSAMPLE``) with ``upsample_matrix`` in true float32.
@@ -47,7 +55,13 @@ The two taps' gathers are one ``_TapRows``, whose backward sums each table
 row's cotangents in an order fixed by the data (``segment_sums`` over the
 taps sorted stably by row), where ``index_select``'s ``index_add_`` would
 add them with atomics in whatever order the card runs them: two steps from
-one state then give the same gradient bit for bit.
+one state then give the same gradient bit for bit, on the card and on the
+CPU alike. The sums are float32, rounded once to bfloat16 at bf16 (the
+table's rounding). Both lookups take that order. JAX's transpose of
+``jnp.take`` is a bf16 scatter-add whose order XLA leaves open; on the CPU
+it adds the taps one after another in bfloat16, rounding after each, so a
+row that takes many taps stalls (1,000 taps of 1.0 sum to 256 there, to
+1,000 here), while with few taps a row the two orders nearly agree.
 """
 
 from __future__ import annotations
@@ -72,10 +86,6 @@ AXES = ("x", "y", "z")
 PRECISIONS = ("fp32", "bf16")
 
 Params = Dict[str, Any]
-
-
-def not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {where})")
 
 
 def level_res(res: int, level: int) -> int:
@@ -334,21 +344,36 @@ class _TapRows(torch.autograd.Function):
         return d_table, None
 
 
-def _interp(table: torch.Tensor, coord: torch.Tensor, rnd) -> torch.Tensor:
+def _tap_rows(table: torch.Tensor, i0: torch.Tensor):
+    """``_TapRows`` of the table (R, F) at tap indices ``i0`` (...): the rows
+    at ``i0`` and ``min(i0 + 1, R - 1)``, each (..., F)."""
+    return tuple(r.reshape(*i0.shape, table.shape[1])
+                 for r in _TapRows.apply(table, i0.reshape(-1)))
+
+
+def _interp(table: torch.Tensor, coord: torch.Tensor, rnd,
+            lookup: str = "onehot") -> torch.Tensor:
     """The table (R, F) interpolated at clipped coordinates ``coord`` in
-    [0, 1] (...): the two taps at ``xg = coord * (R - 1)``, (..., F)."""
+    [0, 1] (...): the two taps at ``xg = coord * (R - 1)``, (..., F); with
+    ``lookup="gather"`` the JAX package's gather form, else the hat form."""
     table = rnd(table)
     res = table.shape[0]
-    i0, _, w0, w1 = lerp_taps(coord * (res - 1), res)
-    rows0, rows1 = (r.reshape(*i0.shape, table.shape[1])
-                    for r in _TapRows.apply(table, i0.reshape(-1)))
+    xg = coord * (res - 1)
+    if lookup == "gather":
+        lower = torch.floor(xg).detach()
+        frac = rnd(xg - lower)[..., None]
+        rows0, rows1 = _tap_rows(table, lower.to(torch.int64))
+        return rnd(rnd(rnd(rows0) * rnd(1.0 - frac)) + rnd(rnd(rows1) * rnd(frac)))
+    i0, _, w0, w1 = lerp_taps(xg, res)
+    rows0, rows1 = _tap_rows(table, i0)
     return rnd(rnd(w0)[..., None] * rows0 + rnd(w1)[..., None] * rows1)
 
 
 def _line_features(lines: Dict[str, torch.Tensor], points: torch.Tensor,
                    extent: torch.Tensor, rnd, fold: bool = False,
-                   ) -> Tuple[torch.Tensor, ...]:
-    """points (..., 3) -> the three interpolated line features (..., F).
+                   lookup: str = "onehot") -> Tuple[torch.Tensor, ...]:
+    """points (..., 3) -> the three interpolated line features (..., F), by
+    ``lookup`` (``_interp``).
     Level tables (``GRID_LEVELS``) are interpolated at their own resolution
     and summed into the axis feature, each sum rounded at bf16; with
     ``fold`` they are first folded into the level-0 table in float32
@@ -363,27 +388,30 @@ def _line_features(lines: Dict[str, torch.Tensor], points: torch.Tensor,
             for tl in levels[1:]:
                 table = table + upsample_matrix(tl.shape[0], table.shape[0],
                                                 tl.device) @ tl
-            feats.append(_interp(table, coord, rnd))
+            feats.append(_interp(table, coord, rnd, lookup))
             continue
-        f = _interp(levels[0], coord, rnd)
+        f = _interp(levels[0], coord, rnd, lookup)
         for tl in levels[1:]:
-            f = rnd(f + _interp(tl, coord, rnd))
+            f = rnd(f + _interp(tl, coord, rnd, lookup))
         feats.append(f)
     return tuple(feats)
 
 
 def apply_grid_field(params: Params, points: torch.Tensor, dirs: torch.Tensor,
                      n_density: int = N_COMP_DENSITY, precision: str = "fp32",
-                     fold: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                     fold: bool = False, lookup: str = "onehot",
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The point field: points, dirs (..., 3) -> (color (..., 3), sigma
-    (..., 1)), float32. Counterpart of ``apply_grid_field`` with
-    ``lookup="onehot"``, differentiable in every table, the decoder, the
-    sigma net and the points. With a ``sigma_net`` (``GRID_HYBRID``) sigma is
-    the density MLP's and the decoder reads ``[dir_enc, app, hs]``."""
+    (..., 1)), float32. Counterpart of ``apply_grid_field``, ``lookup``
+    ``"gather"`` or the hat form, differentiable in every table, the
+    decoder, the sigma net and the points. With a ``sigma_net``
+    (``GRID_HYBRID``) sigma is the density MLP's and the decoder reads
+    ``[dir_enc, app, hs]``."""
     rnd = rounding(precision)
     if points.is_cuda:
         mlp.check_no_tf32()
-    fx, fy, fz = _line_features(params["lines"], points, params["extent"], rnd, fold)
+    fx, fy, fz = _line_features(params["lines"], points, params["extent"], rnd, fold,
+                                lookup)
     prod = rnd(rnd(fx * fy) * fz)
     dens, app = prod[..., :n_density], prod[..., n_density:]
     de = rnd(encoding.encode_dirs(dirs))
@@ -405,14 +433,13 @@ def apply_grid_field(params: Params, points: torch.Tensor, dirs: torch.Tensor,
 def make_field_grid(n_density: int = N_COMP_DENSITY, lookup: str = "onehot",
                     precision: str = "fp32", fold: bool = False):
     """FieldFn factory (``field(params, points, dirs)``), the counterpart of
-    ``make_field_grid``."""
-    if lookup != "onehot":
-        raise not_ported(f"GRID_LOOKUP={lookup}", "queue 1, item 14: GRID_LOOKUP = gather")
+    ``make_field_grid``: ``lookup="gather"`` the gather form, any other
+    string the hat form, as the JAX package reads it."""
     rounding(precision)
 
     def field(params: Params, points: torch.Tensor, dirs: torch.Tensor):
         return apply_grid_field(params, points, dirs, n_density=n_density,
-                                precision=precision, fold=fold)
+                                precision=precision, fold=fold, lookup=lookup)
 
     return field
 

@@ -52,15 +52,14 @@ def _grid_pallas_conflicts(cfg: Config) -> None:
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for a config the port cannot train or
-    render yet, naming the ROADMAP item that will bring it: the gather form
-    of the grid lookup (``GRID_LOOKUP = gather``; queue 1, item 14). Before
-    that, the JAX package's ``ValueError`` for a bad ``PRECISION``,
+    """Raise the JAX package's ``ValueError`` for a bad ``PRECISION``,
     ``FINE_FIELD`` or ``PROP_FIELD``, for ``GRID_PALLAS`` with a form its
     kernels do not compute, and for ``GRID_UPSAMPLE`` with a pyramid, on a
     fresh run and on a resume alike; and a ``ValueError`` naming a
     ``MESH_SHAPE`` other than this job's world size or a ``SAMPLE_SHARD``
-    that does not divide it (``parallel.mesh.check_mesh``)."""
+    that does not divide it (``parallel.mesh.check_mesh``). Every other
+    config the JAX package runs, the port runs: ``GRID_LOOKUP`` takes
+    ``gather`` or, as there, any other string for the hat form."""
     if cfg.precision not in ("fp32", "bf16"):
         raise ValueError(f"PRECISION must be fp32 or bf16, got {cfg.precision!r}")
     if cfg.fine_field not in ("mlp", "grid"):
@@ -68,16 +67,11 @@ def check_supported(cfg: Config) -> None:
     if cfg.proposal and cfg.prop_field not in ("grid", "mlp"):
         raise ValueError(f"PROP_FIELD must be grid or mlp, got {cfg.prop_field!r}")
     _grid_pallas_conflicts(cfg)
-    grid = cfg.fine_field == "grid"
-    prop_grid = cfg.proposal and cfg.prop_field == "grid"
-    if grid and cfg.grid_upsample and cfg.grid_levels > 1:
+    if cfg.fine_field == "grid" and cfg.grid_upsample and cfg.grid_levels > 1:
         # tinynerf/train.py:44-49: on every path, fresh or resumed
         raise ValueError("GRID_UPSAMPLE is incompatible with "
                          "GRID_LEVELS>1 (multi-resolution pyramid)")
     meshlib.check_mesh(cfg, dist.world_size())
-    if (grid or prop_grid) and cfg.grid_lookup != "onehot":
-        raise NotImplementedError(f"GRID_LOOKUP={cfg.grid_lookup} is not ported yet "
-                                  "(ROADMAP queue 1, item 14: GRID_LOOKUP = gather)")
 
 
 def net_params(cfg: Config, params: Any) -> Any:
@@ -92,12 +86,14 @@ def prop_params(cfg: Config, params: Any) -> Optional[Any]:
 
 def _grid_field_fn(cfg: Config, n_density: int, fold: bool = False) -> render.FieldFn:
     """The grid field at ``PRECISION``: the plain point field
-    (``gridfield.apply_grid_field``, the occupancy refresh's probes and, as
-    in the JAX package, the renderer's field without ``GRID_PALLAS``: so
-    the hybrid grids and the pyramids, which ``GRID_PALLAS`` refuses); with
-    ``GRID_PALLAS`` its ``eval_rays`` is ``grid_rays`` (on the card, TPU
-    kernels 5 and 6). ``GRID_LEVEL_FOLD`` reaches the main grid alone: the
-    JAX package builds the proposal grid without it
+    (``gridfield.apply_grid_field`` by ``GRID_LOOKUP``, the occupancy
+    refresh's probes and, as in the JAX package, the renderer's field
+    without ``GRID_PALLAS``: so the hybrid grids and the pyramids, which
+    ``GRID_PALLAS`` refuses); with ``GRID_PALLAS`` its ``eval_rays`` is
+    ``grid_rays`` (on the card, TPU kernels 5 and 6, whose own function is
+    the lerp, whatever ``GRID_LOOKUP`` says, as in
+    ``tinynerf/train.py:135-163``). ``GRID_LEVEL_FOLD`` reaches the main
+    grid alone: the JAX package builds the proposal grid without it
     (``tinynerf/train.py:225-228``)."""
     fn = gridfield.make_field_grid(n_density, cfg.grid_lookup, cfg.precision, fold)
     if cfg.grid_pallas:
