@@ -753,7 +753,7 @@ def launch_split(fn, what: str, n: int = 3) -> dict:
     """Print and return {kernel: device ms per call} over ``n`` traced calls
     of ``fn``: one call's time by launch."""
     from tinynerf_torch import profiling
-    _, rows = profiling.device_rows(fn, n)
+    _, rows, _ = profiling.device_rows(fn, n)
     split = {short_kernel(name): ms / n for name, _, ms in sorted(rows, key=lambda r: -r[2])}
     print(f"  {what} by launch (torch.profiler, device events, ms a call): "
           + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
@@ -768,8 +768,8 @@ def profile_calls(fn, n: int, what: str):
     ``{"wall_ms", "device_ms", "busy_share", "launches"}`` per call, or None
     where the profiler recorded no device time."""
     from tinynerf_torch import profiling
-    wall_ms, rows = profiling.device_rows(fn, n)
-    return profiling.print_profile(wall_ms, rows, n, what)
+    wall_ms, rows, busy_ms = profiling.device_rows(fn, n)
+    return profiling.print_profile(wall_ms, rows, n, what, busy_ms=busy_ms)
 
 
 def grid_with_content(geometry: str, device, seed: int):
@@ -2859,8 +2859,9 @@ def graph_train_path(name: str, cfg, scene, dev) -> dict:
         times[what] = (time.perf_counter() - t0) * 1e3 / GRAPH_K
     prof = {}
     for what, fn in (("eager", eager_steps), ("graphed", graphed_chunk)):
-        wall_ms, rows = profiling.device_rows(fn, 1)
-        prof[what] = profiling.print_profile(wall_ms, rows, GRAPH_K, "steps", top=6)
+        wall_ms, rows, busy_ms = profiling.device_rows(fn, 1)
+        prof[what] = profiling.print_profile(wall_ms, rows, GRAPH_K, "steps", top=6,
+                                             busy_ms=busy_ms)
         prof[what]["api_launches"] = api_launches(fn, 1) / GRAPH_K
     # the graphed step's idle share from the eager profile's device time (the
     # same launches), beside the graphed trace's own
@@ -4503,7 +4504,7 @@ def main() -> int:
         with torch.no_grad():
             unfused = lambda: unfused_chunk(mk, content, *args, n_f, white, precision)
             u_ms = cuda_ms(unfused, iters=5, warmup=1)
-            _, rows = profiling.device_rows(unfused, 3)
+            _, rows, _ = profiling.device_rows(unfused, 3)
         u_dev = sum(r[2] for r in rows) / 3
         split = rk.fwd_phase_split(content, *args, n_f, white, precision)
         print(f"  kernel 9 {precision}: the unfused path on the same rays (kernel 1 twice and "

@@ -426,7 +426,7 @@ def _eager_capture(monkeypatch):
     class Eager:
         def __init__(self, body):
             self.body, self.launches, self.seconds, self.pool_bytes = body, {}, 0.0, 0
-            self.replays = 0
+            self.nodes, self.replays = 0, 0
             self.graph = types.SimpleNamespace(pool=lambda: None)
 
         def replay(self):

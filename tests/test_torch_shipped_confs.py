@@ -53,7 +53,7 @@ from tinynerf.core.rays import make_k_inv as jmake_k_inv
 from tinynerf.data.poses import SceneData as JSceneData
 from tinynerf.data.rays import RayTable as JRayTable
 from tinynerf_torch import ckpt, eval as evallib, train
-from tinynerf_torch.config import load_config
+from tinynerf_torch.config import _KEY_TO_FIELD, PORT_KEYS, load_config
 from tinynerf_torch.core import occupancy, sampling
 from tinynerf_torch.core.rays import make_k_inv
 from tinynerf_torch.data.poses import SceneData, load_scene, recenter_and_rescale
@@ -167,8 +167,10 @@ class Case:
         if cfg.occ_grid:
             cfg = dataclasses.replace(cfg, occ_march_steps=_march_steps(cfg, self.rows))
         self.cfg = cfg
+        # every field but the port's own keys, which the JAX package lacks
+        own = {_KEY_TO_FIELD[k] for k in PORT_KEYS}
         self.jcfg = dataclasses.replace(jload_config(conf), **{
-            f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
+            f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg) if f.name not in own})
         self.h, self.w, f = scene.height, scene.width, scene.focal
         self.ndc = ((float(self.h), float(self.w), float(f))
                     if cfg.ndc and cfg.data_type == "llff" else None)

@@ -22,7 +22,7 @@ from tinynerf.data import paths as jpaths
 from tinynerf.data.poses import load_scene as jload_scene
 from tinynerf_torch import ckpt, eval as evallib, train as trainlib
 from tinynerf_torch.__main__ import main as cli_main
-from tinynerf_torch.config import Config, load_config
+from tinynerf_torch.config import _KEY_TO_FIELD, PORT_KEYS, Config, load_config
 from tinynerf_torch.core import mlp
 from tinynerf_torch.core.rays import make_k_inv
 from tinynerf_torch.data import paths
@@ -40,7 +40,10 @@ PIXEL_ATOL = 1e-4
 
 
 def _as_dict(cfg):
-    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    """The fields the two packages share: every one but the port's own keys
+    (``config.PORT_KEYS``), which the JAX package does not have."""
+    own = {_KEY_TO_FIELD[k] for k in PORT_KEYS}
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg) if f.name not in own}
 
 
 def test_config_defaults_match_jax():

@@ -5,7 +5,8 @@ default; ``EPOCH`` is an alias for ``TOTAL_ITER``; ``LR_MILESTONE`` parses as
 a list of ints and ``CONTINUE`` as a boolean. This is a copy, kept in step by
 ``tests/test_torch_slice.py``, so that the port imports nothing of the JAX
 package. Keys that select paths the port does not have yet are accepted here
-and refused where they would be used (``eval.check_supported``).
+and refused where they would be used (``eval.check_supported``). The port's
+own keys (``PORT_KEYS``: ``TRACE_SPANS``) have no counterpart there.
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ class Config:
     pixel_dtype: str = "f32"          # "f32" | "u8" pixel table storage
     host_feed: bool = False           # host-side batch prefetcher
     profile_steps: int = 0            # trace N initial steps
+    trace_spans: bool = False         # the port's recorder (profiling.spans_on)
     white_bkgd: bool = False          # white-background compositing term
     val_metrics: bool = False         # held-out val-batch PSNR while training
     proposal: bool = False            # narrow proposal net for the coarse pass
@@ -122,7 +124,9 @@ _BOOL_KEYS = {"CONTINUE", "USE_PALLAS", "COMPAT_SORT", "STRATIFIED", "NDC",
               "HOST_FEED", "WHITE_BKGD", "OCC_GRID", "FUSED_RENDER",
               "PROPOSAL", "PROP_PALLAS", "VAL_METRICS", "CONTRACT",
               "LINDISP", "GRID_HYBRID", "PROP_GRID_HYBRID",
-              "GRID_LEVEL_FOLD"}
+              "GRID_LEVEL_FOLD", "GRID_PALLAS", "TRACE_SPANS"}
+# the port's keys, which the JAX package's config does not have
+PORT_KEYS = ("TRACE_SPANS",)
 _KEY_TO_FIELD = {
     "GPU": "gpu", "IMG_DIR": "img_dir", "RESULTS_PATH": "results_path",
     "CKPT_PATH": "ckpt_path", "LOW_RES": "low_res", "TOTAL_ITER": "total_iter",
@@ -139,7 +143,8 @@ _KEY_TO_FIELD = {
     "MESH_SHAPE": "mesh_shape", "LOG_DIR": "log_dir",
     "RENDER_CHUNK": "render_chunk",
     "PIXEL_DTYPE": "pixel_dtype", "HOST_FEED": "host_feed",
-    "PROFILE_STEPS": "profile_steps", "WHITE_BKGD": "white_bkgd",
+    "PROFILE_STEPS": "profile_steps", "TRACE_SPANS": "trace_spans",
+    "WHITE_BKGD": "white_bkgd",
     "VAL_METRICS": "val_metrics",
     "OCC_GRID": "occ_grid", "OCC_RES": "occ_res", "OCC_EXTENT": "occ_extent",
     "OCC_THRESH": "occ_thresh", "OCC_UPDATE_EVERY": "occ_update_every",

@@ -9,7 +9,12 @@ once a view, the counterpart of the JAX package's one program a frame
 (under a mesh over NCCL each rank's graph holds its collectives); with
 ``host_chunks = K`` a graph of K chunks is replayed along the view, the JAX
 package's host loop (``tinynerf/eval.py:137-180``). Results stay on the
-device until the frame is complete.
+device until the frame is complete. With spans on (``profiling``) a frame's
+host time is the span ``frame``, with ``frame.pose`` (the pose's upload),
+``frame.launch`` (each graph replay's launch) and ``frame.readback`` (the
+copy to the host, which waits for the card); a frame launches no device
+marks. The nodes a frame's graph replays launch (the graph's nodes times
+its replays a view) are the counter ``graph.nodes.frame``.
 JPGs and the ``.gif`` are written by the port's own encoders
 (``data/imagefile.py``); a video is an ``.mp4`` only where imageio imports
 and has a video backend.
@@ -25,7 +30,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from tinynerf_torch import optim
+from tinynerf_torch import optim, profiling
 from tinynerf_torch.config import Config
 from tinynerf_torch.core import contract, gridfield, proposal, render
 from tinynerf_torch.core.encoding import L_POINT
@@ -275,23 +280,26 @@ def make_frame_fn(cfg: Config, k_inv: torch.Tensor, height: int, width: int,
 
     @torch.no_grad()
     def frame(params, pose17_row):
-        pose_row = torch.as_tensor(pose17_row, dtype=torch.float32, device=device)
-        pose = pose_row.expand(chunk, 17)
-        rgb = torch.empty((padded, 3), dtype=torch.float32, device=device)
-        depth = torch.empty((padded,), dtype=torch.float32, device=device)
-        acc = torch.empty((padded,), dtype=torch.float32, device=device)
-        for i in range(n_chunks):
-            span = slice(i * chunk, (i + 1) * chunk)
-            out = march(params, rows[span], cols[span], pose)
-            rgb[span] = out[0]
-            if extras:
-                depth[span], acc[span] = out[1], out[2]
-        img = rgb[:num_pix].reshape(height, width, 3).cpu().numpy()
-        if extras:
-            shp = (height, width)
-            return (img, depth[:num_pix].reshape(shp).cpu().numpy(),
-                    acc[:num_pix].reshape(shp).cpu().numpy())
-        return img
+        with profiling.span("frame"):
+            with profiling.span("frame.pose"):
+                pose_row = torch.as_tensor(pose17_row, dtype=torch.float32, device=device)
+            pose = pose_row.expand(chunk, 17)
+            rgb = torch.empty((padded, 3), dtype=torch.float32, device=device)
+            depth = torch.empty((padded,), dtype=torch.float32, device=device)
+            acc = torch.empty((padded,), dtype=torch.float32, device=device)
+            for i in range(n_chunks):
+                span = slice(i * chunk, (i + 1) * chunk)
+                out = march(params, rows[span], cols[span], pose)
+                rgb[span] = out[0]
+                if extras:
+                    depth[span], acc[span] = out[1], out[2]
+            with profiling.span("frame.readback"):
+                img = rgb[:num_pix].reshape(height, width, 3).cpu().numpy()
+                if extras:
+                    shp = (height, width)
+                    return (img, depth[:num_pix].reshape(shp).cpu().numpy(),
+                            acc[:num_pix].reshape(shp).cpu().numpy())
+            return img
 
     return frame
 
@@ -332,7 +340,12 @@ def _graphed(march, rows: torch.Tensor, cols: torch.Tensor, chunk: int, group: i
 
     @torch.no_grad()
     def frame(params, pose17_row):
-        pose_buf.copy_(torch.as_tensor(pose17_row, dtype=torch.float32))
+        with profiling.span("frame"):
+            return _frame(params, pose17_row)
+
+    def _frame(params, pose17_row):
+        with profiling.span("frame.pose"):
+            pose_buf.copy_(torch.as_tensor(pose17_row, dtype=torch.float32))
         at = [(t.data_ptr(), t.shape, t.dtype) for t in optim.leaves(params)]
         if held["params"] != at:
             held["graph"], held["params"] = None, at
@@ -350,17 +363,20 @@ def _graphed(march, rows: torch.Tensor, cols: torch.Tensor, chunk: int, group: i
                 held["warm_s"] = time.perf_counter() - t0
                 held["graph"] = graphs.capture(functools.partial(body, params), device,
                                                collectives=collectives)
+                profiling.gauge("graph.nodes.frame", held["graph"].nodes * n_groups)
             else:
-                held["graph"].replay()
+                with profiling.span("frame.launch"):
+                    held["graph"].replay()
             if n_groups > 1:
                 for plane, out in zip(planes, outs):
                     plane[gi * span:(gi + 1) * span] = out
         height, width = shape
         num_pix = height * width
-        img = planes[0][:num_pix].reshape(height, width, 3).cpu().numpy()
-        if extras:
-            return (img, planes[1][:num_pix].reshape(shape).cpu().numpy(),
-                    planes[2][:num_pix].reshape(shape).cpu().numpy())
+        with profiling.span("frame.readback"):
+            img = planes[0][:num_pix].reshape(height, width, 3).cpu().numpy()
+            if extras:
+                return (img, planes[1][:num_pix].reshape(shape).cpu().numpy(),
+                        planes[2][:num_pix].reshape(shape).cpu().numpy())
         return img
 
     frame.graph = held

@@ -21,7 +21,11 @@ call from the host for the whole sequence of launches.
   the capturing thread's calls. A capture error raises; nothing falls back
   to eager calls.
   The wrapper calls made while capturing launched nothing, so their counts
-  are taken back, and each replay adds them (``Captured.replay``).
+  are taken back, and each replay adds them (``Captured.replay``). The
+  graph is kept past its capture (``torch.cuda.CUDAGraph(keep_graph=True)``)
+  to count its nodes (``cuGraphGetNodes``; the device stopwatch's marks
+  left out), then instantiated; the capture's counters go to
+  ``profiling`` (captures, seconds, pool bytes).
 - ``StepGraphs`` is a chunk of training steps on the card
   (``train.ChunkedStep``): the state's tensors are the graphs' static
   buffers, updated in place; Adam's scalars of the chunk are one table on
@@ -30,7 +34,14 @@ call from the host for the whole sequence of launches.
   buffers. The occupancy refresh is decided on the host: a plain step graph
   and a refresh step graph, each captured at its first use. The state's
   generator is registered with each graph, so a replay draws what the
-  eager step would have drawn and advances the generator as far.
+  eager step would have drawn and advances the generator as far. A call's
+  host time is in ``profiling``'s spans ``chunk.load`` (the static buffers
+  and the rate table's copy), ``chunk.replay`` (the replays, with any
+  warm-up and capture) and ``chunk.metrics``; a step's body opens the
+  device stopwatch (``profiling.section``) and writes the state back under
+  ``step.writeback``, and its node count is the counter
+  ``graph.nodes.step`` (``graph.nodes.step_refresh`` for the refresh
+  step's graph).
 
 Under a mesh over NCCL (``parallel/``) each rank captures its own graphs of
 its share of the step: the gradient's all-reduce in each, the refresh's
@@ -43,6 +54,7 @@ graph cannot hold: a chunk there is a host loop (``train.graphs_take``).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import time
@@ -50,7 +62,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from tinynerf_torch import optim
+from tinynerf_torch import optim, profiling
 from tinynerf_torch.kernels import wrappers
 from tinynerf_torch.parallel import distributed as dist
 
@@ -59,11 +71,13 @@ from tinynerf_torch.parallel import distributed as dist
 class Captured:
     """A captured graph and what its capture measured: the kernel launches a
     replay makes, by wrapper; the capture's seconds; the bytes its memory
-    pool added to what the caching allocator holds."""
+    pool added to what the caching allocator holds; its nodes, the device
+    stopwatch's marks left out."""
     graph: torch.cuda.CUDAGraph
     launches: Dict[str, int]
     seconds: float
     pool_bytes: int
+    nodes: int
     replays: int = 0
 
     def replay(self) -> None:
@@ -85,6 +99,25 @@ def warm(body: Callable[[], object], device: torch.device):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _libcuda() -> ctypes.CDLL:
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.c_size_t)]
+    lib.cuGraphGetNodes.restype = ctypes.c_int
+    return lib
+
+
+def _instantiated_nodes(graph: torch.cuda.CUDAGraph) -> int:
+    """The nodes of a kept graph, which is then instantiated."""
+    n = ctypes.c_size_t(0)
+    err = _libcuda().cuGraphGetNodes(graph.raw_cuda_graph(), None, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {err}")
+    graph.instantiate()
+    return n.value
+
+
 def capture(body: Callable[[], object], device: torch.device, pool=None,
             generators: List[torch.Generator] = (), collectives: bool = False) -> Captured:
     """``body()`` captured into a CUDA graph (in ``pool``, another graph's
@@ -97,9 +130,10 @@ def capture(body: Callable[[], object], device: torch.device, pool=None,
     torch.cuda.synchronize(device)
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(device)
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)    # kept to count its nodes
     for gen in generators:
         graph.register_generator_state(gen)
+    marks = profiling.marks_launched()
     t0 = time.perf_counter()
     try:
         mode = "thread_local" if collectives else "global"
@@ -109,8 +143,14 @@ def capture(body: Callable[[], object], device: torch.device, pool=None,
         launches = {name: fn.launches - before[name] for name, fn in counted.items()}
         for name, fn in counted.items():
             fn.launches = before[name]
-    return Captured(graph, {k: n for k, n in launches.items() if n},
-                    time.perf_counter() - t0, torch.cuda.memory_reserved(device) - reserved)
+    nodes = _instantiated_nodes(graph) - (profiling.marks_launched() - marks)
+    seconds = time.perf_counter() - t0
+    pool_bytes = torch.cuda.memory_reserved(device) - reserved
+    profiling.count("graph.captures")
+    profiling.count("graph.capture_s", seconds)
+    profiling.count("graph.pool_bytes", pool_bytes)
+    return Captured(graph, {k: n for k, n in launches.items() if n}, seconds, pool_bytes,
+                    nodes)
 
 
 def _trained_tensors(state) -> List[torch.Tensor]:
@@ -132,8 +172,9 @@ def _signature(state) -> list:
 class StepGraphs:
     """The card's form of ``train.ChunkedStep``: ``unroll`` steps of
     ``step_fn`` a call, each a graph replay (module docstring). Its
-    ``stats`` count the captures, their seconds and pool bytes, the warm-up
-    steps and the replays."""
+    ``stats`` count its captures, their seconds and pool bytes, the warm-up
+    steps and the replays (``profiling``'s ``graph.*`` counters are the
+    process's, over every capture, a frame's too)."""
 
     def __init__(self, step_fn: Callable, unroll: int):
         mesh = step_fn.mesh
@@ -184,56 +225,64 @@ class StepGraphs:
 
     def _body(self, refresh: bool) -> None:
         """One step from the static buffers back into them, at the cursor's
-        row of the chunk; the cursor then moves on."""
+        row of the chunk; the cursor then moves on. The device stopwatch
+        runs from the row's read to the cursor's move (``profiling``)."""
         st = self.static
-        rates = self.rates.index_select(0, self.cursor)[0]
-        if self.step_fn.indexed:
-            new, metrics = self.step_fn(st, self.idx.index_select(0, self.cursor)[0],
-                                        rates=rates, refresh=refresh)
-        else:
-            new, metrics = self.step_fn(st, rates=rates, refresh=refresh)
-        torch._foreach_copy_(_trained_tensors(st), _trained_tensors(new))
-        if refresh:
-            st.occ.raw.copy_(new.occ.raw)
-            st.occ.density.copy_(new.occ.density)
-        self.losses.index_copy_(0, self.cursor, metrics["loss"].reshape(1))
-        if self.last is None:
-            from tinynerf_torch.train import LAST_STEP_FIELDS
-            self.last = {f: torch.empty_like(metrics[f]) for f in LAST_STEP_FIELDS}
-        for f, buf in self.last.items():
-            buf.copy_(metrics[f])
-        self.cursor.add_(1)
+        with profiling.section("step", st.generator.device):
+            rates = self.rates.index_select(0, self.cursor)[0]
+            if self.step_fn.indexed:
+                new, metrics = self.step_fn(st, self.idx.index_select(0, self.cursor)[0],
+                                            rates=rates, refresh=refresh)
+            else:
+                new, metrics = self.step_fn(st, rates=rates, refresh=refresh)
+            with profiling.section("step.writeback"):
+                torch._foreach_copy_(_trained_tensors(st), _trained_tensors(new))
+                if refresh:
+                    st.occ.raw.copy_(new.occ.raw)
+                    st.occ.density.copy_(new.occ.density)
+                self.losses.index_copy_(0, self.cursor, metrics["loss"].reshape(1))
+                if self.last is None:
+                    from tinynerf_torch.train import LAST_STEP_FIELDS
+                    self.last = {f: torch.empty_like(metrics[f]) for f in LAST_STEP_FIELDS}
+                for f, buf in self.last.items():
+                    buf.copy_(metrics[f])
+                self.cursor.add_(1)
 
     def __call__(self, state, rates: torch.Tensor, lrs: torch.Tensor,
                  idx: Optional[torch.Tensor] = None):
         import tinynerf_torch.train as trainlib
-        self._load(state)
+        with profiling.span("chunk.load"):
+            self._load(state)
+            self.rates.copy_(rates.pin_memory(), non_blocking=True)
+            self.cursor.zero_()
+            if idx is not None:
+                self.idx.copy_(idx)
         st, device = self.static, state.generator.device
-        self.rates.copy_(rates.pin_memory(), non_blocking=True)
-        self.cursor.zero_()
-        if idx is not None:
-            self.idx.copy_(idx)
         every = self.cfg.occ_update_every
-        for k in range(self.unroll):
-            refresh = st.occ is not None and (state.iteration + k) % every == 0
-            graph = self.graphs.get(refresh)
-            if graph is not None:
-                graph.replay()
-                self.stats["replays"] += 1
-                continue
-            body = functools.partial(self._body, refresh)
-            warm(body, device)
-            graph = capture(body, device, self.pool, [st.generator], self.collectives)
-            self.pool = self.pool or graph.graph.pool()
-            self.graphs[refresh] = graph
-            self.stats["warm_steps"] += 1
-            self.stats["captures"] += 1
-            self.stats["capture_s"] += graph.seconds
-            self.stats["pool_bytes"] += graph.pool_bytes
+        with profiling.span("chunk.replay"):
+            for k in range(self.unroll):
+                refresh = st.occ is not None and (state.iteration + k) % every == 0
+                graph = self.graphs.get(refresh)
+                if graph is not None:
+                    graph.replay()
+                    self.stats["replays"] += 1
+                    continue
+                body = functools.partial(self._body, refresh)
+                warm(body, device)
+                graph = capture(body, device, self.pool, [st.generator], self.collectives)
+                self.pool = self.pool or graph.graph.pool()
+                self.graphs[refresh] = graph
+                self.stats["warm_steps"] += 1
+                self.stats["captures"] += 1
+                self.stats["capture_s"] += graph.seconds
+                self.stats["pool_bytes"] += graph.pool_bytes
+                profiling.gauge("graph.nodes.step_refresh" if refresh else "graph.nodes.step",
+                                graph.nodes)
         new = trainlib.TrainState(
             params=st.params, opt=optim.AdamState(state.opt.count + self.unroll,
                                                   st.opt.mu, st.opt.nu),
             iteration=state.iteration + self.unroll, generator=st.generator, occ=st.occ)
-        metrics = {"loss": self.losses.clone(), "lr": lrs,
-                   **{f: buf.clone() for f, buf in self.last.items()}}
+        with profiling.span("chunk.metrics"):
+            metrics = {"loss": self.losses.clone(), "lr": lrs,
+                       **{f: buf.clone() for f, buf in self.last.items()}}
         return new, metrics

@@ -48,6 +48,9 @@ on CUDA tensors the wrappers also refuse by name more than 256 table
 columns and a tile that does not fit a block's shared memory (the
 library's ``grid_rays_*_smem_bytes``, ``_check_fits``), which the plain
 versions take. No grid of ``conf/`` is refused.
+
+Inside a step with spans on, each forward runs as the device section
+``grid.fwd`` and each backward as ``grid.bwd`` (``profiling.section``).
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from tinynerf_torch import profiling
 from tinynerf_torch.core import encoding, gridfield, mlp
 from tinynerf_torch.core.encoding import DIR_ENC_DIM
 from tinynerf_torch.kernels.mlp_kernel import (_check, _check_precision, _kernel_ready,
@@ -461,11 +465,12 @@ class _GridRays(torch.autograd.Function):
     @staticmethod
     def forward(ctx, origins, dirs, ts, de, n_density, precision, plain, *flat):
         params = _unflatten(flat)
-        if not plain and _on_one_device([origins, dirs, ts, de, *flat], "grid_rays"):
-            (r, g, b), sigma = _launch(params, origins, dirs, ts, de, n_density, precision)
-        else:
-            (r, g, b), sigma = grid_rays_plain(params, origins, dirs, ts, de, n_density,
-                                               precision)
+        with profiling.section("grid.fwd"):
+            if not plain and _on_one_device([origins, dirs, ts, de, *flat], "grid_rays"):
+                (r, g, b), sigma = _launch(params, origins, dirs, ts, de, n_density, precision)
+            else:
+                (r, g, b), sigma = grid_rays_plain(params, origins, dirs, ts, de, n_density,
+                                                   precision)
         ctx.save_for_backward(origins, dirs, ts, de, *flat)
         ctx.n_density, ctx.precision, ctx.plain = n_density, precision, plain
         return r, g, b, sigma
@@ -474,11 +479,12 @@ class _GridRays(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_r, g_g, g_b, g_sigma):
         origins, dirs, ts, de, *flat = ctx.saved_tensors
-        cots = [_kernel_ready(g) for g in (g_sigma, g_r, g_g, g_b)]
         bwd = grid_rays_bwd_plain if ctx.plain else grid_rays_bwd
-        grads, d_o, d_d, d_ts, d_de = bwd(
-            _unflatten(flat), origins, dirs, ts, de, *cots,
-            n_density=ctx.n_density, precision=ctx.precision)
+        with profiling.section("grid.bwd"):
+            cots = [_kernel_ready(g) for g in (g_sigma, g_r, g_g, g_b)]
+            grads, d_o, d_d, d_ts, d_de = bwd(
+                _unflatten(flat), origins, dirs, ts, de, *cots,
+                n_density=ctx.n_density, precision=ctx.precision)
         return (d_o, d_d, d_ts, d_de, None, None, None, *_tensors(grads))
 
 

@@ -40,6 +40,9 @@ The TPU kernels' block-major encoding layout, permuted weight rows and
 8-row tiles are TPU lane tricks, not semantics: the CUDA kernels read the
 parameters in their ``(in, out)`` layout and mask the ragged end of the
 rows.
+
+Inside a step with spans on, each forward runs as the device section
+``field.fwd`` and each backward as ``field.bwd`` (``profiling.section``).
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from tinynerf_torch import profiling
 from tinynerf_torch.core import encoding, mlp
 from tinynerf_torch.core.encoding import (DIR_ENC_DIM, L_DIR, L_POINT,
                                           POINT_ENC_DIM, freq_bank)
@@ -403,10 +407,11 @@ class _FieldRays(torch.autograd.Function):
     @staticmethod
     def forward(ctx, origins, dirs, ts, precision, *flat):
         params = _unflatten(flat)
-        if _on_one_device([origins, dirs, ts, *flat], "field_rays"):
-            (r, g, b), sigma = _launch(params, origins, dirs, ts, precision)
-        else:
-            (r, g, b), sigma = field_rays_plain(params, origins, dirs, ts, precision)
+        with profiling.section("field.fwd"):
+            if _on_one_device([origins, dirs, ts, *flat], "field_rays"):
+                (r, g, b), sigma = _launch(params, origins, dirs, ts, precision)
+            else:
+                (r, g, b), sigma = field_rays_plain(params, origins, dirs, ts, precision)
         ctx.save_for_backward(origins, dirs, ts, *flat)
         ctx.precision = precision
         return r, g, b, sigma
@@ -415,9 +420,10 @@ class _FieldRays(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_r, g_g, g_b, g_sigma):
         origins, dirs, ts, *flat = ctx.saved_tensors
-        cots = [_kernel_ready(g) for g in (g_sigma, g_r, g_g, g_b)]
-        grads, d_o, d_d, d_ts = field_rays_bwd(_unflatten(flat), origins, dirs,
-                                               ts, *cots, precision=ctx.precision)
+        with profiling.section("field.bwd"):
+            cots = [_kernel_ready(g) for g in (g_sigma, g_r, g_g, g_b)]
+            grads, d_o, d_d, d_ts = field_rays_bwd(_unflatten(flat), origins, dirs,
+                                                   ts, *cots, precision=ctx.precision)
         return (d_o, d_d, d_ts, None, *[grads[name][k] for name, k in _PARAM_KEYS])
 
 
@@ -508,10 +514,11 @@ class _FieldFlat(torch.autograd.Function):
     @staticmethod
     def forward(ctx, points, dirs, precision, *flat):
         params = _unflatten(flat)
-        if _on_one_device([points, dirs, *flat], "field_flat"):
-            out = _launch_flat(params, points, dirs, precision)
-        else:
-            out = torch.cat(field_flat_plain(params, points, dirs, precision), dim=-1)
+        with profiling.section("field.fwd"):
+            if _on_one_device([points, dirs, *flat], "field_flat"):
+                out = _launch_flat(params, points, dirs, precision)
+            else:
+                out = torch.cat(field_flat_plain(params, points, dirs, precision), dim=-1)
         ctx.save_for_backward(points, dirs, *flat)
         ctx.precision = precision
         return out
@@ -520,8 +527,9 @@ class _FieldFlat(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         points, dirs, *flat = ctx.saved_tensors
-        grads, d_p, d_d = field_flat_bwd(_unflatten(flat), points, dirs,
-                                         _kernel_ready(g), precision=ctx.precision)
+        with profiling.section("field.bwd"):
+            grads, d_p, d_d = field_flat_bwd(_unflatten(flat), points, dirs,
+                                             _kernel_ready(g), precision=ctx.precision)
         return (d_p, d_d, None, *[grads[name][k] for name, k in _PARAM_KEYS])
 
 

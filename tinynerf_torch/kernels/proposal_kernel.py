@@ -48,6 +48,9 @@ kernel), a width that is a multiple of 32 up to 256 and a depth from 1 to
 ``MAX_DEPTH``. The TPU kernel's permuted weight rows, 2,048-row ray tiles
 and (RT, N) bridges are its compiler's and layouts' needs, not semantics:
 the CUDA kernels read the weights in their ``(in, out)`` layout.
+
+Inside a step with spans on, each forward runs as the device section
+``prop.fwd`` and each backward as ``prop.bwd`` (``profiling.section``).
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from tinynerf_torch import profiling
 from tinynerf_torch.core import encoding, mlp, proposal
 from tinynerf_torch.core.encoding import DIR_ENC_DIM, L_DIR, L_POINT, freq_tensor
 from tinynerf_torch.kernels.mlp_kernel import (_check, _check_precision, _freq_table,
@@ -369,10 +373,11 @@ class _PropRays(torch.autograd.Function):
     @staticmethod
     def forward(ctx, origins, dirs, ts, precision, plain, *flat):
         params = _unflatten(flat)
-        if not plain and _on_one_device([origins, dirs, ts, *flat], "prop_rays"):
-            (r, g, b), sigma = _launch(params, origins, dirs, ts, precision)
-        else:
-            (r, g, b), sigma = prop_rays_plain(params, origins, dirs, ts, precision)
+        with profiling.section("prop.fwd"):
+            if not plain and _on_one_device([origins, dirs, ts, *flat], "prop_rays"):
+                (r, g, b), sigma = _launch(params, origins, dirs, ts, precision)
+            else:
+                (r, g, b), sigma = prop_rays_plain(params, origins, dirs, ts, precision)
         ctx.save_for_backward(origins, dirs, ts, *flat)
         ctx.precision, ctx.plain = precision, plain
         return r, g, b, sigma
@@ -381,12 +386,13 @@ class _PropRays(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_r, g_g, g_b, g_sigma):
         origins, dirs, ts, *flat = ctx.saved_tensors
-        cots = [_kernel_ready(g) for g in (g_sigma, g_r, g_g, g_b)]
         bwd = prop_rays_bwd_plain if ctx.plain else prop_rays_bwd
-        # the rays' gradients only where autograd asks for one of them
-        grads, d_o, d_d, d_ts = bwd(_unflatten(flat), origins, dirs, ts, *cots,
-                                    precision=ctx.precision,
-                                    ray_grads=any(ctx.needs_input_grad[:3]))
+        with profiling.section("prop.bwd"):
+            cots = [_kernel_ready(g) for g in (g_sigma, g_r, g_g, g_b)]
+            # the rays' gradients only where autograd asks for one of them
+            grads, d_o, d_d, d_ts = bwd(_unflatten(flat), origins, dirs, ts, *cots,
+                                        precision=ctx.precision,
+                                        ray_grads=any(ctx.needs_input_grad[:3]))
         return (d_o, d_d, d_ts, None, None, *_tensors(grads))
 
 

@@ -49,6 +49,10 @@ gradient stays float32 as TPU kernel 2 keeps it. The TPU's
 ``render_kernel._grad_chain`` rounds that one gradient to bf16 as well; the
 port's plain backward, autograd of ``render_fused_plain``, follows kernel
 2's convention, the difference one bf16 rounding of a head gradient.
+
+Inside a step with spans on, the fused renderer runs as the device sections
+``render_fused.fwd`` and ``render_fused.bwd``, the merge's backward alone as
+``merge.bwd`` (``profiling.section``).
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from tinynerf_torch import profiling
 from tinynerf_torch.core import mlp, render, sampling
 from tinynerf_torch.kernels import mlp_kernel as mk
 
@@ -420,9 +425,10 @@ def merge_bwd(t_co: torch.Tensor, t_fi: torch.Tensor, sig_co: torch.Tensor,
     residuals (``merge_bwd_plain`` has the arguments): CUDA tensors launch
     it; CPU tensors take ``merge_bwd_plain``."""
     args = (t_co, t_fi, sig_co, sig_fi, col_co, col_fi, near, far, g_cco, g_cfi)
-    if mk._on_one_device(list(args), "merge_bwd"):
-        return _launch_merge(*args, white_bkgd)
-    return merge_bwd_plain(*args, white_bkgd)
+    with profiling.section("merge.bwd"):
+        if mk._on_one_device(list(args), "merge_bwd"):
+            return _launch_merge(*args, white_bkgd)
+        return merge_bwd_plain(*args, white_bkgd)
 
 
 merge_bwd.launches = 0
@@ -436,6 +442,13 @@ class _RenderFused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, origins, dirs, t_co, near, far, n_fine, white_bkgd, precision, keep,
                 *flat):
+        with profiling.section("render_fused.fwd"):
+            return _RenderFused._forward(ctx, origins, dirs, t_co, near, far, n_fine,
+                                         white_bkgd, precision, keep, *flat)
+
+    @staticmethod
+    def _forward(ctx, origins, dirs, t_co, near, far, n_fine, white_bkgd, precision, keep,
+                 *flat):
         rays = (origins, dirs, t_co, near, far)
         ctx.config = (n_fine, white_bkgd, precision)
         if mk._on_one_device([*rays, *flat], "render_fused"):
@@ -469,9 +482,10 @@ class _RenderFused(torch.autograd.Function):
             return (None,) * 9 + torch.autograd.grad((c_co, c_fi), leaves, (g_cco, g_cfi),
                                                      retain_graph=True)
         origins, dirs, t_co, near, far, res, *flat = ctx.saved_tensors
-        grads = _launch_bwd(mk._unflatten(flat), origins, dirs, t_co, near, far,
-                            mk._kernel_ready(g_cco), mk._kernel_ready(g_cfi), *ctx.config,
-                            res)
+        with profiling.section("render_fused.bwd"):
+            grads = _launch_bwd(mk._unflatten(flat), origins, dirs, t_co, near, far,
+                                mk._kernel_ready(g_cco), mk._kernel_ready(g_cfi), *ctx.config,
+                                res)
         return (None,) * 9 + tuple(grads[name][k] for name, k in mk._PARAM_KEYS)
 
 

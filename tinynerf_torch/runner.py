@@ -39,7 +39,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from tinynerf_torch import ckpt, eval as evallib, train as trainlib
+from tinynerf_torch import ckpt, eval as evallib, profiling, train as trainlib
 from tinynerf_torch.config import Config, parse_grid_upsample
 from tinynerf_torch.core import render
 from tinynerf_torch.core.occupancy import derive_march_steps, derive_march_steps_contracted
@@ -92,6 +92,7 @@ class Runner:
                 "white ground truth.")
         self.cfg = cfg
         self.device = resolve_device(device)
+        profiling.spans_on(cfg.trace_spans)
         self.start_time = time.strftime("%m-%d-%H-%M-%S", time.localtime())
         self._scene = scene
         # the mesh before the tables (None on one rank)
@@ -268,7 +269,9 @@ class Runner:
         checkpoint already holds the tables of the milestones before it),
         and ``PROFILE_STEPS`` traces the first steps (``profiling.Trace``,
         under ``LOG_DIR/trace``). A step holds no table, so a resize needs no
-        new one.
+        new one. With ``TRACE_SPANS`` every ``STEP`` prints a ``[SPANS]``
+        line: each device section's own ms a step and the chunk's host ms a
+        step over the iterations since the last one (``profiling.spans_line``).
 
         The steps go in chunks of ``_chunk_size(STEP)``, as in the JAX
         package (``train.make_chunked_step``, and for the val epoch
@@ -333,8 +336,9 @@ class Runner:
         chunk, multi_fn = make_multi()
         announced = not self.is_main    # rank 0 names the chunks' form at the first
         feeder = tracer = None
-        meter = Throughput(rays_per_step=cfg.batch_ray)
+        meter = Throughput(rays_per_step=cfg.batch_ray, device=self.device)
         it = start
+        window_start = start    # the first iteration of the [SPANS] line's window
         try:
             if cfg.host_feed:
                 feeder = self._make_feeder(table)
@@ -395,6 +399,8 @@ class Runner:
                               f"[T] ({c_t[0]:.4f} {c_t[1]:.4f} {c_t[2]:.4f}) "
                               f"[F] ({c_f[0]:.4f} {c_f[1]:.4f} {c_f[2]:.4f}) "
                               f"[RAYS/S] {meter.rays_per_sec:,.0f}")
+                        if cfg.trace_spans:
+                            print(profiling.spans_line(profiling.snapshot(), it - window_start))
                     if mode == "train" and cfg.val_metrics:
                         val_psnr = self.val_psnr()   # every rank renders its rows
                         if self.is_main:
@@ -413,6 +419,9 @@ class Runner:
                                                  generator=self.state.generator,
                                                  occ=self.state.occ)
                         self.last_iter = it - 1
+                    if cfg.trace_spans:
+                        profiling.reset()
+                        window_start = it
                     meter.reset()
         finally:
             if tracer is not None:   # the loop was shorter than the trace's window

@@ -10,8 +10,14 @@ and warmed up, then one chunk of ``--steps`` steps under
 device time per step by kernel (the top 18: ms, launches, name) and the
 device's busy share of the steps' wall time (``profiling.device_rows``,
 ``profiling.print_profile``), and leaves the Chrome trace (Perfetto,
-``chrome://tracing``) under ``--out``. On the card unless ``--device cpu``,
-where the table is the ops' self CPU time and no busy share is measured.
+``chrome://tracing``) under ``--out``, where the program's host spans show
+as ``tinynerf.*`` annotations. Spans are on (``profiling.spans_on``), so
+beside the kernels it prints the program's own split of a step: each device
+section's ms a step (``step.render``, ``step.render/field.fwd``, ...), the
+host spans' ms a call (``chunk``, ``chunk.load``, ...) and the counters of
+the captures (the step graph's nodes, seconds, pool bytes). On the card
+unless ``--device cpu``, where the table is the ops' self CPU time, no busy
+share is measured and no device section is timed.
 
     python -m tinynerf_torch.tools.profile_step [--batch 4096] [--steps 5] [--occ] [--eager]
 """
@@ -55,6 +61,7 @@ def main(argv=None) -> None:
     from tinynerf_torch.device import resolve_device
 
     device = resolve_device(args.device)
+    profiling.spans_on()
     seed = int.from_bytes(os.urandom(4), "little")
     rng = np.random.default_rng(1)
     n_pics, hw = 4, 400
@@ -93,15 +100,40 @@ def main(argv=None) -> None:
 
     calls = args.steps if args.eager or chunk is None else 1
     trace_path = os.path.join(args.out, f"profile_step_{os.getpid()}.pt.trace.json")
-    wall_ms, rows = profiling.device_rows(run, calls, device, trace_path=trace_path)
+    run()     # warms up and captures; the sections then count replays alone
+    profiling.reset()
+    wall_ms, rows, busy_ms = profiling.device_rows(run, calls, device, trace_path=trace_path)
     print(f"{args.precision}, BATCH_RAY {cfg.batch_ray}, {cfg.n_coarse}+{cfg.n_fine} samples, "
           f"OCC_GRID {cfg.occ_grid}, PROPOSAL {cfg.proposal}, FINE_FIELD {cfg.fine_field}, "
           f"GRID_PALLAS {cfg.grid_pallas} on {device.type}, "
           f"{'eager steps' if calls > 1 or args.steps == 1 else 'one chunk'}; time per step by "
           f"{'kernel' if device.type == 'cuda' else 'op'} (top 18, {args.steps} steps traced):")
     profiling.print_profile(wall_ms, rows, args.steps, "steps", top=18,
-                            on_device=device.type == "cuda")
+                            on_device=device.type == "cuda", busy_ms=busy_ms)
+    print_spans(profiling.snapshot(), 3 + calls)
     print(f"trace: {trace_path}")
+
+
+def print_spans(snap: dict, calls: int) -> None:
+    """The program's own split of ``calls`` calls: device sections' ms a step
+    (self, and with their nested sections; the steps are the times the
+    stopwatch closed), host spans' ms a call, and the counters."""
+    dev = snap["device"]
+    if dev:
+        steps = dev["step"]["count"]
+        print(f"device sections (ms a step, self / with nested; {steps} steps):")
+        for path in sorted(dev):
+            nested = sum(v["self_s"] for p, v in dev.items()
+                         if p == path or p.startswith(path + "/"))
+            print(f"  {1e3 * dev[path]['self_s'] / steps:9.3f} / "
+                  f"{1e3 * nested / steps:9.3f}  {path}")
+    else:
+        print("device sections: not measured (no card)")
+    print(f"host spans (ms a call, total / self; {calls} calls):")
+    for path, v in sorted(snap["host"].items()):
+        print(f"  {1e3 * v['total_s'] / calls:9.3f} / {1e3 * v['self_s'] / calls:9.3f}  "
+              f"{path} (x{v['count']})")
+    print("counters: " + ", ".join(f"{k} {v:g}" for k, v in sorted(snap["counters"].items())))
 
 
 if __name__ == "__main__":

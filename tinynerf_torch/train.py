@@ -36,6 +36,15 @@ graph's replay takes each step's own.
 
 ``upsample_grid_state`` resizes the fine grid's tables and their Adam
 moments between steps (``GRID_UPSAMPLE``).
+
+With spans on (``profiling.spans_on``, ``TRACE_SPANS``) a step times its
+layers on the card (``profiling.section``): it opens the device stopwatch
+and runs its parts as the sections ``step.sample`` (the batch's draw or
+gather), ``step.refresh`` (the occupancy refresh, on a step that refreshes),
+``step.render`` (the loss's forward: the renderer and ``ray_loss``),
+``step.backward`` (autograd) and ``step.adam``; the kernel wrappers nest
+theirs (``field.fwd``, ``field.bwd``, ...). A chunk's host time is the span
+``chunk``, with ``chunk.rates`` (``chunk_rates``).
 """
 
 from __future__ import annotations
@@ -45,7 +54,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-from tinynerf_torch import optim
+from tinynerf_torch import optim, profiling
 from tinynerf_torch.config import Config
 from tinynerf_torch.core import gridfield, mlp, occupancy, proposal, render
 from tinynerf_torch.data.rays import RayBatch, RayTable
@@ -232,8 +241,10 @@ def loss_and_grads(loss_fn: Callable, params: Any, batch: RayBatch,
     as under ``jax.grad``, so Adam leaves it exactly as it is."""
     leaves = optim.tree_map(lambda t: t.detach().requires_grad_(True), params)
     with torch.enable_grad():
-        loss, (c_co, c_fi) = loss_fn(leaves, batch, generator, occ, jitter=jitter)
-        flat = torch.autograd.grad(loss, optim.leaves(leaves), materialize_grads=True)
+        with profiling.section("step.render"):
+            loss, (c_co, c_fi) = loss_fn(leaves, batch, generator, occ, jitter=jitter)
+        with profiling.section("step.backward"):
+            flat = torch.autograd.grad(loss, optim.leaves(leaves), materialize_grads=True)
     return (loss.detach(), (c_co.detach(), c_fi.detach()),
             optim.unflatten_like(leaves, list(flat)))
 
@@ -256,9 +267,10 @@ def refresh_occ(cfg: Config, state: TrainState, field_fn: render.FieldFn,
         return state.occ
     n_total = cfg.occ_res ** 3
     subset = None if cfg.occ_subset >= 1.0 else max(1, int(n_total * cfg.occ_subset))
-    return occupancy.update_grid(state.occ, net_params(cfg, state.params), field_fn,
-                                 generator=state.generator, subset=subset,
-                                 contract=cfg.contract, draws=draws, cell_split=mesh)
+    with profiling.section("step.refresh"):
+        return occupancy.update_grid(state.occ, net_params(cfg, state.params), field_fn,
+                                     generator=state.generator, subset=subset,
+                                     contract=cfg.contract, draws=draws, cell_split=mesh)
 
 
 def _apply_batch(cfg: Config, parts, state: TrainState, batch: RayBatch,
@@ -286,8 +298,9 @@ def _apply_batch(cfg: Config, parts, state: TrainState, batch: RayBatch,
         if n_rays is None:
             batch = mesh.local_rows(batch)
     lr = lr_fn(state.iteration)
-    params, opt = optim.adam_update(grads, state.opt, state.params, lr.item(),
-                                    lr_scale=make_lr_scale(cfg, state.params), rates=rates)
+    with profiling.section("step.adam"):
+        params, opt = optim.adam_update(grads, state.opt, state.params, lr.item(),
+                                        lr_scale=make_lr_scale(cfg, state.params), rates=rates)
     metrics = {"loss": loss, "lr": lr,
                "c_true0": batch.rgb[0], "c_fine0": c_fi[0],
                # the batch, for the host-side preview canvas
@@ -331,8 +344,10 @@ def make_train_step(cfg: Config, table: RayTable, k_inv: torch.Tensor,
     parts = _step_parts(cfg, k_inv, field_fn, ndc_params, mesh)
 
     def step(state: TrainState, **kw) -> Tuple[TrainState, Metrics]:
-        batch = table.sample(state.generator, cfg.batch_ray)
-        return _apply_batch(cfg, parts, state, batch, **kw)
+        with profiling.section("step", state.generator.device):
+            with profiling.section("step.sample"):
+                batch = table.sample(state.generator, cfg.batch_ray)
+            return _apply_batch(cfg, parts, state, batch, **kw)
 
     return _described(step, cfg, mesh, indexed=False)
 
@@ -349,8 +364,9 @@ def make_host_fed_train_step(cfg: Config, k_inv: torch.Tensor,
     parts = _step_parts(cfg, k_inv, field_fn, ndc_params, mesh)
 
     def step(state: TrainState, batch: RayBatch, **kw) -> Tuple[TrainState, Metrics]:
-        return _apply_batch(cfg, parts, state, batch,
-                            n_rays=None if mesh is None else cfg.batch_ray, **kw)
+        with profiling.section("step", state.generator.device):
+            return _apply_batch(cfg, parts, state, batch,
+                                n_rays=None if mesh is None else cfg.batch_ray, **kw)
 
     return _described(step, cfg, mesh, indexed=None)
 
@@ -386,7 +402,10 @@ def make_indexed_train_step(cfg: Config, table: RayTable, k_inv: torch.Tensor,
 
     def step(state: TrainState, idx: torch.Tensor,
              occ_draws=None, **kw) -> Tuple[TrainState, Metrics]:
-        return _apply_batch(cfg, parts, state, table.gather(idx), occ_draws, **kw)
+        with profiling.section("step", state.generator.device):
+            with profiling.section("step.sample"):
+                batch = table.gather(idx)
+            return _apply_batch(cfg, parts, state, batch, occ_draws, **kw)
 
     return _described(step, cfg, mesh, indexed=True)
 
@@ -451,7 +470,13 @@ class ChunkedStep:
                              "and only it")
         if idx is not None and idx.shape[0] != self.unroll:
             raise ValueError(f"index chunk of {idx.shape[0]} rows for {self.unroll} steps")
-        rates, lrs = chunk_rates(self.step_fn.cfg, state, self.unroll)
+        with profiling.span("chunk"):
+            return self._chunk(state, idx, occ_draws)
+
+    def _chunk(self, state: TrainState, idx: Optional[torch.Tensor], occ_draws,
+               ) -> Tuple[TrainState, Metrics]:
+        with profiling.span("chunk.rates"):
+            rates, lrs = chunk_rates(self.step_fn.cfg, state, self.unroll)
         if graphs_take(self.step_fn, state.generator.device):
             if occ_draws is not None:
                 raise ValueError("occ_draws is a test hook of the plain chunk (the CPU)")
