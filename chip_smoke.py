@@ -484,6 +484,9 @@ GRID_SOURCES = ("grid_rays_fwd.cu", "grid_rays_bwd.cu")
 # the proposal MLP's sources: their bf16 forms run the trunk's products on the tensor cores
 PROP_SOURCES = ("prop_rays_fwd.cu", "prop_rays_bwd.cu")
 BF16_EDGE = (1001, 37)      # rows no multiple of 16 or of the 64-row tile
+# ... and rays of more samples than a tile: kernel 1's 64-row tiles of the
+# flat index are not kernel 2's at these
+BF16_EDGES = (BF16_EDGE, (37, 129))
 GEMM_CHAIN_ROWS = 4096 * 128
 BWD_CHAIN_ROWS = 400 * 128  # a lego step's fine call
 FERN_VIEWS = 4
@@ -3930,13 +3933,13 @@ def main() -> int:
     # ---- 3d. kernels 1 and 2 in their bf16 form vs their bf16 plain versions ----
     phase("kernels 1 and 2, bf16 form, vs their bf16 plain versions")
     bf16_inputs, bf16_fwd_err, bf16_bwd_abs, bf16_bwd_rel = {}, 0.0, 0.0, 0.0
-    for B, N in (*OCC_SHAPES, VALIDATE_SHAPE, BF16_EDGE):
+    for B, N in (*OCC_SHAPES, VALIDATE_SHAPE, *BF16_EDGES):
         o, d, ts = rays(B, N)
         # at the ragged shape, rows this close to a kink in the bf16 form get
         # no cotangent (few rows: one ReLU taking the other side moves a bias
         # gradient by percents, as kernel 4's check found at R = 1001)
         keep = ((mk.preactivation_margin(params, o, d, ts, "bf16") > MARGIN).float()
-                if (B, N) == BF16_EDGE else 1.0)
+                if (B, N) in BF16_EDGES else 1.0)
         cots = [torch.from_numpy(rng.normal(size=(B, N)).astype(np.float32)).to(dev) * keep
                 for _ in range(4)]
         bf16_inputs[B, N] = (o, d, ts, *cots)
@@ -3962,6 +3965,27 @@ def main() -> int:
         if errs[worst][1] > BF16_BWD_RTOL or cos < BF16_COS or not same:
             raise AssertionError(f"kernel 2 bf16 disagrees with its plain version at "
                                  f"B={B} N={N}: {errs}")
+        # the training step's forms: equal to the recompute, as no tile holds
+        # FIX_CAP ambiguous outputs, also where kernel 1's tiles are not kernel 2's
+        with torch.no_grad():
+            (sr, sg, sb), s_sigma, res = mk._launch(params, o, d, ts, "bf16", save=True)
+        save_rel = max(rel_err(x, y) for x, y in
+                       ((sr, pr), (sg, pg), (sb, pb), (s_sigma, p_sigma)))
+        from_res = mk.field_rays_bwd(params, *bf16_inputs[B, N], precision="bf16",
+                                     residuals=res)
+        res_same = all(v[0] == 0 for v in bwd_errors(from_res, kernel).values())
+        res_errs = bwd_errors(from_res, plain)
+        res_worst = max(res_errs, key=lambda k: res_errs[k][1])
+        res_cos = bwd_cosines(from_res, plain)
+        print(f"  kernel 1's saving form error / max|plain| {save_rel:.3e} (limit "
+              f"{BF16_FWD_RTOL}); kernel 2 from its residuals worst {res_worst} "
+              f"{res_errs[res_worst][1]:.3e}, smallest cosine {res_cos:.7f}, bit-identical "
+              f"to the recompute: {res_same}")
+        if (save_rel > BF16_FWD_RTOL or res_errs[res_worst][1] > BF16_BWD_RTOL
+                or res_cos < BF16_COS or not res_same):
+            raise AssertionError(f"kernel 1's saving form or kernel 2 from its residuals "
+                                 f"is off at B={B} N={N}")
+        del res, from_res, res_errs
         if (B, N) == OCC_SHAPES[0]:
             sum_err, flag_lo, flag_hi = sum_order_record(
                 params, *(torch.from_numpy(a).to(dev) for a in grid_probes(rng, 262144)))
@@ -3978,7 +4002,8 @@ def main() -> int:
         bf16_bwd_abs = max(bf16_bwd_abs, max(e[0] for e in errs.values()))
         bf16_bwd_rel = max(bf16_bwd_rel, errs[worst][1])
         del kernel, again, plain, errs
-    del bf16_inputs[BF16_EDGE]
+    for shape in BF16_EDGES:
+        del bf16_inputs[shape]
     torch.cuda.empty_cache()
 
     # ---- 3e. kernels 5 and 6 (the grid field), fp32 and bf16, vs plain ----
@@ -4241,8 +4266,10 @@ def main() -> int:
           f"N=128: {bwd_time[STEP_SHAPES[-1]][0]:.3f} ms)")
     torch.cuda.empty_cache()
 
-    # the new forms: (ms, plain ms, bound ms, bound_by, f32 FMA bound ms)
-    flat_time, bf16_fwd_time, bf16_bwd_time = {}, {}, {}
+    # the new forms: (ms, plain ms, bound ms, bound_by, f32 FMA bound ms); a
+    # bf16 training step's forms (kernel 1's saving form, kernel 2 from its
+    # residuals): (forward ms, backward ms)
+    flat_time, bf16_fwd_time, bf16_bwd_time, bf16_train_time = {}, {}, {}, {}
 
     def report(what, k_ms, p_ms, flops, n_bytes, precision, tc_flops=None):
         b_ms, b_by = least_ms(flops, n_bytes, precision, tc_flops)
@@ -4276,6 +4303,23 @@ def main() -> int:
         bf16_bwd_time[B, N] = report(
             f"kernel 2 bf16 B={B} N={N}", k_ms, p_ms, 3 * mk.flops_per_row() * B * N,
             4 * (2 * 3 * B + 5 * B * N + n_params + 2 * 3 * B + B * N + n_params), "bf16")
+        o, d, ts = args[:3]
+        with torch.no_grad():
+            s_ms = cuda_ms(lambda: mk._launch(params, o, d, ts, "bf16", save=True), iters=10)
+            res = mk._launch(params, o, d, ts, "bf16", save=True)[2]
+        r_ms = cuda_ms(lambda: mk.field_rays_bwd(params, *args, precision="bf16",
+                                                 residuals=res), iters=10)
+        row_bytes = 2 * res.a.shape[1] + 4   # A and the sign, kept a row
+        report(f"kernel 1 bf16 saving form B={B} N={N}", s_ms, bf16_fwd_time[B, N][1],
+               mk.flops_per_row() * B * N,
+               4 * (2 * 3 * B + 5 * B * N + n_params) + row_bytes * B * N, "bf16")
+        report(f"kernel 2 bf16 from residuals B={B} N={N}", r_ms, p_ms,
+               2 * mk.flops_per_row() * B * N,
+               4 * (2 * 3 * B + 8 * B * N + n_params + 2 * 3 * B + B * N + n_params)
+               + row_bytes * B * N,
+               "bf16")
+        bf16_train_time[B, N] = (s_ms, r_ms)
+        del res
     # kernel 2 bf16's launches: recompute + input gradients, weight
     # gradients, reduce (and the weights' packing)
     args = bf16_inputs[OCC_SHAPES[-1]]
@@ -4852,11 +4896,11 @@ def main() -> int:
             state, _ = step(state)
         torch.cuda.synchronize()
         occ_ms = (time.perf_counter() - t0) / 6 * 1e3
-        occ_kern = sum(bf16_fwd_time[s][0] + bf16_bwd_time[s][0] for s in OCC_SHAPES)
+        occ_kern = sum(sum(bf16_train_time[s]) for s in OCC_SHAPES)
         print(f"BATCH_RAY {ocfg.batch_ray}: {occ_ms / 1e3:.5f} s/step, "
               f"{ocfg.batch_ray / occ_ms * 1e3:,.0f} rays/s; kernels {occ_kern:.3f} ms of it "
-              f"({100 * occ_kern / occ_ms:.1f}%: 2 forward + 2 backward bf16 launches at "
-              "their timed per-launch ms)")
+              f"({100 * occ_kern / occ_ms:.1f}%: 2 forward + 2 backward bf16 launches, the "
+              "saving form and the backward from its residuals, at their timed per-launch ms)")
         field_fn = evallib.make_field_fn(ocfg)
         refresh = lambda: train.refresh_occ(ocfg, dataclasses.replace(state, iteration=0),
                                             field_fn)
@@ -5253,7 +5297,7 @@ def main() -> int:
             state, _ = step(state)
         torch.cuda.synchronize()
         prop_ms = (time.perf_counter() - t0) / 6 * 1e3
-        prop_kern = (bf16_fwd_time[4096, pcfg.n_fine][0] + bf16_bwd_time[4096, pcfg.n_fine][0]
+        prop_kern = (sum(bf16_train_time[4096, pcfg.n_fine])
                      + prop_fwd_time["bf16"][PROP_SHAPE][0] + prop_bwd_time["bf16"][PROP_SHAPE][0])
         print(f"BATCH_RAY {pcfg.batch_ray}: {prop_ms / 1e3:.5f} s/step, "
               f"{pcfg.batch_ray / prop_ms * 1e3:,.0f} rays/s; kernels 1, 2, 7 and 8 "

@@ -15,8 +15,12 @@ rays' gradients); the fp32 forms that share their tiles, kernels 1 (B =
 4096, N = 64 and 128), 3 (R = 524,288) and 9 (B = 4096, 64 + 128 samples)
 on field_common.cuh's gemm_segment, kernels 2 (B = 400 and 4096, N = 128),
 4 (R = 524,288) and 10 (from kernel 9's residuals) on fma_common.cuh's
-gemm_f32; where the tree's ``proposal_kernel.bwd_phase_split`` takes the
-form, kernel 8's phase split; and a step of ``lego_prop`` at fp32 with
+gemm_f32; the bf16 forms of kernels 1 and 2 (B = 4096, N = 64 and 128), 3,
+4 (R = 524,288), 9 and 10 on the tensor-core tiles, and, where the tree has
+them (``mlp_kernel.saves_residuals``), kernel 1's saving form and kernel 2
+from its residuals at the same shapes; where the tree's
+``proposal_kernel.bwd_phase_split`` takes the form, kernel 8's phase split;
+and a step of ``lego_prop`` at fp32 with
 ``PROP_FIELD = mlp`` and ``PROP_PALLAS`` (chip_smoke.py phase 15's, s/step
 over 6 steps after 2). The last line is one JSON object of it all, with
 the label and the card's name and power limit. Needs a CUDA card and
@@ -149,6 +153,31 @@ def main() -> int:
     res = rk.render_fused_residuals(params, *args, n_f, False, "fp32")[2]
     record("k10 fp32 4096 64+128", lambda: flat(rk.render_fused_bwd(
         params, *args, *gf, n_f, False, "fp32", residuals=res)), 3)
+    del res
+
+    # the bf16 forms on the tensor-core tiles
+    for B, N in ((4096, 64), (4096, 128)):
+        o1, d1, t1 = rays(B, N)
+        g1 = cots(t1.shape)
+        record(f"k1 bf16 {B}x{N}", lambda: planes(mk.field_rays(params, o1, d1, t1, "bf16")),
+               10)
+        record(f"k2 bf16 {B}x{N}", lambda: grads_and(mk.field_rays_bwd(
+            params, o1, d1, t1, *g1, precision="bf16")), 5)
+        if hasattr(mk, "saves_residuals"):
+            record(f"k1 bf16 saving {B}x{N}", lambda: planes(mk._launch(
+                params, o1, d1, t1, "bf16", save=True)[:2]), 10)
+            res = mk._launch(params, o1, d1, t1, "bf16", save=True)[2]
+            record(f"k2 bf16 from residuals {B}x{N}", lambda: grads_and(mk.field_rays_bwd(
+                params, o1, d1, t1, *g1, precision="bf16", residuals=res)), 5)
+            del res
+    record("k3 bf16 R=524288", lambda: list(mk.field_flat(params, pts, dirs, "bf16")), 10)
+    record("k4 bf16 R=524288",
+           lambda: grads_and(mk.field_flat_bwd(params, pts, dirs, g4, "bf16")), 3)
+    record("k9 bf16 4096 64+128", lambda: list(rk.render_fused(params, *args, n_f, False,
+                                                               "bf16")), 5)
+    res = rk.render_fused_residuals(params, *args, n_f, False, "bf16")[2]
+    record("k10 bf16 4096 64+128", lambda: flat(rk.render_fused_bwd(
+        params, *args, *gf, n_f, False, "bf16", residuals=res)), 3)
     del res, pts, dirs, g4
     torch.cuda.empty_cache()
 

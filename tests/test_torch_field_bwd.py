@@ -141,3 +141,91 @@ def test_preactivation_margin_is_the_smallest_unit():
     assert torch.equal(mk.preactivation_margin(params, o, d, t), torch.full((2, 3), 0.125))
     params["dir_info"]["b"][3] = -1e-3
     assert torch.allclose(mk.preactivation_margin(params, o, d, t), torch.full((2, 3), 1e-3))
+
+
+@pytest.mark.parametrize("precision,grad,want", [
+    ("bf16", True, True), ("bf16", False, False), ("fp32", True, False),
+    ("fp32", False, False)])
+def test_saves_residuals_only_for_a_bf16_card_call_with_a_backward(precision, grad, want):
+    """Kernel 1 on the card keeps its residuals only where the backward from
+    them can follow: the bf16 form, with a gradient asked for (CPU tensors
+    take the plain versions, below)."""
+    assert mk.saves_residuals(precision, grad) is want
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("grad", [False, True])
+def test_field_rays_on_cpu_takes_the_plain_versions(precision, grad):
+    """On CPU tensors the forward and its backward are the plain versions
+    bit for bit, with or without grad: nothing launched, no residual kept
+    or missed (the counters), nothing saved beyond the rays and weights."""
+    from tinynerf_torch import profiling
+    params = mlp.init_network(torch.Generator().manual_seed(5))
+    rays = [torch.from_numpy(a) for a in _dyadic_rays(5, 3, 6)]
+    cots = [torch.from_numpy(np.random.default_rng(6).normal(size=(3, 6)).astype(np.float32))
+            for _ in range(4)]
+    counters = lambda: {k: profiling.snapshot()["counters"].get(k, 0)
+                        for k in ("field.residual.saved", "field.residual.recomputed")}
+    before, launches = counters(), (mk.field_rays.launches, mk.field_rays_bwd.launches)
+    leaves = {n: {k: v.clone().requires_grad_(grad) for k, v in l.items()}
+              for n, l in params.items()}
+    o, d, t = (x.clone().requires_grad_(grad) for x in rays)
+    with torch.set_grad_enabled(grad):
+        (r, g, b), s = mk.field_rays(leaves, o, d, t, precision)
+    (pr, pg, pb), ps = mk.field_rays_plain(params, *rays, precision)
+    assert all(torch.equal(x, y) for x, y in ((r, pr), (g, pg), (b, pb), (s, ps)))
+    if grad:
+        assert len(s.grad_fn.saved_tensors) == 3 + len(mk._PARAM_KEYS)
+        gs, gr, gg, gb = cots
+        ((s * gs).sum() + (r * gr).sum() + (g * gg).sum() + (b * gb).sum()).backward()
+        want = mk.field_rays_bwd_plain(params, *rays, *cots, precision=precision)
+        for name, _, _ in mlp.layer_dims():
+            for part in ("w", "b"):
+                assert torch.equal(leaves[name][part].grad, want[0][name][part])
+        assert all(torch.equal(x.grad, y) for x, y in zip((o, d, t), want[1:]))
+    assert counters() == before
+    assert (mk.field_rays.launches, mk.field_rays_bwd.launches) == launches
+
+
+@pytest.mark.parametrize("precision,grad_mode,requires,save", [
+    ("bf16", True, True, True), ("bf16", False, True, False), ("bf16", True, False, False),
+    ("fp32", True, True, False)])
+def test_field_rays_hands_its_residuals_to_the_backward(monkeypatch, precision, grad_mode,
+                                                        requires, save):
+    """The autograd plumbing, with the kernels' launches stubbed by the plain
+    versions as if on a card: the forward asks for the saving form exactly
+    where ``saves_residuals`` says so (grad mode on and an input that
+    requires grad, read outside the Function, where the grad mode is the
+    caller's), and its backward gets the residuals that forward kept, or
+    none."""
+    seen = {}
+
+    def launch(params, o, d, t, precision, save=False):
+        seen["save"] = save
+        (r, g, b), s = mk.field_rays_plain(params, o, d, t, precision)
+        res = mk.Residuals(torch.zeros(4), torch.zeros(2, 2), -torch.ones_like(s), r, g, b)
+        return (r, g, b), s, res if save else None
+
+    def launch_bwd(params, o, d, t, gs, gr, gg, gb, precision, residuals=None):
+        seen["residuals"] = residuals
+        return mk.field_rays_bwd_plain(params, o, d, t, gs, gr, gg, gb, precision)
+
+    monkeypatch.setattr(mk, "_launch", launch)
+    monkeypatch.setattr(mk, "_launch_bwd", launch_bwd)
+    monkeypatch.setattr(mk, "_on_one_device", lambda tensors, what: True)
+    params = mlp.init_network(torch.Generator().manual_seed(7))
+    leaves = {n: {k: v.clone().requires_grad_(requires) for k, v in l.items()}
+              for n, l in params.items()}
+    o, d, t = (torch.from_numpy(a) for a in _dyadic_rays(7, 2, 5))
+    with torch.set_grad_enabled(grad_mode):
+        (r, g, b), s = mk.field_rays(leaves, o, d, t, precision)
+    assert seen["save"] is save
+    if not (grad_mode and requires):
+        return
+    (s.sum() + r.sum()).backward()
+    res = seen["residuals"]
+    if save:
+        assert torch.equal(res.sign, -torch.ones_like(s))
+        assert all(torch.equal(x, y) for x, y in ((res.r, r), (res.g, g), (res.b, b)))
+    else:
+        assert res is None

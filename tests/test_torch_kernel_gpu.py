@@ -354,6 +354,95 @@ def test_bf16_mma_tile_edges_on_card(n_rays, n_samples):
     assert all(e == 0 for e in _errors(kernel, again).values())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_rays,n_samples", [(4096, 64), (4096, 128), (1024, 128),
+                                              (1001, 37), (37, 129)])
+def test_bf16_bwd_from_residuals_is_the_recompute_on_card(n_rays, n_samples):
+    """Kernel 1's saving form and kernel 2 from its residuals, at the
+    training step's shapes (B = 4096, N = 64 and 128; the validate step's B =
+    1024), where kernel 1's 64-row tiles of the flat index are kernel 2's,
+    and at the ragged shapes of test_bf16_mma_tile_edges_on_card, where
+    kernel 1's tiles span two rays and end in partial ones: the saving
+    forward's planes within BF16_FWD_RTOL of max|plain|, and the backward
+    from its residuals equal to the recompute backward bit for bit in every
+    output (the 593,924 weight gradients, d_o, d_d, d_ts), as no tile holds
+    FIX_CAP ambiguous outputs here. At the ragged shapes it is also held to
+    the plain backward within the bf16 bounds, the cotangents of rows at a
+    kink dropped as that test drops them."""
+    dev = _card()
+    params = mlp.init_network(torch.Generator().manual_seed(6), dev)
+    o, d, t = (torch.from_numpy(a).to(dev)
+               for a in _dyadic_rays(n_samples + 1, n_rays, n_samples))
+    ragged = n_samples % 64 != 0 and 64 % n_samples != 0
+    keep = ((mk.preactivation_margin(params, o, d, t, "bf16") > 2e-6).float()
+            if ragged else 1.0)
+    rng = np.random.default_rng(n_rays + n_samples)
+    cots = [torch.from_numpy(rng.normal(size=t.shape).astype(np.float32)).to(dev) * keep
+            for _ in range(4)]
+    with torch.no_grad():
+        (r, g, b), sigma, res = mk._launch(params, o, d, t, "bf16", save=True)
+        (pr, pg, pb), p_sigma = mk.field_rays_plain(params, o, d, t, "bf16")
+        (fr, fg, fb), f_sigma = mk.field_rays(params, o, d, t, "bf16")
+    fwd = [_rel(x, y) for x, y in ((r, pr), (g, pg), (b, pb), (sigma, p_sigma))]
+    moved = [_rel(x, y) for x, y in ((r, fr), (g, fg), (b, fb), (sigma, f_sigma))]
+    from_res = mk.field_rays_bwd(params, o, d, t, *cots, precision="bf16", residuals=res)
+    recompute = mk.field_rays_bwd(params, o, d, t, *cots, precision="bf16")
+    torch.cuda.synchronize()
+    errors = _errors(from_res, recompute)
+    print(f"residuals B={n_rays} N={n_samples}: saving forward vs plain {max(fwd):.3e}, "
+          f"vs the forward without the fix-up {max(moved):.3e}; backward from residuals "
+          f"vs recompute, worst {max(errors.values()):.3e}")
+    assert max(fwd) <= BF16_FWD_RTOL, fwd
+    assert all(e == 0 for e in errors.values()), errors
+    if ragged:
+        plain = mk.field_rays_bwd_plain(params, o, d, t, *cots, precision="bf16")
+        (kg, *k_rest), (pg_, *p_rest) = from_res, plain
+        pairs = [(kg[n][k], pg_[n][k]) for n in pg_ for k in ("w", "b")]
+        pairs += list(zip(k_rest, p_rest))
+        cos = min(float(torch.nn.functional.cosine_similarity(
+            a.flatten().double(), b.flatten().double(), dim=0)) for a, b in pairs)
+        vs_plain = _errors(from_res, plain)
+        worst = max(vs_plain, key=vs_plain.get)
+        print(f"  vs plain: worst {worst} {vs_plain[worst]:.3e}, min cosine {cos:.7f}")
+        assert vs_plain[worst] <= BF16_BWD_RTOL, vs_plain
+        assert cos >= BF16_COS
+
+
+@pytest.mark.gpu
+def test_field_rays_keeps_residuals_only_for_a_backward_on_card():
+    """Under no_grad (frames, the refresh) kernel 1 keeps nothing; with
+    grad (bf16) its saving form runs, and autograd's backward starts from
+    its residuals (the counters: one saved, none recomputed), with the
+    gradients of the backward that recomputes, bit for bit."""
+    from tinynerf_torch import profiling
+    dev = _card()
+    counters = lambda: [profiling.snapshot()["counters"].get(k, 0)
+                        for k in ("field.residual.saved", "field.residual.recomputed")]
+    params = mlp.init_network(torch.Generator().manual_seed(8), dev)
+    o, d, t = (torch.from_numpy(a).to(dev) for a in _dyadic_rays(9, 512, 64))
+    cots = [torch.from_numpy(np.random.default_rng(9).normal(size=t.shape).astype(np.float32))
+            .to(dev) for _ in range(4)]
+    leaves = {n: {k: v.clone().requires_grad_(True) for k, v in l.items()}
+              for n, l in params.items()}
+    before = counters()
+    with torch.no_grad():
+        mk.field_rays(leaves, o, d, t, "bf16")
+    assert counters() == before
+    t = t.clone().requires_grad_(True)
+    (r, g, b), s = mk.field_rays(leaves, o, d, t, "bf16")
+    assert counters() == [before[0] + 1, before[1]]
+    gs, gr, gg, gb = cots
+    ((s * gs).sum() + (r * gr).sum() + (g * gg).sum() + (b * gb).sum()).backward()
+    assert counters() == [before[0] + 1, before[1]]
+    want = mk.field_rays_bwd(params, o, d, t.detach(), *cots, precision="bf16")
+    assert counters() == [before[0] + 1, before[1] + 1]
+    torch.cuda.synchronize()
+    for name, _, _ in mlp.layer_dims():
+        for part in ("w", "b"):
+            assert torch.equal(leaves[name][part].grad, want[0][name][part]), (name, part)
+    assert torch.equal(t.grad, want[3])
+
+
 # ---------------------------------------------------------------- the grid field
 
 from tinynerf_torch.core import gridfield  # noqa: E402

@@ -663,6 +663,14 @@ inline long long field_bwd_workspace_floats(int n_rays, int n_samples) {
                       (long long)ceil_div(rows, WB_SPLIT) * N_GRAD);
 }
 
+// ... of the bf16 form from kernel 1's residuals: G, S and the partials
+// alone (the weights and A are the residuals').
+inline long long field_bwd_res_workspace_floats(int n_rays, int n_samples) {
+  if (n_rays <= 0 || n_samples <= 0) return 0;
+  const long long rows = (long long)chunk_rays(n_rays, n_samples) * n_samples;
+  return rows * (GB_STRIDE / 2 + GS_STRIDE) + (long long)ceil_div(rows, WB_SPLIT) * N_GRAD;
+}
+
 struct WGradTc {
   int a_col[N_SEG], k[N_SEG], g_col[N_SEG], out[N_SEG];
   int goff[N_SEG];   // the segment's first weight in the gradient buffer
@@ -688,16 +696,6 @@ struct TcBwdSmem {
 };
 static_assert(TILE_M * ENC_PT_PAD * sizeof(float) <= sizeof(TcBwdSmem::wt),
               "g_enc_pt must fit in the K-tiles");
-
-// Rows below `valid` of src[:, :cols] (bf16, row stride ld) to dst (row
-// stride dst_ld), 16 bytes a thread. No barrier: it only reads src.
-__device__ __forceinline__ void save_rows(const bf16* src, int ld, int cols, bf16* dst,
-                                          int dst_ld, int valid) {
-  const int ch = cols / 8;
-  for (int i = threadIdx.x; i < valid * ch; i += THREADS)
-    *reinterpret_cast<uint4*>(dst + (size_t)(i / ch) * dst_ld + (i % ch) * 8) =
-        *reinterpret_cast<const uint4*>(src + (i / ch) * ld + (i % ch) * 8);
-}
 
 // act[r][c] = bf16(acc), times the ReLU mask h > 0 of the tile's saved
 // activation `mask` (row stride AB_STRIDE) when given, which also zeroes
@@ -728,15 +726,26 @@ __device__ __forceinline__ void store_grad_tc(const float (&acc)[2][NT][4], bf16
   __syncthreads();
 }
 
+// What kernel 1's saving form leaves for the ray form's backward besides A
+// (each layer's input, every row of the call): sign(sigma's pre-activation)
+// and the colors it returned, a float32 each a row.
+struct FwdRes {
+  const float* sign;
+  const float* rgb[3];
+};
+
 // The bf16 form of field_bwd_kernel (same rows, same outputs), its products
-// on the tensor cores: the forward recomputed with field_tc.cuh's tiles,
-// saving each layer's input to A, the heads' gradients to S, then the chain
-// down the trunk, g_{l-1} = relu'(h_{l-1}) (g_l W_l^T) read with W_l
-// untransposed, saving each rounded gradient to G; then the encoding's
-// backward, its sin and cos recomputed, and the per-ray sums. As the TPU
-// kernels, the ray form keeps the heads' gradients float32 and the flat
-// form (_bwd_core) rounds them to bf16.
-template <class Coord>
+// on the tensor cores: the forward recomputed with field_tc.cuh's tiles
+// (forward_fixup_tc), saving each layer's input to A, the heads' gradients
+// to S, then the chain down the trunk, g_{l-1} = relu'(h_{l-1}) (g_l W_l^T)
+// read with W_l untransposed, saving each rounded gradient to G; then the
+// encoding's backward, its sin and cos recomputed, and the per-ray sums. As
+// the TPU kernels, the ray form keeps the heads' gradients float32 and the
+// flat form (_bwd_core) rounds them to bf16. RES (the ray form from kernel
+// 1's residuals): no recompute; ws_a is the saved A and the heads'
+// gradients come from `res`, so the chain starts from what the forward
+// computed, bit for bit.
+template <class Coord, bool RES = false>
 __global__ void __launch_bounds__(THREADS, 2)
 field_bwd_tc_kernel(Coord coord, const float* __restrict__ g_sigma,
                     const float* __restrict__ g_r, const float* __restrict__ g_g,
@@ -744,8 +753,9 @@ field_bwd_tc_kernel(Coord coord, const float* __restrict__ g_sigma,
                     bf16* __restrict__ ws_g, float* __restrict__ ws_s,
                     float* __restrict__ d_o, float* __restrict__ d_d,
                     float* __restrict__ d_ts, int n_samples, int ray_begin, int ray_end,
-                    int rays_per_block) {
+                    int rays_per_block, FwdRes res) {
   constexpr bool FLAT = Coord::kFlat;
+  static_assert(!(RES && FLAT), "the residuals are the ray form's");
   extern __shared__ float4 smem_raw[];
   TcBwdSmem& s = *reinterpret_cast<TcBwdSmem*>(smem_raw);
   float* genc_pt = reinterpret_cast<float*>(s.wt);  // 64 x 64, after the last product
@@ -768,51 +778,49 @@ field_bwd_tc_kernel(Coord coord, const float* __restrict__ g_sigma,
     bf16* g_tile = ws_g + (size_t)(base - ws_base) * GB_STRIDE;
     float* s_tile = ws_s + (size_t)(base - ws_base) * GS_STRIDE;
 
-    // ================= recompute the forward, saving inputs =================
-    encode_tile_tc(coord, p.freqs, base, row_end, s.enc_pt, s.enc_dir);
-    enc_norms(s.enc_pt, s.enc_dir, s.fx);
-    save_rows(s.enc_pt, ENC_PT_LD, ENC_PT_PAD, a_tile + AB_ENC_PT, AB_STRIDE, valid);
-    save_rows(s.enc_dir, ENC_DIR_LD, ENC_DIR_PAD, a_tile + AB_ENC_DIR, AB_STRIDE, valid);
-    trunk_tc(p, s.act, s.enc_pt, s.wt, 2 * BWD_STAGE, s.fx, a_tile, valid, [&](int layer) {
-      save_rows(s.act, ACT_LD, WIDTH, a_tile + ab_hidden(layer), AB_STRIDE, valid);
-    });
-
-    // sigma = |pre|: its gradient is g_sigma * sign(pre), sign(0) = 0
-    for (int i = 0; i < ROWS; ++i) {
-      const int r = row0 + i;
-      const float pre = sigma_pre_tc(p, s.act, r);
-      if (lane == 0) {
-        const float sgn = pre > 0.f ? 1.f : (pre < 0.f ? -1.f : 0.f);
-        const float gs = r < valid ? rnd<FLAT>(g_sigma[base + r] * sgn) : 0.f;
+    if constexpr (RES) {
+      // ================= the heads' gradients from the residuals =================
+      for (int r = threadIdx.x; r < TILE_M; r += THREADS) {
+        const int m = base + r;
+        const float gs = r < valid ? g_sigma[m] * __ldg(res.sign + m) : 0.f;
         s.gsig[r] = gs;
         if (r < valid) s_tile[(size_t)r * GS_STRIDE + GS_SIGMA] = gs;
-      }
-    }
-
-    view_tc(p, s.act, s.enc_dir, s.wt, 2 * BWD_STAGE, s.fx, a_tile, valid, [&](int layer) {
-      if (layer == POINT_INFO)
-        save_rows(s.act, ACT_LD, WIDTH, a_tile + AB_PI, AB_STRIDE, valid);
-      else
-        save_rows(s.act, ACT_LD, WIDTH / 2, a_tile + AB_HD, AB_STRIDE, valid);
-    });
-
-    // color = sigmoid(x): its gradient is g_c * c * (1 - c)
-    for (int i = 0; i < ROWS; ++i) {
-      const int r = row0 + i;
-      float x[3];
-      color_pre_tc(p, s.act, r, x);
-      if (lane == 0) {
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          const float y = 1.f / (1.f + expf(-x[c]));
           const float* gin = c == 0 ? g_r : c == 1 ? g_g : g_b;
-          const float gc = r < valid ? rnd<FLAT>((gin[base + r] * y) * (1.f - y)) : 0.f;
+          const float y = r < valid ? __ldg(res.rgb[c] + m) : 0.f;
+          const float gc = r < valid ? (gin[m] * y) * (1.f - y) : 0.f;
           s.gcol[r][c] = gc;
           if (r < valid) s_tile[(size_t)r * GS_STRIDE + GS_COLOR + c] = gc;
         }
       }
+      __syncthreads();
+    } else {
+      // ================= recompute the forward, saving inputs =================
+      forward_fixup_tc(
+          coord, p, base, row_end, s.act, s.enc_pt, s.enc_dir, s.wt, 2 * BWD_STAGE, s.fx,
+          a_tile, valid,
+          [&](int r, float pre) {  // sigma = |pre|: its gradient is g_sigma * sign(pre)
+            if (lane == 0) {
+              const float sgn = pre > 0.f ? 1.f : (pre < 0.f ? -1.f : 0.f);
+              const float gs = r < valid ? rnd<FLAT>(g_sigma[base + r] * sgn) : 0.f;
+              s.gsig[r] = gs;
+              if (r < valid) s_tile[(size_t)r * GS_STRIDE + GS_SIGMA] = gs;
+            }
+          },
+          [&](int r, const float(&x)[3]) {  // color = sigmoid(x): g_c * c * (1 - c)
+            if (lane == 0) {
+#pragma unroll
+              for (int c = 0; c < 3; ++c) {
+                const float y = 1.f / (1.f + expf(-x[c]));
+                const float* gin = c == 0 ? g_r : c == 1 ? g_g : g_b;
+                const float gc = r < valid ? rnd<FLAT>((gin[base + r] * y) * (1.f - y)) : 0.f;
+                s.gcol[r][c] = gc;
+                if (r < valid) s_tile[(size_t)r * GS_STRIDE + GS_COLOR + c] = gc;
+              }
+            }
+          });
     }
-    __syncthreads();
 
     // ================= backward =================
     // the view branch: g_hd = relu'(hd) * sum_c gc_c W_color[k][c], rounded
@@ -828,8 +836,11 @@ field_bwd_tc_kernel(Coord coord, const float* __restrict__ g_sigma,
         float g = s.gcol[r][0] * w0;
         g += s.gcol[r][1] * w1;
         g += s.gcol[r][2] * w2;
-        bf16& a = s.act[r * ACT_LD + k];
-        a = __float2bfloat16_rn(bf(a) > 0.f ? g : 0.f);
+        bf16& a = s.act[r * ACT_LD + k];  // h_dir, recomputed; or read from the saved A
+        const float h = !RES            ? bf(a)
+                        : r < valid     ? bf(a_tile[(size_t)r * AB_STRIDE + AB_HD + k])
+                                        : 0.f;
+        a = __float2bfloat16_rn(h > 0.f ? g : 0.f);
       }
     }
     __syncthreads();
@@ -1145,25 +1156,42 @@ wgrad_tc_kernel(const bf16* __restrict__ ws_a, const bf16* __restrict__ ws_g,
   }
 }
 
+// Kernel 1's saving form's residuals, for the backward of the same call:
+// its packed weights (PK_SCRATCH bf16), A over every row of the call, and
+// the sign and colors (FwdRes).
+struct Saved {
+  const bf16* wb;
+  bf16* a;
+  FwdRes res;
+};
+
 // The bf16 form of field_bwd_launch (its arguments, checked there): the
 // weights packed into the workspace's front; then per chunk of whole rays
 // the recompute + input-gradient launch (field_bwd_tc_kernel), the weight
 // gradients (wgrad_tc_kernel, fixed WB_SPLIT slices) and the ordered
 // reduce, as the fp32 form. Needs no more workspace than the fp32 form.
-template <class Coord>
+// RES (the ray form after kernel 1's saving form, `saved` its residuals): no
+// pack and no recompute; the input-gradient launch is field_bwd_tc_kernel's
+// RES form on the saved A, and the workspace holds G, S and the partials
+// (field_bwd_res_workspace_floats).
+template <class Coord, bool RES = false>
 inline int field_bwd_tc_launch(Coord coord, const float* g_sigma, const float* g_r,
                                const float* g_g, const float* g_b, Params p, float* d_o,
                                float* d_d, float* d_ts, float* grads, float* workspace,
-                               int n_rays, int n_samples, bool accumulate,
-                               cudaStream_t st) {
-  auto kernel = &field_bwd_tc_kernel<Coord>;
+                               int n_rays, int n_samples, bool accumulate, cudaStream_t st,
+                               const Saved* saved = nullptr) {
+  auto kernel = &field_bwd_tc_kernel<Coord, RES>;
   cudaError_t err = launch_cache::allow_smem(kernel, sizeof(TcBwdSmem));
   if (err == cudaSuccess) err = launch_cache::allow_smem(wgrad_tc_kernel, WB_SMEM);
   if (err != cudaSuccess) return (int)err;
-  bf16* wb = reinterpret_cast<bf16*>(workspace);
-  const int e = pack_weights(p, wb, st, true);
-  if (e != 0) return e;
-  p.wb = wb;
+  bf16* wb = RES ? nullptr : reinterpret_cast<bf16*>(workspace);
+  if (RES) {
+    p.wb = saved->wb;
+  } else {
+    const int e = pack_weights(p, wb, st, true);
+    if (e != 0) return e;
+    p.wb = wb;
+  }
 
   // ---- the weight-gradient tiles: the heads, then every segment ----
   WGradTc wg;
@@ -1201,17 +1229,18 @@ inline int field_bwd_tc_launch(Coord coord, const float* g_sigma, const float* g
   // ---- per chunk of whole rays ----
   const int c_rays = chunk_rays(n_rays, n_samples);
   const long long c_rows = (long long)c_rays * n_samples;
-  bf16* ws_a = wb + PK_SCRATCH;
-  bf16* ws_g = ws_a + c_rows * AB_STRIDE;
+  bf16* ws_a = RES ? nullptr : wb + PK_SCRATCH;
+  bf16* ws_g = RES ? reinterpret_cast<bf16*>(workspace) : ws_a + c_rows * AB_STRIDE;
   float* ws_s = reinterpret_cast<float*>(ws_g + c_rows * GB_STRIDE);
   float* partials = ws_s + c_rows * GS_STRIDE;
   const int rays_per_block = std::max(1, TILE_M / n_samples);
   for (int ray0 = 0; ray0 < n_rays; ray0 += c_rays) {
     const int ray1 = std::min(n_rays, ray0 + c_rays);
     const int rows = (ray1 - ray0) * n_samples;
+    if (RES) ws_a = saved->a + (size_t)ray0 * n_samples * AB_STRIDE;
     kernel<<<ceil_div(ray1 - ray0, rays_per_block), THREADS, sizeof(TcBwdSmem), st>>>(
         coord, g_sigma, g_r, g_g, g_b, p, ws_a, ws_g, ws_s, d_o, d_d, d_ts, n_samples,
-        ray0, ray1, rays_per_block);
+        ray0, ray1, rays_per_block, RES ? saved->res : FwdRes{});
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     const int splits = ceil_div(rows, WB_SPLIT);
     wgrad_tc_kernel<<<dim3(wg.n_tiles, splits), THREADS, WB_SMEM, st>>>(ws_a, ws_g, ws_s,

@@ -15,7 +15,18 @@
 // gradients and d_o, d_d, d_ts are float32.
 //
 // What bounds it: FLOPs. A row costs 3x the forward's 1,182,976
-// FLOP (recompute, input gradients, weight gradients).
+// FLOP (recompute, input gradients, weight gradients); 2x from residuals.
+//
+// From residuals (field_rays_bwd_res; the bf16 form's training path): the
+// forward that a backward follows is kernel 1's saving form
+// (field_rays_fwd_res), which runs the recompute below in the forward's
+// place, with the fix-up, and keeps each layer's input A, sign(sigma's
+// pre-activation) and its packed weights. This backward then starts at
+// step 2's input gradients: no pack, no recompute, no A scratch. At the
+// shapes where kernel 1's 64-row tiles of the flat index are kernel 2's
+// (N a multiple of 64, or dividing it) its outputs equal the recompute
+// form's bit for bit; elsewhere they differ only where a tile holds more
+// than FIX_CAP ambiguous outputs (field_tc.cuh).
 //
 // Design. The TPU kernel keeps a 1024-row tile's eight trunk activations
 // in VMEM and accumulates the weight gradients across its sequential grid.
@@ -101,6 +112,35 @@ int field_rays_bwd(const float* origins, const float* dirs, const float* ts,
                        unpack_params(params), d_o, d_d, d_ts, grads, workspace,
                        n_rays, n_samples, bf16 != 0, false,
                        static_cast<cudaStream_t>(stream));
+}
+
+// Float32 elements of workspace field_rays_bwd_res needs: G, S and the
+// partials of a chunk.
+long long field_rays_bwd_res_workspace_floats(int n_rays, int n_samples) {
+  return field_bwd_res_workspace_floats(n_rays, n_samples);
+}
+
+// The bf16 form from the residuals of field_rays_fwd_res's call on the same
+// rays and weights: packed (its field_residual_packed_elems() bf16), res_a
+// (n_rays * n_samples rows of field_residual_row_elems() bf16), res_sign and
+// the colors r, g, b it returned ((n_rays, n_samples) float32). The other
+// arguments as field_rays_bwd's.
+int field_rays_bwd_res(const float* origins, const float* dirs, const float* ts,
+                       const float* g_sigma, const float* g_r, const float* g_g,
+                       const float* g_b, const void* const* params, const void* packed,
+                       void* res_a, const float* res_sign, const float* r, const float* g,
+                       const float* b, float* d_o, float* d_d, float* d_ts, float* grads,
+                       float* workspace, int n_rays, int n_samples, void* stream) {
+  if (n_rays <= 0 || n_samples <= 0) return 0;
+  if ((long long)n_rays * n_samples > 0x7fffffffLL - TILE_M) return (int)cudaErrorInvalidValue;
+  if (packed == nullptr || res_a == nullptr || res_sign == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Saved saved{static_cast<const bf16*>(packed), static_cast<bf16*>(res_a),
+                    FwdRes{res_sign, {r, g, b}}};
+  return field_bwd_tc_launch<RayCoord, true>(
+      RayCoord{origins, dirs, ts, n_samples}, g_sigma, g_r, g_g, g_b, unpack_params(params),
+      d_o, d_d, d_ts, grads, workspace, n_rays, n_samples, false,
+      static_cast<cudaStream_t>(stream), &saved);
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 // The field's bf16 form on the tensor cores, shared by the field kernels'
 // forwards (field_rays_fwd.cu, field_flat_fwd.cu, the fused renderer's
-// render_common.cuh) and their recompute backward (field_bwd_common.cuh).
+// render_common.cuh) and their backward (field_bwd_common.cuh).
 //
 // Every product of the 8x256 MLP (trunk 0-7 with the layer-4 skip,
 // point_info, and dir_info over [enc_dir, point_info]; in the backward also
@@ -84,7 +84,8 @@ __host__ __device__ constexpr int pk_hidden(int layer) {  // trunk 1..7
   return PK_HIDDEN + (layer - 1) * WIDTH * WIDTH;
 }
 
-// ---- the backward's workspace A: each layer's input, bf16 elements a row
+// ---- workspace A: each layer's input, bf16 elements a row (the recompute
+// backward's scratch, or the residual that kernel 1's saving form keeps)
 constexpr int AB_ENC_PT = 0;                          // the point encoding, padded to 64
 __host__ __device__ constexpr int ab_hidden(int i) {  // h_i, trunk layer i's output
   return ENC_PT_PAD + i * WIDTH;
@@ -135,9 +136,9 @@ __global__ void wnorm_kernel(Pack pk, float* __restrict__ norms) {
 }
 
 // Pack p's weights into `out` (16-byte aligned) on `st`: PK_ELEMS bf16;
-// with `fixup` (the backward's recompute), PK_SCRATCH: also the transposed
-// copy and the column norms that the fix-up reads. Returns the first
-// launch error, or 0.
+// with `fixup` (the forward with the fix-up, forward_fixup_tc),
+// PK_SCRATCH: also the transposed copy and the column norms that the
+// fix-up reads. Returns the first launch error, or 0.
 inline int pack_weights(const Params& p, bf16* out, cudaStream_t st, bool fixup) {
   Pack pk;
   int n = 0;
@@ -373,7 +374,8 @@ __device__ __forceinline__ float bf(const bf16 x) { return __bfloat162float(x); 
 // their ReLU kinks, so that a row's gradient, amplified by the encoding's
 // high frequencies, lands percents of max|plain| away (so does an exactly
 // summed form of the plain version: chip_smoke.py prints it).
-// So the backward's recompute lists each forward layer's outputs whose
+// So the forward that a backward follows (forward_fixup_tc: kernel 1's
+// saving form, the recompute backward) lists each layer's outputs whose
 // rounding is ambiguous, [v - e, v + e] straddling a boundary with e =
 // FIX_TOL |x_r| |w_c| (Cauchy-Schwarz bounds sum_k |x_k w_k| by the row's
 // and the column's norms); sums each again in the plain version's order on
@@ -556,12 +558,11 @@ __device__ __forceinline__ void fix_apply(const Params& p, Seg s0, Seg s1,
 
 // One forward layer into act: bf16((relu)(sum over the NSEG segments of x W
 // + bias)) on the tensor cores (the K-tiles in wt, wt_elems bf16). With
-// a_tile (the backward's recompute,
-// whose layer inputs are saved there), its ambiguous outputs are summed
-// again in the plain version's order (the fix-up above) and act's row
-// norms are left in fx.xn[0] for the next layer. The segments may read
-// act. The fix-up is the 64-row recompute's, on k32 pairs: other tiles
-// pass no a_tile.
+// a_tile (forward_fixup_tc, whose layer inputs are saved there), its
+// ambiguous outputs are summed again in the plain version's order (the
+// fix-up above) and act's row norms are left in fx.xn[0] for the next
+// layer. The segments may read act. The fix-up is the 64-row tile's, on
+// k32 pairs: other tiles pass no a_tile.
 template <int NT, bool RELU, int NSEG, int M = TILE_M, KSum KS = KSum::K32_PAIRS>
 __device__ __forceinline__ void layer_tc(const Params& p, Seg s0, Seg s1,
                                          const float* __restrict__ bias, bf16* act, bf16* wt,
@@ -650,6 +651,55 @@ __device__ __forceinline__ void color_pre_tc(const Params& p, const bf16* act, i
   }
 #pragma unroll
   for (int c = 0; c < 3; ++c) x[c] = warp_sum(v[c]) + __ldg(p.b[COLOR] + c);
+}
+
+// Rows below `valid` of src[:, :cols] (bf16, row stride ld) to dst (row
+// stride dst_ld), 16 bytes a thread. No barrier: it only reads src.
+__device__ __forceinline__ void save_rows(const bf16* src, int ld, int cols, bf16* dst,
+                                          int dst_ld, int valid) {
+  const int ch = cols / 8;
+  for (int i = threadIdx.x; i < valid * ch; i += THREADS)
+    *reinterpret_cast<uint4*>(dst + (size_t)(i / ch) * dst_ld + (i % ch) * 8) =
+        *reinterpret_cast<const uint4*>(src + (i / ch) * ld + (i % ch) * 8);
+}
+
+// The forward that a backward follows, on the 64-row tile at `base` (rows
+// at or past row_end masked), with the fix-up: the encodings into enc_pt
+// and enc_dir, then the trunk, point_info and the view branch, each
+// layer's input saved to a_tile (rows below `valid`, row stride
+// AB_STRIDE), where the fix-up reads it back; p.wb holds
+// pack_weights(..., fixup = true). sigma(r, pre) takes row r's sigma
+// pre-activation and color(r, x) its three color pre-activations, both
+// valid in lane 0 of the row's warp. Kernel 1's saving form and kernel 2's
+// recompute run this one sequence, so that the backward from kernel 1's
+// residuals sees what its recompute would. Ends with a barrier.
+template <class Coord, class Sigma, class Color>
+__device__ __forceinline__ void forward_fixup_tc(Coord coord, const Params& p, int base,
+                                                 int row_end, bf16* act, bf16* enc_pt,
+                                                 bf16* enc_dir, bf16* wt, int wt_elems,
+                                                 FixSmem& fx, bf16* a_tile, int valid,
+                                                 Sigma sigma, Color color) {
+  encode_tile_tc(coord, p.freqs, base, row_end, enc_pt, enc_dir);
+  enc_norms(enc_pt, enc_dir, fx);
+  save_rows(enc_pt, ENC_PT_LD, ENC_PT_PAD, a_tile + AB_ENC_PT, AB_STRIDE, valid);
+  save_rows(enc_dir, ENC_DIR_LD, ENC_DIR_PAD, a_tile + AB_ENC_DIR, AB_STRIDE, valid);
+  trunk_tc(p, act, enc_pt, wt, wt_elems, fx, a_tile, valid, [&](int layer) {
+    save_rows(act, ACT_LD, WIDTH, a_tile + ab_hidden(layer), AB_STRIDE, valid);
+  });
+  const int row0 = (threadIdx.x >> 5) * ROWS;
+  for (int i = 0; i < ROWS; ++i) sigma(row0 + i, sigma_pre_tc(p, act, row0 + i));
+  view_tc(p, act, enc_dir, wt, wt_elems, fx, a_tile, valid, [&](int layer) {
+    if (layer == POINT_INFO)
+      save_rows(act, ACT_LD, WIDTH, a_tile + AB_PI, AB_STRIDE, valid);
+    else
+      save_rows(act, ACT_LD, WIDTH / 2, a_tile + AB_HD, AB_STRIDE, valid);
+  });
+  for (int i = 0; i < ROWS; ++i) {
+    float x[3];
+    color_pre_tc(p, act, row0 + i, x);
+    color(row0 + i, x);
+  }
+  __syncthreads();
 }
 
 // Shared memory of the bf16 forward on an M-row tile: 85 KB at M = 64,

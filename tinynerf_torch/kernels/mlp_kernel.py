@@ -10,7 +10,10 @@ Counterpart of ``tinynerf/kernels/mlp_kernel.py``:
   pair and returns ``((r, g, b), sigma)``, each a dense (B, N) float32
   plane. It is differentiable: an ``autograd.Function`` whose backward is
   ``field_rays_bwd``, which gives the gradients of every weight and bias,
-  of ``origins``, ``dirs`` and ``ts``.
+  of ``origins``, ``dirs`` and ``ts``. Where a backward can follow a bf16
+  call on the card (``saves_residuals``), the forward launches kernel 1's
+  saving form, which keeps the ``Residuals`` of its tiles, and the backward
+  starts from them instead of recomputing the forward.
 - ``field_flat(params, points, dirs)``, the counterpart of
   ``field_pallas``: its forward (``_fused_forward`` / ``_fwd_kernel``, TPU
   kernel 3) over points and directions (..., 3) -> ``(color (..., 3),
@@ -43,13 +46,17 @@ rows.
 
 Inside a step with spans on, each forward runs as the device section
 ``field.fwd`` and each backward as ``field.bwd`` (``profiling.section``).
+The counters ``field.residual.saved`` and ``field.residual.recomputed``
+count the ray form's bf16 forwards that kept residuals and its bf16
+backwards that had none, so recomputed the forward (``profiling.count``;
+under a CUDA graph, at its capture).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -224,6 +231,11 @@ def _library(source: str) -> ctypes.CDLL:
     if source == FWD_SOURCE:
         lib.field_rays_fwd.argtypes = [vp] * 9 + [i32, i32, i32, vp]
         lib.field_rays_fwd.restype = i32
+        lib.field_rays_fwd_res.argtypes = [vp] * 11 + [i32, i32, vp]
+        lib.field_rays_fwd_res.restype = i32
+        for fn in (lib.field_residual_packed_elems, lib.field_residual_row_elems):
+            fn.argtypes = []
+            fn.restype = i32
         lib.field_rays_fwd_smem_bytes.argtypes = []
         lib.field_rays_fwd_smem_bytes.restype = i32
     elif source == FLAT_SOURCE:
@@ -245,14 +257,19 @@ def _library(source: str) -> ctypes.CDLL:
         lib.field_rays_bwd_smem_bytes.restype = i32
         lib.field_rays_bwd_workspace_floats.argtypes = [i32, i32]
         lib.field_rays_bwd_workspace_floats.restype = ctypes.c_longlong
+        lib.field_rays_bwd_res.argtypes = [vp] * 19 + [i32, i32, vp]
+        lib.field_rays_bwd_res.restype = i32
+        lib.field_rays_bwd_res_workspace_floats.argtypes = [i32, i32]
+        lib.field_rays_bwd_res_workspace_floats.restype = ctypes.c_longlong
     return lib
 
 
-def _check(name: str, t: torch.Tensor, shape, device: torch.device) -> None:
+def _check(name: str, t: torch.Tensor, shape, device: torch.device,
+           dtype: torch.dtype = torch.float32) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {str(dtype).replace('torch.', '')}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
@@ -292,8 +309,33 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+class Residuals(NamedTuple):
+    """What kernel 1's saving form keeps for the backward of its call:
+    its packed weights (with the fix-up's transposed copy and norms), each
+    layer's input at every sample row (``a``, (B * N, row) bf16), sign(sigma's
+    pre-activation) and the colors it returned, each (B, N) float32."""
+    packed: torch.Tensor
+    a: torch.Tensor
+    sign: torch.Tensor
+    r: torch.Tensor
+    g: torch.Tensor
+    b: torch.Tensor
+
+
+def saves_residuals(precision: str, grad: bool) -> bool:
+    """Whether ``field_rays``'s forward on the card takes kernel 1's saving
+    form: the bf16 form, and a backward that can follow (grad mode on and an
+    input that requires grad). Frames, the refresh and the fp32 form keep the
+    plain forward."""
+    return precision == "bf16" and grad
+
+
 def _launch(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
-            ts: torch.Tensor, precision: str) -> Tuple[Planes, torch.Tensor]:
+            ts: torch.Tensor, precision: str, save: bool = False,
+            ) -> Tuple[Planes, torch.Tensor, Optional[Residuals]]:
+    """Kernel 1: ``((r, g, b), sigma, residuals)``; with ``save`` (bf16
+    only) its saving form, whose ``Residuals`` the backward reads, else
+    ``None``."""
     device = origins.device
     B, N = ts.shape
     _check("origins", origins, (B, 3), device)
@@ -303,22 +345,35 @@ def _launch(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
     lib = _library(FWD_SOURCE)
     outs = [torch.empty((B, N), dtype=torch.float32, device=device)
             for _ in range(4)]
-    packed = packed_weights(lib, precision, device)
+    head = (origins.data_ptr(), dirs.data_ptr(), ts.data_ptr(), ptrs,
+            *[o.data_ptr() for o in outs])
+    res = None
     with torch.cuda.device(device):
-        err = lib.field_rays_fwd(
-            origins.data_ptr(), dirs.data_ptr(), ts.data_ptr(), ptrs,
-            *[o.data_ptr() for o in outs], _ptr(packed), B, N,
-            int(precision == "bf16"), _stream(device))
+        if save:
+            bf = dict(dtype=torch.bfloat16, device=device)
+            packed = torch.empty(lib.field_residual_packed_elems(), **bf)
+            a = torch.empty((B * N, lib.field_residual_row_elems()), **bf)
+            sign = torch.empty((B, N), dtype=torch.float32, device=device)
+            err = lib.field_rays_fwd_res(*head, packed.data_ptr(), a.data_ptr(),
+                                         sign.data_ptr(), B, N, _stream(device))
+            res = Residuals(packed, a, sign, *outs[1:])
+        else:
+            packed = packed_weights(lib, precision, device)
+            err = lib.field_rays_fwd(*head, _ptr(packed), B, N, int(precision == "bf16"),
+                                     _stream(device))
     if err != 0:
         raise RuntimeError(f"field_rays_fwd kernel launch failed: CUDA error {err}")
     field_rays.launches += 1
+    if save:
+        profiling.count("field.residual.saved")
     sigma, r, g, b = outs
-    return (r, g, b), sigma
+    return (r, g, b), sigma, res
 
 
 def _launch_bwd(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
                 ts: torch.Tensor, g_sigma: torch.Tensor, g_r: torch.Tensor,
-                g_g: torch.Tensor, g_b: torch.Tensor, precision: str) -> Grads:
+                g_g: torch.Tensor, g_b: torch.Tensor, precision: str,
+                residuals: Optional[Residuals] = None) -> Grads:
     device = origins.device
     B, N = ts.shape
     _check("origins", origins, (B, 3), device)
@@ -329,22 +384,39 @@ def _launch_bwd(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
     ptrs = _param_ptrs(params, device)
     lib = _library(BWD_SOURCE)
     f32 = dict(dtype=torch.float32, device=device)
-    workspace = torch.empty(lib.field_rays_bwd_workspace_floats(B, N), **f32)
     flat = torch.empty(sum(n for layer in params.values()
                            for n in (layer["w"].numel(), layer["b"].numel())), **f32)
     d_o, d_d = torch.empty((B, 3), **f32), torch.empty((B, 3), **f32)
     d_ts = torch.empty((B, N), **f32)
+    head = (origins.data_ptr(), dirs.data_ptr(), ts.data_ptr(), g_sigma.data_ptr(),
+            g_r.data_ptr(), g_g.data_ptr(), g_b.data_ptr(), ptrs)
+    tail = (d_o.data_ptr(), d_d.data_ptr(), d_ts.data_ptr(), flat.data_ptr())
     with torch.cuda.device(device):
-        err = lib.field_rays_bwd(
-            origins.data_ptr(), dirs.data_ptr(), ts.data_ptr(),
-            g_sigma.data_ptr(), g_r.data_ptr(), g_g.data_ptr(), g_b.data_ptr(),
-            ptrs, d_o.data_ptr(), d_d.data_ptr(), d_ts.data_ptr(),
-            flat.data_ptr(), workspace.data_ptr(), B, N,
-            int(precision == "bf16"), _stream(device))
+        if residuals is not None:
+            _check_residuals(residuals, B, N, device)
+            workspace = torch.empty(lib.field_rays_bwd_res_workspace_floats(B, N), **f32)
+            err = lib.field_rays_bwd_res(
+                *head, *[t.data_ptr() for t in residuals], *tail, workspace.data_ptr(),
+                B, N, _stream(device))
+        else:
+            workspace = torch.empty(lib.field_rays_bwd_workspace_floats(B, N), **f32)
+            err = lib.field_rays_bwd(*head, *tail, workspace.data_ptr(), B, N,
+                                     int(precision == "bf16"), _stream(device))
     if err != 0:
         raise RuntimeError(f"field_rays_bwd kernel launch failed: CUDA error {err}")
     field_rays_bwd.launches += 1
+    if residuals is None and precision == "bf16":
+        profiling.count("field.residual.recomputed")
     return grads_from_flat(flat), d_o, d_d, d_ts
+
+
+def _check_residuals(res: Residuals, B: int, N: int, device: torch.device) -> None:
+    lib = _library(FWD_SOURCE)
+    bf16 = torch.bfloat16
+    _check("residual packed", res.packed, (lib.field_residual_packed_elems(),), device, bf16)
+    _check("residual a", res.a, (B * N, lib.field_residual_row_elems()), device, bf16)
+    for name in ("sign", "r", "g", "b"):
+        _check(f"residual {name}", getattr(res, name), (B, N), device)
 
 
 def grads_from_flat(flat: torch.Tensor) -> mlp.Params:
@@ -372,16 +444,21 @@ def _on_one_device(tensors: List[torch.Tensor], what: str) -> bool:
 def field_rays_bwd(params: mlp.Params, origins: torch.Tensor,
                    dirs: torch.Tensor, ts: torch.Tensor, g_sigma: torch.Tensor,
                    g_r: torch.Tensor, g_g: torch.Tensor,
-                   g_b: torch.Tensor, precision: str = "fp32") -> Grads:
-    """The field's recompute backward: the (B, N) cotangents of (sigma, r, g,
-    b) -> ``(grads, d_origins, d_dirs, d_ts)``, all float32. CUDA tensors
-    launch the kernel; CPU tensors take ``field_rays_bwd_plain``."""
+                   g_b: torch.Tensor, precision: str = "fp32",
+                   residuals: Optional[Residuals] = None) -> Grads:
+    """The field's backward: the (B, N) cotangents of (sigma, r, g, b) ->
+    ``(grads, d_origins, d_dirs, d_ts)``, all float32. CUDA tensors launch
+    the kernel: with ``residuals`` (from kernel 1's saving form on the same
+    rays and weights; bf16 only) it starts from them, else it recomputes the
+    forward. CPU tensors take ``field_rays_bwd_plain``."""
     _check_precision(precision)
     args = (params, origins, dirs, ts, g_sigma, g_r, g_g, g_b, precision)
     tensors = [origins, dirs, ts, g_sigma, g_r, g_g, g_b] + [
         t for layer in params.values() for t in layer.values()]
     if _on_one_device(tensors, "field_rays_bwd"):
-        return _launch_bwd(*args)
+        if residuals is not None and precision != "bf16":
+            raise ValueError("residuals are the bf16 form's")
+        return _launch_bwd(*args, residuals)
     return field_rays_bwd_plain(*args)
 
 
@@ -402,29 +479,35 @@ def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
 
 
 class _FieldRays(torch.autograd.Function):
-    """``field_rays`` with ``field_rays_bwd`` as its backward."""
+    """``field_rays`` with ``field_rays_bwd`` as its backward; ``grad``
+    says whether a backward can follow (``field_rays`` reads the grad mode,
+    which is off inside ``forward``)."""
 
     @staticmethod
-    def forward(ctx, origins, dirs, ts, precision, *flat):
+    def forward(ctx, origins, dirs, ts, precision, grad, *flat):
         params = _unflatten(flat)
+        res = None
         with profiling.section("field.fwd"):
             if _on_one_device([origins, dirs, ts, *flat], "field_rays"):
-                (r, g, b), sigma = _launch(params, origins, dirs, ts, precision)
+                (r, g, b), sigma, res = _launch(params, origins, dirs, ts, precision,
+                                                saves_residuals(precision, grad))
             else:
                 (r, g, b), sigma = field_rays_plain(params, origins, dirs, ts, precision)
-        ctx.save_for_backward(origins, dirs, ts, *flat)
+        ctx.save_for_backward(origins, dirs, ts, *flat, *(res or ()))
         ctx.precision = precision
         return r, g, b, sigma
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_r, g_g, g_b, g_sigma):
-        origins, dirs, ts, *flat = ctx.saved_tensors
+        origins, dirs, ts, *saved = ctx.saved_tensors
+        flat, res = saved[:len(_PARAM_KEYS)], saved[len(_PARAM_KEYS):]
         with profiling.section("field.bwd"):
             cots = [_kernel_ready(g) for g in (g_sigma, g_r, g_g, g_b)]
-            grads, d_o, d_d, d_ts = field_rays_bwd(_unflatten(flat), origins, dirs,
-                                                   ts, *cots, precision=ctx.precision)
-        return (d_o, d_d, d_ts, None, *[grads[name][k] for name, k in _PARAM_KEYS])
+            grads, d_o, d_d, d_ts = field_rays_bwd(
+                _unflatten(flat), origins, dirs, ts, *cots, precision=ctx.precision,
+                residuals=Residuals(*res) if res else None)
+        return (d_o, d_d, d_ts, None, None, *[grads[name][k] for name, k in _PARAM_KEYS])
 
 
 def field_rays(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
@@ -434,8 +517,9 @@ def field_rays(params: mlp.Params, origins: torch.Tensor, dirs: torch.Tensor,
     sigma), each (B, N) float32, differentiable in every input. CUDA tensors
     launch the kernels; CPU tensors take the plain versions."""
     _check_precision(precision)
-    r, g, b, sigma = _FieldRays.apply(
-        origins, dirs, ts, precision, *[params[name][k] for name, k in _PARAM_KEYS])
+    flat = [params[name][k] for name, k in _PARAM_KEYS]
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (origins, dirs, ts, *flat))
+    r, g, b, sigma = _FieldRays.apply(origins, dirs, ts, precision, grad, *flat)
     return (r, g, b), sigma
 
 
